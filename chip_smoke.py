@@ -1,0 +1,280 @@
+"""Drive the port's scheduling round on one NVIDIA H100 and check it.
+
+    python3 chip_smoke.py    # 10240 pods x 5120 nodes, one card
+
+Phases, one JSON line each:
+  device  the card (nvidia-smi name and power limit), torch and CUDA
+          versions; builds the CUDA kernel from koordinator_tpu_torch/csrc/
+          with nvcc and times the build.
+  main    BASELINE config 4 (synth_full_cluster(5000, 10000, seed=42,
+          num_quotas=100, num_gangs=200), bucket-padded to 5120 nodes x
+          10240 pods): host pack -> active-axis reduction ->
+          SidecarServer.schedule_batch on CUDA, with the kernel's launch
+          count read around that call; then the kernel's time (CUDA events,
+          median of repeated rounds after a warm-up) and the plain torch
+          round on the card over the same inputs, which must give the same
+          bindings.
+  mixed   mixed_cluster at 1000 nodes x 2000 pods (affinity, spread,
+          preferred node/pod affinity, ports, images, CSI volume groups,
+          taints): kernel against the plain round.
+  prod    the mixed cluster with score_according_prod_usage: kernel against
+          the plain round.
+Then the kernels line, the card line, and the result line. Any failure
+raises: the script exits non-zero and prints no result. It imports neither
+JAX nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from koordinator_tpu_torch.models.convert import to_device
+from koordinator_tpu_torch.models.full_chain import (
+    build_full_chain_step,
+    resolve_balance_idx,
+    resolve_weight_idx,
+)
+from koordinator_tpu_torch.ops import full_chain_kernel as fck
+from koordinator_tpu_torch.ops.kernel_common import BUILD_LOG, load_library
+from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.scheduler.sidecar import SidecarServer
+from koordinator_tpu_torch.scheduler.snapshot import (
+    build_full_chain_inputs,
+    reduce_to_active_axes,
+)
+from koordinator_tpu_torch.testing import mixed_cluster, synth_full_cluster
+
+# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+REPS = 10  # timed rounds after the warm-up
+
+
+def round_ops(fc, W: int, balanced: bool) -> int:
+    """f32 operations of one round on these inputs, counted from
+    csrc/full_chain.cu for R resource axes, K zones and W weighted axes.
+    Every (pod, node) pair: Fit 2R, LoadAware and NUMA least-allocated
+    2W x 5 plus two weighted sums 2W x 2 and two divides, balanced
+    allocation 10 where both its axes are active, score sum 3. Each (cpuset
+    pod, node) pair adds the SMT and capacity test, 5; each (NUMA pod, node)
+    pair adds the zone fits 2KR and zone totals (K-1)R."""
+    P, R = fc.base.fit_requests.shape
+    N = fc.base.allocatable.shape[0]
+    K = fc.numa_free.shape[1]
+    per_pair = 2 * R + 14 * W + 2 + (10 if balanced else 0) + 3
+    n_bind = int(fc.needs_bind.sum())
+    n_numa = int(fc.needs_numa.sum())
+    return N * (P * per_pair + n_bind * 5 + n_numa * (3 * K - 1) * R)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def tensor_bytes(fc) -> int:
+    n = sum(t.numel() * t.element_size() for t in fc.base)
+    return n + sum(t.numel() * t.element_size() for t in fc[1:])
+
+
+def compare(tag, kernel_out, plain_out, n_nodes):
+    """Kernel vs plain on the same inputs: chosen bit-identical,
+    requested/quota_used within 1e-3 (the XLA-vs-Pallas tolerance of the
+    JAX package's tests; both are exact here on packed integers)."""
+    chosen_k, req_k, q_k = (x.cpu().numpy() for x in kernel_out)
+    chosen_p, req_p, q_p = (x.cpu().numpy() for x in plain_out)
+    for name, arr in (("requested", req_k), ("quota_used", q_k)):
+        if not np.isfinite(arr).all():
+            raise AssertionError(f"{tag}: non-finite {name}")
+    if not ((chosen_k >= -1) & (chosen_k < n_nodes)).all():
+        raise AssertionError(f"{tag}: chosen out of range")
+    mismatches = int((chosen_k != chosen_p).sum())
+    err = float(max(np.abs(req_k - req_p).max(), np.abs(q_k - q_p).max()))
+    if mismatches or err > 1e-3:
+        raise AssertionError(
+            f"{tag}: kernel disagrees with plain round: {mismatches} "
+            f"bindings differ, max |err| {err}")
+    return mismatches, err
+
+
+def time_cuda(fn, reps: int) -> float:
+    """Median milliseconds of ``fn`` over ``reps`` runs after a warm-up,
+    each run bracketed by CUDA events on the current stream."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def pack(state, args):
+    fc, _pods, _nodes, _tree, _gi, ng, ngroups = build_full_chain_inputs(
+        state, args)
+    fc, active = reduce_to_active_axes(fc)
+    return fc, ng, ngroups, active
+
+
+def run_pair(tag, state, args, device):
+    """Kernel and plain round over one cluster on the card."""
+    fc, ng, ngroups, active = pack(state, args)
+    dev_fc = to_device(fc, device)
+    kern = fck.build_cuda_full_chain_step(args, ng, ngroups, active)
+    plain = build_full_chain_step(args, ng, ngroups, active)
+    out_k = kern(dev_fc)
+    out_p = plain(dev_fc)
+    torch.cuda.synchronize()
+    mism, err = compare(tag, out_k, out_p, fc.base.allocatable.shape[0])
+    dims = dict(P=int(fc.base.fit_requests.shape[0]),
+                N=int(fc.base.allocatable.shape[0]),
+                R=int(fc.base.fit_requests.shape[1]),
+                K=int(fc.numa_free.shape[1]), T=int(fc.aff_dom.shape[1]),
+                S=int(fc.pref_scores.shape[1]),
+                S2=int(fc.ppref_w.shape[0]) if fc.aff_dom.shape[1] else 0,
+                PT=int(fc.port_used.shape[1]),
+                SI=int(fc.img_scores.shape[1]),
+                VG=int(fc.vol_needed.shape[1]))
+    emit({"phase": tag, **dims, "prod_mode": args.score_according_prod_usage,
+          "pods_bound": int((out_k[0] >= 0).sum().item()),
+          "mismatches": mism, "max_abs_err": err})
+    return dims
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    device = "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+
+    # ---- device + build
+    t0 = time.perf_counter()
+    load_library(fck.SOURCE)
+    build_s = time.perf_counter() - t0
+    ptxas = [ln.strip() for ln in str(BUILD_LOG["full_chain"]["ptxas"])
+             .splitlines() if "registers" in ln or "spill" in ln]
+    emit({"phase": "device", "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda,
+          "device_name": torch.cuda.get_device_name(0),
+          "build_seconds": round(build_s, 3), "ptxas": ptxas})
+
+    # ---- main path: BASELINE config 4 through the sidecar entry point
+    n_nodes, n_pods = 5000, 10000
+    args = LoadAwareArgs()
+    t0 = time.perf_counter()
+    _cluster, state = synth_full_cluster(
+        n_nodes, n_pods, seed=42, num_quotas=max(n_pods // 100, 1),
+        num_gangs=n_pods // 50)
+    synth_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fc, ng, ngroups, active = pack(state, args)
+    pack_s = time.perf_counter() - t0
+    server = SidecarServer(device=device)
+    fck.launches = 0
+    t0 = time.perf_counter()
+    chosen, requested, quota_used = server.schedule_batch(
+        fc, args, ng, ngroups, active)
+    call_s = time.perf_counter() - t0
+    main_launches = fck.launches
+    if server.last_backend != "cuda" or main_launches < 1:
+        raise AssertionError(
+            f"main path did not run the kernel (backend "
+            f"{server.last_backend}, launches {main_launches})")
+    P, R = fc.base.fit_requests.shape
+    N = fc.base.allocatable.shape[0]
+    if chosen.shape != (P,) or requested.shape != (N, R):
+        raise AssertionError("unexpected output shapes")
+    if not (np.isfinite(requested).all() and np.isfinite(quota_used).all()):
+        raise AssertionError("non-finite outputs")
+
+    dev_fc = to_device(fc, device)
+    wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
+    prod = args.score_according_prod_usage
+    kernel_ms = time_cuda(lambda: fck.full_chain_round(dev_fc, wi, prod, bi),
+                          REPS)
+    plain = build_full_chain_step(args, ng, ngroups, active)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = plain(dev_fc)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out_k = tuple(torch.from_numpy(x) for x in (chosen, requested,
+                                                 quota_used))
+    mism, err = compare("main", out_k, out_p, N)
+    K = fc.numa_free.shape[1]
+    G = fc.quota_used.shape[0]
+    nbytes = tensor_bytes(dev_fc) + P * 4 + N * R * 4 + G * R * 4
+    ops = round_ops(dev_fc, len(wi), bi[0] >= 0)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    emit({"phase": "main", "nodes": n_nodes, "pods": n_pods, "P": int(P),
+          "N": int(N), "R": int(R), "K": int(K), "G": int(G),
+          "T": int(fc.aff_dom.shape[1]), "VG": int(fc.vol_needed.shape[1]),
+          "input_bytes": int(tensor_bytes(dev_fc)),
+          "synth_seconds": round(synth_s, 3), "pack_seconds": round(pack_s, 3),
+          "schedule_batch_seconds": round(call_s, 3),
+          "pods_bound": int((chosen >= 0).sum()), "launches": main_launches,
+          "kernel_ms": kernel_ms,
+          "plain_ms": plain_ms,
+          "plain_compared_pods": int(P), "mismatches": mism,
+          "max_abs_err": err, "ops": ops, "bound_bytes_ms": bytes_ms,
+          "bound_ops_ms": ops_ms})
+
+    # ---- mixed features, then prod mode, kernel against the plain round
+    m_nodes, m_pods = 1000, 2000
+    _c, mstate = mixed_cluster(7, m_nodes, m_pods)
+    dims = run_pair("mixed", mstate, LoadAwareArgs(), device)
+    for key in ("T", "S", "S2", "PT", "SI"):
+        if dims[key] <= 0:
+            raise AssertionError(f"mixed cluster left {key} == 0")
+    if dims["VG"] <= 1:
+        raise AssertionError("mixed cluster has a single volume group")
+    _c, pstate = mixed_cluster(7, m_nodes, m_pods)
+    run_pair("prod", pstate, LoadAwareArgs(score_according_prod_usage=True),
+             device)
+
+    emit({"kernels": [{
+        "name": "full_chain_round",
+        "route": "cuda",
+        "source": "koordinator_tpu_torch/csrc/full_chain.cu",
+        "replaces": "koordinator_tpu/ops/pallas_full_chain.py:90",
+        "launches": main_launches,
+        "mismatches": mism,
+        "max_abs_err": err,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }]})
+    print(card, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
