@@ -1,16 +1,17 @@
-"""Drive the port's scheduling round on one NVIDIA H100 and check it.
+"""Drive the port's scheduling rounds on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py    # 10240 pods x 5120 nodes, one card
 
 Phases, one JSON line each:
   device  the card (nvidia-smi name and power limit), torch and CUDA
-          versions; builds the CUDA kernel from koordinator_tpu_torch/csrc/
-          with nvcc and times the build.
+          versions; builds both CUDA kernels from koordinator_tpu_torch/csrc/
+          with nvcc, one process per source started together, and times the
+          build.
   main    BASELINE config 4 (synth_full_cluster(5000, 10000, seed=42,
           num_quotas=100, num_gangs=200), bucket-padded to 5120 nodes x
           10240 pods): host pack -> active-axis reduction ->
-          SidecarServer.schedule_batch on CUDA, with the kernel's launch
-          count read around that call; then the kernel's time (CUDA events,
+          SidecarServer.schedule_batch on CUDA, with the launch counts read
+          around that call; then the full-chain kernel's time (CUDA events,
           median of repeated rounds after a warm-up) and the plain torch
           round on the card over the same inputs, which must give the same
           bindings.
@@ -19,6 +20,14 @@ Phases, one JSON line each:
           taints): kernel against the plain round.
   prod    the mixed cluster with score_according_prod_usage: kernel against
           the plain round.
+  loadaware  the LoadAware-only round of bench.py's default chain
+          (synth_cluster(5000, 10000, seed=42), padded to 10240 pods x 5120
+          nodes x 14 axes): pack -> make_inputs -> build_best_schedule_step
+          on CUDA, with the launch counts read around that call; then the
+          LoadAware kernel's time, the plain torch round on the card (same
+          bindings, requested within 1e-4) and the numpy oracle
+          serial_schedule on the first 200 pods (same bindings).
+  loadaware_prod  the same with score_according_prod_usage.
 Then the kernels line, the card line, and the result line. Any failure
 raises: the script exits non-zero and prints no result. It imports neither
 JAX nor the JAX package.
@@ -35,26 +44,41 @@ import time
 import numpy as np
 import torch
 
-from koordinator_tpu_torch.models.convert import to_device
+from koordinator_tpu_torch.models.convert import (
+    schedule_inputs_from_numpy,
+    to_device,
+)
 from koordinator_tpu_torch.models.full_chain import (
     build_full_chain_step,
     resolve_balance_idx,
     resolve_weight_idx,
 )
+from koordinator_tpu_torch.models.scheduler_model import (
+    build_best_schedule_step,
+    build_schedule_step,
+)
 from koordinator_tpu_torch.ops import full_chain_kernel as fck
-from koordinator_tpu_torch.ops.kernel_common import BUILD_LOG, load_library
+from koordinator_tpu_torch.ops import schedule_kernel as sk
+from koordinator_tpu_torch.ops.kernel_common import BUILD_LOG, build_libraries
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.scheduler.parity import serial_schedule
 from koordinator_tpu_torch.scheduler.sidecar import SidecarServer
 from koordinator_tpu_torch.scheduler.snapshot import (
     build_full_chain_inputs,
     reduce_to_active_axes,
 )
-from koordinator_tpu_torch.testing import mixed_cluster, synth_full_cluster
+from koordinator_tpu_torch.testing import (
+    loadaware_inputs,
+    mixed_cluster,
+    synth_cluster,
+    synth_full_cluster,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 10  # timed rounds after the warm-up
+ORACLE_PODS = 200  # bench.py's --serial-sample default
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -72,6 +96,136 @@ def round_ops(fc, W: int, balanced: bool) -> int:
     n_bind = int(fc.needs_bind.sum())
     n_numa = int(fc.needs_numa.sum())
     return N * (P * per_pair + n_bind * 5 + n_numa * (3 * K - 1) * R)
+
+
+def loadaware_ops(inputs, W: int) -> int:
+    """f32 operations of one LoadAware round on these inputs, counted from
+    csrc/schedule_step.cu. Every (valid pod, node) pair: Fit 2 per axis the
+    pod requests (add, compare), 10 per weighted axis (term + delta, + est,
+    the least-requested guard, subtract, multiply, divide, floor, weight,
+    sum), 5 for the final divide and floor, the two selects and the argmax
+    compare. Padded pods are skipped by the kernel and not counted."""
+    fit_req = inputs.fit_requests.cpu().numpy()
+    valid = inputs.pod_valid.cpu().numpy().astype(bool)
+    N = inputs.allocatable.shape[0]
+    fit_axes = int((fit_req[valid] > 0).sum())
+    return N * (2 * fit_axes + int(valid.sum()) * (10 * W + 5))
+
+
+def run_loadaware(tag, args, n_nodes, n_pods, device):
+    """The LoadAware-only round through its entry point on the card, then
+    the kernel's time, the plain round on the card and the oracle on the
+    first ORACLE_PODS pods. Returns the kernels-line entry."""
+    t0 = time.perf_counter()
+    inputs = loadaware_inputs(
+        synth_cluster(num_nodes=n_nodes, num_pods=n_pods, seed=42), args)
+    pack_s = time.perf_counter() - t0
+    # the oracle orders its f32 additions differently (it adds each
+    # estimate into the term in place); the forms agree where the values
+    # the round adds are integers below 2^24, so name those that are not
+    non_integer = [f for f in ("fit_requests", "estimated", "allocatable",
+                               "requested", "la_term_nonprod", "la_term_prod")
+                   if not (np.all(np.floor(getattr(inputs, f))
+                                  == getattr(inputs, f))
+                           and np.abs(getattr(inputs, f)).max() < 2**24)]
+
+    step = build_best_schedule_step(args, device=device)
+    fck.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    chosen, requested = step(inputs)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = {"schedule_step": sk.launches, "full_chain": fck.launches}
+    if step.last_backend != "cuda" or launches["schedule_step"] < 1:
+        raise AssertionError(
+            f"{tag} did not run the kernel (backend {step.last_backend}, "
+            f"launches {launches})")
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    if chosen.shape != (P,) or requested.shape != (N, R):
+        raise AssertionError(f"{tag}: unexpected output shapes")
+
+    dev_inputs = schedule_inputs_from_numpy(inputs._asdict(), device)
+    widx = resolve_weight_idx(args)
+    prod = args.score_according_prod_usage
+    kernel_ms = time_cuda(lambda: sk.schedule_round(dev_inputs, widx, prod),
+                          REPS)
+    plain = build_schedule_step(args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p = plain(dev_inputs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    chosen_k, req_k = chosen.cpu().numpy(), requested.cpu().numpy()
+    chosen_p, req_p = (x.cpu().numpy() for x in out_p)
+    if not np.isfinite(req_k).all():
+        raise AssertionError(f"{tag}: non-finite requested")
+    if not ((chosen_k >= -1) & (chosen_k < N)).all():
+        raise AssertionError(f"{tag}: chosen out of range")
+    mism = int((chosen_k != chosen_p).sum())
+    err = float(np.abs(req_k - req_p).max())
+    if mism or err > 1e-4:
+        raise AssertionError(
+            f"{tag}: kernel disagrees with plain round: {mism} bindings "
+            f"differ, max |err| {err}")
+
+    # the oracle on the queue's first pods: the round is serial, so their
+    # picks do not depend on the pods after them
+    k = min(ORACLE_PODS, P)
+    head = inputs._replace(**{
+        f: np.asarray(getattr(inputs, f))[:k] for f in (
+            "fit_requests", "estimated", "is_prod", "is_daemonset",
+            "pod_valid")})
+    t0 = time.perf_counter()
+    chosen_o = serial_schedule(head, args)
+    oracle_s = time.perf_counter() - t0
+    oracle_mism = int((chosen_o != chosen_k[:k]).sum())
+    if oracle_mism:
+        raise AssertionError(
+            f"{tag}: kernel disagrees with the oracle on {oracle_mism} of "
+            f"the first {k} pods")
+
+    in_bytes = sum(t.numel() * t.element_size() for t in dev_inputs)
+    nbytes = in_bytes + P * 4 + N * R * 4
+    ops = loadaware_ops(dev_inputs, len(widx))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    emit({"phase": tag, "nodes": n_nodes, "pods": n_pods, "P": int(P),
+          "N": int(N), "R": int(R), "W": len(widx), "prod_mode": prod,
+          "pack_seconds": round(pack_s, 3),
+          "entry_point_seconds": round(call_s, 3),
+          "pods_bound": int((chosen_k >= 0).sum()), "launches": launches,
+          "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+          "plain_compared_pods": int(P), "mismatches": mism,
+          "max_abs_err": err, "oracle_pods": k,
+          "oracle_seconds": round(oracle_s, 3),
+          "oracle_mismatches": oracle_mism, "non_integer": non_integer,
+          "input_bytes": int(in_bytes), "ops": ops,
+          "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms})
+    return kernel_entry("schedule_step_round", "schedule_step.cu",
+                        "koordinator_tpu/ops/pallas_step.py:46",
+                        launches["schedule_step"], mism, err, kernel_ms,
+                        plain_ms, bytes_ms, ops_ms)
+
+
+def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
+                 bytes_ms, ops_ms):
+    """One kernel's entry of the kernels line. No PyTorch call computes
+    either serial round, so library_ms is null."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"koordinator_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": launches,
+        "mismatches": mism,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
 
 
 def emit(obj) -> None:
@@ -169,16 +323,20 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
 
-    # ---- device + build
+    # ---- device + build: one nvcc per kernel source, all at once
     t0 = time.perf_counter()
-    load_library(fck.SOURCE)
+    build_libraries(fck.SOURCE, sk.SOURCE)
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in str(BUILD_LOG["full_chain"]["ptxas"])
-             .splitlines() if "registers" in ln or "spill" in ln]
+    ptxas = {stem: [ln.strip() for ln in str(log["ptxas"]).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for stem, log in BUILD_LOG.items()}
     emit({"phase": "device", "card": card, "torch": torch.__version__,
           "cuda": torch.version.cuda,
           "device_name": torch.cuda.get_device_name(0),
-          "build_seconds": round(build_s, 3), "ptxas": ptxas})
+          "build_seconds": round(build_s, 3),
+          "build_seconds_each": {stem: round(log["seconds"], 3)
+                                 for stem, log in BUILD_LOG.items()},
+          "ptxas": ptxas})
 
     # ---- main path: BASELINE config 4 through the sidecar entry point
     n_nodes, n_pods = 5000, 10000
@@ -192,16 +350,17 @@ def main() -> int:
     fc, ng, ngroups, active = pack(state, args)
     pack_s = time.perf_counter() - t0
     server = SidecarServer(device=device)
-    fck.launches = 0
+    fck.launches = sk.launches = 0
     t0 = time.perf_counter()
     chosen, requested, quota_used = server.schedule_batch(
         fc, args, ng, ngroups, active)
     call_s = time.perf_counter() - t0
     main_launches = fck.launches
+    launches = {"full_chain": fck.launches, "schedule_step": sk.launches}
     if server.last_backend != "cuda" or main_launches < 1:
         raise AssertionError(
             f"main path did not run the kernel (backend "
-            f"{server.last_backend}, launches {main_launches})")
+            f"{server.last_backend}, launches {launches})")
     P, R = fc.base.fit_requests.shape
     N = fc.base.allocatable.shape[0]
     if chosen.shape != (P,) or requested.shape != (N, R):
@@ -235,7 +394,7 @@ def main() -> int:
           "input_bytes": int(tensor_bytes(dev_fc)),
           "synth_seconds": round(synth_s, 3), "pack_seconds": round(pack_s, 3),
           "schedule_batch_seconds": round(call_s, 3),
-          "pods_bound": int((chosen >= 0).sum()), "launches": main_launches,
+          "pods_bound": int((chosen >= 0).sum()), "launches": launches,
           "kernel_ms": kernel_ms,
           "plain_ms": plain_ms,
           "plain_compared_pods": int(P), "mismatches": mism,
@@ -255,24 +414,24 @@ def main() -> int:
     run_pair("prod", pstate, LoadAwareArgs(score_according_prod_usage=True),
              device)
 
-    emit({"kernels": [{
-        "name": "full_chain_round",
-        "route": "cuda",
-        "source": "koordinator_tpu_torch/csrc/full_chain.cu",
-        "replaces": "koordinator_tpu/ops/pallas_full_chain.py:90",
-        "launches": main_launches,
-        "mismatches": mism,
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,
-    }]})
+    # ---- the LoadAware-only round, default args and prod mode
+    la_kernel = run_loadaware("loadaware", LoadAwareArgs(), n_nodes, n_pods,
+                              device)
+    run_loadaware("loadaware_prod",
+                  LoadAwareArgs(score_according_prod_usage=True), n_nodes,
+                  n_pods, device)
+
+    emit({"kernels": [
+        kernel_entry("full_chain_round", "full_chain.cu",
+                     "koordinator_tpu/ops/pallas_full_chain.py:90",
+                     main_launches, mism, err, kernel_ms, plain_ms, bytes_ms,
+                     ops_ms),
+        la_kernel]})
     print(card, flush=True)
+    # count: the cards this script drives
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
-                                 "count": torch.cuda.device_count()}})
+                                 "count": 1}})
     return 0
 
 

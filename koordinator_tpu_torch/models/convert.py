@@ -1,11 +1,12 @@
 """Carry the round's inputs across: numpy arrays -> the port's tensors.
 
-`full_chain_inputs_from_numpy` takes the FullChainInputs/ScheduleInputs
-fields as a dict of numpy arrays — base fields prefixed ``base.``, the names
-the JAX package's sidecar wire uses — and returns the port's FullChainInputs
-on ``device``. `to_device` does the same for a FullChainInputs the port's own
-pack produced. Booleans stay bool, floats become float32 and integers int32
-(the JAX package runs with x64 off).
+`schedule_inputs_from_numpy` takes the ScheduleInputs fields as a dict of
+numpy arrays and returns the port's ScheduleInputs on ``device``.
+`full_chain_inputs_from_numpy` does the same for FullChainInputs — base
+fields prefixed ``base.``, the names the JAX package's sidecar wire uses.
+`to_device` does it for a FullChainInputs the port's own pack produced.
+Booleans stay bool, floats become float32 and integers int32 (the JAX
+package runs with x64 off).
 """
 
 from __future__ import annotations
@@ -50,21 +51,30 @@ def check_device(device) -> torch.device:
     return dev
 
 
+def schedule_inputs_from_numpy(d: Mapping[str, np.ndarray], device):
+    """Dict of numpy arrays (or tensors) keyed by the ScheduleInputs field
+    names -> the port's ScheduleInputs on ``device``."""
+    from koordinator_tpu_torch.models.scheduler_model import ScheduleInputs
+
+    dev = check_device(device)
+    return ScheduleInputs(**{name: as_tensor(value, dev)
+                             for name, value in d.items()})
+
+
 def full_chain_inputs_from_numpy(d: Mapping[str, np.ndarray], device):
     """Dict of numpy arrays (``base.<field>`` for ScheduleInputs fields,
     ``<field>`` for the rest) -> the port's FullChainInputs on ``device``."""
     from koordinator_tpu_torch.models.full_chain import FullChainInputs
-    from koordinator_tpu_torch.models.scheduler_model import ScheduleInputs
 
     dev = check_device(device)
-    base: Dict[str, torch.Tensor] = {}
+    base: Dict[str, np.ndarray] = {}
     rest: Dict[str, torch.Tensor] = {}
     for name, value in d.items():
         if name.startswith("base."):
-            base[name[5:]] = as_tensor(value, dev)
+            base[name[5:]] = value
         else:
             rest[name] = as_tensor(value, dev)
-    return FullChainInputs(base=ScheduleInputs(**base), **rest)
+    return FullChainInputs(base=schedule_inputs_from_numpy(base, dev), **rest)
 
 
 def to_device(fc, device):

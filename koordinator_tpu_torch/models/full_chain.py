@@ -26,21 +26,19 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from koordinator_tpu_torch.api.resources import RESOURCE_INDEX, ResourceName
 from koordinator_tpu_torch.models.scheduler_model import (
     ScheduleInputs,
     _score_row,
+    node_rejects,
+    resolve_weight_idx,
 )
 from koordinator_tpu_torch.ops.fit import fit_ok_row
 from koordinator_tpu_torch.ops.gang import gang_permit_mask
 from koordinator_tpu_torch.ops.kernel_common import safe_reciprocal
-from koordinator_tpu_torch.ops.loadaware import (
-    LoadAwareArgs,
-    loadaware_node_reject,
-)
+from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.ops.numa import (
     cpuset_filter_row,
     numa_admit_row,
@@ -103,15 +101,6 @@ class FullChainInputs(NamedTuple):
     gang_group_id: torch.Tensor    # [NG] int32
 
 
-def resolve_weight_idx(args: LoadAwareArgs, active_axes):
-    """Score-weight axes after active-axes slicing, shared by the plain round
-    and the kernel so both score over the same axes."""
-    full_weights = args.weight_vector()
-    if active_axes is not None:
-        full_weights = full_weights[list(active_axes)]
-    return tuple(int(i) for i in np.nonzero(full_weights)[0])
-
-
 def resolve_balance_idx(active_axes):
     """(cpu_axis, mem_axis) positions after active-axes slicing, for the
     NodeResourcesBalancedAllocation score; (-1, -1) when either axis was
@@ -130,16 +119,7 @@ def pod_independent_rows(fc: FullChainInputs):
     """The round's rows that no pod's Reserve changes, computed once before
     the pod loop: (reject_nonprod[N], reject_prod[N]) LoadAware threshold
     rejects and gang_pod_ok[P], each pod's gang PreFilter validity."""
-    inputs = fc.base
-    reject_np, reject_prod = loadaware_node_reject(
-        inputs.allocatable,
-        inputs.la_filter_usage,
-        inputs.la_has_filter_usage,
-        inputs.la_filter_thresholds,
-        inputs.la_prod_thresholds,
-        inputs.la_prod_pod_usage,
-        inputs.la_filter_skip,
-    )
+    reject_np, reject_prod = node_rejects(fc.base)
     gang_pod_ok = torch.where(
         fc.gang_id >= 0, fc.gang_valid[torch.clamp_min(fc.gang_id, 0).long()],
         True)

@@ -32,3 +32,21 @@ def fit_ok_row(
     need = fit_request[None, :]
     ok = (need <= 0) | (requested + need <= allocatable)
     return ok.all(dim=-1)
+
+
+def fit_ok_matrix(
+    fit_requests: torch.Tensor,  # [P, R]
+    allocatable: torch.Tensor,   # [N, R]
+    requested: torch.Tensor,     # [N, R]
+) -> torch.Tensor:
+    """[P, N] bool; computed axis by axis to avoid a [P, N, R]
+    intermediate."""
+    P, R = fit_requests.shape
+    N = allocatable.shape[0]
+    ok = torch.ones((P, N), dtype=torch.bool, device=allocatable.device)
+    for r in range(R):
+        need = fit_requests[:, r][:, None]
+        ok_r = (need <= 0) | (requested[None, :, r] + need
+                              <= allocatable[None, :, r])
+        ok = ok & ok_r
+    return ok

@@ -60,39 +60,50 @@ def _source_digest(source: str) -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(source: str) -> Path:
-    """Compile csrc/<source> (with the shared headers) into
-    build/kernels/lib<stem>-<digest>.so unless that file exists. The digest
-    covers the sources, so an edited kernel never loads a stale library.
-    Records the build's seconds and ptxas report in BUILD_LOG."""
-    stem = Path(source).stem
-    out = BUILD_DIR / f"lib{stem}-{_source_digest(source)}.so"
-    if out.exists():
-        BUILD_LOG.setdefault(stem, {"seconds": 0.0, "cached": True,
-                                    "ptxas": ""})
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           str(CSRC_DIR / source)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed for {source} ({proc.returncode}):\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG[stem] = {"seconds": seconds, "cached": False,
-                       "ptxas": (proc.stdout + proc.stderr).strip()}
-    return out
+def build_libraries(*sources: str) -> Dict[str, Path]:
+    """Compile each csrc/<source> (with the shared headers) into
+    build/kernels/lib<stem>-<digest>.so unless that file exists, one `nvcc`
+    per source, all started together. The digest covers the sources, so an
+    edited kernel never loads a stale library. Records each build's seconds
+    and ptxas report in BUILD_LOG; raises if any build fails."""
+    outs: Dict[str, Path] = {}
+    running = []
+    for source in sources:
+        stem = Path(source).stem
+        out = BUILD_DIR / f"lib{stem}-{_source_digest(source)}.so"
+        outs[source] = out
+        if out.exists():
+            BUILD_LOG.setdefault(stem, {"seconds": 0.0, "cached": True,
+                                        "ptxas": ""})
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
+               str(CSRC_DIR / source)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running.append((source, stem, proc, tmp, out, time.perf_counter()))
+    failed = []
+    for source, stem, proc, tmp, out, t0 in running:
+        log = proc.communicate()[0]
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source} ({proc.returncode}):\n"
+                          f"{log}")
+            continue
+        os.replace(tmp, out)
+        BUILD_LOG[stem] = {"seconds": seconds, "cached": False,
+                           "ptxas": log.strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def load_library(source: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<source>, built on first use."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build_library(source)))
+        lib = ctypes.CDLL(str(build_libraries(source)[source]))
         _LIBS[source] = lib
     return lib
 

@@ -12,8 +12,9 @@ Reference: `pkg/scheduler/plugins/loadaware/load_aware.go` —
 Host/device split: everything that depends only on (node, NodeMetric,
 assign-cache) is precomputed per node on the host into [N, R] numpy arrays
 (`build_loadaware_node_state`, a copy of the JAX package's); the per-node
-reject rows are torch over those arrays (`loadaware_node_reject`), on the
-device the round runs on.
+reject rows (`loadaware_node_reject`) and the one-shot [P, N] filter and
+score (`loadaware_filter`, `loadaware_score_terms`) are torch over those
+arrays, on the device the round runs on.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from koordinator_tpu_torch.api.resources import (
     RESOURCE_INDEX,
     ResourceName,
 )
-from koordinator_tpu_torch.ops.common import go_round
+from koordinator_tpu_torch.ops.common import go_round, least_requested_score
 from koordinator_tpu_torch.ops.estimator import estimate_pod_used
 
 ANNOTATION_CUSTOM_USAGE_THRESHOLDS = "scheduling.koordinator.sh/usage-thresholds"
@@ -361,3 +362,45 @@ def loadaware_node_reject(
     reject_prod = torch.where(has_prod_thr, reject_prod_only, reject_np)
     reject_prod = reject_prod & ~filter_skip
     return reject_np, reject_prod
+
+
+def loadaware_filter(
+    is_prod: torch.Tensor,         # [P] bool
+    is_daemonset: torch.Tensor,    # [P] bool
+    reject_nonprod: torch.Tensor,  # [N] bool
+    reject_prod: torch.Tensor,     # [N] bool
+) -> torch.Tensor:
+    """Combine per-node rejects with pod flags -> feasible[P, N]."""
+    reject = torch.where(is_prod[:, None], reject_prod[None, :],
+                         reject_nonprod[None, :])
+    return is_daemonset[:, None] | ~reject
+
+
+def loadaware_score_terms(
+    estimated: torch.Tensor,     # [P, R] estimator output for pending pods
+    is_prod: torch.Tensor,       # [P] bool
+    term_nonprod: torch.Tensor,  # [N, R]
+    term_prod: torch.Tensor,     # [N, R]
+    allocatable: torch.Tensor,   # [N, R]
+    score_valid: torch.Tensor,   # [N] bool
+    weights: torch.Tensor,       # [R]
+    score_according_prod_usage: bool,
+    weight_idx: Tuple[int, ...],
+) -> torch.Tensor:
+    """score[P, N]: weighted least-allocated over estimatedUsed
+    (load_aware.go:283-335 + :385-397), one weighted axis at a time so that
+    no [P, N, R] intermediate is built."""
+    wsum = weights.sum()
+    acc = torch.zeros((estimated.shape[0], term_nonprod.shape[0]),
+                      dtype=torch.float32, device=estimated.device)
+    for r in weight_idx:
+        if score_according_prod_usage:
+            node_term = torch.where(is_prod[:, None], term_prod[None, :, r],
+                                    term_nonprod[None, :, r])
+        else:
+            node_term = term_nonprod[None, :, r]
+        used = estimated[:, r][:, None] + node_term
+        acc = acc + weights[r] * least_requested_score(
+            used, allocatable[None, :, r])
+    score = torch.floor(acc / torch.clamp_min(wsum, 1.0))
+    return torch.where(score_valid[None, :], score, 0.0)

@@ -8,6 +8,7 @@ and workload generators standing in for the `examples/spark-jobs` colocation tra
 from koordinator_tpu_torch.testing.synth import (  # noqa: F401
     SynthCluster,
     decorate_mixed,
+    loadaware_inputs,
     mixed_cluster,
     synth_cluster,
     synth_full_cluster,

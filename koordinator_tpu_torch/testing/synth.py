@@ -25,7 +25,12 @@ from koordinator_tpu_torch.api.objects import (
     PodSpec,
 )
 from koordinator_tpu_torch.api.resources import ResourceList
-from koordinator_tpu_torch.ops.loadaware import ANNOTATION_CUSTOM_USAGE_THRESHOLDS
+from koordinator_tpu_torch.models.scheduler_model import make_inputs
+from koordinator_tpu_torch.ops.loadaware import (
+    ANNOTATION_CUSTOM_USAGE_THRESHOLDS,
+    build_loadaware_node_state,
+)
+from koordinator_tpu_torch.ops.packing import pack_nodes, pack_pods
 
 GIB = 1024**3
 MIB = 1024**2
@@ -170,6 +175,19 @@ def synth_cluster(
         pods_by_key=pods_by_key,
         now=now,
     )
+
+
+def loadaware_inputs(cluster: SynthCluster, args):
+    """bench.py's default chain after the cluster: pack the pods and nodes,
+    build the LoadAware node state, and return the round's ScheduleInputs
+    as host numpy."""
+    pods = pack_pods(cluster.pods, args.resource_weights,
+                     args.estimated_scaling_factors)
+    nodes = pack_nodes(cluster.nodes)
+    nodes.extras = build_loadaware_node_state(
+        cluster.nodes, cluster.node_metrics, cluster.pods_by_key,
+        cluster.assigned, args, cluster.now, pad_to=nodes.padded_size)
+    return make_inputs(pods, nodes, args)
 
 
 def synth_full_cluster(

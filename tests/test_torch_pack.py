@@ -123,7 +123,9 @@ def test_storage_objects_raise_not_implemented():
 def test_import_leaves_jax_out():
     code = ("import sys, koordinator_tpu_torch.scheduler.sidecar, "
             "koordinator_tpu_torch.testing, "
-            "koordinator_tpu_torch.ops.full_chain_kernel\n"
+            "koordinator_tpu_torch.ops.full_chain_kernel, "
+            "koordinator_tpu_torch.ops.schedule_kernel, "
+            "koordinator_tpu_torch.scheduler.parity\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"
