@@ -11,10 +11,14 @@ Phases, one JSON line each:
           num_quotas=100, num_gangs=200), bucket-padded to 5120 nodes x
           10240 pods): host pack -> active-axis reduction ->
           SidecarServer.schedule_batch on CUDA, with the launch counts read
-          around that call; then the full-chain kernel's time (CUDA events,
+          around that call; a second, warm call split into its layers
+          (upload, round, Permit, readback; host clock, synchronised
+          between them); then the full-chain kernel's time (CUDA events,
           median of repeated rounds after a warm-up) and the plain torch
           round on the card over the same inputs, which must give the same
           bindings.
+  main_global  the same kernel with its carried state in device memory
+          (smem_budget_bytes=0), against the plain round of `main`.
   mixed   mixed_cluster at 1000 nodes x 2000 pods (affinity, spread,
           preferred node/pod affinity, ports, images, CSI volume groups,
           taints): kernel against the plain round.
@@ -28,9 +32,22 @@ Phases, one JSON line each:
           bindings, requested within 1e-4) and the numpy oracle
           serial_schedule on the first 200 pods (same bindings).
   loadaware_prod  the same with score_according_prod_usage.
-Then the kernels line, the card line, and the result line. Any failure
-raises: the script exits non-zero and prints no result. It imports neither
-JAX nor the JAX package.
+  loadaware_global  the LoadAware kernel with its carried state in device
+          memory (smem_budget_bytes=0), against the plain round of
+          `loadaware`.
+  generic both kernels with a third weighted axis (cpu, memory and pods),
+          which takes their generic instances instead of the ones
+          specialised for the common shape (3 axes, 2 zones, 2 weights):
+          the full chain on the mixed cluster and the LoadAware round on
+          synth_cluster(1000, 2000, seed=7), each in both states against
+          its plain round.
+Each kernel's phase line names the launch: the state it kept (smem or
+global), the instance (common or generic), cluster_size, block_threads and
+smem_bytes_per_block. Every phase holds the kernel's bindings and outputs
+equal to the plain round's: 0 mismatches and max |err| 0.0. Then the
+kernels line, the card line, and the result line. Any failure raises: the
+script exits non-zero and prints no result. It imports neither JAX nor the
+JAX package.
 """
 
 from __future__ import annotations
@@ -44,6 +61,7 @@ import time
 import numpy as np
 import torch
 
+from koordinator_tpu_torch.api.resources import ResourceName
 from koordinator_tpu_torch.models.convert import (
     schedule_inputs_from_numpy,
     to_device,
@@ -112,10 +130,18 @@ def loadaware_ops(inputs, W: int) -> int:
     return N * (2 * fit_axes + int(valid.sum()) * (10 * W + 5))
 
 
+def launch_fields(module):
+    """The last launch of a kernel wrapper, for a phase line."""
+    return {k: module.last_launch[k] for k in (
+        "state", "instance", "cluster_size", "block_threads",
+        "smem_bytes_per_block")}
+
+
 def run_loadaware(tag, args, n_nodes, n_pods, device):
     """The LoadAware-only round through its entry point on the card, then
     the kernel's time, the plain round on the card and the oracle on the
-    first ORACLE_PODS pods. Returns the kernels-line entry."""
+    first ORACLE_PODS pods. Returns the kernels-line entry and the inputs
+    and plain outputs, for the device-memory phase."""
     t0 = time.perf_counter()
     inputs = loadaware_inputs(
         synth_cluster(num_nodes=n_nodes, num_pods=n_pods, seed=42), args)
@@ -136,6 +162,7 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
     torch.cuda.synchronize()
     call_s = time.perf_counter() - t0
     launches = {"schedule_step": sk.launches, "full_chain": fck.launches}
+    launch = launch_fields(sk)
     if step.last_backend != "cuda" or launches["schedule_step"] < 1:
         raise AssertionError(
             f"{tag} did not run the kernel (backend {step.last_backend}, "
@@ -164,7 +191,7 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
         raise AssertionError(f"{tag}: chosen out of range")
     mism = int((chosen_k != chosen_p).sum())
     err = float(np.abs(req_k - req_p).max())
-    if mism or err > 1e-4:
+    if mism or err != 0.0:
         raise AssertionError(
             f"{tag}: kernel disagrees with plain round: {mism} bindings "
             f"differ, max |err| {err}")
@@ -192,6 +219,7 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
     ops_ms = ops / F32_OPS_PER_S * 1e3
     emit({"phase": tag, "nodes": n_nodes, "pods": n_pods, "P": int(P),
           "N": int(N), "R": int(R), "W": len(widx), "prod_mode": prod,
+          **launch,
           "pack_seconds": round(pack_s, 3),
           "entry_point_seconds": round(call_s, 3),
           "pods_bound": int((chosen_k >= 0).sum()), "launches": launches,
@@ -202,10 +230,73 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
           "oracle_mismatches": oracle_mism, "non_integer": non_integer,
           "input_bytes": int(in_bytes), "ops": ops,
           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms})
-    return kernel_entry("schedule_step_round", "schedule_step.cu",
-                        "koordinator_tpu/ops/pallas_step.py:46",
-                        launches["schedule_step"], mism, err, kernel_ms,
-                        plain_ms, bytes_ms, ops_ms)
+    return (kernel_entry("schedule_step_round", "schedule_step.cu",
+                         "koordinator_tpu/ops/pallas_step.py:46",
+                         launches["schedule_step"], mism, err, kernel_ms,
+                         plain_ms, bytes_ms, ops_ms),
+            (inputs, out_p))
+
+
+def run_loadaware_global(args, inputs, out_p, device):
+    """The LoadAware kernel with its carried state in device memory, through
+    the entry point, against the plain round already computed."""
+    step = build_best_schedule_step(args, device=device, smem_budget_bytes=0)
+    sk.launches = 0
+    chosen, requested = step(inputs)
+    torch.cuda.synchronize()
+    if step.last_state != "global" or sk.launches != 1:
+        raise AssertionError(f"loadaware_global ran state {step.last_state} "
+                             f"with {sk.launches} launches")
+    launch = launch_fields(sk)
+    dev_inputs = schedule_inputs_from_numpy(inputs._asdict(), device)
+    widx = resolve_weight_idx(args)
+    kernel_ms = time_cuda(lambda: sk.schedule_round(
+        dev_inputs, widx, args.score_according_prod_usage,
+        smem_budget_bytes=0), REPS)
+    mism = int((chosen != out_p[0]).sum())
+    err = float((requested - out_p[1]).abs().max())
+    if mism or err != 0.0:
+        raise AssertionError(
+            f"loadaware_global: kernel disagrees with plain round: {mism} "
+            f"bindings differ, max |err| {err}")
+    emit({"phase": "loadaware_global", **launch, "launches": 1,
+          "kernel_ms": kernel_ms, "mismatches": mism, "max_abs_err": err})
+
+
+def run_generic(device):
+    """Both kernels' generic instances (three weighted axes) in both
+    states, each against its plain round on the card."""
+    args = LoadAwareArgs(resource_weights={
+        ResourceName.CPU: 1, ResourceName.MEMORY: 1, ResourceName.PODS: 1})
+    _c, state = mixed_cluster(7, 1000, 2000)
+    fc, ng, ngroups, active = pack(state, args)
+    dev_fc = to_device(fc, device)
+    out_p = build_full_chain_step(args, ng, ngroups, active)(dev_fc)
+    N = fc.base.allocatable.shape[0]
+    inputs = loadaware_inputs(
+        synth_cluster(num_nodes=1000, num_pods=2000, seed=7), args)
+    dev_inputs = schedule_inputs_from_numpy(inputs._asdict(), device)
+    la_p = build_schedule_step(args)(dev_inputs)
+    for budget in (None, 0):
+        step = fck.build_cuda_full_chain_step(args, ng, ngroups, active,
+                                              smem_budget_bytes=budget)
+        mism, err = compare("generic", step(dev_fc), out_p, N)
+        la = build_best_schedule_step(args, device=device,
+                                      smem_budget_bytes=budget)
+        chosen, requested = la(inputs)
+        la_mism = int((chosen != la_p[0]).sum())
+        la_err = float((requested - la_p[1]).abs().max())
+        if la_mism or la_err != 0.0:
+            raise AssertionError(
+                f"generic: LoadAware kernel disagrees with plain round: "
+                f"{la_mism} bindings differ, max |err| {la_err}")
+        if (fck.last_launch["instance"], sk.last_launch["instance"]) != (
+                "generic", "generic"):
+            raise AssertionError("generic: a specialised instance ran")
+        emit({"phase": "generic", "W": 3, "full_chain": launch_fields(fck),
+              "schedule_step": launch_fields(sk), "mismatches": mism,
+              "max_abs_err": err, "loadaware_mismatches": la_mism,
+              "loadaware_max_abs_err": la_err})
 
 
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
@@ -246,9 +337,9 @@ def tensor_bytes(fc) -> int:
 
 
 def compare(tag, kernel_out, plain_out, n_nodes):
-    """Kernel vs plain on the same inputs: chosen bit-identical,
-    requested/quota_used within 1e-3 (the XLA-vs-Pallas tolerance of the
-    JAX package's tests; both are exact here on packed integers)."""
+    """Kernel vs plain on the same inputs: chosen bit-identical and
+    requested/quota_used equal (max |err| 0.0): the kernel repeats the
+    plain round's f32 operations in order."""
     chosen_k, req_k, q_k = (x.cpu().numpy() for x in kernel_out)
     chosen_p, req_p, q_p = (x.cpu().numpy() for x in plain_out)
     for name, arr in (("requested", req_k), ("quota_used", q_k)):
@@ -258,7 +349,7 @@ def compare(tag, kernel_out, plain_out, n_nodes):
         raise AssertionError(f"{tag}: chosen out of range")
     mismatches = int((chosen_k != chosen_p).sum())
     err = float(max(np.abs(req_k - req_p).max(), np.abs(q_k - q_p).max()))
-    if mismatches or err > 1e-3:
+    if mismatches or err != 0.0:
         raise AssertionError(
             f"{tag}: kernel disagrees with plain round: {mismatches} "
             f"bindings differ, max |err| {err}")
@@ -296,6 +387,7 @@ def run_pair(tag, state, args, device):
     kern = fck.build_cuda_full_chain_step(args, ng, ngroups, active)
     plain = build_full_chain_step(args, ng, ngroups, active)
     out_k = kern(dev_fc)
+    launch = launch_fields(fck)
     out_p = plain(dev_fc)
     torch.cuda.synchronize()
     mism, err = compare(tag, out_k, out_p, fc.base.allocatable.shape[0])
@@ -308,7 +400,8 @@ def run_pair(tag, state, args, device):
                 PT=int(fc.port_used.shape[1]),
                 SI=int(fc.img_scores.shape[1]),
                 VG=int(fc.vol_needed.shape[1]))
-    emit({"phase": tag, **dims, "prod_mode": args.score_according_prod_usage,
+    emit({"phase": tag, **dims, **launch,
+          "prod_mode": args.score_according_prod_usage,
           "pods_bound": int((out_k[0] >= 0).sum().item()),
           "mismatches": mism, "max_abs_err": err})
     return dims
@@ -357,6 +450,7 @@ def main() -> int:
     call_s = time.perf_counter() - t0
     main_launches = fck.launches
     launches = {"full_chain": fck.launches, "schedule_step": sk.launches}
+    launch = launch_fields(fck)
     if server.last_backend != "cuda" or main_launches < 1:
         raise AssertionError(
             f"main path did not run the kernel (backend "
@@ -367,6 +461,16 @@ def main() -> int:
         raise AssertionError("unexpected output shapes")
     if not (np.isfinite(requested).all() and np.isfinite(quota_used).all()):
         raise AssertionError("non-finite outputs")
+
+    # the warm call, split into its layers
+    warm = {}
+    t0 = time.perf_counter()
+    warm_out = server.schedule_batch(fc, args, ng, ngroups, active,
+                                     timings=warm)
+    warm["total"] = time.perf_counter() - t0
+    if any((a != b).any() for a, b in zip(warm_out, (chosen, requested,
+                                                     quota_used))):
+        raise AssertionError("the warm call changed the bindings")
 
     dev_fc = to_device(fc, device)
     wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
@@ -394,12 +498,31 @@ def main() -> int:
           "input_bytes": int(tensor_bytes(dev_fc)),
           "synth_seconds": round(synth_s, 3), "pack_seconds": round(pack_s, 3),
           "schedule_batch_seconds": round(call_s, 3),
+          "warm_call_seconds": {k: round(v, 6) for k, v in warm.items()},
+          **launch,
           "pods_bound": int((chosen >= 0).sum()), "launches": launches,
           "kernel_ms": kernel_ms,
           "plain_ms": plain_ms,
           "plain_compared_pods": int(P), "mismatches": mism,
           "max_abs_err": err, "ops": ops, "bound_bytes_ms": bytes_ms,
           "bound_ops_ms": ops_ms})
+
+    # ---- the same kernel with its carried state in device memory
+    glob = fck.build_cuda_full_chain_step(args, ng, ngroups, active,
+                                          smem_budget_bytes=0)
+    fck.launches = 0
+    out_g = glob(dev_fc)
+    torch.cuda.synchronize()
+    if glob.last_state != "global" or fck.launches != 1:
+        raise AssertionError(f"main_global ran state {glob.last_state} with "
+                             f"{fck.launches} launches")
+    launch_g = launch_fields(fck)
+    g_mism, g_err = compare("main_global", out_g, out_p, N)
+    global_ms = time_cuda(lambda: fck.full_chain_round(
+        dev_fc, wi, prod, bi, smem_budget_bytes=0), REPS)
+    emit({"phase": "main_global", **launch_g, "launches": 1,
+          "kernel_ms": global_ms, "mismatches": g_mism,
+          "max_abs_err": g_err})
 
     # ---- mixed features, then prod mode, kernel against the plain round
     m_nodes, m_pods = 1000, 2000
@@ -415,11 +538,13 @@ def main() -> int:
              device)
 
     # ---- the LoadAware-only round, default args and prod mode
-    la_kernel = run_loadaware("loadaware", LoadAwareArgs(), n_nodes, n_pods,
-                              device)
+    la_kernel, (la_inputs, la_plain) = run_loadaware(
+        "loadaware", LoadAwareArgs(), n_nodes, n_pods, device)
     run_loadaware("loadaware_prod",
                   LoadAwareArgs(score_according_prod_usage=True), n_nodes,
                   n_pods, device)
+    run_loadaware_global(LoadAwareArgs(), la_inputs, la_plain, device)
+    run_generic(device)
 
     emit({"kernels": [
         kernel_entry("full_chain_round", "full_chain.cu",

@@ -37,7 +37,7 @@ from koordinator_tpu_torch.models.scheduler_model import (
 )
 from koordinator_tpu_torch.ops.fit import fit_ok_row
 from koordinator_tpu_torch.ops.gang import gang_permit_mask
-from koordinator_tpu_torch.ops.kernel_common import safe_reciprocal
+from koordinator_tpu_torch.ops.kernel_common import SyncClock, safe_reciprocal
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.ops.numa import (
     cpuset_filter_row,
@@ -362,12 +362,20 @@ def permit(fc: FullChainInputs, chosen: torch.Tensor, num_gangs: int,
 
 def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
                                num_groups: int, active_axes=None,
-                               kernel: str = "auto", explain=None):
+                               kernel: str = "auto", explain=None,
+                               smem_budget_bytes=None):
     """Device-aware selector with the plain round's contract: the CUDA
     kernel (ops/full_chain_kernel.py) for inputs on the card, the plain
     round for inputs on the CPU. The choice reads only the inputs' device,
-    never their values. The kernel keeps its state in device memory, so no
-    size sends a CUDA batch elsewhere.
+    never their values.
+
+    ``smem_budget_bytes`` is the counterpart of the JAX selector's
+    ``vmem_budget_bytes``: the shared memory one block of the kernel's
+    cluster may take (None: the card's 227 KB). Where the kernel's
+    shared-memory layout (``estimate_smem_bytes``, from the shapes alone)
+    exceeds it, the same kernel keeps its carried state in device memory;
+    no size sends a CUDA batch to the plain round. ``step.last_state`` says
+    which state the last CUDA round kept ("smem" or "global").
 
     ``kernel="serial"`` forces the plain round on any device; "auto" is the
     selection above. The wave kernel and explain attribution come with a
@@ -390,15 +398,26 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
         build_cuda_full_chain_step,
     )
 
-    cuda_step = build_cuda_full_chain_step(args, num_gangs, num_groups,
-                                           active_axes=active_axes)
+    cuda_step = build_cuda_full_chain_step(
+        args, num_gangs, num_groups, active_axes=active_axes,
+        smem_budget_bytes=smem_budget_bytes)
 
-    def step(fc: FullChainInputs):
+    def step(fc: FullChainInputs, timings=None):
+        """``timings``: a dict that the round fills with the seconds of
+        its stages (round, and permit for the kernel's round),
+        synchronising between them."""
         if fc.base.allocatable.is_cuda:
             step.last_backend = "cuda"
-            return cuda_step(fc)
+            out = cuda_step(fc, timings=timings)
+            step.last_state = cuda_step.last_state
+            return out
         step.last_backend = "serial"
-        return plain(fc)
+        step.last_state = None
+        clock = SyncClock(timings, fc.base.allocatable.device)
+        out = plain(fc)
+        clock.lap("round")
+        return out
 
     step.last_backend = None
+    step.last_state = None
     return step

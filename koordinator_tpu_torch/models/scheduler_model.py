@@ -195,14 +195,20 @@ def build_schedule_step(args: LoadAwareArgs):
 
 
 def build_best_schedule_step(args: LoadAwareArgs, device="cuda",
-                             kernel: str = "auto"):
+                             kernel: str = "auto", smem_budget_bytes=None):
     """The LoadAware round's entry point: ScheduleInputs (numpy arrays or
     tensors) -> (chosen[P] int32, requested[N, R] f32) as tensors on
     ``device``. On CUDA it runs the CUDA kernel, on the CPU the plain round;
     the choice reads only the device the inputs were moved to, never their
     values. ``kernel="serial"`` forces the plain round on any device.
-    Asking for CUDA where there is none raises. The kernel keeps its state
-    in device memory, so no size sends a CUDA batch elsewhere."""
+    Asking for CUDA where there is none raises.
+
+    ``smem_budget_bytes`` is the counterpart of the JAX selector's
+    ``vmem_budget_bytes``: the shared memory one block of the kernel's
+    cluster may take (None: the card's 227 KB). Past it the same kernel
+    keeps its carried state in device memory; no size sends a CUDA batch to
+    the plain round. ``step.last_state`` says which state the last CUDA
+    round kept ("smem" or "global")."""
     if kernel not in ("auto", "serial"):
         raise ValueError(f"unknown kernel {kernel!r}")
     dev = check_device(device)
@@ -210,17 +216,23 @@ def build_best_schedule_step(args: LoadAwareArgs, device="cuda",
     weight_idx = resolve_weight_idx(args)
     prod_mode = args.score_according_prod_usage
 
-    from koordinator_tpu_torch.ops.schedule_kernel import schedule_round
+    from koordinator_tpu_torch.ops import schedule_kernel
 
     def step(inputs):
         inputs = schedule_inputs_from_numpy(inputs._asdict(), dev)
         if kernel == "auto" and inputs.allocatable.is_cuda:
             step.last_backend = "cuda"
-            return schedule_round(inputs, weight_idx, prod_mode)
+            out = schedule_kernel.schedule_round(
+                inputs, weight_idx, prod_mode,
+                smem_budget_bytes=smem_budget_bytes)
+            step.last_state = schedule_kernel.last_launch["state"]
+            return out
         step.last_backend = "serial"
+        step.last_state = None
         return plain(inputs)
 
     step.last_backend = None
+    step.last_state = None
     return step
 
 

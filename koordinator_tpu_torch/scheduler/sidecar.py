@@ -17,6 +17,7 @@ from koordinator_tpu_torch.models.full_chain import (
     FullChainInputs,
     build_best_full_chain_step,
 )
+from koordinator_tpu_torch.ops.kernel_common import SyncClock
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 
 
@@ -37,10 +38,13 @@ class SidecarServer:
             active_axes=list(active) if active else None)
 
     def schedule_batch(self, fc: FullChainInputs, args: LoadAwareArgs,
-                       num_gangs: int, num_groups: int, active_axes=None):
+                       num_gangs: int, num_groups: int, active_axes=None,
+                       timings=None):
         """One round over ``fc`` (numpy arrays or tensors) ->
         (chosen[P] int32, requested[N, R] f32, quota_used[G, R] f32) as
-        numpy arrays, gang Permit applied."""
+        numpy arrays, gang Permit applied. With a ``timings`` dict the call
+        synchronises between its layers and records their seconds: upload,
+        round (wrapper and kernel), permit, readback."""
         active = tuple(int(a) for a in active_axes) if active_axes else None
         key = (
             tuple(fc.base.fit_requests.shape),
@@ -56,7 +60,13 @@ class SidecarServer:
             self._steps[key] = self._get_sidecar_step(args, num_gangs,
                                                       num_groups, active)
         step = self._steps[key]
-        chosen, requested, quota_used = step(to_device(fc, self.device))
+        clock = SyncClock(timings, self.device)
+        dev_fc = to_device(fc, self.device)
+        clock.lap("upload")
+        chosen, requested, quota_used = step(dev_fc, timings=timings)
+        clock.restart()  # the step times its own layers
+        out = (chosen.cpu().numpy(), requested.cpu().numpy(),
+               quota_used.cpu().numpy())
+        clock.lap("readback")
         self.last_backend = step.last_backend
-        return (chosen.cpu().numpy(), requested.cpu().numpy(),
-                quota_used.cpu().numpy())
+        return out
