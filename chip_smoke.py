@@ -7,6 +7,32 @@ Phases, one JSON line each:
           versions; builds both CUDA kernels from koordinator_tpu_torch/csrc/
           with nvcc, one process per source started together, and times the
           build.
+  scheduler  BASELINE config 4 through the real scheduler cycle, in the shape
+          of bench.py's run_churn: three stores from synth_full_cluster(5000,
+          10000, seed=42, num_quotas=100, num_gangs=200), each driven by
+          Scheduler(store, waves=1, device="cuda") — plain, under
+          CyclePipeline, and with IncrementalSnapshot off (the full-rebuild
+          twin) — through cycle 0 (cold, the first kernel call of the run)
+          and 2 warm-up + 3 measured churn cycles of 1000 arrivals each. The
+          twins' ordered bindings, failed and rejected lists must be
+          identical every cycle, and every dispatch window must have
+          launched the full-chain kernel exactly once (launch counts set to
+          0 before each cycle and read after). Prints cycle 0's seconds and
+          span split, the steady cycle's median, kernel and host ms and its
+          median span split, the full-rebuild and pipelined twins' cycle ms,
+          pods/s end to end, the mirror's and the pack cache's stats, the
+          churn cycles' padded P and the kernel's time there. Then the
+          twin's DeviceSnapshot must hand the round exactly what to_device
+          gives (dtype and value, field by field), and a fresh one must
+          scatter rows on the card into a clone while a round is in
+          flight and in place after it.
+  scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
+          through Scheduler(device="cuda", waves=1) and a
+          Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
+          and 2 churn cycles of 200 arrivals: the canonical dumps of both
+          worlds (every pod's node, annotations and PodScheduled condition,
+          every PodGroup's status, every ElasticQuota's used vector) must be
+          identical after every cycle.
   main    BASELINE config 4 (synth_full_cluster(5000, 10000, seed=42,
           num_quotas=100, num_gangs=200), bucket-padded to 5120 nodes x
           10240 pods): host pack -> active-axis reduction ->
@@ -52,6 +78,7 @@ JAX package.
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -79,7 +106,9 @@ from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops import schedule_kernel as sk
 from koordinator_tpu_torch.ops.kernel_common import BUILD_LOG, build_libraries
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
 from koordinator_tpu_torch.scheduler.parity import serial_schedule
+from koordinator_tpu_torch.scheduler.snapshot_cache import DeviceSnapshot
 from koordinator_tpu_torch.scheduler.sidecar import SidecarServer
 from koordinator_tpu_torch.scheduler.snapshot import (
     build_full_chain_inputs,
@@ -91,12 +120,29 @@ from koordinator_tpu_torch.testing import (
     synth_cluster,
     synth_full_cluster,
 )
+from koordinator_tpu_torch.testing.churn import (
+    add_arrivals,
+    arrival_specs,
+    churn_store,
+    cycle_dump,
+    store_from_state,
+)
+from koordinator_tpu_torch.utils.features import SCHEDULER_GATES
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 10  # timed rounds after the warm-up
 ORACLE_PODS = 200  # bench.py's --serial-sample default
+# bench.py run_churn: 2 warm-up and (with --smoke's count) 3 measured churn
+# cycles, num_pods // 10 arrivals each
+CHURN_WARMUP, CHURN_MEASURED = 2, 3
+# the spans a cycle is split into (direct children of the cycle root, and
+# the upload/readback and pack_incremental children of kernel and encode)
+CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
+               "kernel", "bind", "diagnose", "overlap_wait", "prepack",
+               "store_flush")
+NESTED_SPANS = ("pack_incremental", "upload", "readback")
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -299,11 +345,268 @@ def run_generic(device):
               "loadaware_max_abs_err": la_err})
 
 
+def span_split(sched) -> dict:
+    """Milliseconds per span of the scheduler's last cycle: each direct
+    child of the cycle root (summed by name), the upload/readback and
+    pack_incremental children, and the rest of the cycle."""
+    root = [r for r in sched.tracer.roots() if r.name == "cycle"][-1]
+    out = {name: 0.0 for name in CYCLE_SPANS + NESTED_SPANS}
+    for child in root.children:
+        if child.name in out:
+            out[child.name] += child.duration_seconds * 1e3
+        for sub in child.children:
+            if sub.name in NESTED_SPANS:
+                out[sub.name] += sub.duration_seconds * 1e3
+    out["rest"] = root.duration_seconds * 1e3 - sum(
+        out[name] for name in CYCLE_SPANS)
+    out["cycle"] = root.duration_seconds * 1e3
+    return out
+
+
+def median_split(splits) -> dict:
+    return {k: statistics.median(s[k] for s in splits) for k in splits[0]}
+
+
+def result_key(res):
+    return ([(b.pod_key, b.node_name) for b in res.bound], list(res.failed),
+            list(res.rejected))
+
+
+def checked_cycle(tag, sched, run, now):
+    """One cycle of ``sched`` (``run`` is its run_cycle or its pipeline's)
+    with the launch counts set to 0 just before it and read just after:
+    every dispatch window on the card launches the full-chain kernel
+    exactly once and the LoadAware kernel never. Returns (result, wall
+    seconds, launches, full garbage collections during the cycle)."""
+    d0 = sched.dispatches
+    gc0 = gc.get_stats()[2]["collections"]
+    fck.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    res = run(now=now)
+    wall = time.perf_counter() - t0
+    # Python's full (generation 2) collections inside the cycle: a pause
+    # no span owns
+    gc_full = gc.get_stats()[2]["collections"] - gc0
+    windows = sched.dispatches - d0
+    if sched.device.type == "cuda" and (
+            sched.last_backend != "cuda" or fck.launches != windows
+            or sk.launches != 0 or windows < 1):
+        raise AssertionError(
+            f"{tag}: {windows} dispatch windows, backend "
+            f"{sched.last_backend}, launches full_chain {fck.launches} "
+            f"schedule_step {sk.launches}")
+    return res, wall, fck.launches, gc_full
+
+
+def fc_fields(fc) -> dict:
+    out = {f"base.{k}": v for k, v in fc.base._asdict().items()}
+    out.update((k, v) for k, v in fc._asdict().items() if k != "base")
+    return out
+
+
+def check_mirror(fc, device) -> dict:
+    """DeviceSnapshot on the card over one real batch: a put of every
+    field, a row scatter while a round is in flight (into a clone) and one
+    after it (in place), each tensor equal to to_device's in dtype and
+    value. Returns the mirror's stats."""
+    snap = DeviceSnapshot(device=device)
+    snap.upload(fc)
+    old = snap.upload(fc)  # nothing changed since the put: reused
+    batches, step = [], fc
+    n = fc.base.requested.shape[0]
+    for rows in ((0, 7, n // 2), (1, 2)):
+        req = np.array(step.base.requested, copy=True)
+        req[list(rows)] += 1.0
+        step = step._replace(base=step.base._replace(requested=req))
+        batches.append(step)
+
+    def check(got, host):
+        want = fc_fields(to_device(host, device))
+        for name, t in fc_fields(got).items():
+            if t.dtype != want[name].dtype or not torch.equal(t, want[name]):
+                raise AssertionError(f"mirror: {name} differs from to_device")
+
+    snap.begin_dispatch()
+    in_flight = snap.upload(batches[0])
+    snap.end_dispatch()
+    check(in_flight, batches[0])
+    if not torch.equal(old.base.requested,
+                       to_device(fc, device).base.requested):
+        raise AssertionError("mirror: an in-flight scatter wrote in place")
+    in_place = snap.upload(batches[1])
+    check(in_place, batches[1])
+    if in_place.base.requested is not in_flight.base.requested:
+        raise AssertionError("mirror: a scatter after the sync cloned")
+    if (snap.stats["scattered"], snap.stats["scattered_safe"]) != (2, 1):
+        raise AssertionError(f"mirror: unexpected path {snap.stats}")
+    return dict(snap.stats)
+
+
+def run_scheduler(device, n_nodes=5000, n_pods=10000):
+    """BASELINE config 4 through Scheduler.run_cycle (bench.py run_churn's
+    shape), three twins that must agree every cycle, then the kernel alone
+    at the churn cycles' padded P. Returns the phase's full-chain
+    launches."""
+    arrivals = n_pods // 10
+    t0 = time.perf_counter()
+    (store_inc, state), (store_pipe, _s2), (store_cold, _s3) = (
+        churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
+    inc = Scheduler(store_inc, waves=1, device=device)
+    pipe_sched = Scheduler(store_pipe, waves=1, device=device)
+    pipe = CyclePipeline(pipe_sched, enabled=True)
+    SCHEDULER_GATES.set_from_map({"IncrementalSnapshot": False})
+    try:
+        cold = Scheduler(store_cold, waves=1, device=device)
+    finally:
+        SCHEDULER_GATES.reset()
+    if inc.snapshot_cache is None or cold.snapshot_cache is not None:
+        raise AssertionError("scheduler: IncrementalSnapshot gate not applied")
+    fixture_s = time.perf_counter() - t0
+    twins = (("incremental", inc, inc.run_cycle),
+             ("pipelined", pipe_sched, pipe.run_cycle),
+             ("rebuild", cold, cold.run_cycle))
+    observed = []
+    now = state.now
+    total_launches = 0
+    walls = {name: [] for name, _s, _r in twins}
+    kernel_s, splits, padded_p = [], [], []
+    cycle0 = {}
+    for c in range(1 + CHURN_WARMUP + CHURN_MEASURED):
+        if c:
+            specs = arrival_specs(c, arrivals)
+            for store in (store_inc, store_pipe, store_cold):
+                add_arrivals(store, specs, now + c)
+        inc.encode_observer = lambda fc: observed.append(
+            (fc.base.fit_requests.shape[0], fc))
+        keys = {}
+        for name, sched, run in twins:
+            res, wall, launches, gc_full = checked_cycle(
+                f"scheduler cycle {c} {name}", sched, run, now + 2 * c)
+            total_launches += launches
+            keys[name] = result_key(res)
+            if name == "incremental":
+                if c == 0:
+                    cycle0 = {"seconds": wall,
+                              "kernel_seconds": res.kernel_seconds,
+                              "bound": len(res.bound),
+                              "failed": len(res.failed),
+                              "rejected": len(res.rejected),
+                              "spans_ms": span_split(inc)}
+                elif c > CHURN_WARMUP:
+                    kernel_s.append(res.kernel_seconds)
+                    splits.append(span_split(inc))
+                    splits[-1]["gc_full_collections"] = gc_full
+                    padded_p.append(int(observed[-1][0]))
+            if c > CHURN_WARMUP:
+                walls[name].append(wall)
+        inc.encode_observer = None
+        if not (keys["incremental"] == keys["pipelined"] == keys["rebuild"]):
+            raise AssertionError(f"scheduler cycle {c}: twins disagree")
+        if c and not keys["incremental"][0]:
+            raise AssertionError(f"scheduler cycle {c}: nothing bound")
+    pipe.flush()
+
+    # the kernel alone at the churn cycles' padded P: the last measured
+    # cycle's inputs, with the step arguments its cached step was keyed on
+    fc = observed[-1][1]
+    sig = (fc.base.fit_requests.shape[0], fc.base.allocatable.shape[0],
+           fc.quota_runtime.shape[0])
+    actives = {key[3] for key in inc._step_cache if key[0] == sig}
+    if len(actives) != 1:
+        raise AssertionError(f"scheduler: steps for {sig} disagree on the "
+                             f"active axes: {actives}")
+    active = list(actives.pop())
+    dev_fc = to_device(fc, device)
+    wi, bi = resolve_weight_idx(inc.args, active), resolve_balance_idx(active)
+    prod = inc.args.score_according_prod_usage
+    churn_kernel_ms = time_cuda(
+        lambda: fck.full_chain_round(dev_fc, wi, prod, bi), REPS)
+    # the twin's mirror hands the round what to_device would
+    mirror = fc_fields(inc.device_snapshot.upload(fc))
+    for name, t in fc_fields(dev_fc).items():
+        if mirror[name].dtype != t.dtype or not torch.equal(mirror[name], t):
+            raise AssertionError(f"scheduler: mirror field {name} differs "
+                                 "from to_device")
+    mirror_check = check_mirror(fc, device)
+
+    t_inc = statistics.median(walls["incremental"])
+    t_kernel = statistics.median(kernel_s)
+    emit({"phase": "scheduler", "nodes": n_nodes, "pods": n_pods,
+          "arrivals_per_cycle": arrivals, "warmup_cycles": CHURN_WARMUP,
+          "measured_cycles": CHURN_MEASURED,
+          "fixture_seconds": round(fixture_s, 3),
+          "twins_identical_every_cycle": True,
+          "launches": total_launches, "cycle0": cycle0,
+          "cycle_ms": t_inc * 1e3, "cycle_ms_each": [w * 1e3 for w in
+                                                     walls["incremental"]],
+          "kernel_seconds_ms": t_kernel * 1e3,
+          "host_ms": (t_inc - t_kernel) * 1e3,
+          "spans_ms": median_split(splits),
+          "spans_ms_each": splits,
+          "pipelined_cycle_ms": statistics.median(walls["pipelined"]) * 1e3,
+          "pipelined_cycle_ms_each": [w * 1e3 for w in walls["pipelined"]],
+          "rebuild_cycle_ms": statistics.median(walls["rebuild"]) * 1e3,
+          "rebuild_cycle_ms_each": [w * 1e3 for w in walls["rebuild"]],
+          "pods_per_second": arrivals / t_inc,
+          "device_snapshot": inc.device_snapshot.stats,
+          "snapshot_cache": inc.snapshot_cache.stats,
+          "mirror_check": mirror_check,
+          "churn_padded_P": padded_p,
+          "churn_kernel_ms": churn_kernel_ms,
+          "churn_kernel_state": fck.last_launch["state"]})
+    return total_launches
+
+
+def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
+    """The mixed cluster through the whole cycle on the card and in a CPU
+    twin (the plain round): identical worlds after every cycle."""
+    worlds = []
+    for dev in (device, "cpu"):
+        _c, state = mixed_cluster(101, n_nodes, n_pods)
+        store = store_from_state(state)
+        worlds.append((store, Scheduler(store, waves=1, device=dev)))
+    now = state.now
+    launches, walls = 0, {device: [], "cpu": []}
+    for c in range(3):
+        if c:
+            specs = arrival_specs(c, n_pods // 10)
+            for store, _s in worlds:
+                add_arrivals(store, specs, now + c)
+        keys, dumps = [], []
+        for store, sched in worlds:
+            res, wall, n, _gc = checked_cycle(
+                f"scheduler_mixed cycle {c}", sched, sched.run_cycle,
+                now + 2 * c)
+            launches += n if sched.device.type == "cuda" else 0
+            walls[sched.device.type].append(wall)
+            keys.append(result_key(res))
+            dumps.append(cycle_dump(sched))
+        if keys[0] != keys[1] or dumps[0] != dumps[1]:
+            raise AssertionError(
+                f"scheduler_mixed cycle {c}: the card's world differs from "
+                "the plain round's")
+        if worlds[1][1].last_backend != "serial":
+            raise AssertionError("scheduler_mixed: the CPU twin did not run "
+                                 "the plain round")
+    pods = dumps[0]["pods"]
+    emit({"phase": "scheduler_mixed", "nodes": n_nodes, "pods": n_pods,
+          "cycles": 3, "dumps_identical_every_cycle": True,
+          "launches": launches,
+          "cuda_cycle_seconds": walls[device], "cpu_cycle_seconds": walls["cpu"],
+          "pods_bound": sum(1 for v in pods.values() if v[0]),
+          "pods_unschedulable": sum(1 for v in pods.values()
+                                    if v[2] is not None and v[2][0] == "False"),
+          "messages": len({v[2][2] for v in pods.values()
+                           if v[2] is not None and v[2][0] == "False"})})
+    return launches
+
+
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
-                 bytes_ms, ops_ms):
+                 bytes_ms, ops_ms, **extra):
     """One kernel's entry of the kernels line. No PyTorch call computes
-    either serial round, so library_ms is null."""
-    return {
+    either serial round, so library_ms is null. ``extra`` adds keys (the
+    full chain's launches on the scheduler path)."""
+    return {**extra,
         "name": name,
         "route": "cuda",
         "source": f"koordinator_tpu_torch/csrc/{source}",
@@ -431,6 +734,12 @@ def main() -> int:
                                  for stem, log in BUILD_LOG.items()},
           "ptxas": ptxas})
 
+    # ---- the scheduler cycle: config 4 with churn, then the mixed cluster
+    # against its CPU twin (first, so cycle 0 holds the run's first call of
+    # the kernel library)
+    scheduler_launches = run_scheduler(device)
+    run_scheduler_mixed(device)
+
     # ---- main path: BASELINE config 4 through the sidecar entry point
     n_nodes, n_pods = 5000, 10000
     args = LoadAwareArgs()
@@ -550,7 +859,7 @@ def main() -> int:
         kernel_entry("full_chain_round", "full_chain.cu",
                      "koordinator_tpu/ops/pallas_full_chain.py:90",
                      main_launches, mism, err, kernel_ms, plain_ms, bytes_ms,
-                     ops_ms),
+                     ops_ms, launches_scheduler=scheduler_launches),
         la_kernel]})
     print(card, flush=True)
     # count: the cards this script drives

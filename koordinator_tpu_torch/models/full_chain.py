@@ -47,6 +47,42 @@ from koordinator_tpu_torch.ops.numa import (
 )
 from koordinator_tpu_torch.ops.quota import quota_admit_row, quota_used_add_row
 
+# koordexplain: the per-filter-stage reject taxonomy of the unschedulable
+# messages (scheduler/diagnose.py). ORDER IS LOAD-BEARING: it is the
+# insertion order of diagnose.py's reasons dict, and format_stage_counts
+# relies on a stable sort over it to reproduce the message tie-break
+# byte-for-byte. The kernel-emitted counts come with a later slice.
+EXPLAIN_STAGES = (
+    "node not schedulable",
+    "taint/selector/volume-topology mismatch",
+    "insufficient resources",
+    "node load over threshold",
+    "hostPort in use",
+    "CSI volume limit exceeded",
+    "insufficient bindable CPUs",
+    "NUMA topology cannot fit",
+    "affinity/anti-affinity/spread mismatch",
+)
+# prometheus-safe stage keys for koord_scheduler_filter_rejections_total
+EXPLAIN_STAGE_KEYS = (
+    "node_not_schedulable",
+    "taint_selector_volume_topology",
+    "insufficient_resources",
+    "node_load_over_threshold",
+    "host_port_in_use",
+    "csi_volume_limit",
+    "insufficient_bindable_cpus",
+    "numa_topology",
+    "affinity_spread",
+    "gang_not_satisfied",
+    "quota_exhausted",
+)
+# pod-level PreFilter verdict slots appended after the per-node stages
+# (0/1 flags, not node counts — they reproduce diagnose.py's early returns)
+EXPLAIN_STAGE_GANG = len(EXPLAIN_STAGES)
+EXPLAIN_STAGE_QUOTA = len(EXPLAIN_STAGES) + 1
+NUM_EXPLAIN_STAGES = len(EXPLAIN_STAGES) + 2
+
 
 class FullChainInputs(NamedTuple):
     """The packed round: numpy from the host pack, torch on the device the

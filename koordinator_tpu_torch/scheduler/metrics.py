@@ -1,10 +1,12 @@
-"""Scheduler metrics: the three counters the snapshot pack bumps.
+"""Scheduler metrics registry (analog of reference pkg/scheduler/metrics/).
 
 A copy of the Prometheus-style ``Registry`` (with its gauge, counter and
-histogram kinds) and the pack's encoding-overflow signals: nodes degraded
-to a label-unknown admission bucket, pods cut by an encoding budget, and
-nodes degraded to the conservative volume group. The rest of the
-scheduler's metric catalog comes with the cycle driver.
+histogram kinds) and the JAX package's scheduler metric catalog, names
+unchanged so one scrape config reads both. The encoding-overflow signals
+make conservative batch-encoding cuts first-class observables; the cycle
+driver (scheduler/cycle.py) bumps the rest. Metrics of paths the port
+does not run yet (fused waves, mesh, ladder, warm-up, sidecar) stay
+registered at zero.
 """
 
 from __future__ import annotations
@@ -297,4 +299,289 @@ ADMISSION_DEGRADED_NODES = REGISTRY.gauge(
 VOL_GROUP_DEGRADED_NODES = REGISTRY.gauge(
     "koord_scheduler_volume_group_degraded_nodes",
     "Nodes degraded to the conservative volume group in the last snapshot",
+)
+
+
+# cycle-latency histograms (koordtrace spans carry the per-stage split;
+# these carry the distribution a scraper can alert on)
+CYCLE_SECONDS = REGISTRY.histogram(
+    "koord_scheduler_cycle_seconds",
+    "End-to-end scheduling cycle latency",
+)
+KERNEL_SECONDS = REGISTRY.histogram(
+    "koord_scheduler_kernel_seconds",
+    "Batched kernel pass latency (compile+execute on a cache miss)",
+)
+
+# shape-signature step-cache traffic: a steady-state cluster should be
+# all hits; a miss builds a new step (on the card, a kernel library
+# load and first launch on the step's first call)
+COMPILE_CACHE_HITS = REGISTRY.counter(
+    "koord_scheduler_compile_cache_hits_total",
+    "Kernel launches served by the shape-signature step cache",
+)
+COMPILE_CACHE_MISSES = REGISTRY.counter(
+    "koord_scheduler_compile_cache_misses_total",
+    "Kernel step builds forced by a shape-signature cache miss",
+)
+
+PODS_BOUND_TOTAL = REGISTRY.counter(
+    "koord_scheduler_pods_bound_total",
+    "Pods bound across all cycles",
+)
+
+# fused multi-wave dispatch (models/fused_waves.py): how many dependent
+# scheduling rounds each device dispatch actually executed (early exit
+# stops at the first zero-commit wave), and how many bytes every kernel
+# readback shipped — the compacted binding buffer is the whole point, so
+# a regression back to full-matrix readbacks must be visible
+WAVES_PER_DISPATCH = REGISTRY.histogram(
+    "koord_scheduler_waves_per_dispatch",
+    "Scheduling waves executed per device dispatch",
+    buckets=(1.0, 2.0, 4.0, 8.0),
+)
+READBACK_BYTES = REGISTRY.counter(
+    "koord_scheduler_readback_bytes_total",
+    "Bytes read back from the device across all kernel dispatches",
+)
+
+# pipeline occupancy: fraction of the last cycle's wall time the device
+# had work in flight (device_busy_seconds / cycle duration). The whole
+# point of the batched-tensor re-expression is that the DEVICE sets the
+# cycle rate — this gauge makes the next host-side bottleneck visible in
+# /metrics instead of only in bench JSON. Overlapped wave replay
+# (KOORD_TPU_REPLAY_OVERLAP) raises it by draining the replay queue
+# while later waves execute.
+PIPELINE_OCCUPANCY = REGISTRY.gauge(
+    "koord_scheduler_pipeline_occupancy",
+    "Device-busy fraction of the last scheduling cycle's wall time",
+)
+
+# incremental-pack row traffic: steady state should be nearly all reused;
+# a repack surge means the store is churning (or a cache regression)
+PACK_ROWS_REUSED = REGISTRY.counter(
+    "koord_scheduler_pack_rows_reused_total",
+    "Packed pod rows gathered unchanged from the previous build",
+)
+PACK_ROWS_REPACKED = REGISTRY.counter(
+    "koord_scheduler_pack_rows_repacked_total",
+    "Packed pod rows rebuilt from the object (new/changed pods)",
+)
+
+# DeviceSnapshot upload traffic (scheduler/snapshot_cache.DeviceSnapshot
+# stats, fed as per-cycle counter deltas by the cycle driver): an upload
+# regression — reuse collapsing into full puts — shows up in /metrics,
+# not just bench runs. Counters, so rate()/increase() behave across
+# process restarts.
+UPLOAD_FIELDS_REUSED = REGISTRY.counter(
+    "koord_scheduler_upload_fields_reused_total",
+    "Device-snapshot fields reused without any transfer",
+)
+UPLOAD_FIELDS_SCATTERED = REGISTRY.counter(
+    "koord_scheduler_upload_fields_scattered_total",
+    "Device-snapshot fields updated by donated row scatters",
+)
+UPLOAD_FIELDS_PUT = REGISTRY.counter(
+    "koord_scheduler_upload_fields_put_total",
+    "Device-snapshot fields re-uploaded in full",
+)
+UPLOAD_BYTES_SCATTERED = REGISTRY.counter(
+    "koord_scheduler_upload_bytes_scattered_total",
+    "Bytes shipped by device-snapshot row scatters",
+)
+UPLOAD_BYTES_PUT = REGISTRY.counter(
+    "koord_scheduler_upload_bytes_put_total",
+    "Bytes shipped by full device-snapshot puts",
+)
+
+# koordexplain: per-stage filter rejections, attributed on device by
+# the scheduling dispatch itself (models/full_chain.explain_stage_counts).
+# Labeled by stage key (EXPLAIN_STAGE_KEYS); counted once per pod ending a
+# logical cycle unbound, over the nodes each stage rejected — the
+# aggregate view of what /explain answers per pod. Only populated when
+# KOORD_TPU_EXPLAIN is on (the legacy host recompute does not feed it).
+FILTER_REJECTIONS = REGISTRY.counter(
+    "koord_scheduler_filter_rejections_total",
+    "Node rejections per filter stage for pods left unbound, "
+    "labeled by stage",
+)
+# explain attribution rides the kernel readback; its extra bytes must be
+# visible so the counts-level overhead stays an explicit trade
+EXPLAIN_READBACK_BYTES = REGISTRY.counter(
+    "koord_scheduler_explain_readback_bytes_total",
+    "Bytes of koordexplain attribution read back from the device",
+)
+# cycle flight recorder (obs/flight.py): every bundle dump, labeled by the
+# trigger (deadline_overrun | cycle_exception | parity_mismatch |
+# degradation | invariant_breach | slo_overrun | http)
+FLIGHT_DUMPS = REGISTRY.counter(
+    "koord_flight_recorder_dumps_total",
+    "Flight-recorder bundle dumps, labeled by trigger reason",
+)
+
+# dispatch degradation ladder (scheduler/degrade.py): the current rung
+# (0=full, 1=partial-mesh, 2=no-mesh, 3=serial-waves, 4=no-explain,
+# 5=host-fallback) and every failed dispatch attempt the ladder absorbed
+# instead of letting it kill the scheduler, labeled by the dispatch
+# stage that failed
+DEGRADED_LEVEL = REGISTRY.gauge(
+    "koord_scheduler_degraded_level",
+    "Dispatch degradation-ladder level "
+    "(0=full 1=partial-mesh 2=no-mesh 3=serial-waves 4=no-explain "
+    "5=host-fallback)",
+)
+DISPATCH_RETRIES = REGISTRY.counter(
+    "koord_scheduler_dispatch_retries_total",
+    "Failed device-dispatch attempts absorbed by the degradation "
+    "ladder, labeled by stage",
+)
+
+# koordguard dispatch deadline (scheduler/deadline.py,
+# KOORD_TPU_DISPATCH_DEADLINE_MS): monitored device syncs that overran
+# and were abandoned — a slow-not-dead device demoting the ladder
+# instead of wedging the cycle. Labeled by the dispatch path
+# (serial | fused | rebalance).
+DISPATCH_DEADLINE_OVERRUNS = REGISTRY.counter(
+    "koord_scheduler_dispatch_deadline_overruns_total",
+    "Device syncs abandoned after overrunning the dispatch deadline, "
+    "labeled by path",
+)
+
+# mesh-backed dispatch (KOORD_TPU_MESH, parallel/mesh.py): how many
+# devices the production cycle shards over (0 = single-device path), how
+# the node rows and the compacted readback split across shards. The
+# imbalance gauge is max/mean REAL (unpadded) rows per shard — 1.0 is a
+# perfectly level mesh; trailing shards holding only pad rows push it up
+# and that capacity is simply wasted.
+MESH_DEVICES = REGISTRY.gauge(
+    "koord_scheduler_mesh_devices",
+    "Devices in the production dispatch mesh (0 = single-device)",
+)
+MESH_SHARD_READBACK_BYTES = REGISTRY.gauge(
+    "koord_scheduler_mesh_readback_bytes",
+    "Bytes of the last kernel readback held per mesh shard, "
+    "labeled by shard",
+)
+MESH_SHARD_IMBALANCE = REGISTRY.gauge(
+    "koord_scheduler_mesh_shard_imbalance",
+    "Max/mean real node rows per mesh shard in the last dispatch",
+)
+
+# koordwatch demotion accounting: every silent fused-wave /
+# explain / mesh demotion routes through the Scheduler._note_demotion
+# chokepoint and lands here, labeled by the structured reason
+# (ladder-serial-waves | sidecar | pending-reservations |
+# prod-usage-score | claim-pods | score-transformer | explain-sidecar |
+# explain-ladder | mesh-off | partial-mesh). Counted once per cycle per
+# reason, so the counter reads as "cycles demoted for this reason" —
+# the real-traffic data the ROADMAP demotion burn-down starts from.
+WAVE_DEMOTIONS = REGISTRY.counter(
+    "koord_scheduler_wave_demotions_total",
+    "Scheduling cycles demoted below their configured wave/explain/mesh "
+    "level, labeled by structured reason",
+)
+
+# SURVEY 7 step 6 sidecar path: kernel passes that fell back to the
+# in-process step after a sidecar RPC failure (previously a loose
+# Scheduler attribute invisible to /metrics)
+SIDECAR_FALLBACKS = REGISTRY.counter(
+    "koord_scheduler_sidecar_fallbacks_total",
+    "Kernel passes served by the in-process step after a sidecar "
+    "RPC transport failure",
+)
+
+# pending-queue visibility (pre-work for the ROADMAP admission/queueing
+# item): the queue depth each cycle drained and the enqueue-to-dispatch
+# age of every pod observed in it — the front-door latency signal the
+# device-resident queueing work will have to improve
+PENDING_QUEUE_DEPTH = REGISTRY.gauge(
+    "koord_scheduler_pending_queue_depth",
+    "Pods (and pending reservations) in the queue at cycle start",
+)
+QUEUE_WAIT_SECONDS = REGISTRY.histogram(
+    "koord_scheduler_queue_wait_seconds",
+    "Enqueue-to-dispatch age of each queued pod, observed per cycle",
+    buckets=(1.0, 5.0, 15.0, 60.0, 300.0, 1800.0, 7200.0),
+)
+
+# koordwatch device timeline (obs/timeline.py): every device window —
+# scheduler dispatch, koordbalance rebalance pass, koordcolo pass —
+# records its dispatch->last-sync interval and the idle gap before it.
+# The idle fraction is THE number the host-tail / rebalance-overlap
+# ROADMAP items must drive down.
+DEVICE_WINDOW_SECONDS = REGISTRY.histogram(
+    "koord_device_window_seconds",
+    "Device-window dispatch-to-last-sync interval, labeled by consumer "
+    "(scheduler|rebalance|colo) and path (serial|fused|chained|mesh)",
+    buckets=(0.001, 0.005, 0.02, 0.1, 0.5, 2.0, 10.0),
+)
+DEVICE_IDLE_FRACTION = REGISTRY.gauge(
+    "koord_device_idle_fraction",
+    "Gap time between consecutive device windows over wall time",
+)
+
+# koordwatch SLO engine (obs/slo.py): per-objective burn rate
+# (observed/target at the gating percentile; 1.0 = exactly on budget)
+# and the met verdict, labeled by objective name
+SLO_BURN_RATE = REGISTRY.gauge(
+    "koord_slo_burn_rate",
+    "SLO burn rate (observed/target at the gating percentile), "
+    "labeled by objective",
+)
+SLO_MET = REGISTRY.gauge(
+    "koord_slo_met",
+    "Whether the SLO is currently met (1) or blown (0), "
+    "labeled by objective",
+)
+
+# host-tail pack overlap: pod rows pre-packed into the pack memo
+# INSIDE a device window (serial/fused pipeline windows, the chained
+# dispatch) — host work that used to run in the inter-window gap. A
+# steady soak should show this tracking the repack counter; zero with
+# KOORD_TPU_PACK_OVERLAP=0.
+PREPACK_ROWS = REGISTRY.counter(
+    "koord_scheduler_prepack_rows_total",
+    "Pod rows pre-packed into the pack memo inside a device window",
+)
+
+# AOT warm-up ladder (scheduler/warmup.py, a later slice): rungs replayed from
+# the persistent compile-cache index at startup, labeled by outcome
+# (warmed | skipped | failed | invalidated — the last is the
+# program-fingerprint discipline), the last ladder's wall seconds, and
+# the completion gauge the steady-state compile guard arms on
+WARMUP_RUNGS = REGISTRY.counter(
+    "koord_scheduler_warmup_rungs_total",
+    "Warm-up ladder rungs replayed from the persistent compile-cache "
+    "index, labeled by outcome",
+)
+WARMUP_SECONDS = REGISTRY.gauge(
+    "koord_scheduler_warmup_seconds",
+    "Wall seconds the last warm-up ladder took",
+)
+WARMUP_COMPLETE = REGISTRY.gauge(
+    "koord_scheduler_warmup_complete",
+    "Whether the warm-up ladder has completed (1) for this scheduler",
+)
+# koordlint rule 20 (compile-in-steady-state), the runtime half: a
+# step-cache MISS in the hot path AFTER warm-up completed — outside the
+# warmup/ladder-transition/restart contexts every legitimate compile
+# belongs to. A warm-cache restart must keep this flat through its
+# first bind (the crash-restart coldstart gate asserts it).
+STEADY_STATE_COMPILES = REGISTRY.counter(
+    "koord_scheduler_steady_state_compiles_total",
+    "Step-cache misses flagged in steady state (after warm-up, outside "
+    "ladder transitions)",
+)
+
+# pipeline deferred-diagnose backlog: depth of the queue carrying cycle
+# N's unschedulability writes into cycle N+1's kernel window, plus the
+# total items ever deferred — a growing depth means kernel windows (or
+# flush()) are not draining the backlog
+DIAGNOSE_DEFERRED_TOTAL = REGISTRY.counter(
+    "koord_scheduler_diagnose_deferred_total",
+    "Unschedulability diagnose/condition writes deferred by the pipeline",
+)
+DIAGNOSE_DEFERRED_DEPTH = REGISTRY.gauge(
+    "koord_scheduler_diagnose_deferred_depth",
+    "Deferred diagnose entries currently queued",
 )

@@ -1,13 +1,20 @@
-"""Cluster snapshot builder: cluster objects -> FullChainInputs (numpy).
+"""Cluster snapshot builder: store objects -> FullChainInputs (numpy).
 
-The analog of the scheduler's cache/snapshot layer plus every plugin's
-PreFilter precompute (SURVEY.md section 3.1): one pass over nodes, pods and
-CRs produces the packed arrays of the full-chain round. A copy of the JAX
-package's cold build with two pieces left for later slices of the port: the
-incremental SnapshotCache path, and the PVC/PV/StorageClass classification
-(VolumeZone/VolumeBinding). A state carrying storage objects raises
-NotImplementedError; pvc_names without storage objects stay opaque CSI-count
-tokens and produce vol_needed, as in the reference.
+The analog of the scheduler's cache/snapshot layer plus every plugin's PreFilter
+precompute (SURVEY.md section 3.1): one pass over nodes/pods/CRs produces the
+packed arrays of the full-chain round. With a SnapshotCache attached the
+pass is INCREMENTAL — O(changed objects), not O(cluster): packed pod rows,
+flags, masks and selector sets gather from the previous build's pack memo
+with batched fancy indexing, node-side LoadAware/NUMA rows refresh only
+where store events or plugin epochs dirtied them, and the cold code path is
+otherwise identical so cached and cold builds cannot drift
+(tests/test_torch_snapshot_cache.py diffs every array).
+
+A copy of the JAX package's builder with one piece left for a later slice
+of the port: the PVC/PV/StorageClass classification (VolumeZone,
+VolumeBinding). A state carrying storage objects raises
+NotImplementedError; pvc_names without storage objects stay opaque
+CSI-count tokens and produce vol_needed, as in the reference.
 """
 
 from __future__ import annotations
@@ -206,7 +213,10 @@ def _pod_cpuset_flags(pod: Pod, default_policy: str = FULL_PCPUS) -> Tuple[bool,
 
 def _pod_flag_tuple(pod: Pod) -> tuple:
     """The per-pod flag row (needs_bind, cores, full_pcpus, needs_numa,
-    vol_needed, has_aff, has_ports, has_img, has_npref)."""
+    vol_needed, has_aff, has_ports, has_img, has_npref) — ONE
+    implementation shared by the build loop and the in-window pre-pack
+    (prepack_pending_rows), so the overlapped pack can never drift from
+    the cold fill."""
     spec = pod.spec
     nb, cn, fp = _pod_cpuset_flags(pod)
     return (nb, cn, fp, bool(spec.requests), float(len(set(spec.pvc_names))),
@@ -216,15 +226,84 @@ def _pod_flag_tuple(pod: Pod) -> tuple:
             bool(spec.affinity_preferred))
 
 
+def _pod_sel_pairs(pod: Pod) -> frozenset:
+    """The pod's nodeSelector/required-affinity pair set — the "sel"
+    memo column's cold expression, shared with the pre-pack."""
+    return frozenset(pod.spec.node_selector.items()) | frozenset(
+        pod.spec.affinity_required_node_labels.items())
+
+
+def prepack_pending_rows(cache, pods: List[Pod], args: LoadAwareArgs) -> int:
+    """Pack/device overlap: refresh the pack memo's rows for
+    every given pod whose (key, resourceVersion) is stale or absent —
+    called from INSIDE a device window (cycle.py _prepack_in_window), so
+    the per-object Python the next build would have paid in the
+    inter-window gap runs while the device executes instead.
+
+    Only memo state is touched: the packed wire rows + estimator output
+    (ops/packing.prepack_memo_rows), the flag columns, the selector-pair
+    sets and the per-pod flag dict. Admission masks are NOT precomputed
+    — their validity is keyed on the admission grouping the NEXT build
+    resolves — so pre-packed rows carry ``mask_valid=False`` and the
+    build recomputes exactly those masks. Rows dirtied AFTER this runs
+    (bind patches, watch events later in the window) bump their
+    resourceVersion and miss the memo at the real pack: reconciliation
+    is the memo keying itself, which is why the produced ScheduleInputs
+    are byte-identical to the non-overlapped pack (parity-gated).
+
+    Returns the number of rows pre-packed."""
+    from koordinator_tpu_torch.ops.packing import prepack_memo_rows
+
+    memo = cache.pack_memo
+    if memo is None or "f_needs_bind" not in memo or "sel" not in memo:
+        return 0  # no completed build yet: nothing to warm against
+    if "mask_valid" not in memo:
+        return 0
+    placed = prepack_memo_rows(cache, pods, args.resource_weights,
+                               args.estimated_scaling_factors)
+    if not placed:
+        return 0
+    flag_cols = ("f_needs_bind", "f_cores", "f_fullp", "f_needs_numa",
+                 "f_vol", "f_aff", "f_ports", "f_img", "f_npref")
+    n_new = max((j for j, _p in placed), default=-1) + 1
+    grown = memo[flag_cols[0]].shape[0]
+    if n_new > grown:
+        pad = n_new - grown
+        for col in flag_cols:
+            memo[col] = np.concatenate(
+                [memo[col], np.zeros(pad, memo[col].dtype)])
+        memo["mask"] = np.concatenate(
+            [memo["mask"], np.ones(pad, memo["mask"].dtype)])
+        memo["mask_valid"] = np.concatenate(
+            [memo["mask_valid"], np.zeros(pad, bool)])
+        sel_pad = np.empty(pad, object)
+        memo["sel"] = np.concatenate([memo["sel"], sel_pad])
+    for j, pod in placed:
+        flags = _pod_flag_tuple(pod)
+        for col, value in zip(flag_cols, flags):
+            memo[col][j] = value
+        memo["mask_valid"][j] = False
+        memo["sel"][j] = _pod_sel_pairs(pod)
+        cache.put_pod_flag(pod, flags)
+    return len(placed)
+
+
 def build_full_chain_inputs(
-    state: ClusterState, args: LoadAwareArgs
+    state: ClusterState, args: LoadAwareArgs, cache=None
 ) -> Tuple[FullChainInputs, PodBatch, NodeBatch, QuotaTreeArrays, Dict[str, int], int, int]:
     """Returns (inputs, pod_batch, node_batch, quota_tree, gang_index,
-    num_gangs, num_groups); every array of ``inputs`` is numpy."""
+    num_gangs, num_groups).
+
+    With `cache` (scheduler/snapshot_cache.SnapshotCache) the expensive
+    blocks consult event-maintained memos instead of walking the cluster;
+    the code path is otherwise IDENTICAL, so cached and cold builds cannot
+    drift (tests/test_snapshot_cache.py diffs every produced array)."""
     if state.pvcs or state.pvs or state.storage_classes:
         raise NotImplementedError(
             "PVC/PV/StorageClass volume classification (VolumeZone, "
             "VolumeBinding) comes with a later slice of the port")
+    if cache is not None:
+        cache.begin_build()
     # ---- gangs indexed first so pods pack in one pass; quota ids are filled
     # into the packed batch after the tree is built (they need the tree)
     gang_index = {pg.meta.key: i for i, pg in enumerate(state.pod_groups)}
@@ -237,6 +316,7 @@ def build_full_chain_inputs(
             pg.meta.key: (pg.meta.creation_timestamp, pg.meta.key)
             for pg in state.pod_groups
         },
+        cache=cache,
     )
     # keyed off the packed batch (keys computed once inside pack_pods)
     pods_by_key_pending = dict(zip(pods.keys, pods.objs))
@@ -256,31 +336,40 @@ def build_full_chain_inputs(
         q_sums = np.zeros((len(q_uniq), NUM_RESOURCES), np.float32)
         np.add.at(q_sums, q_inv, pods.requests[q_rows])
         pod_req_by_quota = {str(q): q_sums[j] for j, q in enumerate(q_uniq)}
-    # assigned quota usage: ONE wire-matrix fill + scale + segment-sum
-    # instead of a per-pod to_vector allocation
+    # assigned quota usage: event-maintained sums when cached, else ONE
+    # wire-matrix fill + scale + segment-sum instead of a per-pod
+    # to_vector allocation (the 10k-pod store walk's hot cost)
     used_by_quota: Dict[str, np.ndarray] = {}
-    quota_pods: List[Tuple[str, Pod]] = []
-    for pod in state.pods_by_key.values():
-        q = pod.quota_name
-        if q and pod.is_assigned and not pod.is_terminated:
-            quota_pods.append((q, pod))
-    if quota_pods:
-        mat = ResourceList.pack_wire_matrix(
-            pod.spec.requests for _q, pod in quota_pods)
-        names = sorted({q for q, _p in quota_pods})
-        row_of = {q: j for j, q in enumerate(names)}
-        sums = np.zeros((len(names), NUM_RESOURCES), np.float32)
-        np.add.at(sums, [row_of[q] for q, _p in quota_pods], mat)
-        used_by_quota = {q: sums[j] for q, j in row_of.items()}
+    if cache is not None:
+        used_by_quota = cache.used_by_quota()
+    else:
+        quota_pods: List[Tuple[str, Pod]] = []
+        for pod in state.pods_by_key.values():
+            q = pod.quota_name
+            if q and pod.is_assigned and not pod.is_terminated:
+                quota_pods.append((q, pod))
+        if quota_pods:
+            mat = ResourceList.pack_wire_matrix(
+                pod.spec.requests for _q, pod in quota_pods)
+            names = sorted({q for q, _p in quota_pods})
+            row_of = {q: j for j, q in enumerate(names)}
+            sums = np.zeros((len(names), NUM_RESOURCES), np.float32)
+            np.add.at(sums, [row_of[q] for q, _p in quota_pods], mat)
+            used_by_quota = {q: sums[j] for q, j in row_of.items()}
     # group request counts EVERY member pod — running AND pending; a
     # pending-only request would understate runtime for groups with running
     # usage and deny admission their min already guarantees
     pod_req_by_quota = merge_group_request(pod_req_by_quota, used_by_quota)
     tree = build_quota_tree(state.quotas, pod_req_by_quota, used_by_quota)
     if state.cluster_total is None:
-        # one matrix fill + scale + sum (not 5k per-node to_vector calls)
-        total = ResourceList.pack_wire_matrix(
-            node.allocatable for node in state.nodes).sum(axis=0)
+        if cache is not None:
+            # memoized on the node epoch: any Node add/update/delete
+            # invalidates, so the warm path skips the O(N) matrix fill
+            total = cache.cluster_total(state.nodes)
+        else:
+            # one matrix fill + scale + sum (not 5k per-node to_vector calls)
+            total = ResourceList.pack_wire_matrix(
+                node.allocatable for node in state.nodes).sum(axis=0)
     else:
         total = state.cluster_total
     runtime = (
@@ -325,9 +414,43 @@ def build_full_chain_inputs(
     # selector pairs) signatures -> group ids, pod tolerations +
     # nodeSelector -> group bitmasks. This is how TaintToleration AND
     # NodeAffinity (nodeSelector) batch into one bit test.
-    sel_pairs = selector_pairs_of(pods_by_key_pending.values(), {})
-    node_taint_ids, admission_groups = group_node_admission(
-        state.nodes, sel_pairs)
+    # VolumeZone pairs and VolumeBinding alternatives/rejections ride the
+    # admission bitmask; the classification filling them comes with a
+    # later slice (storage objects raise above), so they stay empty here
+    zone_pairs_by_key: Dict[str, frozenset] = {}
+    vb_any_of_by_key: Dict[str, tuple] = {}
+    vb_reason_by_key: Dict[str, str] = {}
+    # distinct nodeSelector/affinity pair universe: per-pod pair sets are
+    # cached in the pack memo (frozensets hash-cache themselves), so the
+    # warm path unions a handful of DISTINCT sets instead of walking every
+    # pod's label dicts
+    if cache is not None and pods.reused_src is not None:
+        sel_col = np.empty(n_valid, object)
+        sel_done = np.zeros(n_valid, bool)
+        prevm_sel = cache.pack_memo_prev
+        if prevm_sel is not None and "sel" in prevm_sel:
+            sel_hit = np.nonzero(pods.reused_src >= 0)[0]
+            if sel_hit.size:
+                sel_col[sel_hit] = prevm_sel["sel"][pods.reused_src[sel_hit]]
+                sel_done[sel_hit] = True
+        for i in np.nonzero(~sel_done)[0]:
+            sel_col[i] = _pod_sel_pairs(pods_by_key_pending[pods.keys[i]])
+        cache.pack_memo["sel"] = sel_col
+        pair_union = (set().union(*set(sel_col.tolist()))
+                      if n_valid else set())
+        for zp in zone_pairs_by_key.values():
+            pair_union |= zp
+        sel_pairs = frozenset(pair_union)
+    else:
+        sel_pairs = selector_pairs_of(pods_by_key_pending.values(),
+                                      zone_pairs_by_key)
+    if cache is not None:
+        node_taint_ids, admission_groups, adm_seq = cache.node_admission(
+            state.nodes, sel_pairs)
+    else:
+        node_taint_ids, admission_groups = group_node_admission(
+            state.nodes, sel_pairs)
+        adm_seq = 0
     ADMISSION_DEGRADED_NODES.set(
         float(degraded_node_count(node_taint_ids, admission_groups)))
     vol_needed = np.zeros(P, np.float32)
@@ -338,77 +461,193 @@ def build_full_chain_inputs(
     has_ports = np.zeros(P, bool)
     has_img = np.zeros(P, bool)
     has_npref = np.zeros(P, bool)
-    for i in range(n_valid):
-        pod = pods_by_key_pending[pods.keys[i]]
-        (needs_bind[i], cores_needed[i], full_pcpus[i], needs_numa[i],
-         vol_needed[i], has_aff[i], has_ports[i], has_img[i],
-         has_npref[i]) = _pod_flag_tuple(pod)
-        pod_taint_mask[i] = admission_mask(pod, admission_groups, frozenset())
+    # dirty-row flags/masks: rows carried over from the previous build
+    # gather their cached columns with batched fancy indexing (the same
+    # reused_src mapping pack_pods used); only changed rows pay the
+    # per-object Python below. Masks are position-independent (pure pod ->
+    # group bitmask), so gathering across reordered rows is exact.
+    src = pods.reused_src
+    prevm = cache.pack_memo_prev if cache is not None else None
+    flag_done = np.zeros(n_valid, bool)
+    mask_done = np.zeros(n_valid, bool)
+    if prevm is not None and src is not None and "f_needs_bind" in prevm:
+        f_hit = np.nonzero(src >= 0)[0]
+        if f_hit.size:
+            hsrc = src[f_hit]
+            needs_bind[f_hit] = prevm["f_needs_bind"][hsrc]
+            cores_needed[f_hit] = prevm["f_cores"][hsrc]
+            full_pcpus[f_hit] = prevm["f_fullp"][hsrc]
+            needs_numa[f_hit] = prevm["f_needs_numa"][hsrc]
+            vol_needed[f_hit] = prevm["f_vol"][hsrc]
+            has_aff[f_hit] = prevm["f_aff"][hsrc]
+            has_ports[f_hit] = prevm["f_ports"][hsrc]
+            has_img[f_hit] = prevm["f_img"][hsrc]
+            has_npref[f_hit] = prevm["f_npref"][hsrc]
+            flag_done[f_hit] = True
+            # cached masks are valid only under the SAME admission grouping
+            # and PVC/PV/StorageClass epoch, and only for volume-less pods
+            # (pvc carriers fold VolumeZone/VolumeBinding state into theirs)
+            if prevm.get("mask_epoch") == (adm_seq, cache.pvcpv_epoch):
+                # pre-packed rows (pack overlap) carry mask_valid=False:
+                # their flag/pack columns are exact but the admission
+                # mask is keyed on THIS build's grouping, so it
+                # recomputes below
+                mvalid = prevm.get("mask_valid")
+                m_ok = prevm["f_vol"][hsrc] == 0.0
+                if mvalid is not None:
+                    m_ok = m_ok & mvalid[hsrc].astype(bool)
+                m_hit = f_hit[m_ok]
+                if m_hit.size:
+                    pod_taint_mask[m_hit] = prevm["mask"][src[m_hit]]
+                    mask_done[m_hit] = True
+    for i in np.nonzero(~(flag_done & mask_done))[0]:
+        key = pods.keys[i]
+        pod = pods_by_key_pending[key]
+        if not flag_done[i]:
+            flags = cache.pod_flag(pod) if cache is not None else None
+            if flags is not None:
+                (needs_bind[i], cores_needed[i], full_pcpus[i],
+                 needs_numa[i], vol_needed[i], has_aff[i], has_ports[i],
+                 has_img[i], has_npref[i]) = flags
+            else:
+                flags = _pod_flag_tuple(pod)
+                (needs_bind[i], cores_needed[i], full_pcpus[i],
+                 needs_numa[i], vol_needed[i], has_aff[i], has_ports[i],
+                 has_img[i], has_npref[i]) = flags
+                if cache is not None:
+                    cache.put_pod_flag(pod, flags)
+        if mask_done[i]:
+            continue
+        if key in vb_reason_by_key:
+            # VolumeBinding PreFilter rejection (missing claim/class,
+            # unbound immediate claim, claim satisfiable nowhere): no
+            # group admits the pod, and the cycle surfaces the reason on
+            # the pod's condition (upstream PreFilter unschedulable status)
+            pod_taint_mask[i] = 0.0
+            pods.unschedulable_reasons[i] = vb_reason_by_key[key]
+        else:
+            mask = (cache.pod_mask(pod, adm_seq)
+                    if cache is not None else None)
+            if mask is not None:
+                pod_taint_mask[i] = mask
+            else:
+                pod_taint_mask[i] = admission_mask(
+                    pod, admission_groups,
+                    zone_pairs_by_key.get(key, frozenset()),
+                    any_of_sets=vb_any_of_by_key.get(key, ()))
+                if cache is not None:
+                    cache.put_pod_mask(pod, adm_seq,
+                                       float(pod_taint_mask[i]))
     # quota ids resolve only after the tree exists — one vectorized
     # unique-name map over the packed quota column
     fill_ids_from_names(pods.quota_id, pods.quota_names[:n_valid], quota_ids)
+    if cache is not None and cache.pack_memo is not None:
+        memo = cache.pack_memo
+        memo["f_needs_bind"] = needs_bind[:n_valid].copy()
+        memo["f_cores"] = cores_needed[:n_valid].copy()
+        memo["f_fullp"] = full_pcpus[:n_valid].copy()
+        memo["f_needs_numa"] = needs_numa[:n_valid].copy()
+        memo["f_vol"] = vol_needed[:n_valid].copy()
+        memo["f_aff"] = has_aff[:n_valid].copy()
+        memo["f_ports"] = has_ports[:n_valid].copy()
+        memo["f_img"] = has_img[:n_valid].copy()
+        memo["f_npref"] = has_npref[:n_valid].copy()
+        memo["mask"] = pod_taint_mask[:n_valid].copy()
+        # build-written masks are all valid; the in-window pre-pack
+        # appends rows with mask_valid=False (see prepack_pending_rows)
+        memo["mask_valid"] = np.ones(n_valid, bool)
+        memo["mask_epoch"] = (adm_seq, cache.pvcpv_epoch)
+
     # ---- nodes
-    nodes = pack_nodes(state.nodes, assigned_requests=state.assigned_requests)
-    N = nodes.padded_size
-    nodes.extras = build_loadaware_node_state(
-        state.nodes,
-        state.node_metrics,
-        state.pods_by_key,
-        state.assigned,
-        args,
-        state.now,
-        pad_to=N,
-    )
+    if cache is not None:
+        from koordinator_tpu_torch.ops.packing import NodeBatch, bucket_size
+
+        N = bucket_size(len(state.nodes))
+        cache.node_layout(state.nodes, N)
+        alloc_m = cache.alloc_matrix(state.nodes)
+        requested_m = np.zeros((N, NUM_RESOURCES), np.float32)
+        for name, vec in state.assigned_requests.items():
+            idx_n = cache.node_index.get(name)
+            if idx_n is not None:
+                requested_m[idx_n] = vec
+        valid_m = np.zeros(N, bool)
+        valid_m[: len(state.nodes)] = True
+        nodes = NodeBatch(
+            names=[nd.meta.name for nd in state.nodes],
+            allocatable=alloc_m, requested=requested_m, valid=valid_m)
+        nodes.extras = cache.loadaware_extras(state, args, N)
+    else:
+        nodes = pack_nodes(state.nodes,
+                           assigned_requests=state.assigned_requests)
+        N = nodes.padded_size
+        nodes.extras = build_loadaware_node_state(
+            state.nodes,
+            state.node_metrics,
+            state.pods_by_key,
+            state.assigned,
+            args,
+            state.now,
+            pad_to=N,
+        )
     node_taint_group = np.zeros(N, np.int32)  # padding: empty set
     node_taint_group[: len(node_taint_ids)] = node_taint_ids
-    numa_free = np.zeros((N, MAX_NUMA, NUM_RESOURCES), np.float32)
-    numa_capacity = np.zeros((N, MAX_NUMA, NUM_RESOURCES), np.float32)
-    numa_policy = np.full(N, POLICY_NONE, np.int32)
-    has_topology = np.zeros(N, bool)
-    bind_free = np.zeros(N, np.float32)
-    cpus_per_core = np.ones(N, np.float32)
-    # zone capacities via ONE wire-matrix fill + scale + scatter (not a
-    # per-zone to_vector allocation: ~2 zones x every topology node)
-    zone_at: List[Tuple[int, int]] = []
-    zone_lists: List = []
-    topo_nodes: List[int] = []
-    for i, node in enumerate(state.nodes):
-        topo_cr = state.topologies.get(node.meta.name)
-        if topo_cr is not None and topo_cr.cpus:
-            topo_nodes.append(i)
-            has_topology[i] = True
-            numa_policy[i] = POLICY_BY_NAME.get(
-                resolve_numa_policy(node.meta.labels,
-                                    topo_cr.kubelet_cpu_manager_policy),
-                POLICY_NONE)
-            for zone in topo_cr.zones:
-                if 0 <= zone.numa_id < MAX_NUMA:
-                    zone_at.append((i, zone.numa_id))
-                    zone_lists.append(zone.allocatable)
-    if zone_at:
-        zmat = ResourceList.pack_wire_matrix(zone_lists)
-        idx = np.asarray(zone_at)
-        numa_capacity[idx[:, 0], idx[:, 1]] = zmat
-    for i in topo_nodes:
-        node = state.nodes[i]
-        name = node.meta.name
-        alloc = state.numa_allocated.get(name)
-        numa_free[i] = numa_capacity[i] - (alloc if alloc is not None else 0.0)
-        cpu_state = state.cpu_states.get(name)
-        if cpu_state is not None:
-            bind_free[i] = cpu_state.num_available()
-            cpus_per_core[i] = cpu_state.topology.cpus_per_core
-        else:
-            bind_free[i] = numa_free[i, :, CPU_IDX].sum() / 1000.0
-            cpus_per_core[i] = 2.0
-    # no topology: NUMA admission passes only via POLICY_NONE; spread the
-    # node allocatable into one virtual zone so zero-topology clusters
-    # still quota-fit (vectorized over the non-topology rows)
-    no_topo = np.nonzero(~has_topology[: len(state.nodes)])[0]
-    if no_topo.size:
-        numa_capacity[no_topo, 0] = nodes.allocatable[no_topo]
-        numa_free[no_topo, 0] = (nodes.allocatable[no_topo]
-                                 - nodes.requested[no_topo])
+    if cache is not None:
+        na = cache.numa_arrays(state, nodes.requested, N)
+        numa_free = na["numa_free"]
+        numa_capacity = na["numa_capacity"]
+        numa_policy = na["numa_policy"]
+        has_topology = na["has_topology"]
+        bind_free = na["bind_free"]
+        cpus_per_core = na["cpus_per_core"]
+    else:
+        numa_free = np.zeros((N, MAX_NUMA, NUM_RESOURCES), np.float32)
+        numa_capacity = np.zeros((N, MAX_NUMA, NUM_RESOURCES), np.float32)
+        numa_policy = np.full(N, POLICY_NONE, np.int32)
+        has_topology = np.zeros(N, bool)
+        bind_free = np.zeros(N, np.float32)
+        cpus_per_core = np.ones(N, np.float32)
+        # zone capacities via ONE wire-matrix fill + scale + scatter (not a
+        # per-zone to_vector allocation: ~2 zones x every topology node)
+        zone_at: List[Tuple[int, int]] = []
+        zone_lists: List = []
+        topo_nodes: List[int] = []
+        for i, node in enumerate(state.nodes):
+            topo_cr = state.topologies.get(node.meta.name)
+            if topo_cr is not None and topo_cr.cpus:
+                topo_nodes.append(i)
+                has_topology[i] = True
+                numa_policy[i] = POLICY_BY_NAME.get(
+                    resolve_numa_policy(node.meta.labels,
+                                        topo_cr.kubelet_cpu_manager_policy),
+                    POLICY_NONE)
+                for zone in topo_cr.zones:
+                    if 0 <= zone.numa_id < MAX_NUMA:
+                        zone_at.append((i, zone.numa_id))
+                        zone_lists.append(zone.allocatable)
+        if zone_at:
+            zmat = ResourceList.pack_wire_matrix(zone_lists)
+            idx = np.asarray(zone_at)
+            numa_capacity[idx[:, 0], idx[:, 1]] = zmat
+        for i in topo_nodes:
+            node = state.nodes[i]
+            name = node.meta.name
+            alloc = state.numa_allocated.get(name)
+            numa_free[i] = numa_capacity[i] - (alloc if alloc is not None else 0.0)
+            cpu_state = state.cpu_states.get(name)
+            if cpu_state is not None:
+                bind_free[i] = cpu_state.num_available()
+                cpus_per_core[i] = cpu_state.topology.cpus_per_core
+            else:
+                bind_free[i] = numa_free[i, :, CPU_IDX].sum() / 1000.0
+                cpus_per_core[i] = 2.0
+        # no topology: NUMA admission passes only via POLICY_NONE; spread the
+        # node allocatable into one virtual zone so zero-topology clusters
+        # still quota-fit (vectorized over the non-topology rows)
+        no_topo = np.nonzero(~has_topology[: len(state.nodes)])[0]
+        if no_topo.size:
+            numa_capacity[no_topo, 0] = nodes.allocatable[no_topo]
+            numa_free[no_topo, 0] = (nodes.allocatable[no_topo]
+                                     - nodes.requested[no_topo])
 
     # inter-pod (anti-)affinity factorization (ops/podaffinity.py): the
     # batch's distinct terms -> per-node domain/count state + per-pod term
@@ -487,11 +726,14 @@ def build_full_chain_inputs(
             "hostPort slot budget exceeded for this round")
         ENCODING_OVERFLOW_PODS.inc(kind="port_slots")
     vol_free = np.full(N, np.inf, np.float32)
-    attached: Dict[str, set] = {}
-    for pod in existing:
-        if pod.spec.pvc_names:
-            attached.setdefault(pod.spec.node_name, set()).update(
-                f"{pod.meta.namespace}/{c}" for c in pod.spec.pvc_names)
+    if cache is not None:
+        attached: Dict[str, set] = cache.attached_sets()
+    else:
+        attached = {}
+        for pod in existing:
+            if pod.spec.pvc_names:
+                attached.setdefault(pod.spec.node_name, set()).update(
+                    f"{pod.meta.namespace}/{c}" for c in pod.spec.pvc_names)
     for i, node in enumerate(state.nodes):
         if node.attachable_volume_limit > 0:
             vol_free[i] = node.attachable_volume_limit - len(
@@ -610,4 +852,8 @@ def build_full_chain_inputs(
         gang_valid=np.asarray(gang_valid),
         gang_group_id=np.asarray(gang_group),
     )
+    if cache is not None:
+        # clear dirty sets NOW: binding mutations after this point must
+        # re-dirty for the NEXT cycle, not be swallowed by a later clear
+        cache.end_build()
     return fc, pods, nodes, tree, gang_index, ng, ng

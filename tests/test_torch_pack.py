@@ -125,7 +125,10 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.testing, "
             "koordinator_tpu_torch.ops.full_chain_kernel, "
             "koordinator_tpu_torch.ops.schedule_kernel, "
-            "koordinator_tpu_torch.scheduler.parity\n"
+            "koordinator_tpu_torch.scheduler.parity, "
+            "koordinator_tpu_torch.scheduler.cycle, "
+            "koordinator_tpu_torch.scheduler.snapshot_cache, "
+            "koordinator_tpu_torch.testing.churn\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"
