@@ -26,6 +26,38 @@ Phases, one JSON line each:
           gives (dtype and value, field by field), and a fresh one must
           scatter rows on the card into a clone while a round is in
           flight and in place after it.
+  scheduler_waves  config 4 through the Scheduler's default path: waves
+          "auto" (K = 8 at cycle 0's 10000 pending pods, 4 at the churn
+          cycles' ~1126) with replay overlap on, the chained dispatch (each
+          wave's evaluation in the full-chain kernel, its kept-only replay
+          in the kernel's replay instance, the host replaying wave w while
+          the card runs wave w+1). Three stores from churn_store(5000,
+          10000, seed=42): (a) Scheduler(store, device="cuda") with its
+          defaults, (b) the same with replay_overlap=False (all K waves in
+          one call), (c) Scheduler(store, waves=1, device="cuda") running as
+          many serial cycles as (a) consumed (CycleResult.waves), through
+          cycle 0 and 1 warm-up + 3 measured churn cycles of 1000 arrivals.
+          The concatenated bound sequences and failed/rejected lists must be
+          identical every round, and the canonical dumps after a final flush.
+          Prints the K each cycle resolved to, the device waves run and the
+          per-wave bound counts and device ms, cycle ms and span splits of
+          (a) and (b), both kernels' launches, and the replay instance alone
+          at cycle 0's kept set (CUDA events, median of 10) against the
+          plain replay_kept on the card, bit for bit, with its state in
+          shared memory and again in device memory (smem_budget_bytes=0,
+          the replay_global line).
+  scheduler_waves_mixed  the mixed cluster (1000 x 2000) with default
+          waves on the card and in a CPU twin (the plain wave step): the
+          canonical dumps must be identical after each of 3 cycles. As
+          mixed_cluster builds it, the world's shared claims overflow the
+          volume-group budget and the cycle demotes to serial dispatch
+          (claim-entangled, checked first), so the twins keep the shared
+          claims of 8 pending pods and drop the others' claims.
+  waves_carried  scheduler/pipeline_parity.run_carried_state_parity on the
+          card for the reservation, claim, prod-usage and transformer
+          worlds: each must report ok and a fused dispatch that ran more
+          than one wave. Also the shared memory a config-4 launch takes
+          with a claim world's [P, N] volume view.
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -93,6 +125,7 @@ from koordinator_tpu_torch.models.convert import (
     schedule_inputs_from_numpy,
     to_device,
 )
+from koordinator_tpu_torch.models import fused_waves
 from koordinator_tpu_torch.models.full_chain import (
     build_full_chain_step,
     resolve_balance_idx,
@@ -104,8 +137,13 @@ from koordinator_tpu_torch.models.scheduler_model import (
 )
 from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops import schedule_kernel as sk
-from koordinator_tpu_torch.ops.kernel_common import BUILD_LOG, build_libraries
+from koordinator_tpu_torch.ops.kernel_common import (
+    BUILD_LOG,
+    SMEM_BUDGET_BYTES,
+    build_libraries,
+)
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.scheduler import pipeline_parity
 from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
 from koordinator_tpu_torch.scheduler.parity import serial_schedule
 from koordinator_tpu_torch.scheduler.snapshot_cache import DeviceSnapshot
@@ -143,6 +181,10 @@ CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
                "kernel", "bind", "diagnose", "overlap_wait", "prepack",
                "store_flush")
 NESTED_SPANS = ("pack_incremental", "upload", "readback")
+# the fused path adds the chained replay's span (wave_replay children)
+WAVE_SPANS = CYCLE_SPANS + ("replay_drain",)
+# the default-waves phase: cycle 0, then warm-up and measured churn cycles
+WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 3
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -345,12 +387,16 @@ def run_generic(device):
               "loadaware_max_abs_err": la_err})
 
 
-def span_split(sched) -> dict:
+def last_cycle_root(sched):
+    return [r for r in sched.tracer.roots() if r.name == "cycle"][-1]
+
+
+def span_split(sched, names=CYCLE_SPANS) -> dict:
     """Milliseconds per span of the scheduler's last cycle: each direct
     child of the cycle root (summed by name), the upload/readback and
     pack_incremental children, and the rest of the cycle."""
-    root = [r for r in sched.tracer.roots() if r.name == "cycle"][-1]
-    out = {name: 0.0 for name in CYCLE_SPANS + NESTED_SPANS}
+    root = last_cycle_root(sched)
+    out = {name: 0.0 for name in names + NESTED_SPANS}
     for child in root.children:
         if child.name in out:
             out[child.name] += child.duration_seconds * 1e3
@@ -358,7 +404,7 @@ def span_split(sched) -> dict:
             if sub.name in NESTED_SPANS:
                 out[sub.name] += sub.duration_seconds * 1e3
     out["rest"] = root.duration_seconds * 1e3 - sum(
-        out[name] for name in CYCLE_SPANS)
+        out[name] for name in names)
     out["cycle"] = root.duration_seconds * 1e3
     return out
 
@@ -601,11 +647,374 @@ def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
     return launches
 
 
+def wave_cycle(tag, sched, now):
+    """One cycle of ``sched`` with the launch counts set to 0 just before
+    it and read just after. On the card the cycle must have run its rounds
+    in the full-chain kernel, and a fused dispatch (K > 1) its kept-only
+    replays in the replay instance, one of each per device wave. Returns
+    (result, wall seconds, launches, the K the cycle resolved to)."""
+    d0 = sched.dispatches
+    fck.launches = fck.replay_launches = sk.launches = 0
+    t0 = time.perf_counter()
+    res = sched.run_cycle(now=now)
+    wall = time.perf_counter() - t0
+    launches = {"full_chain": fck.launches,
+                "full_chain_replay": fck.replay_launches,
+                "schedule_step": sk.launches}
+    kspan = last_cycle_root(sched).find("kernel")
+    k = int(kspan.attributes.get("waves", "1")) if kspan else 1
+    if sched.device.type == "cuda" and (
+            sched.last_backend != "cuda" or sched.dispatches - d0 < 1
+            or sk.launches != 0 or fck.launches < fck.replay_launches
+            or (k > 1 and fck.replay_launches < 1)
+            or (k == 1 and fck.replay_launches != 0)):
+        raise AssertionError(f"{tag}: K {k}, backend {sched.last_backend}, "
+                             f"launches {launches}")
+    return res, wall, launches, k
+
+
+def wave_detail(sched) -> dict:
+    """The last cycle's waves: the chained replay's per-logical-cycle
+    spans (bound, the wave's device ms), its waits for later waves' rows,
+    and the single-call twin's wave markers under the kernel span
+    (bound)."""
+    root = last_cycle_root(sched)
+    kspan = root.find("kernel")
+    return {
+        "kernel_span_ms": kspan.duration_seconds * 1e3 if kspan else None,
+        "wave_replay": [
+            {"bound": int(sp.attributes["bound"]),
+             "device_ms": (float(sp.attributes["device_ms"])
+                           if "device_ms" in sp.attributes else None)}
+            for sp in root.find_all("wave_replay")],
+        "waves": [int(sp.attributes["bound"])
+                  for sp in (kspan.find_all("wave") if kspan else [])],
+        # the host's wait for a later wave's rows after replaying the one
+        # before: near 0 where the card finished it during the replay
+        "later_wave_wait_ms": [
+            sp.duration_seconds * 1e3 for sp in root.find_all("overlap_wait")
+            if "wave" in sp.attributes],
+    }
+
+
+def clone_fc(fc):
+    return type(fc)(type(fc.base)(*(t.clone() for t in fc.base)),
+                    *(t.clone() for t in fc[1:]))
+
+
+def replay_bound(fc, n_kept: int, n_numa: int):
+    """(bytes ms, operations ms) of one kept-only replay on these inputs:
+    the kept pods' records, ``chosen`` and the carried state read once,
+    the state and the zones written once; per kept pod the Reserve's f32
+    operations (csrc/full_chain.cu): requested R, the LoadAware sums R,
+    bindable cpus and volume headroom 2, the quota chain D x R, and for a
+    pod with NUMA needs the zone fits K x R and the fill 3 x K x R."""
+    P, R = fc.base.fit_requests.shape
+    N = fc.base.allocatable.shape[0]
+    K = fc.numa_free.shape[1]
+    G, D = fc.quota_ancestors.shape
+    T, PT = fc.aff_dom.shape[1], fc.port_used.shape[1]
+    VG = fc.vol_needed.shape[1]
+    stride = fck.record_layout(R, T, PT, VG)["rec_stride"]
+    state = N * (3 * R + K * R + 2 + PT + 2 * T) + G * R + T
+    nbytes = n_kept * stride * 4 + P * 4 + 2 * state * 4 + P * 4
+    ops = n_kept * (2 * R + 2 + D * R) + n_numa * 4 * K * R
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+
+
+def replay_mismatch(out_k, zones_k, out_p, zones_p):
+    """(values that differ, max |err| over finite values) between a replay
+    kernel's (state, zones) and the plain replay's."""
+    mism = int((zones_k != zones_p).sum())
+    err = 0.0
+    for a, b in zip(out_k, out_p):
+        if a.dtype == torch.bool:
+            mism += int((a != b).sum())
+            continue
+        # bit for bit: equal values are not enough where a -0.0 hides, and
+        # a node without a volume limit carries +inf headroom
+        mism += int((a.view(torch.int32) != b.view(torch.int32)).sum())
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        if fin.any():
+            err = max(err, float((a[fin] - b[fin]).abs().max()))
+    return mism, err
+
+
+def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
+    """Config 4 through Scheduler(store) with its defaults (auto waves,
+    chained dispatch), against the single-call twin and the serial twin;
+    then the replay instance alone at cycle 0's kept set against the plain
+    replay on the card. Returns (the default twin's launches, the replay
+    instance's kernels-line entry, cycle 0's first-wave inputs)."""
+    arrivals = n_pods // 10
+    t0 = time.perf_counter()
+    (store_a, state), (store_b, _s2), (store_c, _s3) = (
+        churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
+    chained = Scheduler(store_a, device=device)
+    fused = Scheduler(store_b, device=device, replay_overlap=False)
+    serial = Scheduler(store_c, waves=1, device=device)
+    if chained.waves_spec != "auto" or not chained.replay_overlap:
+        raise AssertionError("scheduler_waves: the defaults are not auto "
+                             "waves with replay overlap")
+    fixture_s = time.perf_counter() - t0
+    # the replay's inputs at cycle 0's first wave, for the timing below
+    captured = {}
+    real_replay = fck.full_chain_replay
+
+    def spy(fc_carry, chosen, kept, state_, prod_mode, **kw):
+        if not captured:
+            captured["args"] = (
+                clone_fc(fc_carry), chosen.clone(), kept.clone(),
+                tuple(t.clone() for t in state_), prod_mode)
+        return real_replay(fc_carry, chosen, kept, state_, prod_mode, **kw)
+
+    now = state.now
+    total = {"full_chain": 0, "full_chain_replay": 0}
+    rows, walls = [], {"chained": [], "fused": [], "serial": []}
+    splits = {"chained": [], "fused": []}
+    cycle0 = {}
+    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
+        if c:
+            specs = arrival_specs(c, arrivals)
+            for store in (store_a, store_b, store_c):
+                add_arrivals(store, specs, now + c)
+        t = now + 2 * c
+        fck.full_chain_replay = spy if c == 0 else real_replay
+        try:
+            res_a, wall_a, la, k_a = wave_cycle(
+                f"scheduler_waves cycle {c} chained", chained, t)
+        finally:
+            fck.full_chain_replay = real_replay
+        detail_a = wave_detail(chained)
+        split_a = span_split(chained, WAVE_SPANS)
+        res_b, wall_b, lb, k_b = wave_cycle(
+            f"scheduler_waves cycle {c} fused", fused, t)
+        detail_b = wave_detail(fused)
+        split_b = span_split(fused, WAVE_SPANS)
+        if (k_a, res_a.waves) != (k_b, res_b.waves):
+            raise AssertionError(f"scheduler_waves cycle {c}: K/waves differ "
+                                 f"({k_a}, {res_a.waves}) vs ({k_b}, "
+                                 f"{res_b.waves})")
+        keys = {"chained": result_key(res_a), "fused": result_key(res_b)}
+        ser_key = ([], [], [])
+        wall_c = 0.0
+        for _w in range(res_a.waves):
+            res_c, wall, _n, _gc = checked_cycle(
+                f"scheduler_waves cycle {c} serial", serial,
+                serial.run_cycle, t)
+            wall_c += wall
+            for part, got in zip(ser_key, result_key(res_c)):
+                part.extend(got)
+        keys["serial"] = ser_key
+        if not (keys["chained"] == keys["fused"] == keys["serial"]):
+            raise AssertionError(f"scheduler_waves cycle {c}: twins disagree")
+        if not keys["chained"][0]:
+            raise AssertionError(f"scheduler_waves cycle {c}: nothing bound")
+        for key in total:
+            total[key] += la[key]
+        rows.append({"cycle": c, "K": k_a, "logical_cycles": res_a.waves,
+                     "device_waves": la["full_chain_replay"],
+                     "bound": len(res_a.bound), "failed": len(res_a.failed),
+                     "rejected": len(res_a.rejected),
+                     "launches_chained": la, "launches_fused": lb,
+                     "chained": detail_a, "fused": detail_b,
+                     "chained_ms": wall_a * 1e3, "fused_ms": wall_b * 1e3,
+                     "serial_ms": wall_c * 1e3,
+                     "chained_kernel_seconds_ms": res_a.kernel_seconds * 1e3,
+                     "fused_kernel_seconds_ms": res_b.kernel_seconds * 1e3})
+        if c == 0:
+            cycle0 = {"chained_spans_ms": split_a, "fused_spans_ms": split_b}
+        elif c > WAVE_CHURN_WARMUP:
+            walls["chained"].append(wall_a)
+            walls["fused"].append(wall_b)
+            walls["serial"].append(wall_c)
+            splits["chained"].append(split_a)
+            splits["fused"].append(split_b)
+    for sched in (chained, fused):
+        sched.flush_deferred()
+    dumps = [cycle_dump(s) for s in (chained, fused, serial)]
+    if not (dumps[0] == dumps[1] == dumps[2]):
+        raise AssertionError("scheduler_waves: the final dumps differ")
+    if n_pods == 10000 and (rows[0]["K"] != 8
+                            or any(r["K"] != 4 for r in rows[1:])):
+        raise AssertionError(f"scheduler_waves: K per cycle "
+                             f"{[r['K'] for r in rows]}, expected 8 then 4")
+
+    # ---- the replay instance alone at cycle 0's first wave
+    fc_c, chosen, kept, state0, prod = captured["args"]
+    n_kept = int(kept.sum())
+    n_numa = int((kept & fc_c.needs_numa).sum())
+    replay_ms = time_cuda(
+        lambda: real_replay(fc_c, chosen, kept, state0, prod), REPS)
+    out_k, zones_k = real_replay(fc_c, chosen, kept, state0, prod)
+    launch = launch_fields(fck)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, zones_p = fused_waves.replay_kept(fc_c, prod, state0, chosen,
+                                             kept)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mism, err = replay_mismatch(out_k, zones_k, out_p, zones_p)
+    if mism or err != 0.0:
+        raise AssertionError(f"replay kernel disagrees with replay_kept: "
+                             f"{mism} values differ, max |err| {err}")
+    # the same replay with its carried state in device memory: the instance
+    # a shape past the shared-memory budget takes on its own
+    global_ms = time_cuda(
+        lambda: real_replay(fc_c, chosen, kept, state0, prod,
+                            smem_budget_bytes=0), REPS)
+    out_g, zones_g = real_replay(fc_c, chosen, kept, state0, prod,
+                                 smem_budget_bytes=0)
+    launch_g = launch_fields(fck)
+    if launch_g["state"] != "global":
+        raise AssertionError(f"replay with a zero budget kept its state in "
+                             f"{launch_g['state']}")
+    mism_g, err_g = replay_mismatch(out_g, zones_g, out_p, zones_p)
+    if mism_g or err_g != 0.0:
+        raise AssertionError(f"device-memory replay disagrees with "
+                             f"replay_kept: {mism_g} values differ, max "
+                             f"|err| {err_g}")
+    bytes_ms, ops_ms = replay_bound(fc_c, n_kept, n_numa)
+    t_chained = statistics.median(walls["chained"])
+    emit({"phase": "scheduler_waves", "nodes": n_nodes, "pods": n_pods,
+          "arrivals_per_cycle": arrivals,
+          "warmup_cycles": WAVE_CHURN_WARMUP,
+          "measured_cycles": WAVE_CHURN_MEASURED,
+          "fixture_seconds": round(fixture_s, 3),
+          "twins_identical_every_cycle": True, "final_dumps_identical": True,
+          "launches": total, "cycles": rows,
+          "cycle_ms": t_chained * 1e3,
+          "cycle_ms_each": [w * 1e3 for w in walls["chained"]],
+          "fused_cycle_ms": statistics.median(walls["fused"]) * 1e3,
+          "serial_round_ms": statistics.median(walls["serial"]) * 1e3,
+          "pods_per_second": arrivals / t_chained,
+          "spans_ms": median_split(splits["chained"]),
+          "fused_spans_ms": median_split(splits["fused"]),
+          "cycle0": cycle0,
+          "replay": {"P": int(kept.shape[0]), "kept": n_kept,
+                     "kept_numa": n_numa, **launch, "kernel_ms": replay_ms,
+                     "plain_ms": plain_ms, "mismatches": mism,
+                     "max_abs_err": err, "bound_bytes_ms": bytes_ms,
+                     "bound_ops_ms": ops_ms},
+          "replay_global": {**launch_g, "kernel_ms": global_ms,
+                            "mismatches": mism_g, "max_abs_err": err_g}})
+    entry = kernel_entry(
+        "full_chain_replay", "full_chain.cu",
+        "koordinator_tpu/models/fused_waves.py:527 (an XLA fori_loop, no "
+        "TPU kernel)", total["full_chain_replay"], mism, err, replay_ms,
+        plain_ms, bytes_ms, ops_ms)
+    return total, entry, fc_c
+
+
+def keep_shared_claims(state, keep):
+    """Drop the claims of every pending pod past the first ``keep`` that
+    shares a running pod's claim. At full size the mixed cluster's shared
+    claims attach to more node groups than the volume-group budget holds,
+    and the Scheduler (like the JAX one) demotes such a batch to serial
+    dispatch (claim-entangled). Returns the count of pods left sharing."""
+    running = {c for p in state.pods_by_key.values() if p.is_assigned
+               for c in p.spec.pvc_names}
+    kept = 0
+    for pod in state.pending_pods:
+        if pod.spec.pvc_names and running.intersection(pod.spec.pvc_names):
+            if kept < keep:
+                kept += 1
+            else:
+                pod.spec.pvc_names = []
+    return kept
+
+
+def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
+    """The mixed cluster with default waves on the card and in a CPU twin
+    (the plain wave step): identical worlds after every cycle. The world as
+    mixed_cluster builds it demotes to serial dispatch (checked here), so
+    its shared claims are cut to 8 pods first."""
+    _c, state = mixed_cluster(101, n_nodes, n_pods)
+    res = Scheduler(store_from_state(state), device=device).run_cycle(
+        now=state.now)
+    if res.demotions != ["claim-entangled"] or res.waves != 1:
+        raise AssertionError(f"scheduler_waves_mixed: the untrimmed world "
+                             f"gave {res.demotions}, K {res.waves}")
+    res0 = res
+    worlds = []
+    for dev in (device, "cpu"):
+        _c, state = mixed_cluster(101, n_nodes, n_pods)
+        sharing = keep_shared_claims(state, 8)
+        store = store_from_state(state)
+        worlds.append((store, Scheduler(store, device=dev)))
+    now = state.now
+    launches = {"full_chain": 0, "full_chain_replay": 0}
+    ks, walls = [], {device: [], "cpu": []}
+    for c in range(3):
+        if c:
+            specs = arrival_specs(c, n_pods // 10)
+            for store, _s in worlds:
+                add_arrivals(store, specs, now + c)
+        keys, dumps = [], []
+        for store, sched in worlds:
+            res, wall, n, k = wave_cycle(f"scheduler_waves_mixed cycle {c}",
+                                         sched, now + 2 * c)
+            if sched is worlds[0][1]:
+                ks.append(k)
+                for key in launches:
+                    launches[key] += n[key]
+            walls[sched.device.type].append(wall)
+            keys.append(result_key(res) + ([res.waves],))
+            dumps.append(cycle_dump(sched))
+        if keys[0] != keys[1] or dumps[0] != dumps[1]:
+            raise AssertionError(
+                f"scheduler_waves_mixed cycle {c}: the card's world differs "
+                "from the plain wave step's")
+    if ks[0] < 2 or launches["full_chain_replay"] < 1:
+        raise AssertionError(f"scheduler_waves_mixed: K {ks}, launches "
+                             f"{launches}")
+    pods = dumps[0]["pods"]
+    emit({"phase": "scheduler_waves_mixed", "nodes": n_nodes, "pods": n_pods,
+          "cycles": 3, "K": ks, "dumps_identical_every_cycle": True,
+          "untrimmed_demotions": res0.demotions,
+          "pods_sharing_claims": sharing, "launches": launches,
+          "cuda_cycle_seconds": walls[device],
+          "cpu_cycle_seconds": walls["cpu"],
+          "pods_bound": sum(1 for v in pods.values() if v[0])})
+
+
+def run_waves_carried(device, fc4):
+    """The carried-state worlds on the card, each against its serial twin;
+    then the shared memory of a config-4 launch whose records carry a
+    claim world's [P, N] volume view."""
+    reports = []
+    for feature in ("reservations", "claims", "prod", "transformer"):
+        fck.launches = fck.replay_launches = 0
+        report = pipeline_parity.run_carried_state_parity(feature,
+                                                          device=device)
+        report["launches"] = {"full_chain": fck.launches,
+                              "full_chain_replay": fck.replay_launches}
+        if (not report["ok"] or report["fused_engaged"] < 1
+                or fck.replay_launches < 1):
+            raise AssertionError(f"waves_carried {feature}: {report}")
+        reports.append(report)
+    P = fc4.base.fit_requests.shape[0]
+    N = fc4.base.allocatable.shape[0]
+    dev = fc4.vol_needed.device
+    claims_fc = fc4._replace(
+        vol_needed=torch.zeros((P, N), device=dev),
+        node_vol_group=torch.arange(N, dtype=torch.int32, device=dev))
+    kind, _plan, smem = fck.state_for(claims_fc, (0, 1))
+    if smem > SMEM_BUDGET_BYTES:
+        raise AssertionError("waves_carried: a claim-world launch does not "
+                             "fit a block")
+    emit({"phase": "waves_carried", "reports": reports,
+          "claims_full_size": {"P": int(P), "N": int(N), "VG": int(N),
+                               "state": kind, "smem_bytes_per_block": smem,
+                               "budget": SMEM_BUDGET_BYTES}})
+
+
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
                  bytes_ms, ops_ms, **extra):
     """One kernel's entry of the kernels line. No PyTorch call computes
-    either serial round, so library_ms is null. ``extra`` adds keys (the
-    full chain's launches on the scheduler path)."""
+    either serial round, nor the kept-only replay, so library_ms is null.
+    ``extra`` adds keys (the full chain's launches split by path: the
+    sidecar call, the serial Scheduler cycles, the waves' pass 1)."""
     return {**extra,
         "name": name,
         "route": "cuda",
@@ -739,6 +1148,10 @@ def main() -> int:
     # the kernel library)
     scheduler_launches = run_scheduler(device)
     run_scheduler_mixed(device)
+    # ---- the default path: auto waves, chained dispatch
+    wave_launches, replay_entry, fc4 = run_scheduler_waves(device)
+    run_scheduler_waves_mixed(device)
+    run_waves_carried(device, fc4)
 
     # ---- main path: BASELINE config 4 through the sidecar entry point
     n_nodes, n_pods = 5000, 10000
@@ -858,9 +1271,12 @@ def main() -> int:
     emit({"kernels": [
         kernel_entry("full_chain_round", "full_chain.cu",
                      "koordinator_tpu/ops/pallas_full_chain.py:90",
-                     main_launches, mism, err, kernel_ms, plain_ms, bytes_ms,
-                     ops_ms, launches_scheduler=scheduler_launches),
-        la_kernel]})
+                     main_launches + scheduler_launches
+                     + wave_launches["full_chain"], mism, err, kernel_ms,
+                     plain_ms, bytes_ms, ops_ms, launches_sidecar=main_launches,
+                     launches_scheduler=scheduler_launches,
+                     launches_waves=wave_launches["full_chain"]),
+        la_kernel, replay_entry]})
     print(card, flush=True)
     # count: the cards this script drives
     emit({"ok": True, "device": {"platform": "gpu",

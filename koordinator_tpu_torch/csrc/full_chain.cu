@@ -34,6 +34,15 @@
 // the pod-level verdict (gang, quota) is applied to the merged winner; the
 // owner thread reserves, every block updates its quota copy and its slice
 // of the affinity domain the same way.
+//
+// The replay instance (`kReplay`) is the fused waves' kept-only replay
+// (models/fused_waves.py, pass 2; the JAX package runs it as an XLA
+// fori_loop, fused_waves.py:527-559, with no TPU kernel): the pods that
+// survived the gang Permit, in queue order, each committed onto the node
+// pass 1 chose for it, from the wave-start state. No Filter, Score or
+// merge runs: the same Reserve code commits each pod, the owner re-picks
+// the NUMA zone under the replay state and writes it to `zones`, and no
+// pod waits on a barrier, since each block replays its own node slice.
 
 #include <cooperative_groups.h>
 
@@ -82,7 +91,7 @@ struct FullChainParams {
   const uint8_t* aff_exists0;  // [T]
   // ---- carried state (initialised by the wrapper, updated in place)
   float* requested;          // [N, R] (output)
-  float* delta_np;           // [N, W]
+  float* delta_np;           // [N, W] (the replay: W = R, every axis)
   float* delta_pr;           // [N, W]
   float* numa;               // [N, K, R]
   float* bind_free;          // [N]
@@ -91,7 +100,10 @@ struct FullChainParams {
   float* aff_count;          // [N, T]
   float* anti_cover;         // [N, T]
   float* quota_blocks;       // [C, G, R] block copies; block 0's is output
-  int32_t* chosen;           // [P] (output, before Permit; -1 preset)
+  int32_t* chosen;           // [P] (round: output, before Permit, -1
+                             // preset; replay: input, the node per pod)
+  int32_t* zones;            // [P] replay: the re-picked zone (output)
+  uint8_t* aff_exists_out;   // [T] the exists flags after the last pod
   // ---- sizes and static switches
   int P, N, R, K, G, D, T, S, S2, ppref_stride, PT, SI, VG;
   int prod_mode, bal_c, bal_m, n_widx;
@@ -99,7 +111,7 @@ struct FullChainParams {
   int rec_stride, off_fit, off_req, off_est, off_aff, off_anti, off_match,
       off_skew, off_ports, off_vol;
   // ---- cluster plan
-  int cluster_size, nodes_per_block, node_threads, state_in_smem;
+  int cluster_size, nodes_per_block, node_threads, state_in_smem, replay;
   int widx[kMaxWeights];
 };
 
@@ -171,7 +183,8 @@ __device__ __forceinline__ bool numa_admit(const koord::View& nf, int j,
 
 // kR, kK, kW > 0 fix R, K and the weighted-axis count at compile time, so
 // the node loop's short loops unroll completely; 0 reads them from `p`.
-template <bool kStateInSmem, int kR, int kK, int kW>
+// kReplay selects the kept-only replay (the records are the kept pods').
+template <bool kStateInSmem, int kR, int kK, int kW, bool kReplay>
 __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     full_chain_kernel(const FullChainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -263,7 +276,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   for (int t = tid; t < T; t += blockDim.x) aff_exists[t] = p.aff_exists0[t];
 
   const int nv = *p.n_valid;
-  if (ctrl && lane == 0) {
+  if (!kReplay && ctrl && lane == 0) {
     for (int s = 0; s < S + 2; ++s) koord::mbar_init(&bar[s], 1);
     koord::fence_mbar_init();
     for (int v = 0; v < S - 1 && v < nv; ++v)
@@ -277,8 +290,104 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   // every block has started and initialised its shared memory
   cluster.sync();
 
+  // ---- Reserve of the pod in `rec` on node best_n: the owner of the node
+  // updates its rows (and writes the NUMA zone it picked to zone_out, -1
+  // for a pod without NUMA needs), every block adds the quota along the
+  // ancestor chain to its own copy and raises the affinity counts over its
+  // slice of the node's domain. One piece of code for the round and the
+  // replay.
+  auto reserve = [&](const uint32_t* rec, int best_n, int32_t* zone_out) {
+    const uint32_t pf = rec[koord::kRecFlags];
+    const bool is_prod = pf & koord::kPodProd;
+    const bool needs_numa = pf & koord::kPodNuma;
+    const bool needs_bind = pf & koord::kPodBind;
+    const float cores = __uint_as_float(rec[kRecCores]);
+    const int qid = (int)rec[kRecQuota];
+    const float* fit_req = reinterpret_cast<const float*>(rec + p.off_fit);
+    const float* rq = reinterpret_cast<const float*>(rec + p.off_req);
+    const float* est = reinterpret_cast<const float*>(rec + p.off_est);
+    const uint32_t* anti_req = rec + p.off_anti;
+    const uint32_t* match = rec + p.off_match;
+    const uint32_t* wants = rec + p.off_ports;
+    const float* vneed = reinterpret_cast<const float*>(rec + p.off_vol);
+    int zone = -1;
+    const int jb = best_n - lo;
+    if (!ctrl && jb >= 0 && jb < nloc && jb % NT == tid) {
+      for (int r = 0; r < R; ++r)
+        req_v(jb, r) = __fadd_rn(req_v(jb, r), fit_req[r]);
+      for (int jj = 0; jj < W; ++jj) {
+        const float e = est[p.widx[jj]];
+        dnp_v(jb, jj) = __fadd_rn(dnp_v(jb, jj), e);
+        if (p.prod_mode && is_prod) dpr_v(jb, jj) = __fadd_rn(dpr_v(jb, jj), e);
+      }
+      if (needs_numa) {
+        // Only SingleNUMANode pins a zone; every other policy fills the
+        // lowest zones first (ops/numa.numa_spread_fill)
+        numa_admit(numa_v, jb, R, K, rq, __ldg(p.policy + best_n), zone);
+        if (zone >= 0) {
+          for (int r = 0; r < R; ++r)
+            numa_v(jb, zone * R + r) =
+                __fsub_rn(numa_v(jb, zone * R + r), rq[r]);
+        } else {
+          for (int r = 0; r < R; ++r) {
+            float remaining = rq[r];
+            for (int k = 0; k < K; ++k) {
+              const float take = fminf(numa_v(jb, k * R + r), remaining);
+              numa_v(jb, k * R + r) = __fsub_rn(numa_v(jb, k * R + r), take);
+              remaining = __fsub_rn(remaining, take);
+            }
+          }
+        }
+      }
+      if (needs_bind) bind_v(jb, 0) = __fsub_rn(bind_v(jb, 0), cores);
+      for (int s = 0; s < p.PT; ++s)
+        if (koord::bit_at(wants, s)) port_v(jb, s) = fmaxf(port_v(jb, s), 1.0f);
+      vol_v(jb, 0) =
+          __fsub_rn(vol_v(jb, 0), vneed[__ldg(p.vol_group + best_n)]);
+      if (zone_out != nullptr) *zone_out = zone;
+    }
+    // quota: every block adds along the ancestor chain to its own copy
+    if (ctrl) {
+      if (qid >= 0) {
+        for (int e = lane; e < D * R; e += 32) {
+          const int d = e / R, r = e - d * R;
+          const int g = anc[qid * D + d];
+          if (g >= 0) quota[g * R + r] = __fadd_rn(quota[g * R + r], rq[r]);
+        }
+      }
+      __syncwarp();
+    }
+    // affinity: raise matched terms' counts (and carried anti terms'
+    // covers) over the chosen node's whole domain, each block over its own
+    // slice; every thread latches the exists flags it reads itself
+    for (int t = 0; t < T; ++t) {
+      const bool m = koord::bit_at(match, t), a = koord::bit_at(anti_req, t);
+      if (!m && !a) continue;
+      if (m) aff_exists[t] = 1;
+      if (ctrl) continue;
+      const float dom = __ldg(p.aff_dom + (size_t)best_n * T + t);
+      if (!(dom >= 0.0f)) continue;
+      for (int j = tid; j < nloc; j += NT) {
+        if (__ldg(p.aff_dom + (size_t)(lo + j) * T + t) != dom) continue;
+        if (m) cnt_v(j, t) += 1.0f;
+        if (a) anti_v(j, t) += 1.0f;
+      }
+    }
+  };
+
+  if constexpr (kReplay) {
+    // ---- the kept pods in queue order, each onto its chosen node. Every
+    // thread reads the record from device memory (one line per pod,
+    // cached); the owner of the node writes the zone.
+    for (int v = 0; v < nv; ++v) {
+      const uint32_t* rec = p.records + (size_t)v * stride;
+      const int pod = (int)rec[koord::kRecPod];
+      reserve(rec, p.chosen[pod], p.zones + pod);
+    }
+  }
+  // ---- the round (the replay instance ran its pods above)
   int nred = 0;  // cluster reductions passed, the same count in every thread
-  for (int v = 0; v < nv; ++v) {
+  for (int v = 0; v < (kReplay ? 0 : nv); ++v) {
     const int st = v % S;
     koord::mbar_wait(&bar[st], (v / S) & 1);
     KOORD_STAMP(v, 0)  // the record is in
@@ -527,69 +636,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     KOORD_STAMP(v, 4)  // merged
     if (!found) continue;
 
-    // ---- Reserve: the owner of the chosen node updates its rows
-    const int jb = best_n - lo;
-    if (!ctrl && jb >= 0 && jb < nloc && jb % NT == tid) {
-      for (int r = 0; r < R; ++r)
-        req_v(jb, r) = __fadd_rn(req_v(jb, r), fit_req[r]);
-      for (int jj = 0; jj < W; ++jj) {
-        const float e = est[p.widx[jj]];
-        dnp_v(jb, jj) = __fadd_rn(dnp_v(jb, jj), e);
-        if (p.prod_mode && is_prod) dpr_v(jb, jj) = __fadd_rn(dpr_v(jb, jj), e);
-      }
-      if (needs_numa) {
-        // Only SingleNUMANode pins a zone; every other policy fills the
-        // lowest zones first (ops/numa.numa_spread_fill)
-        int zone;
-        numa_admit(numa_v, jb, R, K, rq, __ldg(p.policy + best_n), zone);
-        if (zone >= 0) {
-          for (int r = 0; r < R; ++r)
-            numa_v(jb, zone * R + r) =
-                __fsub_rn(numa_v(jb, zone * R + r), rq[r]);
-        } else {
-          for (int r = 0; r < R; ++r) {
-            float remaining = rq[r];
-            for (int k = 0; k < K; ++k) {
-              const float take = fminf(numa_v(jb, k * R + r), remaining);
-              numa_v(jb, k * R + r) = __fsub_rn(numa_v(jb, k * R + r), take);
-              remaining = __fsub_rn(remaining, take);
-            }
-          }
-        }
-      }
-      if (needs_bind) bind_v(jb, 0) = __fsub_rn(bind_v(jb, 0), cores);
-      for (int s = 0; s < p.PT; ++s)
-        if (koord::bit_at(wants, s)) port_v(jb, s) = fmaxf(port_v(jb, s), 1.0f);
-      vol_v(jb, 0) =
-          __fsub_rn(vol_v(jb, 0), vneed[__ldg(p.vol_group + best_n)]);
-    }
-    // quota: every block adds along the ancestor chain to its own copy
-    if (ctrl) {
-      if (qid >= 0) {
-        for (int e = lane; e < D * R; e += 32) {
-          const int d = e / R, r = e - d * R;
-          const int g = anc[qid * D + d];
-          if (g >= 0) quota[g * R + r] = __fadd_rn(quota[g * R + r], rq[r]);
-        }
-      }
-      __syncwarp();
-    }
-    // affinity: raise matched terms' counts (and carried anti terms'
-    // covers) over the chosen node's whole domain, each block over its own
-    // slice; every thread latches the exists flags it reads itself
-    for (int t = 0; t < T; ++t) {
-      const bool m = koord::bit_at(match, t), a = koord::bit_at(anti_req, t);
-      if (!m && !a) continue;
-      if (m) aff_exists[t] = 1;
-      if (ctrl) continue;
-      const float dom = __ldg(p.aff_dom + (size_t)best_n * T + t);
-      if (!(dom >= 0.0f)) continue;
-      for (int j = tid; j < nloc; j += NT) {
-        if (__ldg(p.aff_dom + (size_t)(lo + j) * T + t) != dom) continue;
-        if (m) cnt_v(j, t) += 1.0f;
-        if (a) anti_v(j, t) += 1.0f;
-      }
-    }
+    reserve(rec, best_n, nullptr);
     KOORD_STAMP(v, 5)  // reserved
   }
 
@@ -608,9 +655,44 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     float* out = p.quota_blocks + (size_t)rank * G * R;
     for (int e = tid; e < G * R; e += blockDim.x) out[e] = quota[e];
   }
+  if (rank == 0)
+    for (int t = tid; t < T; t += blockDim.x)
+      p.aff_exists_out[t] = aff_exists[t] ? 1 : 0;
 }
 
 KOORD_TRACE_COPY(full_chain_trace_copy)
+
+namespace {
+
+// The instance specialised for the common shape (the active-axis reduction
+// of most batches: cpu, memory and pods; two NUMA zones; cpu and memory
+// weighted, or every axis for the replay).
+bool common_instance(const FullChainParams& p) {
+  return p.R == 3 && p.K == 2 && p.n_widx == (p.replay ? 3 : 2);
+}
+
+template <bool kReplay>
+int launch_mode(const FullChainParams& p, void* stream) {
+  const size_t smem = fc_smem_layout(p).total;
+  const int threads = p.node_threads + 32, C = p.cluster_size;
+  constexpr int kCommonW = kReplay ? 3 : 2;
+  if (p.state_in_smem)
+    return common_instance(p)
+               ? koord::launch_cluster(
+                     full_chain_kernel<true, 3, 2, kCommonW, kReplay>, p, C,
+                     threads, smem, stream)
+               : koord::launch_cluster(
+                     full_chain_kernel<true, 0, 0, 0, kReplay>, p, C,
+                     threads, smem, stream);
+  return common_instance(p)
+             ? koord::launch_cluster(
+                   full_chain_kernel<false, 3, 2, kCommonW, kReplay>, p, C,
+                   threads, smem, stream)
+             : koord::launch_cluster(full_chain_kernel<false, 0, 0, 0, kReplay>,
+                                     p, C, threads, smem, stream);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -621,29 +703,17 @@ long long full_chain_smem_bytes(const FullChainParams* params) {
   return (long long)fc_smem_layout(*params).total;
 }
 
-// 1 where a launch takes the instance specialised for the common shape
-// (the active-axis reduction of most batches: cpu, memory and pods; two
-// NUMA zones; cpu and memory weighted), 0 for the generic instance.
+// 1 where a launch takes the instance specialised for the common shape, 0
+// for the generic instance.
 int full_chain_instance(const FullChainParams* params) {
-  return params->R == 3 && params->K == 2 && params->n_widx == 2;
+  return common_instance(*params);
 }
 
-// Launches one round on `stream` as one cluster; returns a cudaError_t
-// (0 = launched).
+// Launches one round (or, with `replay`, one kept-only replay) on `stream`
+// as one cluster; returns a cudaError_t (0 = launched).
 int full_chain_launch(const FullChainParams* params, void* stream) {
-  const FullChainParams& p = *params;
-  const size_t smem = fc_smem_layout(p).total;
-  const int threads = p.node_threads + 32, C = p.cluster_size;
-  const bool common = full_chain_instance(params);
-  if (p.state_in_smem)
-    return common ? koord::launch_cluster(full_chain_kernel<true, 3, 2, 2>,
-                                          p, C, threads, smem, stream)
-                  : koord::launch_cluster(full_chain_kernel<true, 0, 0, 0>,
-                                          p, C, threads, smem, stream);
-  return common ? koord::launch_cluster(full_chain_kernel<false, 3, 2, 2>, p,
-                                        C, threads, smem, stream)
-                : koord::launch_cluster(full_chain_kernel<false, 0, 0, 0>, p,
-                                        C, threads, smem, stream);
+  return params->replay ? launch_mode<true>(*params, stream)
+                        : launch_mode<false>(*params, stream);
 }
 
 }  // extern "C"

@@ -342,6 +342,39 @@ def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
             aff_count, anti_cover, aff_exists, port_used, vol_free)
 
 
+def plain_round(fc: FullChainInputs, weight_idx, prod_mode: bool, bal_idx):
+    """The serial round's loop in plain torch: each valid pod, in queue
+    order, is evaluated at the running state and commits its tentative
+    binding. Returns (chosen[P] int32 before Permit, the final 11-tuple
+    state of commit_pod_state). Pods outside ``pod_valid`` are skipped:
+    their evaluation finds nothing and their commit changes nothing."""
+    inputs = fc.base
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    dev = inputs.allocatable.device
+    evaluate = make_pod_evaluator(fc, weight_idx, prod_mode, bal_idx)
+    state = (
+        inputs.requested.clone(),
+        torch.zeros((N, R), dtype=torch.float32, device=dev),
+        torch.zeros((N, R), dtype=torch.float32, device=dev),
+        fc.numa_free.clone(),
+        fc.bind_free.clone(),
+        fc.quota_used.clone(),
+        fc.aff_count.clone(),
+        fc.anti_cover.clone(),
+        fc.aff_exists.to(torch.bool).clone(),
+        fc.port_used.clone(),
+        fc.vol_free.clone(),
+    )
+    chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    for i in torch.nonzero(inputs.pod_valid).flatten().tolist():
+        found, best, zone_at_best = evaluate(i, *state)
+        state = commit_pod_state(fc, prod_mode, state, i, found, best,
+                                 zone_at_best)
+        chosen[i] = torch.where(found, best.to(torch.int32), -1)
+    return chosen, state
+
+
 def build_full_chain_step(args: LoadAwareArgs, num_gangs: int,
                           num_groups: int, active_axes=None):
     """The plain round: FullChainInputs (torch) -> (chosen[P] int32,
@@ -356,30 +389,7 @@ def build_full_chain_step(args: LoadAwareArgs, num_gangs: int,
     prod_mode = args.score_according_prod_usage
 
     def step(fc: FullChainInputs):
-        inputs = fc.base
-        P, R = inputs.fit_requests.shape
-        N = inputs.allocatable.shape[0]
-        dev = inputs.allocatable.device
-        evaluate = make_pod_evaluator(fc, weight_idx, prod_mode, bal_idx)
-        state = (
-            inputs.requested.clone(),
-            torch.zeros((N, R), dtype=torch.float32, device=dev),
-            torch.zeros((N, R), dtype=torch.float32, device=dev),
-            fc.numa_free.clone(),
-            fc.bind_free.clone(),
-            fc.quota_used.clone(),
-            fc.aff_count.clone(),
-            fc.anti_cover.clone(),
-            fc.aff_exists.to(torch.bool).clone(),
-            fc.port_used.clone(),
-            fc.vol_free.clone(),
-        )
-        chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
-        for i in range(P):
-            found, best, zone_at_best = evaluate(i, *state)
-            state = commit_pod_state(fc, prod_mode, state, i, found, best,
-                                     zone_at_best)
-            chosen[i] = torch.where(found, best.to(torch.int32), -1)
+        chosen, state = plain_round(fc, weight_idx, prod_mode, bal_idx)
         return permit(fc, chosen, num_gangs, num_groups), state[0], state[5]
 
     step.last_backend = "serial"

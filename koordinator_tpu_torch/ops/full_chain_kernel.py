@@ -16,8 +16,13 @@ alone. Where the shared-memory layout exceeds the budget, the same kernel
 keeps its carried state in device memory (`last_launch["state"]` says
 which).
 
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+`full_chain_replay` launches the replay instance of the same kernel: the
+fused waves' kept-only replay (models/fused_waves.py, pass 2), which commits
+the pods that survived the gang Permit onto the nodes pass 1 chose, from the
+wave-start state, with the same Reserve code as the round.
+
+`launches` counts the round's launches and `replay_launches` the replay's,
+so a run can show that its main path went through the kernel.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from koordinator_tpu_torch.ops.kernel_common import (
     REC_FLAGS,
     REC_POD,
     RING_STAGES,
+    SMEM_BUDGET_BYTES,
     SyncClock,
     check_tensor,
     choose_state,
@@ -70,6 +76,7 @@ REC_CORES, REC_TAINT, REC_QUOTA, REC_PREF, REC_PPREF, REC_IMG = 2, 3, 4, 5, 6, 7
 REC_HEADER = 8
 
 launches = 0
+replay_launches = 0
 last_launch: dict = {}
 
 _P = ctypes.c_void_p
@@ -80,6 +87,7 @@ _PTR_FIELDS = (
     "ppref_w", "weights", "anc", "runtime", "quota_init", "aff_exists0",
     "requested", "delta_np", "delta_pr", "numa", "bind_free", "vol_free",
     "port_used", "aff_count", "anti_cover", "quota_blocks", "chosen",
+    "zones", "aff_exists_out",
 )
 _INT_FIELDS = (
     "P", "N", "R", "K", "G", "D", "T", "S", "S2", "ppref_stride", "PT", "SI",
@@ -87,6 +95,7 @@ _INT_FIELDS = (
     "rec_stride", "off_fit", "off_req", "off_est", "off_aff", "off_anti",
     "off_match", "off_skew", "off_ports", "off_vol",
     "cluster_size", "nodes_per_block", "node_threads", "state_in_smem",
+    "replay",
 )
 
 
@@ -277,51 +286,49 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
                  G=d["G"], D=d["D"], T=d["T"], PT=d["PT"], VG=d["VG"],
                  cluster_size=cluster_size)
     state = choose_state(estimate_smem_bytes(**shape), smem_budget_bytes)
-    return (state, cluster_plan(d["N"], cluster_size),
-            estimate_smem_bytes(**shape, state=state))
+    smem = estimate_smem_bytes(**shape, state=state)
+    if smem > SMEM_BUDGET_BYTES:
+        # the record ring alone outgrows a block: no state fits (a claim
+        # world's [P, N] volume view adds N words to every record)
+        stride = record_layout(d["R"], d["T"], d["PT"], d["VG"])["rec_stride"]
+        raise ValueError(
+            f"a pod record of {stride} words needs {smem} B of shared "
+            f"memory per block, above the {SMEM_BUDGET_BYTES} B a block "
+            "may take")
+    return state, cluster_plan(d["N"], cluster_size), smem
 
 
-def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
-                     cluster_size: int = CLUSTER_SIZE,
-                     smem_budget_bytes=None):
-    """One round in the kernel: FullChainInputs (CUDA tensors) ->
-    (chosen[P] int32 before Permit, requested[N, R], quota_used[G, R]).
-    Raises for tensors anywhere but on the card."""
-    global launches, last_launch
+def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
+            chosen, zones, replay: bool, cluster_size: int,
+            smem_budget_bytes):
+    """Check every tensor, fill FullChainParams and launch one cluster on
+    the current stream. ``state`` holds the carried tensors the kernel
+    updates in place (requested, delta_np, delta_pr, numa, bind_free,
+    vol_free, port_used, aff_count, anti_cover) and the read-only
+    quota_init, aff_exists0, term_np and term_pr. Returns (quota_blocks,
+    aff_exists_out)."""
+    global last_launch
     inputs = fc.base
-    if not inputs.allocatable.is_cuda:
-        raise ValueError("full_chain_round launches the CUDA kernel and takes "
-                         f"CUDA tensors, got {inputs.allocatable.device}")
-    if len(weight_idx) > MAX_WEIGHTS:
+    if len(widx) > MAX_WEIGHTS:
         raise ValueError(f"at most {MAX_WEIGHTS} weighted axes")
     d = _dims(fc)
     P, N, R, K, G, D, T = (d[k] for k in "PNRKGDT")
     S, PT, SI, VG = d["S"], d["PT"], d["SI"], d["VG"]
-    widx = list(weight_idx)
     W = len(widx)
-    state, plan, smem_bytes = state_for(fc, widx, smem_budget_bytes,
-                                        cluster_size)
+    kind, plan, smem_bytes = state_for(fc, widx, smem_budget_bytes,
+                                       cluster_size)
     lay = record_layout(R, T, PT, VG)
-
-    reject_np, reject_pr, gang_ok = pod_independent_rows(fc)
-    records, n_valid = valid_first(pack_records(fc, gang_ok),
-                                   inputs.pod_valid)
+    reject_np, reject_pr, _gang_ok = pod_independent_rows(fc)
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
-
-    def b(t):
-        return t.to(u8).contiguous()
-
     dev = inputs.allocatable.device
-    # carried state: the round's own copies, updated in place by the kernel
-    requested = inputs.requested.to(f32).clone()
     quota_blocks = torch.empty((cluster_size, G, R), dtype=f32, device=dev)
-    chosen = torch.full((P,), -1, dtype=i32, device=dev)
+    aff_exists_out = torch.zeros(T, dtype=u8, device=dev)
     args = {
         "records": (records, i32, (P, lay["rec_stride"])),
         "n_valid": (n_valid, i32, (1,)),
         "alloc": (inputs.allocatable, f32, (N, R)),
-        "term_np": (inputs.la_term_nonprod[:, widx].contiguous(), f32, (N, W)),
-        "term_pr": (inputs.la_term_prod[:, widx].contiguous(), f32, (N, W)),
+        "term_np": (state["term_np"], f32, (N, W)),
+        "term_pr": (state["term_pr"], f32, (N, W)),
         "node_flags": (node_flags(fc, reject_np, reject_pr), u8, (N,)),
         "cpc": (fc.cpus_per_core, f32, (N,)),
         "policy": (fc.numa_policy, i32, (N,)),
@@ -334,31 +341,35 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
         "weights": (inputs.weights, f32, (R,)),
         "anc": (fc.quota_ancestors, i32, (G, D)),
         "runtime": (fc.quota_runtime, f32, (G, R)),
-        "quota_init": (fc.quota_used.to(f32).contiguous(), f32, (G, R)),
-        "aff_exists0": (b(fc.aff_exists), u8, (T,)),
-        "requested": (requested, f32, (N, R)),
-        "delta_np": (torch.zeros((N, W), dtype=f32, device=dev), f32, (N, W)),
-        "delta_pr": (torch.zeros((N, W), dtype=f32, device=dev), f32, (N, W)),
-        "numa": (fc.numa_free.to(f32).clone(), f32, (N, K, R)),
-        "bind_free": (fc.bind_free.to(f32).clone(), f32, (N,)),
-        "vol_free": (fc.vol_free.to(f32).clone(), f32, (N,)),
-        "port_used": (fc.port_used.to(f32).clone(), f32, (N, PT)),
-        "aff_count": (fc.aff_count.to(f32).clone(), f32, (N, T)),
-        "anti_cover": (fc.anti_cover.to(f32).clone(), f32, (N, T)),
+        "quota_init": (state["quota_init"], f32, (G, R)),
+        "aff_exists0": (state["aff_exists0"], u8, (T,)),
+        "requested": (state["requested"], f32, (N, R)),
+        "delta_np": (state["delta_np"], f32, (N, W)),
+        "delta_pr": (state["delta_pr"], f32, (N, W)),
+        "numa": (state["numa"], f32, (N, K, R)),
+        "bind_free": (state["bind_free"], f32, (N,)),
+        "vol_free": (state["vol_free"], f32, (N,)),
+        "port_used": (state["port_used"], f32, (N, PT)),
+        "aff_count": (state["aff_count"], f32, (N, T)),
+        "anti_cover": (state["anti_cover"], f32, (N, T)),
         "quota_blocks": (quota_blocks, f32, (cluster_size, G, R)),
         "chosen": (chosen, i32, (P,)),
+        "zones": (zones, i32, (P,)),
+        "aff_exists_out": (aff_exists_out, u8, (T,)),
     }
     params = _Params()
     for name in _PTR_FIELDS:
         t, dtype, shape = args[name]
-        setattr(params, name, check_tensor(name, t, dtype, shape))
+        # a field the launch's mode does not use stays a null pointer
+        setattr(params, name,
+                None if t is None else check_tensor(name, t, dtype, shape))
     sizes = dict(d, ppref_stride=fc.ppref_w.shape[1],
                  prod_mode=int(bool(prod_mode)), bal_c=int(bal_idx[0]),
                  bal_m=int(bal_idx[1]), n_widx=W, **lay,
                  cluster_size=cluster_size,
                  nodes_per_block=plan.nodes_per_block,
                  node_threads=plan.node_threads,
-                 state_in_smem=int(state == "smem"))
+                 state_in_smem=int(kind == "smem"), replay=int(replay))
     for name in _INT_FIELDS:
         setattr(params, name, sizes[name])
     for j, r in enumerate(widx):
@@ -373,20 +384,129 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
     # allocator hands their memory only to later work on this same stream.
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.full_chain_launch(ctypes.byref(params), ctypes.c_void_p(stream))
+    what = "replay" if replay else "round"
     if err != 0:
-        raise RuntimeError(f"full_chain kernel launch failed: cudaError {err} "
-                           f"(cluster of {cluster_size} x "
+        raise RuntimeError(f"full_chain {what} launch failed: cudaError "
+                           f"{err} (cluster of {cluster_size} x "
                            f"{plan.block_threads} threads, {smem_bytes} B "
                            "of shared memory per block)")
-    launches += 1
     instance = ("common" if lib.full_chain_instance(ctypes.byref(params))
                 else "generic")
-    last_launch = {"state": state, "instance": instance,
+    last_launch = {"state": kind, "instance": instance,
                    "cluster_size": cluster_size,
                    "block_threads": plan.block_threads,
                    "nodes_per_block": plan.nodes_per_block,
-                   "smem_bytes_per_block": smem_bytes}
-    return chosen, requested, quota_blocks[0]
+                   "smem_bytes_per_block": smem_bytes, "mode": what}
+    return quota_blocks, aff_exists_out
+
+
+def _require_cuda(fn: str, fc) -> None:
+    if not fc.base.allocatable.is_cuda:
+        raise ValueError(f"{fn} launches the CUDA kernel and takes CUDA "
+                         f"tensors, got {fc.base.allocatable.device}")
+
+
+def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
+                     cluster_size: int = CLUSTER_SIZE,
+                     smem_budget_bytes=None):
+    """One round in the kernel: FullChainInputs (CUDA tensors) ->
+    (chosen[P] int32 before Permit, requested[N, R], quota_used[G, R]).
+    Raises for tensors anywhere but on the card."""
+    global launches
+    _require_cuda("full_chain_round", fc)
+    inputs = fc.base
+    widx = list(weight_idx)
+    P, N = inputs.fit_requests.shape[0], inputs.allocatable.shape[0]
+    W = len(widx)
+    _rnp, _rpr, gang_ok = pod_independent_rows(fc)
+    records, n_valid = valid_first(pack_records(fc, gang_ok),
+                                   inputs.pod_valid)
+    f32, dev = torch.float32, inputs.allocatable.device
+    # carried state: the round's own copies, updated in place by the kernel
+    state = {
+        "term_np": inputs.la_term_nonprod[:, widx].contiguous(),
+        "term_pr": inputs.la_term_prod[:, widx].contiguous(),
+        "quota_init": fc.quota_used.to(f32).contiguous(),
+        "aff_exists0": fc.aff_exists.to(torch.uint8).contiguous(),
+        "requested": inputs.requested.to(f32).clone(),
+        "delta_np": torch.zeros((N, W), dtype=f32, device=dev),
+        "delta_pr": torch.zeros((N, W), dtype=f32, device=dev),
+        "numa": fc.numa_free.to(f32).clone(),
+        "bind_free": fc.bind_free.to(f32).clone(),
+        "vol_free": fc.vol_free.to(f32).clone(),
+        "port_used": fc.port_used.to(f32).clone(),
+        "aff_count": fc.aff_count.to(f32).clone(),
+        "anti_cover": fc.anti_cover.to(f32).clone(),
+    }
+    chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    quota_blocks, _exists = _launch(
+        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen, None,
+        False, cluster_size, smem_budget_bytes)
+    launches += 1
+    return chosen, state["requested"], quota_blocks[0]
+
+
+def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
+                      smem_budget_bytes=None):
+    """The fused waves' kept-only replay in the kernel's replay instance.
+
+    ``fc_carry`` is the dispatch's FullChainInputs with reservation rows in
+    their carry form (models/fused_waves._carry_fc_variants), ``chosen``
+    [P] int32 pass 1's node per pod, ``kept`` [P] bool the pods that
+    survived Permit, and ``state`` the wave-start 11-tuple (requested,
+    est_sum, est_sum_prod or None, numa_free, bind_free, quota_used,
+    aff_count, anti_cover, aff_exists, port_used, vol_free), all CUDA
+    tensors. The kept pods are packed first, in queue order, and their
+    count is read by the kernel on the card (no host sync).
+
+    Returns (the state after committing every kept pod in queue order, in
+    the same layout with est_sum_prod zeros outside prod mode; zones[P]
+    int32, the zone re-picked per kept pod, -1 elsewhere). The kernel
+    carries the LoadAware sums on every resource axis here (W = R, the
+    weights' axes being only what the round scores), so est_sum and
+    est_sum_prod come back whole: equal, bit for bit, to the plain
+    ``replay_kept``'s. ``smem_budget_bytes`` is the round's: 0 keeps the
+    carried state in device memory, the instance a shape past the budget
+    takes on its own. Raises for tensors anywhere but on the card."""
+    global replay_launches
+    _require_cuda("full_chain_replay", fc_carry)
+    inputs = fc_carry.base
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    widx = list(range(R))
+    (requested, est_sum, est_pr, numa_free, bind_free, quota_used,
+     aff_count, anti_cover, aff_exists, port_used, vol_free) = state
+    _rnp, _rpr, gang_ok = pod_independent_rows(fc_carry)
+    records, n_kept = valid_first(pack_records(fc_carry, gang_ok), kept)
+    f32, dev = torch.float32, inputs.allocatable.device
+    est_sum = est_sum.to(f32).contiguous()
+    buffers = {
+        # the round's score terms: not read by the replay
+        "term_np": est_sum,
+        "term_pr": est_sum,
+        "quota_init": quota_used.to(f32).contiguous(),
+        "aff_exists0": aff_exists.to(torch.uint8).contiguous(),
+        "requested": requested.to(f32).clone(),
+        "delta_np": est_sum.clone(),
+        "delta_pr": (est_pr.to(f32).clone() if est_pr is not None
+                     else torch.zeros((N, R), dtype=f32, device=dev)),
+        "numa": numa_free.to(f32).clone(),
+        "bind_free": bind_free.to(f32).clone(),
+        "vol_free": vol_free.to(f32).clone(),
+        "port_used": port_used.to(f32).clone(),
+        "aff_count": aff_count.to(f32).clone(),
+        "anti_cover": anti_cover.to(f32).clone(),
+    }
+    zones = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    quota_blocks, exists = _launch(
+        fc_carry, widx, prod_mode, (-1, -1), records,
+        n_kept, buffers, chosen.to(torch.int32).contiguous(), zones, True,
+        CLUSTER_SIZE, smem_budget_bytes)
+    replay_launches += 1
+    b = buffers
+    return ((b["requested"], b["delta_np"], b["delta_pr"], b["numa"],
+             b["bind_free"], quota_blocks[0], b["aff_count"], b["anti_cover"],
+             exists.to(torch.bool), b["port_used"], b["vol_free"]), zones)
 
 
 def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,

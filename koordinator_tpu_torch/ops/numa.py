@@ -72,6 +72,27 @@ def numa_admit_row(
     return ok, zone
 
 
+def numa_zone_for_node(
+    request: torch.Tensor,      # [R] pod request (packed units)
+    needs_numa: torch.Tensor,   # 0-d bool
+    numa_free_n: torch.Tensor,  # [K, R] free of ONE node
+    policy_n: torch.Tensor,     # 0-d int32
+) -> torch.Tensor:
+    """0-d int32 zone choice for a single node: the single-node restriction
+    of ``numa_admit_row``'s zone output (-1 when not single-numa). The
+    fused waves' kept-only replay re-picks the zone under the replay state
+    with it — the first-fitting-zone rule the host plugin's width-1 hint
+    uses at Reserve."""
+    fits_zone = ((request[None, :] <= 0)
+                 | (request[None, :] <= numa_free_n)).all(dim=-1)     # [K]
+    any_zone = fits_zone.any()
+    first_zone = fits_zone.to(torch.int32).argmax().to(torch.int32)
+    single = policy_n == POLICY_SINGLE_NUMA_NODE
+    return torch.where(single & any_zone & needs_numa, first_zone,
+                       torch.tensor(-1, dtype=torch.int32,
+                                    device=first_zone.device))
+
+
 def cpuset_filter_row(
     needs_bind: torch.Tensor,    # 0-d bool: pod requires cpuset binding
     cores_needed: torch.Tensor,  # 0-d f32: whole cpus requested

@@ -19,18 +19,24 @@ whole pending queue per cycle:
      error path; unbound pods get PodScheduled=False with the per-stage
      diagnosis, and PostFilter preemption reruns the pass once.
 
-A port of the JAX package's ``Scheduler`` with serial dispatch (one round
-per cycle). Its bindings, conditions, gang and quota writes are the JAX
-package's byte for byte (tests/test_torch_cycle.py). The paths a later
-slice brings raise NotImplementedError and never run something else
-silently: fused/chained multi-wave dispatch (a wave depth resolving to
-K > 1 — "auto" does at >= 256 pending pods, so pass ``waves=1``), explain
+A port of the JAX package's ``Scheduler``. A cycle whose wave depth
+resolves to 1 dispatches one round (serial dispatch); a depth K > 1 (the
+default ``waves="auto"`` picks K = 8 at >= 4096 pending pods, 4 at >= 1024,
+2 at >= 256) runs the fused multi-wave dispatch (models/fused_waves.py):
+K dependent rounds on the device, replayed on the host as K logical
+cycles. With ``replay_overlap`` on (the default) the waves are a chain of
+one-wave dispatches, and the host replays wave w while the device runs
+wave w+1; off, all K waves run in one call before the replay. Either way
+the bindings, conditions, gang and quota writes are those of K serial
+cycles, and the JAX package's byte for byte (tests/test_torch_cycle.py,
+tests/test_torch_cycle_waves.py). The paths a later slice brings raise
+NotImplementedError and never run something else silently: explain
 attribution, the mesh, the gRPC sidecar, the degradation ladder and the
 warm-up ladder. With no ladder, a dispatch failure propagates out of
 ``run_cycle`` as an unhandled cycle exception.
 
 Steps are cached per scheduler by shape signature (P/N/G buckets, gangs,
-groups, active axes).
+groups, active axes; the fused step also by K and its side inputs).
 """
 
 from __future__ import annotations
@@ -63,9 +69,23 @@ from koordinator_tpu_torch.client.store import (
 )
 from koordinator_tpu_torch.models.convert import check_device, to_device
 from koordinator_tpu_torch.models.full_chain import build_best_full_chain_step
+from koordinator_tpu_torch.models.fused_waves import (
+    MAX_WAVES,
+    ClaimSides,
+    ProdSides,
+    ResSides,
+    WaveSideInputs,
+    initial_wave_carry,
+)
 from koordinator_tpu_torch.obs import Tracer
 from koordinator_tpu_torch.ops.fit import with_pod_count
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.ops.volumes import (
+    analyze_pending_claims,
+    attached_claim_sets,
+    build_claim_pack,
+    host_effective_vol_needed,
+)
 from koordinator_tpu_torch.scheduler import metrics as scheduler_metrics
 from koordinator_tpu_torch.scheduler.deadline import (
     DeadlineWatchdog,
@@ -77,6 +97,7 @@ from koordinator_tpu_torch.scheduler.frameworkext import (
     CycleContext,
     CycleResult,
     FrameworkExtender,
+    ScoreTransformer,
 )
 from koordinator_tpu_torch.scheduler.plugins import DEFAULT_PLUGINS
 from koordinator_tpu_torch.scheduler.snapshot import (
@@ -87,9 +108,33 @@ from koordinator_tpu_torch.scheduler.snapshot import (
 
 RESERVATION_POD_PREFIX = "__reservation__/"
 
-# the fused multi-wave depth cap (models/fused_waves.MAX_WAVES in the JAX
-# package); any depth above 1 comes with the fused-wave slice
-MAX_WAVES = 8
+# koordwatch demotion registry: every reason a cycle can run below its
+# configured wave/explain/mesh level (_note_demotion refuses any other).
+# This port reaches the two wave-depth residues; the rest name rungs of
+# paths a later slice brings.
+DEMOTION_REASONS = frozenset({
+    # wave-depth demotions (_effective_waves)
+    "ladder-serial-waves",      # degradation ladder at/below serial rung
+    "sidecar",                  # the gRPC sidecar protocol is single-round
+    "non-expressible-transformer",  # a ScoreTransformer without device_pass
+    "claim-entangled",          # unbound-WFFC claim interference or claim
+                                # factorization budget overflow (ops/volumes)
+    # koordexplain demotions
+    "explain-sidecar",
+    "explain-ladder",
+    # per-cycle mesh reconfiguration accounting
+    "mesh-off",
+    "partial-mesh",
+})
+RETIRED_DEMOTION_REASONS = frozenset({
+    "pending-reservations",     # carried: reservation rows + in-dispatch
+                                # nomination (models/fused_waves.py)
+    "claim-pods",               # carried: hot-claim columns (ops/volumes.py)
+    "prod-usage-score",         # carried: est_sum_prod + la_adj_prod split
+    "score-transformer",        # expressible transformers run as tensor
+                                # passes; the rest demote as
+                                # non-expressible-transformer
+})
 
 # failure reasons whose condition message is recomputed from the packed
 # batch (scheduler/diagnose.py); the deferral path keeps the batch alive
@@ -99,9 +144,8 @@ DIAGNOSED_REASONS = ("no feasible node", "admission rejected")
 
 def waves_from_env():
     """KOORD_TPU_WAVES=K pins the fused multi-wave depth (K rounds per
-    device dispatch); "auto" (the default) picks K from the pending-queue
-    depth, K=1 being the exact serial path — the only one this slice of
-    the port runs."""
+    device dispatch, models/fused_waves.py); "auto" (the default) picks K
+    from the pending-queue depth, K=1 being the exact serial path."""
     raw = os.environ.get("KOORD_TPU_WAVES", "auto").strip().lower()
     if raw in ("", "auto"):
         return "auto"
@@ -131,11 +175,15 @@ def explain_from_env():
 
 
 def replay_overlap_from_env() -> bool:
-    """KOORD_TPU_REPLAY_OVERLAP=0 keeps the deferred-condition flush as
-    per-pod store writes (event granularity included); default on, one
-    flush lands as ONE ``store.update_many`` transaction (the JAX
-    package's overlapped-replay setting, which also governs its fused
-    wave replay)."""
+    """KOORD_TPU_REPLAY_OVERLAP=0 selects the byte-exact serial-replay
+    twin: a fused multi-wave cycle runs all K waves in one call and
+    replays them on the host after its readback, and the deferred-
+    condition flush keeps per-pod store writes (event granularity
+    included). Default on: the waves run as a chain of one-wave
+    dispatches, wave w+1 dispatched before wave w's rows are read back so
+    the host replay of wave w overlaps the device's wave w+1, each wave's
+    bind patches land as ONE store transaction, and one flush lands as
+    ONE ``store.update_many`` transaction."""
     return os.environ.get("KOORD_TPU_REPLAY_OVERLAP", "1") != "0"
 
 
@@ -216,6 +264,187 @@ class _DeferredFlushTxn:
         if self.pending:
             self._store.update_many(KIND_POD, list(self.pending.values()))
             self.pending.clear()
+
+
+def _np_spread_fill(row: np.ndarray, req: np.ndarray, zone: int) -> None:
+    """In-place numpy replica of ops/numa.numa_spread_fill on one node's
+    [K, R] free block: all from ``zone`` when single-numa, else the
+    lowest-zones-first waterfall. Same float32 operations in the same
+    order as the kernel, so the mirror cannot drift by a ULP."""
+    if zone >= 0:
+        row[zone] -= req
+        return
+    remaining = req.astype(np.float32, copy=True)
+    for k in range(row.shape[0]):
+        take = np.minimum(row[k], remaining)
+        row[k] = row[k] - take
+        remaining = remaining - take
+
+
+class _WaveStateMirror:
+    """Host numpy replica of the fused kernel's carried node/quota state
+    (models/fused_waves.py), advanced wave by wave with the read-back
+    bindings. Feeds per-wave unschedulability diagnosis
+    (scheduler/diagnose.py) the SAME wave-start state serial cycle w's
+    packed batch would contain — a pod that stays unbound across waves
+    must report cycle-w's per-stage counts, not cycle-1's."""
+
+    def __init__(self, fc, claims=None, res_alloc=None) -> None:
+        self._fc = fc
+        # carried-state twins: the hot-claim pack (ops/volumes.py
+        # ClaimPack, host arrays) and the reservation rows' packed
+        # allocatable vectors — None when the dispatch carries neither
+        self._claims = claims
+        self._res_alloc = (np.asarray(res_alloc, np.float32)
+                           if res_alloc is not None else None)
+        self.requested = np.array(fc.base.requested, np.float32, copy=True)
+        self.quota_used = np.array(fc.quota_used, np.float32, copy=True)
+        self.numa_free = np.array(fc.numa_free, np.float32, copy=True)
+        self.bind_free = np.array(fc.bind_free, np.float32, copy=True)
+        self.port_used = np.array(fc.port_used, np.float32, copy=True)
+        self.vol_free = np.array(fc.vol_free, np.float32, copy=True)
+        self.aff_count = np.array(fc.aff_count, np.float32, copy=True)
+        self.anti_cover = np.array(fc.anti_cover, np.float32, copy=True)
+        self.aff_exists = np.array(fc.aff_exists, bool, copy=True)
+        # static per-pod gathers
+        self._fit_requests = np.asarray(fc.base.fit_requests, np.float32)
+        self._requests = np.asarray(fc.requests, np.float32)
+        self._needs_numa = np.asarray(fc.needs_numa, bool)
+        self._needs_bind = np.asarray(fc.needs_bind, bool)
+        self._cores = np.asarray(fc.cores_needed, np.float32)
+        self._wants = np.asarray(fc.pod_port_wants, bool)
+        self._vol_needed = np.asarray(fc.vol_needed, np.float32)
+        self._vol_group = np.asarray(fc.node_vol_group)
+        self._quota_id = np.asarray(fc.quota_id)
+        self._ancestors = np.asarray(fc.quota_ancestors)
+        self._aff_dom = np.asarray(fc.aff_dom, np.float32)
+        self._aff_match = np.asarray(fc.pod_aff_match, bool)
+        self._anti_req = np.asarray(fc.pod_anti_req, bool)
+        if self._claims is not None:
+            n = self.requested.shape[0]
+            self._claim_new = np.zeros((n, self._claims.n_claims),
+                                       np.float32)
+            self._vol_new = np.zeros(n, np.float32)
+            self._vol_free0 = np.array(fc.vol_free, np.float32, copy=True)
+
+    def commit(self, i: int, node: int, zone: int) -> None:
+        """Apply one kernel-committed binding, mirroring
+        commit_pod_state's kept-only replay form."""
+        self.requested[node] += self._fit_requests[i]
+        self._commit_footprint(i, node, zone)
+        if self._claims is None:
+            # exemption-free batches: the running count IS the attached-
+            # set rebuild (every claim unique — ops/volumes.py)
+            self.vol_free[node] -= self._vol_needed[i][self._vol_group[node]]
+        else:
+            # hot claims: track set growth; end_wave() rebuilds vol_free
+            cp = self._claims
+            self._claim_new[node] = np.maximum(
+                self._claim_new[node],
+                cp.pod_claim[i] * (1.0 - cp.covered0[node]))
+            self._vol_new[node] += cp.pod_nonhot[i]
+
+    def commit_reservation(self, slot: int, node: int) -> None:
+        """A reservation pseudo-pod row bound: the CR holds capacity but
+        is not a pod — next-wave state carries the restore transformer's
+        allocatable add only (no pod-count slot, no estimate, no NUMA or
+        affinity footprint)."""
+        self.requested[node] += self._res_alloc[slot]
+
+    def commit_nominated(self, i: int, node: int, zone: int) -> None:
+        """A pod nominated onto an Available reservation: its usage
+        lives inside the reservation's already-counted footprint, so the
+        node's requested row is untouched; NUMA/cpuset/affinity effects
+        apply like any bind."""
+        self._commit_footprint(i, node, zone)
+
+    def apply_succeed(self, consumer_row: int, slot: int,
+                      node: int) -> None:
+        """The reconcile's consumed-allocate-once transition, one wave
+        after the consumption: the reservation stops being counted and
+        its consumer falls back to direct accounting."""
+        self.requested[node] = (
+            (self.requested[node] - self._res_alloc[slot])
+            + self._fit_requests[consumer_row])
+
+    def end_wave(self) -> None:
+        """Wave-boundary claim rebuild: vol_free recomputed set-wise
+        from the dispatch-start value (integer-exact, like the host's
+        limit - len(attached) recompute)."""
+        if self._claims is not None:
+            self.vol_free = (self._vol_free0 - self._vol_new
+                             - self._claim_new.sum(axis=1))
+
+    def _commit_footprint(self, i: int, node: int, zone: int) -> None:
+        req = self._requests[i]
+        if self._needs_numa[i]:
+            _np_spread_fill(self.numa_free[node], req, zone)
+        if self._needs_bind[i]:
+            self.bind_free[node] -= self._cores[i]
+        if self._wants.shape[1]:
+            self.port_used[node] = np.maximum(
+                self.port_used[node],
+                self._wants[i].astype(np.float32))
+        qid = int(self._quota_id[i])
+        if qid >= 0:
+            for g in self._ancestors[qid]:
+                if g >= 0:
+                    self.quota_used[g] += req
+        for t in range(self._aff_dom.shape[1]):
+            dom = self._aff_dom[node, t]
+            if self._aff_match[i, t]:
+                self.aff_exists[t] = True
+                if dom >= 0:
+                    self.aff_count[self._aff_dom[:, t] == dom, t] += 1.0
+            if self._anti_req[i, t] and dom >= 0:
+                self.anti_cover[self._aff_dom[:, t] == dom, t] += 1.0
+
+    def patched_fc(self):
+        """A FullChainInputs view with the mirror's CURRENT state frozen
+        in (copies: the deferred-diagnosis queue may hold it while later
+        waves advance the mirror)."""
+        fc = self._fc
+        patched = fc._replace(
+            base=fc.base._replace(requested=self.requested.copy()),
+            quota_used=self.quota_used.copy(),
+            numa_free=self.numa_free.copy(),
+            bind_free=self.bind_free.copy(),
+            port_used=self.port_used.copy(),
+            vol_free=self.vol_free.copy(),
+            aff_count=self.aff_count.copy(),
+            anti_cover=self.anti_cover.copy(),
+            aff_exists=self.aff_exists.copy(),
+        )
+        if self._claims is not None:
+            # the per-(pod, node) effective volume view at current claim
+            # state — what the regrouped [P, VG'] gather would produce
+            patched = patched._replace(
+                vol_needed=host_effective_vol_needed(
+                    fc.vol_needed, fc.node_vol_group,
+                    self._claims.pod_claim, self._claim_new),
+                node_vol_group=np.arange(
+                    self.requested.shape[0], dtype=np.int32))
+        return patched
+
+
+def _apply_mirror_op(mirror: _WaveStateMirror, op: Tuple) -> None:
+    """Replay one typed wave-state mirror op (the lazy backlog entries
+    the fused replay accumulates): pod/nominated/reservation commits,
+    the delayed Succeeded transition, and the wave-boundary claim
+    rebuild — in the exact order the device carry applied them."""
+    kind = op[0]
+    if kind == "pod":
+        mirror.commit(op[1], op[2], op[3])
+    elif kind == "nom":
+        mirror.commit_nominated(op[1], op[2], op[3])
+    elif kind == "res":
+        mirror.commit_reservation(op[1], op[2])
+    elif kind == "succ":
+        mirror.apply_succeed(op[1], op[2], op[3])
+    elif kind == "wave_end":
+        mirror.end_wave()
+    else:  # pragma: no cover - programming error
+        raise ValueError(f"unknown mirror op {kind!r}")
 
 
 def _refuse(feature: str, slice_name: str):
@@ -300,12 +529,17 @@ class Scheduler:
         if self.explain_spec is not None:
             _refuse("explain attribution", "explain")
         # fused multi-wave depth: K rounds per device dispatch. "auto"
-        # picks from queue depth per cycle (_effective_waves refuses a
-        # depth above 1); an int pins it.
+        # picks from queue depth per cycle (_effective_waves); an int pins
+        # it.
         self.waves_spec = waves_from_env() if waves is None else waves
-        if self.waves_spec != "auto" and int(self.waves_spec) > 1:
-            _refuse(f"waves={self.waves_spec} (fused multi-wave dispatch)",
-                    "fused-wave")
+        # koordwatch: this cycle's demotion reasons (reset per cycle)
+        self._cycle_demotions: List[str] = []
+        # the claim analysis _effective_waves stashes for the dispatch's
+        # side-input encode (None: no claim-carrying pod)
+        self._claim_analysis = None
+        # a fused dispatch queues its logical cycles' condition writes on
+        # the deferred machinery and flushes them once at its end
+        self._defer_condition_writes = False
 
         base = config or SchedulerConfiguration()
         # explicit args win over config (older call sites pass args directly);
@@ -390,8 +624,10 @@ class Scheduler:
         # parity/test hook: called with the post-reduce host
         # FullChainInputs at the end of every encode
         self.encode_observer = None
-        # batched deferred-condition flush (KOORD_TPU_REPLAY_OVERLAP): one
-        # store transaction per flush; 0 keeps per-pod writes
+        # overlapped wave replay (KOORD_TPU_REPLAY_OVERLAP): fused waves as
+        # a chain of one-wave dispatches replayed while the next runs, and
+        # one store transaction per flush; 0 is the single-call twin with
+        # per-pod writes
         self.replay_overlap = (replay_overlap_from_env()
                                if replay_overlap is None
                                else bool(replay_overlap))
@@ -498,6 +734,24 @@ class Scheduler:
         self._upload_fault_injector = fn
         if self.device_snapshot is not None:
             self.device_snapshot.fault_injector = fn
+
+    def _note_demotion(self, reason: str, value):
+        """THE demotion chokepoint (koordwatch): every branch that runs a
+        cycle below its configured wave level routes its fallback value
+        through here — ``return self._note_demotion("reason", 1)`` — so
+        no demotion is silent. Counted once per cycle per reason. The
+        reason must be registered (DEMOTION_REASONS); retired reasons can
+        never silently come back."""
+        if reason not in DEMOTION_REASONS:
+            raise ValueError(
+                f"unregistered demotion reason {reason!r}"
+                + (" (RETIRED — the fused path carries this state now)"
+                   if reason in RETIRED_DEMOTION_REASONS else
+                   "; add it to DEMOTION_REASONS"))
+        if self.watch_enabled and reason not in self._cycle_demotions:
+            self._cycle_demotions.append(reason)
+            scheduler_metrics.WAVE_DEMOTIONS.inc(reason=reason)
+        return value
 
     def _open_window(self, base: str):
         """Open a device-timeline window for one dispatch pass; the
@@ -723,34 +977,144 @@ class Scheduler:
 
     def _get_step(self, signature: Tuple, ng: int, ngroups: int,
                   active) -> object:
+        # a shape-signature miss builds the step; on the card the kernel
+        # library loads at the step's first call, in the NEXT kernel span,
+        # which is why the kernel span carries compiled="1" on that cycle
         key = (signature, ng, ngroups, tuple(active))
+        return self._cached_step(key, lambda: build_best_full_chain_step(
+            self.args, ng, ngroups, active_axes=active))
+
+    def _cached_step(self, key: Tuple, build) -> object:
+        """The step memo: a hit, or ``build()`` timed by a ``compile``
+        span and cached under ``key``."""
         step = self._step_cache.get(key)
         if step is not None:
             self._last_step_compiled = False
             scheduler_metrics.COMPILE_CACHE_HITS.inc()
             return step
-        # shape-signature miss: this span times the host-side step
-        # construction; on the card the kernel library loads at the
-        # step's first call, in the NEXT kernel span, which is why the
-        # kernel span carries compiled="1" on that cycle
         self._last_step_compiled = True
         scheduler_metrics.COMPILE_CACHE_MISSES.inc()
         with self.tracer.span("compile", signature=str(key)):
-            step = build_best_full_chain_step(
-                self.args, ng, ngroups, active_axes=active)
+            step = build()
         self._step_cache[key] = step
         return step
 
-    def _effective_waves(self, pending: List[Pod], override=None) -> int:
-        """Resolve this cycle's wave depth: 1 is the serial path this
-        slice ports; a depth above 1 (an int, or "auto" at >= 256 pending
-        pods) is the fused dispatch, which comes with a later slice."""
+    def _device_score_passes(self) -> Tuple:
+        """Registered ScoreTransformers' device tensor passes, in
+        registration order (the host before_score order). The fused path
+        only runs when EVERY ScoreTransformer is device-expressible
+        (_effective_waves demotes otherwise)."""
+        return tuple(
+            t.device_pass for t in self.extender.transformers
+            if isinstance(t, ScoreTransformer)
+            and getattr(t, "device_pass", None) is not None)
+
+    def _score_pass_tag(self) -> Tuple:
+        """Step-cache key component for the transformer passes a wave
+        step runs: a registration or a declared parameter change
+        (``device_epoch``) must miss the cache."""
+        return tuple(
+            (t.name, getattr(t, "device_epoch", 0))
+            for t in self.extender.transformers
+            if isinstance(t, ScoreTransformer)
+            and getattr(t, "device_pass", None) is not None)
+
+    def _get_fused_step(self, signature: Tuple, ng: int, ngroups: int,
+                        active, waves: int,
+                        sides_tag: Tuple = (0, 0)) -> object:
+        """The single-call K-wave step (replay overlap off)."""
+        from koordinator_tpu_torch.models.fused_waves import (
+            build_fused_wave_step,
+        )
+
+        nc, nres = sides_tag
+        key = ("fused", waves, signature, ng, ngroups, tuple(active),
+               sides_tag, self._score_pass_tag())
+        return self._cached_step(key, lambda: build_fused_wave_step(
+            self.args, ng, ngroups, waves=waves, active_axes=active,
+            prod=self.args.score_according_prod_usage, claims=nc > 0,
+            res=nres > 0, score_passes=self._device_score_passes()))
+
+    def _get_chain_step(self, signature: Tuple, ng: int, ngroups: int,
+                        active, sides_tag: Tuple = (0, 0)) -> object:
+        """The chained per-wave step (overlapped replay). No wave depth in
+        the cache key: one step serves every K."""
+        from koordinator_tpu_torch.models.fused_waves import (
+            build_chained_wave_step,
+        )
+
+        nc, nres = sides_tag
+        key = ("chain", signature, ng, ngroups, tuple(active), sides_tag,
+               self._score_pass_tag())
+        return self._cached_step(key, lambda: build_chained_wave_step(
+            self.args, ng, ngroups, active_axes=active,
+            prod=self.args.score_according_prod_usage, claims=nc > 0,
+            res=nres > 0, score_passes=self._device_score_passes()))
+
+    def _analyze_claims(self, pending: List[Pod]):
+        """The batch's claim structure (ops/volumes.analyze_pending_claims)
+        for the fused path: None when no pending pod carries claims. The
+        analysis is stashed for the dispatch's side-input encode so the
+        hot-claim factorization is computed exactly once per cycle."""
+        carriers = [p for p in pending if p.spec.pvc_names]
+        if not carriers:
+            return None
+        # volume-aware mode (real PVC/PV/StorageClass objects, the SHARED
+        # gate in ops/volumes.py): a bind can rewrite another pending
+        # pod's CLASSIFICATION through the store — count the pods whose
+        # claims are unbound/missing, the only channel such a rewrite can
+        # travel
+        from koordinator_tpu_torch.ops.volumes import store_volume_aware
+
+        volume_aware = store_volume_aware(self.store)
+        unbound = 0
+        if volume_aware:
+            for pod in carriers:
+                for claim in pod.spec.pvc_names:
+                    pvc = self.store.get(
+                        KIND_PVC, f"{pod.meta.namespace}/{claim}")
+                    if pvc is None or not pvc.is_bound:
+                        unbound += 1
+                        break
+                if unbound >= 2:
+                    break
+        attached = (self.snapshot_cache.attached_sets()
+                    if self.snapshot_cache is not None
+                    else attached_claim_sets(self.store))
+        return analyze_pending_claims(
+            pending, attached, volume_aware=volume_aware,
+            unbound_claim_pods=unbound)
+
+    def _effective_waves(self, pending: List[Pod],
+                         pending_reservations: Dict[str, Reservation],
+                         override=None) -> int:
+        """Resolve this cycle's fused-wave depth. Pending Reservation CRs,
+        claim-carrying pods, prod-usage scoring and device-expressible
+        ScoreTransformers all ride the fused path as carried state; only
+        genuinely non-expressible residues demote to K=1 (the exact serial
+        path): a ScoreTransformer without ``device_pass`` and claim
+        entanglement. The ladder and the sidecar, the JAX package's other
+        two demotions, are refused at construction in this port."""
+        self._claim_analysis = None
         spec = self.waves_spec if override is None else override
         k = _auto_waves(len(pending)) if spec == "auto" else int(spec)
         k = max(1, min(k, MAX_WAVES))
-        if k > 1:
-            _refuse(f"a wave depth of {k} (fused multi-wave dispatch; "
-                    f"pass waves=1)", "fused-wave")
+        if k == 1:
+            return k  # resolved to serial by spec/depth: not a demotion
+        if any(isinstance(t, ScoreTransformer)
+               and getattr(t, "device_pass", None) is None
+               for t in self.extender.transformers):
+            # a host-only ScoreTransformer may rewrite any packed field
+            # AFTER the build; the fused waves rebuild the score terms from
+            # carried state every wave, which would silently discard the
+            # rewrite
+            return self._note_demotion("non-expressible-transformer", 1)
+        analysis = self._analyze_claims(pending)
+        if analysis is not None and analysis.entangled is not None:
+            # the narrow claim residue: classification drift through the
+            # PV/PVC objects or a factorization-budget overflow
+            return self._note_demotion("claim-entangled", 1)
+        self._claim_analysis = analysis
         return k
 
     # ------------------------------------------------------------------
@@ -759,6 +1123,7 @@ class Scheduler:
         now = time.time() if now is None else now
         if self.elector is not None and not self.elector.tick(now):
             return CycleResult(skipped_not_leader=True)
+        self._cycle_demotions = []
         self._cycle_decision_ids = []
         self._current_decision_id = None
         result = CycleResult()
@@ -788,6 +1153,7 @@ class Scheduler:
             # preceding cycles in the ring — then re-raises unchanged
             result.duration_seconds = (root.duration_seconds
                                        if root is not None else 0.0)
+            result.demotions = list(self._cycle_demotions)
             result.decision_ids = list(self._cycle_decision_ids)
             self.flight.record_cycle(self._flight_record(
                 result, now, root, flight_base,
@@ -795,6 +1161,7 @@ class Scheduler:
             self.flight.dump("cycle_exception")
             raise
         result.duration_seconds = root.duration_seconds
+        result.demotions = list(self._cycle_demotions)
         result.decision_ids = list(self._cycle_decision_ids)
         scheduler_metrics.CYCLE_SECONDS.observe(result.duration_seconds)
         if result.duration_seconds > 0:
@@ -958,9 +1325,20 @@ class Scheduler:
         if not pending:
             return
 
-        # ---- the wave depth: 1 is this slice's serial path; a depth
-        # above 1 (the fused multi-wave dispatch) raises
-        self._effective_waves(pending, waves_override)
+        # ---- fused multi-wave path: K dependent rounds per dispatch,
+        # replayed host-side as logical cycles (byte-identical to K
+        # sequential single-round cycles — pipeline_parity gates it)
+        k_waves = self._effective_waves(pending, pending_reservations,
+                                        waves_override)
+        if k_waves > 1:
+            # _fused_wave_cycles refreshes pod-group status at the end of
+            # every logical cycle — no trailing refresh here, or a fused
+            # K-cycle would walk the groups K+1 times where K serial
+            # cycles walk them K times
+            self._fused_wave_cycles(pending, now, ctx, result,
+                                    pending_reservations, originals,
+                                    k_waves)
+            return
 
         # ---- batched kernel pass
         rejected_pods, failed_pods = self._batch_pass(
@@ -1079,9 +1457,10 @@ class Scheduler:
             (p, "admission rejected") for p in rejected_pods]
         if not items:
             return
-        if self.pipeline_mode:
+        if self.pipeline_mode or self._defer_condition_writes:
             # pipelined cycle: the writes run inside the NEXT cycle's
-            # kernel window (flush_deferred), overlapping device work.
+            # kernel window (flush_deferred), overlapping device work; a
+            # fused dispatch flushes its logical cycles' writes at its end.
             # `now` and the packed batch are captured here, so the
             # diagnosis content is byte-identical to the serial path.
             # Only generic kernel rejections consult the packed batch —
@@ -1269,10 +1648,15 @@ class Scheduler:
         return self._last_admission
 
     def _encode_batch(self, pending: List[Pod], now: float,
-                      ctx: CycleContext):
+                      ctx: CycleContext, transform_score: bool = True):
         """Snapshot + encode: store objects -> packed FullChainInputs.
         Returns (fc, pods, nodes, ng, ngroups, active) or None when no
-        schedulable node exists."""
+        schedulable node exists. Shared by the serial and fused paths.
+
+        ``transform_score=False`` (the fused dispatchers): registered
+        ScoreTransformers are NOT applied host-side — the wave step
+        applies their device passes to every wave's rebuilt inputs
+        instead (applying both would transform twice)."""
         # pods arrive already view-transformed (run_cycle runs BeforePreFilter
         # ahead of the nomination pre-pass); here the state-level transformer
         # chain runs: ClusterState rewrites, then packed-input rewrites
@@ -1316,7 +1700,8 @@ class Scheduler:
                 list(pods.keys),
             )
             self._last_admission = None
-            fc = self.extender.transform_before_score(fc, ctx)
+            if transform_score:
+                fc = self.extender.transform_before_score(fc, ctx)
             fc, active = reduce_to_active_axes(fc)
             # keep the packed batch for end-of-cycle unschedulability
             # diagnosis (scheduler/diagnose.py reads the same arrays the
@@ -1499,6 +1884,987 @@ class Scheduler:
         return chosen
 
     # ------------------------------------------------------------------
+    # fused multi-wave dispatch (models/fused_waves.py)
+    # ------------------------------------------------------------------
+    def _fused_wave_cycles(
+        self,
+        pending: List[Pod],
+        now: float,
+        ctx: CycleContext,
+        result: CycleResult,
+        pending_reservations: Dict[str, Reservation],
+        originals: Dict[str, Pod],
+        k_waves: int,
+    ) -> None:
+        """K scheduling rounds per device dispatch, replayed host-side as
+        logical cycles (models/fused_waves.py has the step's contract).
+        Each logical cycle w binds wave w's pods, runs the SAME preemption
+        block serial cycle w would (_post_filter_preempt — including its
+        per-cycle rotation clock), and writes conditions diagnosed against
+        wave-w-start state (a host numpy mirror advanced with the read-back
+        bindings). A Reserve veto or a preemption retry truncates: the
+        device state beyond that wave assumed a world that didn't happen,
+        so the remaining rounds fall to the next cycle. result.waves
+        reports the logical cycles completed.
+
+        Condition writes are BATCHED per dispatch: each logical cycle's
+        verdicts are captured at verdict time (same packed state, same
+        ``now``) but queue on the deferred machinery; the dispatch drains
+        them in one flush at the end (pipeline mode keeps deferring into
+        the next kernel window). The supersede guards in
+        ``_diagnose_and_write`` make the late writes converge to exactly
+        the serial end state."""
+        self._defer_condition_writes = True
+        try:
+            dispatch = (self._fused_wave_dispatch_overlap
+                        if self.replay_overlap
+                        else self._fused_wave_dispatch)
+            dispatch(pending, now, ctx, result,
+                     pending_reservations, originals, k_waves)
+        finally:
+            self._defer_condition_writes = False
+            if not self.pipeline_mode and self._deferred_diagnose:
+                # ONE store-write flush for the whole dispatch (pipeline
+                # mode leaves the queue for the next kernel window)
+                self.flush_deferred()
+
+    def _fused_no_node_cycles(self, pending: List[Pod], now: float,
+                              result: CycleResult, k_waves: int) -> None:
+        """The serial early-return (no schedulable node), repeated K
+        times: every logical cycle re-dispatches the same verdicts
+        (idempotent condition writes, per-cycle failure-trail events —
+        exactly what K no-node serial cycles produce)."""
+        failed = [(p, "no schedulable node") for p in pending]
+        gang_plugin = self.extender.plugin("Coscheduling")
+        for _w in range(k_waves):
+            self._post_filter_preempt([], failed, result)
+            for pod, reason in failed:
+                result.failed.append(pod.meta.key)
+                self.extender.error_handlers.dispatch(pod, reason)
+            self._write_unschedulable_conditions([], failed, now)
+            result.waves += 1
+            if gang_plugin is not None:
+                gang_plugin.update_pod_group_status(self.store, now)
+
+    def _encode_wave_sides(self, fc_host, pods, nodes, pending: List[Pod],
+                           pending_reservations: Dict[str, Reservation],
+                           active, now: float):
+        """Build one dispatch's WaveSideInputs (host arrays) + the replay
+        context: the LoadAware term splits, the hot-claim factorization
+        (ops/volumes.py) and the packed reservation rows (owner-match
+        columns, allocatable remainders, nomination eligibility) the
+        wave pre-passes consume. Returns (fields dict for upload,
+        assembler, replay context dict)."""
+        ex = nodes.extras
+        axis_idx = np.asarray(active)
+
+        def take(name):
+            return np.ascontiguousarray(np.take(ex[name], axis_idx,
+                                                axis=-1))
+
+        fields = {"la_est_nonprod": take("la_est_nonprod"),
+                  "la_adj_nonprod": take("la_adj_nonprod")}
+        prod = self.args.score_according_prod_usage
+        if prod:
+            fields["la_est_prod"] = take("la_est_prod")
+            fields["la_adj_prod"] = take("la_adj_prod")
+        n_pad = int(np.shape(fc_host.base.allocatable)[0])
+        p_pad = pods.padded_size
+        claim_pack = None
+        analysis = self._claim_analysis
+        if analysis is not None and analysis.hot:
+            # the attached view rides the analysis (stashed at
+            # _effective_waves time — never materialized twice per cycle)
+            attached = (analysis.attached if analysis.attached is not None
+                        else attached_claim_sets(self.store))
+            claim_pack = build_claim_pack(
+                analysis, pods.keys, nodes.names, attached, p_pad, n_pad)
+        if claim_pack is not None:
+            fields["claim_pod"] = claim_pack.pod_claim
+            fields["claim_nonhot"] = claim_pack.pod_nonhot
+            fields["claim_covered0"] = claim_pack.covered0
+        res_slots: List[Reservation] = []
+        res_ctx: Dict[str, object] = {"claim_pack": claim_pack,
+                                      "res_slots": res_slots,
+                                      "res_slot_of": {},
+                                      "res_alloc": None, "res_once": None}
+        res_plugin = self.extender.plugin("Reservation")
+        slot_keys = [k for k in pods.keys if k in pending_reservations]
+        if slot_keys:
+            nres = len(slot_keys)
+            row_index = {key: i for i, key in enumerate(pods.keys)}
+            row_of = np.full(nres, -1, np.int32)
+            pod_slot = np.full(p_pad, -1, np.int32)
+            alloc = np.zeros((nres, len(axis_idx)), np.float32)
+            once = np.zeros(nres, np.float32)
+            expired = np.zeros(nres, bool)
+            for j, key in enumerate(slot_keys):
+                res = pending_reservations[key]
+                res_slots.append(res)
+                row = row_index[key]
+                row_of[j] = row
+                pod_slot[row] = j
+                alloc[j] = res.template.requests.to_vector()[axis_idx]
+                once[j] = 1.0 if res.allocate_once else 0.0
+                expired[j] = res.is_expired(now)
+            # the host nominator's preference: earliest created wins
+            order = sorted(
+                range(nres),
+                key=lambda j: (res_slots[j].meta.creation_timestamp,
+                               res_slots[j].meta.name))
+            rank = np.zeros(nres, np.int32)
+            for pos, j in enumerate(order):
+                rank[j] = pos
+            owner_match = np.zeros((p_pad, nres), bool)
+            nominate_ok = np.zeros(p_pad, bool)
+            if res_plugin is not None:
+                by_key = {p.meta.key: p for p in pending}
+                for i, key in enumerate(pods.keys):
+                    if key in pending_reservations:
+                        continue
+                    pod = by_key.get(key)
+                    if pod is None:
+                        continue
+                    spec = pod.spec
+                    # the host pre-pass eligibility class (run_cycle's
+                    # nomination loop): gang/quota admission lives in the
+                    # kernel, and hostPort/PVC/affinity/spread placement
+                    # must pass the Filter chain
+                    if (pod.gang_name or pod.quota_name
+                            or spec.host_ports or spec.pvc_names
+                            or spec.pod_affinity or spec.pod_anti_affinity
+                            or spec.topology_spread):
+                        continue
+                    nominate_ok[i] = True
+                    for j, rkey in enumerate(slot_keys):
+                        owner_match[i, j] = (
+                            not expired[j]
+                            and pending_reservations[rkey].matches(pod))
+            fields["res_owner_match"] = owner_match
+            fields["res_rank"] = rank
+            fields["res_alloc"] = alloc
+            fields["res_once"] = once
+            fields["res_row_of"] = row_of
+            fields["res_pod_slot"] = pod_slot
+            fields["res_nominate_ok"] = nominate_ok
+            res_ctx["res_alloc"] = alloc
+            res_ctx["res_once"] = once
+            res_ctx["res_slot_of"] = {k: j for j, k in
+                                      enumerate(slot_keys)}
+
+        def assemble(up: Dict[str, object]) -> WaveSideInputs:
+            return WaveSideInputs(
+                la_est=up["la_est_nonprod"],
+                la_adj=up["la_adj_nonprod"],
+                prod=(ProdSides(est=up["la_est_prod"],
+                                adj=up["la_adj_prod"]) if prod else None),
+                claims=(ClaimSides(pod_claim=up["claim_pod"],
+                                   pod_nonhot=up["claim_nonhot"],
+                                   covered0=up["claim_covered0"])
+                        if claim_pack is not None else None),
+                res=(ResSides(owner_match=up["res_owner_match"],
+                              rank=up["res_rank"],
+                              alloc=up["res_alloc"],
+                              once=up["res_once"],
+                              row_of=up["res_row_of"],
+                              pod_slot=up["res_pod_slot"],
+                              nominate_ok=up["res_nominate_ok"])
+                     if slot_keys else None),
+            )
+
+        res_ctx["tag"] = (
+            claim_pack.n_claims if claim_pack is not None else 0,
+            len(slot_keys))
+        return fields, assemble, res_ctx
+
+    def _upload_wave_inputs(self, fc_host, side_fields, assemble):
+        """The dispatch's inputs on the device: the batch and the side
+        arrays through the mirror's reuse/scatter/put machinery, or in
+        full without a mirror. Returns (fc, sides)."""
+        from koordinator_tpu_torch.models.convert import as_tensor
+
+        snap = self.device_snapshot
+        with self.tracer.span("upload"):
+            if snap is not None:
+                fc = snap.upload(fc_host)
+                up = snap.upload_fields(side_fields)
+                self._record_upload_deltas()
+            else:
+                fc = to_device(fc_host, self.device)
+                up = {k: as_tensor(v, self.device)
+                      for k, v in side_fields.items()}
+        return fc, assemble(up)
+
+    def _new_wave_mirror(self, fc_host, res_ctx) -> "_WaveStateMirror":
+        return _WaveStateMirror(fc_host, claims=res_ctx["claim_pack"],
+                                res_alloc=res_ctx["res_alloc"])
+
+    def _replay_nominated_binds(self, seg_rows, pod_of, nodes, res_ctx,
+                                ctx, result: CycleResult,
+                                failed_pods: List[Tuple[Pod, str]],
+                                txn=None):
+        """Replay ONE wave's in-dispatch nominations host-side, FIRST — the
+        serial pre-pass position: via-reservation Reserve hooks +
+        consume(). ``pod_of`` resolves a packed row to its Pod. Returns
+        (veto, bound_rows, failed_rows, mirror_ops, succ_next_ops) — ONE
+        implementation for both the fused and the overlapped-chain replay.
+        A Reserve veto truncates the dispatch (the next dispatch's host
+        pre-pass re-runs the pod: one lost cycle)."""
+        res_slots = res_ctx["res_slots"]
+        res_once = res_ctx["res_once"]
+        veto = False
+        bound_rows: set = set()
+        failed_rows: set = set()
+        mirror_ops: List[Tuple] = []
+        succ_next: List[Tuple] = []
+        for row, node_idx, zone, slot in seg_rows:
+            if slot < 0:
+                continue
+            pod = pod_of(row)
+            res = res_slots[slot]
+            err = self._reserve_and_bind(
+                pod, nodes.names[node_idx], ctx, result,
+                via_reservation=res, txn=txn)
+            if err:
+                failed_pods.append((pod, err))
+                failed_rows.add(row)
+                veto = True
+            else:
+                bound_rows.add(row)
+                mirror_ops.append(("nom", row, node_idx, zone))
+                if res_once is not None and res_once[slot] > 0:
+                    # the reconcile's Succeeded transition lands one wave
+                    # later — both on device and in the mirror
+                    succ_next.append(("succ", row, slot, node_idx))
+        return veto, bound_rows, failed_rows, mirror_ops, succ_next
+
+    def _fused_wave_dispatch(
+        self,
+        pending: List[Pod],
+        now: float,
+        ctx: CycleContext,
+        result: CycleResult,
+        pending_reservations: Dict[str, Reservation],
+        originals: Dict[str, Pod],
+        k_waves: int,
+    ) -> None:
+        """The single-call fused dispatch (replay overlap off, the
+        byte-exact twin): all K waves in one step call, one readback, then
+        the host replay of every wave as a logical cycle."""
+        result.waves = 0
+        # transform_score=False: registered ScoreTransformers run as
+        # passes on every wave's rebuilt inputs — the host before_score
+        # must NOT also apply at encode
+        enc = self._encode_batch(pending, now, ctx, transform_score=False)
+        if enc is None:
+            self._fused_no_node_cycles(pending, now, result, k_waves)
+            return
+        fc, pods, nodes, ng, ngroups, active = enc
+        fc_host = fc  # the pre-upload host arrays feed the wave mirror
+        side_fields, assemble_sides, res_ctx = self._encode_wave_sides(
+            fc_host, pods, nodes, pending, pending_reservations, active,
+            now)
+        win = self._open_window("fused")
+        step = self._get_fused_step(
+            (pods.padded_size, nodes.padded_size,
+             fc_host.quota_runtime.shape[0]),
+            ng, ngroups, active, k_waves, sides_tag=res_ctx["tag"])
+        snap = self.device_snapshot
+        with self.tracer.span(
+                "kernel",
+                compiled="1" if self._last_step_compiled else "0",
+                waves=str(k_waves),
+                decision_id=win.decision_id) as ksp:
+            fc, sides = self._upload_wave_inputs(fc_host, side_fields,
+                                                 assemble_sides)
+            if snap is not None:
+                snap.begin_dispatch()
+            t_dispatch = time.perf_counter()
+            win.mark_dispatch("fused")
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector("fused")
+                # the step runs every wave to the fixpoint, reading each
+                # wave's count as it goes
+                out = step(fc, sides)
+                self.last_backend = ("cuda" if fc.base.allocatable.is_cuda
+                                     else "serial")
+                self.dispatches += 1
+                compacted = (out.bind_pods, out.bind_nodes, out.bind_zones,
+                             out.bind_res, out.wave_counts)
+                if self.pipeline_mode:
+                    self.flush_deferred()
+                    self._prepack_in_window()
+                    with self.tracer.span("overlap_wait"):
+                        (bind_pods, bind_nodes, bind_zones, bind_res,
+                         wave_counts) = self._readback_sync(*compacted)
+                else:
+                    with self.tracer.span("readback"):
+                        (bind_pods, bind_nodes, bind_zones, bind_res,
+                         wave_counts) = self._readback_sync(*compacted)
+                waves_run = out.waves_run
+            except DispatchDeadlineExceeded:
+                self._abandon_device_state()
+                raise
+            finally:
+                if snap is not None:
+                    snap.end_dispatch()
+            result.device_busy_seconds += time.perf_counter() - t_dispatch
+            scheduler_metrics.WAVES_PER_DISPATCH.observe(float(waves_run))
+            scheduler_metrics.READBACK_BYTES.inc(
+                int(bind_pods.nbytes + bind_nodes.nbytes + bind_zones.nbytes
+                    + bind_res.nbytes + wave_counts.nbytes))
+            for w in range(waves_run):
+                # retrospective per-wave markers under the kernel span:
+                # how the dispatch's work split across the fused rounds
+                with self.tracer.span("wave", index=str(w),
+                                      bound=str(int(wave_counts[w]))):
+                    pass
+        result.kernel_seconds += ksp.duration_seconds
+        scheduler_metrics.KERNEL_SECONDS.observe(ksp.duration_seconds)
+        self.timeline.close(win, "clean")
+
+        # ---- replay the waves as logical cycles. The state mirror is
+        # LAZY: it only exists to diagnose unbound pods against wave-w
+        # state, so the happy path never pays the array copies or the
+        # per-binding numpy replay — typed mirror ops accumulate in a
+        # backlog that the first diagnosable wave replays in order.
+        mirror: Optional[_WaveStateMirror] = None
+        mirror_backlog: List[Tuple] = []
+
+        def mirror_apply(ops) -> None:
+            if mirror is None:
+                mirror_backlog.extend(ops)
+            else:
+                for op in ops:
+                    _apply_mirror_op(mirror, op)
+
+        def mirror_state() -> _WaveStateMirror:
+            nonlocal mirror
+            if mirror is None:
+                mirror = self._new_wave_mirror(fc_host, res_ctx)
+                for op in mirror_backlog:
+                    _apply_mirror_op(mirror, op)
+                mirror_backlog.clear()
+            return mirror
+
+        index = {key: j for j, key in enumerate(pods.keys)}
+        by_key = {p.meta.key: p for p in pending}
+        keys = pods.keys
+        bound_mask = np.zeros(len(keys), bool)
+        gang_plugin = self.extender.plugin("Coscheduling")
+        pos = 0
+        pending_succ: List[Tuple] = []
+        for w in range(k_waves):
+            n_w = int(wave_counts[w]) if w < waves_run else 0
+            seg_rows = list(zip(bind_pods[pos:pos + n_w].tolist(),
+                                bind_nodes[pos:pos + n_w].tolist(),
+                                bind_zones[pos:pos + n_w].tolist(),
+                                bind_res[pos:pos + n_w].tolist()))
+            pos += n_w
+            rejected_pods: List[Pod] = []
+            failed_pods: List[Tuple[Pod, str]] = []
+            kernel_ops: List[Tuple] = []
+            # the reconcile's Succeeded transition from the previous
+            # wave's allocate-once consumption applies at this wave's
+            # start — before any of this wave's binds touch the mirror
+            if pending_succ:
+                mirror_apply(pending_succ)
+            pending_succ = []
+            with self.tracer.span("bind", wave=str(w)) as bsp:
+                bound_before = len(result.bound)
+                # nominated binds first (the serial pre-pass position)
+                (veto, nom_bound, nom_failed, nom_ops,
+                 pending_succ) = self._replay_nominated_binds(
+                    seg_rows, lambda row: by_key[keys[row]], nodes,
+                    res_ctx, ctx, result, failed_pods)
+                for row in nom_bound:
+                    bound_mask[row] = True
+                nominated = nom_bound | nom_failed
+                if nom_ops:
+                    # nominations are pre-pass state: serial cycle w
+                    # packed its batch AFTER them, so this wave's
+                    # diagnosis state includes them
+                    mirror_apply(nom_ops)
+                bind_of = {row: (node_idx, zone)
+                           for row, node_idx, zone, slot in seg_rows
+                           if slot < 0}
+                # one walk in packed (queue) order, the serial bind-loop
+                # contract: bind-or-classify each still-pending pod
+                for i, key in enumerate(keys):
+                    if bound_mask[i] or i in nominated:
+                        continue  # bound earlier, or handled above
+                    pod = by_key[key]
+                    ent = bind_of.get(i)
+                    if ent is not None:
+                        node_idx, zone = ent
+                        reservation = pending_reservations.get(key)
+                        err = self._reserve_and_bind(
+                            pod, nodes.names[node_idx], ctx, result,
+                            reservation_cr=reservation)
+                        if err:
+                            failed_pods.append((pod, err))
+                            veto = True
+                        else:
+                            bound_mask[i] = True
+                            if reservation is not None:
+                                kernel_ops.append(
+                                    ("res",
+                                     int(res_ctx["res_slot_of"][key]),
+                                     node_idx))
+                            else:
+                                kernel_ops.append(("pod", i, node_idx,
+                                                   zone))
+                        continue
+                    reason = pods.unschedulable_reasons.get(i)
+                    if reason is not None:
+                        failed_pods.append((pod, reason))
+                    elif pod.gang_name or pod.quota_name:
+                        rejected_pods.append(pod)
+                    else:
+                        failed_pods.append((pod, "no feasible node"))
+                bsp.attributes["bound"] = str(
+                    len(result.bound) - bound_before)
+            # diagnosis for THIS logical cycle reads wave-w-START state
+            # (serial cycle w packed its batch before its kernel ran); the
+            # mirror still holds it — advance happens below
+            if any(r in DIAGNOSED_REASONS for _p, r in failed_pods) or (
+                    rejected_pods):
+                self._last_batch = (mirror_state().patched_fc(), index,
+                                    len(nodes.names))
+            truncate = veto
+            any_victims = self._post_filter_preempt(
+                rejected_pods, failed_pods, result)
+            if any_victims:
+                # serial cycle w's in-cycle kernel rerun after evictions:
+                # a fresh SINGLE-round pass over the still-unbound pods
+                # (the device's later waves assumed no evictions — drop
+                # them and let the next cycle continue the budget)
+                retry = self.extender.transform_before_prefilter(
+                    [
+                        originals.get(p.meta.key, p)
+                        for p in rejected_pods
+                        + [p for p, _ in failed_pods]
+                    ],
+                    ctx,
+                )
+                rejected_pods, failed_pods = self._batch_pass(
+                    retry, now, ctx, result, pending_reservations
+                )
+                truncate = True
+            for b in result.bound:
+                self._preempt_attempted.pop(b.pod_key, None)
+            for pod in rejected_pods:
+                result.rejected.append(pod.meta.key)
+                self.extender.error_handlers.dispatch(
+                    pod, "admission rejected")
+            for pod, reason in failed_pods:
+                result.failed.append(pod.meta.key)
+                self.extender.error_handlers.dispatch(pod, reason)
+            self._write_unschedulable_conditions(
+                rejected_pods, failed_pods, now)
+            result.waves += 1
+            if gang_plugin is not None:
+                gang_plugin.update_pod_group_status(self.store, now)
+            if truncate:
+                break
+            # advance the mirror with the device's view of this wave's
+            # commits + the wave-boundary claim rebuild, so the next
+            # logical cycle diagnoses against the state serial cycle w+1
+            # would have packed
+            mirror_apply(kernel_ops + [("wave_end",)])
+        self._last_batch = None
+
+    # ------------------------------------------------------------------
+    # overlapped wave replay (KOORD_TPU_REPLAY_OVERLAP, the default)
+    # ------------------------------------------------------------------
+    def _initial_chain_carry(self, fc, sides):
+        """Wave-0 carried state for the chained dispatch, from the same
+        device-resident arrays the single-call step starts from."""
+        return initial_wave_carry(fc, sides)
+
+    def _dispatch_chain_wave(self, step, fc, carry, sides):
+        """Dispatch ONE chained wave. Returns (next carry, handle), with
+        nothing synced: on the card the wave's rows (pods, nodes, zones,
+        reservation slots, count: one int32 vector) are queued for copy
+        into pinned host memory right behind the wave's launches, and an
+        event recorded after the copy, so that ``_sync_wave_rows`` waits
+        for this wave and no later one. A second event, recorded before
+        the wave's first launch, times the wave on the device."""
+        import torch
+
+        start = None
+        if fc.base.allocatable.is_cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        carry, rows = step(fc, carry, sides)
+        packed = torch.cat([*rows[:4], rows.count.reshape(1)])
+        if start is None:
+            return carry, (packed, None, None, None)
+        host = torch.empty(packed.shape, dtype=packed.dtype,
+                           pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event(enable_timing=True)
+        done.record()
+        return carry, (host, start, done, packed.device)
+
+    def _sync_wave_rows(self, handle, monitored: bool = True):
+        """Materialize one wave's compacted readback — the per-wave
+        designated sync point of the overlapped replay. Returns host
+        arrays (pods, nodes, zones, res, count, device ms or None).
+
+        ``monitored=False`` (the replay phase, wave >= 2) runs the sync
+        INLINE, outside the deadline watchdog: those syncs happen after
+        binds applied, where a DispatchDeadlineExceeded could only escape
+        as a cycle exception; the deadline window is wave 1's readback."""
+        host, start, done, device = handle
+
+        def body():
+            import torch
+
+            if self.sync_delay_injector is not None:
+                self.sync_delay_injector()
+            if done is not None:
+                # a watchdog worker thread starts on device 0
+                torch.cuda.set_device(device)
+                done.synchronize()
+            return host.numpy()
+
+        arr = (self.dispatch_watchdog.run(body, "fused") if monitored
+               else body())
+        scheduler_metrics.READBACK_BYTES.inc(int(arr.nbytes))
+        P = (arr.shape[0] - 1) // 4
+        rows = arr[:4 * P].reshape(4, P)
+        device_ms = start.elapsed_time(done) if done is not None else None
+        return (rows[0], rows[1], rows[2], rows[3], int(arr[4 * P]),
+                device_ms)
+
+    def _drain_abandoned_wave(self, handle) -> None:
+        """A truncation (Reserve veto, preemption retry) dropped a
+        dispatched-but-unconsumed wave: wait for it before the dispatch
+        window closes, so the mirror never scatters in place into a
+        tensor the wave still reads. A deliberate wait for a result we
+        discard: the wave's event, nothing later on the stream."""
+        done = handle[2]
+        if done is not None:
+            done.synchronize()
+
+    def _abort_chain_window(self, handle, window_open: bool) -> None:
+        """Tear down the chain dispatch window on a host-side failure:
+        wave 1 may still be executing, and end_dispatch must not let the
+        mirror scatter in place while it reads the tensors."""
+        if handle is not None:
+            try:
+                self._drain_abandoned_wave(handle)
+            except Exception:
+                # the wave itself wrecked: the ORIGINAL failure is the
+                # evidence being raised
+                logger.exception("abandoned chain wave failed while "
+                                 "draining")
+        if window_open:
+            self.device_snapshot.end_dispatch()
+
+    def _fused_wave_dispatch_overlap(
+        self,
+        pending: List[Pod],
+        now: float,
+        ctx: CycleContext,
+        result: CycleResult,
+        pending_reservations: Dict[str, Reservation],
+        originals: Dict[str, Pod],
+        k_waves: int,
+    ) -> None:
+        """The overlapped-replay fused dispatch: K waves as a CHAIN of
+        one-wave dispatches (models/fused_waves.py build_chained_wave_step
+        — one step serves every K), with wave w+1 dispatched BEFORE wave
+        w's rows are read back, so the host-side replay of logical cycle w
+        — bind/classify over the still-pending slice, PostFilter
+        preemption, condition-write capture — runs while the device
+        executes wave w+1. Outcomes are byte-identical to the single-call
+        twin (replay_overlap=False) and to K serial cycles."""
+        result.waves = 0
+        enc = self._encode_batch(pending, now, ctx, transform_score=False)
+        if enc is None:
+            self._fused_no_node_cycles(pending, now, result, k_waves)
+            return
+        fc, pods, nodes, ng, ngroups, active = enc
+        fc_host = fc  # the pre-upload host arrays feed the wave mirror
+        side_fields, assemble_sides, res_ctx = self._encode_wave_sides(
+            fc_host, pods, nodes, pending, pending_reservations, active,
+            now)
+        win = self._open_window("chained")
+        step = self._get_chain_step(
+            (pods.padded_size, nodes.padded_size,
+             fc_host.quota_runtime.shape[0]),
+            ng, ngroups, active, sides_tag=res_ctx["tag"])
+        window_open = False
+        handle0 = None  # wave 1 in flight: drained before the window closes
+        try:
+            with self.tracer.span(
+                    "kernel",
+                    compiled="1" if self._last_step_compiled else "0",
+                    waves=str(k_waves), overlap="1",
+                    decision_id=win.decision_id):
+                fc, sides = self._upload_wave_inputs(fc_host, side_fields,
+                                                     assemble_sides)
+                if self.device_snapshot is not None:
+                    self.device_snapshot.begin_dispatch()
+                    window_open = True
+                t_dispatch = time.perf_counter()
+                win.mark_dispatch("chained")
+                if self.fault_injector is not None:
+                    self.fault_injector("fused")
+                carry = self._initial_chain_carry(fc, sides)
+                carry, handle0 = self._dispatch_chain_wave(step, fc, carry,
+                                                           sides)
+                self.last_backend = ("cuda" if fc.base.allocatable.is_cuda
+                                     else "serial")
+                self.dispatches += 1
+                if self.pipeline_mode:
+                    # the previous cycle's deferred host work drains
+                    # while the device runs wave 1
+                    self.flush_deferred()
+                # pack overlap: wave 1 is in flight — pre-pack the next
+                # cycle's rows before blocking on it
+                self._prepack_in_window()
+                with self.tracer.span("overlap_wait"):
+                    synced = self._sync_wave_rows(handle0)
+        except DispatchDeadlineExceeded:
+            # never drain the slow wave here (that blocks as long as the
+            # overrun): the mirror is replaced wholesale instead
+            self._abandon_device_state()
+            raise
+        except Exception:
+            self._abort_chain_window(handle0, window_open)
+            raise
+        try:
+            executed, t_last_sync = self._replay_wave_chain(
+                step, fc, fc_host, carry, sides, res_ctx, synced,
+                len(nodes.names), pods, nodes, pending, now, ctx, result,
+                pending_reservations, originals, k_waves)
+        finally:
+            if window_open:
+                self.device_snapshot.end_dispatch()
+        # kernel time = the CHAIN's dispatch->last-sync window, the same
+        # quantity the single-call twin's kernel span measures
+        window_seconds = t_last_sync - t_dispatch
+        result.kernel_seconds += window_seconds
+        scheduler_metrics.KERNEL_SECONDS.observe(window_seconds)
+        result.device_busy_seconds += window_seconds
+        scheduler_metrics.WAVES_PER_DISPATCH.observe(float(executed))
+        self.timeline.close(win, "clean", end_mono=t_last_sync)
+        self._last_batch = None
+
+    def _replay_wave_chain(
+        self,
+        step,
+        fc,
+        fc_host,
+        carry,
+        sides,
+        res_ctx,
+        synced,
+        n_real: int,
+        pods,
+        nodes,
+        pending: List[Pod],
+        now: float,
+        ctx: CycleContext,
+        result: CycleResult,
+        pending_reservations: Dict[str, Reservation],
+        originals: Dict[str, Pod],
+        k_waves: int,
+    ) -> Tuple[int, float]:
+        """Consume the wave chain: one logical cycle per wave, the replay
+        of wave w overlapping device execution of wave w+1. Returns (wave
+        bodies consumed device-side, clock of the last device sync).
+
+        Packed-order work is amortized per DISPATCH: the classification
+        of every pod (encoding-overflow reason, gang/quota membership,
+        plain no-fit) is static for the dispatch, so each wave walks only
+        the still-pending slice, and a fixpoint repeat — a wave the device
+        did not run, re-verdicting the same pods at the same wave-start
+        state — reuses the previous wave's lists. Store writes: the wave's
+        bind patches land as ONE update_many transaction before
+        preemption or gang status reads the store (span ``store_flush``);
+        condition writes queue on the deferred machinery with
+        byte-identical repeats deduped."""
+        keys = pods.keys
+        by_key = {p.meta.key: p for p in pending}
+        index = {key: j for j, key in enumerate(keys)}
+        # per-dispatch precompute: the static (pod, verdict) partition
+        _REJECT = object()
+        pending_rows: List[Tuple[int, Pod, object]] = []
+        for i, key in enumerate(keys):
+            pod = by_key[key]
+            reason = pods.unschedulable_reasons.get(i)
+            if reason is None and (pod.gang_name or pod.quota_name):
+                pending_rows.append((i, pod, _REJECT))
+            else:
+                pending_rows.append(
+                    (i, pod, reason or "no feasible node"))
+        gang_plugin = self.extender.plugin("Coscheduling")
+
+        mirror: Optional[_WaveStateMirror] = None
+        mirror_backlog: List[Tuple] = []
+
+        def mirror_apply(ops) -> None:
+            if mirror is None:
+                mirror_backlog.extend(ops)
+            else:
+                for op in ops:
+                    _apply_mirror_op(mirror, op)
+
+        def mirror_state() -> _WaveStateMirror:
+            nonlocal mirror
+            if mirror is None:
+                mirror = self._new_wave_mirror(fc_host, res_ctx)
+                for op in mirror_backlog:
+                    _apply_mirror_op(mirror, op)
+                mirror_backlog.clear()
+            return mirror
+
+        executed = 1           # wave bodies whose readback we consumed
+        t_last_sync = time.perf_counter()
+        # fixpoint-repeat cache: valid while no wave commits/vetoes and
+        # preemption stays victim-less (any of those invalidates)
+        reuse_lists = None     # (rejected_pods, failed_pods)
+        in_flight = None       # handle of wave w+1
+        pending_succ: List[Tuple] = []
+        try:
+            with self.tracer.span("replay_drain",
+                                  waves=str(k_waves)) as dsp:
+                for w in range(k_waves):
+                    if synced is not None:
+                        pods_w, nodes_w, zones_w, res_w, cnt_w, dev_ms = (
+                            synced)
+                        seg_rows = list(zip(pods_w[:cnt_w].tolist(),
+                                            nodes_w[:cnt_w].tolist(),
+                                            zones_w[:cnt_w].tolist(),
+                                            res_w[:cnt_w].tolist()))
+                    else:
+                        seg_rows, cnt_w, dev_ms = [], 0, None
+                    # one-ahead: launch wave w+1 BEFORE replaying wave w —
+                    # the device works through it while the host replays
+                    # (a known fixpoint dispatches nothing)
+                    if (synced is not None and cnt_w > 0
+                            and w + 1 < k_waves):
+                        carry, in_flight = self._dispatch_chain_wave(
+                            step, fc, carry, sides)
+                    else:
+                        in_flight = None
+                    replay_out: Dict[str, object] = {
+                        "apply_succ": pending_succ}
+                    truncate = self._replay_logical_cycle(
+                        w, seg_rows, cnt_w, dev_ms, pending_rows,
+                        mirror_state, mirror_apply, res_ctx, index,
+                        n_real, nodes, now, ctx, result,
+                        pending_reservations, originals, reuse_lists,
+                        replay_out)
+                    pending_succ = replay_out.get("pending_succ", [])
+                    pending_rows = replay_out["pending_rows"]
+                    reuse_lists = replay_out["reuse_lists"]
+                    result.waves += 1
+                    if gang_plugin is not None:
+                        gang_plugin.update_pod_group_status(self.store,
+                                                            now)
+                    if truncate:
+                        break
+                    # advance the mirror with the device's committed rows
+                    # + the wave-boundary claim rebuild, so the next
+                    # logical cycle diagnoses at wave-(w+1)-start state
+                    ops = replay_out.get("kernel_mirror_ops", [])
+                    if cnt_w or ops:
+                        mirror_apply(list(ops) + [("wave_end",)])
+                    if in_flight is not None:
+                        handle, in_flight = in_flight, None
+                        with self.tracer.span("overlap_wait",
+                                              wave=str(w + 1)):
+                            # post-bind: inline, unmonitored
+                            synced = self._sync_wave_rows(
+                                handle, monitored=False)
+                        t_last_sync = time.perf_counter()
+                        executed += 1
+                    else:
+                        synced = None
+                dsp.attributes["cycles"] = str(result.waves)
+        finally:
+            if in_flight is not None:
+                # a truncation (or a replay wreck mid-flight) left wave
+                # w+1 dispatched and unread: wait for it before the
+                # dispatch window can close behind us. Guarded — a device
+                # fault in the DISCARDED wave must not replace the
+                # in-flight replay exception during unwind.
+                try:
+                    self._drain_abandoned_wave(in_flight)
+                    executed += 1
+                except Exception:
+                    logger.exception("abandoned chain wave failed "
+                                     "while draining")
+                t_last_sync = time.perf_counter()
+        return executed, t_last_sync
+
+    def _replay_logical_cycle(
+        self,
+        w: int,
+        seg_rows,
+        cnt_w: int,
+        device_ms,
+        pending_rows,
+        mirror_state,
+        mirror_apply,
+        res_ctx,
+        index,
+        n_real: int,
+        nodes,
+        now: float,
+        ctx: CycleContext,
+        result: CycleResult,
+        pending_reservations: Dict[str, Reservation],
+        originals: Dict[str, Pod],
+        reuse_lists,
+        out: dict,
+    ) -> bool:
+        """Replay ONE logical cycle of the overlapped chain (nominated
+        via-reservation binds first — the serial pre-pass position — then
+        bind/classify in packed order, PostFilter preemption, failure
+        records, condition capture). Returns whether the dispatch
+        truncates; the updated pending slice, the fixpoint-reuse cache,
+        the kernel mirror ops and the delayed Succeeded transitions ride
+        ``out``. A pending row's verdict is a string (the static failure
+        reason) or the chain's reject sentinel (any non-string: gang/quota
+        admission rejection). ``device_ms`` (the wave's time on the card,
+        CUDA events) is stamped on the wave's span."""
+        rejected_pods: List[Pod] = []
+        failed_pods: List[Tuple[Pod, str]] = []
+        kernel_ops: List[Tuple] = []
+        veto = False
+        fresh = True
+        txn: List[tuple] = []  # (patched, live pod, annotations, node)
+        with self.tracer.span("wave_replay", index=str(w)) as wsp:
+            if device_ms is not None:
+                wsp.attributes["device_ms"] = repr(device_ms)
+            bound_before = len(result.bound)
+            # the previous wave's allocate-once consumption lands its
+            # Succeeded transition at THIS wave's start (pass 0a)
+            if out.get("apply_succ"):
+                mirror_apply(out["apply_succ"])
+            if cnt_w == 0 and reuse_lists is not None:
+                # fixpoint repeat: same pending slice, same wave-start
+                # state — the previous wave's partition IS this wave's
+                rejected_pods, failed_pods = reuse_lists
+                fresh = False
+            else:
+                pod_of_row = {i: pod for i, pod, _v in pending_rows}
+                bound_mask: Dict[int, bool] = {}
+                nom_failed: set = set()
+                if any(slot >= 0 for _i, _n, _z, slot in seg_rows):
+                    (nveto, nom_bound, nom_failed, nom_ops,
+                     succ_ops) = self._replay_nominated_binds(
+                        seg_rows, pod_of_row.__getitem__, nodes,
+                        res_ctx, ctx, result, failed_pods, txn=txn)
+                    veto |= nveto
+                    for row in nom_bound:
+                        bound_mask[row] = True
+                    if nom_ops:
+                        mirror_apply(nom_ops)
+                    if succ_ops:
+                        out.setdefault("pending_succ", []).extend(
+                            succ_ops)
+                bind_of = {row: (node_idx, zone)
+                           for row, node_idx, zone, slot in seg_rows
+                           if slot < 0}
+                still: List[Tuple[int, Pod, object]] = []
+                for ent in pending_rows:
+                    i, pod, verdict = ent
+                    if bound_mask.get(i):
+                        continue  # nominated above: bound, not pending
+                    if i in nom_failed:
+                        still.append(ent)  # veto: stays pending
+                        continue
+                    bnd = bind_of.get(i) if cnt_w else None
+                    if bnd is not None:
+                        node_idx, zone = bnd
+                        key = pod.meta.key
+                        reservation = pending_reservations.get(key)
+                        err = self._reserve_and_bind(
+                            pod, nodes.names[node_idx], ctx, result,
+                            reservation_cr=reservation, txn=txn)
+                        if err:
+                            failed_pods.append((pod, err))
+                            veto = True
+                            still.append(ent)
+                        elif reservation is not None:
+                            kernel_ops.append(
+                                ("res", int(res_ctx["res_slot_of"][key]),
+                                 node_idx))
+                        else:
+                            kernel_ops.append(("pod", i, node_idx, zone))
+                        continue
+                    still.append(ent)
+                    if isinstance(verdict, str):
+                        failed_pods.append((pod, verdict))
+                    else:
+                        rejected_pods.append(pod)
+                pending_rows = still
+            if txn:
+                with self.tracer.span("store_flush",
+                                      writes=str(len(txn))):
+                    # the wave's bind patches: ONE store transaction,
+                    # applied before preemption/gang status reads; the
+                    # live queue objects turn coherent right after, as the
+                    # serial per-pod write would have left them
+                    self.store.update_many(KIND_POD, [t[0] for t in txn])
+                for _patched, live, annotations, node_name in txn:
+                    live.meta.annotations.update(annotations)
+                    live.spec.node_name = node_name
+
+            if fresh and (rejected_pods or any(
+                    r in DIAGNOSED_REASONS for _p, r in failed_pods)):
+                self._last_batch = (mirror_state().patched_fc(), index,
+                                    n_real)
+            truncate = veto
+            any_victims = self._post_filter_preempt(
+                rejected_pods, failed_pods, result)
+            if any_victims:
+                retry = self.extender.transform_before_prefilter(
+                    [
+                        originals.get(p.meta.key, p)
+                        for p in rejected_pods
+                        + [p for p, _ in failed_pods]
+                    ],
+                    ctx,
+                )
+                rejected_pods, failed_pods = self._batch_pass(
+                    retry, now, ctx, result, pending_reservations
+                )
+                truncate = True
+                fresh = True
+            for b in result.bound[bound_before:]:
+                self._preempt_attempted.pop(b.pod_key, None)
+            for pod in rejected_pods:
+                result.rejected.append(pod.meta.key)
+                self.extender.error_handlers.dispatch(
+                    pod, "admission rejected")
+            for pod, reason in failed_pods:
+                result.failed.append(pod.meta.key)
+                self.extender.error_handlers.dispatch(pod, reason)
+            if fresh:
+                self._write_unschedulable_conditions(
+                    rejected_pods, failed_pods, now)
+            # set LAST so a preemption-retry pass's rebinds count toward
+            # this logical cycle's replay span, as they are bound in it
+            wsp.attributes["bound"] = str(len(result.bound) - bound_before)
+        reuse_ok = cnt_w == 0 and not veto and not any_victims
+        if reuse_ok and fresh:
+            reuse_lists = (rejected_pods, failed_pods)
+        elif not reuse_ok:
+            reuse_lists = None
+        out["pending_rows"] = pending_rows
+        out["reuse_lists"] = reuse_lists
+        out["kernel_mirror_ops"] = kernel_ops
+        return truncate
+
     # ------------------------------------------------------------------
     def _reserve_and_bind(
         self,
@@ -1508,9 +2874,13 @@ class Scheduler:
         result: CycleResult,
         via_reservation: Optional[Reservation] = None,
         reservation_cr: Optional[Reservation] = None,
+        txn: Optional[list] = None,
     ) -> Optional[str]:
         """Reserve hooks -> PreBind -> Bind; returns error to leave pod
-        pending."""
+        pending. ``txn`` (overlapped wave replay) collects the bind's
+        store patch instead of writing it immediately — the wave flushes
+        the whole batch as one store transaction before anything
+        (preemption dry-runs, gang status) reads the store."""
         if reservation_cr is not None:
             # binding a Reservation CR itself: no plugin reserve (it only holds
             # capacity), just set status (reservation plugin Bind, plugin.go:596).
@@ -1547,7 +2917,8 @@ class Scheduler:
                 for plugin in self.extender.plugins:
                     plugin.pre_bind(pod, node_name, ctx, annotations)
                 prebind = self.extender.plugin("DefaultPreBind")
-                prebind.apply_patch(pod, node_name, annotations, now=ctx.now)
+                prebind.apply_patch(pod, node_name, annotations, now=ctx.now,
+                                    txn=txn)
         result.bound.append(BindResult(pod.meta.key, node_name, annotations))
         return None
 

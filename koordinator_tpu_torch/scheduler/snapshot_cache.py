@@ -780,3 +780,10 @@ class DeviceSnapshot:
         rest = {k: self._one(k, v)
                 for k, v in fc._asdict().items() if k != "base"}
         return type(fc)(base=new_base, **rest)
+
+    def upload_fields(self, fields: Dict[str, np.ndarray]) -> Dict[str, object]:
+        """Upload side arrays outside FullChainInputs (the fused wave
+        step's LoadAware term splits, hot-claim columns and reservation
+        rows) through the same reuse/scatter/put machinery, keyed by the
+        given names."""
+        return {k: self._one(k, v) for k, v in fields.items()}

@@ -128,6 +128,8 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.scheduler.parity, "
             "koordinator_tpu_torch.scheduler.cycle, "
             "koordinator_tpu_torch.scheduler.snapshot_cache, "
+            "koordinator_tpu_torch.models.fused_waves, "
+            "koordinator_tpu_torch.scheduler.pipeline_parity, "
             "koordinator_tpu_torch.testing.churn\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "

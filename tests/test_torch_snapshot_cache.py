@@ -378,7 +378,6 @@ def test_descheduler_and_manager_packs_raise():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(waves=4), "fused"),
     (dict(explain="counts"), "explain"),
     (dict(explain="full"), "explain"),
     (dict(mesh=4), "mesh"),
@@ -387,7 +386,7 @@ def test_descheduler_and_manager_packs_raise():
     (dict(ladder=object()), "ladder"),
     (dict(warmup="sync"), "warm-up"),
     (dict(warmup="background"), "warm-up"),
-], ids=["waves", "explain-counts", "explain-full", "mesh", "mesh-auto",
+], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
         "sidecar", "ladder", "warmup-sync", "warmup-background"])
 def test_left_out_knobs_raise(kwargs, match):
     kwargs = {"waves": 1, **kwargs}
@@ -401,19 +400,28 @@ def test_left_out_knobs_raise(kwargs, match):
 ])
 def test_left_out_env_knobs_raise(monkeypatch, env, value):
     monkeypatch.setenv(env, value)
-    kwargs = {} if env == "KOORD_TPU_WAVES" else {"waves": 1}
+    if env == "KOORD_TPU_WAVES":
+        # the fused dispatch is ported: the knob pins K, and only its
+        # per-wave explain attribution is still left out
+        assert Scheduler(ObjectStore(), device="cpu").waves_spec == 4
+        monkeypatch.setenv("KOORD_TPU_EXPLAIN", "counts")
+        with pytest.raises(NotImplementedError, match="explain"):
+            Scheduler(ObjectStore(), device="cpu")
+        return
     with pytest.raises(NotImplementedError):
-        Scheduler(ObjectStore(), device="cpu", **kwargs)
+        Scheduler(ObjectStore(), device="cpu", waves=1)
 
 
 def test_auto_waves_raise_when_the_queue_resolves_deep():
     """waves="auto" resolves K from the queue depth: serial below 256
-    pending pods, the fused dispatch (refused) at 256 and above."""
+    pending pods, the fused dispatch at 256 and above (K = 2 there; it
+    used to raise before the fused dispatch was ported)."""
     store, state = churn_store(8, 40, seed=0)
-    Scheduler(store, device="cpu").run_cycle(now=state.now)
+    res = Scheduler(store, device="cpu").run_cycle(now=state.now)
+    assert res.waves == 1
     store, state = churn_store(16, 300, seed=0)
-    with pytest.raises(NotImplementedError, match="waves=1"):
-        Scheduler(store, device="cpu").run_cycle(now=state.now)
+    res = Scheduler(store, device="cpu").run_cycle(now=state.now)
+    assert res.waves == 2 and res.bound and not res.demotions
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
