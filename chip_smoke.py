@@ -58,6 +58,30 @@ Phases, one JSON line each:
           worlds: each must report ok and a fused dispatch that ran more
           than one wave. Also the shared memory a config-4 launch takes
           with a claim world's [P, N] volume view.
+  ladder  the degradation ladder at config 4: two stores from
+          churn_store(5000, 10000, seed=42), each through Scheduler(store,
+          device="cuda") at its defaults for cycle 0 and 10 churn cycles of
+          1000 arrivals; (a) with a FaultPlan on its three hooks, a 2 s
+          dispatch deadline and a ladder that promotes after 2 clean
+          cycles, (b) unfaulted. One dispatch fault, one upload OOM and one
+          4 s readback each retry at full, and (a) must equal (b) through
+          them; then a fault storm demotes full -> serial-waves (the fused
+          window's pass re-runs serially) -> host-fallback, and clean
+          cycles promote back -> serial-waves -> full. The store
+          invariants (sim/invariants) hold after every cycle, the host
+          fallback binds no gang or quota pod, the retries per stage and
+          the level after each cycle are as planned, and kernel 1 launches
+          again once the ladder is above the host fallback. Prints the
+          transitions, each cycle's ms and level beside (b)'s, and the
+          host-fallback pass's seconds.
+  sim     the sim's smoke (50 cycles), gang-storm (300), spot-churn (300)
+          and crash-restart (36) scenarios on the card, each with a CPU
+          twin in this process (gang-storm's and spot-churn's cut to 150
+          cycles for the time limit): the CPU's binding-log SHA-256 equal
+          to that of the card's log over the same cycles, zero invariant
+          breaches and cycle exceptions on both, smoke's ladder round trip
+          in cycles_at_level. Prints each scenario's SHA prefix, cycles at
+          each level, SLO flags and wall seconds on each device.
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -99,6 +123,8 @@ Phases, one JSON line each:
           the full chain on the mixed cluster and the LoadAware round on
           synth_cluster(1000, 2000, seed=7), each in both states against
           its plain round.
+Every phase that injects no fault ends with each scheduler's ladder at
+full, no transition and no dispatch retry (ladder_full in its line).
 Each kernel's phase line names the launch: the state it kept (smem or
 global), the instance (common or generic), cluster_size, block_threads and
 smem_bytes_per_block. Every phase holds the kernel's bindings and outputs
@@ -121,6 +147,7 @@ import numpy as np
 import torch
 
 from koordinator_tpu_torch.api.resources import ResourceName
+from koordinator_tpu_torch.client.store import KIND_POD
 from koordinator_tpu_torch.models.convert import (
     schedule_inputs_from_numpy,
     to_device,
@@ -143,8 +170,10 @@ from koordinator_tpu_torch.ops.kernel_common import (
     build_libraries,
 )
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.scheduler import metrics as scheduler_metrics
 from koordinator_tpu_torch.scheduler import pipeline_parity
 from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
+from koordinator_tpu_torch.scheduler.degrade import DegradationLadder
 from koordinator_tpu_torch.scheduler.parity import serial_schedule
 from koordinator_tpu_torch.scheduler.snapshot_cache import DeviceSnapshot
 from koordinator_tpu_torch.scheduler.sidecar import SidecarServer
@@ -152,6 +181,10 @@ from koordinator_tpu_torch.scheduler.snapshot import (
     build_full_chain_inputs,
     reduce_to_active_axes,
 )
+from koordinator_tpu_torch.sim.faults import Fault, FaultPlan
+from koordinator_tpu_torch.sim.harness import run_scenario
+from koordinator_tpu_torch.sim.invariants import check_invariants
+from koordinator_tpu_torch.sim.scenarios import SCENARIOS
 from koordinator_tpu_torch.testing import (
     loadaware_inputs,
     mixed_cluster,
@@ -185,6 +218,33 @@ NESTED_SPANS = ("pack_incremental", "upload", "readback")
 WAVE_SPANS = CYCLE_SPANS + ("replay_drain",)
 # the default-waves phase: cycle 0, then warm-up and measured churn cycles
 WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 3
+# the ladder phase: churn cycles after cycle 0, the ladder's re-promotion
+# probe, the dispatch deadline armed in the faulted scheduler and the
+# delay of the latency fault (a wave 1 takes at most ~0.1 s on the card)
+LADDER_CYCLES, LADDER_PROMOTE_AFTER = 10, 2
+LADDER_DEADLINE_MS, LADDER_DELAY_MS = 2000.0, 4000.0
+# the fault plan, by churn cycle, and the ladder level after each cycle
+LADDER_FAULTS = (
+    Fault(cycle=1, kind="dispatch", message="ladder: one dispatch fault"),
+    Fault(cycle=2, kind="oom_upload", message="ladder: one upload OOM"),
+    Fault(cycle=3, kind="latency", delay_ms=LADDER_DELAY_MS,
+          message="ladder: one slow readback"),
+    # the fused window: retry, then demote to serial waves (the pass
+    # re-runs serially); next cycle the serial window: retry, then demote
+    # to the host fallback
+    Fault(cycle=4, kind="dispatch", count=2, message="ladder: fault storm"),
+    Fault(cycle=5, kind="dispatch", count=2, message="ladder: fault storm"),
+)
+LADDER_LEVELS = [0, 0, 0, 0, 3, 5, 5, 3, 3, 0, 0]
+LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
+               ("host-fallback", "serial-waves"), ("serial-waves", "full")]
+# the sim phase: the catalog scenarios the port runs, at their catalog
+# cycle counts on the card; the CPU twins of gang-storm and spot-churn are
+# cut to 150 cycles for the script's time limit (the plain round's per-pod
+# loop over their backlog takes ~0.4 and ~1 s a cycle on the host), and
+# are held against the card run's first 150 cycles
+SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 300, 150),
+                 ("spot-churn", 300, 150), ("crash-restart", 36, 36))
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -494,6 +554,7 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
     at the churn cycles' padded P. Returns the phase's full-chain
     launches."""
     arrivals = n_pods // 10
+    retries0 = retries_now()
     t0 = time.perf_counter()
     (store_inc, state), (store_pipe, _s2), (store_cold, _s3) = (
         churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
@@ -574,6 +635,7 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
             raise AssertionError(f"scheduler: mirror field {name} differs "
                                  "from to_device")
     mirror_check = check_mirror(fc, device)
+    assert_ladder_full("scheduler", retries0, inc, pipe_sched, cold)
 
     t_inc = statistics.median(walls["incremental"])
     t_kernel = statistics.median(kernel_s)
@@ -581,7 +643,7 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
           "arrivals_per_cycle": arrivals, "warmup_cycles": CHURN_WARMUP,
           "measured_cycles": CHURN_MEASURED,
           "fixture_seconds": round(fixture_s, 3),
-          "twins_identical_every_cycle": True,
+          "twins_identical_every_cycle": True, "ladder_full": True,
           "launches": total_launches, "cycle0": cycle0,
           "cycle_ms": t_inc * 1e3, "cycle_ms_each": [w * 1e3 for w in
                                                      walls["incremental"]],
@@ -606,6 +668,7 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
 def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
     """The mixed cluster through the whole cycle on the card and in a CPU
     twin (the plain round): identical worlds after every cycle."""
+    retries0 = retries_now()
     worlds = []
     for dev in (device, "cpu"):
         _c, state = mixed_cluster(101, n_nodes, n_pods)
@@ -634,9 +697,12 @@ def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
         if worlds[1][1].last_backend != "serial":
             raise AssertionError("scheduler_mixed: the CPU twin did not run "
                                  "the plain round")
+    assert_ladder_full("scheduler_mixed", retries0,
+                       *(s for _st, s in worlds))
     pods = dumps[0]["pods"]
     emit({"phase": "scheduler_mixed", "nodes": n_nodes, "pods": n_pods,
           "cycles": 3, "dumps_identical_every_cycle": True,
+          "ladder_full": True,
           "launches": launches,
           "cuda_cycle_seconds": walls[device], "cpu_cycle_seconds": walls["cpu"],
           "pods_bound": sum(1 for v in pods.values() if v[0]),
@@ -747,6 +813,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     replay on the card. Returns (the default twin's launches, the replay
     instance's kernels-line entry, cycle 0's first-wave inputs)."""
     arrivals = n_pods // 10
+    retries0 = retries_now()
     t0 = time.perf_counter()
     (store_a, state), (store_b, _s2), (store_c, _s3) = (
         churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
@@ -835,6 +902,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     dumps = [cycle_dump(s) for s in (chained, fused, serial)]
     if not (dumps[0] == dumps[1] == dumps[2]):
         raise AssertionError("scheduler_waves: the final dumps differ")
+    assert_ladder_full("scheduler_waves", retries0, chained, fused, serial)
     if n_pods == 10000 and (rows[0]["K"] != 8
                             or any(r["K"] != 4 for r in rows[1:])):
         raise AssertionError(f"scheduler_waves: K per cycle "
@@ -882,7 +950,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
           "measured_cycles": WAVE_CHURN_MEASURED,
           "fixture_seconds": round(fixture_s, 3),
           "twins_identical_every_cycle": True, "final_dumps_identical": True,
-          "launches": total, "cycles": rows,
+          "ladder_full": True, "launches": total, "cycles": rows,
           "cycle_ms": t_chained * 1e3,
           "cycle_ms_each": [w * 1e3 for w in walls["chained"]],
           "fused_cycle_ms": statistics.median(walls["fused"]) * 1e3,
@@ -929,9 +997,10 @@ def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
     (the plain wave step): identical worlds after every cycle. The world as
     mixed_cluster builds it demotes to serial dispatch (checked here), so
     its shared claims are cut to 8 pods first."""
+    retries0 = retries_now()
     _c, state = mixed_cluster(101, n_nodes, n_pods)
-    res = Scheduler(store_from_state(state), device=device).run_cycle(
-        now=state.now)
+    untrimmed = Scheduler(store_from_state(state), device=device)
+    res = untrimmed.run_cycle(now=state.now)
     if res.demotions != ["claim-entangled"] or res.waves != 1:
         raise AssertionError(f"scheduler_waves_mixed: the untrimmed world "
                              f"gave {res.demotions}, K {res.waves}")
@@ -968,9 +1037,12 @@ def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
     if ks[0] < 2 or launches["full_chain_replay"] < 1:
         raise AssertionError(f"scheduler_waves_mixed: K {ks}, launches "
                              f"{launches}")
+    assert_ladder_full("scheduler_waves_mixed", retries0, untrimmed,
+                       *(s for _st, s in worlds))
     pods = dumps[0]["pods"]
     emit({"phase": "scheduler_waves_mixed", "nodes": n_nodes, "pods": n_pods,
           "cycles": 3, "K": ks, "dumps_identical_every_cycle": True,
+          "ladder_full": True,
           "untrimmed_demotions": res0.demotions,
           "pods_sharing_claims": sharing, "launches": launches,
           "cuda_cycle_seconds": walls[device],
@@ -981,7 +1053,8 @@ def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
 def run_waves_carried(device, fc4):
     """The carried-state worlds on the card, each against its serial twin;
     then the shared memory of a config-4 launch whose records carry a
-    claim world's [P, N] volume view."""
+    claim world's [P, N] volume view. No dispatch may retry."""
+    retries0 = retries_now()
     reports = []
     for feature in ("reservations", "claims", "prod", "transformer"):
         fck.launches = fck.replay_launches = 0
@@ -999,6 +1072,7 @@ def run_waves_carried(device, fc4):
     claims_fc = fc4._replace(
         vol_needed=torch.zeros((P, N), device=dev),
         node_vol_group=torch.arange(N, dtype=torch.int32, device=dev))
+    assert_ladder_full("waves_carried", retries0)
     kind, _plan, smem = fck.state_for(claims_fc, (0, 1))
     if smem > SMEM_BUDGET_BYTES:
         raise AssertionError("waves_carried: a claim-world launch does not "
@@ -1007,6 +1081,254 @@ def run_waves_carried(device, fc4):
           "claims_full_size": {"P": int(P), "N": int(N), "VG": int(N),
                                "state": kind, "smem_bytes_per_block": smem,
                                "budget": SMEM_BUDGET_BYTES}})
+
+
+def retries_now() -> dict:
+    return {stage: scheduler_metrics.DISPATCH_RETRIES.get(stage=stage) or 0.0
+            for stage in ("serial", "fused")}
+
+
+def assert_ladder_full(tag, retries0, *scheds) -> None:
+    """A phase that injects no fault: every scheduler ends at the full
+    rung with no transitions, and no dispatch attempt was retried."""
+    for sched in scheds:
+        if sched.ladder.level != 0 or sched.ladder.transitions:
+            raise AssertionError(f"{tag}: the ladder moved: "
+                                 f"{sched.ladder.transitions}")
+    if retries_now() != retries0:
+        raise AssertionError(f"{tag}: dispatch retries moved from "
+                             f"{retries0} to {retries_now()}")
+
+
+def host_fallback_seconds(sched) -> float:
+    """Seconds of the host-fallback passes in the scheduler's last cycle
+    (the kernel spans with host_fallback="1")."""
+    return sum(sp.duration_seconds
+               for sp in last_cycle_root(sched).find_all("kernel")
+               if sp.attributes.get("host_fallback") == "1")
+
+
+def run_ladder(device, n_nodes=5000, n_pods=10000):
+    """Config 4 through two Scheduler(store) twins at their defaults:
+    (a) with LADDER_FAULTS attached through the three hooks, (b) with
+    none. Through the retry-only faults (a) must equal (b) cycle by cycle;
+    from the storm on, (a) walks full -> serial-waves -> host-fallback
+    and back and is held to the store invariants instead. Returns the
+    kernels' launches in both twins."""
+    arrivals = n_pods // 10
+    (store_a, state), (store_b, _s) = (
+        churn_store(n_nodes, n_pods, seed=42) for _ in range(2))
+    plan = FaultPlan(LADDER_FAULTS)
+    faulted = Scheduler(store_a, device=device,
+                        dispatch_deadline_ms=LADDER_DEADLINE_MS,
+                        ladder=DegradationLadder(
+                            promote_after=LADDER_PROMOTE_AFTER))
+    twin = Scheduler(store_b, device=device)
+    faulted.fault_injector = plan.dispatch_hook
+    faulted.sync_delay_injector = plan.sync_delay_hook
+    faulted.upload_fault_injector = plan.upload_hook
+    retries0 = retries_now()
+    overruns0 = (scheduler_metrics.DISPATCH_DEADLINE_OVERRUNS.get(
+        path="fused") or 0.0)
+    now = state.now
+    total = {"full_chain": 0, "full_chain_replay": 0}
+    rows, fallback_s = [], []
+    for c in range(1 + LADDER_CYCLES):
+        if c:
+            specs = arrival_specs(c, arrivals)
+            for store in (store_a, store_b):
+                add_arrivals(store, specs, now + c)
+        t = now + 2 * c
+        plan.begin_cycle(c)
+        r0 = retries_now()
+        snap0 = faulted.device_snapshot
+        puts0 = (snap0.stats["put"], twin.device_snapshot.stats["put"])
+        res_a, wall_a, la, k_a = ladder_cycle(faulted, t)
+        hf_s = host_fallback_seconds(faulted)
+        res_b, wall_b, lb, k_b = ladder_cycle(twin, t)
+        level = faulted.ladder.level
+        dr = {s: retries_now()[s] - r0[s] for s in r0}
+        for key in total:
+            total[key] += la[key] + lb[key]
+        breaches = check_invariants(store_a, now=t)
+        if breaches:
+            raise AssertionError(f"ladder cycle {c}: {breaches[:3]}")
+        if level != LADDER_LEVELS[c]:
+            raise AssertionError(f"ladder cycle {c}: level {level}, "
+                                 f"expected {LADDER_LEVELS[c]}")
+        if c < 4 and result_key(res_a) != result_key(res_b):
+            raise AssertionError(f"ladder cycle {c}: (a) differs from (b) "
+                                 "through a retry-only fault")
+        expect = {1: {"fused": 1.0, "serial": 0.0},
+                  2: {"fused": 1.0, "serial": 0.0},
+                  3: {"fused": 1.0, "serial": 0.0},
+                  4: {"fused": 2.0, "serial": 0.0},
+                  5: {"fused": 0.0, "serial": 2.0}}.get(
+                      c, {"fused": 0.0, "serial": 0.0})
+        if dr != expect:
+            raise AssertionError(f"ladder cycle {c}: retries {dr}, "
+                                 f"expected {expect}")
+        if c == 2 and not (snap0.stats["put"] - puts0[0]
+                           > twin.device_snapshot.stats["put"] - puts0[1]):
+            raise AssertionError("ladder: the OOM'd field was not rolled "
+                                 "back to a full put")
+        if c == 3 and faulted.device_snapshot is snap0:
+            raise AssertionError("ladder: the deadline overrun kept the "
+                                 "abandoned mirror")
+        on_host = faulted.last_backend == "host-fallback"
+        bound_pods = [store_a.get(KIND_POD, b.pod_key) for b in res_a.bound]
+        if on_host and any(p is not None and (p.gang_name or p.quota_name)
+                           for p in bound_pods):
+            raise AssertionError(f"ladder cycle {c}: the host fallback "
+                                 "bound a gang or quota pod")
+        if on_host != (c in (5, 6, 7)):
+            raise AssertionError(f"ladder cycle {c}: host fallback "
+                                 f"{on_host}")
+        if device == "cuda" and (
+                (on_host and la["full_chain"] != 0)
+                or (not on_host and la["full_chain"] < 1)
+                or (c == 4 and la != {"full_chain": 1,
+                                      "full_chain_replay": 0})
+                or (c == LADDER_CYCLES and la["full_chain_replay"] < 1)):
+            # cycle 4's pass re-runs serially after the fused window's
+            # demotion; back at full, the fused dispatch replays again
+            raise AssertionError(f"ladder cycle {c}: launches {la}")
+        if not res_a.bound:
+            raise AssertionError(f"ladder cycle {c}: nothing bound")
+        if on_host:
+            fallback_s.append(hf_s)
+        rows.append({"cycle": c, "level": faulted.ladder.level_name,
+                     "K": k_a, "twin_K": k_b, "waves": res_a.waves,
+                     "ms": wall_a * 1e3, "twin_ms": wall_b * 1e3,
+                     "bound": len(res_a.bound), "twin_bound": len(res_b.bound),
+                     "retries": dr, "launches": la,
+                     "host_fallback_s": hf_s})
+    transitions = [(t["from"], t["to"]) for t in faulted.ladder.transitions]
+    if transitions != LADDER_WALK:
+        raise AssertionError(f"ladder: transitions {transitions}")
+    if len(plan.injected) != sum(f.count for f in LADDER_FAULTS):
+        raise AssertionError(f"ladder: faults fired {plan.injected}")
+    overruns = (scheduler_metrics.DISPATCH_DEADLINE_OVERRUNS.get(
+        path="fused") or 0.0) - overruns0
+    if overruns != 1:
+        raise AssertionError(f"ladder: {overruns} deadline overruns")
+    assert_ladder_full("ladder twin (b)", retries_now(), twin)
+    retries = {s: retries_now()[s] - retries0[s] for s in retries0}
+    emit({"phase": "ladder", "nodes": n_nodes, "pods": n_pods,
+          "arrivals_per_cycle": arrivals, "churn_cycles": LADDER_CYCLES,
+          "promote_after": LADDER_PROMOTE_AFTER,
+          "dispatch_deadline_ms": LADDER_DEADLINE_MS,
+          "latency_delay_ms": LADDER_DELAY_MS,
+          "faults": plan.injected,
+          "transitions": faulted.ladder.transitions,
+          "retries": retries, "deadline_overruns": overruns,
+          "identical_through_retries": True,
+          "invariant_breaches": 0, "cycles": rows,
+          "host_fallback_seconds": fallback_s,
+          "repromoted_cycle_ms": rows[-1]["ms"],
+          "twin_cycle_ms": rows[-1]["twin_ms"],
+          "launches": total})
+    return total
+
+
+def ladder_cycle(sched, now):
+    """One cycle with the launch counts set to 0 just before it and read
+    just after. Returns (result, wall seconds, launches, K)."""
+    fck.launches = fck.replay_launches = sk.launches = 0
+    t0 = time.perf_counter()
+    res = sched.run_cycle(now=now)
+    wall = time.perf_counter() - t0
+    if sk.launches:
+        raise AssertionError("the LoadAware kernel ran in a scheduler cycle")
+    kspan = last_cycle_root(sched).find("kernel")
+    k = int(kspan.attributes.get("waves", "1")) if kspan else 1
+    return (res, wall, {"full_chain": fck.launches,
+                        "full_chain_replay": fck.replay_launches}, k)
+
+
+def run_sim(device):
+    """The sim's scenarios on the card and on the CPU in this process: the
+    CPU run's binding log (SHA-256) must equal the card run's over the
+    cycles both ran, with zero invariant breaches and no cycle exception
+    on either, smoke's ladder round trip in cycles_at_level, and in every
+    scenario that injects no fault the card's ladder at full in every
+    cycle with no dispatch retry. Returns the kernels' launches on the
+    card."""
+    rows = []
+    total = {"full_chain": 0, "full_chain_replay": 0}
+    for name, cycles, cpu_cycles in SIM_SCENARIOS:
+        retries0 = retries_now()
+        fck.launches = fck.replay_launches = sk.launches = 0
+        t0 = time.perf_counter()
+        card = run_scenario(SCENARIOS[name].resolved(cycles=cycles),
+                            device=device)
+        card_s = time.perf_counter() - t0
+        if not SCENARIOS[name].faults and (
+                card.cycles_at_level != {"full": cycles}
+                or card.ladder_transitions or retries_now() != retries0):
+            raise AssertionError(
+                f"sim {name}: the ladder moved with no fault injected: "
+                f"{card.cycles_at_level} {card.ladder_transitions} "
+                f"retries {retries0} -> {retries_now()}")
+        launches = {"full_chain": fck.launches,
+                    "full_chain_replay": fck.replay_launches}
+        t0 = time.perf_counter()
+        cpu = run_scenario(SCENARIOS[name].resolved(cycles=cpu_cycles),
+                           device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for key in total:
+            total[key] += launches[key]
+        # the binding log's lines start with their cycle
+        prefix = [line for line in card.binding_log
+                  if int(line.split("\t", 1)[0]) < cpu_cycles]
+        if prefix != cpu.binding_log:
+            first = next((i for i, (a, b) in enumerate(
+                zip(prefix, cpu.binding_log)) if a != b),
+                min(len(prefix), len(cpu.binding_log)))
+            raise AssertionError(
+                f"sim {name}: the card's binding log differs from the "
+                f"CPU's at line {first}: "
+                f"{prefix[first:first + 1]} != "
+                f"{cpu.binding_log[first:first + 1]}")
+        for where, rep in (("card", card), ("cpu", cpu)):
+            if rep.invariant_breaches or rep.cycle_exceptions:
+                raise AssertionError(
+                    f"sim {name} on the {where}: "
+                    f"{rep.invariant_breaches[:3]} "
+                    f"{rep.cycle_exceptions[:3]}")
+        if cpu_cycles == cycles and (
+                card.cycles_at_level != cpu.cycles_at_level
+                or card.ladder_transitions != cpu.ladder_transitions):
+            raise AssertionError(f"sim {name}: the ladders differ")
+        if device == "cuda" and launches["full_chain"] < 1:
+            raise AssertionError(f"sim {name}: no kernel launch on the card")
+        if name == "smoke" and (
+                set(card.cycles_at_level) != {"full", "host-fallback"}
+                or card.final_level != "full"):
+            raise AssertionError(f"sim smoke: no ladder round trip: "
+                                 f"{card.cycles_at_level}")
+        report = card.to_dict()
+        rows.append({
+            "scenario": name, "cycles": cycles, "cpu_cycles": cpu_cycles,
+            "sha256": card.binding_log_sha256[:16],
+            "cpu_sha256": cpu.binding_log_sha256[:16],
+            "bindings": len(card.binding_log),
+            "cycles_at_level": card.cycles_at_level,
+            "transitions": [(t["from"], t["to"])
+                            for t in card.ladder_transitions],
+            "slo_met": {"ttb_p99": report["slo"]["met"],
+                        "restart": report["restart"]["met"],
+                        **{k: v["met"] for k, v in report["slos"].items()}},
+            "ttb_p99_seconds": report["time_to_bind_seconds"]["p99"],
+            "card_seconds": card_s, "cpu_seconds": cpu_s,
+            "card_ms_per_cycle": card_s / cycles * 1e3,
+            "cpu_ms_per_cycle": cpu_s / cpu_cycles * 1e3,
+            "launches": launches})
+    emit({"phase": "sim", "scenarios": rows, "sha_equal": True,
+          "invariant_breaches": 0,
+          "cut": "the CPU twins of gang-storm and spot-churn run 150 of "
+                 "the card's 300 cycles (time limit)"})
+    return total
 
 
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
@@ -1152,6 +1474,15 @@ def main() -> int:
     wave_launches, replay_entry, fc4 = run_scheduler_waves(device)
     run_scheduler_waves_mixed(device)
     run_waves_carried(device, fc4)
+    # ---- the degradation ladder at config 4, then the sim's scenarios
+    ladder_launches = run_ladder(device)
+    sim_launches = run_sim(device)
+    replay_entry.update(
+        launches_waves=replay_entry["launches"],
+        launches_ladder=ladder_launches["full_chain_replay"],
+        launches_sim=sim_launches["full_chain_replay"])
+    replay_entry["launches"] += (ladder_launches["full_chain_replay"]
+                                 + sim_launches["full_chain_replay"])
 
     # ---- main path: BASELINE config 4 through the sidecar entry point
     n_nodes, n_pods = 5000, 10000
@@ -1272,10 +1603,14 @@ def main() -> int:
         kernel_entry("full_chain_round", "full_chain.cu",
                      "koordinator_tpu/ops/pallas_full_chain.py:90",
                      main_launches + scheduler_launches
-                     + wave_launches["full_chain"], mism, err, kernel_ms,
+                     + wave_launches["full_chain"]
+                     + ladder_launches["full_chain"]
+                     + sim_launches["full_chain"], mism, err, kernel_ms,
                      plain_ms, bytes_ms, ops_ms, launches_sidecar=main_launches,
                      launches_scheduler=scheduler_launches,
-                     launches_waves=wave_launches["full_chain"]),
+                     launches_waves=wave_launches["full_chain"],
+                     launches_ladder=ladder_launches["full_chain"],
+                     launches_sim=sim_launches["full_chain"]),
         la_kernel, replay_entry]})
     print(card, flush=True)
     # count: the cards this script drives

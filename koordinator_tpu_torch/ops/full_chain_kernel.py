@@ -55,11 +55,13 @@ from koordinator_tpu_torch.ops.kernel_common import (
     REC_POD,
     RING_STAGES,
     SMEM_BUDGET_BYTES,
+    KernelContractError,
     SyncClock,
     check_tensor,
     choose_state,
     cluster_plan,
     f32_words,
+    launch_error,
     load_library,
     pack_bits,
     smem_take,
@@ -120,7 +122,7 @@ def _lib():
                                           ctypes.c_void_p]
         size = lib.full_chain_params_size()
         if size != ctypes.sizeof(_Params):
-            raise RuntimeError(
+            raise KernelContractError(
                 f"FullChainParams layout mismatch: C {size} bytes, "
                 f"ctypes {ctypes.sizeof(_Params)}")
         lib._koord_bound = True
@@ -291,7 +293,7 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
         # the record ring alone outgrows a block: no state fits (a claim
         # world's [P, N] volume view adds N words to every record)
         stride = record_layout(d["R"], d["T"], d["PT"], d["VG"])["rec_stride"]
-        raise ValueError(
+        raise KernelContractError(
             f"a pod record of {stride} words needs {smem} B of shared "
             f"memory per block, above the {SMEM_BUDGET_BYTES} B a block "
             "may take")
@@ -378,18 +380,19 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
     lib = _lib()
     c_bytes = lib.full_chain_smem_bytes(ctypes.byref(params))
     if c_bytes != smem_bytes:
-        raise RuntimeError(f"estimate_smem_bytes says {smem_bytes} bytes, "
-                           f"the kernel's layout {c_bytes}")
+        raise KernelContractError(
+            f"estimate_smem_bytes says {smem_bytes} bytes, "
+            f"the kernel's layout {c_bytes}")
     # The temporaries above may be freed before the kernel ends: the caching
     # allocator hands their memory only to later work on this same stream.
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.full_chain_launch(ctypes.byref(params), ctypes.c_void_p(stream))
     what = "replay" if replay else "round"
     if err != 0:
-        raise RuntimeError(f"full_chain {what} launch failed: cudaError "
-                           f"{err} (cluster of {cluster_size} x "
+        raise launch_error(f"full_chain {what}", err,
+                           f"cluster of {cluster_size} x "
                            f"{plan.block_threads} threads, {smem_bytes} B "
-                           "of shared memory per block)")
+                           "of shared memory per block")
     instance = ("common" if lib.full_chain_instance(ctypes.byref(params))
                 else "generic")
     last_launch = {"state": kind, "instance": instance,

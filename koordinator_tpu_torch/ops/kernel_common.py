@@ -40,12 +40,27 @@ def safe_reciprocal(cap: torch.Tensor) -> torch.Tensor:
     return torch.where(cap > 0, 1.0 / torch.where(cap > 0, cap, 1.0), 0.0)
 
 
+class KernelContractError(RuntimeError):
+    """A hand-written kernel could not be built or launched, or its
+    wrapper's contract with the C side failed: nvcc missing or failing, a
+    struct or shared-memory layout that disagrees with the wrapper, a pod
+    record that outgrows a block, any nonzero cudaError of a launch. Not
+    a device fault: the scheduler's degradation ladder lets it through
+    (scheduler/degrade.py), since no retry and no host pass can fix it."""
+
+
+def launch_error(what: str, err: int, detail: str) -> KernelContractError:
+    """The exception for a nonzero cudaError_t from a launch."""
+    return KernelContractError(
+        f"{what} launch failed: cudaError {err} ({detail})")
+
+
 def find_nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine "
-                       "with the CUDA toolkit")
+    raise KernelContractError("nvcc not found: the CUDA kernels build on a "
+                              "machine with the CUDA toolkit")
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -100,7 +115,7 @@ def build_libraries(*sources: str) -> Dict[str, Path]:
         BUILD_LOG[stem] = {"seconds": seconds, "cached": False,
                            "ptxas": log.strip()}
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelContractError("\n".join(failed))
     return outs
 
 

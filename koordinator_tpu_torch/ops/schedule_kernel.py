@@ -38,10 +38,12 @@ from koordinator_tpu_torch.ops.kernel_common import (
     REC_FLAGS,
     REC_POD,
     RING_STAGES,
+    KernelContractError,
     check_tensor,
     choose_state,
     cluster_plan,
     f32_words,
+    launch_error,
     load_library,
     smem_take,
     valid_first,
@@ -92,7 +94,7 @@ def _lib():
                                              ctypes.c_void_p]
         size = lib.schedule_step_params_size()
         if size != ctypes.sizeof(_Params):
-            raise RuntimeError(
+            raise KernelContractError(
                 f"ScheduleStepParams layout mismatch: C {size} bytes, "
                 f"ctypes {ctypes.sizeof(_Params)}")
         lib._koord_bound = True
@@ -276,18 +278,19 @@ def schedule_round(inputs, weight_idx, prod_mode: bool, *,
     lib = _lib()
     c_bytes = lib.schedule_step_smem_bytes(ctypes.byref(params))
     if c_bytes != smem_bytes:
-        raise RuntimeError(f"estimate_smem_bytes says {smem_bytes} bytes, "
-                           f"the kernel's layout {c_bytes}")
+        raise KernelContractError(
+            f"estimate_smem_bytes says {smem_bytes} bytes, "
+            f"the kernel's layout {c_bytes}")
     # The temporaries above may be freed before the kernel ends: the caching
     # allocator hands their memory only to later work on this same stream.
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.schedule_step_launch(ctypes.byref(params),
                                    ctypes.c_void_p(stream))
     if err != 0:
-        raise RuntimeError(f"schedule_step kernel launch failed: cudaError "
-                           f"{err} (cluster of {cluster_size} x "
+        raise launch_error("schedule_step kernel", err,
+                           f"cluster of {cluster_size} x "
                            f"{plan.block_threads} threads, {smem_bytes} B "
-                           "of shared memory per block)")
+                           "of shared memory per block")
     launches += 1
     instance = ("common" if lib.schedule_step_instance(ctypes.byref(params))
                 else "generic")

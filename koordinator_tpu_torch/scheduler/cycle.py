@@ -31,9 +31,14 @@ the bindings, conditions, gang and quota writes are those of K serial
 cycles, and the JAX package's byte for byte (tests/test_torch_cycle.py,
 tests/test_torch_cycle_waves.py). The paths a later slice brings raise
 NotImplementedError and never run something else silently: explain
-attribution, the mesh, the gRPC sidecar, the degradation ladder and the
-warm-up ladder. With no ladder, a dispatch failure propagates out of
-``run_cycle`` as an unhandled cycle exception.
+attribution, the mesh, the gRPC sidecar and the warm-up ladder.
+
+A failed dispatch window meets the degradation ladder
+(scheduler/degrade.py), as in the JAX package: on a device fault it
+retries once, then demotes the fused waves to serial dispatch, then to a
+pure-host pass, and clean cycles promote it back. Any other failure (a
+kernel build, contract or launch failure, a failed store write) passes
+through the ladder and out of ``run_cycle``.
 
 Steps are cached per scheduler by shape signature (P/N/G buckets, gangs,
 groups, active axes; the fused step also by K and its side inputs).
@@ -43,6 +48,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -91,6 +97,15 @@ from koordinator_tpu_torch.scheduler.deadline import (
     DeadlineWatchdog,
     DispatchDeadlineExceeded,
     deadline_seconds_from,
+)
+from koordinator_tpu_torch.scheduler.degrade import (
+    LEVEL_HOST_FALLBACK,
+    LEVEL_SERIAL_WAVES,
+    DegradationLadder,
+    FusedDispatchDemoted,
+    attributable_device_ids,
+    host_fallback_schedule,
+    is_device_fault,
 )
 from koordinator_tpu_torch.scheduler.frameworkext import (
     BindResult,
@@ -238,6 +253,15 @@ def _auto_waves(queue_depth: int) -> int:
     if queue_depth >= 256:
         return 2
     return 1
+
+
+class _HostWriteFailure(Exception):
+    """Wraps a store/host failure raised INSIDE a ladder-wrapped dispatch
+    window (the pipelined in-window deferred flush). Not a device fault:
+    the ladder must not absorb it (shedding device capability cannot fix
+    a store write), so the window unwraps and re-raises the original as
+    an unhandled cycle exception (flight recorder ``cycle_exception``
+    trigger)."""
 
 
 class _DeferredFlushTxn:
@@ -511,8 +535,6 @@ class Scheduler:
         self.device = check_device(device)
         if sidecar_address:
             _refuse("the gRPC sidecar dispatch", "transport")
-        if ladder is not None:
-            _refuse("the degradation ladder", "degrade.py")
         if _mesh_requested(mesh):
             _refuse("mesh-backed dispatch", "parallel/")
         if _warmup_requested(warmup):
@@ -664,9 +686,17 @@ class Scheduler:
         self.dispatch_watchdog = DeadlineWatchdog(
             self.dispatch_deadline_seconds,
             on_overrun=self._on_deadline_overrun)
-        # test failure-injection hook: a callable(stage) invoked at the
-        # top of every device-dispatch window ("serial"); what it raises
-        # propagates out of run_cycle
+        # graceful-degradation ladder (scheduler/degrade.py): dispatch
+        # failures demote fused waves -> serial waves -> the pure-host
+        # fallback instead of killing the scheduler; clean cycles probe
+        # back up. The mesh and explain rungs wait for their slices.
+        self.ladder = ladder if ladder is not None else DegradationLadder()
+        self.ladder.observer = self._on_ladder_transition
+        scheduler_metrics.DEGRADED_LEVEL.set(float(self.ladder.level))
+        # sim/test failure-injection hook: a callable(stage) invoked at the
+        # top of every device-dispatch window ("serial"/"fused"); raising
+        # from it exercises the ladder exactly like a real device fault
+        # (sim/faults.FaultPlan arms it)
         self.fault_injector = None
         # test latency hook: a callable() invoked inside every monitored
         # readback sync — sleeping in it is a slow-not-dead device
@@ -684,6 +714,25 @@ class Scheduler:
         self._flushed_this_cycle = False
         # last DeviceSnapshot stats snapshot, for counter deltas
         self._upload_stats_last: Dict[str, int] = {}
+        # chained waves abandoned by a deadline overrun: their pinned rows
+        # and events stay referenced until the events complete
+        self._abandoned_waves: List[Tuple] = []
+        # no warm-up ladder in the port yet (the warm-up slice): these
+        # stay as the JAX Scheduler has them with warm-up off, and the
+        # steady-state compile hook never fires
+        self.warmup = None
+        self.compile_miss_hook = None
+        # cumulative wall seconds of pack/encode work and of compile work
+        # (step builds + the kernel windows of freshly built steps, where
+        # a kernel library loads); the sim's crash-restart report splits
+        # its recovery wall clock with these
+        self.pack_wall_seconds = 0.0
+        self.compile_wall_seconds = 0.0
+        # liveness for health_snapshot: (wall clock, waves) of the last
+        # completed cycle, read from other threads
+        self._health_lock = threading.Lock()
+        # koordlint: guarded-by(_health_lock)
+        self._last_cycle_end: Optional[Tuple[float, int]] = None
         # the packed batch of the last pass (fc, key -> row, n_nodes) for
         # end-of-cycle unschedulability diagnosis
         self._last_batch = None
@@ -761,11 +810,60 @@ class Scheduler:
         self._cycle_decision_ids.append(win.decision_id)
         return win
 
+    def _close_window(self, win, attempts: int, had_deadline: bool,
+                      level0: int, end_mono=None) -> None:
+        """Record a completed dispatch window. Outcome precedence:
+        deadline (a monitored sync was abandoned this pass) > demoted
+        (the ladder moved down) > retried (same level, second attempt)
+        > clean."""
+        outcome = ("deadline" if had_deadline
+                   else "demoted" if self.ladder.level > level0
+                   else "retried" if attempts else "clean")
+        self.timeline.close(win, outcome, end_mono=end_mono)
+
+    # ------------------------------------------------------------------
+    # degradation ladder (scheduler/degrade.py)
+    # ------------------------------------------------------------------
+    def _ladder_features(self) -> Dict[str, bool]:
+        """Which ladder rungs actually change behavior for this
+        scheduler's configuration — demotion and re-promotion both skip
+        rungs whose feature was never on. On one GPU with explain off
+        that leaves full -> serial-waves -> host-fallback (waves=1: full
+        -> host-fallback)."""
+        waves_capable = (self.waves_spec == "auto"
+                         or (isinstance(self.waves_spec, int)
+                             and self.waves_spec > 1))
+        return {
+            "mesh": False,  # no mesh until the parallel/ slice
+            "waves": waves_capable,
+            "explain": self.explain_spec is not None,
+        }
+
+    def _on_ladder_transition(self, record: dict) -> None:
+        """Every ladder transition is observable: gauge, loud log, the
+        effective settings re-applied, and a flight-recorder dump (the
+        preceding cycles' decision records ARE the incident context)."""
+        scheduler_metrics.DEGRADED_LEVEL.set(float(record["to_level"]))
+        log = (logger.warning if record["to_level"] > record["from_level"]
+               else logger.info)
+        log("dispatch degradation ladder: %s -> %s (%s)",
+            record["from"], record["to"], record["reason"])
+        self._apply_degraded_level()
+        self.flight.dump("degradation")
+
+    def _apply_degraded_level(self) -> None:
+        """Reconcile the device placement with the ladder level. The
+        waves rung is consulted per cycle (_effective_waves); the mesh
+        rungs own device buffers and reconfigure here in the JAX package.
+        The port has no mesh until the parallel/ slice, so there is
+        nothing to reconcile."""
+
     def _on_deadline_overrun(self, path: str) -> None:
         """The dispatch watchdog abandoned a monitored sync: count it and
-        dump the flight ring (reason dispatch_deadline); the
-        DispatchDeadlineExceeded raised right after propagates out of the
-        cycle."""
+        dump the flight ring (reason dispatch_deadline) — the
+        DispatchDeadlineExceeded it raises right after lands in the
+        dispatch window's failure handler, which abandons the device
+        state and feeds the ladder like any raised fault."""
         scheduler_metrics.DISPATCH_DEADLINE_OVERRUNS.inc(path=path)
         self.flight.dump("dispatch_deadline")
 
@@ -777,6 +875,55 @@ class Scheduler:
             return
         self.device_snapshot = self._new_device_snapshot()
         self._upload_stats_last = {}
+
+    def _window_failure(self, stage: str, exc: Exception) -> None:
+        """Classify a dispatch window's failure, after the window's own
+        clean-up. A failed in-window store write (unwrapped: see
+        _HostWriteFailure) and anything that is not a device fault
+        (degrade.is_device_fault: a kernel build, contract or launch
+        failure, a left-out path) propagate untouched. A device fault
+        feeds the ladder: returns when a retry or a demotion was
+        arranged, re-raises when the ladder is exhausted, and raises
+        FusedDispatchDemoted when a fused window was demoted below fused
+        waves — no binding was applied, and the cycle driver re-runs the
+        pass serially."""
+        if isinstance(exc, _HostWriteFailure):
+            raise exc.__cause__
+        if not is_device_fault(exc):
+            raise exc
+        self._on_dispatch_failure(stage, exc)
+        if stage == "fused" and self.ladder.level >= LEVEL_SERIAL_WAVES:
+            raise FusedDispatchDemoted() from exc
+
+    def _on_dispatch_failure(self, stage: str, exc: Exception) -> None:
+        """A device-dispatch attempt failed before any binding was
+        applied. Count it, consult the ladder; returns normally when a
+        retry or demotion was arranged (the caller re-runs its dispatch
+        window), re-raises when the ladder is exhausted."""
+        scheduler_metrics.DISPATCH_RETRIES.inc(stage=stage)
+        if isinstance(exc, DispatchDeadlineExceeded):
+            # slow-not-dead device: the in-flight window was abandoned,
+            # so the retry/demoted re-run must upload into a fresh mirror
+            # the slow round does not read
+            self._abandon_device_state()
+        features = self._ladder_features()
+        ids = attributable_device_ids(exc)
+        if ids:
+            # a failure naming dead mesh devices engages the partial-mesh
+            # rung only with a mesh configured; the port has none yet, so
+            # on one GPU the rung stays skipped
+            logger.warning("%s dispatch failure names device(s) %s; no "
+                           "mesh to shed them from", stage, sorted(ids))
+        action = self.ladder.on_failure(
+            features, error=f"{type(exc).__name__}: {exc}")
+        if action == "exhausted":
+            raise exc
+        if action == "retry":
+            logger.warning(
+                "%s dispatch failed (%s: %s); retrying once at ladder "
+                "level %s", stage, type(exc).__name__, exc,
+                self.ladder.level_name)
+        # "demoted": the transition observer already re-applied settings
 
     # ------------------------------------------------------------------
     # ------------------------------------------------------------------
@@ -994,8 +1141,9 @@ class Scheduler:
             return step
         self._last_step_compiled = True
         scheduler_metrics.COMPILE_CACHE_MISSES.inc()
-        with self.tracer.span("compile", signature=str(key)):
+        with self.tracer.span("compile", signature=str(key)) as csp:
             step = build()
+        self.compile_wall_seconds += csp.duration_seconds
         self._step_cache[key] = step
         return step
 
@@ -1093,14 +1241,18 @@ class Scheduler:
         ScoreTransformers all ride the fused path as carried state; only
         genuinely non-expressible residues demote to K=1 (the exact serial
         path): a ScoreTransformer without ``device_pass`` and claim
-        entanglement. The ladder and the sidecar, the JAX package's other
-        two demotions, are refused at construction in this port."""
+        entanglement, plus the degradation ladder at or below its
+        serial-waves rung. The sidecar, the JAX package's other demotion,
+        is refused at construction in this port."""
         self._claim_analysis = None
         spec = self.waves_spec if override is None else override
         k = _auto_waves(len(pending)) if spec == "auto" else int(spec)
         k = max(1, min(k, MAX_WAVES))
         if k == 1:
             return k  # resolved to serial by spec/depth: not a demotion
+        if self.ladder.level >= LEVEL_SERIAL_WAVES:
+            # degradation ladder: fused dispatch demoted off
+            return self._note_demotion("ladder-serial-waves", 1)
         if any(isinstance(t, ScoreTransformer)
                and getattr(t, "device_pass", None) is None
                for t in self.extender.transformers):
@@ -1123,9 +1275,14 @@ class Scheduler:
         now = time.time() if now is None else now
         if self.elector is not None and not self.elector.tick(now):
             return CycleResult(skipped_not_leader=True)
+        # the retry budget is armed per dispatch window, not per cycle: a
+        # cycle can open several (initial pass, preemption retry, the
+        # serial re-run after a fused demotion), each with its own
+        # retry-once before demoting
         self._cycle_demotions = []
         self._cycle_decision_ids = []
         self._current_decision_id = None
+        self._apply_degraded_level()
         result = CycleResult()
         carried_deferred = bool(self._deferred_diagnose)
         self._flushed_this_cycle = False
@@ -1173,6 +1330,10 @@ class Scheduler:
             scheduler_metrics.PODS_BOUND_TOTAL.inc(len(result.bound))
         self.extender.monitor.record(result)
         self._finish_cycle_obs(result, now, root, flight_base)
+        # a completed cycle feeds the ladder's clean-cycle counter (a
+        # cycle that needed retries/demotions does not count as clean);
+        # enough clean cycles probe one rung back up
+        self.ladder.note_cycle()
         return result
 
     # ------------------------------------------------------------------
@@ -1225,13 +1386,36 @@ class Scheduler:
 
     def _finish_cycle_obs(self, result: CycleResult, now: float, root,
                           flight_base: Dict[str, float]) -> None:
-        """Post-cycle bookkeeping: the flight ring and the deadline
-        trigger."""
+        """Post-cycle bookkeeping: the flight ring, liveness state and the
+        deadline trigger."""
         self.flight.record_cycle(
             self._flight_record(result, now, root, flight_base))
+        with self._health_lock:
+            self._last_cycle_end = (time.time(), int(result.waves))
         if (self.cycle_deadline_seconds is not None
                 and result.duration_seconds > self.cycle_deadline_seconds):
             self.flight.dump("deadline_overrun")
+
+    def health_snapshot(self) -> Dict[str, object]:
+        """The /healthz payload: last-completed-cycle age + wave count —
+        a stale-cycle liveness signal instead of a bare 200 — plus the
+        degradation-ladder state: a scheduler surviving at a demoted
+        rung must not look identical to a healthy one on its liveness
+        probe."""
+        with self._health_lock:
+            last = self._last_cycle_end
+            cycles = self._cycle_counter
+        degraded = self.ladder.snapshot()
+        if last is None:
+            return {"status": "ok", "cycles": 0, "degraded": degraded}
+        end_wall, waves = last
+        return {
+            "status": "ok",
+            "cycles": cycles,
+            "last_cycle_age_seconds": max(0.0, time.time() - end_wall),
+            "last_cycle_waves": waves,
+            "degraded": degraded,
+        }
 
     def _run_cycle_traced(self, now: float, result: CycleResult,
                           waves_override=None) -> None:
@@ -1331,14 +1515,21 @@ class Scheduler:
         k_waves = self._effective_waves(pending, pending_reservations,
                                         waves_override)
         if k_waves > 1:
-            # _fused_wave_cycles refreshes pod-group status at the end of
-            # every logical cycle — no trailing refresh here, or a fused
-            # K-cycle would walk the groups K+1 times where K serial
-            # cycles walk them K times
-            self._fused_wave_cycles(pending, now, ctx, result,
-                                    pending_reservations, originals,
-                                    k_waves)
-            return
+            try:
+                # _fused_wave_cycles refreshes pod-group status at the end
+                # of every logical cycle — no trailing refresh here, or a
+                # fused K-cycle would walk the groups K+1 times where K
+                # serial cycles walk them K times
+                self._fused_wave_cycles(pending, now, ctx, result,
+                                        pending_reservations, originals,
+                                        k_waves)
+                return
+            except FusedDispatchDemoted:
+                # the fused dispatch window failed before ANY binding was
+                # applied and the ladder demoted below fused waves: fall
+                # through and run this same pass through the serial path
+                # at the demoted settings
+                pass
 
         # ---- batched kernel pass
         rejected_pods, failed_pods = self._batch_pass(
@@ -1478,6 +1669,15 @@ class Scheduler:
             return
         with self.tracer.span("diagnose", pods=str(len(items))):
             self._diagnose_and_write(items, last, now)
+
+    def _flush_deferred_in_window(self) -> None:
+        """flush_deferred from inside a ladder-wrapped dispatch window:
+        tag host/store-side failures so the ladder's except does not
+        mistake them for device failures (see _HostWriteFailure)."""
+        try:
+            self.flush_deferred()
+        except Exception as exc:
+            raise _HostWriteFailure() from exc
 
     def _prepack_in_window(self) -> None:
         """Pack/device overlap (KOORD_TPU_PACK_OVERLAP): pre-pack the
@@ -1660,6 +1860,7 @@ class Scheduler:
         # pods arrive already view-transformed (run_cycle runs BeforePreFilter
         # ahead of the nomination pre-pass); here the state-level transformer
         # chain runs: ClusterState rewrites, then packed-input rewrites
+        t_pack = time.perf_counter()
         with self.tracer.span("snapshot") as ssp:
             state = self._cluster_state(pending, now)
             self.extender.transform_after_prefilter(state, ctx)
@@ -1667,6 +1868,7 @@ class Scheduler:
             ssp.attributes["nodes"] = str(len(state.nodes))
             ssp.attributes["pods"] = str(len(pending))
         if not state.nodes:
+            self.pack_wall_seconds += time.perf_counter() - t_pack
             return None
         with self.tracer.span("encode"):
             cs = (self.snapshot_cache.stats
@@ -1710,6 +1912,7 @@ class Scheduler:
             self._last_batch = (
                 fc, {key: j for j, key in enumerate(pods.keys)},
                 len(state.nodes))
+        self.pack_wall_seconds += time.perf_counter() - t_pack
         if self.encode_observer is not None:
             # parity/test hook: the post-reduce host arrays — the
             # ScheduleInputs level the pack-overlap byte-parity gates on
@@ -1731,15 +1934,16 @@ class Scheduler:
         self._upload_stats_last = dict(ds)
 
 
-    def _readback_sync(self, *tensors):
+    def _readback_sync(self, *tensors, path: str = "serial"):
         """The designated host sync point: materialize the round's outputs,
         MONITORED by the dispatch-deadline watchdog (koordguard). With a
         deadline armed the blocking body runs on a watchdog worker; an
-        overrun raises DispatchDeadlineExceeded out of the cycle instead
-        of wedging it behind a slow-not-dead device. The default
-        no-deadline path is inline."""
+        overrun raises DispatchDeadlineExceeded into the dispatch window,
+        whose ladder retries or demotes, instead of wedging the cycle
+        behind a slow-not-dead device. The default no-deadline path is
+        inline."""
         return self.dispatch_watchdog.run(
-            lambda: self._readback_sync_now(*tensors), "serial")
+            lambda: self._readback_sync_now(*tensors), path)
 
     def _readback_sync_now(self, *tensors):
         """The blocking readback body: ``.cpu().numpy()`` of each tensor.
@@ -1812,75 +2016,116 @@ class Scheduler:
     # ------------------------------------------------------------------
     def _dispatch_serial(self, fc_host, pods, nodes, ng, ngroups, active,
                          result: CycleResult) -> np.ndarray:
-        """The single-round device-dispatch window: upload (through the
-        device mirror, or in full without one), one round (the CUDA kernel
-        on the card; gang Permit included), one readback. ``fc_host``
-        keeps the host arrays for diagnosis. A failure anywhere in the
-        window propagates out of the cycle; there is no degradation
-        ladder in this slice of the port."""
+        """The single-round device-dispatch window, wrapped in the
+        degradation ladder: upload (through the device mirror, or in full
+        without one), one round (the CUDA kernel on the card; gang Permit
+        included), one readback. A device fault anywhere between step
+        lookup and readback (strictly before any binding) retries once,
+        then demotes — finally to the pure-host pass — instead of killing
+        the scheduler. ``fc_host`` keeps the host arrays, so every retry
+        re-uploads from them against the (possibly rebuilt) mirror. Any
+        other failure propagates out of the cycle (_window_failure)."""
+        self.ladder.begin_pass()
         # koordwatch device window for this pass: the decision id joins
         # the kernel span, the flight record and /explain; the window
-        # records the dispatch->sync interval
+        # records the SUCCESSFUL attempt's dispatch->sync interval
         win = self._open_window("serial")
-        step = self._get_step(
-            (pods.padded_size, nodes.padded_size,
-             fc_host.quota_runtime.shape[0]),
-            ng, ngroups, active,
-        )
-        with self.tracer.span(
-                "kernel",
-                compiled="1" if self._last_step_compiled else "0",
-                decision_id=win.decision_id) as ksp:
-            snap = self.device_snapshot
-            with self.tracer.span("upload"):
-                if snap is not None:
-                    # device-resident steady state: unchanged fields reuse
-                    # the previous cycle's tensors, small row deltas go up
-                    # as row scatters (snapshot_cache.DeviceSnapshot)
-                    fc = snap.upload(fc_host)
-                    self._record_upload_deltas()
-                else:
-                    fc = to_device(fc_host, self.device)
-            if snap is not None:
-                snap.begin_dispatch()
-            t_dispatch = time.perf_counter()
-            win.mark_dispatch("serial")
+        attempts = 0
+        had_deadline = False
+        level0 = self.ladder.level
+        while True:
+            if self.ladder.level >= LEVEL_HOST_FALLBACK:
+                # no device dispatch: the window never completes
+                return self._dispatch_host_fallback(fc_host, pods, nodes,
+                                                    result)
             try:
-                if self.fault_injector is not None:
-                    self.fault_injector("serial")
-                chosen, _, _ = step(fc)  # queued on the stream — no sync
-                self.last_backend = step.last_backend
-                self.dispatches += 1
-                if self.pipeline_mode:
-                    # overlap window: the previous cycle's deferred host
-                    # work (unschedulability diagnosis + condition writes)
-                    # runs while the device executes this cycle's round,
-                    # then the next cycle's candidate rows pre-pack into
-                    # the memo (pack overlap). Host memory only: the
-                    # mirror's next scatter waits for the sync below.
-                    self.flush_deferred()
-                    self._prepack_in_window()
-                    with self.tracer.span("overlap_wait"):
-                        # the pipeline's single designated sync point:
-                        # bind needs the chosen vector, nothing before does
-                        chosen, = self._readback_sync(chosen)
-                else:
-                    with self.tracer.span("readback"):
-                        chosen, = self._readback_sync(chosen)
-            except DispatchDeadlineExceeded:
-                # slow-not-dead device: the round may still read the
-                # mirror's tensors — never scatter into them again
-                self._abandon_device_state()
-                raise
-            finally:
-                if snap is not None:
-                    snap.end_dispatch()
-            result.device_busy_seconds += time.perf_counter() - t_dispatch
-            scheduler_metrics.WAVES_PER_DISPATCH.observe(1.0)
-            scheduler_metrics.READBACK_BYTES.inc(int(chosen.nbytes))
+                step = self._get_step(
+                    (pods.padded_size, nodes.padded_size,
+                     fc_host.quota_runtime.shape[0]),
+                    ng, ngroups, active,
+                )
+                with self.tracer.span(
+                        "kernel",
+                        compiled="1" if self._last_step_compiled else "0",
+                        decision_id=win.decision_id) as ksp:
+                    snap = self.device_snapshot
+                    with self.tracer.span("upload"):
+                        if snap is not None:
+                            # device-resident steady state: unchanged
+                            # fields reuse the previous cycle's tensors,
+                            # small row deltas go up as row scatters
+                            # (snapshot_cache.DeviceSnapshot)
+                            fc = snap.upload(fc_host)
+                            self._record_upload_deltas()
+                        else:
+                            fc = to_device(fc_host, self.device)
+                    if snap is not None:
+                        snap.begin_dispatch()
+                    t_dispatch = time.perf_counter()
+                    win.mark_dispatch("serial")
+                    try:
+                        if self.fault_injector is not None:
+                            self.fault_injector("serial")
+                        chosen, _, _ = step(fc)  # queued — no sync
+                        self.last_backend = step.last_backend
+                        self.dispatches += 1
+                        if self.pipeline_mode:
+                            # overlap window: the previous cycle's deferred
+                            # host work (unschedulability diagnosis +
+                            # condition writes) runs while the device
+                            # executes this cycle's round, then the next
+                            # cycle's candidate rows pre-pack into the memo
+                            # (pack overlap). Host memory only: the
+                            # mirror's next scatter waits for the sync.
+                            self._flush_deferred_in_window()
+                            self._prepack_in_window()
+                            with self.tracer.span("overlap_wait"):
+                                # the pipeline's single designated sync
+                                # point: bind needs the chosen vector,
+                                # nothing before does
+                                chosen, = self._readback_sync(chosen)
+                        else:
+                            with self.tracer.span("readback"):
+                                chosen, = self._readback_sync(chosen)
+                    finally:
+                        if snap is not None:
+                            snap.end_dispatch()
+                    result.device_busy_seconds += (
+                        time.perf_counter() - t_dispatch)
+                    scheduler_metrics.WAVES_PER_DISPATCH.observe(1.0)
+                    scheduler_metrics.READBACK_BYTES.inc(int(chosen.nbytes))
+                result.kernel_seconds += ksp.duration_seconds
+                scheduler_metrics.KERNEL_SECONDS.observe(
+                    ksp.duration_seconds)
+                if self._last_step_compiled:
+                    # the kernel library loaded in this window: its wall
+                    # is compile time for the restart attribution split
+                    self.compile_wall_seconds += ksp.duration_seconds
+                self._close_window(win, attempts, had_deadline, level0)
+                return chosen
+            except Exception as exc:
+                # retry or demote (settings re-applied by the transition
+                # observer), or re-raise
+                self._window_failure("serial", exc)
+                attempts += 1
+                had_deadline |= isinstance(exc, DispatchDeadlineExceeded)
+
+    def _dispatch_host_fallback(self, fc_host, pods, nodes,
+                                result: CycleResult) -> np.ndarray:
+        """The ladder's bottom rung: no device dispatch at all — a
+        pure-host numpy scheduling pass over the diagnose oracle
+        (scheduler/degrade.host_fallback_schedule) on the host pack. A
+        failure here has no deeper rung to absorb it and propagates as an
+        unhandled cycle exception (flight recorder ``cycle_exception``
+        trigger). ``_last_batch`` keeps the host arrays, so
+        unschedulability diagnosis runs through the host recompute
+        unchanged."""
+        with self.tracer.span("kernel", host_fallback="1") as ksp:
+            chosen = host_fallback_schedule(fc_host, pods,
+                                            len(nodes.names))
+        self.last_backend = "host-fallback"
         result.kernel_seconds += ksp.duration_seconds
         scheduler_metrics.KERNEL_SECONDS.observe(ksp.duration_seconds)
-        self.timeline.close(win, "clean")
         return chosen
 
     # ------------------------------------------------------------------
@@ -2164,65 +2409,93 @@ class Scheduler:
         side_fields, assemble_sides, res_ctx = self._encode_wave_sides(
             fc_host, pods, nodes, pending, pending_reservations, active,
             now)
+        # ---- the fused dispatch window, wrapped in the degradation
+        # ladder: a failure between step lookup and readback (strictly
+        # before any binding is replayed) retries once, then demotes — a
+        # demotion below fused waves raises FusedDispatchDemoted and the
+        # cycle driver re-runs this pass through the serial path.
+        # `fc_host`/`side_fields` hold the host arrays, so a retry
+        # re-uploads from scratch.
+        self.ladder.begin_pass()
         win = self._open_window("fused")
-        step = self._get_fused_step(
-            (pods.padded_size, nodes.padded_size,
-             fc_host.quota_runtime.shape[0]),
-            ng, ngroups, active, k_waves, sides_tag=res_ctx["tag"])
-        snap = self.device_snapshot
-        with self.tracer.span(
-                "kernel",
-                compiled="1" if self._last_step_compiled else "0",
-                waves=str(k_waves),
-                decision_id=win.decision_id) as ksp:
-            fc, sides = self._upload_wave_inputs(fc_host, side_fields,
-                                                 assemble_sides)
-            if snap is not None:
-                snap.begin_dispatch()
-            t_dispatch = time.perf_counter()
-            win.mark_dispatch("fused")
+        attempts = 0
+        had_deadline = False
+        level0 = self.ladder.level
+        while True:
             try:
-                if self.fault_injector is not None:
-                    self.fault_injector("fused")
-                # the step runs every wave to the fixpoint, reading each
-                # wave's count as it goes
-                out = step(fc, sides)
-                self.last_backend = ("cuda" if fc.base.allocatable.is_cuda
-                                     else "serial")
-                self.dispatches += 1
-                compacted = (out.bind_pods, out.bind_nodes, out.bind_zones,
-                             out.bind_res, out.wave_counts)
-                if self.pipeline_mode:
-                    self.flush_deferred()
-                    self._prepack_in_window()
-                    with self.tracer.span("overlap_wait"):
-                        (bind_pods, bind_nodes, bind_zones, bind_res,
-                         wave_counts) = self._readback_sync(*compacted)
-                else:
-                    with self.tracer.span("readback"):
-                        (bind_pods, bind_nodes, bind_zones, bind_res,
-                         wave_counts) = self._readback_sync(*compacted)
-                waves_run = out.waves_run
-            except DispatchDeadlineExceeded:
-                self._abandon_device_state()
-                raise
-            finally:
-                if snap is not None:
-                    snap.end_dispatch()
-            result.device_busy_seconds += time.perf_counter() - t_dispatch
-            scheduler_metrics.WAVES_PER_DISPATCH.observe(float(waves_run))
-            scheduler_metrics.READBACK_BYTES.inc(
-                int(bind_pods.nbytes + bind_nodes.nbytes + bind_zones.nbytes
-                    + bind_res.nbytes + wave_counts.nbytes))
-            for w in range(waves_run):
-                # retrospective per-wave markers under the kernel span:
-                # how the dispatch's work split across the fused rounds
-                with self.tracer.span("wave", index=str(w),
-                                      bound=str(int(wave_counts[w]))):
-                    pass
+                step = self._get_fused_step(
+                    (pods.padded_size, nodes.padded_size,
+                     fc_host.quota_runtime.shape[0]),
+                    ng, ngroups, active, k_waves, sides_tag=res_ctx["tag"])
+                snap = self.device_snapshot
+                with self.tracer.span(
+                        "kernel",
+                        compiled="1" if self._last_step_compiled else "0",
+                        waves=str(k_waves),
+                        decision_id=win.decision_id) as ksp:
+                    fc, sides = self._upload_wave_inputs(
+                        fc_host, side_fields, assemble_sides)
+                    if snap is not None:
+                        snap.begin_dispatch()
+                    t_dispatch = time.perf_counter()
+                    win.mark_dispatch("fused")
+                    try:
+                        if self.fault_injector is not None:
+                            self.fault_injector("fused")
+                        # the step runs every wave to the fixpoint,
+                        # reading each wave's count as it goes
+                        out = step(fc, sides)
+                        self.last_backend = (
+                            "cuda" if fc.base.allocatable.is_cuda
+                            else "serial")
+                        self.dispatches += 1
+                        compacted = (out.bind_pods, out.bind_nodes,
+                                     out.bind_zones, out.bind_res,
+                                     out.wave_counts)
+                        if self.pipeline_mode:
+                            self._flush_deferred_in_window()
+                            self._prepack_in_window()
+                            with self.tracer.span("overlap_wait"):
+                                (bind_pods, bind_nodes, bind_zones,
+                                 bind_res, wave_counts) = (
+                                     self._readback_sync(*compacted,
+                                                         path="fused"))
+                        else:
+                            with self.tracer.span("readback"):
+                                (bind_pods, bind_nodes, bind_zones,
+                                 bind_res, wave_counts) = (
+                                     self._readback_sync(*compacted,
+                                                         path="fused"))
+                        waves_run = out.waves_run
+                    finally:
+                        if snap is not None:
+                            snap.end_dispatch()
+                    result.device_busy_seconds += (
+                        time.perf_counter() - t_dispatch)
+                    scheduler_metrics.WAVES_PER_DISPATCH.observe(
+                        float(waves_run))
+                    scheduler_metrics.READBACK_BYTES.inc(
+                        int(bind_pods.nbytes + bind_nodes.nbytes
+                            + bind_zones.nbytes + bind_res.nbytes
+                            + wave_counts.nbytes))
+                    for w in range(waves_run):
+                        # retrospective per-wave markers under the kernel
+                        # span: how the dispatch's work split across the
+                        # fused rounds
+                        with self.tracer.span(
+                                "wave", index=str(w),
+                                bound=str(int(wave_counts[w]))):
+                            pass
+                break
+            except Exception as exc:
+                self._window_failure("fused", exc)
+                attempts += 1
+                had_deadline |= isinstance(exc, DispatchDeadlineExceeded)
         result.kernel_seconds += ksp.duration_seconds
         scheduler_metrics.KERNEL_SECONDS.observe(ksp.duration_seconds)
-        self.timeline.close(win, "clean")
+        if self._last_step_compiled:
+            self.compile_wall_seconds += ksp.duration_seconds
+        self._close_window(win, attempts, had_deadline, level0)
 
         # ---- replay the waves as logical cycles. The state mirror is
         # LAZY: it only exists to diagnose unbound pods against wave-w
@@ -2449,6 +2722,16 @@ class Scheduler:
         if done is not None:
             done.synchronize()
 
+    def _keep_abandoned_wave(self, handle) -> None:
+        """A deadline overrun abandoned a chained wave still running on
+        the card: keep its pinned host rows and events referenced until
+        its event completes (pruned here, on the next abandon), so no
+        copy lands in memory that was handed back."""
+        self._abandoned_waves = [h for h in self._abandoned_waves
+                                 if not h[2].query()]
+        if handle is not None and handle[2] is not None:
+            self._abandoned_waves.append(handle)
+
     def _abort_chain_window(self, handle, window_open: bool) -> None:
         """Tear down the chain dispatch window on a host-side failure:
         wave 1 may still be executing, and end_dispatch must not let the
@@ -2492,51 +2775,66 @@ class Scheduler:
         side_fields, assemble_sides, res_ctx = self._encode_wave_sides(
             fc_host, pods, nodes, pending, pending_reservations, active,
             now)
+        # ---- ladder-wrapped dispatch window: step lookup, upload, the
+        # wave-1 dispatch and its readback — strictly before any binding
+        self.ladder.begin_pass()
         win = self._open_window("chained")
-        step = self._get_chain_step(
-            (pods.padded_size, nodes.padded_size,
-             fc_host.quota_runtime.shape[0]),
-            ng, ngroups, active, sides_tag=res_ctx["tag"])
+        attempts = 0
+        had_deadline = False
+        level0 = self.ladder.level
         window_open = False
         handle0 = None  # wave 1 in flight: drained before the window closes
-        try:
-            with self.tracer.span(
-                    "kernel",
-                    compiled="1" if self._last_step_compiled else "0",
-                    waves=str(k_waves), overlap="1",
-                    decision_id=win.decision_id):
-                fc, sides = self._upload_wave_inputs(fc_host, side_fields,
-                                                     assemble_sides)
-                if self.device_snapshot is not None:
-                    self.device_snapshot.begin_dispatch()
-                    window_open = True
-                t_dispatch = time.perf_counter()
-                win.mark_dispatch("chained")
-                if self.fault_injector is not None:
-                    self.fault_injector("fused")
-                carry = self._initial_chain_carry(fc, sides)
-                carry, handle0 = self._dispatch_chain_wave(step, fc, carry,
-                                                           sides)
-                self.last_backend = ("cuda" if fc.base.allocatable.is_cuda
-                                     else "serial")
-                self.dispatches += 1
-                if self.pipeline_mode:
-                    # the previous cycle's deferred host work drains
-                    # while the device runs wave 1
-                    self.flush_deferred()
-                # pack overlap: wave 1 is in flight — pre-pack the next
-                # cycle's rows before blocking on it
-                self._prepack_in_window()
-                with self.tracer.span("overlap_wait"):
-                    synced = self._sync_wave_rows(handle0)
-        except DispatchDeadlineExceeded:
-            # never drain the slow wave here (that blocks as long as the
-            # overrun): the mirror is replaced wholesale instead
-            self._abandon_device_state()
-            raise
-        except Exception:
-            self._abort_chain_window(handle0, window_open)
-            raise
+        while True:
+            try:
+                step = self._get_chain_step(
+                    (pods.padded_size, nodes.padded_size,
+                     fc_host.quota_runtime.shape[0]),
+                    ng, ngroups, active, sides_tag=res_ctx["tag"])
+                with self.tracer.span(
+                        "kernel",
+                        compiled="1" if self._last_step_compiled else "0",
+                        waves=str(k_waves), overlap="1",
+                        decision_id=win.decision_id):
+                    fc, sides = self._upload_wave_inputs(
+                        fc_host, side_fields, assemble_sides)
+                    if self.device_snapshot is not None:
+                        self.device_snapshot.begin_dispatch()
+                        window_open = True
+                    chain_compiled = self._last_step_compiled
+                    t_dispatch = time.perf_counter()
+                    win.mark_dispatch("chained")
+                    if self.fault_injector is not None:
+                        self.fault_injector("fused")
+                    carry = self._initial_chain_carry(fc, sides)
+                    carry, handle0 = self._dispatch_chain_wave(step, fc,
+                                                               carry, sides)
+                    self.last_backend = (
+                        "cuda" if fc.base.allocatable.is_cuda else "serial")
+                    self.dispatches += 1
+                    if self.pipeline_mode:
+                        # the previous cycle's deferred host work drains
+                        # while the device runs wave 1
+                        self._flush_deferred_in_window()
+                    # pack overlap: wave 1 is in flight — pre-pack the next
+                    # cycle's rows before blocking on it
+                    self._prepack_in_window()
+                    with self.tracer.span("overlap_wait"):
+                        synced = self._sync_wave_rows(handle0)
+                break
+            except Exception as exc:
+                if isinstance(exc, DispatchDeadlineExceeded):
+                    # the slow wave is exactly what we are escaping: never
+                    # drain it here (that blocks as long as the overrun).
+                    # The old mirror is replaced in _on_dispatch_failure,
+                    # and the wave's pinned rows and events are kept
+                    # until it ends.
+                    self._keep_abandoned_wave(handle0)
+                else:
+                    self._abort_chain_window(handle0, window_open)
+                handle0, window_open = None, False
+                self._window_failure("fused", exc)
+                attempts += 1
+                had_deadline |= isinstance(exc, DispatchDeadlineExceeded)
         try:
             executed, t_last_sync = self._replay_wave_chain(
                 step, fc, fc_host, carry, sides, res_ctx, synced,
@@ -2550,9 +2848,13 @@ class Scheduler:
         window_seconds = t_last_sync - t_dispatch
         result.kernel_seconds += window_seconds
         scheduler_metrics.KERNEL_SECONDS.observe(window_seconds)
+        if chain_compiled:
+            self.compile_wall_seconds += window_seconds
         result.device_busy_seconds += window_seconds
         scheduler_metrics.WAVES_PER_DISPATCH.observe(float(executed))
-        self.timeline.close(win, "clean", end_mono=t_last_sync)
+        # the timeline window closes at the chain's LAST device sync
+        self._close_window(win, attempts, had_deadline, level0,
+                           end_mono=t_last_sync)
         self._last_batch = None
 
     def _replay_wave_chain(
@@ -2813,7 +3115,9 @@ class Scheduler:
                     # the wave's bind patches: ONE store transaction,
                     # applied before preemption/gang status reads; the
                     # live queue objects turn coherent right after, as the
-                    # serial per-pod write would have left them
+                    # serial per-pod write would have left them.
+                    # THE designated batched flush site of the replay
+                    # koordlint: disable=store-write-in-wave-replay-loop
                     self.store.update_many(KIND_POD, [t[0] for t in txn])
                 for _patched, live, annotations, node_name in txn:
                     live.meta.annotations.update(annotations)

@@ -130,7 +130,13 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.scheduler.snapshot_cache, "
             "koordinator_tpu_torch.models.fused_waves, "
             "koordinator_tpu_torch.scheduler.pipeline_parity, "
-            "koordinator_tpu_torch.testing.churn\n"
+            "koordinator_tpu_torch.testing.churn, "
+            "koordinator_tpu_torch.scheduler.degrade, "
+            "koordinator_tpu_torch.sim, koordinator_tpu_torch.sim.harness, "
+            "koordinator_tpu_torch.sim.__main__, "
+            "koordinator_tpu_torch.obs.slo, "
+            "koordinator_tpu_torch.obs.lockorder, "
+            "koordinator_tpu_torch.balance.pack\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"

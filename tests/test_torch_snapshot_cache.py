@@ -383,11 +383,10 @@ def test_descheduler_and_manager_packs_raise():
     (dict(mesh=4), "mesh"),
     (dict(mesh="auto"), "mesh"),
     (dict(sidecar_address="localhost:1"), "sidecar"),
-    (dict(ladder=object()), "ladder"),
     (dict(warmup="sync"), "warm-up"),
     (dict(warmup="background"), "warm-up"),
 ], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
-        "sidecar", "ladder", "warmup-sync", "warmup-background"])
+        "sidecar", "warmup-sync", "warmup-background"])
 def test_left_out_knobs_raise(kwargs, match):
     kwargs = {"waves": 1, **kwargs}
     with pytest.raises(NotImplementedError, match=match):
@@ -433,11 +432,17 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_dispatch_failure_propagates_out_of_the_cycle():
+    """A dispatch failure the degradation ladder must not absorb — the
+    kernel build/contract error — propagates out of the cycle with
+    nothing bound, by no fallback either; a device fault is the ladder's
+    (tests/test_torch_degrade.py)."""
+    from koordinator_tpu_torch.ops.kernel_common import KernelContractError
+
     store, state = churn_store(8, 16, seed=0)
     sched = Scheduler(store, waves=1, device="cpu")
 
     def boom(stage):
-        raise RuntimeError(f"injected {stage} dispatch fault")
+        raise KernelContractError(f"injected {stage} dispatch fault")
 
     def assigned():
         return sum(p.is_assigned for p in store.list(KIND_POD))
@@ -448,27 +453,38 @@ def test_dispatch_failure_propagates_out_of_the_cycle():
         sched.run_cycle(now=state.now)
     assert assigned() == before, "nothing bound, by no fallback either"
     assert sched.flight.dumps == 1
+    assert sched.ladder.level == 0 and not sched.ladder.transitions
 
 
 def test_readback_deadline_overrun_raises_and_abandons_the_mirror():
     """koordguard: with a dispatch deadline the readback runs on a
-    watchdog worker; a sync slower than the deadline raises out of the
-    cycle (no ladder to absorb it) and the mirror is replaced, so no
-    later scatter writes into tensors a slow round may still read."""
+    watchdog worker; a sync slower than the deadline raises
+    DispatchDeadlineExceeded into the dispatch window, the mirror is
+    replaced, so no later scatter writes into tensors a slow round may
+    still read, and the ladder's retry re-uploads into the fresh mirror
+    through full puts and binds at full."""
     import time
 
-    from koordinator_tpu_torch.scheduler.deadline import (
-        DispatchDeadlineExceeded,
-    )
+    from koordinator_tpu_torch.scheduler import metrics as sm
 
     store, state = churn_store(8, 16, seed=0)
     sched = Scheduler(store, waves=1, device="cpu", dispatch_deadline_ms=50)
     mirror = sched.device_snapshot
-    sched.sync_delay_injector = lambda: time.sleep(0.3)
-    with pytest.raises(DispatchDeadlineExceeded):
-        sched.run_cycle(now=state.now)
+    slow = [1]
+
+    def delay():
+        if slow:
+            slow.pop()
+            time.sleep(0.3)
+
+    sched.sync_delay_injector = delay
+    retries = sm.DISPATCH_RETRIES.get(stage="serial") or 0.0
+    res = sched.run_cycle(now=state.now)
     assert sched.device_snapshot is not mirror
     assert sched.dispatch_watchdog.overruns == 1
-    sched.sync_delay_injector = None
-    res = sched.run_cycle(now=state.now + 1)
+    assert sm.DISPATCH_RETRIES.get(stage="serial") == retries + 1
     assert res.bound and sched.device_snapshot.stats["put"] > 0
+    assert sched.ladder.level == 0 and sched.last_backend == "serial"
+    add_arrivals(store, arrival_specs(1, 4), state.now + 1)
+    res = sched.run_cycle(now=state.now + 2)
+    assert res.bound and sched.device_snapshot.stats["reused"] > 0
