@@ -1,4 +1,5 @@
-"""Drive the port's scheduling rounds on one NVIDIA H100 and check them.
+"""Drive the port's scheduling rounds and its descheduler on one NVIDIA
+H100 and check them.
 
     python3 chip_smoke.py    # 10240 pods x 5120 nodes, one card
 
@@ -74,14 +75,38 @@ Phases, one JSON line each:
           again once the ladder is above the host fallback. Prints the
           transitions, each cycle's ms and level beside (b)'s, and the
           host-fallback pass's seconds.
-  sim     the sim's smoke (50 cycles), gang-storm (300), spot-churn (300)
-          and crash-restart (36) scenarios on the card, each with a CPU
-          twin in this process (gang-storm's and spot-churn's cut to 150
-          cycles for the time limit): the CPU's binding-log SHA-256 equal
-          to that of the card's log over the same cycles, zero invariant
-          breaches and cycle exceptions on both, smoke's ladder round trip
-          in cycles_at_level. Prints each scenario's SHA prefix, cycles at
-          each level, SLO flags and wall seconds on each device.
+  sim     the sim's smoke (50 cycles), gang-storm (300), spot-churn (300),
+          crash-restart (36), drain-storm (200) and hotspot (160) scenarios
+          on the card, each with a CPU twin in this process (gang-storm's
+          and spot-churn's cut to 150 cycles and drain-storm's to 100 for
+          the time limit): the CPU's binding log equal to the card's over
+          the same cycles, zero invariant breaches and cycle exceptions on
+          both, smoke's ladder round trip in cycles_at_level. drain-storm
+          and hotspot run the co-located descheduler: every rebalance pass
+          on the card (none retried, none on the host oracle), and
+          hotspot's rebalance report (migrations, dissipation) equal on the
+          card and the CPU. Prints each scenario's SHA prefix, cycles at
+          each level, SLO flags, rebalance passes and wall seconds on each
+          device.
+  rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
+          running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
+          cut) through Descheduler(store, device="cuda"): a warm-up pass,
+          then 10 passes of the host oracle and 10 device passes over one
+          packed view (each device pass on the card, its victims equal to
+          the host oracle's, order included, is_low/is_high equal to
+          classify_nodes); the step alone (CUDA events, median of 10), its
+          launches (torch.profiler, once) and its bytes bound; then
+          run_once against a rebalance="host" twin on an identical store:
+          the PodMigrationJob lists must be equal, order included. Prints
+          the host and device pass times, the device pass's spans, and
+          the victim and job counts.
+  rebalance_colocated  config 4 (churn_store(5000, 10000, seed=42)):
+          Scheduler(store) through cycle 0, then Descheduler(store,
+          scheduler=sched): the rb_* fields ride the scheduler's
+          DeviceSnapshot, the pass runs on the card with the host oracle's
+          victims over the same view, run_once writes one job per victim,
+          and the scheduler's ladder stays at full. Prints the victim
+          count (0 included).
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -240,11 +265,12 @@ LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
                ("host-fallback", "serial-waves"), ("serial-waves", "full")]
 # the sim phase: the catalog scenarios the port runs, at their catalog
 # cycle counts on the card; the CPU twins of gang-storm and spot-churn are
-# cut to 150 cycles for the script's time limit (the plain round's per-pod
-# loop over their backlog takes ~0.4 and ~1 s a cycle on the host), and
-# are held against the card run's first 150 cycles
+# cut to 150 cycles and drain-storm's to 100 for the script's time limit
+# (the plain round's per-pod loop over their backlog takes ~0.4 and ~1 s
+# a cycle on the host), and are held against the card run's first cycles
 SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 300, 150),
-                 ("spot-churn", 300, 150), ("crash-restart", 36, 36))
+                 ("spot-churn", 300, 150), ("crash-restart", 36, 36),
+                 ("drain-storm", 200, 100), ("hotspot", 160, 160))
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -1308,6 +1334,21 @@ def run_sim(device):
             raise AssertionError(f"sim smoke: no ladder round trip: "
                                  f"{card.cycles_at_level}")
         report = card.to_dict()
+        if SCENARIOS[name].descheduler_every:
+            # the co-located descheduler: every rebalance pass on the
+            # card, none retried or served by the host oracle
+            passes = card.rebalance_passes
+            if (card.descheduler_runs < 1
+                    or passes["device"] != card.descheduler_runs
+                    or passes["host"] or passes["failures"]):
+                raise AssertionError(
+                    f"sim {name}: rebalance passes {passes} over "
+                    f"{card.descheduler_runs} descheduler runs")
+            if cpu_cycles == cycles and (
+                    report["rebalance"] != cpu.to_dict()["rebalance"]):
+                raise AssertionError(
+                    f"sim {name}: the rebalance report differs: "
+                    f"{report['rebalance']} != {cpu.to_dict()['rebalance']}")
         rows.append({
             "scenario": name, "cycles": cycles, "cpu_cycles": cpu_cycles,
             "sha256": card.binding_log_sha256[:16],
@@ -1320,6 +1361,9 @@ def run_sim(device):
                         "restart": report["restart"]["met"],
                         **{k: v["met"] for k, v in report["slos"].items()}},
             "ttb_p99_seconds": report["time_to_bind_seconds"]["p99"],
+            "descheduler_runs": card.descheduler_runs,
+            "rebalance_passes": card.rebalance_passes,
+            "rebalance": report["rebalance"],
             "card_seconds": card_s, "cpu_seconds": cpu_s,
             "card_ms_per_cycle": card_s / cycles * 1e3,
             "cpu_ms_per_cycle": cpu_s / cpu_cycles * 1e3,
@@ -1327,8 +1371,249 @@ def run_sim(device):
     emit({"phase": "sim", "scenarios": rows, "sha_equal": True,
           "invariant_breaches": 0,
           "cut": "the CPU twins of gang-storm and spot-churn run 150 of "
-                 "the card's 300 cycles (time limit)"})
+                 "the card's 300 cycles and drain-storm's 100 of 200 "
+                 "(time limit)"})
     return total
+
+
+def step_args(fields, device):
+    """The rebalance step's arguments from the rebalancer's prepped host
+    arrays, on ``device``, in call order."""
+    from koordinator_tpu_torch.models.convert import as_tensor
+
+    return [as_tensor(fields[f"rb_{name}"], device) for name in (
+        "usage_pct", "has_metric", "low_thr", "high_thr", "rhs_hi",
+        "rhs_lo", "pod_node", "pod_prio", "pod_cpu", "pod_req", "pod_ok")]
+
+
+def rebalance_bytes(args, out) -> int:
+    """The step's input bytes read once and its outputs written once."""
+    return (sum(t.numel() * t.element_size() for t in args)
+            + sum(t.numel() * t.element_size() for t in out))
+
+
+def profile_launches(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: the device kernels and
+    memory operations it ran (CUPTI), and the CUDA runtime launch calls
+    on the host side, which count even where the device trace is empty."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    mem = [e for e in device if e.name.startswith(("Memcpy", "Memset"))]
+    calls = [e for e in prof.events()
+             if e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    by_name = {}
+    for e in device:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return {"device_kernels": len(device) - len(mem),
+            "device_memops": len(mem), "cuda_launch_calls": len(calls),
+            "device_ms": sum(ms for ms, _n in by_name.values()),
+            "top_kernels": [{"name": name[:120], "ms": ms, "count": n}
+                            for name, (ms, n) in top]}
+
+
+def job_list(store):
+    """The PodMigrationJobs in store order, by what they migrate."""
+    from koordinator_tpu_torch.client.store import KIND_POD_MIGRATION_JOB
+
+    return [(j.meta.key, j.pod_namespace, j.pod_name, j.mode)
+            for j in store.list(KIND_POD_MIGRATION_JOB)]
+
+
+def run_rebalance(device, n_pods=50_000, n_nodes=5_000):
+    """BASELINE config 5 through the standalone Descheduler on the card: a
+    warm-up pass, 10 passes of the host oracle and 10 device passes over
+    one packed view (victims equal to the host's, order included, and
+    is_low/is_high equal to classify_nodes), the step alone (CUDA events,
+    median of 10) and its launches (torch.profiler, once), then
+    Descheduler.run_once against a rebalance="host" twin on an identical
+    store: the PodMigrationJob lists must be equal, order included."""
+    from koordinator_tpu_torch.balance.rebalancer import DeviceRebalancer
+    from koordinator_tpu_torch.balance.step import build_rebalance_step
+    from koordinator_tpu_torch.descheduler.descheduler import Descheduler
+    from koordinator_tpu_torch.descheduler.lownodeload import classify_nodes
+    from koordinator_tpu_torch.testing.rebalance_fixture import (
+        rebalance_store,
+    )
+
+    now = 1_000_000.0
+    t0 = time.perf_counter()
+    store = rebalance_store(n_pods, n_nodes, now)
+    fixture_s = time.perf_counter() - t0
+    desch = Descheduler(store, device=device, rebalance="on")
+    plugin = desch.profiles[0].balance_plugins[0].inner
+    reb = desch.rebalancer
+    if plugin.device is not reb or reb.device != torch.device(device):
+        raise AssertionError("rebalance: the device pass is not attached")
+    t0 = time.perf_counter()
+    plugin.select_victims(now=now)  # warm-up: the first device pass
+    warm_s = time.perf_counter() - t0
+    if plugin.last_pass_stats["engine"] != "device":
+        raise AssertionError(f"rebalance warm-up served "
+                             f"{plugin.last_pass_stats['engine']}")
+    t0 = time.perf_counter()
+    view, _src = plugin._view(now)
+    view_s = time.perf_counter() - t0
+    low = plugin._thr_vec(plugin.args.low_thresholds)
+    high = plugin._thr_vec(plugin.args.high_thresholds)
+    host_ms, device_ms = [], []
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        host = plugin.select_victims_host(view)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    is_low_h, is_high_h = classify_nodes(view["usage_pct"],
+                                         view["has_metric"], low, high)
+    reb.tracer.clear()
+    for i in range(REPS):
+        t0 = time.perf_counter()
+        picked, stats = reb.select_victims(plugin, view, now)
+        device_ms.append((time.perf_counter() - t0) * 1e3)
+        if stats["engine"] != "device":
+            raise AssertionError(f"rebalance pass {i} served "
+                                 f"{stats['engine']}")
+        if picked.tolist() != host.tolist():
+            raise AssertionError(
+                f"rebalance pass {i}: {picked.size} device victims against "
+                f"{host.size} host victims, or another order")
+        if not (np.array_equal(stats["is_low"], is_low_h)
+                and np.array_equal(stats["is_high"], is_high_h)):
+            raise AssertionError(f"rebalance pass {i}: classification "
+                                 f"differs from classify_nodes")
+    spans = {}
+    for root in reb.tracer.roots():
+        spans.setdefault(root.name, []).append(root.duration_seconds * 1e3)
+    t0 = time.perf_counter()
+    for _ in range(REPS):
+        DeviceRebalancer._device_eligible(view)
+    eligible_ms = (time.perf_counter() - t0) * 1e3 / REPS
+    # the step alone, on the same prepped arrays
+    fields = DeviceRebalancer._prep(view, low, high)
+    args = step_args(fields, device)
+    step = build_rebalance_step(plugin.args.max_pods_to_evict_per_node,
+                                device=device)
+    out = step(*args)
+    torch.cuda.synchronize()
+    n = view["alloc"].shape[0]
+    sel = int(out.sel_count.item())
+    if out.sel_pod[:sel].cpu().numpy().tolist() != host.tolist():
+        raise AssertionError("rebalance step alone: victims differ")
+    step_ms = time_cuda(lambda: step(*args), REPS)
+    launches = profile_launches(lambda: step(*args))
+    nbytes = rebalance_bytes(args, out)
+    # the descheduler end to end against its host twin
+    twin_store = rebalance_store(n_pods, n_nodes, now)
+    twin = Descheduler(twin_store, rebalance="host")
+    t0 = time.perf_counter()
+    out_dev = desch.run_once(now=now)
+    run_once_s = time.perf_counter() - t0
+    if plugin.last_pass_stats["engine"] != "device":
+        raise AssertionError("rebalance run_once did not run on the card")
+    t0 = time.perf_counter()
+    out_host = twin.run_once(now=now)
+    twin_s = time.perf_counter() - t0
+    jobs, twin_jobs = job_list(store), job_list(twin_store)
+    if jobs != twin_jobs or out_dev != out_host:
+        raise AssertionError(
+            f"rebalance run_once: {len(jobs)} jobs on the card against "
+            f"{len(twin_jobs)} on the host twin, or another order")
+    if reb.ladder.level != 0 or reb.ladder.transitions or reb.failures:
+        raise AssertionError(f"rebalance: the ladder moved: "
+                             f"{reb.ladder.transitions}")
+    row = {"phase": "rebalance", "pods": n_pods, "nodes": n_nodes,
+           "P": int(fields["rb_pod_node"].shape[0]), "N": int(
+               fields["rb_usage_pct"].shape[0]),
+           "R": int(fields["rb_usage_pct"].shape[1]),
+           "fixture_seconds": fixture_s, "warm_pass_seconds": warm_s,
+           "view_seconds": view_s,
+           "candidates": int(stats["candidates"]), "victims": int(sel),
+           "low_nodes": int(is_low_h[:n].sum()),
+           "high_nodes": int(is_high_h[:n].sum()),
+           "host_pass_ms": host_ms, "host_pass_ms_median":
+               statistics.median(host_ms),
+           "device_pass_ms": device_ms, "device_pass_ms_median":
+               statistics.median(device_ms),
+           "device_pass_spans_ms_median": {
+               k: statistics.median(v) for k, v in spans.items()},
+           "device_eligible_ms": eligible_ms,
+           "step_ms": step_ms, "step_launches": launches,
+           "step_bytes": nbytes,
+           "step_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "run_once_seconds": run_once_s,
+           "run_once_host_twin_seconds": twin_s,
+           "jobs_created": out_dev["jobs_created"],
+           "migration_transitions": out_dev["migration_transitions"],
+           "jobs_equal": True, "engine": "device", "ladder_full": True}
+    emit(row)
+    return row
+
+
+def run_rebalance_colocated(device, n_nodes=5000, n_pods=10000):
+    """Config 4 with the descheduler co-located: Scheduler(store) through
+    cycle 0, then a Descheduler sharing its snapshot. The rb_* fields
+    ride the scheduler's DeviceSnapshot, the pass runs on the card with
+    the host oracle's victims over the same view, run_once runs on the
+    card, and the scheduler's ladder stays at full. Returns kernel 1's
+    launches in cycle 0."""
+    from koordinator_tpu_torch.descheduler.descheduler import Descheduler
+
+    retries0 = retries_now()
+    store, state = churn_store(n_nodes, n_pods, seed=42)
+    sched = Scheduler(store, device=device)
+    fck.launches = fck.replay_launches = sk.launches = 0
+    t0 = time.perf_counter()
+    res = sched.run_cycle(now=state.now)
+    cycle0_s = time.perf_counter() - t0
+    launches = fck.launches
+    if device == "cuda" and launches < 1:
+        raise AssertionError("rebalance_colocated: cycle 0 ran no kernel")
+    desch = Descheduler(store, scheduler=sched)
+    plugin = desch.profiles[0].balance_plugins[0].inner
+    if plugin.pack_cache is not sched.snapshot_cache.rebalance_pack(
+            plugin.args.node_metric_expiration_seconds):
+        raise AssertionError("rebalance_colocated: the pack is not shared")
+    now = state.now + 1.0
+    t0 = time.perf_counter()
+    picked, _src, view = plugin.select_victims(now=now)
+    pass_s = time.perf_counter() - t0
+    stats = dict(plugin.last_pass_stats)
+    host = plugin.select_victims_host(view)
+    rb = sorted(k for k in sched.device_snapshot._fields
+                if k.startswith("rb_"))
+    if len(rb) != 11:
+        raise AssertionError(f"rebalance_colocated: rb fields {rb}")
+    if stats["engine"] != "device" or picked.tolist() != host.tolist():
+        raise AssertionError(
+            f"rebalance_colocated: engine {stats['engine']}, "
+            f"{picked.size} victims against {host.size} on the host")
+    t0 = time.perf_counter()
+    out = desch.run_once(now=now)
+    run_once_s = time.perf_counter() - t0
+    if plugin.last_pass_stats["engine"] != "device":
+        raise AssertionError("rebalance_colocated: run_once left the card")
+    if out["jobs_created"] != picked.size:
+        raise AssertionError(f"rebalance_colocated: {out['jobs_created']} "
+                             f"jobs for {picked.size} victims")
+    assert_ladder_full("rebalance_colocated", retries0, sched)
+    if desch.rebalancer.ladder.transitions or desch.rebalancer.failures:
+        raise AssertionError("rebalance_colocated: the rebalancer's "
+                             "ladder moved")
+    emit({"phase": "rebalance_colocated", "nodes": n_nodes, "pods": n_pods,
+          "cycle0_seconds": cycle0_s, "cycle0_bound": len(res.bound),
+          "full_chain_launches": launches,
+          "rb_fields": rb, "candidates": int(stats["candidates"]),
+          "victims": int(picked.size), "pass_seconds": pass_s,
+          "run_once_seconds": run_once_s,
+          "jobs_created": out["jobs_created"], "engine": "device",
+          "ladder_full": True})
+    return launches
 
 
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
@@ -1477,6 +1762,9 @@ def main() -> int:
     # ---- the degradation ladder at config 4, then the sim's scenarios
     ladder_launches = run_ladder(device)
     sim_launches = run_sim(device)
+    # ---- the descheduler: config 5 standalone, then co-located at config 4
+    run_rebalance(device)
+    colocated_launches = run_rebalance_colocated(device)
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
@@ -1605,12 +1893,14 @@ def main() -> int:
                      main_launches + scheduler_launches
                      + wave_launches["full_chain"]
                      + ladder_launches["full_chain"]
-                     + sim_launches["full_chain"], mism, err, kernel_ms,
+                     + sim_launches["full_chain"] + colocated_launches,
+                     mism, err, kernel_ms,
                      plain_ms, bytes_ms, ops_ms, launches_sidecar=main_launches,
                      launches_scheduler=scheduler_launches,
                      launches_waves=wave_launches["full_chain"],
                      launches_ladder=ladder_launches["full_chain"],
-                     launches_sim=sim_launches["full_chain"]),
+                     launches_sim=sim_launches["full_chain"],
+                     launches_rebalance_colocated=colocated_launches),
         la_kernel, replay_entry]})
     print(card, flush=True)
     # count: the cards this script drives

@@ -14,7 +14,9 @@ final assignments.
   * ``run_replay_overlap_parity``: the chained dispatch against the
     single-call twin (replay overlap off);
   * ``run_carried_state_parity``: one world per piece of carried state
-    (reservations, claims, prod-usage scoring, a device ScoreTransformer).
+    (reservations, claims, prod-usage scoring, a device ScoreTransformer);
+  * ``run_rebalance_parity``: the descheduler's device rebalance pass
+    against its host oracle, on the scheduler's shared snapshot.
 
 Each takes ``device=``: "cuda" (the default, the kernels) or "cpu" (the
 plain wave step). The worlds and deltas are the JAX package's
@@ -734,6 +736,160 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
     }
 
 
+def run_rebalance_parity(num_nodes: int = 16, rounds: int = 4,
+                         seed: int = 11, arrivals: int = 18,
+                         device="cuda") -> dict:
+    """Device rebalance pass vs the host LowNodeLoad oracle:
+    decision-identical on seeded churn, with the pack-memo-shared
+    snapshot (koordbalance acceptance gate).
+
+    ONE world runs the production Scheduler on ``device`` (no mesh: that
+    comes with the parallel/ slice) plus a Descheduler wired as the
+    second snapshot consumer (``Descheduler(scheduler=...)``: the
+    LowNodeLoad view comes from the scheduler's SnapshotCache
+    subscription chain and the device pass uploads through the
+    scheduler's DeviceSnapshot). Every round applies seeded churn, runs
+    a scheduling cycle, then runs BOTH engines over the SAME packed view
+    and diffs:
+
+      * the victim list (order included — the migration-job creation
+        order is the arbitrator's input),
+      * node classification (is_low / is_high) against a host
+        ``classify_nodes`` recompute,
+      * the migration-job list the descheduler actually writes vs the
+        jobs the host victim set implies.
+
+    The device engine must actually run (``stats["engine"] ==
+    "device"``) — a silent host demotion would compare host to host."""
+    import numpy as np
+
+    from koordinator_tpu_torch.api.objects import (
+        Node,
+        NodeMetric,
+        NodeMetricInfo,
+        ObjectMeta,
+        Pod,
+        PodSpec,
+    )
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.client.store import (
+        KIND_NODE,
+        KIND_NODE_METRIC,
+        KIND_POD,
+        KIND_POD_MIGRATION_JOB,
+        ObjectStore,
+    )
+    from koordinator_tpu_torch.descheduler.descheduler import Descheduler
+    from koordinator_tpu_torch.descheduler.lownodeload import classify_nodes
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+
+    import random
+
+    rng = random.Random(seed)
+    now = 1_000_000.0
+    store = ObjectStore()
+    for i in range(num_nodes):
+        store.add(KIND_NODE, Node(
+            meta=ObjectMeta(name=f"rb-n{i}", namespace=""),
+            allocatable=ResourceList.of(cpu=32_000, memory=128 * GIB,
+                                        pods=128)))
+        store.add(KIND_NODE_METRIC, NodeMetric(
+            meta=ObjectMeta(name=f"rb-n{i}", namespace=""),
+            update_time=now - 5,
+            node_metric=NodeMetricInfo(node_usage=ResourceList.of(
+                cpu=6_000, memory=16 * GIB))))
+    sched = Scheduler(store, mesh="off", device=device)
+    desch = Descheduler(store, scheduler=sched, rebalance="on")
+    plugin = None
+    for profile in desch.profiles:
+        for p in profile.balance_plugins:
+            if p.name == "LowNodeLoad":
+                plugin = p.inner
+    assert plugin is not None and plugin.device is desch.rebalancer
+
+    mismatches: List[str] = []
+    uid = 0
+    for r in range(rounds + 1):
+        now += 10.0
+        # seeded churn: arrivals (the scheduler binds them), departures,
+        # and a rotating metric skew that flips which nodes read high/low
+        for _ in range(arrivals):
+            uid += 1
+            store.add(KIND_POD, Pod(
+                meta=ObjectMeta(name=f"rb-p{uid}", namespace="parity",
+                                uid=f"rb-p{uid}", creation_timestamp=now,
+                                owner_kind="ReplicaSet",
+                                owner_name=f"rs-{uid % 13}"),
+                spec=PodSpec(
+                    priority=rng.choice([100, 5500, 9000]),
+                    requests=ResourceList.of(
+                        cpu=rng.choice([300, 700, 1100, 1500]),
+                        memory=rng.choice([1, 2, 3]) * GIB))))
+        running = [p for p in store.list(KIND_POD)
+                   if p.is_assigned and not p.is_terminated]
+        for p in rng.sample(running, min(3, len(running))):
+            store.delete(KIND_POD, p.meta.key)
+        for i, nm in enumerate(store.list(KIND_NODE_METRIC)):
+            band = 0.85 if (i + r) % 3 == 0 else (
+                0.15 if (i + r) % 3 == 1 else 0.55)
+            nm.update_time = now - 5
+            nm.node_metric = NodeMetricInfo(node_usage=ResourceList.of(
+                cpu=int(32_000 * band), memory=int(128 * GIB * band)))
+            store.update(KIND_NODE_METRIC, nm)
+        res = sched.run_cycle(now=now)
+        for b in res.bound:
+            pod = store.get(KIND_POD, b.pod_key)
+            if pod is not None and not pod.is_terminated:
+                pod.phase = "Running"
+                store.update(KIND_POD, pod)
+
+        # ---- both engines over the SAME packed view
+        picked_dev, _src, v = plugin.select_victims(now=now)
+        stats = dict(plugin.last_pass_stats)
+        if stats.get("engine") != "device":
+            mismatches.append(
+                f"round {r}: device engine did not run "
+                f"(engine={stats.get('engine')!r})")
+            break
+        picked_host = plugin.select_victims_host(v)
+        if list(picked_dev) != list(picked_host):
+            mismatches.append(
+                f"round {r}: victim lists differ "
+                f"({len(picked_dev)} device vs {len(picked_host)} host)")
+        is_low_h, is_high_h = classify_nodes(
+            v["usage_pct"], v["has_metric"],
+            plugin._thr_vec(plugin.args.low_thresholds),
+            plugin._thr_vec(plugin.args.high_thresholds))
+        if (list(stats["is_low"]) != list(is_low_h)
+                or list(stats["is_high"]) != list(is_high_h)):
+            mismatches.append(f"round {r}: node classification differs")
+
+        # ---- the migration-job list the descheduler writes must be
+        # exactly what the host victim set implies
+        before = {j.meta.key for j in store.list(KIND_POD_MIGRATION_JOB)}
+        expected = before | {
+            f"koordinator-system/migrate-"
+            f"{_src[k].meta.namespace}-{_src[k].meta.name}"
+            for k in picked_host}
+        desch.run_once(now=now)
+        after = {j.meta.key for j in store.list(KIND_POD_MIGRATION_JOB)}
+        if after != expected:
+            mismatches.append(
+                f"round {r}: migration-job list differs "
+                f"(+{sorted(after - expected)[:3]} "
+                f"-{sorted(expected - after)[:3]})")
+    if mismatches and desch.rebalancer is not None:
+        desch.rebalancer.flight.dump("rebalance_parity_mismatch")
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "device": str(device),
+        "rounds": rounds + 1,
+        "pods": len(store.list(KIND_POD)),
+        "conditions_checked": len(store.list(KIND_POD_MIGRATION_JOB)),
+    }
+
+
 def main(device="cuda") -> int:
     """Every harness on ``device``; prints one JSON line per report and
     returns 1 when any fails."""
@@ -743,6 +899,7 @@ def main(device="cuda") -> int:
     reports += [run_replay_overlap_parity(k, device=device) for k in (2, 4)]
     reports += [run_carried_state_parity(f, device=device)
                 for f in ("reservations", "claims", "prod", "transformer")]
+    reports.append(run_rebalance_parity(device=device))
     for report in reports:
         print(json.dumps(report))
     return 0 if all(r["ok"] for r in reports) else 1

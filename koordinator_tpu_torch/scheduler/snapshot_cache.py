@@ -146,6 +146,12 @@ class SnapshotCache:
                       "la_recomputed": 0, "numa_recomputed": 0,
                       "full_rebuilds": 0}
 
+        # koordbalance (balance/pack.py): rebalance packs fed from THIS
+        # cache's subscription chain — the descheduler's second encode of
+        # the same cluster is gone (one event stream, two consumers).
+        # Keyed by metric-expiration like the standalone per-store packs.
+        self._rebalance_packs: Dict[float, object] = {}
+
         store.subscribe(KIND_POD, self._on_pod)
         store.subscribe(KIND_NODE, self._on_node)
         store.subscribe(KIND_NODE_METRIC, self._on_metric)
@@ -161,6 +167,8 @@ class SnapshotCache:
     # event handlers
     # ------------------------------------------------------------------
     def _on_pod(self, ev: EventType, pod: Pod, old) -> None:
+        for pack in self._rebalance_packs.values():
+            pack.on_pod(ev, pod, old)
         key = pod.meta.key
         self.pod_flags.pop(key, None)
         self.pod_masks.pop(key, None)
@@ -217,12 +225,16 @@ class SnapshotCache:
                     refs[c] = left
 
     def _on_node(self, ev: EventType, node, old) -> None:
+        for pack in self._rebalance_packs.values():
+            pack.on_node(ev, node, old)
         self.nodes_epoch += 1
         self._node_dirty.add(node.meta.name)
         self._la_dirty.add(node.meta.name)
         self._numa_dirty.add(node.meta.name)
 
     def _on_metric(self, ev: EventType, nm, old) -> None:
+        for pack in self._rebalance_packs.values():
+            pack.on_metric(ev, nm, old)
         self._la_dirty.add(nm.meta.name)
         # keep the layout-aligned update-time vector current so the expiry
         # compare in loadaware_extras never consults a stale timestamp
@@ -245,10 +257,21 @@ class SnapshotCache:
     # the descheduler's and the manager's packs fed from this cache
     # ------------------------------------------------------------------
     def rebalance_pack(self, expiration_seconds: float):
-        """The descheduler's rebalance pack fed from this cache's store
-        subscriptions: comes with the descheduler slice of the port."""
-        raise NotImplementedError(
-            "rebalance_pack comes with the descheduler slice of the port")
+        """The rebalance pack maintained from THIS cache's store
+        subscriptions (no second subscription chain, no duplicate
+        encode): the descheduler's LowNodeLoad consumes it as its view
+        source when scheduler and descheduler share a process. Existing
+        pods replay list-then-watch style at first attach."""
+        pack = self._rebalance_packs.get(expiration_seconds)
+        if pack is None:
+            from koordinator_tpu_torch.balance.pack import RebalancePack
+
+            pack = RebalancePack(self.store, expiration_seconds,
+                                 subscribe=False)
+            for pod in self.store.list(KIND_POD):
+                pack.on_pod(EventType.ADDED, pod, None)
+            self._rebalance_packs[expiration_seconds] = pack
+        return pack
 
     def colo_pack(self, config_source):
         """The koord-manager's colo pack fed from this cache's store

@@ -37,8 +37,9 @@ the simulator at the start of each sim cycle:
 The port runs every kind but two: the gRPC sidecar comes with its
 transport slice and mesh dispatch with its parallel/ slice, so a
 ``sidecar`` or ``device_loss`` fault raises NotImplementedError when it
-fires. The dispatch windows let NotImplementedError through, so it is
-never mistaken for a device fault.
+fires (and the simulator refuses a scenario with a ``sidecar`` fault at
+construction). The dispatch windows let NotImplementedError through, so
+it is never mistaken for a device fault.
 
 Everything is deterministic: faults fire at fixed cycles with fixed
 budgets, no randomness. The latency sleep is real wall time but the sim

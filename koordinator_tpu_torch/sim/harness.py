@@ -1,9 +1,10 @@
 """The churn simulator: seeded hostile traffic against the real Scheduler.
 
 One :class:`ChurnSimulator` owns a synthetic cluster store, drives the
-production :class:`~koordinator_tpu_torch.scheduler.cycle.Scheduler` cycle
-by cycle on a synthetic clock, on ``device`` ("cuda" by default, or
-"cpu"), and layers on everything a shared cluster throws at a scheduler:
+production :class:`~koordinator_tpu_torch.scheduler.cycle.Scheduler` (and
+optionally the descheduler) cycle by cycle on a synthetic clock, on
+``device`` ("cuda" by default, or "cpu"), and layers on everything a
+shared cluster throws at a scheduler:
 
   * seeded arrival/departure processes — Poisson pod arrivals with a
     prod/BE/quota/feature mix, gang storms, burst queues, Poisson
@@ -27,9 +28,11 @@ the JAX package's sim (tests/test_torch_sim.py holds them together).
 
 A copy of the JAX package's harness. Scenarios whose configuration needs
 a part the port does not have yet raise NotImplementedError at
-construction and name the slice that brings it: a co-located
-descheduler (``descheduler_every``) or manager (``colo_every``), mesh
-dispatch (``mesh``) and explain attribution (``explain``).
+construction and name the slice that brings it: a sidecar fault (a
+dead gRPC sidecar), a co-located manager (``colo_every``), mesh
+dispatch (``mesh``) and explain attribution (``explain``). A co-located
+descheduler (``descheduler_every``) shares the scheduler's snapshot and
+device mirror, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -147,6 +150,11 @@ class SimReport:
     hotspot_events: int = 0
     hotspots_open: int = 0        # flagged node sets still hot at end
     dissipate_cycles: List[int] = dataclasses.field(default_factory=list)
+    # the co-located rebalancer's passes by engine ("device", "host") and
+    # the device faults its ladder absorbed ("failures"): the port's own,
+    # kept out of to_dict so the report stays the JAX package's
+    rebalance_passes: Dict[str, int] = dataclasses.field(
+        default_factory=dict)
     dissipate_slo_cycles: int = 0
     # koordcolo: the colocation control loop's activity + SLO
     manager_rounds: int = 0
@@ -423,8 +431,8 @@ def require_ported(sc: Scenario) -> None:
     """A scenario needing a part the port does not have yet: raise,
     naming the slice that brings it, never run something else."""
     for needed, part, slice_name in (
-            (sc.descheduler_every > 0, "a co-located descheduler",
-             "descheduler"),
+            (any(f.kind == "sidecar" for f in sc.faults),
+             "the sidecar fault (a dead gRPC sidecar)", "transport"),
             (sc.colo_every > 0, "a co-located koord-manager", "manager"),
             (sc.mesh is not None, "mesh-backed dispatch", "parallel/"),
             (sc.explain is not None, "explain attribution", "explain")):
@@ -600,10 +608,24 @@ class ChurnSimulator:
                 dump_counter=scheduler_metrics.FLIGHT_DUMPS)
         self.pipeline = (CyclePipeline(self.sched, enabled=True)
                          if sc.pipeline else None)
-        # the co-located koord-manager and descheduler come with later
-        # slices of the port (require_ported keeps their scenarios out)
+        # the co-located koord-manager comes with the manager slice of
+        # the port (require_ported keeps its scenarios out)
         self.manager = None
         self.desch = None
+        if sc.descheduler_every > 0:
+            from koordinator_tpu_torch.descheduler.descheduler import (
+                Descheduler,
+            )
+
+            # the descheduler shares the simulator's store view directly
+            # (injected store faults target the scheduler's bind path)
+            # and the SCHEDULER's snapshot: its LowNodeLoad view rides
+            # the SnapshotCache subscription chain and the device
+            # rebalance pass uploads through the scheduler's
+            # DeviceSnapshot — the one-upload-two-consumers production
+            # wiring (koordbalance)
+            self.desch = Descheduler(self.store, scheduler=self.sched,
+                                     rebalance=sc.rebalance)
 
     # ------------------------------------------------------------------
     # workload generation
@@ -1339,6 +1361,8 @@ class ChurnSimulator:
                 self.report.descheduler_runs += 1
                 self.report.migration_jobs_created += out.get(
                     "jobs_created", 0)
+            except NotImplementedError:
+                raise  # a path the port does not have yet: never absorbed
             except Exception as exc:
                 self.report.cycle_exceptions.append(
                     f"cycle {cycle} descheduler: "
@@ -1378,6 +1402,10 @@ class ChurnSimulator:
                     + self.sched.dispatch_watchdog.overruns)
         if self.desch is not None and self.desch.rebalancer is not None:
             overruns += self.desch.rebalancer.dispatch_watchdog.overruns
+            rb = self.desch.rebalancer.stats
+            self.report.rebalance_passes = {
+                "device": rb["device_passes"], "host": rb["host_passes"],
+                "failures": self.desch.rebalancer.failures}
         if self.manager is not None and self.manager.colo is not None:
             overruns += self.manager.colo.dispatch_watchdog.overruns
             self.report.colo_final_engine = str(

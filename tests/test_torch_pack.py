@@ -136,7 +136,20 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.sim.__main__, "
             "koordinator_tpu_torch.obs.slo, "
             "koordinator_tpu_torch.obs.lockorder, "
-            "koordinator_tpu_torch.balance.pack\n"
+            "koordinator_tpu_torch.balance.pack, "
+            "koordinator_tpu_torch.balance, "
+            "koordinator_tpu_torch.balance.step, "
+            "koordinator_tpu_torch.balance.rebalancer, "
+            "koordinator_tpu_torch.descheduler, "
+            "koordinator_tpu_torch.descheduler.descheduler, "
+            "koordinator_tpu_torch.descheduler.framework, "
+            "koordinator_tpu_torch.descheduler.lownodeload, "
+            "koordinator_tpu_torch.descheduler.metrics, "
+            "koordinator_tpu_torch.descheduler.migration, "
+            "koordinator_tpu_torch.descheduler.plugins_k8s, "
+            "koordinator_tpu_torch.client, "
+            "koordinator_tpu_torch.client.leaderelection, "
+            "koordinator_tpu_torch.testing.rebalance_fixture\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"

@@ -1,13 +1,14 @@
 """The port's churn simulator against the JAX package's, on the CPU.
 
 Each catalog scenario the port runs — smoke, gang-storm and spot-churn
-(cut to 40 cycles) and crash-restart — goes through both packages' sims
-once per session (cached), and the reports must agree: the binding log's
-SHA-256, the ladder's residency per level and its transitions, zero
-invariant breaches and zero cycle exceptions on both sides, and the SLO
-report. The scenarios that need a later slice raise NotImplementedError
-naming it, and so do the fault kinds the port cannot model yet. The CLI
-is driven in-process at ``--device cpu``.
+(cut to 40 cycles), crash-restart, and drain-storm and hotspot with
+their co-located descheduler (cut to 55) — goes through both packages'
+sims once per test process (cached), and the reports must agree: the
+binding log's SHA-256, the ladder's residency per level and its
+transitions, zero invariant breaches and zero cycle exceptions on both
+sides, and the SLO report. The scenarios that need a later slice raise
+NotImplementedError naming it, and so do the fault kinds the port cannot
+model yet. The CLI is driven in-process at ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -34,10 +35,12 @@ from koordinator_tpu_torch.sim.__main__ import main as sim_main
 from koordinator_tpu_torch.sim.harness import run_scenario
 
 # the scenarios the port runs, at the cycle counts the tests afford
-RUN = {"smoke": 35, "gang-storm": 40, "spot-churn": 40, "crash-restart": 22}
+# (drain-storm and hotspot at 55, as the JAX package's tests/test_sim.py
+# cuts them: hotspot's first event fires at cycle 40)
+RUN = {"smoke": 35, "gang-storm": 40, "spot-churn": 40, "crash-restart": 22,
+       "drain-storm": 55, "hotspot": 55}
 # the scenarios that need a later slice, and the slice each names
-LEFT_OUT = {"drain-storm": "descheduler", "hotspot": "descheduler",
-            "soak": "descheduler", "overcommit-shift": "manager",
+LEFT_OUT = {"soak": "transport", "overcommit-shift": "manager",
             "fault-ladder": "parallel/"}
 # report keys that hold wall-clock or per-process numbers
 WALL_KEYS = ("wall_seconds", "pipeline", "restart")
@@ -126,14 +129,45 @@ def test_left_out_scenarios_name_their_slice(name):
 @pytest.mark.parametrize("kind,match", [
     ("sidecar", "transport"), ("device_loss", "parallel/")])
 def test_left_out_faults_name_their_slice(kind, match):
+    """A sidecar fault is refused when the simulator is built; a device
+    loss (which a scenario without a mesh may still carry) when it fires.
+    Either way FaultPlan raises the moment such a fault is armed."""
     fault = Fault(cycle=1, kind=kind, devices=(1,) if kind == "device_loss"
                   else ())
     sc = Scenario(name="mini", seed=23, cycles=3, nodes=4, arrival_rate=2.0,
                   faults=(fault,))
+    if kind == "sidecar":
+        with pytest.raises(NotImplementedError, match=match):
+            ChurnSimulator(sc, device="cpu")
+        plan = FaultPlan([fault])
+        plan.begin_cycle(0)
+        assert not plan.sidecar_armed()
+        plan.begin_cycle(1)
+        with pytest.raises(NotImplementedError, match=match):
+            plan.sidecar_armed()
+        return
     sim = ChurnSimulator(sc, device="cpu")
     sim._run_one_cycle(0)
     with pytest.raises(NotImplementedError, match=match):
         sim._run_one_cycle(1)
+
+
+@pytest.mark.parametrize("name", ["drain-storm", "hotspot"])
+def test_descheduler_scenarios_rebalance_through_the_device_pass(name):
+    """The co-located descheduler's rebalance passes all ran on the
+    device engine (the CPU tensors here), and the migration closed loop
+    (job -> reservation -> next dispatch -> evict) did work."""
+    report = _port(name)
+    assert report.descheduler_runs > 0
+    assert report.rebalance_passes["device"] == report.descheduler_runs
+    assert report.rebalance_passes["host"] == 0
+    assert report.rebalance_passes["failures"] == 0
+    assert report.migration_jobs_created > 0
+    assert report.cycles_at_level == {"full": RUN[name]}
+    if name == "hotspot":
+        assert report.pods_migrated > 0 and report.hotspot_events > 0
+    else:
+        assert report.pods_drained > 0
 
 
 def test_fault_plan_budgets_fire_at_their_cycle():

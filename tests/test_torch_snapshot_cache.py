@@ -367,14 +367,39 @@ def test_mirror_tensors_equal_host_and_to_device_through_churn():
 # ---------------------------------------------------------------------------
 
 def test_descheduler_and_manager_packs_raise():
+    """The manager's pack and a mesh-backed mirror still raise. The
+    descheduler's pack, which raised here before the descheduler slice,
+    is served now: test_rebalance_pack_is_the_shared_pack."""
     store, _state = churn_store(8, 8, seed=0)
     sched = Scheduler(store, waves=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="descheduler"):
-        sched.snapshot_cache.rebalance_pack(180.0)
     with pytest.raises(NotImplementedError, match="manager"):
         sched.snapshot_cache.colo_pack(None)
     with pytest.raises(NotImplementedError, match="parallel"):
         DeviceSnapshot(device="cpu", mesh=object())
+
+
+def test_rebalance_pack_is_the_shared_pack():
+    """rebalance_pack returns one pack per metric expiration, fed from the
+    cache's own subscriptions: it replays the running pods at attach and
+    follows later events, as the JAX package's shared pack does."""
+    from koordinator_tpu_torch.balance.pack import RebalancePack
+
+    store, state = churn_store(8, 8, seed=0)
+    sched = Scheduler(store, waves=1, device="cpu")
+    sched.run_cycle(now=state.now)
+    cache = sched.snapshot_cache
+    pack = cache.rebalance_pack(180.0)
+    assert isinstance(pack, RebalancePack)
+    assert cache.rebalance_pack(180.0) is pack
+    assert cache.rebalance_pack(300.0) is not pack
+    standalone = RebalancePack(store, 180.0)  # its own subscriptions
+    bound = [p for p in store.list(KIND_POD) if p.is_assigned]
+    assert bound
+    store.delete(KIND_POD, bound[0].meta.key)
+    shared, own = pack.view(state.now), standalone.view(state.now)
+    assert set(shared) == set(own)
+    for key in shared:
+        np.testing.assert_array_equal(shared[key], own[key], err_msg=key)
 
 
 @pytest.mark.parametrize("kwargs,match", [
