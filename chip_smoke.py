@@ -1,5 +1,5 @@
-"""Drive the port's scheduling rounds and its descheduler on one NVIDIA
-H100 and check them.
+"""Drive the port's scheduling rounds, its descheduler and its manager on
+one NVIDIA H100 and check them.
 
     python3 chip_smoke.py    # 10240 pods x 5120 nodes, one card
 
@@ -76,7 +76,8 @@ Phases, one JSON line each:
           transitions, each cycle's ms and level beside (b)'s, and the
           host-fallback pass's seconds.
   sim     the sim's smoke (50 cycles), gang-storm (300), spot-churn (300),
-          crash-restart (36), drain-storm (200) and hotspot (160) scenarios
+          crash-restart (36), drain-storm (200), hotspot (160) and
+          overcommit-shift (160) scenarios
           on the card, each with a CPU twin in this process (gang-storm's
           and spot-churn's cut to 150 cycles and drain-storm's to 100 for
           the time limit): the CPU's binding log equal to the card's over
@@ -85,9 +86,13 @@ Phases, one JSON line each:
           and hotspot run the co-located descheduler: every rebalance pass
           on the card (none retried, none on the host oracle), and
           hotspot's rebalance report (migrations, dissipation) equal on the
-          card and the CPU. Prints each scenario's SHA prefix, cycles at
-          each level, SLO flags, rebalance passes and wall seconds on each
-          device.
+          card and the CPU. overcommit-shift runs the co-located manager:
+          every round a device colo pass, none on the host, the staleness
+          SLO met, the colo report equal on the CPU, and the binding log's
+          SHA the JAX package's at 160 cycles (printed beside the older
+          record in COLO_r01.json). Prints each scenario's SHA prefix,
+          cycles at each level, SLO flags, rebalance passes and wall
+          seconds on each device.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
           running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
           cut) through Descheduler(store, device="cuda"): a warm-up pass,
@@ -107,6 +112,36 @@ Phases, one JSON line each:
           victims over the same view, run_once writes one job per victim,
           and the scheduler's ladder stays at full. Prints the victim
           count (0 included).
+  colo    config 4's nodes, pods and NodeMetrics (churn_store(5000, 10000,
+          seed=42)) without its ElasticQuotas, one NodeMetric in 20 stale,
+          through Manager(store, device="cuda"): 2 warm-up and 10 timed
+          ticks with 50 NodeMetrics changed a tick, then a tick under each
+          calculate policy (usage, request, maxUsageRequest) after a
+          ConfigMap hot reload, each beside a Manager(colo="host") twin on
+          an identical store. Every pass on the card; the batch/mid
+          integers on every node and the degraded set equal the twin's.
+          Prints the device pass's median and range and its spans (pack,
+          encode, kernel, readback, writeback; host clock), the host
+          pass, and the step alone (CUDA events, median of 10) against the
+          same step on the CPU, bit for bit, with its launches
+          (torch.profiler) and its bytes bound.
+  colo_quota  config 4's quota tree (root, 25 teams, 74 jobs; G = 128
+          padded), the root given a shared weight, on the largest prefix
+          of config 4's nodes inside the fold's f32 envelope (found with
+          _device_eligible; printed with the cluster total and the
+          verdicts, the unmodified config 4 store's included): 10 ticks
+          with quota churn (a running member pod added, a job's min and
+          max shrunk) beside a host twin. Every pass on the card, the
+          runtime matrix equal to compute_runtime_quotas, the revoke
+          victim lists equal, order included. Prints the pass and step
+          times and the fold's launches.
+  colo_colocated  the quota-free config 4 store through Scheduler(store)
+          cycle 0, then Manager(store, scheduler=sched), two manager ticks
+          each followed by a cycle with 100 batch-class arrivals, beside a
+          colo="host" twin: the cycles bind identically, the colo_* fields
+          sit in the scheduler's mirror beside its own and no private
+          mirror is built. Prints the first pass (every field put) and the
+          steady pass.
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -270,7 +305,16 @@ LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
 # a cycle on the host), and are held against the card run's first cycles
 SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 300, 150),
                  ("spot-churn", 300, 150), ("crash-restart", 36, 36),
-                 ("drain-storm", 200, 100), ("hotspot", 160, 160))
+                 ("drain-storm", 200, 100), ("hotspot", 160, 160),
+                 ("overcommit-shift", 160, 160))
+# overcommit-shift's binding log at its catalog 160 cycles in the JAX
+# package as it stands (koordinator_tpu.sim.harness.run_scenario on the
+# CPU); COLO_r01.json holds an older tree's record of the same scenario
+OVERCOMMIT_SHIFT_JAX_SHA256 = (
+    "46a26eb5beb829a03723b3f27b2d3195ee26056b9ac6d0056edda89989f95823")
+# the colo phases: warm-up and timed manager ticks, and one NodeMetric
+# in COLO_STALE_EVERY made stale (5% of config 4's nodes)
+COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 10, 20
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -1349,6 +1393,19 @@ def run_sim(device):
                 raise AssertionError(
                     f"sim {name}: the rebalance report differs: "
                     f"{report['rebalance']} != {cpu.to_dict()['rebalance']}")
+        if SCENARIOS[name].colo_every:
+            # the co-located manager: every round a device colo pass, the
+            # staleness SLO met, the report equal on the CPU
+            colo = report["colo"]
+            if (colo["manager_rounds"] != cycles
+                    or colo["device_passes"] != cycles
+                    or colo["host_passes"] or not colo["staleness_slo_met"]
+                    or colo != cpu.to_dict()["colo"]):
+                raise AssertionError(f"sim {name}: colo {colo}")
+            if card.binding_log_sha256 != OVERCOMMIT_SHIFT_JAX_SHA256:
+                raise AssertionError(
+                    f"sim {name}: {card.binding_log_sha256} is not the JAX "
+                    f"package's {OVERCOMMIT_SHIFT_JAX_SHA256}")
         rows.append({
             "scenario": name, "cycles": cycles, "cpu_cycles": cpu_cycles,
             "sha256": card.binding_log_sha256[:16],
@@ -1364,12 +1421,21 @@ def run_sim(device):
             "descheduler_runs": card.descheduler_runs,
             "rebalance_passes": card.rebalance_passes,
             "rebalance": report["rebalance"],
+            "colo": report["colo"] if SCENARIOS[name].colo_every else None,
             "card_seconds": card_s, "cpu_seconds": cpu_s,
             "card_ms_per_cycle": card_s / cycles * 1e3,
             "cpu_ms_per_cycle": cpu_s / cpu_cycles * 1e3,
             "launches": launches})
+    with open("COLO_r01.json") as f:
+        colo_r01 = json.load(f)
     emit({"phase": "sim", "scenarios": rows, "sha_equal": True,
           "invariant_breaches": 0,
+          "overcommit_shift_jax_sha256": OVERCOMMIT_SHIFT_JAX_SHA256,
+          "colo_r01": {"binding_log_sha256": colo_r01["binding_log_sha256"],
+                       "batch_pods_bound":
+                           colo_r01["colo_device"]["batch_pods_bound"],
+                       "overcommit_shifts":
+                           colo_r01["colo_device"]["overcommit_shifts"]},
           "cut": "the CPU twins of gang-storm and spot-churn run 150 of "
                  "the card's 300 cycles and drain-storm's 100 of 200 "
                  "(time limit)"})
@@ -1616,6 +1682,486 @@ def run_rebalance_colocated(device, n_nodes=5000, n_pods=10000):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# koord-manager: the colo pass
+# ---------------------------------------------------------------------------
+
+def colo_store(n_nodes=5000, n_pods=10000, quotas=False):
+    """Config 4's nodes, pods and NodeMetrics as churn_store(5000, 10000,
+    seed=42) builds them, its ElasticQuotas left out unless ``quotas``,
+    and every COLO_STALE_EVERY-th NodeMetric stale (the degrade window is
+    15 minutes)."""
+    from koordinator_tpu_torch.client.store import (
+        KIND_ELASTIC_QUOTA,
+        KIND_NODE_METRIC,
+    )
+
+    store, state = churn_store(n_nodes, n_pods, seed=42)
+    if not quotas:
+        for q in store.list(KIND_ELASTIC_QUOTA):
+            store.delete(KIND_ELASTIC_QUOTA, q.meta.key)
+    for i, nm in enumerate(store.list(KIND_NODE_METRIC)):
+        if i % COLO_STALE_EVERY == 0:
+            nm.update_time = state.now - 10_000.0
+            store.update(KIND_NODE_METRIC, nm)
+    return store, state
+
+
+def shift_metrics(store, k, now) -> None:
+    """Tick k's metric churn: 50 fresh NodeMetrics get a new usage (the
+    stale ones stay stale), identical in every world it is applied to."""
+    from koordinator_tpu_torch.api.objects import NodeMetricInfo
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.client.store import KIND_NODE_METRIC
+
+    metrics = store.list(KIND_NODE_METRIC)
+    for j in range(50):
+        i = (k * 50 + j) * 7 % len(metrics)
+        nm = metrics[i]
+        if i % COLO_STALE_EVERY == 0:
+            continue
+        nm.node_metric = NodeMetricInfo(node_usage=ResourceList.of(
+            cpu=4000 + 1000 * ((i + k) % 24),
+            memory=(16 + 8 * ((i + k) % 16)) * 1024 ** 3))
+        nm.update_time = now
+        store.update(KIND_NODE_METRIC, nm)
+
+
+def set_policy(store, policy) -> None:
+    """Hot-reload the slo-controller-config ConfigMap's calculate
+    policies (created on first use)."""
+    from koordinator_tpu_torch.api.objects import ConfigMap, ObjectMeta
+    from koordinator_tpu_torch.client.store import KIND_CONFIG_MAP
+
+    data = {"colocation-config": json.dumps({
+        "enable": True, "cpuCalculatePolicy": policy,
+        "memoryCalculatePolicy": policy})}
+    cm = store.get(KIND_CONFIG_MAP, "koordinator-system/slo-controller-config")
+    if cm is None:
+        store.add(KIND_CONFIG_MAP, ConfigMap(
+            meta=ObjectMeta(name="slo-controller-config",
+                            namespace="koordinator-system"), data=data))
+    else:
+        cm.data = data
+        store.update(KIND_CONFIG_MAP, cm)
+
+
+OVERCOMMIT = (ResourceName.BATCH_CPU, ResourceName.BATCH_MEMORY,
+              ResourceName.MID_CPU, ResourceName.MID_MEMORY)
+
+
+def overcommit_rows(store):
+    """Every node's published batch/mid integers, in store order."""
+    from koordinator_tpu_torch.client.store import KIND_NODE
+
+    return [(n.meta.name, tuple(n.allocatable[a] for a in OVERCOMMIT))
+            for n in store.list(KIND_NODE)]
+
+
+def colo_roots(mgr):
+    """The manager's colo pass roots: (ms, {child span: ms})."""
+    out = []
+    for root in mgr.tracer.roots():
+        if root.name == "colo":
+            out.append((root.duration_seconds * 1e3,
+                        {c.name: c.duration_seconds * 1e3
+                         for c in root.children}))
+    return out
+
+
+def checked_colo_tick(tag, mgr, twin, now):
+    """Tick the card's manager and its host twin; the pass must run on
+    the card, and the batch/mid integers and the degraded set must equal
+    the twin's."""
+    if not (mgr.tick(now=now) and twin.tick(now=now)):
+        raise AssertionError(f"{tag}: a manager did not lead")
+    stats = mgr.colo.last_pass_stats
+    if stats.get("engine") != "device":
+        raise AssertionError(f"{tag}: engine {stats.get('engine')}")
+    if overcommit_rows(mgr.store) != overcommit_rows(twin.store):
+        raise AssertionError(f"{tag}: batch/mid differ from the host twin")
+    if not np.array_equal(stats["degraded"],
+                          twin.colo.last_pass_stats["degraded"]):
+        raise AssertionError(f"{tag}: the degraded sets differ")
+    return stats
+
+
+def colo_step_args(mgr, now, device):
+    """The step's arguments from the reconciler's own prep of the current
+    view, on ``device``, with the host's water-filling plan."""
+    from koordinator_tpu_torch.colo.reconciler import DeviceColoReconciler
+    from koordinator_tpu_torch.colo.step import STEP_FIELDS
+    from koordinator_tpu_torch.models.convert import as_tensor
+
+    view = mgr.colo.pack.view(now)
+    qv = mgr.colo.pack.quota_view(mgr.colo.quota_plugin)
+    fields, plan = DeviceColoReconciler._prep(view, qv)
+    args = [as_tensor(fields[f"colo_{name}"], device)
+            for name in STEP_FIELDS]
+    return view, args, plan
+
+
+def colo_step_check(tag, view, args, plan, device, compare_total):
+    """The step alone on the card against the same step on the CPU (the
+    plain version), bit for bit; its time (CUDA events, median of REPS),
+    launches (torch.profiler, once), bytes and bytes bound."""
+    from koordinator_tpu_torch.colo.step import build_colo_step
+
+    policies = (view["cpu_policy"], view["memory_policy"])
+    step = build_colo_step(*policies, device=device)
+    plain = build_colo_step(*policies, device="cpu")
+    cpu_args = [t.cpu() for t in args]
+    out = step(*args, plan=plan)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(*cpu_args, plan=plan)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fields = [f for f in ref._fields
+              if compare_total or f != "predicted_total"]
+    err = 0.0
+    for f in fields:
+        a, b = getattr(out, f).cpu(), getattr(ref, f)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"{tag}: step field {f} differs from "
+                                 f"the plain step on the CPU")
+        if a.dtype.is_floating_point:
+            err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+    step_ms = time_cuda(lambda: step(*args, plan=plan), REPS)
+    launches = profile_launches(lambda: step(*args, plan=plan))
+    nbytes = (sum(t.numel() * t.element_size() for t in args)
+              + sum(t.numel() * t.element_size() for t in out))
+    return {"step_ms": step_ms, "plain_ms": plain_ms,
+            "step_launches": launches, "step_bytes": nbytes,
+            "step_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "max_abs_err": err, "compared_fields": fields}
+
+
+def run_colo(device, n_nodes=5000, n_pods=10000):
+    """Config 4's nodes, pods and NodeMetrics without ElasticQuotas through
+    the standalone Manager(store, device="cuda"): 2 warm-up and 10 timed
+    ticks with metric churn, then one tick under each calculate policy
+    after a ConfigMap hot reload, each against a Manager(colo="host")
+    twin on an identical store; then the step alone."""
+    from koordinator_tpu_torch.manager import Manager
+
+    t0 = time.perf_counter()
+    store, state = colo_store(n_nodes, n_pods)
+    twin_store, _ = colo_store(n_nodes, n_pods)
+    fixture_s = time.perf_counter() - t0
+    mgr = Manager(store, identity="colo-card", device=device)
+    twin = Manager(twin_store, identity="colo-host", colo="host",
+                   device=device)
+    if mgr.colo.device != torch.device(device):
+        raise AssertionError("colo: the pass is not on the card")
+    now = state.now
+    tick_ms = []
+    for k in range(COLO_WARMUP + COLO_TICKS):
+        now += 10.0
+        for s in (store, twin_store):
+            shift_metrics(s, k, now)
+        if k == COLO_WARMUP:
+            mgr.tracer.clear()
+            twin.tracer.clear()
+        t0 = time.perf_counter()
+        stats = checked_colo_tick(f"colo tick {k}", mgr, twin, now)
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    passes, twin_passes = colo_roots(mgr), colo_roots(twin)
+    device_ms = [ms for ms, _ in passes]
+    host_ms = [ms for ms, _ in twin_passes]
+    spans = {name: statistics.median(c.get(name, 0.0) for _, c in passes)
+             for name in ("pack", "encode", "kernel", "readback",
+                          "writeback")}
+    degraded = int(np.count_nonzero(stats["degraded"]))
+    policy_rows = []
+    for policy in ("usage", "request", "maxUsageRequest"):
+        now += 10.0
+        for s in (store, twin_store):
+            set_policy(s, policy)
+        mgr.tracer.clear()
+        twin.tracer.clear()
+        checked_colo_tick(f"colo policy {policy}", mgr, twin, now)
+        if mgr.colo.pack.view(now)["cpu_policy"] != policy:
+            raise AssertionError(f"colo: the {policy} reload did not land")
+        policy_rows.append({
+            "policy": policy, "pass_ms": colo_roots(mgr)[-1][0],
+            "host_pass_ms": colo_roots(twin)[-1][0],
+            "batch_cpu_total": int(sum(r[1][0] for r in
+                                       overcommit_rows(store)))})
+    view, args, plan = colo_step_args(mgr, now, device)
+    step = colo_step_check("colo", view, args, plan, device,
+                           compare_total=False)
+    if mgr.colo.ladder.level != 0 or mgr.colo.failures or (
+            mgr.colo.stats["host_passes"]):
+        raise AssertionError("colo: the ladder moved")
+    row = {"phase": "colo", "nodes": n_nodes, "pods": n_pods,
+           "N": int(args[0].shape[0]), "R": int(args[0].shape[1]),
+           "G": int(args[12].shape[0]), "plan": list(plan),
+           "fixture_seconds": fixture_s,
+           "degraded_nodes": degraded,
+           "device_pass_ms": device_ms,
+           "device_pass_ms_median": statistics.median(device_ms),
+           "device_pass_ms_range": [min(device_ms), max(device_ms)],
+           "device_pass_spans_ms_median": spans,
+           "host_pass_ms": host_ms,
+           "host_pass_ms_median": statistics.median(host_ms),
+           "tick_ms_with_twin": tick_ms[COLO_WARMUP:],
+           "policies": policy_rows, **step,
+           "device_passes": mgr.colo.stats["device_passes"],
+           "engine": "device", "batch_mid_equal": True,
+           "degraded_equal": True, "ladder_full": True}
+    emit(row)
+    return row
+
+
+def quota_world(n_nodes=None):
+    """Config 4's store with its quota tree (root, teams and jobs), the
+    root given a shared weight (a lone root's weight changes no runtime,
+    but its default, its max of 10^9 cores and 2^60 bytes, puts every
+    per-parent weight sum out of the envelope), cut to the first
+    ``n_nodes`` nodes (their NodeMetrics and running pods kept)."""
+    from koordinator_tpu_torch.api.objects import LABEL_QUOTA_SHARED_WEIGHT
+    from koordinator_tpu_torch.client.store import (
+        KIND_ELASTIC_QUOTA,
+        KIND_NODE,
+        KIND_NODE_METRIC,
+    )
+
+    store, state = colo_store(quotas=True)
+    root = next(q for q in store.list(KIND_ELASTIC_QUOTA)
+                if q.meta.name == "root")
+    root.meta.annotations[LABEL_QUOTA_SHARED_WEIGHT] = json.dumps(
+        {"cpu": "1", "memory": "1Gi"})
+    store.update(KIND_ELASTIC_QUOTA, root)
+    if n_nodes is not None:
+        nodes = store.list(KIND_NODE)
+        keep = {n.meta.name for n in nodes[:n_nodes]}
+        for n in nodes[n_nodes:]:
+            store.delete(KIND_NODE, n.meta.key)
+        for nm in store.list(KIND_NODE_METRIC):
+            if nm.meta.name not in keep:
+                store.delete(KIND_NODE_METRIC, nm.meta.key)
+        for p in store.list(KIND_POD):
+            if p.spec.node_name and p.spec.node_name not in keep:
+                store.delete(KIND_POD, p.meta.key)
+    return store, state
+
+
+def envelope_nodes(device):
+    """The unmodified config 4 churn store's verdict, then the largest
+    node count (a prefix of config 4's nodes) whose cluster total keeps
+    the port's _device_eligible at None for config 4's tree."""
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.client.store import KIND_NODE
+    from koordinator_tpu_torch.colo.reconciler import DeviceColoReconciler
+    from koordinator_tpu_torch.manager import Manager
+
+    eligible = DeviceColoReconciler._device_eligible
+    store, _state = churn_store(5000, 10000, seed=42)
+    mgr = Manager(store, identity="colo-env", device=device)
+    qv = mgr.colo.pack.quota_view(mgr.colo.quota_plugin)
+    verdicts = {"config4_churn_store": eligible(qv)}
+    store, _state = quota_world()
+    mgr = Manager(store, identity="colo-env", device=device)
+    qv = mgr.colo.pack.quota_view(mgr.colo.quota_plugin)
+    verdicts["config4_root_weighted"] = eligible(qv)
+    total, n = ResourceList(), 0
+    for node in store.list(KIND_NODE):
+        grown = total.add(node.allocatable)
+        verdict = eligible(dict(qv, q_total=grown.to_vector()))
+        if verdict is not None:
+            verdicts[f"prefix_{n + 1}"] = verdict
+            break
+        total, n = grown, n + 1
+    return n, total.to_vector(), verdicts
+
+
+def quota_churn(store, k, now, n_nodes) -> None:
+    """Tick k's quota churn: a running member pod added to a job quota,
+    and that job's min and max shrunk under its use (the revoke path)."""
+    from koordinator_tpu_torch.api.objects import (
+        LABEL_QUOTA_NAME,
+        ObjectMeta,
+        Pod,
+        PodSpec,
+    )
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.client.store import (
+        KIND_ELASTIC_QUOTA,
+        KIND_NODE,
+    )
+
+    node = store.list(KIND_NODE)[k % n_nodes].meta.name
+    store.add(KIND_POD, Pod(
+        meta=ObjectMeta(name=f"colo-q-{k}", namespace="colo",
+                        uid=f"colo-q-{k}", creation_timestamp=now,
+                        labels={LABEL_QUOTA_NAME: f"job-{k % 7}"},
+                        owner_kind="ReplicaSet", owner_name=f"rs-{k % 3}"),
+        spec=PodSpec(node_name=node, priority=5500,
+                     requests=ResourceList.of(cpu=4000, memory=8 * 1024 ** 3)),
+        phase="Running"))
+    q = next(q for q in store.list(KIND_ELASTIC_QUOTA)
+             if q.meta.name == f"job-{k % 7}")
+    q.min = ResourceList.of(cpu=1000, memory=1024 ** 3)
+    q.max = ResourceList.of(cpu=2000 + 1000 * k, memory=(4 + k) * 1024 ** 3)
+    store.update(KIND_ELASTIC_QUOTA, q)
+
+
+def run_colo_quota(device):
+    """Config 4's quota tree on the largest node count inside the f32
+    envelope: 10 ticks with quota churn through Manager(store,
+    device="cuda") against a Manager(colo="host") twin; the runtime
+    matrix equals the host compute_runtime_quotas over the same
+    post-writeback store, the revoke victim lists are equal (order
+    included); then the step alone and the fold's launches."""
+    import dataclasses
+
+    from koordinator_tpu_torch.colo.step import build_colo_step
+    from koordinator_tpu_torch.manager import Manager
+    from koordinator_tpu_torch.scheduler.config import SchedulerConfiguration
+
+    n_nodes, total, verdicts = envelope_nodes(device)
+    if verdicts["config4_churn_store"] != (
+            "cluster total exceeds the f32-exact bound"):
+        raise AssertionError(f"colo_quota: config 4's verdict "
+                             f"{verdicts['config4_churn_store']}")
+    if n_nodes < 1:
+        raise AssertionError(f"colo_quota: no node count is eligible: "
+                             f"{verdicts}")
+    args = dataclasses.replace(SchedulerConfiguration().elastic_quota,
+                               monitor_all_quotas=True,
+                               delay_evict_time_seconds=5.0,
+                               revoke_pod_interval_seconds=1.0)
+    worlds = []
+    for colo in ("on", "host"):
+        store, state = quota_world(n_nodes)
+        mgr = Manager(store, identity=f"colo-q-{colo}", colo=colo,
+                      device=device)
+        # synth's tree does not pass the quota webhook's topology checks
+        # (no group is marked a parent, the teams' mins exceed the
+        # root's), so the churn is written past the webhook, as a
+        # controller's own writes would be
+        store.set_admission("koord-manager-webhook", None)
+        worlds.append((store, mgr, mgr.colo.quota_plugin.revoke_controller(
+            store, args)))
+    (store, mgr, revoker), (twin_store, twin, twin_revoker) = worlds
+    now = state.now
+    pass_ms, victims, consumed = [], 0, 0
+    for k in range(COLO_TICKS):
+        now += 10.0
+        for s in (store, twin_store):
+            quota_churn(s, k, now, n_nodes)
+        stats = checked_colo_tick(f"colo_quota tick {k}", mgr, twin, now)
+        pass_ms.append(colo_roots(mgr)[-1][0])
+        plugin = mgr.colo.quota_plugin
+        consumed += plugin.fresh_device_runtime() is not None
+        _tree, host_rt = plugin.tree_snapshot(store)
+        if not np.array_equal(stats["runtime"], host_rt):
+            raise AssertionError(f"colo_quota tick {k}: the runtime matrix "
+                                 f"differs from compute_runtime_quotas")
+        got, want = revoker.reconcile(now), twin_revoker.reconcile(now)
+        if list(got) != list(want):
+            raise AssertionError(f"colo_quota tick {k}: revoke victims "
+                                 f"{got[:3]} != {want[:3]}")
+        victims += len(got)
+    if consumed < COLO_TICKS or victims < 1:
+        raise AssertionError(f"colo_quota: device runtime consumed "
+                             f"{consumed} times, {victims} victims")
+    view, step_args, plan = colo_step_args(mgr, now, device)
+    step = colo_step_check("colo_quota", view, step_args, plan, device,
+                           compare_total=True)
+    # the fold alone: the same node arrays with an empty quota side
+    empty = [t.clone() for t in step_args]
+    empty[13] = torch.full_like(empty[13], -1)   # q_level: no row
+    empty[22] = torch.zeros_like(empty[22])      # q_valid
+    no_fold = profile_launches(lambda: build_colo_step(
+        view["cpu_policy"], view["memory_policy"], device=device)(
+            *empty, plan=(-1,) * len(plan)))
+    row = {"phase": "colo_quota", "nodes": n_nodes,
+           "cluster_total": [float(x) for x in total],
+           "verdicts": verdicts, "G": int(step_args[12].shape[0]),
+           "groups": len(mgr.colo.pack.quota_view(plugin)["names"]),
+           "N": int(step_args[0].shape[0]), "plan": list(plan),
+           "pass_ms": pass_ms, "pass_ms_median": statistics.median(pass_ms),
+           "host_pass_ms_median": statistics.median(
+               ms for ms, _ in colo_roots(twin)),
+           **step,
+           "fold_launches": (step["step_launches"]["device_kernels"]
+                             - no_fold["device_kernels"]),
+           "fold_device_ms": (step["step_launches"]["device_ms"]
+                              - no_fold["device_ms"]),
+           "victims": victims, "revoke_equal": True, "runtime_equal": True,
+           "engine": "device", "ladder_full": True}
+    emit(row)
+    return row
+
+
+def run_colo_colocated(device, n_nodes=5000, n_pods=10000):
+    """The quota-free config 4 store through Scheduler(store) cycle 0,
+    then Manager(store, scheduler=sched), beside a twin whose manager is
+    colo="host": the colo_* fields ride the scheduler's mirror (no
+    private one), and the cycles after the manager ticks (200
+    batch-class pods arriving) bind as the twin's do. Returns kernel 1's
+    launches."""
+    from koordinator_tpu_torch.api.objects import ObjectMeta, Pod, PodSpec
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.colo.reconciler import COLO_NODE_FIELDS
+    from koordinator_tpu_torch.manager import Manager
+
+    retries0 = retries_now()
+    fck.launches = fck.replay_launches = sk.launches = 0
+    worlds = {}
+    for colo in ("on", "host"):
+        store, state = colo_store(n_nodes, n_pods)
+        sched = Scheduler(store, device=device)
+        res0 = sched.run_cycle(now=state.now)
+        own = set(sched.device_snapshot._fields)
+        mgr = Manager(store, identity=f"colo-{colo}", scheduler=sched,
+                      colo=colo)
+        now = state.now + 1.0
+        bound = [result_key(res0)]
+        for k in range(2):
+            mgr.tick(now=now)
+            for i in range(100):
+                store.add(KIND_POD, Pod(
+                    meta=ObjectMeta(name=f"batch-{k}-{i}", namespace="colo",
+                                    uid=f"batch-{k}-{i}",
+                                    creation_timestamp=now),
+                    spec=PodSpec(priority=5500, requests=ResourceList.of(
+                        batch_cpu=1000 * (1 + i % 4),
+                        batch_memory=(1 + i % 2) * 1024 ** 3))))
+            res = sched.run_cycle(now=now + 0.5)
+            bound.append(result_key(res))
+            now += 10.0
+        worlds[colo] = (store, sched, mgr, own, bound)
+    store, sched, mgr, own, bound = worlds["on"]
+    if bound != worlds["host"][4]:
+        raise AssertionError("colo_colocated: the cycles bind otherwise "
+                             "than the colo=\"host\" twin's")
+    fields = set(sched.device_snapshot._fields)
+    colo_fields = {f for f in fields if f.startswith("colo_")}
+    if (not set(COLO_NODE_FIELDS) <= colo_fields or len(colo_fields) != 24
+            or not own <= fields or mgr.colo._own_snapshot is not None):
+        raise AssertionError(f"colo_colocated: mirror fields {sorted(fields)}")
+    if mgr.colo.stats["device_passes"] != 2 or mgr.colo.stats["host_passes"]:
+        raise AssertionError(f"colo_colocated: {mgr.colo.stats}")
+    assert_ladder_full("colo_colocated", retries0, sched, worlds["host"][1])
+    passes = colo_roots(mgr)
+    batch_bound = sum(1 for key in bound[1:] for b in key[0]
+                      if b[0].startswith("colo/batch-"))
+    if batch_bound < 1:
+        raise AssertionError("colo_colocated: no batch-class pod bound")
+    emit({"phase": "colo_colocated", "nodes": n_nodes, "pods": n_pods,
+          "first_pass_ms": passes[0][0], "first_pass_spans_ms": passes[0][1],
+          "steady_pass_ms": passes[1][0],
+          "steady_pass_spans_ms": passes[1][1],
+          "mirror_colo_fields": len(colo_fields),
+          "mirror_fields": len(fields), "batch_pods_bound": batch_bound,
+          "bound_per_cycle": [len(key[0]) for key in bound],
+          "full_chain_launches": fck.launches, "binds_equal": True,
+          "engine": "device", "ladder_full": True})
+    return fck.launches
+
+
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
                  bytes_ms, ops_ms, **extra):
     """One kernel's entry of the kernels line. No PyTorch call computes
@@ -1765,6 +2311,11 @@ def main() -> int:
     # ---- the descheduler: config 5 standalone, then co-located at config 4
     run_rebalance(device)
     colocated_launches = run_rebalance_colocated(device)
+    # ---- the manager: the colo pass standalone at config 4's width, the
+    # quota fold inside the f32 envelope, co-located on the mirror
+    run_colo(device)
+    run_colo_quota(device)
+    colo_launches = run_colo_colocated(device)
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
@@ -1893,14 +2444,16 @@ def main() -> int:
                      main_launches + scheduler_launches
                      + wave_launches["full_chain"]
                      + ladder_launches["full_chain"]
-                     + sim_launches["full_chain"] + colocated_launches,
+                     + sim_launches["full_chain"] + colocated_launches
+                     + colo_launches,
                      mism, err, kernel_ms,
                      plain_ms, bytes_ms, ops_ms, launches_sidecar=main_launches,
                      launches_scheduler=scheduler_launches,
                      launches_waves=wave_launches["full_chain"],
                      launches_ladder=ladder_launches["full_chain"],
                      launches_sim=sim_launches["full_chain"],
-                     launches_rebalance_colocated=colocated_launches),
+                     launches_rebalance_colocated=colocated_launches,
+                     launches_colo_colocated=colo_launches),
         la_kernel, replay_entry]})
     print(card, flush=True)
     # count: the cards this script drives

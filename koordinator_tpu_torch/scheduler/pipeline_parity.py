@@ -16,7 +16,9 @@ final assignments.
   * ``run_carried_state_parity``: one world per piece of carried state
     (reservations, claims, prod-usage scoring, a device ScoreTransformer);
   * ``run_rebalance_parity``: the descheduler's device rebalance pass
-    against its host oracle, on the scheduler's shared snapshot.
+    against its host oracle, on the scheduler's shared snapshot;
+  * ``run_colo_parity``: the manager's device colo pass against the host
+    oracles, on the scheduler's shared snapshot.
 
 Each takes ``device=``: "cuda" (the default, the kernels) or "cpu" (the
 plain wave step). The worlds and deltas are the JAX package's
@@ -890,6 +892,308 @@ def run_rebalance_parity(num_nodes: int = 16, rounds: int = 4,
     }
 
 
+def run_colo_parity(num_nodes: int = 12, rounds: int = 4, seed: int = 29,
+                    arrivals: int = 10, device="cuda") -> dict:
+    """Device colo pass vs the retained host oracles: decision-identical
+    on seeded churn, with the pack fed from the SnapshotCache's existing
+    subscriptions (koordcolo acceptance gate).
+
+    TWO worlds run the identical seeded sequence — production Scheduler
+    on ``device`` (no mesh: that comes with the parallel/ slice) + a
+    co-located Manager — with only the colo engine differing (``colo="on"``
+    vs ``colo="host"``).
+    Every round applies churn (arrivals incl. quota-labeled and
+    batch-class pods, departures, metric skews + staleness flips, a
+    reservation-annotation rewrite, a mid-run slo-config hot reload, a
+    quota max shift), ticks the manager, revokes, and runs a scheduling
+    cycle; the gate diffs:
+
+      * batch/mid allocatable on every node (the writeback vectors),
+      * the staleness-degraded node set (against a fresh host gather),
+      * the runtime-quota matrix (device fold vs compute_runtime_quotas),
+      * the revoke-victim lists (order included) from the overuse loop,
+      * the binding logs of the scheduling cycles (the closed loop).
+
+    The device engine must actually run (``engine == "device"``) and the
+    revoke loop must consume the device runtime at least once — a silent
+    host demotion would compare host to host."""
+    import random
+
+    import numpy as np
+
+    from koordinator_tpu_torch.api.objects import (
+        ConfigMap,
+        ElasticQuota,
+        LABEL_QUOTA_IS_PARENT,
+        LABEL_QUOTA_NAME,
+        LABEL_QUOTA_PARENT,
+        Node,
+        NodeMetric,
+        NodeMetricInfo,
+        ObjectMeta,
+        Pod,
+        PodMetricInfo,
+        PodSpec,
+    )
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.client.store import (
+        KIND_CONFIG_MAP,
+        KIND_ELASTIC_QUOTA,
+        KIND_NODE,
+        KIND_NODE_METRIC,
+        KIND_POD,
+        ObjectStore,
+    )
+    from koordinator_tpu_torch.manager import Manager
+    from koordinator_tpu_torch.scheduler.config import SchedulerConfiguration
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+
+    import json
+
+    def build_world(colo: str):
+        rng = random.Random(seed)
+        now = 1_000_000.0
+        store = ObjectStore()
+        for i in range(num_nodes):
+            node = Node(
+                meta=ObjectMeta(name=f"co-n{i}", namespace=""),
+                allocatable=ResourceList.of(cpu=32_000, memory=128 * GIB,
+                                            pods=128))
+            if i % 3 == 0:
+                node.meta.annotations[
+                    "node.koordinator.sh/reservation"] = json.dumps(
+                        {"resources": {"cpu": "2", "memory": "4Gi"},
+                         "systemResources": {"cpu": "1"}})
+            if i % 4 == 0:
+                node.meta.labels["pool"] = "batchy"
+            store.add(KIND_NODE, node)
+            store.add(KIND_NODE_METRIC, NodeMetric(
+                meta=ObjectMeta(name=f"co-n{i}", namespace=""),
+                update_time=now - 5,
+                node_metric=NodeMetricInfo(node_usage=ResourceList.of(
+                    cpu=4_000 + 1_000 * (i % 3), memory=16 * GIB)),
+                prod_reclaimable=ResourceList.of(cpu=2_000,
+                                                 memory=8 * GIB)))
+        # slo-config: cluster strategy + a node-pool override (the
+        # per-node strategy scalars must reach the device pass)
+        store.add(KIND_CONFIG_MAP, ConfigMap(
+            meta=ObjectMeta(name="slo-controller-config",
+                            namespace="koordinator-system"),
+            data={"colocation-config": json.dumps({
+                "cpuReclaimThresholdPercent": 65,
+                "memoryReclaimThresholdPercent": 70,
+                "nodeConfigs": [{"nodeSelector": {"pool": "batchy"},
+                                 "cpuReclaimThresholdPercent": 80}],
+            })}))
+        # quota tree: root capped tight enough that the children's mins
+        # force AutoScaleMin, one child not lending — the fold's corners
+        store.add(KIND_ELASTIC_QUOTA, ElasticQuota(
+            meta=ObjectMeta(name="co-root", namespace="parity",
+                            labels={LABEL_QUOTA_IS_PARENT: "true"}),
+            min=ResourceList.of(cpu=12_000, memory=48 * GIB),
+            max=ResourceList.of(cpu=20_000, memory=64 * GIB)))
+        for qname, lent in (("co-qa", "true"), ("co-qb", "false")):
+            store.add(KIND_ELASTIC_QUOTA, ElasticQuota(
+                meta=ObjectMeta(
+                    name=qname, namespace="parity",
+                    labels={
+                        LABEL_QUOTA_PARENT: "co-root",
+                        "quota.scheduling.koordinator.sh/"
+                        "allow-lent-resource": lent}),
+                min=ResourceList.of(cpu=6_000, memory=16 * GIB),
+                max=ResourceList.of(cpu=18_000, memory=56 * GIB)))
+        cfg = SchedulerConfiguration()
+        sched = Scheduler(store, config=cfg, device=device)
+        mgr = Manager(store, identity=f"mgr-{colo}", scheduler=sched,
+                      colo=colo)
+        plugin = sched.extender.plugin("ElasticQuota")
+        import dataclasses as _dc
+
+        revoke_args = _dc.replace(cfg.elastic_quota,
+                                  monitor_all_quotas=True,
+                                  delay_evict_time_seconds=5.0,
+                                  revoke_pod_interval_seconds=1.0)
+        revoker = plugin.revoke_controller(store, revoke_args)
+        return rng, now, store, sched, mgr, plugin, revoker
+
+    worlds = {name: build_world(name) for name in ("on", "host")}
+    mismatches: List[str] = []
+    device_runtime_consumed = 0
+    victims_seen = 0
+    uid = 0
+    for r in range(rounds + 1):
+        state = {}
+        for name in ("on", "host"):
+            rng, now, store, sched, mgr, plugin, revoker = worlds[name]
+            now += 10.0
+            wuid = uid
+            # ---- seeded churn (identical draws per world)
+            for _ in range(arrivals):
+                wuid += 1
+                flavor = rng.random()
+                spec = PodSpec(
+                    priority=rng.choice([9500, 9200, 5500]),
+                    requests=ResourceList.of(
+                        cpu=rng.choice([500, 1000, 2000]),
+                        memory=rng.choice([1, 2, 4]) * GIB))
+                labels = {}
+                if flavor < 0.3:
+                    labels[LABEL_QUOTA_NAME] = rng.choice(
+                        ["co-qa", "co-qb"])
+                elif flavor < 0.45:
+                    # batch-class pod consuming the overcommit the colo
+                    # pass publishes — the closed loop's consumer
+                    spec = PodSpec(
+                        priority=5500,
+                        requests=ResourceList.of(
+                            batch_cpu=rng.choice([1000, 2000]),
+                            batch_memory=rng.choice([1, 2]) * GIB))
+                store.add(KIND_POD, Pod(
+                    meta=ObjectMeta(name=f"co-p{wuid}",
+                                    namespace="parity",
+                                    uid=f"co-p{wuid}",
+                                    creation_timestamp=now,
+                                    labels=labels,
+                                    owner_kind="ReplicaSet",
+                                    owner_name=f"rs-{wuid % 7}"),
+                    spec=spec))
+            running = [p for p in store.list(KIND_POD)
+                       if p.is_assigned and not p.is_terminated]
+            for p in rng.sample(running, min(2, len(running))):
+                store.delete(KIND_POD, p.meta.key)
+            for i, nm in enumerate(store.list(KIND_NODE_METRIC)):
+                stale = (i + r) % 5 == 0
+                nm.update_time = (now - 10_000.0) if stale else (now - 5)
+                band = 0.25 + 0.15 * ((i + r) % 4)
+                usage = {}
+                for p in store.list(KIND_POD):
+                    if (p.is_assigned and not p.is_terminated
+                            and p.spec.node_name == nm.meta.name):
+                        usage[p.meta.key] = ResourceList.of(
+                            cpu=(p.spec.requests["cpu"] * 3) // 4,
+                            memory=(p.spec.requests["memory"] // GIB)
+                            * GIB // 2)
+                nm.pods_metric = [
+                    PodMetricInfo(namespace=k.split("/")[0],
+                                  name=k.split("/")[1], pod_usage=v)
+                    for k, v in usage.items()]
+                nm.node_metric = NodeMetricInfo(
+                    node_usage=ResourceList.of(
+                        cpu=int(32_000 * band), memory=int(128 * GIB * band)))
+                store.update(KIND_NODE_METRIC, nm)
+            if r == 1:
+                # reservation-annotation rewrite on one node
+                node = store.get(KIND_NODE, "/co-n0")
+                node.meta.annotations[
+                    "node.koordinator.sh/reservation"] = json.dumps(
+                        {"resources": {"cpu": "4", "memory": "8Gi"}})
+                store.update(KIND_NODE, node)
+            if r == 2:
+                # slo-config hot reload: the policy scalars must move
+                cm = store.get(KIND_CONFIG_MAP,
+                               "koordinator-system/slo-controller-config")
+                cm.data["colocation-config"] = json.dumps({
+                    "cpuReclaimThresholdPercent": 55,
+                    "memoryReclaimThresholdPercent": 60,
+                    "midCPUThresholdPercent": 15,
+                })
+                store.update(KIND_CONFIG_MAP, cm)
+            if r == 3:
+                # quota shrink: runtime collapses under the live used,
+                # arming the overuse revoke path
+                q = store.get(KIND_ELASTIC_QUOTA, "parity/co-qa")
+                q.min = ResourceList.of(cpu=500, memory=GIB)
+                q.max = ResourceList.of(cpu=1_000, memory=2 * GIB)
+                store.update(KIND_ELASTIC_QUOTA, q)
+
+            # ---- manager tick (the engines under test), then revoke,
+            # then the scheduling cycle that consumes the overcommit
+            assert mgr.tick(now=now)
+            consumed = plugin.fresh_device_runtime() is not None
+            victims = revoker.reconcile(now)
+            res = sched.run_cycle(now=now)
+            for b in res.bound:
+                pod = store.get(KIND_POD, b.pod_key)
+                if pod is not None and not pod.is_terminated:
+                    pod.phase = "Running"
+                    store.update(KIND_POD, pod)
+            snap = plugin.tree_snapshot(store)
+            state[name] = {
+                "now": now,
+                "uid": wuid,
+                "alloc": {n.meta.name: dict(n.allocatable.quantities)
+                          for n in store.list(KIND_NODE)},
+                "victims": list(victims),
+                "bound": [(b.pod_key, b.node_name) for b in res.bound],
+                "runtime": (None if snap is None else snap[1]),
+                "consumed": consumed,
+                "stats": (dict(mgr.colo.last_pass_stats)
+                          if mgr.colo is not None else {}),
+            }
+            worlds[name] = (rng, now, store, sched, mgr, plugin, revoker)
+        uid = state["on"]["uid"]
+        a, b = state["on"], state["host"]
+        if a["stats"].get("engine") != "device":
+            mismatches.append(
+                f"round {r}: device engine did not run "
+                f"(engine={a['stats'].get('engine')!r})")
+            break
+        if a["consumed"]:
+            device_runtime_consumed += 1
+        if a["alloc"] != b["alloc"]:
+            diff = [n for n in a["alloc"]
+                    if a["alloc"][n] != b["alloc"].get(n)]
+            mismatches.append(
+                f"round {r}: batch/mid allocatable differs on "
+                f"{diff[:3]}")
+        # degraded set: device stats vs a fresh host gather
+        rngh, nowh, storeh, schedh, mgrh, _p, _rv = worlds["host"]
+        ctl = mgrh.controllers["noderesource"]
+        nodes_h = storeh.list(KIND_NODE)
+        degraded_h = ctl._gather(nodes_h, b["now"])[-1]
+        degraded_d = np.asarray(a["stats"]["degraded"])
+        if list(degraded_d) != list(degraded_h):
+            mismatches.append(f"round {r}: degraded-node set differs")
+        if (a["runtime"] is None) != (b["runtime"] is None) or (
+                a["runtime"] is not None
+                and not np.array_equal(a["runtime"], b["runtime"])):
+            mismatches.append(f"round {r}: runtime-quota matrix differs")
+        dev_rt = a["stats"].get("runtime")
+        if dev_rt is not None and a["runtime"] is not None:
+            # the device fold's published matrix itself, against the
+            # host oracle fold over the same post-writeback store
+            if not np.array_equal(np.asarray(dev_rt),
+                                  np.asarray(b["runtime"])):
+                mismatches.append(
+                    f"round {r}: device runtime matrix differs from "
+                    f"the host fold")
+        if a["victims"] != b["victims"]:
+            mismatches.append(
+                f"round {r}: revoke-victim lists differ "
+                f"({a['victims'][:3]} vs {b['victims'][:3]})")
+        victims_seen += len(a["victims"])
+        if a["bound"] != b["bound"]:
+            mismatches.append(f"round {r}: binding logs differ")
+    if not mismatches and device_runtime_consumed == 0:
+        mismatches.append(
+            "the revoke loop never consumed the device runtime")
+    if not mismatches and victims_seen == 0:
+        # the victim-list comparison must not be vacuous: the round-3
+        # quota shrink is designed to arm the overuse revoke
+        mismatches.append("the revoke loop never selected a victim")
+    mgr_on = worlds["on"][4]
+    if mismatches and mgr_on.colo is not None:
+        mgr_on.colo.flight.dump("colo_parity_mismatch")
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "device": str(device),
+        "rounds": rounds + 1,
+        "pods": len(worlds["on"][2].list(KIND_POD)),
+        "conditions_checked": device_runtime_consumed,
+    }
+
+
 def main(device="cuda") -> int:
     """Every harness on ``device``; prints one JSON line per report and
     returns 1 when any fails."""
@@ -900,6 +1204,7 @@ def main(device="cuda") -> int:
     reports += [run_carried_state_parity(f, device=device)
                 for f in ("reservations", "claims", "prod", "transformer")]
     reports.append(run_rebalance_parity(device=device))
+    reports.append(run_colo_parity(device=device))
     for report in reports:
         print(json.dumps(report))
     return 0 if all(r["ok"] for r in reports) else 1

@@ -151,6 +151,10 @@ class SnapshotCache:
         # the same cluster is gone (one event stream, two consumers).
         # Keyed by metric-expiration like the standalone per-store packs.
         self._rebalance_packs: Dict[float, object] = {}
+        # koordcolo (colo/pack.py): the colo pack fed the same way — the
+        # manager's encode of the cluster rides this subscription chain
+        # too (one event stream, three consumers)
+        self._colo_pack = None
 
         store.subscribe(KIND_POD, self._on_pod)
         store.subscribe(KIND_NODE, self._on_node)
@@ -169,6 +173,8 @@ class SnapshotCache:
     def _on_pod(self, ev: EventType, pod: Pod, old) -> None:
         for pack in self._rebalance_packs.values():
             pack.on_pod(ev, pod, old)
+        if self._colo_pack is not None:
+            self._colo_pack.on_pod(ev, pod, old)
         key = pod.meta.key
         self.pod_flags.pop(key, None)
         self.pod_masks.pop(key, None)
@@ -227,6 +233,8 @@ class SnapshotCache:
     def _on_node(self, ev: EventType, node, old) -> None:
         for pack in self._rebalance_packs.values():
             pack.on_node(ev, node, old)
+        if self._colo_pack is not None:
+            self._colo_pack.on_node(ev, node, old)
         self.nodes_epoch += 1
         self._node_dirty.add(node.meta.name)
         self._la_dirty.add(node.meta.name)
@@ -235,6 +243,8 @@ class SnapshotCache:
     def _on_metric(self, ev: EventType, nm, old) -> None:
         for pack in self._rebalance_packs.values():
             pack.on_metric(ev, nm, old)
+        if self._colo_pack is not None:
+            self._colo_pack.on_metric(ev, nm, old)
         self._la_dirty.add(nm.meta.name)
         # keep the layout-aligned update-time vector current so the expiry
         # compare in loadaware_extras never consults a stale timestamp
@@ -274,10 +284,21 @@ class SnapshotCache:
         return pack
 
     def colo_pack(self, config_source):
-        """The koord-manager's colo pack fed from this cache's store
-        subscriptions: comes with the manager slice of the port."""
-        raise NotImplementedError(
-            "colo_pack comes with the manager slice of the port")
+        """The colo pack maintained from THIS cache's store
+        subscriptions (no second subscription chain, no duplicate
+        encode): the koord-manager's DeviceColoReconciler consumes it as
+        its view source when manager and scheduler share a process.
+        Existing pods replay list-then-watch style at first attach;
+        ``config_source`` is the host oracle's hot-reload source so both
+        engines derive strategy rows from the same parsed config."""
+        if self._colo_pack is None:
+            from koordinator_tpu_torch.colo.pack import ColoPack
+
+            pack = ColoPack(self.store, config_source, subscribe=False)
+            for pod in self.store.list(KIND_POD):
+                pack.on_pod(EventType.ADDED, pod, None)
+            self._colo_pack = pack
+        return self._colo_pack
 
     # ------------------------------------------------------------------
     # aggregates (cycle-facing)

@@ -29,10 +29,10 @@ the JAX package's sim (tests/test_torch_sim.py holds them together).
 A copy of the JAX package's harness. Scenarios whose configuration needs
 a part the port does not have yet raise NotImplementedError at
 construction and name the slice that brings it: a sidecar fault (a
-dead gRPC sidecar), a co-located manager (``colo_every``), mesh
-dispatch (``mesh``) and explain attribution (``explain``). A co-located
-descheduler (``descheduler_every``) shares the scheduler's snapshot and
-device mirror, as in the JAX package.
+dead gRPC sidecar), mesh dispatch (``mesh``) and explain attribution
+(``explain``). A co-located descheduler (``descheduler_every``) and a
+co-located koord-manager (``colo_every``) share the scheduler's
+snapshot, device mirror and device, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -433,7 +433,6 @@ def require_ported(sc: Scenario) -> None:
     for needed, part, slice_name in (
             (any(f.kind == "sidecar" for f in sc.faults),
              "the sidecar fault (a dead gRPC sidecar)", "transport"),
-            (sc.colo_every > 0, "a co-located koord-manager", "manager"),
             (sc.mesh is not None, "mesh-backed dispatch", "parallel/"),
             (sc.explain is not None, "explain attribution", "explain")):
         if needed:
@@ -608,9 +607,23 @@ class ChurnSimulator:
                 dump_counter=scheduler_metrics.FLIGHT_DUMPS)
         self.pipeline = (CyclePipeline(self.sched, enabled=True)
                          if sc.pipeline else None)
-        # the co-located koord-manager comes with the manager slice of
-        # the port (require_ported keeps its scenarios out)
         self.manager = None
+        if sc.colo_every > 0:
+            from koordinator_tpu_torch.manager import Manager
+
+            # the co-located koord-manager (koordcolo): shares the
+            # scheduler's SnapshotCache subscriptions (the pack),
+            # DeviceSnapshot (the uploads) and device — the third
+            # consumer. It writes through the simulator's own store view
+            # (manager store writes are not the faulted path under test)
+            # and its lease never expires inside a run (one replica).
+            self.manager = Manager(
+                self.store, identity="sim-manager",
+                scheduler=self.sched,
+                colo=(sc.colo if sc.colo is not None else "on"),
+                lease_duration_seconds=1e9)
+            self.report.colo_staleness_slo_cycles = (
+                sc.colo_staleness_slo_cycles)
         self.desch = None
         if sc.descheduler_every > 0:
             from koordinator_tpu_torch.descheduler.descheduler import (

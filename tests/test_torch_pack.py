@@ -149,7 +149,23 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.descheduler.plugins_k8s, "
             "koordinator_tpu_torch.client, "
             "koordinator_tpu_torch.client.leaderelection, "
-            "koordinator_tpu_torch.testing.rebalance_fixture\n"
+            "koordinator_tpu_torch.testing.rebalance_fixture, "
+            "koordinator_tpu_torch.utils.sloconfig, "
+            "koordinator_tpu_torch.slocontroller, "
+            "koordinator_tpu_torch.slocontroller.nodemetric, "
+            "koordinator_tpu_torch.slocontroller.nodeslo, "
+            "koordinator_tpu_torch.slocontroller.noderesource, "
+            "koordinator_tpu_torch.slocontroller.noderesource_plugins, "
+            "koordinator_tpu_torch.quotacontroller, "
+            "koordinator_tpu_torch.quotacontroller.profile, "
+            "koordinator_tpu_torch.webhook, "
+            "koordinator_tpu_torch.webhook.server, "
+            "koordinator_tpu_torch.colo, "
+            "koordinator_tpu_torch.colo.pack, "
+            "koordinator_tpu_torch.colo.step, "
+            "koordinator_tpu_torch.colo.reconciler, "
+            "koordinator_tpu_torch.manager, "
+            "koordinator_tpu_torch.manager_metrics\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"

@@ -1,9 +1,11 @@
 """The port's churn simulator against the JAX package's, on the CPU.
 
 Each catalog scenario the port runs — smoke, gang-storm and spot-churn
-(cut to 40 cycles), crash-restart, and drain-storm and hotspot with
-their co-located descheduler (cut to 55) — goes through both packages'
-sims once per test process (cached), and the reports must agree: the
+(cut to 40 cycles), crash-restart, drain-storm and hotspot with their
+co-located descheduler (cut to 55), and overcommit-shift with its
+co-located koord-manager (cut to 55: its first prod-usage surge fires at
+cycle 40 and lasts 12) — goes through both packages' sims once per test
+process (cached), and the reports must agree: the
 binding log's SHA-256, the ladder's residency per level and its
 transitions, zero invariant breaches and zero cycle exceptions on both
 sides, and the SLO report. The scenarios that need a later slice raise
@@ -36,12 +38,12 @@ from koordinator_tpu_torch.sim.harness import run_scenario
 
 # the scenarios the port runs, at the cycle counts the tests afford
 # (drain-storm and hotspot at 55, as the JAX package's tests/test_sim.py
-# cuts them: hotspot's first event fires at cycle 40)
+# cuts them: hotspot's first event fires at cycle 40; overcommit-shift at
+# 55 too: its first surge fires at cycle 40 and lasts 12)
 RUN = {"smoke": 35, "gang-storm": 40, "spot-churn": 40, "crash-restart": 22,
-       "drain-storm": 55, "hotspot": 55}
+       "drain-storm": 55, "hotspot": 55, "overcommit-shift": 55}
 # the scenarios that need a later slice, and the slice each names
-LEFT_OUT = {"soak": "transport", "overcommit-shift": "manager",
-            "fault-ladder": "parallel/"}
+LEFT_OUT = {"soak": "transport", "fault-ladder": "parallel/"}
 # report keys that hold wall-clock or per-process numbers
 WALL_KEYS = ("wall_seconds", "pipeline", "restart")
 
@@ -168,6 +170,20 @@ def test_descheduler_scenarios_rebalance_through_the_device_pass(name):
         assert report.pods_migrated > 0 and report.hotspot_events > 0
     else:
         assert report.pods_drained > 0
+
+
+def test_overcommit_shift_runs_every_manager_round_on_the_device_pass():
+    """The co-located koord-manager ticks before every dispatch, each colo
+    pass on the device engine (the CPU tensors here); the surge at cycle
+    40 shifts batch allocatable and the staleness SLO holds."""
+    report = _port("overcommit-shift")
+    colo = report.to_dict()["colo"]
+    assert colo["manager_rounds"] == RUN["overcommit-shift"]
+    assert colo["device_passes"] == RUN["overcommit-shift"]
+    assert colo["host_passes"] == 0 and colo["final_engine"] == "device"
+    assert colo["overcommit_shifts"] > 0 and colo["batch_pods_bound"] > 0
+    assert colo["staleness_slo_met"]
+    assert report.cycles_at_level == {"full": RUN["overcommit-shift"]}
 
 
 def test_fault_plan_budgets_fire_at_their_cycle():

@@ -367,15 +367,48 @@ def test_mirror_tensors_equal_host_and_to_device_through_churn():
 # ---------------------------------------------------------------------------
 
 def test_descheduler_and_manager_packs_raise():
-    """The manager's pack and a mesh-backed mirror still raise. The
-    descheduler's pack, which raised here before the descheduler slice,
-    is served now: test_rebalance_pack_is_the_shared_pack."""
-    store, _state = churn_store(8, 8, seed=0)
-    sched = Scheduler(store, waves=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="manager"):
-        sched.snapshot_cache.colo_pack(None)
+    """A mesh-backed mirror still raises. The descheduler's and the
+    manager's packs, which raised here before their slices, are served
+    now: test_rebalance_pack_is_the_shared_pack and
+    test_colo_pack_is_the_shared_pack."""
     with pytest.raises(NotImplementedError, match="parallel"):
         DeviceSnapshot(device="cpu", mesh=object())
+
+
+def test_colo_pack_is_the_shared_pack():
+    """colo_pack returns one pack, fed from the cache's own subscriptions:
+    it replays the running pods at attach and follows later pod, node and
+    metric events, as a standalone pack with its own subscriptions does."""
+    from koordinator_tpu_torch.client.store import KIND_NODE_METRIC
+    from koordinator_tpu_torch.colo.pack import ColoPack
+    from koordinator_tpu_torch.utils.sloconfig import ColocationConfigSource
+
+    store, state = churn_store(8, 8, seed=0)
+    sched = Scheduler(store, waves=1, device="cpu")
+    sched.run_cycle(now=state.now)
+    cache = sched.snapshot_cache
+    source = ColocationConfigSource(store, None)
+    pack = cache.colo_pack(source)
+    assert isinstance(pack, ColoPack)
+    assert cache.colo_pack(source) is pack
+    standalone = ColoPack(store, source)  # its own subscriptions
+    bound = [p for p in store.list(KIND_POD) if p.is_assigned]
+    assert bound
+    store.delete(KIND_POD, bound[0].meta.key)
+    nm = store.list(KIND_NODE_METRIC)[0]
+    nm.update_time = state.now - 10_000.0
+    store.update(KIND_NODE_METRIC, nm)
+    shared, own = pack.view(state.now), standalone.view(state.now)
+    assert set(shared) == set(own)
+    assert shared["degraded"].any()
+    for key in shared:
+        if key == "nodes":
+            assert shared[key] == own[key]
+        elif isinstance(shared[key], str):
+            assert shared[key] == own[key], key
+        else:
+            np.testing.assert_array_equal(shared[key], own[key],
+                                          err_msg=key)
 
 
 def test_rebalance_pack_is_the_shared_pack():
