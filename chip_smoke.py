@@ -5,9 +5,9 @@ one NVIDIA H100 and check them.
 
 Phases, one JSON line each:
   device  the card (nvidia-smi name and power limit), torch and CUDA
-          versions; builds both CUDA kernels from koordinator_tpu_torch/csrc/
-          with nvcc, one process per source started together, and times the
-          build.
+          versions; builds the CUDA kernels from koordinator_tpu_torch/csrc/
+          (full_chain.cu, schedule_step.cu, explain_counts.cu) with nvcc,
+          one process per source started together, and times the build.
   scheduler  BASELINE config 4 through the real scheduler cycle, in the shape
           of bench.py's run_churn: three stores from synth_full_cluster(5000,
           10000, seed=42, num_quotas=100, num_gangs=200), each driven by
@@ -75,11 +75,12 @@ Phases, one JSON line each:
           again once the ladder is above the host fallback. Prints the
           transitions, each cycle's ms and level beside (b)'s, and the
           host-fallback pass's seconds.
-  sim     the sim's smoke (50 cycles), gang-storm (300), spot-churn (300),
-          crash-restart (36), drain-storm (200), hotspot (160) and
+  sim     the sim's smoke (50 cycles), gang-storm (150 of its 300),
+          spot-churn (150 of 300), crash-restart (36), drain-storm (100 of
+          200), hotspot (160) and
           overcommit-shift (160) scenarios
           on the card, each with a CPU twin in this process (gang-storm's
-          and spot-churn's cut to 150 cycles and drain-storm's to 100 for
+          and spot-churn's cut to 100 cycles and drain-storm's to 60 for
           the time limit): the CPU's binding log equal to the card's over
           the same cycles, zero invariant breaches and cycle exceptions on
           both, smoke's ladder round trip in cycles_at_level. drain-storm
@@ -142,6 +143,32 @@ Phases, one JSON line each:
           sit in the scheduler's mirror beside its own and no private
           mirror is built. Prints the first pass (every field put) and the
           steady pass.
+  scheduler_explain  config 4 (churn_store(5000, 10000, seed=42))
+          through the default path (auto waves, chained dispatch) with
+          explain "counts" and "full" beside an explain-off twin, and a
+          serial "counts" twin (waves=1) running as many cycles as the
+          default path consumed: cycle 0, one warm-up and EXPLAIN_MEASURED
+          churn cycles of 1000 arrivals. Bindings, failure lists and every
+          PodScheduled message equal every cycle; on every cycle with
+          explain on, one stage-count pass (explain_counts.cu) per round,
+          and at "full" every round in kernel 1's terms instance; none
+          with explain off. Prints the median cycle ms of each, explain's
+          overhead, the spans diagnose, kernel, replay_drain and encode,
+          and the explain readback bytes a cycle.
+  ladder_explain  config 4 through Scheduler(explain="counts") at its
+          default waves under a dispatch-fault storm: full ->
+          serial-waves -> no-explain (the pass binds there without
+          attribution) and back through serial-waves to full, as
+          planned, with zero invariant breaches; the stage-count pass
+          launches on every cycle above no-explain and on none at it.
+  koord_scheduler  the port's binary, cmd.koord_scheduler.main, on the
+          card at --synth 5000x10000 with KOORD_TPU_EXPLAIN=counts and
+          KOORD_TPU_WAVES=1 (BINARY_ENV says why), three ticks
+          KOORD_SCHEDULER_INTERVAL seconds apart, --obs-port on a
+          free port; between the last two /healthz, /metrics and /explain
+          for a bound pod and an unschedulable one (a pod no node fits,
+          added to the binary's store) over HTTP, each /explain body
+          equal to the Scheduler's own record.
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -157,8 +184,16 @@ Phases, one JSON line each:
           (upload, round, Permit, readback; host clock, synchronised
           between them); then the full-chain kernel's time (CUDA events,
           median of repeated rounds after a warm-up) and the plain torch
-          round on the card over the same inputs, which must give the same
-          bindings.
+          round on the card over the same inputs, as its explain "full"
+          variant, which must give the same bindings.
+  explain_round  koordexplain's two kernels at config 4 (P = 10240)
+          against that plain round: the stage-count pass
+          (csrc/explain_counts.cu) equal to the plain counts exactly;
+          kernel 1's terms instance giving the chosen, requested and
+          quota of the instance without terms, and the whole explain
+          step (Permit, counts, terms) equal to the plain round's bit for
+          bit; both timed (CUDA events, median of 10) at P = 10240 and
+          at the churn wave's P = 1280 beside kernel 1 without terms.
   main_global  the same kernel with its carried state in device memory
           (smem_budget_bytes=0), against the plain round of `main`.
   mixed   mixed_cluster at 1000 nodes x 2000 pods (affinity, spread,
@@ -189,7 +224,9 @@ Each kernel's phase line names the launch: the state it kept (smem or
 global), the instance (common or generic), cluster_size, block_threads and
 smem_bytes_per_block. Every phase holds the kernel's bindings and outputs
 equal to the plain round's: 0 mismatches and max |err| 0.0. Then the
-kernels line, the card line, and the result line. Any failure raises: the
+kernels line (kernel 1, kernel 2, the replay instance, the stage-count
+pass and the terms instance, each with its launches on the scheduler
+paths), the card line, and the result line. Any failure raises: the
 script exits non-zero and prints no result. It imports neither JAX nor the
 JAX package.
 """
@@ -198,10 +235,15 @@ from __future__ import annotations
 
 import gc
 import json
+import os
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.parse
+import urllib.request
 
 import numpy as np
 import torch
@@ -214,7 +256,10 @@ from koordinator_tpu_torch.models.convert import (
 )
 from koordinator_tpu_torch.models import fused_waves
 from koordinator_tpu_torch.models.full_chain import (
+    NUM_EXPLAIN_STAGES,
     build_full_chain_step,
+    cycle_start_state,
+    explain_stage_counts,
     resolve_balance_idx,
     resolve_weight_idx,
 )
@@ -222,6 +267,7 @@ from koordinator_tpu_torch.models.scheduler_model import (
     build_best_schedule_step,
     build_schedule_step,
 )
+from koordinator_tpu_torch.ops import explain_kernel as ek
 from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops import schedule_kernel as sk
 from koordinator_tpu_torch.ops.kernel_common import (
@@ -298,14 +344,16 @@ LADDER_FAULTS = (
 LADDER_LEVELS = [0, 0, 0, 0, 3, 5, 5, 3, 3, 0, 0]
 LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
                ("host-fallback", "serial-waves"), ("serial-waves", "full")]
-# the sim phase: the catalog scenarios the port runs, at their catalog
-# cycle counts on the card; the CPU twins of gang-storm and spot-churn are
-# cut to 150 cycles and drain-storm's to 100 for the script's time limit
-# (the plain round's per-pod loop over their backlog takes ~0.4 and ~1 s
-# a cycle on the host), and are held against the card run's first cycles
-SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 300, 150),
-                 ("spot-churn", 300, 150), ("crash-restart", 36, 36),
-                 ("drain-storm", 200, 100), ("hotspot", 160, 160),
+# the sim phase: the catalog scenarios the port runs, on the card at
+# their catalog cycle counts but gang-storm's and spot-churn's (cut to 150
+# of 300) and drain-storm's (100 of 200), for the script's time limit
+# since the explain phases joined it; the CPU twins of those three cut
+# further, to 100, 100 and 60 (the plain round's per-pod loop over their
+# backlog takes ~0.2-0.4 s a cycle on the host), held against the card
+# run's first cycles
+SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 150, 100),
+                 ("spot-churn", 150, 100), ("crash-restart", 36, 36),
+                 ("drain-storm", 100, 60), ("hotspot", 160, 160),
                  ("overcommit-shift", 160, 160))
 # overcommit-shift's binding log at its catalog 160 cycles in the JAX
 # package as it stands (koordinator_tpu.sim.harness.run_scenario on the
@@ -315,6 +363,30 @@ OVERCOMMIT_SHIFT_JAX_SHA256 = (
 # the colo phases: warm-up and timed manager ticks, and one NodeMetric
 # in COLO_STALE_EVERY made stale (5% of config 4's nodes)
 COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 10, 20
+# koordexplain: the measured churn cycles of scheduler_explain (after
+# cycle 0 and one warm-up), the explain ladder's fault storm (the fused
+# window: retry, demote to serial waves, whose pass retries and demotes
+# to no-explain and binds there), its level after each cycle and its walk,
+# and the koord_scheduler binary's seconds between its two ticks (the
+# probe reads /explain between them)
+EXPLAIN_MEASURED = 2
+EXPLAIN_LADDER_FAULTS = (
+    Fault(cycle=1, kind="dispatch", count=4,
+          message="ladder_explain: fault storm"),
+)
+EXPLAIN_LADDER_LEVELS = [0, 4, 4, 3, 3, 0]
+EXPLAIN_LADDER_WALK = [("full", "serial-waves"),
+                       ("serial-waves", "no-explain"),
+                       ("no-explain", "serial-waves"),
+                       ("serial-waves", "full")]
+KOORD_SCHEDULER_INTERVAL = 3.0
+# the binary's environment: explain counts, and serial dispatch. The
+# binary's --synth world is preemption-heavy: ~1,500 pods stay pending,
+# and the host's DefaultPreemption dry runs over 5,000 nodes take ~16 s a
+# logical cycle, so default waves (8 logical cycles at the first tick, 4
+# at the next) cost ~250 s over three ticks (NVIDIA H100 80GB HBM3,
+# 700.00 W); the default path with explain is scheduler_explain's
+BINARY_ENV = {"KOORD_TPU_EXPLAIN": "counts", "KOORD_TPU_WAVES": "1"}
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -1436,9 +1508,9 @@ def run_sim(device):
                            colo_r01["colo_device"]["batch_pods_bound"],
                        "overcommit_shifts":
                            colo_r01["colo_device"]["overcommit_shifts"]},
-          "cut": "the CPU twins of gang-storm and spot-churn run 150 of "
-                 "the card's 300 cycles and drain-storm's 100 of 200 "
-                 "(time limit)"})
+          "cut": "on the card gang-storm and spot-churn run 150 of their "
+                 "300 catalog cycles and drain-storm 100 of 200, their CPU "
+                 "twins 100, 100 and 60 (time limit)"})
     return total
 
 
@@ -2162,6 +2234,550 @@ def run_colo_colocated(device, n_nodes=5000, n_pods=10000):
     return fck.launches
 
 
+# ---------------------------------------------------------------------------
+# koordexplain: the stage-count pass, the terms instance, the Scheduler with
+# explain on, the ladder through no-explain and the koord-scheduler binary
+# ---------------------------------------------------------------------------
+
+def explain_ops(fc, n_real: int) -> int:
+    """Operations of one stage-count pass on these inputs, counted from
+    csrc/filter_chain.cuh and csrc/explain_counts.cu. Every (pod, real
+    node) pair: Fit 2R (add, compare), the LoadAware test 2, the taint bit
+    test 2, 6 per affinity term, 2 per hostPort slot, the volume test 2
+    and the 9 stage counts; a cpuset pod's pairs 5 more (max, fmod, abs,
+    two compares), a NUMA pod's the zone fits 2KR and zone totals (K-1)R.
+    A pod with a spread term: per such term 3 per node in the first sweep
+    (taint, domain, min) over all N nodes."""
+    P, R = fc.base.fit_requests.shape
+    N = fc.base.allocatable.shape[0]
+    K = fc.numa_free.shape[1]
+    T, PT = fc.aff_dom.shape[1], fc.port_used.shape[1]
+    per_pair = 2 * R + 2 + 2 + 6 * T + 2 * PT + 2 + 9
+    n_bind = int(fc.needs_bind.sum())
+    n_numa = int(fc.needs_numa.sum())
+    spread_terms = int((fc.pod_spread_skew > 0).sum())
+    return (n_real * (P * per_pair + n_bind * 5
+                      + n_numa * (2 * K * R + (K - 1) * R))
+            + spread_terms * 3 * N)
+
+
+def explain_bytes(fc) -> int:
+    """Bytes one stage-count pass must move: each pod record, the frozen
+    node state and node rows, the quota chain read once; the counts
+    written once."""
+    P, R = fc.base.fit_requests.shape
+    N = fc.base.allocatable.shape[0]
+    K = fc.numa_free.shape[1]
+    G, D = fc.quota_ancestors.shape
+    T, PT = fc.aff_dom.shape[1], fc.port_used.shape[1]
+    VG = fc.vol_needed.shape[1]
+    stride = fck.record_layout(R, T, PT, VG)["rec_stride"]
+    node = N * (2 * R + K * R + 3 + 3 * T + PT) * 4 + N * (1 + 3 * 4)
+    return P * stride * 4 + node + T + G * D * 4 + 2 * G * R * 4 + (
+        P * NUM_EXPLAIN_STAGES * 4)
+
+
+def pod_rows(fc, n: int):
+    """The first ``n`` pods of a batch: every per-pod field cut to its
+    first n rows (the churn wave's P out of config 4's)."""
+    P = fc.base.fit_requests.shape[0]
+
+    def cut(t):
+        return t[:n].contiguous() if t.dim() and t.shape[0] == P else t
+
+    return type(fc)(type(fc.base)(*(cut(t) for t in fc.base)),
+                    *(cut(t) for t in fc[1:]))
+
+
+def bits_equal(a, b) -> int:
+    """Entries of two f32 tensors that differ bit for bit."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
+                      full_ms, kernel_ms):
+    """The stage-count pass and the terms instance at config 4 (P =
+    10240) against ``out_full``, the plain round's explain "full" outputs
+    on the same inputs (timed as ``full_ms``): the pass's counts equal
+    the plain counts exactly, the terms instance's chosen, requested and
+    quota equal the instance without terms and its rows the plain round's
+    bit for bit; then both timed (CUDA events, median of REPS) at P =
+    10240 and at the churn wave's P = 1280 beside kernel 1 without terms
+    (``kernel_ms`` at 10240). Returns the two kernels-line entries."""
+    wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
+    prod = args.score_according_prod_usage
+    state = cycle_start_state(dev_fc)
+    ek.launches = 0
+    counts = ek.explain_counts(dev_fc, state, n_real)
+    torch.cuda.synchronize()
+    count_launch = dict(ek.last_launch)
+    c_mism = int((counts.to(torch.int64)
+                  != out_full[3].stage_counts.to(torch.int64)).sum())
+    if c_mism or ek.launches != 1:
+        raise AssertionError(f"explain_round: the stage-count pass "
+                             f"disagrees with the plain counts in {c_mism} "
+                             f"entries ({ek.launches} launches)")
+    fck.terms_launches = 0
+    out_t = fck.full_chain_round(dev_fc, wi, prod, bi, terms=True)
+    out_n = fck.full_chain_round(dev_fc, wi, prod, bi)
+    torch.cuda.synchronize()
+    if fck.terms_launches != 1:
+        raise AssertionError("explain_round: the terms instance did not "
+                             "launch")
+    t_mism = int((out_t[0] != out_n[0]).sum()) + bits_equal(
+        out_t[1], out_n[1]) + bits_equal(out_t[2], out_n[2])
+    if t_mism:
+        raise AssertionError(f"explain_round: the terms instance moved "
+                             f"{t_mism} values of chosen/requested/quota")
+    step = fck.build_cuda_full_chain_step(args, ng, ngroups, active,
+                                          explain="full")
+    out_k = step(dev_fc, n_real)
+    torch.cuda.synchronize()
+    terms_launch = launch_fields(fck)
+    terms_mism = bits_equal(out_k[3].terms, out_full[3].terms)
+    s_mism = int((out_k[0] != out_full[0]).sum()) + bits_equal(
+        out_k[1], out_full[1]) + bits_equal(out_k[2], out_full[2]) + int(
+            (out_k[3].stage_counts.to(torch.int64)
+             != out_full[3].stage_counts.to(torch.int64)).sum())
+    t_err = float((out_k[3].terms - out_full[3].terms).abs().max())
+    if terms_mism or s_mism or t_err != 0.0:
+        raise AssertionError(f"explain_round: the explain step disagrees "
+                             f"with the plain round: {terms_mism} terms, "
+                             f"{s_mism} other values")
+    if not torch.isfinite(out_k[3].terms).all():
+        raise AssertionError("explain_round: non-finite terms")
+    bound = out_k[0] >= 0
+    if not bool((out_k[3].terms[bound, 3] >= out_k[3].terms[bound, 4]).all()):
+        raise AssertionError("explain_round: a bound pod's runner-up beats "
+                             "its best")
+    # the times: the pass and kernel 1 with and without terms, at both P
+    count_ms = time_cuda(lambda: ek.explain_counts(dev_fc, state, n_real),
+                         REPS)
+    terms_ms = time_cuda(lambda: fck.full_chain_round(
+        dev_fc, wi, prod, bi, terms=True), REPS)
+    wave = pod_rows(dev_fc, 1280)
+    wstate = cycle_start_state(wave)
+    count_ms_1280 = time_cuda(lambda: ek.explain_counts(wave, wstate,
+                                                        n_real), REPS)
+    terms_ms_1280 = time_cuda(lambda: fck.full_chain_round(
+        wave, wi, prod, bi, terms=True), REPS)
+    round_ms_1280 = time_cuda(lambda: fck.full_chain_round(
+        wave, wi, prod, bi), REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain_counts = explain_stage_counts(dev_fc, state, n_real)
+    torch.cuda.synchronize()
+    count_plain_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(plain_counts.to(torch.int64),
+                       out_full[3].stage_counts.to(torch.int64)):
+        raise AssertionError("explain_round: the plain counts moved")
+    P = dev_fc.base.fit_requests.shape[0]
+    c_bytes_ms = explain_bytes(dev_fc) / HBM_BYTES_PER_S * 1e3
+    c_ops_ms = explain_ops(dev_fc, n_real) / F32_OPS_PER_S * 1e3
+    W = len(wi)
+    # the round's operations and the runner-up's compare and max per pair
+    t_ops = round_ops(dev_fc, W, bi[0] >= 0) + (
+        2 * P * dev_fc.base.allocatable.shape[0])
+    t_ops_ms = t_ops / F32_OPS_PER_S * 1e3
+    t_bytes_ms = (tensor_bytes(dev_fc) + P * 4 * (1 + len(fck.EXPLAIN_TERMS))
+                  ) / HBM_BYTES_PER_S * 1e3
+    emit({"phase": "explain_round", "P": int(P), "n_real": int(n_real),
+          "stage_counts": {"launch": count_launch, "mismatches": c_mism,
+                           "kernel_ms": count_ms,
+                           "kernel_ms_P1280": count_ms_1280,
+                           "plain_ms": count_plain_ms,
+                           "bound_bytes_ms": c_bytes_ms,
+                           "bound_ops_ms": c_ops_ms,
+                           "ops": explain_ops(dev_fc, n_real),
+                           "rejections": int(out_k[3].stage_counts[
+                               :, :9].to(torch.int64).sum())},
+          "terms": {"launch": terms_launch, "mismatches": terms_mism,
+                    "max_abs_err": t_err, "kernel_ms": terms_ms,
+                    "kernel_ms_P1280": terms_ms_1280,
+                    "round_ms": kernel_ms, "round_ms_P1280": round_ms_1280,
+                    "overhead_pct": (terms_ms / kernel_ms - 1.0) * 100.0,
+                    "plain_full_round_ms": full_ms,
+                    "bound_bytes_ms": t_bytes_ms, "bound_ops_ms": t_ops_ms},
+          "pods_bound": int(bound.sum())})
+    return (
+        {"mismatches": c_mism, "err": 0.0, "ms": count_ms,
+         "plain_ms": count_plain_ms, "bytes_ms": c_bytes_ms,
+         "ops_ms": c_ops_ms, "ms_P1280": count_ms_1280},
+        {"mismatches": terms_mism, "err": t_err, "ms": terms_ms,
+         "plain_ms": full_ms, "bytes_ms": t_bytes_ms, "ops_ms": t_ops_ms,
+         "ms_P1280": terms_ms_1280})
+
+
+def explain_launches_now() -> dict:
+    return {"explain_counts": ek.launches,
+            "full_chain_terms": fck.terms_launches}
+
+
+def conditions(store) -> dict:
+    """Every pod's PodScheduled condition (status, reason, message)."""
+    out = {}
+    for pod in store.list(KIND_POD):
+        cond = pod.get_condition("PodScheduled")
+        if cond is not None:
+            out[pod.meta.key] = (cond.status, cond.reason, cond.message)
+    return out
+
+
+def explain_cycle(tag, sched, now):
+    """One cycle with every launch count (and the explain readback
+    counter) set to 0 just before it and read just after. On the card:
+    with explain on, one stage-count pass per device wave (per dispatch
+    on the serial path) and, at "full", every round in the terms
+    instance; with explain off, neither."""
+    ek.launches = fck.terms_launches = 0
+    ex0 = scheduler_metrics.EXPLAIN_READBACK_BYTES.get() or 0.0
+    res, wall, launches, k = wave_cycle(tag, sched, now)
+    launches.update(explain_launches_now())
+    ex_bytes = (scheduler_metrics.EXPLAIN_READBACK_BYTES.get() or 0.0) - ex0
+    if sched.device.type == "cuda":
+        spec = sched.explain_spec
+        rounds = launches["full_chain"]
+        if spec is None and (launches["explain_counts"]
+                             or launches["full_chain_terms"]):
+            raise AssertionError(f"{tag}: explain off launched {launches}")
+        if spec is not None and (launches["explain_counts"] != rounds
+                                 or ex_bytes <= 0):
+            raise AssertionError(f"{tag}: {rounds} rounds, launches "
+                                 f"{launches}, {ex_bytes} explain bytes")
+        if (spec == "full") != (launches["full_chain_terms"] == rounds):
+            raise AssertionError(f"{tag}: terms launches {launches}")
+    return res, wall, launches, k, ex_bytes
+
+
+def run_scheduler_explain(device, n_nodes=5000, n_pods=10000,
+                          measured=EXPLAIN_MEASURED):
+    """Config 4 through the default path (auto waves, chained dispatch)
+    with explain "counts" and "full" beside an explain-off twin, and a
+    serial "counts" twin (waves=1) running as many cycles as the default
+    path consumed: cycle 0, one warm-up and ``measured`` churn cycles of
+    n_pods // 10 arrivals. The bindings, failure lists and every
+    PodScheduled message must be equal every cycle. Returns the phase's
+    launches per kernel."""
+    arrivals = n_pods // 10
+    retries0 = retries_now()
+    worlds = {name: churn_store(n_nodes, n_pods, seed=42)
+              for name in ("off", "counts", "full", "serial")}
+    now = worlds["off"][1].now
+    scheds = {
+        "off": Scheduler(worlds["off"][0], device=device, explain="off"),
+        "counts": Scheduler(worlds["counts"][0], device=device,
+                            explain="counts"),
+        "full": Scheduler(worlds["full"][0], device=device,
+                          explain="full"),
+        "serial": Scheduler(worlds["serial"][0], device=device, waves=1,
+                            explain="counts"),
+    }
+    total = {"full_chain": 0, "full_chain_replay": 0, "explain_counts": 0,
+             "full_chain_terms": 0}
+    walls = {name: [] for name in scheds}
+    splits = {name: [] for name in ("off", "counts", "full")}
+    ex_bytes = {name: [] for name in scheds}
+    rows = []
+    for c in range(1 + 1 + measured):
+        if c:
+            specs = arrival_specs(c, arrivals)
+            for store, _state in worlds.values():
+                add_arrivals(store, specs, now + c)
+        t = now + 2 * c
+        keys, row = {}, {"cycle": c}
+        for name in ("off", "counts", "full"):
+            res, wall, la, k, xb = explain_cycle(
+                f"scheduler_explain cycle {c} {name}", scheds[name], t)
+            keys[name] = result_key(res)
+            row[name] = {"K": k, "waves": res.waves, "ms": wall * 1e3,
+                         "launches": la, "explain_readback_bytes": xb}
+            for key in total:
+                total[key] += la[key]
+            if c > 1:
+                walls[name].append(wall)
+                splits[name].append(span_split(scheds[name], WAVE_SPANS))
+                ex_bytes[name].append(xb)
+        waves = {row[n]["waves"] for n in ("off", "counts", "full")}
+        if len(waves) != 1:
+            raise AssertionError(f"scheduler_explain cycle {c}: logical "
+                                 f"cycles differ {waves}")
+        ser_key, wall_s, xb_s = ([], [], []), 0.0, 0.0
+        for _w in range(waves.pop()):
+            res_s, wall, la, _k, xb = explain_cycle(
+                f"scheduler_explain cycle {c} serial", scheds["serial"], t)
+            wall_s += wall
+            xb_s += xb
+            for key in total:
+                total[key] += la[key]
+            for part, got in zip(ser_key, result_key(res_s)):
+                part.extend(got)
+        keys["serial"] = ser_key
+        row["serial"] = {"ms": wall_s * 1e3, "explain_readback_bytes": xb_s}
+        if c > 1:
+            walls["serial"].append(wall_s)
+            ex_bytes["serial"].append(xb_s)
+        if not (keys["off"] == keys["counts"] == keys["full"]
+                == keys["serial"]):
+            raise AssertionError(f"scheduler_explain cycle {c}: the "
+                                 "bindings differ")
+        conds = {name: conditions(store)
+                 for name, (store, _s) in worlds.items()}
+        if not (conds["off"] == conds["counts"] == conds["full"]
+                == conds["serial"]):
+            raise AssertionError(f"scheduler_explain cycle {c}: the "
+                                 "PodScheduled messages differ")
+        row["bound"] = len(keys["off"][0])
+        row["unschedulable"] = sum(1 for v in conds["off"].values()
+                                   if v[0] == "False")
+        rows.append(row)
+    # the /explain records: every pod the default path saw, both levels
+    counts_idx, full_idx = (scheds[n].explain_index for n in ("counts",
+                                                              "full"))
+    verdicts = {v["verdict"] for v in counts_idx.values()}
+    if verdicts != {"bound", "unschedulable"}:
+        raise AssertionError(f"scheduler_explain: verdicts {verdicts}")
+    with_terms = sum(1 for v in full_idx.values() if "terms" in v)
+    if not with_terms:
+        raise AssertionError("scheduler_explain: no bound pod has terms")
+    assert_ladder_full("scheduler_explain", retries0, *scheds.values())
+    med = {name: statistics.median(w) * 1e3 for name, w in walls.items()}
+    spans = {name: median_split(s) for name, s in splits.items()}
+    emit({"phase": "scheduler_explain", "nodes": n_nodes, "pods": n_pods,
+          "arrivals_per_cycle": arrivals, "measured_cycles": measured,
+          "bindings_and_messages_equal_every_cycle": True,
+          "ladder_full": True, "cycle_ms": med,
+          "counts_overhead_pct": (med["counts"] / med["off"] - 1) * 100,
+          "full_overhead_pct": (med["full"] / med["off"] - 1) * 100,
+          "spans_ms": {name: {k: s[k] for k in ("diagnose", "kernel",
+                                                  "replay_drain", "encode",
+                                                  "cycle")}
+                       for name, s in spans.items()},
+          "explain_readback_bytes": {
+              name: statistics.median(b) for name, b in ex_bytes.items()},
+          "explain_index": {"counts": len(counts_idx),
+                            "full": len(full_idx),
+                            "full_with_terms": with_terms},
+          "launches": total, "cycles": rows})
+    return total
+
+
+def run_ladder_explain(device, n_nodes=5000, n_pods=10000):
+    """Config 4 through Scheduler(store, explain="counts") at its default
+    waves with EXPLAIN_LADDER_FAULTS on its dispatch hook and a ladder
+    that promotes after 2 clean cycles: the storm demotes the fused window
+    to serial waves and the serial pass to no-explain, where it binds
+    without attribution (the host recompute writes the messages); clean
+    cycles promote it back through serial waves to full. The store
+    invariants hold after every cycle; the stage-count pass launches on
+    every cycle above the no-explain rung and on none at it. Returns the
+    launches per kernel."""
+    arrivals = n_pods // 10
+    store, state = churn_store(n_nodes, n_pods, seed=42)
+    plan = FaultPlan(EXPLAIN_LADDER_FAULTS)
+    sched = Scheduler(store, device=device, explain="counts",
+                      ladder=DegradationLadder(
+                          promote_after=LADDER_PROMOTE_AFTER))
+    sched.fault_injector = plan.dispatch_hook
+    now = state.now
+    total = {"full_chain": 0, "full_chain_replay": 0, "explain_counts": 0,
+             "full_chain_terms": 0}
+    rows = []
+    for c in range(len(EXPLAIN_LADDER_LEVELS)):
+        if c:
+            add_arrivals(store, arrival_specs(c, arrivals), now + c)
+        t = now + 2 * c
+        plan.begin_cycle(c)
+        level0 = sched.ladder.level
+        ek.launches = fck.terms_launches = 0
+        res, wall, la, k = ladder_cycle(sched, t)
+        la.update(explain_launches_now())
+        for key in total:
+            total[key] += la[key]
+        level = sched.ladder.level
+        breaches = check_invariants(store, now=t)
+        if breaches:
+            raise AssertionError(f"ladder_explain cycle {c}: "
+                                 f"{breaches[:3]}")
+        if level != EXPLAIN_LADDER_LEVELS[c]:
+            raise AssertionError(f"ladder_explain cycle {c}: level {level},"
+                                 f" expected {EXPLAIN_LADDER_LEVELS[c]}")
+        # the cycle ran at no-explain where it started or ended there
+        no_explain = "explain-ladder" in res.demotions
+        if no_explain != (level0 == 4 or level == 4):
+            raise AssertionError(f"ladder_explain cycle {c}: demotions "
+                                 f"{res.demotions} at level {level}")
+        if device == "cuda" and (
+                (no_explain and la["explain_counts"] != 0)
+                or (not no_explain and la["explain_counts"] < 1)
+                or la["full_chain"] < 1):
+            raise AssertionError(f"ladder_explain cycle {c}: launches {la}")
+        if not res.bound:
+            raise AssertionError(f"ladder_explain cycle {c}: nothing bound")
+        rows.append({"cycle": c, "level": sched.ladder.level_name, "K": k,
+                     "waves": res.waves, "ms": wall * 1e3,
+                     "bound": len(res.bound), "demotions": res.demotions,
+                     "launches": la})
+    walk = [(t["from"], t["to"]) for t in sched.ladder.transitions]
+    if walk != EXPLAIN_LADDER_WALK:
+        raise AssertionError(f"ladder_explain: transitions {walk}")
+    if len(plan.injected) != sum(f.count for f in EXPLAIN_LADDER_FAULTS):
+        raise AssertionError(f"ladder_explain: faults fired {plan.injected}")
+    emit({"phase": "ladder_explain", "nodes": n_nodes, "pods": n_pods,
+          "arrivals_per_cycle": arrivals,
+          "promote_after": LADDER_PROMOTE_AFTER, "faults": plan.injected,
+          "transitions": sched.ladder.transitions, "invariant_breaches": 0,
+          "cycles": rows, "launches": total})
+    return total
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http_json(url: str):
+    with urllib.request.urlopen(url, timeout=30) as resp:
+        return resp.status, resp.read().decode()
+
+
+def run_koord_scheduler(device, synth="5000x10000", ticks=3,
+                        interval=KOORD_SCHEDULER_INTERVAL):
+    """The port's koord-scheduler binary on the card:
+    cmd.koord_scheduler.main at --synth ``synth`` with BINARY_ENV
+    (KOORD_TPU_EXPLAIN=counts, serial dispatch), --obs-port on a free port
+    and ``ticks``
+    ticks ``interval`` seconds apart. Between the last two ticks a probe
+    thread
+    reads /healthz, /metrics and /explain for a bound pod and for an
+    unschedulable one (a pod no node fits, added to the binary's store)
+    over HTTP, each /explain body equal to the Scheduler's own record.
+    Returns the launches per kernel."""
+    from koordinator_tpu_torch.api.objects import ObjectMeta, Pod, PodSpec
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.cmd import koord_scheduler
+    from koordinator_tpu_torch.scheduler import cycle as cycle_mod
+
+    made = []
+
+    class Recording(cycle_mod.Scheduler):
+        """The binary's Scheduler, kept for the probe, with one pod no
+        node fits in its store."""
+
+        def __init__(self, store, **kw):
+            super().__init__(store, **kw)
+            store.add(KIND_POD, Pod(
+                meta=ObjectMeta(name="hog", uid="hog",
+                                creation_timestamp=1.0),
+                spec=PodSpec(requests=ResourceList.of(
+                    cpu=10 ** 9, memory=1024 ** 3, pods=1))))
+            made.append(self)
+
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    seen, failures = {}, []
+
+    def probe():
+        try:
+            # wait for the second tick to finish: the first binds ~8,500
+            # pods, whose records fill the index's 4096 most recent
+            # entries; the second's unschedulable pods come back
+            deadline = time.time() + 900
+            while time.time() < deadline:
+                rec = made[0].explain_record("default/hog") if made else None
+                if rec is not None and rec["cycle"] >= ticks - 1:
+                    break
+                time.sleep(0.05)
+            status, body = http_json(base + "/healthz")
+            seen["healthz"] = json.loads(body)
+            status, body = http_json(base + "/metrics")
+            seen["metrics_bytes"] = len(body)
+            seen["metrics_has_rejections"] = (
+                "koord_scheduler_filter_rejections_total" in body)
+            sched = made[0]
+            with sched._health_lock:  # the index's writer holds it
+                index = list(sched.explain_index.items())
+            bound = next(k for k, v in index if v["verdict"] == "bound")
+            unsched = "default/hog"
+            for verdict, key in (("bound", bound),
+                                 ("unschedulable", unsched)):
+                want = {"pod": key, **sched.explain_record(key)}
+                status, body = http_json(
+                    base + "/explain?pod=" + urllib.parse.quote(key))
+                seen[verdict] = (status, json.loads(body),
+                                 json.loads(json.dumps(want)))
+        except Exception as exc:  # surfaced in the main thread below
+            failures.append(exc)
+
+    env0 = {k: os.environ.get(k) for k in BINARY_ENV}
+    os.environ.update(BINARY_ENV)
+    cycle_mod.Scheduler = Recording
+    fck.launches = fck.replay_launches = fck.terms_launches = 0
+    ek.launches = sk.launches = 0
+    thread = threading.Thread(target=probe, daemon=True)
+    t0 = time.perf_counter()
+    try:
+        thread.start()
+        rc = koord_scheduler.main([
+            "--synth", synth, "--max-ticks", str(ticks), "--device", device,
+            "--obs-port", str(port), "--interval", str(interval)])
+    finally:
+        cycle_mod.Scheduler = Scheduler
+        for key, value in env0.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    wall = time.perf_counter() - t0
+    thread.join(timeout=60)
+    launches = {"full_chain": fck.launches,
+                "full_chain_replay": fck.replay_launches,
+                **explain_launches_now(), "schedule_step": sk.launches}
+    if failures:
+        raise failures[0]
+    if rc != 0 or not made or made[0].explain_spec != "counts":
+        raise AssertionError(f"koord_scheduler: rc {rc}")
+    sched = made[0]
+    for verdict in ("bound", "unschedulable"):
+        status, got, want = seen[verdict]
+        if status != 200 or got != want or got["verdict"] != verdict:
+            raise AssertionError(f"koord_scheduler: /explain for a "
+                                 f"{verdict} pod: {got} vs {want}")
+    if not seen["unschedulable"][1].get("message", "").startswith("0/"):
+        raise AssertionError("koord_scheduler: the unschedulable pod's "
+                             f"message {seen['unschedulable'][1]}")
+    if (seen["healthz"]["degraded"]["level_name"] != "full"
+            or not seen["metrics_has_rejections"]):
+        raise AssertionError(f"koord_scheduler: /healthz {seen['healthz']}")
+    if device == "cuda" and (sched.last_backend != "cuda"
+                             or launches["explain_counts"] < 1
+                             or launches["full_chain"] < 1
+                             or launches["schedule_step"]):
+        raise AssertionError(f"koord_scheduler: launches {launches}")
+    emit({"phase": "koord_scheduler", "synth": synth, "ticks": ticks,
+          "interval_s": interval, "wall_s": wall,
+          "cycles": sched.health_snapshot()["cycles"],
+          "healthz": seen["healthz"],
+          "metrics_bytes": seen["metrics_bytes"],
+          "explain_bound": seen["bound"][1],
+          "explain_unschedulable": seen["unschedulable"][1],
+          "explain_equal_to_record": True, "launches": launches})
+    return launches
+
+
+def explain_entry(name, source, replaces, key, launches, res):
+    """The kernels-line entry of one koordexplain kernel: its launches on
+    the main path's explain phases (``key`` in each phase's counts, split
+    by phase) and its explain_round numbers."""
+    per_phase = {phase: la[key] for phase, la in launches.items()}
+    return kernel_entry(
+        name, source, replaces, sum(per_phase.values()), res["mismatches"],
+        res["err"], res["ms"], res["plain_ms"], res["bytes_ms"],
+        res["ops_ms"], ms_P1280=res["ms_P1280"],
+        **{f"launches_{phase}": n for phase, n in per_phase.items()})
+
+
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
                  bytes_ms, ops_ms, **extra):
     """One kernel's entry of the kernels line. No PyTorch call computes
@@ -2283,7 +2899,7 @@ def main() -> int:
 
     # ---- device + build: one nvcc per kernel source, all at once
     t0 = time.perf_counter()
-    build_libraries(fck.SOURCE, sk.SOURCE)
+    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE)
     build_s = time.perf_counter() - t0
     ptxas = {stem: [ln.strip() for ln in str(log["ptxas"]).splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -2316,12 +2932,21 @@ def main() -> int:
     run_colo(device)
     run_colo_quota(device)
     colo_launches = run_colo_colocated(device)
+    # ---- koordexplain: the default and serial paths with explain on,
+    # the ladder through no-explain, the koord-scheduler binary
+    explain_launches = {"scheduler_explain": run_scheduler_explain(device),
+                        "ladder_explain": run_ladder_explain(device),
+                        "koord_scheduler": run_koord_scheduler(device)}
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
-        launches_sim=sim_launches["full_chain_replay"])
+        launches_sim=sim_launches["full_chain_replay"],
+        launches_explain={k: v["full_chain_replay"]
+                          for k, v in explain_launches.items()})
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
-                                 + sim_launches["full_chain_replay"])
+                                 + sim_launches["full_chain_replay"]
+                                 + sum(v["full_chain_replay"]
+                                       for v in explain_launches.values()))
 
     # ---- main path: BASELINE config 4 through the sidecar entry point
     n_nodes, n_pods = 5000, 10000
@@ -2369,12 +2994,16 @@ def main() -> int:
     prod = args.score_according_prod_usage
     kernel_ms = time_cuda(lambda: fck.full_chain_round(dev_fc, wi, prod, bi),
                           REPS)
-    plain = build_full_chain_step(args, ng, ngroups, active)
+    # the plain round as its explain "full" variant: one ~50 s run gives
+    # the bindings kernel 1 is held to and the counts and terms the
+    # explain kernels are held to
+    plain = build_full_chain_step(args, ng, ngroups, active, explain="full")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out_p = plain(dev_fc)
+    out_full = plain(dev_fc, n_nodes)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    out_p = out_full[:3]
     out_k = tuple(torch.from_numpy(x) for x in (chosen, requested,
                                                  quota_used))
     mism, err = compare("main", out_k, out_p, N)
@@ -2416,6 +3045,11 @@ def main() -> int:
           "kernel_ms": global_ms, "mismatches": g_mism,
           "max_abs_err": g_err})
 
+    # ---- koordexplain's two kernels at config 4, against the plain round
+    count_res, terms_res = run_explain_round(
+        dev_fc, args, ng, ngroups, active, n_nodes, out_full, plain_ms,
+        kernel_ms)
+
     # ---- mixed features, then prod mode, kernel against the plain round
     m_nodes, m_pods = 1000, 2000
     _c, mstate = mixed_cluster(7, m_nodes, m_pods)
@@ -2445,7 +3079,9 @@ def main() -> int:
                      + wave_launches["full_chain"]
                      + ladder_launches["full_chain"]
                      + sim_launches["full_chain"] + colocated_launches
-                     + colo_launches,
+                     + colo_launches
+                     + sum(la["full_chain"]
+                           for la in explain_launches.values()),
                      mism, err, kernel_ms,
                      plain_ms, bytes_ms, ops_ms, launches_sidecar=main_launches,
                      launches_scheduler=scheduler_launches,
@@ -2453,8 +3089,20 @@ def main() -> int:
                      launches_ladder=ladder_launches["full_chain"],
                      launches_sim=sim_launches["full_chain"],
                      launches_rebalance_colocated=colocated_launches,
-                     launches_colo_colocated=colo_launches),
-        la_kernel, replay_entry]})
+                     launches_colo_colocated=colo_launches,
+                     launches_explain={k: v["full_chain"] for k, v in
+                                       explain_launches.items()}),
+        la_kernel, replay_entry,
+        explain_entry(
+            "explain_counts", "explain_counts.cu",
+            "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"
+            " a jax.vmap in XLA, no TPU kernel)", "explain_counts",
+            explain_launches, count_res),
+        explain_entry(
+            "full_chain_terms", "full_chain.cu",
+            "koordinator_tpu/models/full_chain.py:549 (the explain=full "
+            "body of the XLA serial step, no TPU kernel)",
+            "full_chain_terms", explain_launches, terms_res)]})
     print(card, flush=True)
     # count: the cards this script drives
     emit({"ok": True, "device": {"platform": "gpu",

@@ -43,25 +43,39 @@
 // merge runs: the same Reserve code commits each pod, the owner re-picks
 // the NUMA zone under the replay state and writes it to `zones`, and no
 // pod waits on a barrier, since each block replays its own node slice.
+//
+// The terms instance (`kTerms`, koordexplain "full"; the JAX package
+// computes the same rows in the XLA body of its models/full_chain.py
+// build_full_chain_step and fused_waves.py pass 1, with no TPU kernel)
+// runs the same round and also writes, per pod, [la, numa, pref, best,
+// runner] (models/full_chain.EXPLAIN_TERMS): the winning node's three
+// plugin terms, its score and the best score over the other nodes (the
+// feasibility-masked score, -1 for a rejected node, at least -1). Only this
+// instance carries the runner-up through the warp, block and cluster merge
+// beside the lowest-index best; the owner thread of the winner writes the
+// row. A pod whose gang or quota verdict fails sees every node at -1 in the
+// plain round, so its row is node 0's terms with best and runner -1. Its
+// `chosen`, requested and quota are the round's, bit for bit.
+//
+// The Filter predicates live in filter_chain.cuh, shared with the
+// koordexplain stage-count pass (explain_counts.cu).
 
 #include <cooperative_groups.h>
 
-#include "kernel_common.cuh"
+#include "filter_chain.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxWeights = 16;
-constexpr int kPolicyNone = 0;        // ops/numa.py POLICY_NONE
-constexpr int kPolicySingleNuma = 1;  // ops/numa.py POLICY_SINGLE_NUMA_NODE
-// pod record words after the common header (ops/full_chain_kernel.py)
-constexpr int kRecCores = 2;   // f32
-constexpr int kRecTaint = 3;   // f32 admission bitmask (exact integer)
-constexpr int kRecQuota = 4;   // i32, -1 none
-constexpr int kRecPref = 5;    // i32
-constexpr int kRecPpref = 6;   // i32
-constexpr int kRecImg = 7;     // i32
+constexpr int kNumTerms = 5;  // models/full_chain.EXPLAIN_TERMS
+using koord::kRecCores;
+using koord::kRecImg;
+using koord::kRecPpref;
+using koord::kRecPref;
+using koord::kRecQuota;
+using koord::kRecTaint;
 
 }  // namespace
 
@@ -104,6 +118,8 @@ struct FullChainParams {
                              // preset; replay: input, the node per pod)
   int32_t* zones;            // [P] replay: the re-picked zone (output)
   uint8_t* aff_exists_out;   // [T] the exists flags after the last pod
+  float* terms;              // [P, 5] the terms instance's rows (output,
+                             // zero preset); null selects the plain round
   // ---- sizes and static switches
   int P, N, R, K, G, D, T, S, S2, ppref_stride, PT, SI, VG;
   int prod_mode, bal_c, bal_m, n_widx;
@@ -119,6 +135,7 @@ struct FullChainParams {
 // estimate_smem_bytes mirrors it).
 struct FcSmem {
   size_t bar, ring, part_warp, part_blk, part_red, warp_red, admit, exists;
+  size_t part_wrun, part_brun;  // the terms instance's runner-up partials
   size_t quota, runtime, anc, node, flags, total;
 };
 
@@ -141,6 +158,8 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
   L.warp_red = koord::smem_take(at, (size_t)(nw + 1) * Q * 4);
   L.admit = koord::smem_take(at, 2 * 4);
   L.exists = koord::smem_take(at, (size_t)(p.T > 0 ? p.T : 1) * 4);
+  L.part_wrun = koord::smem_take(at, 2 * (size_t)nw * 4);
+  L.part_brun = koord::smem_take(at, 2 * (size_t)p.cluster_size * 8);
   if (p.state_in_smem) {
     L.quota = koord::smem_take(at, (size_t)p.G * p.R * 4);
     L.runtime = koord::smem_take(at, (size_t)p.G * p.R * 4);
@@ -153,38 +172,12 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
   return L;
 }
 
-// NUMA admission of local node j: (ok, zone) as ops/numa.numa_admit_row;
-// zone is -1 unless the node's policy pins a single zone.
-__device__ __forceinline__ bool numa_admit(const koord::View& nf, int j,
-                                           int R, int K, const float* rq,
-                                           int pol, int& zone) {
-  int first = -1;
-  for (int k = K - 1; k >= 0; --k) {  // every zone's loads issue at once
-    bool fits = true;
-    for (int r = 0; r < R; ++r) {
-      const float q = rq[r];
-      fits &= (q <= 0.0f) | (q <= nf(j, k * R + r));
-    }
-    if (fits) first = k;  // lowest fitting zone wins
-  }
-  const bool single = pol == kPolicySingleNuma;
-  zone = (single && first >= 0) ? first : -1;
-  if (pol == kPolicyNone) return true;
-  if (single) return first >= 0;
-  bool fits_total = true;
-  for (int r = 0; r < R; ++r) {
-    float total = nf(j, r);  // ascending zone order, as ops/numa.zone_total
-    for (int k = 1; k < K; ++k) total = __fadd_rn(total, nf(j, k * R + r));
-    const float q = rq[r];
-    fits_total &= (q <= 0.0f) | (q <= total);
-  }
-  return fits_total;
-}
-
 // kR, kK, kW > 0 fix R, K and the weighted-axis count at compile time, so
 // the node loop's short loops unroll completely; 0 reads them from `p`.
-// kReplay selects the kept-only replay (the records are the kept pods').
-template <bool kStateInSmem, int kR, int kK, int kW, bool kReplay>
+// kReplay selects the kept-only replay (the records are the kept pods'),
+// kTerms the round that also writes the koordexplain terms rows.
+template <bool kStateInSmem, int kR, int kK, int kW, bool kReplay,
+          bool kTerms>
 __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     full_chain_kernel(const FullChainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -199,6 +192,8 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   float* warp_red = reinterpret_cast<float*>(smem + L.warp_red);  // [NW+1][Q]
   int* s_admit = reinterpret_cast<int*>(smem + L.admit);          // [2]
   int* aff_exists = reinterpret_cast<int*>(smem + L.exists);      // [T]
+  float* part_wrun = reinterpret_cast<float*>(smem + L.part_wrun);  // [2][NW]
+  int2* part_brun = reinterpret_cast<int2*>(smem + L.part_brun);    // [2][C]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int NT = p.node_threads, NW = NT >> 5;
@@ -287,6 +282,13 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   for (int r = 0; r < R; ++r) wsum = __fadd_rn(wsum, p.weights[r]);
   const float wdiv = fmaxf(wsum, 1.0f);
   const bool ppref_on = T > 0 && p.S2 > 0;
+  const koord::RecLayout lay{p.off_fit,  p.off_req,  p.off_est,
+                             p.off_aff,  p.off_anti, p.off_match,
+                             p.off_skew, p.off_ports, p.off_vol};
+  const koord::FilterNodes gn{p.cpc, p.policy, p.taint_group, p.vol_group,
+                              p.aff_dom};
+  const koord::FilterState fs{req_v, alloc_v, bind_v, numa_v,
+                              cnt_v, anti_v,  port_v, vol_v};
   // every block has started and initialised its shared memory
   cluster.sync();
 
@@ -323,7 +325,8 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       if (needs_numa) {
         // Only SingleNUMANode pins a zone; every other policy fills the
         // lowest zones first (ops/numa.numa_spread_fill)
-        numa_admit(numa_v, jb, R, K, rq, __ldg(p.policy + best_n), zone);
+        koord::numa_admit(numa_v, jb, R, K, rq, __ldg(p.policy + best_n),
+                          zone);
         if (zone >= 0) {
           for (int r = 0; r < R; ++r)
             numa_v(jb, zone * R + r) =
@@ -392,24 +395,15 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     koord::mbar_wait(&bar[st], (v / S) & 1);
     KOORD_STAMP(v, 0)  // the record is in
     const uint32_t* rec = ring + st * stride;
-    const uint32_t pf = rec[koord::kRecFlags];
-    const bool is_prod = pf & koord::kPodProd, is_ds = pf & koord::kPodDs;
-    const bool needs_numa = pf & koord::kPodNuma;
-    const bool needs_bind = pf & koord::kPodBind;
-    const bool full_pcpus = pf & koord::kPodFullPcpus;
-    const float cores = __uint_as_float(rec[kRecCores]);
-    const int tmask = (int)__uint_as_float(rec[kRecTaint]);
+    const koord::FilterPod pod = koord::filter_pod(rec, lay);
+    const uint32_t pf = pod.flags;
+    const bool is_prod = pod.is_prod;
     const int qid = (int)rec[kRecQuota], pid = (int)rec[kRecPref];
     const int sid2 = (int)rec[kRecPpref], iid = (int)rec[kRecImg];
-    const float* fit_req = reinterpret_cast<const float*>(rec + p.off_fit);
-    const float* rq = reinterpret_cast<const float*>(rec + p.off_req);
+    const float* fit_req = pod.fit_req;
+    const float* rq = pod.rq;
     const float* est = reinterpret_cast<const float*>(rec + p.off_est);
-    const uint32_t* aff_req = rec + p.off_aff;
-    const uint32_t* anti_req = rec + p.off_anti;
-    const uint32_t* match = rec + p.off_match;
-    const float* skew = reinterpret_cast<const float*>(rec + p.off_skew);
-    const uint32_t* wants = rec + p.off_ports;
-    const float* vneed = reinterpret_cast<const float*>(rec + p.off_vol);
+    const float* skew = pod.skew;
 
     bool any_spread = false;
     for (int t = 0; t < T; ++t) any_spread |= skew[t] > 0.0f;
@@ -446,16 +440,10 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       float* part = part_red + (nred & 1) * Q * NW;
       if (!ctrl) {
         for (int t = 0; t < T; ++t) {
-          float m = CUDART_INF_F;
-          if (skew[t] > 0.0f) {
-            for (int j = tid; j < nloc; j += NT) {
-              const int n = lo + j;
-              const bool taint_ok =
-                  ((tmask >> __ldg(p.taint_group + n)) & 1) == 1;
-              if (__ldg(p.aff_dom + (size_t)n * T + t) >= 0.0f && taint_ok)
-                m = fminf(m, cnt_v(j, t));
-            }
-          }
+          float m = skew[t] > 0.0f
+                        ? koord::spread_min_part(pod, t, lo, tid, nloc, NT,
+                                                 T, cnt_v, gn)
+                        : CUDART_INF_F;
           m = koord::warp_min(m);
           if (lane == 0) part[t * NW + warp] = m;
         }
@@ -488,63 +476,22 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     }
 
     // ---- Filter + Score over this thread's nodes, lowest-index best.
-    // Predicates combine with non-short-circuit & so that a node's loads
-    // issue together.
     float best_s = -CUDART_INF_F;
     int best_n = INT32_MAX;
+    // the terms instance: the best score over this thread's other nodes,
+    // the terms of its best node, and node 0's terms (a pod refused at
+    // PreFilter takes node 0's row)
+    float run_s = -CUDART_INF_F;
+    float my_la = 0.0f, my_nu = 0.0f, my_pref = 0.0f;
+    float z_la = 0.0f, z_nu = 0.0f, z_pref = 0.0f;
+    int my_n = INT32_MAX;
     if (!ctrl) {
       const bool use_prod = p.prod_mode && is_prod;
       for (int j = tid; j < nloc; j += NT) {
         const int n = lo + j;
         const unsigned nf = nflags[j];
-        bool ok = (nf & koord::kNodeOk) != 0;
-        // Fit
-        for (int r = 0; r < R; ++r) {
-          const float need = fit_req[r];
-          ok &= (need <= 0.0f) |
-                (__fadd_rn(req_v(j, r), need) <= alloc_v(j, r));
-        }
-        // LoadAware thresholds (daemonsets bypass)
-        ok &= is_ds | ((nf & (is_prod ? koord::kNodeRejectPr
-                                      : koord::kNodeRejectNp)) == 0);
-        // cpuset capacity + SMT alignment. fmodf truncates where
-        // torch.remainder floors; they differ only for negative operands,
-        // and cores and cpus-per-core are both positive here.
-        if (needs_bind) {
-          const float cpc = fmaxf(__ldg(p.cpc + n), 1.0f);
-          const bool smt_ok =
-              !full_pcpus | (fabsf(fmodf(cores, cpc)) < 0.5f);
-          ok &= ((nf & koord::kNodeHasTopo) != 0) & smt_ok &
-                (cores <= bind_v(j, 0));
-        }
-        // NUMA topology admit
-        if (needs_numa) {
-          int zone;
-          ok &= numa_admit(numa_v, j, R, K, rq, __ldg(p.policy + n), zone);
-        }
-        // TaintToleration: bit test of the admission mask
-        ok &= ((tmask >> __ldg(p.taint_group + n)) & 1) == 1;
-        // InterPodAffinity, symmetric anti-affinity, PodTopologySpread
-        for (int t = 0; t < T; ++t) {
-          const float cnt = cnt_v(j, t);
-          const bool dom_valid = __ldg(p.aff_dom + (size_t)n * T + t) >= 0.0f;
-          const bool m = koord::bit_at(match, t);
-          ok &= !koord::bit_at(anti_req, t) | (cnt <= 0.0f);
-          ok &= !m | (anti_v(j, t) <= 0.0f);
-          const bool boot = m & !aff_exists[t];
-          ok &= !koord::bit_at(aff_req, t) | (dom_valid & (cnt > 0.0f)) | boot;
-          if (skew[t] > 0.0f) {
-            const float lhs =
-                __fsub_rn(__fadd_rn(cnt, m ? 1.0f : 0.0f), wred[t]);
-            ok &= dom_valid & (lhs <= skew[t]);
-          }
-        }
-        // NodePorts
-        for (int s = 0; s < p.PT; ++s)
-          ok &= !koord::bit_at(wants, s) | (port_v(j, s) <= 0.0f);
-        // NodeVolumeLimits per volume group
-        const float vn = vneed[__ldg(p.vol_group + n)];
-        ok &= (vn <= 0.0f) | (vol_v(j, 0) >= vn);
+        const bool ok = koord::filter_stages(pod, j, n, nf, R, K, T, p.PT,
+                                             fs, gn, aff_exists, wred) == 0u;
 
         // LoadAware least-allocated over est + term + in-round delta
         float acc = 0.0f, acc2 = 0.0f;
@@ -596,13 +543,31 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
           pref = __fadd_rn(pref, __ldg(p.img_scores + (size_t)n * p.SI + iid));
         const float score = ok ? __fadd_rn(__fadd_rn(la, nu), pref) : -1.0f;
         // n ascends, so a strict compare keeps the lowest index on ties
-        if (score > best_s) {
+        if constexpr (kTerms) {
+          if (score > best_s) {
+            run_s = fmaxf(run_s, best_s);
+            best_s = score;
+            best_n = n;
+            my_la = la, my_nu = nu, my_pref = pref;
+          } else {
+            run_s = fmaxf(run_s, score);
+          }
+          if (n == 0) z_la = la, z_nu = nu, z_pref = pref;
+        } else if (score > best_s) {
           best_s = score;
           best_n = n;
         }
       }
       KOORD_STAMP(v, 1)  // node loop done
+      my_n = best_n;
+      const float my_s = best_s;
       koord::warp_argmax(best_s, best_n);
+      if constexpr (kTerms) {
+        // the warp's runner-up: the winner lane's own runner-up, every
+        // other lane's best
+        run_s = koord::warp_max(my_n == best_n ? run_s : my_s);
+        if (lane == 0) part_wrun[(v & 1) * NW + warp] = run_s;
+      }
       if (lane == 0)
         part_warp[(v & 1) * NW + warp] = koord::pack_best(best_s, best_n);
       koord::named_arrive(NT + 32);
@@ -611,10 +576,24 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // ---- the block's best, pushed into slot [rank] of every block
       koord::named_wait(NT + 32);
       koord::warp_argmax_of(part_warp + (v & 1) * NW, NW, best_s, best_n);
-      if (lane == 0) koord::mbar_expect(&merge_bar[v & 1], C * 8);
-      if (lane < C)
+      float blk_run = -CUDART_INF_F;
+      if constexpr (kTerms) {
+        const int2 wb = lane < NW
+                            ? part_warp[(v & 1) * NW + lane]
+                            : koord::pack_best(-CUDART_INF_F, INT32_MAX);
+        const float wr =
+            lane < NW ? part_wrun[(v & 1) * NW + lane] : -CUDART_INF_F;
+        blk_run = koord::warp_max(wb.y == best_n ? wr : __int_as_float(wb.x));
+      }
+      if (lane == 0)
+        koord::mbar_expect(&merge_bar[v & 1], C * 8 * (kTerms ? 2 : 1));
+      if (lane < C) {
         koord::push_pair(part_blk + (v & 1) * C + rank, &merge_bar[v & 1],
                          lane, koord::pack_best(best_s, best_n));
+        if constexpr (kTerms)
+          koord::push_pair(part_brun + (v & 1) * C + rank, &merge_bar[v & 1],
+                           lane, make_int2(__float_as_int(blk_run), 0));
+      }
       // Every node warp has finished this pod's node loop, so none still
       // reads pod v - 1's stage: refill it with pod v + S - 1.
       const int nxt = v + S - 1;
@@ -629,10 +608,32 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     koord::mbar_wait(&merge_bar[v & 1], (v >> 1) & 1);
     KOORD_STAMP(v, 3)  // every block's best is in
     koord::warp_argmax_of(part_blk + (v & 1) * C, C, best_s, best_n);
-    const bool found =
-        s_admit[v & 1] && best_s >= 0.0f && (pf & koord::kPodValid);
+    const bool admit = s_admit[v & 1];
+    const bool found = admit && best_s >= 0.0f && (pf & koord::kPodValid);
     if (ctrl && lane == 0 && rank == 0)
       p.chosen[rec[koord::kRecPod]] = found ? best_n : -1;
+    if constexpr (kTerms) {
+      const int2 bb = lane < C ? part_blk[(v & 1) * C + lane]
+                               : koord::pack_best(-CUDART_INF_F, INT32_MAX);
+      const float br =
+          lane < C ? __int_as_float(part_brun[(v & 1) * C + lane].x)
+                   : -CUDART_INF_F;
+      const float runner =
+          koord::warp_max(bb.y == best_n ? br : __int_as_float(bb.x));
+      // a pod refused at PreFilter: every node scores -1 in the plain
+      // round, so the row is node 0's, with best and runner-up -1
+      const int tn = admit ? best_n : 0;
+      const int jt = tn - lo;
+      if (!ctrl && jt >= 0 && jt < nloc && jt % NT == tid) {
+        const bool mine = my_n == tn;
+        float* row = p.terms + (size_t)rec[koord::kRecPod] * kNumTerms;
+        row[0] = mine ? my_la : z_la;
+        row[1] = mine ? my_nu : z_nu;
+        row[2] = mine ? my_pref : z_pref;
+        row[3] = admit ? best_s : -1.0f;
+        row[4] = admit ? fmaxf(runner, -1.0f) : -1.0f;
+      }
+    }
     KOORD_STAMP(v, 4)  // merged
     if (!found) continue;
 
@@ -671,7 +672,7 @@ bool common_instance(const FullChainParams& p) {
   return p.R == 3 && p.K == 2 && p.n_widx == (p.replay ? 3 : 2);
 }
 
-template <bool kReplay>
+template <bool kReplay, bool kTerms>
 int launch_mode(const FullChainParams& p, void* stream) {
   const size_t smem = fc_smem_layout(p).total;
   const int threads = p.node_threads + 32, C = p.cluster_size;
@@ -679,17 +680,18 @@ int launch_mode(const FullChainParams& p, void* stream) {
   if (p.state_in_smem)
     return common_instance(p)
                ? koord::launch_cluster(
-                     full_chain_kernel<true, 3, 2, kCommonW, kReplay>, p, C,
-                     threads, smem, stream)
+                     full_chain_kernel<true, 3, 2, kCommonW, kReplay, kTerms>,
+                     p, C, threads, smem, stream)
                : koord::launch_cluster(
-                     full_chain_kernel<true, 0, 0, 0, kReplay>, p, C,
+                     full_chain_kernel<true, 0, 0, 0, kReplay, kTerms>, p, C,
                      threads, smem, stream);
   return common_instance(p)
              ? koord::launch_cluster(
-                   full_chain_kernel<false, 3, 2, kCommonW, kReplay>, p, C,
-                   threads, smem, stream)
-             : koord::launch_cluster(full_chain_kernel<false, 0, 0, 0, kReplay>,
-                                     p, C, threads, smem, stream);
+                   full_chain_kernel<false, 3, 2, kCommonW, kReplay, kTerms>,
+                   p, C, threads, smem, stream)
+             : koord::launch_cluster(
+                   full_chain_kernel<false, 0, 0, 0, kReplay, kTerms>, p, C,
+                   threads, smem, stream);
 }
 
 }  // namespace
@@ -709,11 +711,13 @@ int full_chain_instance(const FullChainParams* params) {
   return common_instance(*params);
 }
 
-// Launches one round (or, with `replay`, one kept-only replay) on `stream`
-// as one cluster; returns a cudaError_t (0 = launched).
+// Launches one round (with `terms` set, the terms instance; with `replay`,
+// one kept-only replay) on `stream` as one cluster; returns a cudaError_t
+// (0 = launched).
 int full_chain_launch(const FullChainParams* params, void* stream) {
-  return params->replay ? launch_mode<true>(*params, stream)
-                        : launch_mode<false>(*params, stream);
+  if (params->replay) return launch_mode<true, false>(*params, stream);
+  return params->terms != nullptr ? launch_mode<false, true>(*params, stream)
+                                  : launch_mode<false, false>(*params, stream);
 }
 
 }  // extern "C"

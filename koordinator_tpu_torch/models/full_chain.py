@@ -20,11 +20,18 @@ tensors, the same operations in the same order as the JAX package's XLA step,
 so bindings are bit-identical. `build_best_full_chain_step` picks the CUDA
 kernel (ops/full_chain_kernel.py) for tensors on the card and the plain
 version for tensors on the CPU.
+
+koordexplain attribution (``explain="counts"|"full"``) adds outputs only:
+the per-stage reject counts of every pod at the cycle-start state
+(``explain_stage_counts``; on the card the CUDA pass of
+ops/explain_kernel.py) and, at "full", each pod's decision-time score terms
+(on the card the full-chain kernel's terms instance). Bindings stay
+byte-identical to explain off.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -40,18 +47,23 @@ from koordinator_tpu_torch.ops.gang import gang_permit_mask
 from koordinator_tpu_torch.ops.kernel_common import SyncClock, safe_reciprocal
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.ops.numa import (
+    POLICY_NONE,
+    POLICY_SINGLE_NUMA_NODE,
     cpuset_filter_row,
     numa_admit_row,
     numa_score_row,
     numa_spread_fill,
+    zone_total,
 )
 from koordinator_tpu_torch.ops.quota import quota_admit_row, quota_used_add_row
 
-# koordexplain: the per-filter-stage reject taxonomy of the unschedulable
-# messages (scheduler/diagnose.py). ORDER IS LOAD-BEARING: it is the
-# insertion order of diagnose.py's reasons dict, and format_stage_counts
+# koordexplain: the per-filter-stage reject taxonomy shared by the
+# attribution pass (explain_stage_counts and its CUDA pass,
+# csrc/explain_counts.cu), the host-numpy oracle (scheduler/diagnose.py
+# host_stage_counts) and the /explain surfaces. ORDER IS LOAD-BEARING: it is
+# the insertion order of diagnose.py's reasons dict, and format_stage_counts
 # relies on a stable sort over it to reproduce the message tie-break
-# byte-for-byte. The kernel-emitted counts come with a later slice.
+# byte-for-byte; csrc/filter_chain.cuh's stage bits follow it too.
 EXPLAIN_STAGES = (
     "node not schedulable",
     "taint/selector/volume-topology mismatch",
@@ -82,6 +94,29 @@ EXPLAIN_STAGE_KEYS = (
 EXPLAIN_STAGE_GANG = len(EXPLAIN_STAGES)
 EXPLAIN_STAGE_QUOTA = len(EXPLAIN_STAGES) + 1
 NUM_EXPLAIN_STAGES = len(EXPLAIN_STAGES) + 2
+
+# per-plugin score-term slots of ExplainOut.terms rows (the "full" level)
+EXPLAIN_TERMS = ("LoadAware", "NodeNUMAResource", "Preferred",
+                 "best_score", "runner_up")
+
+
+class ExplainOut(NamedTuple):
+    """Attribution readback riding the scheduling dispatch.
+
+    ``stage_counts``: [P, NUM_EXPLAIN_STAGES] uint32 per-pod rejected-node
+    counts over the REAL (unpadded) nodes, evaluated at cycle-start state —
+    the same state scheduler/diagnose.py reads — plus the two pod-level
+    PreFilter verdict slots (0/1). The fused wave step emits [K, P, ...],
+    one row per wave at wave-start state. ``terms``: [P, len(EXPLAIN_TERMS)]
+    f32 decision-time score attribution (None below the "full" level):
+    the winning node's LoadAware, NodeNUMAResource (with balanced
+    allocation) and preferred (node affinity, pod affinity, image
+    locality) terms, the best score and the runner-up score (-1 when no
+    feasible runner-up). Rows of pods outside ``pod_valid`` are 0: no
+    round evaluates them."""
+
+    stage_counts: torch.Tensor
+    terms: Optional[torch.Tensor]
 
 
 class FullChainInputs(NamedTuple):
@@ -163,17 +198,26 @@ def pod_independent_rows(fc: FullChainInputs):
 
 
 def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
-                       bal_idx=(-1, -1)):
+                       bal_idx=(-1, -1), explain_terms: bool = False):
     """The per-pod PreFilter + Filter + Score + select math of the plain
     round. Returns evaluate(i, *state) -> (found, best, zone_at_best), all
     0-d tensors: nothing is read back to the host, so on the card the loop
-    queues its work without a sync per pod."""
+    queues its work without a sync per pod.
+
+    With ``explain_terms`` (explain="full") evaluate appends the pod's
+    attribution row, [EXPLAIN_TERMS] f32: the winning node's la_score,
+    numa_score and pref terms, the best score and the runner-up
+    max(max over n != best of the masked score, -1). With no feasible node
+    the argmax still names the first index at the maximum (node 0) and the
+    row holds that node's terms, as the JAX package's does."""
     inputs = fc.base
     reject_np, reject_prod, gang_pod_ok = pod_independent_rows(fc)
     T = fc.aff_dom.shape[1]
     PT = fc.port_used.shape[1]
     node_vol_group = fc.node_vol_group.long()
     dom_valid = fc.aff_dom >= 0                                  # [N, T]
+    node_ids = torch.arange(inputs.allocatable.shape[0],
+                            device=inputs.allocatable.device)
     if bal_idx[0] >= 0:
         bal_inv_c, bal_inv_m = (
             safe_reciprocal(inputs.allocatable[:, axis]) for axis in bal_idx)
@@ -285,6 +329,12 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
         # tie-break, the binding contract)
         best = torch.argmax(score)
         found = (score[best] >= 0.0) & inputs.pod_valid[i]
+        if explain_terms:
+            runner = torch.clamp_min(torch.where(
+                node_ids == best, float("-inf"), score).max(), -1.0)
+            terms = torch.stack([la_score[best], numa_score[best],
+                                 pref[best], score[best], runner])
+            return found, best, zone[best], terms
         return found, best, zone[best]
 
     return evaluate
@@ -342,17 +392,21 @@ def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
             aff_count, anti_cover, aff_exists, port_used, vol_free)
 
 
-def plain_round(fc: FullChainInputs, weight_idx, prod_mode: bool, bal_idx):
+def plain_round(fc: FullChainInputs, weight_idx, prod_mode: bool, bal_idx,
+                terms: bool = False):
     """The serial round's loop in plain torch: each valid pod, in queue
     order, is evaluated at the running state and commits its tentative
     binding. Returns (chosen[P] int32 before Permit, the final 11-tuple
-    state of commit_pod_state). Pods outside ``pod_valid`` are skipped:
-    their evaluation finds nothing and their commit changes nothing."""
+    state of commit_pod_state), and with ``terms`` a third item, the
+    [P, len(EXPLAIN_TERMS)] f32 attribution rows (0 outside pod_valid).
+    Pods outside ``pod_valid`` are skipped: their evaluation finds nothing
+    and their commit changes nothing."""
     inputs = fc.base
     P, R = inputs.fit_requests.shape
     N = inputs.allocatable.shape[0]
     dev = inputs.allocatable.device
-    evaluate = make_pod_evaluator(fc, weight_idx, prod_mode, bal_idx)
+    evaluate = make_pod_evaluator(fc, weight_idx, prod_mode, bal_idx,
+                                  explain_terms=terms)
     state = (
         inputs.requested.clone(),
         torch.zeros((N, R), dtype=torch.float32, device=dev),
@@ -367,30 +421,183 @@ def plain_round(fc: FullChainInputs, weight_idx, prod_mode: bool, bal_idx):
         fc.vol_free.clone(),
     )
     chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    rows = (torch.zeros((P, len(EXPLAIN_TERMS)), dtype=torch.float32,
+                        device=dev) if terms else None)
     for i in torch.nonzero(inputs.pod_valid).flatten().tolist():
-        found, best, zone_at_best = evaluate(i, *state)
+        out = evaluate(i, *state)
+        found, best, zone_at_best = out[:3]
+        if terms:
+            rows[i] = out[3]
         state = commit_pod_state(fc, prod_mode, state, i, found, best,
                                  zone_at_best)
         chosen[i] = torch.where(found, best.to(torch.int32), -1)
+    if terms:
+        return chosen, state, rows
     return chosen, state
 
 
+def _count_chunk(n_nodes: int, width: int) -> int:
+    """Pods per chunk of the plain counts: about 4M elements of the
+    widest [pods, N, width] intermediate."""
+    return max(1, (1 << 22) // max(1, n_nodes * max(1, width)))
+
+
+def explain_stage_counts(fc: FullChainInputs, filter_state,
+                         n_real) -> torch.Tensor:
+    """[P, NUM_EXPLAIN_STAGES] uint32: per-pod rejected-node counts at the
+    frozen ``filter_state`` — the (requested, numa_free, bind_free,
+    quota_used, aff_count, anti_cover, aff_exists, port_used, vol_free)
+    9-tuple — over the first ``n_real`` (unpadded) nodes, plus the two
+    pod-level PreFilter verdict flags (gang, quota), for every pod row.
+
+    The plain version of the CUDA pass (ops/explain_kernel.py): the
+    round's Filter predicates of make_pod_evaluator, vectorised over the
+    nodes and chunked over the pods, counted per stage in EXPLAIN_STAGES
+    order. The spread filter's minimum runs over every node, padded ones
+    included, as the round's does; only the counts stop at ``n_real``."""
+    (requested, numa_free, bind_free, quota_used, aff_count, anti_cover,
+     aff_exists, port_used, vol_free) = filter_state
+    inputs = fc.base
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    K = numa_free.shape[1]
+    T = fc.aff_dom.shape[1]
+    PT = port_used.shape[1]
+    dev = inputs.allocatable.device
+    reject_np, reject_prod, gang_pod_ok = pod_independent_rows(fc)
+    real = torch.arange(N, device=dev) < int(n_real)
+    dom_valid = fc.aff_dom >= 0                                   # [N, T]
+    total_free = zone_total(numa_free)                            # [N, R]
+    single = fc.numa_policy == POLICY_SINGLE_NUMA_NODE            # [N]
+    pol_none = fc.numa_policy == POLICY_NONE
+    cpc = torch.clamp_min(fc.cpus_per_core, 1.0)
+    aff_exists = aff_exists.to(torch.bool)
+    vol_group = fc.node_vol_group.long()
+    chain_all = fc.quota_ancestors[torch.clamp_min(fc.quota_id, 0).long()]
+    D = fc.quota_ancestors.shape[1]
+    step = _count_chunk(N, max(R, K * R))
+    out = torch.zeros((P, NUM_EXPLAIN_STAGES), dtype=torch.int64,
+                      device=dev)
+    for c0 in range(0, P, step):
+        sl = slice(c0, min(c0 + step, P))
+        need = inputs.fit_requests[sl][:, None, :]                # [C, 1, R]
+        req = fc.requests[sl]                                     # [C, R]
+        fit = ((need <= 0)
+               | (requested[None] + need <= inputs.allocatable[None])
+               ).all(dim=-1)
+        is_prod = inputs.is_prod[sl][:, None]
+        la_ok = inputs.is_daemonset[sl][:, None] | ~torch.where(
+            is_prod, reject_prod[None], reject_np[None])
+        cores = fc.cores_needed[sl][:, None]
+        rem = torch.remainder(cores, cpc[None])
+        smt_ok = ~fc.full_pcpus[sl][:, None] | (rem.abs() < 0.5)
+        cpuset_ok = (fc.has_topology[None] & smt_ok
+                     & (cores <= bind_free[None])) | ~fc.needs_bind[sl][:, None]
+        rq = req[:, None, None, :]
+        fits_zone = ((rq <= 0) | (rq <= numa_free[None])).all(dim=-1)
+        fits_total = ((req[:, None, :] <= 0)
+                      | (req[:, None, :] <= total_free[None])).all(dim=-1)
+        numa_ok = (torch.where(single[None], fits_zone.any(dim=-1),
+                               fits_total)
+                   | pol_none[None] | ~fc.needs_numa[sl][:, None])
+        taint_ok = ((fc.pod_taint_mask[sl].to(torch.int32)[:, None]
+                     >> fc.node_taint_group[None]) & 1) == 1
+        affinity_ok = torch.ones_like(taint_ok)
+        for t in range(T):
+            count_t = aff_count[:, t][None]
+            dom_t = dom_valid[:, t][None]
+            match_t = fc.pod_aff_match[sl, t].to(torch.bool)[:, None]
+            anti_ok = ~fc.pod_anti_req[sl, t].to(torch.bool)[:, None] | (
+                count_t <= 0)
+            sym_ok = ~match_t | (anti_cover[:, t][None] <= 0)
+            bootstrap = match_t & ~aff_exists[t]
+            aff_ok = (~fc.pod_aff_req[sl, t].to(torch.bool)[:, None]
+                      | (dom_t & (count_t > 0)) | bootstrap)
+            skew = fc.pod_spread_skew[sl, t][:, None]
+            self_match = torch.where(match_t, 1.0, 0.0)
+            min_count = torch.where(dom_t & taint_ok, count_t,
+                                    float("inf")).min(dim=1, keepdim=True)[0]
+            spread_ok = (skew <= 0) | (
+                dom_t & (count_t + self_match - min_count <= skew))
+            affinity_ok = affinity_ok & anti_ok & sym_ok & aff_ok & spread_ok
+        ports_ok = torch.ones_like(taint_ok)
+        for s_ in range(PT):
+            ports_ok = ports_ok & (
+                ~fc.pod_port_wants[sl, s_].to(torch.bool)[:, None]
+                | (port_used[:, s_] <= 0)[None])
+        vn = fc.vol_needed[sl][:, vol_group]                      # [C, N]
+        vol_ok = (vn <= 0) | (vol_free[None] >= vn)
+        quota_ok = torch.ones(req.shape[0], dtype=torch.bool, device=dev)
+        chain = chain_all[sl]
+        for d in range(D):
+            g = chain[:, d]
+            gg = torch.clamp_min(g, 0).long()
+            qfit = ((req <= 0) | (quota_used[gg] + req
+                                  <= fc.quota_runtime[gg])).all(dim=-1)
+            quota_ok = quota_ok & ((g < 0) | qfit)
+        quota_ok = quota_ok | (fc.quota_id[sl] < 0)
+        bads = (~inputs.node_ok[None].expand_as(taint_ok), ~taint_ok, ~fit,
+                ~la_ok, ~ports_ok, ~vol_ok, ~cpuset_ok, ~numa_ok,
+                ~affinity_ok)
+        for k, bad in enumerate(bads):
+            out[sl, k] = (bad & real[None]).sum(dim=1)
+        out[sl, EXPLAIN_STAGE_GANG] = (~gang_pod_ok[sl]).to(torch.int64)
+        out[sl, EXPLAIN_STAGE_QUOTA] = (~quota_ok).to(torch.int64)
+    return out.to(torch.uint32)
+
+
+def cycle_start_state(fc: FullChainInputs):
+    """The 9-tuple explain_stage_counts reads, at the inputs' own state:
+    the state a serial cycle's packed batch holds before its round."""
+    return (fc.base.requested, fc.numa_free, fc.bind_free, fc.quota_used,
+            fc.aff_count, fc.anti_cover, fc.aff_exists.to(torch.bool),
+            fc.port_used, fc.vol_free)
+
+
+def _check_explain(explain) -> None:
+    if explain not in (None, "counts", "full"):
+        raise ValueError(
+            f"explain must be None, 'counts' or 'full'; got {explain!r}")
+
+
 def build_full_chain_step(args: LoadAwareArgs, num_gangs: int,
-                          num_groups: int, active_axes=None):
+                          num_groups: int, active_axes=None, explain=None):
     """The plain round: FullChainInputs (torch) -> (chosen[P] int32,
     requested[N, R], quota_used[G, R]) on the inputs' device.
 
     num_gangs/num_groups size the Permit segment sums. active_axes: when the
     inputs were sliced to the active resource axes
     (snapshot.reduce_to_active_axes), the original axis ids, so the weight
-    and balanced-allocation axes map correctly."""
+    and balanced-allocation axes map correctly.
+
+    explain: None (the plain step above), "counts" or "full". An explain
+    step takes an extra ``n_real`` (the real node count: padding must not
+    inflate counts) and returns a 4th output, ExplainOut: the stage counts
+    at CYCLE-START state (the inputs' own state, after Permit as the JAX
+    package orders it) and, at "full", the terms rows. The decisions are
+    untouched."""
+    _check_explain(explain)
     weight_idx = resolve_weight_idx(args, active_axes)
     bal_idx = resolve_balance_idx(active_axes)
     prod_mode = args.score_according_prod_usage
+    full = explain == "full"
 
-    def step(fc: FullChainInputs):
-        chosen, state = plain_round(fc, weight_idx, prod_mode, bal_idx)
-        return permit(fc, chosen, num_gangs, num_groups), state[0], state[5]
+    def run(fc: FullChainInputs, n_real):
+        out = plain_round(fc, weight_idx, prod_mode, bal_idx, terms=full)
+        chosen, state = out[0], out[1]
+        chosen = permit(fc, chosen, num_gangs, num_groups)
+        if explain is None:
+            return chosen, state[0], state[5]
+        counts = explain_stage_counts(fc, cycle_start_state(fc), n_real)
+        return (chosen, state[0], state[5],
+                ExplainOut(counts, out[2] if full else None))
+
+    if explain is None:
+        def step(fc: FullChainInputs):
+            return run(fc, None)
+    else:
+        def step(fc: FullChainInputs, n_real):
+            return run(fc, n_real)
 
     step.last_backend = "serial"
     return step
@@ -424,12 +631,18 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
     which state the last CUDA round kept ("smem" or "global").
 
     ``kernel="serial"`` forces the plain round on any device; "auto" is the
-    selection above. The wave kernel and explain attribution come with a
-    later slice of the port."""
-    if explain is not None:
-        raise NotImplementedError(
-            "explain attribution comes with a later slice of the port "
-            "(the explain-enabled round and diagnose)")
+    selection above. The wave kernel comes with a later slice of the port.
+
+    ``explain`` ("counts" | "full", koordexplain): the step takes the extra
+    ``n_real`` and returns ExplainOut as its 4th output, as
+    build_full_chain_step does. Here the port departs from the JAX
+    package, which pins explain to its XLA serial step (``last_backend``
+    "xla"): on the card explain runs the kernels — the stage counts in the
+    CUDA pass of ops/explain_kernel.py, the terms in the full-chain
+    kernel's terms instance — and ``last_backend`` says "cuda"; on the CPU
+    it runs the plain step ("serial"). No size sends a CUDA batch to the
+    plain round or the plain counts."""
+    _check_explain(explain)
     if kernel == "wave":
         raise NotImplementedError(
             "kernel='wave' comes with a later slice of the port "
@@ -437,7 +650,7 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
     if kernel not in ("auto", "serial"):
         raise ValueError(f"unknown kernel {kernel!r}")
     plain = build_full_chain_step(args, num_gangs, num_groups,
-                                  active_axes=active_axes)
+                                  active_axes=active_axes, explain=explain)
     if kernel == "serial":
         return plain
     from koordinator_tpu_torch.ops.full_chain_kernel import (
@@ -446,23 +659,30 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
 
     cuda_step = build_cuda_full_chain_step(
         args, num_gangs, num_groups, active_axes=active_axes,
-        smem_budget_bytes=smem_budget_bytes)
+        smem_budget_bytes=smem_budget_bytes, explain=explain)
 
-    def step(fc: FullChainInputs, timings=None):
-        """``timings``: a dict that the round fills with the seconds of
-        its stages (round, and permit for the kernel's round),
-        synchronising between them."""
+    def run(fc: FullChainInputs, extra, timings):
         if fc.base.allocatable.is_cuda:
             step.last_backend = "cuda"
-            out = cuda_step(fc, timings=timings)
+            out = cuda_step(fc, *extra, timings=timings)
             step.last_state = cuda_step.last_state
             return out
         step.last_backend = "serial"
         step.last_state = None
         clock = SyncClock(timings, fc.base.allocatable.device)
-        out = plain(fc)
+        out = plain(fc, *extra)
         clock.lap("round")
         return out
+
+    if explain is None:
+        def step(fc: FullChainInputs, timings=None):
+            """``timings``: a dict that the round fills with the seconds
+            of its stages (round, and permit for the kernel's round),
+            synchronising between them."""
+            return run(fc, (), timings)
+    else:
+        def step(fc: FullChainInputs, n_real, timings=None):
+            return run(fc, (n_real,), timings)
 
     step.last_backend = None
     step.last_state = None

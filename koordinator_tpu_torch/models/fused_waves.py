@@ -45,6 +45,15 @@ Two dispatch shapes share the one wave body (``_make_wave_body``):
   * ``build_chained_wave_step``: ONE wave per call with the carry staying
     on the device, so the Scheduler can dispatch wave w+1 before it
     reads wave w's rows back and replay wave w on the host meanwhile.
+
+koordexplain (``explain="counts"|"full"``) adds outputs only: each wave's
+stage counts at its wave-START state (after the pre-passes: the state
+serial cycle w's packed batch holds), from the CUDA pass of
+ops/explain_kernel.py on the card and the plain explain_stage_counts on
+the CPU; and at "full" the pass-1 terms rows, carried in the ``ex_terms``
+slot after WAVE_STATE_FIELDS, where the wave that finally keeps a pod
+writes its row (pass 1 in the full-chain kernel's terms instance on the
+card). The replay pass evaluates nothing and does not change.
 """
 
 from __future__ import annotations
@@ -54,8 +63,13 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from koordinator_tpu_torch.models.full_chain import (
+    EXPLAIN_TERMS,
+    NUM_EXPLAIN_STAGES,
+    ExplainOut,
     FullChainInputs,
+    _check_explain,
     commit_pod_state,
+    cycle_start_state,
     plain_round,
     resolve_balance_idx,
 )
@@ -179,13 +193,6 @@ def _check_wave_args(args: LoadAwareArgs, sides_prod: bool) -> None:
             "la_est_prod/la_adj_prod rides the carry)")
 
 
-def _refuse_explain(explain) -> None:
-    if explain is not None:
-        raise NotImplementedError(
-            "per-wave explain attribution comes with the explain slice of "
-            "the port")
-
-
 def _carry_fc_variants(fc: FullChainInputs, sides: WaveSideInputs):
     """The per-row-kind input variants of the kept-only replay and the
     nomination pre-pass.
@@ -298,11 +305,14 @@ def _nomination_prepass(fc, fc_nom, sides, prod_mode, chain, res_avail,
 
 def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
                     bal_idx, num_gangs: int, num_groups: int,
-                    prod_mode: bool, score_passes=()):
+                    prod_mode: bool, score_passes=(), explain=None,
+                    n_real=None):
     """The ONE wave body both dispatch shapes run: carry (WAVE_STATE_FIELDS
-    layout) -> (carry', WaveChainOut, done), done a 0-d bool tensor (the
-    fixpoint). Pass 1 and pass 3 take the kernel for CUDA tensors and the
-    plain loops for CPU tensors."""
+    layout, then ``ex_terms`` under explain "full") -> (carry', WaveChainOut,
+    done, counts_w), done a 0-d bool tensor (the fixpoint) and counts_w
+    the wave's [P, 11] stage counts at wave-start state (None with explain
+    off). Pass 1, pass 3 and the counts take the kernels for CUDA tensors
+    and the plain versions for CPU tensors."""
     inputs = fc.base
     P, R = inputs.fit_requests.shape
     N = inputs.allocatable.shape[0]
@@ -315,11 +325,14 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
     in_gang = fc.gang_id >= 0
     gang_idx = torch.clamp_min(fc.gang_id, 0).long()
 
+    full = explain == "full"
+
     def wave_body(carry):
         (assigned, requested, est_sum, numa_free, bind_free, quota_used,
          aff_count, anti_cover, aff_exists, port_used, vol_free,
          gang_assumed, est_sum_prod, claim_new, vol_new, res_avail,
-         res_remain, res_node, res_succ) = carry
+         res_remain, res_node, res_succ) = carry[:NUM_WAVE_STATE]
+        ex_terms = carry[NUM_WAVE_STATE] if full else None
         nom_rows = []
         if has_res:
             # ---- pass 0a: the reservation reconcile's Succeeded
@@ -383,21 +396,38 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
             quota_used=quota_used, aff_count=aff_count,
             anti_cover=anti_cover, aff_exists=aff_exists,
             port_used=port_used, vol_free=vol_free)
+        counts_w = None
+        if explain is not None:
+            # per-wave attribution at wave-START state (after the
+            # pre-passes): the counts logical cycle w formats for the pods
+            # it leaves unbound
+            from koordinator_tpu_torch.ops.explain_kernel import (
+                explain_counts,
+            )
+
+            counts_w = explain_counts(fc_k, cycle_start_state(fc_k),
+                                      n_real)
         if cuda:
             from koordinator_tpu_torch.ops.full_chain_kernel import (
                 full_chain_round,
             )
 
-            chosen = full_chain_round(fc_k, weight_idx, prod_mode,
-                                      bal_idx)[0]
+            pass1 = full_chain_round(fc_k, weight_idx, prod_mode, bal_idx,
+                                     terms=full)
         else:
-            chosen = plain_round(fc_k, weight_idx, prod_mode, bal_idx)[0]
+            pass1 = plain_round(fc_k, weight_idx, prod_mode, bal_idx,
+                                terms=full)
+        chosen = pass1[0]
 
         # ---- Permit against the CARRIED assumed counters
         keep = gang_permit_mask(chosen, fc.gang_id, fc.gang_min_member,
                                 gang_assumed, fc.gang_group_id, num_gangs,
                                 num_groups)
         kept = (chosen >= 0) & keep
+        if full:
+            # the wave that finally KEEPS a pod owns its attribution row
+            # (a Permit-reverted choice never persisted host-side)
+            ex_terms = torch.where(kept[:, None], pass1[-1], ex_terms)
 
         # ---- pass 3: kept-only replay from the WAVE-START state;
         # est_sum rides the delta_np slot (est_sum_prod the delta_pr slot)
@@ -475,7 +505,9 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
                      res_remain if has_res else None,
                      res_node if has_res else None,
                      res_succ if has_res else None)
-        return new_carry, WaveChainOut(*rows, count), done
+        if full:
+            new_carry = new_carry + (ex_terms,)
+        return new_carry, WaveChainOut(*rows, count), done, counts_w
 
     return wave_body
 
@@ -483,8 +515,10 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
 def initial_wave_carry(fc: FullChainInputs, sides: WaveSideInputs,
                        explain=None):
     """The wave-0 carry (WAVE_STATE_FIELDS layout), on the inputs' device.
-    Feature-absent slots are None."""
-    _refuse_explain(explain)
+    Feature-absent slots are None. Under explain "full" the carry also
+    holds the per-pod terms rows (zeros; the wave that keeps a pod writes
+    its row)."""
+    _check_explain(explain)
     P = fc.base.fit_requests.shape[0]
     N = fc.base.allocatable.shape[0]
     dev = fc.base.allocatable.device
@@ -505,7 +539,7 @@ def initial_wave_carry(fc: FullChainInputs, sides: WaveSideInputs,
         res_succ0 = torch.full((nres,), -1, dtype=torch.int32, device=dev)
     else:
         res_avail0 = res_remain0 = res_node0 = res_succ0 = None
-    return (
+    carry = (
         torch.zeros(P, dtype=torch.bool, device=dev),
         fc.base.requested,
         sides.la_est,
@@ -526,6 +560,10 @@ def initial_wave_carry(fc: FullChainInputs, sides: WaveSideInputs,
         res_node0,
         res_succ0,
     )
+    if explain == "full":
+        carry = carry + (torch.zeros((P, len(EXPLAIN_TERMS)), dtype=f32,
+                                     device=dev),)
+    return carry
 
 
 def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
@@ -543,29 +581,40 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
     on them). After each wave the step reads its count back and stops at
     the fixpoint (a wave that commits nothing and leaves no carried
     transition pending), so ``waves_run`` may be below ``waves``; the
-    counts of the waves not run are 0. ``explain`` other than None
-    raises NotImplementedError."""
+    counts of the waves not run are 0.
+
+    ``explain`` ("counts" | "full"): the step takes the extra ``n_real``
+    and returns (FusedWaveOut, ExplainOut) with per-WAVE stage counts
+    [waves, P, NUM_EXPLAIN_STAGES], each wave's row at its wave-start
+    state (the rows of waves not run stay 0), and at "full" the terms
+    rows of the wave that kept each pod."""
     if not 1 <= waves <= MAX_WAVES:
         raise ValueError(f"waves must be in [1, {MAX_WAVES}], got {waves}")
     _check_wave_args(args, prod)
-    _refuse_explain(explain)
+    _check_explain(explain)
     weight_idx = resolve_weight_idx(args, active_axes)
     bal_idx = resolve_balance_idx(active_axes)
     prod_mode = args.score_according_prod_usage
 
-    def step(fc: FullChainInputs, sides: WaveSideInputs) -> FusedWaveOut:
+    def run(fc: FullChainInputs, sides: WaveSideInputs, n_real):
         P = fc.base.fit_requests.shape[0]
         dev = fc.base.allocatable.device
         body = _make_wave_body(fc, sides, weight_idx, bal_idx, num_gangs,
                                num_groups, prod_mode,
-                               score_passes=score_passes)
-        carry = initial_wave_carry(fc, sides)
+                               score_passes=score_passes, explain=explain,
+                               n_real=n_real)
+        carry = initial_wave_carry(fc, sides, explain=explain)
         out = [torch.full((P,), -1, dtype=torch.int32, device=dev)
                for _ in range(4)]
         counts = torch.zeros(waves, dtype=torch.int32, device=dev)
+        ex_counts = (torch.zeros((waves, P, NUM_EXPLAIN_STAGES),
+                                 dtype=torch.uint32, device=dev)
+                     if explain is not None else None)
         n_out = w = 0
         while w < waves:
-            carry, rows, done = body(carry)
+            carry, rows, done, counts_w = body(carry)
+            if ex_counts is not None:
+                ex_counts[w] = counts_w
             # the fixpoint read: this wave's count and done flag
             cnt, fin = (int(v) for v in torch.stack(
                 [rows.count, done.to(torch.int32)]).cpu())
@@ -576,7 +625,18 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
             w += 1
             if fin:
                 break
-        return FusedWaveOut(*out, wave_counts=counts, waves_run=w)
+        fw = FusedWaveOut(*out, wave_counts=counts, waves_run=w)
+        if explain is None:
+            return fw
+        return fw, ExplainOut(
+            ex_counts, carry[NUM_WAVE_STATE] if explain == "full" else None)
+
+    if explain is None:
+        def step(fc: FullChainInputs, sides: WaveSideInputs):
+            return run(fc, sides, None)
+    else:
+        def step(fc: FullChainInputs, sides: WaveSideInputs, n_real):
+            return run(fc, sides, n_real)
 
     return step
 
@@ -594,19 +654,36 @@ def build_chained_wave_step(args: LoadAwareArgs, num_gangs: int,
     batch): the caller dispatches wave w+1 before reading wave w's rows, so
     the host replay of wave w overlaps the device's work on wave w+1. A
     zero ``count`` is the fixpoint; the Scheduler stops consuming there.
-    K-independent: every wave depth shares one step. ``explain`` other
-    than None raises NotImplementedError."""
+    K-independent: every wave depth shares one step.
+
+    ``explain`` ("counts" | "full"): the step takes the extra ``n_real``
+    and returns (carry', WaveChainOut, counts_row[P, S]) — this wave's
+    attribution at wave-START state, the row the fused step's [K, P, S]
+    buffer holds at index w; at "full" the carry's ``ex_terms`` slot (from
+    initial_wave_carry(explain="full")) carries the terms rows."""
     _check_wave_args(args, prod)
-    _refuse_explain(explain)
+    _check_explain(explain)
     weight_idx = resolve_weight_idx(args, active_axes)
     bal_idx = resolve_balance_idx(active_axes)
     prod_mode = args.score_according_prod_usage
+    width = NUM_WAVE_STATE + (1 if explain == "full" else 0)
 
-    def step(fc: FullChainInputs, carry, sides: WaveSideInputs):
+    def run(fc: FullChainInputs, carry, sides: WaveSideInputs, n_real):
         body = _make_wave_body(fc, sides, weight_idx, bal_idx, num_gangs,
                                num_groups, prod_mode,
-                               score_passes=score_passes)
-        new_carry, rows, _done = body(tuple(carry[:NUM_WAVE_STATE]))
-        return new_carry, rows
+                               score_passes=score_passes, explain=explain,
+                               n_real=n_real)
+        new_carry, rows, _done, counts_w = body(tuple(carry[:width]))
+        if explain is None:
+            return new_carry, rows
+        return new_carry, rows, counts_w
+
+    if explain is None:
+        def step(fc: FullChainInputs, carry, sides: WaveSideInputs):
+            return run(fc, carry, sides, None)
+    else:
+        def step(fc: FullChainInputs, carry, sides: WaveSideInputs,
+                 n_real):
+            return run(fc, carry, sides, n_real)
 
     return step

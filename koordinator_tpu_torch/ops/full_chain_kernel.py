@@ -21,7 +21,14 @@ fused waves' kept-only replay (models/fused_waves.py, pass 2), which commits
 the pods that survived the gang Permit onto the nodes pass 1 chose, from the
 wave-start state, with the same Reserve code as the round.
 
-`launches` counts the round's launches and `replay_launches` the replay's,
+`full_chain_round(..., terms=True)` launches the terms instance
+(koordexplain "full"): the same round, also writing each pod's
+decision-time score terms ([P, 5] f32, models/full_chain.EXPLAIN_TERMS).
+`build_cuda_full_chain_step(explain=...)` adds the stage counts at the
+cycle-start state from the CUDA pass of ops/explain_kernel.py.
+
+`launches` counts the round's launches (the terms instance's included),
+`terms_launches` the terms instance's and `replay_launches` the replay's,
 so a run can show that its main path went through the kernel.
 """
 
@@ -32,6 +39,9 @@ import ctypes
 import torch
 
 from koordinator_tpu_torch.models.full_chain import (
+    EXPLAIN_TERMS,
+    ExplainOut,
+    cycle_start_state,
     permit,
     pod_independent_rows,
     resolve_balance_idx,
@@ -73,11 +83,13 @@ from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 
 SOURCE = "full_chain.cu"
 MAX_WEIGHTS = 16
+NUM_TERMS = len(EXPLAIN_TERMS)
 # pod record words after the header (csrc/full_chain.cu kRec*)
 REC_CORES, REC_TAINT, REC_QUOTA, REC_PREF, REC_PPREF, REC_IMG = 2, 3, 4, 5, 6, 7
 REC_HEADER = 8
 
 launches = 0
+terms_launches = 0
 replay_launches = 0
 last_launch: dict = {}
 
@@ -89,7 +101,7 @@ _PTR_FIELDS = (
     "ppref_w", "weights", "anc", "runtime", "quota_init", "aff_exists0",
     "requested", "delta_np", "delta_pr", "numa", "bind_free", "vol_free",
     "port_used", "aff_count", "anti_cover", "quota_blocks", "chosen",
-    "zones", "aff_exists_out",
+    "zones", "aff_exists_out", "terms",
 )
 _INT_FIELDS = (
     "P", "N", "R", "K", "G", "D", "T", "S", "S2", "ppref_stride", "PT", "SI",
@@ -262,13 +274,14 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
     (usage, runtime, ancestors) and the block's node slice: the carried
     rows (requested, two deltas, NUMA zones, bindable cpus, volume
     headroom, ports, affinity counts and covers), allocatable and the two
-    terms, and the node flags."""
+    terms, and the node flags. The terms instance's runner-up partials
+    (per warp and per block) are in every layout."""
     plan = cluster_plan(n_nodes, cluster_size)
     nw, nb, Q = plan.node_threads // 32, plan.nodes_per_block, T + 2
     stride = record_layout(R, T, PT, VG)["rec_stride"]
     regions = [(RING_STAGES + 2) * 8, RING_STAGES * stride * 4, 2 * nw * 8,
                2 * cluster_size * 8, 2 * Q * nw * 4, (nw + 1) * Q * 4, 2 * 4,
-               max(T, 1) * 4]
+               max(T, 1) * 4, 2 * nw * 4, 2 * cluster_size * 8]
     if state == "smem":
         node_floats = (R + 2 * W + K * R + 2 + PT + 2 * T) + (R + 2 * W)
         regions += [G * R * 4, G * R * 4, G * D * 4, node_floats * nb * 4, nb]
@@ -302,13 +315,14 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
 
 def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
             chosen, zones, replay: bool, cluster_size: int,
-            smem_budget_bytes):
+            smem_budget_bytes, terms=None):
     """Check every tensor, fill FullChainParams and launch one cluster on
     the current stream. ``state`` holds the carried tensors the kernel
     updates in place (requested, delta_np, delta_pr, numa, bind_free,
     vol_free, port_used, aff_count, anti_cover) and the read-only
-    quota_init, aff_exists0, term_np and term_pr. Returns (quota_blocks,
-    aff_exists_out)."""
+    quota_init, aff_exists0, term_np and term_pr. ``terms`` ([P, 5] f32,
+    zeros) selects the terms instance, which fills it. Returns
+    (quota_blocks, aff_exists_out)."""
     global last_launch
     inputs = fc.base
     if len(widx) > MAX_WEIGHTS:
@@ -358,6 +372,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         "chosen": (chosen, i32, (P,)),
         "zones": (zones, i32, (P,)),
         "aff_exists_out": (aff_exists_out, u8, (T,)),
+        "terms": (terms, f32, (P, NUM_TERMS)),
     }
     params = _Params()
     for name in _PTR_FIELDS:
@@ -387,7 +402,8 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
     # allocator hands their memory only to later work on this same stream.
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.full_chain_launch(ctypes.byref(params), ctypes.c_void_p(stream))
-    what = "replay" if replay else "round"
+    what = ("replay" if replay else
+            "terms round" if terms is not None else "round")
     if err != 0:
         raise launch_error(f"full_chain {what}", err,
                            f"cluster of {cluster_size} x "
@@ -411,11 +427,13 @@ def _require_cuda(fn: str, fc) -> None:
 
 def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
                      cluster_size: int = CLUSTER_SIZE,
-                     smem_budget_bytes=None):
+                     smem_budget_bytes=None, terms: bool = False):
     """One round in the kernel: FullChainInputs (CUDA tensors) ->
-    (chosen[P] int32 before Permit, requested[N, R], quota_used[G, R]).
-    Raises for tensors anywhere but on the card."""
-    global launches
+    (chosen[P] int32 before Permit, requested[N, R], quota_used[G, R]),
+    and with ``terms`` (the terms instance) a 4th item, the [P, 5] f32
+    koordexplain terms rows (0 for pods outside pod_valid). Raises for
+    tensors anywhere but on the card."""
+    global launches, terms_launches
     _require_cuda("full_chain_round", fc)
     inputs = fc.base
     widx = list(weight_idx)
@@ -442,10 +460,15 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
         "anti_cover": fc.anti_cover.to(f32).clone(),
     }
     chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    rows = (torch.zeros((P, NUM_TERMS), dtype=f32, device=dev) if terms
+            else None)
     quota_blocks, _exists = _launch(
         fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen, None,
-        False, cluster_size, smem_budget_bytes)
+        False, cluster_size, smem_budget_bytes, terms=rows)
     launches += 1
+    if terms:
+        terms_launches += 1
+        return chosen, state["requested"], quota_blocks[0], rows
     return chosen, state["requested"], quota_blocks[0]
 
 
@@ -514,28 +537,49 @@ def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
 
 def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,
                                num_groups: int, active_axes=None,
-                               smem_budget_bytes=None):
+                               smem_budget_bytes=None, explain=None):
     """FullChainInputs (CUDA tensors) -> (chosen[P], requested[N, R],
     quota_used[G, R]): the kernel's round, then the gang Permit barrier.
     Same contract as models.full_chain.build_full_chain_step.
     ``step.last_state`` is the state the last round kept ("smem" or
     "global"). With a ``timings`` dict the step synchronises after the
     round (wrapper and kernel) and after Permit and records their
-    seconds."""
+    seconds.
+
+    ``explain`` ("counts" | "full"): the step takes the extra ``n_real``
+    and returns ExplainOut as a 4th output — the stage counts at the
+    cycle-start state from the CUDA pass of ops/explain_kernel.py (its
+    ``explain`` lap), and at "full" the terms instance's rows."""
+    from koordinator_tpu_torch.ops.explain_kernel import explain_counts
+
     weight_idx = resolve_weight_idx(args, active_axes)
     bal_idx = resolve_balance_idx(active_axes)
     prod_mode = args.score_according_prod_usage
+    full = explain == "full"
 
-    def step(fc, timings=None):
+    def run(fc, n_real, timings):
         clock = SyncClock(timings, fc.base.allocatable.device)
-        chosen, requested, quota_used = full_chain_round(
+        out = full_chain_round(
             fc, weight_idx, prod_mode, bal_idx,
-            smem_budget_bytes=smem_budget_bytes)
+            smem_budget_bytes=smem_budget_bytes, terms=full)
+        chosen, requested, quota_used = out[:3]
         step.last_state = last_launch["state"]
         clock.lap("round")
-        out = permit(fc, chosen, num_gangs, num_groups)
+        chosen = permit(fc, chosen, num_gangs, num_groups)
         clock.lap("permit")
-        return out, requested, quota_used
+        if explain is None:
+            return chosen, requested, quota_used
+        counts = explain_counts(fc, cycle_start_state(fc), n_real)
+        clock.lap("explain")
+        return (chosen, requested, quota_used,
+                ExplainOut(counts, out[3] if full else None))
+
+    if explain is None:
+        def step(fc, timings=None):
+            return run(fc, None, timings)
+    else:
+        def step(fc, n_real, timings=None):
+            return run(fc, n_real, timings)
 
     step.last_backend = "cuda"
     step.last_state = None

@@ -30,8 +30,18 @@ wave w+1; off, all K waves run in one call before the replay. Either way
 the bindings, conditions, gang and quota writes are those of K serial
 cycles, and the JAX package's byte for byte (tests/test_torch_cycle.py,
 tests/test_torch_cycle_waves.py). The paths a later slice brings raise
-NotImplementedError and never run something else silently: explain
-attribution, the mesh, the gRPC sidecar and the warm-up ladder.
+NotImplementedError and never run something else silently: the mesh, the
+gRPC sidecar and the warm-up ladder.
+
+koordexplain (``explain="counts"|"full"`` or KOORD_TPU_EXPLAIN) rides every
+dispatch: the per-stage reject counts of every pod (per wave on the fused
+paths) and, at "full", the decision-time score terms come back with the
+bindings, and the unschedulable messages become a formatter over the
+counts (scheduler/diagnose.format_stage_counts) instead of the host
+recompute. On the card the counts come from the CUDA pass of
+ops/explain_kernel.py and the terms from the full-chain kernel's terms
+instance, never from the plain round; bindings are byte-identical to
+explain off. ``explain_record(pod)`` serves /explain (obs/server.py).
 
 A failed dispatch window meets the degradation ladder
 (scheduler/degrade.py), as in the JAX package: on a device fault it
@@ -74,7 +84,11 @@ from koordinator_tpu_torch.client.store import (
     ObjectStore,
 )
 from koordinator_tpu_torch.models.convert import check_device, to_device
-from koordinator_tpu_torch.models.full_chain import build_best_full_chain_step
+from koordinator_tpu_torch.models.full_chain import (
+    EXPLAIN_STAGE_KEYS,
+    EXPLAIN_TERMS,
+    build_best_full_chain_step,
+)
 from koordinator_tpu_torch.models.fused_waves import (
     MAX_WAVES,
     ClaimSides,
@@ -100,6 +114,7 @@ from koordinator_tpu_torch.scheduler.deadline import (
 )
 from koordinator_tpu_torch.scheduler.degrade import (
     LEVEL_HOST_FALLBACK,
+    LEVEL_NO_EXPLAIN,
     LEVEL_SERIAL_WAVES,
     DegradationLadder,
     FusedDispatchDemoted,
@@ -114,6 +129,7 @@ from koordinator_tpu_torch.scheduler.frameworkext import (
     FrameworkExtender,
     ScoreTransformer,
 )
+from koordinator_tpu_torch.scheduler.diagnose import format_stage_counts
 from koordinator_tpu_torch.scheduler.plugins import DEFAULT_PLUGINS
 from koordinator_tpu_torch.scheduler.snapshot import (
     ClusterState,
@@ -540,16 +556,13 @@ class Scheduler:
         if _warmup_requested(warmup):
             _refuse("the warm-up ladder", "warm-up")
         # koordexplain (KOORD_TPU_EXPLAIN): None=off, "counts", "full".
-        # Unknown strings fail loudly, as in the JAX package; anything but
-        # off comes with a later slice.
+        # Unknown strings fail loudly, as in the JAX package.
         if explain not in (None, "off", "counts", "full"):
             raise ValueError(
                 f"explain must be None, 'off', 'counts' or 'full'; "
                 f"got {explain!r}")
         self.explain_spec = (explain_from_env() if explain is None
                              else (None if explain == "off" else explain))
-        if self.explain_spec is not None:
-            _refuse("explain attribution", "explain")
         # fused multi-wave depth: K rounds per device dispatch. "auto"
         # picks from queue depth per cycle (_effective_waves); an int pins
         # it.
@@ -689,7 +702,7 @@ class Scheduler:
         # graceful-degradation ladder (scheduler/degrade.py): dispatch
         # failures demote fused waves -> serial waves -> the pure-host
         # fallback instead of killing the scheduler; clean cycles probe
-        # back up. The mesh and explain rungs wait for their slices.
+        # back up. The mesh rungs wait for their slice.
         self.ladder = ladder if ladder is not None else DegradationLadder()
         self.ladder.observer = self._on_ladder_transition
         scheduler_metrics.DEGRADED_LEVEL.set(float(self.ladder.level))
@@ -733,6 +746,15 @@ class Scheduler:
         self._health_lock = threading.Lock()
         # koordlint: guarded-by(_health_lock)
         self._last_cycle_end: Optional[Tuple[float, int]] = None
+        # /explain surface state: written by the cycle thread, read by the
+        # ObsServer's handler threads (the most recent decision
+        # attribution per pod key, capped at 4096 entries)
+        # koordlint: guarded-by(_health_lock)
+        self.explain_index: Dict[str, dict] = {}
+        # this cycle's koordexplain attribution, reset per cycle: unbound
+        # pods' verdict entries and bound pods' terms rows
+        self._cycle_attrib: Dict[str, dict] = {}
+        self._cycle_terms: Dict[str, dict] = {}
         # the packed batch of the last pass (fc, key -> row, n_nodes) for
         # end-of-cycle unschedulability diagnosis
         self._last_batch = None
@@ -827,8 +849,9 @@ class Scheduler:
     def _ladder_features(self) -> Dict[str, bool]:
         """Which ladder rungs actually change behavior for this
         scheduler's configuration — demotion and re-promotion both skip
-        rungs whose feature was never on. On one GPU with explain off
-        that leaves full -> serial-waves -> host-fallback (waves=1: full
+        rungs whose feature was never on. On one GPU that leaves full ->
+        serial-waves -> no-explain -> host-fallback, skipping the rungs of
+        waves and explain where they are off (waves=1, explain off: full
         -> host-fallback)."""
         waves_capable = (self.waves_spec == "auto"
                          or (isinstance(self.waves_spec, int)
@@ -1123,13 +1146,13 @@ class Scheduler:
 
 
     def _get_step(self, signature: Tuple, ng: int, ngroups: int,
-                  active) -> object:
+                  active, explain=None) -> object:
         # a shape-signature miss builds the step; on the card the kernel
         # library loads at the step's first call, in the NEXT kernel span,
         # which is why the kernel span carries compiled="1" on that cycle
-        key = (signature, ng, ngroups, tuple(active))
+        key = (signature, ng, ngroups, tuple(active), explain)
         return self._cached_step(key, lambda: build_best_full_chain_step(
-            self.args, ng, ngroups, active_axes=active))
+            self.args, ng, ngroups, active_axes=active, explain=explain))
 
     def _cached_step(self, key: Tuple, build) -> object:
         """The step memo: a hit, or ``build()`` timed by a ``compile``
@@ -1168,7 +1191,7 @@ class Scheduler:
             and getattr(t, "device_pass", None) is not None)
 
     def _get_fused_step(self, signature: Tuple, ng: int, ngroups: int,
-                        active, waves: int,
+                        active, waves: int, explain=None,
                         sides_tag: Tuple = (0, 0)) -> object:
         """The single-call K-wave step (replay overlap off)."""
         from koordinator_tpu_torch.models.fused_waves import (
@@ -1177,14 +1200,16 @@ class Scheduler:
 
         nc, nres = sides_tag
         key = ("fused", waves, signature, ng, ngroups, tuple(active),
-               sides_tag, self._score_pass_tag())
+               explain, sides_tag, self._score_pass_tag())
         return self._cached_step(key, lambda: build_fused_wave_step(
             self.args, ng, ngroups, waves=waves, active_axes=active,
+            explain=explain,
             prod=self.args.score_according_prod_usage, claims=nc > 0,
             res=nres > 0, score_passes=self._device_score_passes()))
 
     def _get_chain_step(self, signature: Tuple, ng: int, ngroups: int,
-                        active, sides_tag: Tuple = (0, 0)) -> object:
+                        active, explain=None,
+                        sides_tag: Tuple = (0, 0)) -> object:
         """The chained per-wave step (overlapped replay). No wave depth in
         the cache key: one step serves every K."""
         from koordinator_tpu_torch.models.fused_waves import (
@@ -1192,12 +1217,24 @@ class Scheduler:
         )
 
         nc, nres = sides_tag
-        key = ("chain", signature, ng, ngroups, tuple(active), sides_tag,
-               self._score_pass_tag())
+        key = ("chain", signature, ng, ngroups, tuple(active), explain,
+               sides_tag, self._score_pass_tag())
         return self._cached_step(key, lambda: build_chained_wave_step(
-            self.args, ng, ngroups, active_axes=active,
+            self.args, ng, ngroups, active_axes=active, explain=explain,
             prod=self.args.score_according_prod_usage, claims=nc > 0,
             res=nres > 0, score_passes=self._device_score_passes()))
+
+    def _effective_explain(self):
+        """This cycle's koordexplain level. The degradation ladder's
+        no-explain rung (and below) pins it off, through the koordwatch
+        chokepoint. The JAX package also demotes it off for the sidecar
+        path (explain-sidecar); the port refuses the sidecar at
+        construction, so that demotion cannot happen here."""
+        if self.explain_spec is None:
+            return self.explain_spec  # nothing configured: not a demotion
+        if self.ladder.level >= LEVEL_NO_EXPLAIN:
+            return self._note_demotion("explain-ladder", None)
+        return self.explain_spec
 
     def _analyze_claims(self, pending: List[Pod]):
         """The batch's claim structure (ops/volumes.analyze_pending_claims)
@@ -1282,6 +1319,8 @@ class Scheduler:
         self._cycle_demotions = []
         self._cycle_decision_ids = []
         self._current_decision_id = None
+        self._cycle_attrib = {}
+        self._cycle_terms = {}
         self._apply_degraded_level()
         result = CycleResult()
         carried_deferred = bool(self._deferred_diagnose)
@@ -1346,6 +1385,8 @@ class Scheduler:
             "compile_cache_misses":
                 scheduler_metrics.COMPILE_CACHE_MISSES.get() or 0.0,
             "readback_bytes": scheduler_metrics.READBACK_BYTES.get() or 0.0,
+            "explain_readback_bytes":
+                scheduler_metrics.EXPLAIN_READBACK_BYTES.get() or 0.0,
         }
 
     def _flight_record(self, result: CycleResult, now: float, root,
@@ -1354,11 +1395,25 @@ class Scheduler:
         from koordinator_tpu_torch.obs.flight import FLIGHT_SCHEMA_VERSION
 
         end = self._flight_metric_base()
-        bound = [{"pod": b.pod_key, "node": b.node_name}
-                 for b in result.bound]
+        bound = []
+        for b in result.bound:
+            entry: Dict[str, object] = {"pod": b.pod_key, "node": b.node_name}
+            terms = self._cycle_terms.get(b.pod_key)
+            if terms is not None:
+                entry["terms"] = terms
+            bound.append(entry)
 
         def unbound(keys: List[str]) -> List[dict]:
-            return [{"pod": key} for key in keys]
+            out = []
+            for key in keys:
+                entry: Dict[str, object] = {"pod": key}
+                attrib = self._cycle_attrib.get(key)
+                if attrib:
+                    for field in ("reason", "stages", "message"):
+                        if field in attrib:
+                            entry[field] = attrib[field]
+                out.append(entry)
+            return out
 
         record = {
             "v": FLIGHT_SCHEMA_VERSION,
@@ -1386,8 +1441,38 @@ class Scheduler:
 
     def _finish_cycle_obs(self, result: CycleResult, now: float, root,
                           flight_base: Dict[str, float]) -> None:
-        """Post-cycle bookkeeping: the flight ring, liveness state and the
-        deadline trigger."""
+        """Post-cycle koordexplain bookkeeping: bound-pod attribution, the
+        /explain index, the flight ring, liveness state and the deadline
+        trigger."""
+        if self.explain_spec is not None:
+            for b in result.bound:
+                rec: Dict[str, object] = {"verdict": "bound",
+                                          "node": b.node_name}
+                if self._current_decision_id is not None:
+                    # koordwatch decision correlation: /explain output
+                    # joins the timeline window that bound the pod
+                    rec["decision_id"] = self._current_decision_id
+                terms = self._cycle_terms.get(b.pod_key)
+                if terms is not None:
+                    rec["terms"] = terms
+                    # margin vs the runner-up node; meaningful only when a
+                    # feasible runner-up existed (runner_up >= 0)
+                    rec["margin"] = terms["best_score"] - terms["runner_up"]
+                self._cycle_attrib[b.pod_key] = rec
+            with self._health_lock:
+                for key, rec in self._cycle_attrib.items():
+                    rec = dict(rec)
+                    rec["cycle"] = self._cycle_counter
+                    rec["ts"] = float(now)
+                    # pop-then-insert keeps dict order = recency, so the
+                    # cap below evicts the genuinely oldest records
+                    self.explain_index.pop(key, None)
+                    self.explain_index[key] = rec
+                overflow = len(self.explain_index) - 4096
+                if overflow > 0:
+                    # dict preserves insertion order: drop the oldest
+                    for key in list(self.explain_index)[:overflow]:
+                        del self.explain_index[key]
         self.flight.record_cycle(
             self._flight_record(result, now, root, flight_base))
         with self._health_lock:
@@ -1416,6 +1501,13 @@ class Scheduler:
             "last_cycle_waves": waves,
             "degraded": degraded,
         }
+
+    def explain_record(self, pod_key: str) -> Optional[dict]:
+        """The /explain?pod= payload: the pod's most recent decision
+        attribution, or None."""
+        with self._health_lock:
+            rec = self.explain_index.get(pod_key)
+            return dict(rec) if rec is not None else None
 
     def _run_cycle_traced(self, now: float, result: CycleResult,
                           waves_override=None) -> None:
@@ -1648,6 +1740,7 @@ class Scheduler:
             (p, "admission rejected") for p in rejected_pods]
         if not items:
             return
+        messages = self._capture_attribution(items, last)
         if self.pipeline_mode or self._defer_condition_writes:
             # pipelined cycle: the writes run inside the NEXT cycle's
             # kernel window (flush_deferred), overlapping device work; a
@@ -1662,13 +1755,66 @@ class Scheduler:
             # drains the queue; idle drivers must call flush().)
             if not any(r in DIAGNOSED_REASONS for _p, r in items):
                 last = None
-            self._deferred_diagnose.append((items, last, now))
+            elif last is not None and last[3] is not None:
+                # kernel-emitted counts captured: the deferred formatter
+                # needs only (index, n_nodes, counts) — never pin the
+                # packed fc arrays across the deferral
+                last = (None, last[1], last[2], last[3])
+            self._deferred_diagnose.append((items, last, now, messages))
             scheduler_metrics.DIAGNOSE_DEFERRED_TOTAL.inc(len(items))
             scheduler_metrics.DIAGNOSE_DEFERRED_DEPTH.set(
                 float(len(self._deferred_diagnose)))
             return
         with self.tracer.span("diagnose", pods=str(len(items))):
-            self._diagnose_and_write(items, last, now)
+            self._diagnose_and_write(items, last, now, messages=messages)
+
+    def _stash_terms(self, keys, chosen_mask, terms_np) -> None:
+        """KOORD_TPU_EXPLAIN=full: per-pod decision-time score attribution
+        rows for pods the kernel chose a node for. Only pods that finish
+        the cycle BOUND are surfaced (a Reserve veto leaves the row
+        unread)."""
+        for i, key in enumerate(keys):
+            if bool(chosen_mask[i]):
+                row = terms_np[i]
+                self._cycle_terms[key] = {
+                    name: float(row[j])
+                    for j, name in enumerate(EXPLAIN_TERMS)
+                }
+
+    def _capture_attribution(self, items, last) -> Optional[Dict[str, str]]:
+        """koordexplain capture, at verdict time (NOT at deferred-flush
+        time, so pipeline mode cannot skew metrics or the flight record):
+        per-stage rejection counters + the /explain and flight-recorder
+        attribution entries for pods ending this logical cycle unbound.
+        Returns the formatted message per pod key so the condition writer
+        never formats the same counts twice. No-op (None) when the
+        dispatch emitted no counts (explain off, or demoted off)."""
+        if self.explain_spec is None:
+            return None
+        counts = last[3] if last is not None else None
+        messages: Dict[str, str] = {}
+        for pod, reason in items:
+            entry: Dict[str, object] = {"verdict": "unschedulable",
+                                        "reason": reason}
+            if self._current_decision_id is not None:
+                # koordwatch: join the verdict to its device window
+                entry["decision_id"] = self._current_decision_id
+            if counts is not None and reason in DIAGNOSED_REASONS:
+                j = last[1].get(pod.meta.key)
+                if j is not None:
+                    row = counts[j]
+                    stages = {}
+                    for stage_key, c in zip(EXPLAIN_STAGE_KEYS, row):
+                        if int(c):
+                            stages[stage_key] = int(c)
+                            scheduler_metrics.FILTER_REJECTIONS.inc(
+                                int(c), stage=stage_key)
+                    entry["stages"] = stages
+                    msg = format_stage_counts(row, last[2])
+                    entry["message"] = msg
+                    messages[pod.meta.key] = msg
+            self._cycle_attrib[pod.meta.key] = entry
+        return messages or None
 
     def _flush_deferred_in_window(self) -> None:
         """flush_deferred from inside a ladder-wrapped dispatch window:
@@ -1754,11 +1900,11 @@ class Scheduler:
         txn = (_DeferredFlushTxn(self.store)
                if self.replay_overlap and self._deferred_diagnose else None)
         while self._deferred_diagnose:
-            items, last, now = self._deferred_diagnose.pop(0)
+            items, last, now, messages = self._deferred_diagnose.pop(0)
             with self.tracer.span("diagnose", pods=str(len(items)),
                                   deferred="1"):
                 self._diagnose_and_write(items, last, now, deferred=True,
-                                         txn=txn)
+                                         messages=messages, txn=txn)
         if txn is not None and txn.pending:
             with self.tracer.span("store_flush",
                                   writes=str(len(txn.pending))):
@@ -1767,7 +1913,7 @@ class Scheduler:
             float(len(self._deferred_diagnose)))
 
     def _diagnose_and_write(self, items, last, now: float,
-                            deferred: bool = False,
+                            deferred: bool = False, messages=None,
                             txn: Optional[_DeferredFlushTxn] = None) -> None:
         from koordinator_tpu_torch.scheduler.diagnose import (
             diagnose_unbound,
@@ -1777,16 +1923,28 @@ class Scheduler:
         shared = None  # node-level diagnosis state, built once per cycle
         for pod, reason in items:
             msg = reason
-            if last is not None and reason in DIAGNOSED_REASONS:
-                # the host-numpy recompute over the batch the round
-                # consumed (explain's kernel-emitted counts come later)
-                fc, index, n_nodes = last
+            if messages is not None and pod.meta.key in messages:
+                # koordexplain: _capture_attribution already formatted the
+                # dispatch's counts at verdict time — reuse, don't
+                # recompute
+                msg = messages[pod.meta.key]
+            elif last is not None and reason in DIAGNOSED_REASONS:
+                fc, index, n_nodes, counts = last
                 j = index.get(pod.meta.key)
                 if j is not None:
                     try:
-                        if shared is None:
-                            shared = shared_state(fc, n_nodes)
-                        msg = diagnose_unbound(fc, j, n_nodes, shared=shared)
+                        if counts is not None:
+                            # koordexplain: a pure formatter over the
+                            # dispatch's stage counts, no host recompute
+                            msg = format_stage_counts(counts[j], n_nodes)
+                        elif fc is not None:
+                            # the host-numpy recompute over the batch the
+                            # round consumed: the parity oracle, and the
+                            # path explain-off keeps
+                            if shared is None:
+                                shared = shared_state(fc, n_nodes)
+                            msg = diagnose_unbound(fc, j, n_nodes,
+                                                   shared=shared)
                     except Exception:  # diagnosis must never wedge a cycle
                         logger.exception(
                             "unschedulability diagnosis failed for %s",
@@ -1908,10 +2066,11 @@ class Scheduler:
             # keep the packed batch for end-of-cycle unschedulability
             # diagnosis (scheduler/diagnose.py reads the same arrays the
             # kernel consumed); a retry pass overwrites this with the
-            # final batch
+            # final batch. 4th slot: the dispatch's explain counts,
+            # filled after the dispatch when explain is on
             self._last_batch = (
                 fc, {key: j for j, key in enumerate(pods.keys)},
-                len(state.nodes))
+                len(state.nodes), None)
         self.pack_wall_seconds += time.perf_counter() - t_pack
         if self.encode_observer is not None:
             # parity/test hook: the post-reduce host arrays — the
@@ -2019,7 +2178,9 @@ class Scheduler:
         """The single-round device-dispatch window, wrapped in the
         degradation ladder: upload (through the device mirror, or in full
         without one), one round (the CUDA kernel on the card; gang Permit
-        included), one readback. A device fault anywhere between step
+        included; under explain the stage-count pass, and at "full" the
+        kernel's terms instance), one readback. A device fault anywhere
+        between step
         lookup and readback (strictly before any binding) retries once,
         then demotes — finally to the pure-host pass — instead of killing
         the scheduler. ``fc_host`` keeps the host arrays, so every retry
@@ -2038,11 +2199,13 @@ class Scheduler:
                 # no device dispatch: the window never completes
                 return self._dispatch_host_fallback(fc_host, pods, nodes,
                                                     result)
+            explain = self._effective_explain()
+            ex_out = None
             try:
                 step = self._get_step(
                     (pods.padded_size, nodes.padded_size,
                      fc_host.quota_runtime.shape[0]),
-                    ng, ngroups, active,
+                    ng, ngroups, active, explain=explain,
                 )
                 with self.tracer.span(
                         "kernel",
@@ -2066,7 +2229,14 @@ class Scheduler:
                     try:
                         if self.fault_injector is not None:
                             self.fault_injector("serial")
-                        chosen, _, _ = step(fc)  # queued — no sync
+                        if explain is not None:
+                            # same dispatch, extra attribution outputs;
+                            # n_real masks padded node rows out of the
+                            # stage counts
+                            chosen, _, _, ex_out = step(fc,
+                                                        len(nodes.names))
+                        else:
+                            chosen, _, _ = step(fc)  # queued — no sync
                         self.last_backend = step.last_backend
                         self.dispatches += 1
                         if self.pipeline_mode:
@@ -2087,6 +2257,16 @@ class Scheduler:
                         else:
                             with self.tracer.span("readback"):
                                 chosen, = self._readback_sync(chosen)
+                        if ex_out is not None:
+                            # the dispatch completed at the chosen sync
+                            # above: these copies wait for nothing new
+                            with self.tracer.span("readback",
+                                                  explain=explain):
+                                explain_counts = ex_out.stage_counts.cpu(
+                                    ).numpy()
+                                terms_np = (ex_out.terms.cpu().numpy()
+                                            if ex_out.terms is not None
+                                            else None)
                     finally:
                         if snap is not None:
                             snap.end_dispatch()
@@ -2094,6 +2274,17 @@ class Scheduler:
                         time.perf_counter() - t_dispatch)
                     scheduler_metrics.WAVES_PER_DISPATCH.observe(1.0)
                     scheduler_metrics.READBACK_BYTES.inc(int(chosen.nbytes))
+                    if ex_out is not None:
+                        ex_bytes = explain_counts.nbytes
+                        if terms_np is not None:
+                            ex_bytes += terms_np.nbytes
+                            self._stash_terms(pods.keys, chosen >= 0,
+                                              terms_np)
+                        scheduler_metrics.EXPLAIN_READBACK_BYTES.inc(
+                            int(ex_bytes))
+                        fc_lb, idx_lb, n_lb, _ = self._last_batch
+                        self._last_batch = (fc_lb, idx_lb, n_lb,
+                                            explain_counts)
                 result.kernel_seconds += ksp.duration_seconds
                 scheduler_metrics.KERNEL_SECONDS.observe(
                     ksp.duration_seconds)
@@ -2422,11 +2613,14 @@ class Scheduler:
         had_deadline = False
         level0 = self.ladder.level
         while True:
+            explain = self._effective_explain()
+            ex_out = None
             try:
                 step = self._get_fused_step(
                     (pods.padded_size, nodes.padded_size,
                      fc_host.quota_runtime.shape[0]),
-                    ng, ngroups, active, k_waves, sides_tag=res_ctx["tag"])
+                    ng, ngroups, active, k_waves, explain=explain,
+                    sides_tag=res_ctx["tag"])
                 snap = self.device_snapshot
                 with self.tracer.span(
                         "kernel",
@@ -2444,7 +2638,10 @@ class Scheduler:
                             self.fault_injector("fused")
                         # the step runs every wave to the fixpoint,
                         # reading each wave's count as it goes
-                        out = step(fc, sides)
+                        if explain is not None:
+                            out, ex_out = step(fc, sides, len(nodes.names))
+                        else:
+                            out = step(fc, sides)
                         self.last_backend = (
                             "cuda" if fc.base.allocatable.is_cuda
                             else "serial")
@@ -2467,6 +2664,16 @@ class Scheduler:
                                      self._readback_sync(*compacted,
                                                          path="fused"))
                         waves_run = out.waves_run
+                        explain_counts = terms_np = None
+                        if ex_out is not None:
+                            # the dispatch completed at the sync above
+                            with self.tracer.span("readback",
+                                                  explain=explain):
+                                explain_counts = ex_out.stage_counts.cpu(
+                                    ).numpy()
+                                terms_np = (ex_out.terms.cpu().numpy()
+                                            if ex_out.terms is not None
+                                            else None)
                     finally:
                         if snap is not None:
                             snap.end_dispatch()
@@ -2478,6 +2685,20 @@ class Scheduler:
                         int(bind_pods.nbytes + bind_nodes.nbytes
                             + bind_zones.nbytes + bind_res.nbytes
                             + wave_counts.nbytes))
+                    if explain_counts is not None:
+                        ex_bytes = explain_counts.nbytes
+                        if terms_np is not None:
+                            ex_bytes += terms_np.nbytes
+                            kept_mask = np.zeros(len(pods.keys), bool)
+                            # nominated rows (res >= 0) carry no term
+                            # rows — the serial twin's pre-pass binds
+                            # never reach the kernel's attribution
+                            kept_mask[bind_pods[(bind_pods >= 0)
+                                                & (bind_res < 0)]] = True
+                            self._stash_terms(pods.keys, kept_mask,
+                                              terms_np)
+                        scheduler_metrics.EXPLAIN_READBACK_BYTES.inc(
+                            int(ex_bytes))
                     for w in range(waves_run):
                         # retrospective per-wave markers under the kernel
                         # span: how the dispatch's work split across the
@@ -2541,7 +2762,7 @@ class Scheduler:
             # the reconcile's Succeeded transition from the previous
             # wave's allocate-once consumption applies at this wave's
             # start — before any of this wave's binds touch the mirror
-            if pending_succ:
+            if explain_counts is None and pending_succ:
                 mirror_apply(pending_succ)
             pending_succ = []
             with self.tracer.span("bind", wave=str(w)) as bsp:
@@ -2554,7 +2775,7 @@ class Scheduler:
                 for row in nom_bound:
                     bound_mask[row] = True
                 nominated = nom_bound | nom_failed
-                if nom_ops:
+                if explain_counts is None and nom_ops:
                     # nominations are pre-pass state: serial cycle w
                     # packed its batch AFTER them, so this wave's
                     # diagnosis state includes them
@@ -2600,11 +2821,21 @@ class Scheduler:
                     len(result.bound) - bound_before)
             # diagnosis for THIS logical cycle reads wave-w-START state
             # (serial cycle w packed its batch before its kernel ran); the
-            # mirror still holds it — advance happens below
+            # mirror still holds it — advance happens below. With the
+            # dispatch's counts the mirror is bypassed entirely: every
+            # wave was attributed at its wave-start state
             if any(r in DIAGNOSED_REASONS for _p, r in failed_pods) or (
                     rejected_pods):
-                self._last_batch = (mirror_state().patched_fc(), index,
-                                    len(nodes.names))
+                if explain_counts is not None:
+                    # waves >= waves_run reuse the last EXECUTED wave's
+                    # row: a zero-commit early exit proves the state (and
+                    # hence the counts) is a fixpoint
+                    counts_w = explain_counts[min(w, waves_run - 1)]
+                    self._last_batch = (None, index, len(nodes.names),
+                                        counts_w)
+                else:
+                    self._last_batch = (mirror_state().patched_fc(), index,
+                                        len(nodes.names), None)
             truncate = veto
             any_victims = self._post_filter_preempt(
                 rejected_pods, failed_pods, result)
@@ -2644,53 +2875,64 @@ class Scheduler:
             # advance the mirror with the device's view of this wave's
             # commits + the wave-boundary claim rebuild, so the next
             # logical cycle diagnoses against the state serial cycle w+1
-            # would have packed
-            mirror_apply(kernel_ops + [("wave_end",)])
+            # would have packed (the dispatch's counts make the mirror
+            # unnecessary: each wave carries its own attribution)
+            if explain_counts is None:
+                mirror_apply(kernel_ops + [("wave_end",)])
         self._last_batch = None
 
     # ------------------------------------------------------------------
     # overlapped wave replay (KOORD_TPU_REPLAY_OVERLAP, the default)
     # ------------------------------------------------------------------
-    def _initial_chain_carry(self, fc, sides):
+    def _initial_chain_carry(self, fc, sides, explain=None):
         """Wave-0 carried state for the chained dispatch, from the same
         device-resident arrays the single-call step starts from."""
-        return initial_wave_carry(fc, sides)
+        return initial_wave_carry(fc, sides, explain=explain)
 
-    def _dispatch_chain_wave(self, step, fc, carry, sides):
+    def _dispatch_chain_wave(self, step, fc, carry, sides, n_real=None,
+                             explain=None):
         """Dispatch ONE chained wave. Returns (next carry, handle), with
         nothing synced: on the card the wave's rows (pods, nodes, zones,
-        reservation slots, count: one int32 vector) are queued for copy
-        into pinned host memory right behind the wave's launches, and an
-        event recorded after the copy, so that ``_sync_wave_rows`` waits
-        for this wave and no later one. A second event, recorded before
-        the wave's first launch, times the wave on the device."""
+        reservation slots, count, and under explain the wave's [P, 11]
+        stage counts: one int32 vector) are queued for copy into pinned
+        host memory right behind the wave's launches, and an event
+        recorded after the copy, so that ``_sync_wave_rows`` waits for
+        this wave and no later one. A second event, recorded before the
+        wave's first launch, times the wave on the device."""
         import torch
 
         start = None
         if fc.base.allocatable.is_cuda:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
-        carry, rows = step(fc, carry, sides)
-        packed = torch.cat([*rows[:4], rows.count.reshape(1)])
+        parts = []
+        if explain is not None:
+            carry, rows, counts_row = step(fc, carry, sides, n_real)
+            parts = [counts_row.view(torch.int32).reshape(-1)]
+        else:
+            carry, rows = step(fc, carry, sides)
+        packed = torch.cat([*rows[:4], rows.count.reshape(1), *parts])
+        n_counts = int(parts[0].numel()) if parts else 0
         if start is None:
-            return carry, (packed, None, None, None)
+            return carry, (packed, None, None, None, n_counts)
         host = torch.empty(packed.shape, dtype=packed.dtype,
                            pin_memory=True)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event(enable_timing=True)
         done.record()
-        return carry, (host, start, done, packed.device)
+        return carry, (host, start, done, packed.device, n_counts)
 
     def _sync_wave_rows(self, handle, monitored: bool = True):
         """Materialize one wave's compacted readback — the per-wave
         designated sync point of the overlapped replay. Returns host
-        arrays (pods, nodes, zones, res, count, device ms or None).
+        arrays (pods, nodes, zones, res, count, device ms or None, the
+        wave's [P, 11] uint32 stage counts or None).
 
         ``monitored=False`` (the replay phase, wave >= 2) runs the sync
         INLINE, outside the deadline watchdog: those syncs happen after
         binds applied, where a DispatchDeadlineExceeded could only escape
         as a cycle exception; the deadline window is wave 1's readback."""
-        host, start, done, device = handle
+        host, start, done, device, n_counts = handle
 
         def body():
             import torch
@@ -2705,12 +2947,16 @@ class Scheduler:
 
         arr = (self.dispatch_watchdog.run(body, "fused") if monitored
                else body())
-        scheduler_metrics.READBACK_BYTES.inc(int(arr.nbytes))
-        P = (arr.shape[0] - 1) // 4
+        P = (arr.shape[0] - 1 - n_counts) // 4
+        scheduler_metrics.READBACK_BYTES.inc(int((4 * P + 1) * 4))
         rows = arr[:4 * P].reshape(4, P)
+        counts = None
+        if n_counts:
+            counts = arr[4 * P + 1:].view(np.uint32).reshape(P, -1)
+            scheduler_metrics.EXPLAIN_READBACK_BYTES.inc(int(counts.nbytes))
         device_ms = start.elapsed_time(done) if done is not None else None
         return (rows[0], rows[1], rows[2], rows[3], int(arr[4 * P]),
-                device_ms)
+                device_ms, counts)
 
     def _drain_abandoned_wave(self, handle) -> None:
         """A truncation (Reserve veto, preemption retry) dropped a
@@ -2784,12 +3030,15 @@ class Scheduler:
         level0 = self.ladder.level
         window_open = False
         handle0 = None  # wave 1 in flight: drained before the window closes
+        n_real = len(nodes.names)
         while True:
+            explain = self._effective_explain()
             try:
                 step = self._get_chain_step(
                     (pods.padded_size, nodes.padded_size,
                      fc_host.quota_runtime.shape[0]),
-                    ng, ngroups, active, sides_tag=res_ctx["tag"])
+                    ng, ngroups, active, explain=explain,
+                    sides_tag=res_ctx["tag"])
                 with self.tracer.span(
                         "kernel",
                         compiled="1" if self._last_step_compiled else "0",
@@ -2805,9 +3054,9 @@ class Scheduler:
                     win.mark_dispatch("chained")
                     if self.fault_injector is not None:
                         self.fault_injector("fused")
-                    carry = self._initial_chain_carry(fc, sides)
-                    carry, handle0 = self._dispatch_chain_wave(step, fc,
-                                                               carry, sides)
+                    carry = self._initial_chain_carry(fc, sides, explain)
+                    carry, handle0 = self._dispatch_chain_wave(
+                        step, fc, carry, sides, n_real, explain)
                     self.last_backend = (
                         "cuda" if fc.base.allocatable.is_cuda else "serial")
                     self.dispatches += 1
@@ -2838,8 +3087,8 @@ class Scheduler:
         try:
             executed, t_last_sync = self._replay_wave_chain(
                 step, fc, fc_host, carry, sides, res_ctx, synced,
-                len(nodes.names), pods, nodes, pending, now, ctx, result,
-                pending_reservations, originals, k_waves)
+                n_real, pods, nodes, pending, now, ctx, result,
+                pending_reservations, originals, k_waves, explain)
         finally:
             if window_open:
                 self.device_snapshot.end_dispatch()
@@ -2876,6 +3125,7 @@ class Scheduler:
         pending_reservations: Dict[str, Reservation],
         originals: Dict[str, Pod],
         k_waves: int,
+        explain=None,
     ) -> Tuple[int, float]:
         """Consume the wave chain: one logical cycle per wave, the replay
         of wave w overlapping device execution of wave w+1. Returns (wave
@@ -2928,44 +3178,63 @@ class Scheduler:
 
         executed = 1           # wave bodies whose readback we consumed
         t_last_sync = time.perf_counter()
-        # fixpoint-repeat cache: valid while no wave commits/vetoes and
+        # fixpoint-repeat caches: valid while no wave commits/vetoes and
         # preemption stays victim-less (any of those invalidates)
         reuse_lists = None     # (rejected_pods, failed_pods)
+        reuse_attrib = None    # [(pod key, /explain attribution entry)]
         in_flight = None       # handle of wave w+1
+        # explain=full bookkeeping mirroring the serial twin's masking:
+        # term rows belong to DEVICE-kept pods (the chain's bind rows),
+        # and a preemption-retry pass stashes its own kernel's rows for
+        # the pods it re-ran — the end-of-chain stash must not clobber
+        # those (the serial twin stashes chain rows BEFORE the replay,
+        # so its retry stash wins by order)
+        device_kept = (np.zeros(len(keys), bool)
+                       if explain == "full" else None)
+        retried_keys: set = set()
         pending_succ: List[Tuple] = []
         try:
             with self.tracer.span("replay_drain",
                                   waves=str(k_waves)) as dsp:
                 for w in range(k_waves):
                     if synced is not None:
-                        pods_w, nodes_w, zones_w, res_w, cnt_w, dev_ms = (
-                            synced)
+                        (pods_w, nodes_w, zones_w, res_w, cnt_w, dev_ms,
+                         crow_w) = synced
                         seg_rows = list(zip(pods_w[:cnt_w].tolist(),
                                             nodes_w[:cnt_w].tolist(),
                                             zones_w[:cnt_w].tolist(),
                                             res_w[:cnt_w].tolist()))
                     else:
-                        seg_rows, cnt_w, dev_ms = [], 0, None
+                        seg_rows, cnt_w, dev_ms, crow_w = [], 0, None, None
                     # one-ahead: launch wave w+1 BEFORE replaying wave w —
                     # the device works through it while the host replays
                     # (a known fixpoint dispatches nothing)
                     if (synced is not None and cnt_w > 0
                             and w + 1 < k_waves):
                         carry, in_flight = self._dispatch_chain_wave(
-                            step, fc, carry, sides)
+                            step, fc, carry, sides, n_real, explain)
                     else:
                         in_flight = None
+                    if device_kept is not None and cnt_w:
+                        # nominated rows (res >= 0) have no term rows —
+                        # the serial twin's pre-pass binds never reach
+                        # the kernel's attribution either
+                        device_kept[[row for row, _n, _z, slot
+                                     in seg_rows if slot < 0]] = True
                     replay_out: Dict[str, object] = {
                         "apply_succ": pending_succ}
                     truncate = self._replay_logical_cycle(
-                        w, seg_rows, cnt_w, dev_ms, pending_rows,
+                        w, seg_rows, cnt_w, dev_ms, crow_w, pending_rows,
                         mirror_state, mirror_apply, res_ctx, index,
                         n_real, nodes, now, ctx, result,
-                        pending_reservations, originals, reuse_lists,
-                        replay_out)
+                        pending_reservations, originals, explain,
+                        reuse_lists, reuse_attrib, replay_out)
                     pending_succ = replay_out.get("pending_succ", [])
                     pending_rows = replay_out["pending_rows"]
                     reuse_lists = replay_out["reuse_lists"]
+                    reuse_attrib = replay_out["reuse_attrib"]
+                    retried_keys.update(replay_out.get("retried_keys",
+                                                       ()))
                     result.waves += 1
                     if gang_plugin is not None:
                         gang_plugin.update_pod_group_status(self.store,
@@ -2975,9 +3244,13 @@ class Scheduler:
                     # advance the mirror with the device's committed rows
                     # + the wave-boundary claim rebuild, so the next
                     # logical cycle diagnoses at wave-(w+1)-start state
-                    ops = replay_out.get("kernel_mirror_ops", [])
-                    if cnt_w or ops:
-                        mirror_apply(list(ops) + [("wave_end",)])
+                    # (the dispatch's counts make the mirror unnecessary;
+                    # nominated/succeed ops were applied pre-diagnosis
+                    # inside the replay)
+                    if explain is None:
+                        ops = replay_out.get("kernel_mirror_ops", [])
+                        if cnt_w or ops:
+                            mirror_apply(list(ops) + [("wave_end",)])
                     if in_flight is not None:
                         handle, in_flight = in_flight, None
                         with self.tracer.span("overlap_wait",
@@ -3004,6 +3277,24 @@ class Scheduler:
                     logger.exception("abandoned chain wave failed "
                                      "while draining")
                 t_last_sync = time.perf_counter()
+        if explain == "full":
+            # decision-time score terms ride the carried state; the last
+            # dispatched wave's carry holds the kept-wave-wins rows. The
+            # chain completed at the syncs/drain above — this copy waits
+            # for nothing new. The mask is the serial twin's: DEVICE-kept
+            # rows (not result.bound — a preemption retry's host rebind
+            # has no chain row), minus the pods a retry pass re-ran (its
+            # kernel already stashed their rows; in the serial twin that
+            # stash comes after the chain's and wins by order).
+            terms_np = carry[-1].cpu().numpy()
+            scheduler_metrics.EXPLAIN_READBACK_BYTES.inc(
+                int(terms_np.nbytes))
+            kept_mask = device_kept
+            for key in retried_keys:
+                j = index.get(key)
+                if j is not None:
+                    kept_mask[j] = False
+            self._stash_terms(keys, kept_mask, terms_np)
         return executed, t_last_sync
 
     def _replay_logical_cycle(
@@ -3012,6 +3303,7 @@ class Scheduler:
         seg_rows,
         cnt_w: int,
         device_ms,
+        crow_w,
         pending_rows,
         mirror_state,
         mirror_apply,
@@ -3024,7 +3316,9 @@ class Scheduler:
         result: CycleResult,
         pending_reservations: Dict[str, Reservation],
         originals: Dict[str, Pod],
+        explain,
         reuse_lists,
+        reuse_attrib,
         out: dict,
     ) -> bool:
         """Replay ONE logical cycle of the overlapped chain (nominated
@@ -3036,7 +3330,9 @@ class Scheduler:
         ``out``. A pending row's verdict is a string (the static failure
         reason) or the chain's reject sentinel (any non-string: gang/quota
         admission rejection). ``device_ms`` (the wave's time on the card,
-        CUDA events) is stamped on the wave's span."""
+        CUDA events) is stamped on the wave's span; ``crow_w`` is the
+        wave's stage counts under explain (None otherwise), which replace
+        the host mirror for the wave's diagnosis."""
         rejected_pods: List[Pod] = []
         failed_pods: List[Tuple[Pod, str]] = []
         kernel_ops: List[Tuple] = []
@@ -3049,7 +3345,7 @@ class Scheduler:
             bound_before = len(result.bound)
             # the previous wave's allocate-once consumption lands its
             # Succeeded transition at THIS wave's start (pass 0a)
-            if out.get("apply_succ"):
+            if explain is None and out.get("apply_succ"):
                 mirror_apply(out["apply_succ"])
             if cnt_w == 0 and reuse_lists is not None:
                 # fixpoint repeat: same pending slice, same wave-start
@@ -3068,7 +3364,7 @@ class Scheduler:
                     veto |= nveto
                     for row in nom_bound:
                         bound_mask[row] = True
-                    if nom_ops:
+                    if explain is None and nom_ops:
                         mirror_apply(nom_ops)
                     if succ_ops:
                         out.setdefault("pending_succ", []).extend(
@@ -3125,8 +3421,11 @@ class Scheduler:
 
             if fresh and (rejected_pods or any(
                     r in DIAGNOSED_REASONS for _p, r in failed_pods)):
-                self._last_batch = (mirror_state().patched_fc(), index,
-                                    n_real)
+                if explain is not None:
+                    self._last_batch = (None, index, n_real, crow_w)
+                else:
+                    self._last_batch = (mirror_state().patched_fc(), index,
+                                        n_real, None)
             truncate = veto
             any_victims = self._post_filter_preempt(
                 rejected_pods, failed_pods, result)
@@ -3142,6 +3441,7 @@ class Scheduler:
                 rejected_pods, failed_pods = self._batch_pass(
                     retry, now, ctx, result, pending_reservations
                 )
+                out["retried_keys"] = [p.meta.key for p in retry]
                 truncate = True
                 fresh = True
             for b in result.bound[bound_before:]:
@@ -3156,16 +3456,36 @@ class Scheduler:
             if fresh:
                 self._write_unschedulable_conditions(
                     rejected_pods, failed_pods, now)
+            elif reuse_attrib:
+                # the repeat's attribution is per logical cycle, exactly
+                # like K serial cycles — re-apply the cached entries and
+                # stage counters; the byte-identical deferred store
+                # write is deduped (its flush was a proven no-op)
+                for key, entry in reuse_attrib:
+                    self._cycle_attrib[key] = entry
+                    for stage_key, c in entry.get("stages", {}).items():
+                        scheduler_metrics.FILTER_REJECTIONS.inc(
+                            c, stage=stage_key)
             # set LAST so a preemption-retry pass's rebinds count toward
             # this logical cycle's replay span, as they are bound in it
             wsp.attributes["bound"] = str(len(result.bound) - bound_before)
         reuse_ok = cnt_w == 0 and not veto and not any_victims
         if reuse_ok and fresh:
             reuse_lists = (rejected_pods, failed_pods)
+            if self.explain_spec is not None:
+                reuse_attrib = [
+                    (p.meta.key, self._cycle_attrib[p.meta.key])
+                    for p in rejected_pods + [fp for fp, _r in failed_pods]
+                    if p.meta.key in self._cycle_attrib
+                ]
+            else:
+                reuse_attrib = None
         elif not reuse_ok:
             reuse_lists = None
+            reuse_attrib = None
         out["pending_rows"] = pending_rows
         out["reuse_lists"] = reuse_lists
+        out["reuse_attrib"] = reuse_attrib
         out["kernel_mirror_ops"] = kernel_ops
         return truncate
 

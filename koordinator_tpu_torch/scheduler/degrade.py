@@ -69,7 +69,14 @@ kernel faulting) and a path this slice of the port leaves out
 (NotImplementedError). The ladder never retries them and never sheds to
 the host fallback because of them — a retry cannot fix them, and a host
 pass that still binds pods would hide a broken kernel. The reference's
-XLA has no such failure mode at dispatch.
+XLA has no such failure mode at dispatch. The same holds for the
+koordexplain passes (ops/explain_kernel.py, the full-chain kernel's terms
+instance): a failure of theirs that is not a device fault is not demoted
+away to the no-explain rung.
+
+On one GPU the live rungs are full -> serial-waves -> no-explain ->
+host-fallback; the mesh rungs wait for the port's parallel/ slice, and
+a scheduler skips the waves and explain rungs where those are off.
 
 The host fallback trades scoring fidelity for survival: it binds only
 plain pods (gang and quota admission need the batched kernel's atomic

@@ -10,6 +10,11 @@ identical churn and diffs every bound sequence, the failure/rejection
 lists, every PodScheduled condition, the gang/quota plugin counters and the
 final assignments.
 
+  * ``run_pipeline_parity``: the pipelined serial cycle against the
+    plain one;
+  * ``run_explain_parity``: explain "counts" (PodScheduled messages
+    formatted from the dispatch's stage counts) against explain off (the
+    host recompute), string for string;
   * ``run_fused_wave_parity``: fused-K against K serial cycles;
   * ``run_replay_overlap_parity``: the chained dispatch against the
     single-call twin (replay overlap off);
@@ -21,7 +26,7 @@ final assignments.
     oracles, on the scheduler's shared snapshot.
 
 Each takes ``device=``: "cuda" (the default, the kernels) or "cpu" (the
-plain wave step). The worlds and deltas are the JAX package's
+plain wave step); the scheduler harnesses take ``explain=`` too. The worlds and deltas are the JAX package's
 (koordinator_tpu/scheduler/pipeline_parity.py), imports renamed. Run
 on the card:
 
@@ -127,10 +132,162 @@ def _dump_on_mismatch(mismatches, *scheds) -> None:
         sched.flight.dump("parity_mismatch")
 
 
+def _synth_world(num_nodes, num_pods, seed):
+    from koordinator_tpu_torch.testing import synth_full_cluster
+
+    _cluster, state = synth_full_cluster(
+        num_nodes, num_pods, seed=seed, num_quotas=3, num_gangs=4,
+        topology_fraction=0.5, lsr_fraction=0.2)
+    return state, build_store_from_state(state)
+
+
+def run_pipeline_parity(num_nodes: int = 24, num_pods: int = 70,
+                        rounds: int = 4, seed: int = 11,
+                        arrivals: int = 9, explain: str = "off",
+                        device="cuda") -> dict:
+    """Drive identical twin stores through the serial and pipelined paths.
+
+    Returns a report dict; report["ok"] is the gate. Diffs per round:
+    bound (pod, node) sequences in order, failed/rejected/victim sets —
+    and at end of stream (after flush): every pod's PodScheduled
+    condition tuple and node assignment. ``explain`` runs BOTH worlds at
+    that koordexplain level: the pipeline stays byte-identical with
+    attribution enabled."""
+    from koordinator_tpu_torch.client.store import KIND_POD
+    from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
+
+    state_s, store_serial = _synth_world(num_nodes, num_pods, seed)
+    _state_p, store_pipe = _synth_world(num_nodes, num_pods, seed)
+    # waves pinned to 1: this gate isolates pipelining; the fused-wave
+    # gate (run_fused_wave_parity) owns the K > 1 dimension
+    sched_serial = Scheduler(store_serial, waves=1, explain=explain,
+                             device=device)
+    sched_pipe = Scheduler(store_pipe, waves=1, explain=explain,
+                           device=device)
+    pipeline = CyclePipeline(sched_pipe, enabled=True)
+    assert sched_serial.pipeline_mode is False
+
+    now = state_s.now
+    mismatches: List[str] = []
+    for r in range(rounds + 1):
+        if r > 0:
+            apply_round_delta(store_serial, r, now, arrivals)
+            apply_round_delta(store_pipe, r, now, arrivals)
+        t = now + 2 * r
+        res_s = sched_serial.run_cycle(now=t)
+        res_p = pipeline.run_cycle(now=t)
+        if ([(b.pod_key, b.node_name, b.annotations) for b in res_s.bound]
+                != [(b.pod_key, b.node_name, b.annotations)
+                    for b in res_p.bound]):
+            mismatches.append(f"round {r}: bound sequence differs")
+        for field in ("failed", "rejected", "preempted_victims",
+                      "resized", "resize_pending"):
+            if sorted(getattr(res_s, field)) != sorted(getattr(res_p, field)):
+                mismatches.append(f"round {r}: {field} differs")
+    pipeline.flush()
+
+    cond_s, cond_p = _conditions(store_serial), _conditions(store_pipe)
+    if cond_s != cond_p:
+        keys = {k for k in set(cond_s) | set(cond_p)
+                if cond_s.get(k) != cond_p.get(k)}
+        mismatches.append(
+            f"PodScheduled conditions differ for {len(keys)} pods "
+            f"(e.g. {sorted(keys)[:3]})")
+    assign_s = {p.meta.key: p.spec.node_name
+                for p in store_serial.list(KIND_POD)}
+    assign_p = {p.meta.key: p.spec.node_name
+                for p in store_pipe.list(KIND_POD)}
+    if assign_s != assign_p:
+        mismatches.append("final pod->node assignments differ")
+    _dump_on_mismatch(mismatches, sched_serial, sched_pipe)
+
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "rounds": rounds + 1,
+        "pods": len(assign_s),
+        "conditions_checked": len(cond_s),
+        "explain": explain,
+        "device": str(device),
+    }
+
+
+def run_explain_parity(num_nodes: int = 24, num_pods: int = 70,
+                       rounds: int = 4, seed: int = 11,
+                       arrivals: int = 9, waves=1, device="cuda",
+                       replay_overlap=None, explain: str = "counts",
+                       schedulers=None) -> dict:
+    """Formatter-over-dispatch-counts vs the host-numpy diagnosis:
+    byte-identical stores on a churn workload.
+
+    Twin worlds run the SAME cycle cadence, one at koordexplain
+    ``explain`` ("counts": PodScheduled messages formatted from the
+    dispatch's per-stage counts) and one pinned off (the diagnose_unbound
+    recompute). Every observable — bound sequences, failure sets, every
+    PodScheduled condition tuple string-for-string, final assignments —
+    must match, proving BOTH that attribution does not perturb decisions
+    and that the counts format to the exact host messages. ``waves`` and
+    ``replay_overlap`` pick the dispatch (1: serial; K > 1: fused, chained
+    unless replay_overlap is False). ``schedulers``, a list, receives the
+    (off, explain) Scheduler pair for the caller to inspect."""
+    from koordinator_tpu_torch.client.store import KIND_POD
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+
+    state_l, store_legacy = _synth_world(num_nodes, num_pods, seed)
+    _state_e, store_explain = _synth_world(num_nodes, num_pods, seed)
+    kw = dict(waves=waves, device=device, replay_overlap=replay_overlap)
+    sched_legacy = Scheduler(store_legacy, explain="off", **kw)
+    sched_explain = Scheduler(store_explain, explain=explain, **kw)
+    if schedulers is not None:
+        schedulers.extend((sched_legacy, sched_explain))
+
+    now = state_l.now
+    mismatches: List[str] = []
+    for r in range(rounds + 1):
+        if r > 0:
+            apply_round_delta(store_legacy, r, now, arrivals)
+            apply_round_delta(store_explain, r, now, arrivals)
+        t = now + 2 * r
+        res_l = sched_legacy.run_cycle(now=t)
+        res_e = sched_explain.run_cycle(now=t)
+        if ([(b.pod_key, b.node_name) for b in res_l.bound]
+                != [(b.pod_key, b.node_name) for b in res_e.bound]):
+            mismatches.append(f"round {r}: bound sequence differs")
+        for field in ("failed", "rejected", "preempted_victims"):
+            if sorted(getattr(res_l, field)) != sorted(getattr(res_e, field)):
+                mismatches.append(f"round {r}: {field} differs")
+
+    cond_l, cond_e = _conditions(store_legacy), _conditions(store_explain)
+    if cond_l != cond_e:
+        keys = {k for k in set(cond_l) | set(cond_e)
+                if cond_l.get(k) != cond_e.get(k)}
+        mismatches.append(
+            f"PodScheduled conditions differ for {len(keys)} pods "
+            f"(e.g. {sorted(keys)[:3]})")
+    assign_l = {p.meta.key: p.spec.node_name
+                for p in store_legacy.list(KIND_POD)}
+    assign_e = {p.meta.key: p.spec.node_name
+                for p in store_explain.list(KIND_POD)}
+    if assign_l != assign_e:
+        mismatches.append("final pod->node assignments differ")
+    _dump_on_mismatch(mismatches, sched_legacy, sched_explain)
+
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "rounds": rounds + 1,
+        "waves": waves,
+        "pods": len(assign_l),
+        "conditions_checked": len(cond_l),
+        "explain": explain,
+        "device": str(device),
+    }
+
+
 def run_fused_wave_parity(k_waves: int, num_nodes: int = 24,
                           num_pods: int = 70, rounds: int = 2,
                           seed: int = 11, arrivals: int = 9,
-                          device="cuda") -> dict:
+                          device="cuda", explain: str = "off") -> dict:
     """Fused-K vs K sequential single-round cycles: byte-identical state.
 
     The fused wave kernel (models/fused_waves.py) runs K dependent
@@ -142,21 +299,17 @@ def run_fused_wave_parity(k_waves: int, num_nodes: int = 24,
     remaining budget to the next dispatch). Diffed per round: the
     CONCATENATED bound sequences and failed/rejected/victim lists across
     the K logical cycles; at end of stream: every pod's PodScheduled
-    condition tuple and node assignment. Both worlds run on ``device``."""
+    condition tuple and node assignment. Both worlds run on ``device``
+    and at koordexplain level ``explain``."""
     from koordinator_tpu_torch.client.store import KIND_POD
     from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
-    from koordinator_tpu_torch.testing import synth_full_cluster
 
-    def make_world():
-        _cluster, state = synth_full_cluster(
-            num_nodes, num_pods, seed=seed, num_quotas=3, num_gangs=4,
-            topology_fraction=0.5, lsr_fraction=0.2)
-        return state, build_store_from_state(state)
-
-    state_s, store_serial = make_world()
-    _state_f, store_fused = make_world()
-    sched_serial = Scheduler(store_serial, waves=1, device=device)
-    sched_fused = Scheduler(store_fused, waves=k_waves, device=device)
+    state_s, store_serial = _synth_world(num_nodes, num_pods, seed)
+    _state_f, store_fused = _synth_world(num_nodes, num_pods, seed)
+    sched_serial = Scheduler(store_serial, waves=1, device=device,
+                             explain=explain)
+    sched_fused = Scheduler(store_fused, waves=k_waves, device=device,
+                            explain=explain)
     pipeline = CyclePipeline(sched_fused, enabled=True)
     assert sched_serial.pipeline_mode is False
 
@@ -247,6 +400,7 @@ def run_fused_wave_parity(k_waves: int, num_nodes: int = 24,
         "rounds": rounds + 1,
         "pods": len(assign_s),
         "conditions_checked": len(cond_s),
+        "explain": explain,
         "device": str(device),
     }
 
@@ -1199,7 +1353,12 @@ def main(device="cuda") -> int:
     returns 1 when any fails."""
     import json
 
-    reports = [run_fused_wave_parity(k, device=device) for k in (2, 4, 8)]
+    reports = [run_pipeline_parity(device=device),
+               run_pipeline_parity(explain="counts", device=device)]
+    reports += [run_explain_parity(waves=w, device=device)
+                for w in (1, 4)]
+    reports += [run_fused_wave_parity(k, device=device) for k in (2, 4, 8)]
+    reports.append(run_fused_wave_parity(4, device=device, explain="full"))
     reports += [run_replay_overlap_parity(k, device=device) for k in (2, 4)]
     reports += [run_carried_state_parity(f, device=device)
                 for f in ("reservations", "claims", "prod", "transformer")]

@@ -13,9 +13,9 @@ backpressure.
 Run named scenarios with ``python -m koordinator_tpu_torch.sim <scenario>
 [--device cuda|cpu]``; the catalog lives in
 :mod:`koordinator_tpu_torch.sim.scenarios`, copied whole from the JAX
-package. The scenarios that need a co-located descheduler or manager,
-mesh dispatch or explain attribution raise NotImplementedError until the
-slice that brings it lands (sim/harness.py).
+package. The scenarios that need a sidecar fault or mesh dispatch raise
+NotImplementedError until the slice that brings it lands
+(sim/harness.py).
 """
 
 from koordinator_tpu_torch.sim.faults import (  # noqa: F401

@@ -29,9 +29,10 @@ the JAX package's sim (tests/test_torch_sim.py holds them together).
 A copy of the JAX package's harness. Scenarios whose configuration needs
 a part the port does not have yet raise NotImplementedError at
 construction and name the slice that brings it: a sidecar fault (a
-dead gRPC sidecar), mesh dispatch (``mesh``) and explain attribution
-(``explain``). A co-located descheduler (``descheduler_every``) and a
-co-located koord-manager (``colo_every``) share the scheduler's
+dead gRPC sidecar) and mesh dispatch (``mesh``); explain attribution
+(``explain``) runs as configured. A co-located descheduler
+(``descheduler_every``) and a co-located koord-manager (``colo_every``)
+share the scheduler's
 snapshot, device mirror and device, as in the JAX package.
 """
 
@@ -433,8 +434,7 @@ def require_ported(sc: Scenario) -> None:
     for needed, part, slice_name in (
             (any(f.kind == "sidecar" for f in sc.faults),
              "the sidecar fault (a dead gRPC sidecar)", "transport"),
-            (sc.mesh is not None, "mesh-backed dispatch", "parallel/"),
-            (sc.explain is not None, "explain attribution", "explain")):
+            (sc.mesh is not None, "mesh-backed dispatch", "parallel/")):
         if needed:
             raise NotImplementedError(
                 f"scenario {sc.name!r} needs {part}, which comes with the "
@@ -578,7 +578,7 @@ class ChurnSimulator:
         self.sched = Scheduler(
             self.sched_store,
             waves=sc.waves,
-            explain="off",
+            explain=sc.explain if sc.explain is not None else "off",
             mesh="off",
             ladder=DegradationLadder(promote_after=sc.promote_after),
             dispatch_deadline_ms=(sc.dispatch_deadline_ms

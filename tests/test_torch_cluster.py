@@ -24,6 +24,7 @@ from koordinator_tpu_torch.models.full_chain import (
 from koordinator_tpu_torch.models.scheduler_model import (
     build_best_schedule_step,
 )
+from koordinator_tpu_torch.ops import explain_kernel as ek
 from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops import kernel_common as kc
 from koordinator_tpu_torch.ops import schedule_kernel as sk
@@ -253,7 +254,9 @@ def test_shared_constants_mirror_source():
                         ("REJECT_PR", "kNodeRejectPr"),
                         ("HAS_TOPO", "kNodeHasTopo")):
         assert c[cname] == getattr(kc, "NODE_" + name), cname
-    f = _constants(fck.SOURCE)
+    # the pod record's words past the header live in the Filter chain's
+    # header, which the full chain and the explain pass share
+    f = _constants("filter_chain.cuh")
     assert [f[k] for k in ("kRecCores", "kRecTaint", "kRecQuota", "kRecPref",
                            "kRecPpref", "kRecImg")] == [
         fck.REC_CORES, fck.REC_TAINT, fck.REC_QUOTA, fck.REC_PREF,
@@ -262,7 +265,8 @@ def test_shared_constants_mirror_source():
 
 
 @pytest.mark.parametrize("module,struct", [(fck, "FullChainParams"),
-                                           (sk, "ScheduleStepParams")])
+                                           (sk, "ScheduleStepParams"),
+                                           (ek, "ExplainParams")])
 def test_params_structs_mirror_sources(module, struct):
     assert _struct_fields(module.SOURCE, struct) == [
         f for f, _ in module._Params._fields_]

@@ -376,11 +376,16 @@ def test_step_argument_checks():
             LoadAwareArgs(score_according_prod_usage=True), 1, 1, waves=2)
     with pytest.raises(ValueError):
         fw.build_chained_wave_step(LoadAwareArgs(), 1, 1, prod=True)
+    # explain is ported: the steps build at every level and refuse an
+    # unknown one
+    fw.build_fused_wave_step(LoadAwareArgs(), 1, 1, waves=2,
+                             explain="counts")
+    fw.build_chained_wave_step(LoadAwareArgs(), 1, 1, explain="full")
     for build in (lambda: fw.build_fused_wave_step(
-            LoadAwareArgs(), 1, 1, waves=2, explain="counts"),
+            LoadAwareArgs(), 1, 1, waves=2, explain="all"),
             lambda: fw.build_chained_wave_step(LoadAwareArgs(), 1, 1,
-                                               explain="full")):
-        with pytest.raises(NotImplementedError, match="explain"):
+                                               explain="all")):
+        with pytest.raises(ValueError, match="explain"):
             build()
 
 

@@ -73,9 +73,17 @@ def test_selector_forms():
     step = build_best_full_chain_step(args, ng, ngroups)
     chosen, _req, _q = step(fc)
     assert step.last_backend == "serial" and chosen.shape == (16,)
-    for kw in (dict(kernel="wave"), dict(explain="counts")):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            build_best_full_chain_step(args, ng, ngroups, **kw)
+    with pytest.raises(NotImplementedError, match="later slice"):
+        build_best_full_chain_step(args, ng, ngroups, kernel="wave")
+    # explain is ported: on CPU tensors the plain step with its 4th output
+    ex = build_best_full_chain_step(args, ng, ngroups, explain="counts")
+    out = ex(fc, 16)
+    assert ex.last_backend == "serial" and len(out) == 4
+    assert out[3].terms is None and tuple(out[3].stage_counts.shape) == (
+        16, 11)
+    assert torch.equal(out[0], chosen)
+    with pytest.raises(ValueError, match="explain"):
+        build_best_full_chain_step(args, ng, ngroups, explain="verbose")
 
 
 def test_cuda_device_without_cuda_raises():

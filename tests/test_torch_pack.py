@@ -165,7 +165,12 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.colo.step, "
             "koordinator_tpu_torch.colo.reconciler, "
             "koordinator_tpu_torch.manager, "
-            "koordinator_tpu_torch.manager_metrics\n"
+            "koordinator_tpu_torch.manager_metrics, "
+            "koordinator_tpu_torch.ops.explain_kernel, "
+            "koordinator_tpu_torch.obs.server, "
+            "koordinator_tpu_torch.obs.__main__, "
+            "koordinator_tpu_torch.cmd, "
+            "koordinator_tpu_torch.cmd.koord_scheduler\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"

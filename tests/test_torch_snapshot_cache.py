@@ -436,8 +436,8 @@ def test_rebalance_pack_is_the_shared_pack():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(explain="counts"), "explain"),
-    (dict(explain="full"), "explain"),
+    (dict(explain="counts"), None),
+    (dict(explain="full"), None),
     (dict(mesh=4), "mesh"),
     (dict(mesh="auto"), "mesh"),
     (dict(sidecar_address="localhost:1"), "sidecar"),
@@ -446,7 +446,13 @@ def test_rebalance_pack_is_the_shared_pack():
 ], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
         "sidecar", "warmup-sync", "warmup-background"])
 def test_left_out_knobs_raise(kwargs, match):
+    """The knobs of paths a later slice brings raise, naming them; explain
+    attribution is ported (match None): its knob takes effect."""
     kwargs = {"waves": 1, **kwargs}
+    if match is None:
+        sched = Scheduler(ObjectStore(), device="cpu", **kwargs)
+        assert sched.explain_spec == kwargs["explain"]
+        return
     with pytest.raises(NotImplementedError, match=match):
         Scheduler(ObjectStore(), device="cpu", **kwargs)
 
@@ -458,12 +464,17 @@ def test_left_out_knobs_raise(kwargs, match):
 def test_left_out_env_knobs_raise(monkeypatch, env, value):
     monkeypatch.setenv(env, value)
     if env == "KOORD_TPU_WAVES":
-        # the fused dispatch is ported: the knob pins K, and only its
-        # per-wave explain attribution is still left out
+        # the fused dispatch is ported: the knob pins K, and its per-wave
+        # explain attribution rides it
         assert Scheduler(ObjectStore(), device="cpu").waves_spec == 4
         monkeypatch.setenv("KOORD_TPU_EXPLAIN", "counts")
-        with pytest.raises(NotImplementedError, match="explain"):
-            Scheduler(ObjectStore(), device="cpu")
+        assert Scheduler(ObjectStore(), device="cpu").explain_spec == (
+            "counts")
+        return
+    if env == "KOORD_TPU_EXPLAIN":
+        # explain is ported: the knob takes effect
+        assert Scheduler(ObjectStore(), device="cpu",
+                         waves=1).explain_spec == "counts"
         return
     with pytest.raises(NotImplementedError):
         Scheduler(ObjectStore(), device="cpu", waves=1)
