@@ -14,7 +14,7 @@ Phases, one JSON line each:
           Scheduler(store, waves=1, device="cuda") — plain, under
           CyclePipeline, and with IncrementalSnapshot off (the full-rebuild
           twin) — through cycle 0 (cold, the first kernel call of the run)
-          and 2 warm-up + 3 measured churn cycles of 1000 arrivals each. The
+          and 1 warm-up + 3 measured churn cycles of 1000 arrivals each. The
           twins' ordered bindings, failed and rejected lists must be
           identical every cycle, and every dispatch window must have
           launched the full-chain kernel exactly once (launch counts set to
@@ -37,7 +37,7 @@ Phases, one JSON line each:
           defaults, (b) the same with replay_overlap=False (all K waves in
           one call), (c) Scheduler(store, waves=1, device="cuda") running as
           many serial cycles as (a) consumed (CycleResult.waves), through
-          cycle 0 and 1 warm-up + 3 measured churn cycles of 1000 arrivals.
+          cycle 0 and 1 warm-up + 2 measured churn cycles of 1000 arrivals.
           The concatenated bound sequences and failed/rejected lists must be
           identical every round, and the canonical dumps after a final flush.
           Prints the K each cycle resolved to, the device waves run and the
@@ -49,7 +49,7 @@ Phases, one JSON line each:
           the replay_global line).
   scheduler_waves_mixed  the mixed cluster (1000 x 2000) with default
           waves on the card and in a CPU twin (the plain wave step): the
-          canonical dumps must be identical after each of 3 cycles. As
+          canonical dumps must be identical after each of 2 cycles. As
           mixed_cluster builds it, the world's shared claims overflow the
           volume-group budget and the cycle demotes to serial dispatch
           (claim-entangled, checked first), so the twins keep the shared
@@ -59,6 +59,27 @@ Phases, one JSON line each:
           worlds: each must report ok and a fused dispatch that ran more
           than one wave. Also the shared memory a config-4 launch takes
           with a claim world's [P, N] volume view.
+  storage config 4's churn store with a seeded storage layer
+          (testing/storage.py): three zones over the nodes, a
+          WaitForFirstConsumer no-provisioner class with static zonal PVs,
+          a WaitForFirstConsumer CSI class whose allowedTopologies name two
+          zones, an Immediate class with bound zonal PVs; 20% of the
+          pending pods and of each cycle's 1000 arrivals carry 1-2 claims
+          (half of the arrivals' a bound claim shared by two pods). The
+          default path (auto waves, chained) and a serial twin run cycle 0
+          and 2 churn cycles, the dynamic provisioner creating PVs for the
+          claims the scheduler selected nodes for in between. Bindings,
+          failure lists, every claim's and volume's binding (the PV picks)
+          and the canonical dumps (PodScheduled messages) must be equal
+          every cycle, every window in kernel 1, and the scheduler must
+          have bound static PVs and served provisioning. Then the fused
+          waves' claims world with every claim a bound PVC
+          (testing/storage.bound_claims_world) at K = 4 on the card
+          against a CPU twin: hot claims from real objects through the
+          fused dispatch, the cycle equal. Prints per cycle
+          the K, waves and demotion reasons (claim-entangled wherever
+          unbound claims sit on two or more pending pods, in both
+          packages), the PVs bound, the cycle ms and the span splits.
   ladder  the degradation ladder at config 4: two stores from
           churn_store(5000, 10000, seed=42), each through Scheduler(store,
           device="cuda") at its defaults for cycle 0 and 10 churn cycles of
@@ -76,11 +97,11 @@ Phases, one JSON line each:
           transitions, each cycle's ms and level beside (b)'s, and the
           host-fallback pass's seconds.
   sim     the sim's smoke (50 cycles), gang-storm (150 of its 300),
-          spot-churn (150 of 300), crash-restart (36), drain-storm (100 of
+          spot-churn (60 of 300), crash-restart (36), drain-storm (60 of
           200), hotspot (160) and
           overcommit-shift (160) scenarios
           on the card, each with a CPU twin in this process (gang-storm's
-          and spot-churn's cut to 100 cycles and drain-storm's to 60 for
+          cut to 40 cycles, spot-churn's to 30 and drain-storm's to 40 for
           the time limit): the CPU's binding log equal to the card's over
           the same cycles, zero invariant breaches and cycle exceptions on
           both, smoke's ladder round trip in cycles_at_level. drain-storm
@@ -169,10 +190,24 @@ Phases, one JSON line each:
           for a bound pod and an unschedulable one (a pod no node fits,
           added to the binary's store) over HTTP, each /explain body
           equal to the Scheduler's own record.
+  cold_start  two child processes in turn (testing/cold_start.py, config 4's
+          churn store at the default path, cycle 0 and 2 churn cycles) on
+          a fresh KOORD_TPU_COMPILE_CACHE_DIR: the cold process with
+          warm-up off records the steps it builds in the rung index; the
+          restart with KOORD_TPU_WARMUP=sync replays them before its first
+          cycle. Gates: every rung warmed (warmed == rungs > 0), none
+          failed or invalidated, zero steady-state step builds, the cold
+          process's bindings every cycle. Prints both processes'
+          construction and construction-to-first-bind seconds, cycle 0's
+          kernel spans and the warm-up seconds.
+  koord_descheduler, koord_manager  the port's two binaries,
+          cmd.koord_descheduler.main and cmd.koord_manager.main, on the
+          card at --synth 5000x10000 for 3 ticks 1 s apart: exit 0 and one
+          device pass a tick (rebalance windows, colo passes by engine).
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
-          and 2 churn cycles of 200 arrivals: the canonical dumps of both
+          and 1 churn cycle of 200 arrivals: the canonical dumps of both
           worlds (every pod's node, annotations and PodScheduled condition,
           every PodGroup's status, every ElasticQuota's used vector) must be
           identical after every cycle.
@@ -194,6 +229,13 @@ Phases, one JSON line each:
           step (Permit, counts, terms) equal to the plain round's bit for
           bit; both timed (CUDA events, median of 10) at P = 10240 and
           at the churn wave's P = 1280 beside kernel 1 without terms.
+  wave_round  the wave-parallel round (models/wave_chain.py, plain
+          PyTorch, kernel="wave" in the selector) at config 4 (P = 10240)
+          and at P = 1280: chosen, requested and quota_used equal to
+          kernel 1's bit for bit; its time against kernel 1's (CUDA
+          events, median), its launches (torch.profiler), its waves and
+          host reads of the wave cut (one a wave), and a bound from the
+          inputs and each wave's [W, N] rows.
   main_global  the same kernel with its carried state in device memory
           (smem_budget_bytes=0), against the plain round of `main`.
   mixed   mixed_cluster at 1000 nodes x 2000 pods (affinity, spread,
@@ -207,7 +249,7 @@ Phases, one JSON line each:
           on CUDA, with the launch counts read around that call; then the
           LoadAware kernel's time, the plain torch round on the card (same
           bindings, requested within 1e-4) and the numpy oracle
-          serial_schedule on the first 200 pods (same bindings).
+          serial_schedule on the first 100 pods (same bindings).
   loadaware_prod  the same with score_according_prod_usage.
   loadaware_global  the LoadAware kernel with its carried state in device
           memory (smem_budget_bytes=0), against the plain round of
@@ -223,7 +265,8 @@ full, no transition and no dispatch retry (ladder_full in its line).
 Each kernel's phase line names the launch: the state it kept (smem or
 global), the instance (common or generic), cluster_size, block_threads and
 smem_bytes_per_block. Every phase holds the kernel's bindings and outputs
-equal to the plain round's: 0 mismatches and max |err| 0.0. Then the
+equal to the plain round's: 0 mismatches and max |err| 0.0. Then a line
+of each phase's wall seconds and the script's, the
 kernels line (kernel 1, kernel 2, the replay instance, the stage-count
 pass and the terms instance, each with its launches on the scheduler
 paths), the card line, and the result line. Any failure raises: the
@@ -306,14 +349,18 @@ from koordinator_tpu_torch.testing.churn import (
 )
 from koordinator_tpu_torch.utils.features import SCHEDULER_GATES
 
+SCRIPT_START = time.perf_counter()
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 10  # timed rounds after the warm-up
-ORACLE_PODS = 200  # bench.py's --serial-sample default
-# bench.py run_churn: 2 warm-up and (with --smoke's count) 3 measured churn
-# cycles, num_pods // 10 arrivals each
-CHURN_WARMUP, CHURN_MEASURED = 2, 3
+# the numpy oracle's pods (bench.py's --serial-sample default is 200; cut
+# for the script's time limit)
+ORACLE_PODS = 100
+# bench.py run_churn's shape: warm-up (its 2, cut to 1 for the time limit)
+# and (with --smoke's count) 3 measured churn cycles, num_pods // 10
+# arrivals each
+CHURN_WARMUP, CHURN_MEASURED = 1, 3
 # the spans a cycle is split into (direct children of the cycle root, and
 # the upload/readback and pack_incremental children of kernel and encode)
 CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
@@ -323,7 +370,9 @@ NESTED_SPANS = ("pack_incremental", "upload", "readback")
 # the fused path adds the chained replay's span (wave_replay children)
 WAVE_SPANS = CYCLE_SPANS + ("replay_drain",)
 # the default-waves phase: cycle 0, then warm-up and measured churn cycles
-WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 3
+# (3 measured until the storage, cold start, binary and wave phases
+# joined the script)
+WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 2
 # the ladder phase: churn cycles after cycle 0, the ladder's re-promotion
 # probe, the dispatch deadline armed in the faulted scheduler and the
 # delay of the latency fault (a wave 1 takes at most ~0.1 s on the card)
@@ -345,15 +394,16 @@ LADDER_LEVELS = [0, 0, 0, 0, 3, 5, 5, 3, 3, 0, 0]
 LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
                ("host-fallback", "serial-waves"), ("serial-waves", "full")]
 # the sim phase: the catalog scenarios the port runs, on the card at
-# their catalog cycle counts but gang-storm's and spot-churn's (cut to 150
-# of 300) and drain-storm's (100 of 200), for the script's time limit
-# since the explain phases joined it; the CPU twins of those three cut
-# further, to 100, 100 and 60 (the plain round's per-pod loop over their
-# backlog takes ~0.2-0.4 s a cycle on the host), held against the card
+# their catalog cycle counts but gang-storm's (cut to 150 of 300),
+# spot-churn's (60 of 300) and drain-storm's (60 of 200), for the
+# script's time limit since the explain phases and then the storage, cold
+# start, binary and wave phases joined it; the CPU twins of those three
+# cut further, to 40, 30 and 40 (the plain round's per-pod loop over their
+# backlog takes ~0.1-0.4 s a cycle on the host), held against the card
 # run's first cycles
-SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 150, 100),
-                 ("spot-churn", 150, 100), ("crash-restart", 36, 36),
-                 ("drain-storm", 100, 60), ("hotspot", 160, 160),
+SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 150, 40),
+                 ("spot-churn", 60, 30), ("crash-restart", 36, 36),
+                 ("drain-storm", 60, 40), ("hotspot", 160, 160),
                  ("overcommit-shift", 160, 160))
 # overcommit-shift's binding log at its catalog 160 cycles in the JAX
 # package as it stands (koordinator_tpu.sim.harness.run_scenario on the
@@ -379,7 +429,7 @@ EXPLAIN_LADDER_WALK = [("full", "serial-waves"),
                        ("serial-waves", "no-explain"),
                        ("no-explain", "serial-waves"),
                        ("serial-waves", "full")]
-KOORD_SCHEDULER_INTERVAL = 3.0
+KOORD_SCHEDULER_INTERVAL = 2.0
 # the binary's environment: explain counts, and serial dispatch. The
 # binary's --synth world is preemption-heavy: ~1,500 pods stay pending,
 # and the host's DefaultPreemption dry runs over 5,000 nodes take ~16 s a
@@ -387,6 +437,21 @@ KOORD_SCHEDULER_INTERVAL = 3.0
 # at the next) cost ~250 s over three ticks (NVIDIA H100 80GB HBM3,
 # 700.00 W); the default path with explain is scheduler_explain's
 BINARY_ENV = {"KOORD_TPU_EXPLAIN": "counts", "KOORD_TPU_WAVES": "1"}
+# the storage phase: the share of pending pods and arrivals carrying
+# claims, and the churn cycles after cycle 0
+STORAGE_CLAIMS, STORAGE_CHURN = 0.2, 2
+# the wave round's timed calls beside the compare call at P = 10240 (each
+# ~2,400 waves, ~20 s on the card) and at P = 1280, and the two batch
+# prefixes its launches are counted on
+WAVE_ROUND_REPS = (0, 2)
+WAVE_PROFILE_PODS = (32, 64)
+# the mixed-cluster cycle phases: cycle 0 and churn cycles (2 until the
+# slice-10 phases joined the script)
+MIXED_CYCLES = 2
+# a cold-start child's time limit, and the two binaries' ticks and the
+# seconds between them
+COLD_START_TIMEOUT_S = 600
+BINARY_TICKS, BINARY_INTERVAL = 3, 1.0
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -818,7 +883,7 @@ def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
         worlds.append((store, Scheduler(store, waves=1, device=dev)))
     now = state.now
     launches, walls = 0, {device: [], "cpu": []}
-    for c in range(3):
+    for c in range(MIXED_CYCLES):
         if c:
             specs = arrival_specs(c, n_pods // 10)
             for store, _s in worlds:
@@ -843,7 +908,7 @@ def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
                        *(s for _st, s in worlds))
     pods = dumps[0]["pods"]
     emit({"phase": "scheduler_mixed", "nodes": n_nodes, "pods": n_pods,
-          "cycles": 3, "dumps_identical_every_cycle": True,
+          "cycles": MIXED_CYCLES, "dumps_identical_every_cycle": True,
           "ladder_full": True,
           "launches": launches,
           "cuda_cycle_seconds": walls[device], "cpu_cycle_seconds": walls["cpu"],
@@ -1156,7 +1221,7 @@ def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
     now = state.now
     launches = {"full_chain": 0, "full_chain_replay": 0}
     ks, walls = [], {device: [], "cpu": []}
-    for c in range(3):
+    for c in range(MIXED_CYCLES):
         if c:
             specs = arrival_specs(c, n_pods // 10)
             for store, _s in worlds:
@@ -1183,7 +1248,8 @@ def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
                        *(s for _st, s in worlds))
     pods = dumps[0]["pods"]
     emit({"phase": "scheduler_waves_mixed", "nodes": n_nodes, "pods": n_pods,
-          "cycles": 3, "K": ks, "dumps_identical_every_cycle": True,
+          "cycles": MIXED_CYCLES, "K": ks,
+          "dumps_identical_every_cycle": True,
           "ladder_full": True,
           "untrimmed_demotions": res0.demotions,
           "pods_sharing_claims": sharing, "launches": launches,
@@ -1508,9 +1574,9 @@ def run_sim(device):
                            colo_r01["colo_device"]["batch_pods_bound"],
                        "overcommit_shifts":
                            colo_r01["colo_device"]["overcommit_shifts"]},
-          "cut": "on the card gang-storm and spot-churn run 150 of their "
-                 "300 catalog cycles and drain-storm 100 of 200, their CPU "
-                 "twins 100, 100 and 60 (time limit)"})
+          "cut": "on the card gang-storm runs 150 of its 300 catalog "
+                 "cycles, spot-churn 60 of 300 and drain-storm 60 of 200, "
+                 "their CPU twins 40, 30 and 40 (time limit)"})
     return total
 
 
@@ -2631,6 +2697,360 @@ def run_ladder_explain(device, n_nodes=5000, n_pods=10000):
     return total
 
 
+# ---------------------------------------------------------------------------
+# storage worlds, the wave round, cold start, the two binaries
+# ---------------------------------------------------------------------------
+
+def run_storage(device, n_nodes=5000, n_pods=10000):
+    """Config 4's churn store with the seeded storage layer of
+    testing/storage.py (three zones; a WaitForFirstConsumer static class
+    with zonal PVs, a WaitForFirstConsumer dynamic class limited to two
+    zones, an Immediate class with bound zonal PVs; STORAGE_CLAIMS of the
+    pending pods and of the arrivals carry claims) through the default
+    path and a serial twin: cycle 0 and STORAGE_CHURN churn cycles of 1000
+    arrivals, the dynamic provisioner between cycles. Bindings, failure
+    lists, every claim's and volume's binding (the PV picks) and the
+    canonical dumps (PodScheduled messages) equal every cycle, every
+    dispatch window in kernel 1. Returns the phase's launches."""
+    from koordinator_tpu_torch.client.store import KIND_PV, KIND_PVC
+    from koordinator_tpu_torch.testing.storage import (
+        add_storage,
+        claim_arrivals,
+        provision,
+        storage_churn_store,
+        storage_dump,
+    )
+
+    def pvs_bound(dump):
+        return sum(1 for v in dump["pvs"].values() if v[1] == "Bound")
+
+    arrivals = n_pods // 10
+    retries0 = retries_now()
+    t0 = time.perf_counter()
+    (store_a, state), (store_b, _s) = (
+        storage_churn_store(n_nodes, n_pods, seed=42,
+                            claim_fraction=STORAGE_CLAIMS)
+        for _ in range(2))
+    fixture_s = time.perf_counter() - t0
+    world = {"pvcs": len(store_a.list(KIND_PVC)),
+             "pvs": len(store_a.list(KIND_PV)),
+             "pvs_bound": pvs_bound(storage_dump(store_a)),
+             "claim_pods": sum(1 for p in store_a.list(KIND_POD)
+                               if p.spec.pvc_names and not p.is_assigned)}
+    default = Scheduler(store_a, device=device)
+    serial = Scheduler(store_b, waves=1, device=device)
+    launches = {"full_chain": 0, "full_chain_replay": 0}
+    cycles = []
+    for c in range(1 + STORAGE_CHURN):
+        provisioned = 0
+        if c:
+            made = [provision(s) for s in (store_a, store_b)]
+            if made[0] != made[1]:
+                raise AssertionError(f"storage cycle {c}: provisioned {made}")
+            provisioned = made[0]
+            specs, storage = claim_arrivals(
+                arrival_specs(c, arrivals), c, seed=42,
+                claim_fraction=STORAGE_CLAIMS)
+            for store in (store_a, store_b):
+                add_storage(store, storage)
+                add_arrivals(store, specs, state.now + c)
+        now = state.now + 2 * c
+        res_a, wall_a, la, k = wave_cycle(f"storage cycle {c} default",
+                                          default, now)
+        spans_a = span_split(default, WAVE_SPANS)
+        res_b, wall_b, lb, _k = wave_cycle(f"storage cycle {c} serial",
+                                           serial, now)
+        for key in launches:
+            launches[key] += la[key] + lb[key]
+        if result_key(res_a) != result_key(res_b):
+            raise AssertionError(f"storage cycle {c}: bindings differ")
+        dump_a = storage_dump(store_a)
+        if dump_a != storage_dump(store_b):
+            raise AssertionError(f"storage cycle {c}: PV picks differ")
+        if cycle_dump(default) != cycle_dump(serial):
+            raise AssertionError(f"storage cycle {c}: the dumps differ")
+        if not res_a.bound:
+            raise AssertionError(f"storage cycle {c}: nothing bound")
+        cycles.append({
+            "bound": len(res_a.bound), "failed": len(res_a.failed),
+            "rejected": len(res_a.rejected), "K": k, "waves": res_a.waves,
+            "demotions": list(res_a.demotions),
+            "serial_demotions": list(res_b.demotions),
+            "pvs_bound": pvs_bound(dump_a),
+            "claims_waiting_for_provisioning": sum(
+                1 for v in dump_a["pvcs"].values() if v[2] and not v[0]),
+            "provisioned_before": provisioned,
+            "cycle_ms": wall_a * 1e3, "serial_cycle_ms": wall_b * 1e3,
+            "spans_ms": spans_a,
+            "serial_spans_ms": span_split(serial, WAVE_SPANS),
+            "launches": la, "serial_launches": lb})
+    # the scheduler picked PVs (static claims bound at schedule time) and
+    # selected nodes the provisioner then served
+    if cycles[0]["pvs_bound"] <= world["pvs_bound"] or not any(
+            cyc["provisioned_before"] for cyc in cycles):
+        raise AssertionError(f"storage: no PV picks or provisioning: "
+                             f"{world} {cycles}")
+    # hot claims from real objects through the fused dispatch on the card:
+    # the bound-claims world at K = 4 against a CPU twin
+    from koordinator_tpu_torch.client.store import ObjectStore
+    from koordinator_tpu_torch.testing.storage import bound_claims_world
+
+    store_c, store_h = (bound_claims_world(ObjectStore()) for _ in range(2))
+    card = Scheduler(store_c, waves=4, device=device)
+    host = Scheduler(store_h, waves=4, device="cpu")
+    res_c, _wall, lc, k = wave_cycle("storage hot claims", card, 1e6)
+    res_h = host.run_cycle(now=1e6)
+    for key in launches:
+        launches[key] += lc[key]
+    if (result_key(res_c) != result_key(res_h)
+            or storage_dump(store_c) != storage_dump(store_h)
+            or cycle_dump(card) != cycle_dump(host)):
+        raise AssertionError("storage hot claims: the card and the CPU "
+                             "differ")
+    hot = {"bound": len(res_c.bound), "K": k, "waves": res_c.waves,
+           "demotions": list(res_c.demotions), "launches": lc}
+    if hot["waves"] < 2 or hot["demotions"]:
+        raise AssertionError(f"storage hot claims: not fused: {hot}")
+    assert_ladder_full("storage", retries0, default, serial, card)
+    emit({"phase": "storage", "nodes": n_nodes, "pods": n_pods,
+          "claim_fraction": STORAGE_CLAIMS, "fixture_seconds": fixture_s,
+          "world": world, "twins_identical_every_cycle": True,
+          "ladder_full": True, "cycles": cycles, "hot_claims": hot,
+          "launches": launches})
+    return launches
+
+
+def run_wave_round(dev_fc, args, ng, ngroups, active):
+    """The wave-parallel round (models/wave_chain.py, plain PyTorch on the
+    card, kernel="wave" in the selector) at config 4 (P = 10240) and at
+    the churn wave's P = 1280, against kernel 1 on the same inputs:
+    chosen, requested and quota_used equal bit for bit. Times both (CUDA
+    events, median of the compare call and WAVE_ROUND_REPS more), counts
+    its waves and its host reads of the wave cut (one a wave), and bounds
+    it by the inputs read once plus each wave's [W, N] score and
+    balanced-allocation rows written once, against kernel 1's operations
+    bound. Its launches are a fixed count plus a count a wave (the same
+    operations every wave): torch.profiler counts both from two short
+    prefixes of the batch (WAVE_PROFILE_PODS pods), and the line gives
+    the launches of each full call from them."""
+    from koordinator_tpu_torch.models.full_chain import (
+        build_best_full_chain_step,
+    )
+    from koordinator_tpu_torch.models.wave_chain import DEFAULT_WAVE
+
+    kernel = fck.build_cuda_full_chain_step(args, ng, ngroups, active)
+    wave = build_best_full_chain_step(args, ng, ngroups, active,
+                                      kernel="wave")
+    if wave.last_backend != "wave":
+        raise AssertionError("wave_round: the selector did not take the "
+                             "wave round")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("wave_round: TF32 matmuls are on")
+    # launches = fixed + per_wave x waves, from two short prefixes
+    counted = []
+    for n in WAVE_PROFILE_PODS:
+        prof = profile_launches(lambda: wave(pod_rows(dev_fc, n)))
+        counted.append((wave.last_waves, prof["cuda_launch_calls"]))
+    (w0, l0), (w1, l1) = counted
+    per_wave = (l1 - l0) / (w1 - w0)
+    fixed = l0 - per_wave * w0
+    wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
+    out = {}
+    for tag, fc, reps in (("P10240", dev_fc, WAVE_ROUND_REPS[0]),
+                          ("P1280", pod_rows(dev_fc, 1280),
+                           WAVE_ROUND_REPS[1])):
+        P = fc.base.fit_requests.shape[0]
+        N = fc.base.allocatable.shape[0]
+        R = fc.base.fit_requests.shape[1]
+        G = fc.quota_used.shape[0]
+        out_k = kernel(fc)
+        torch.cuda.synchronize()
+        # the compare call is timed too (the step ran on two prefixes
+        # above, so nothing in it is a first call)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_w = wave(fc)
+        stop.record()
+        stop.synchronize()
+        times = [start.elapsed_time(stop)]
+        mism = int((out_k[0] != out_w[0]).sum())
+        bits = bits_equal(out_k[1], out_w[1]) + bits_equal(out_k[2],
+                                                           out_w[2])
+        if mism or bits:
+            raise AssertionError(f"wave_round {tag}: {mism} bindings and "
+                                 f"{bits} state words differ from kernel 1")
+        waves, reads = wave.last_waves, wave.last_pos_reads
+        if reads != waves:
+            raise AssertionError(f"wave_round {tag}: {reads} reads of the "
+                                 f"cut for {waves} waves")
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            wave(fc)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        kernel_ms = time_cuda(lambda: kernel(fc), REPS)
+        W = min(DEFAULT_WAVE, P)
+        nbytes = (tensor_bytes(fc) + waves * W * N * 8
+                  + P * 4 + N * R * 4 + G * R * 4)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = round_ops(fc, len(wi), bi[0] >= 0) / F32_OPS_PER_S * 1e3
+        out[tag] = {
+            "P": int(P), "N": int(N), "W": int(W), "waves": waves,
+            "pos_reads": reads, "pods_bound": int((out_w[0] >= 0).sum()),
+            "mismatches": mism, "state_bits_differing": bits,
+            "ms": statistics.median(times), "ms_each": times,
+            "kernel1_ms": kernel_ms,
+            "launches": round(fixed + per_wave * waves),
+            "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    emit({"phase": "wave_round", "timed_calls_P10240": 1 + WAVE_ROUND_REPS[0],
+          "timed_calls_P1280": 1 + WAVE_ROUND_REPS[1],
+          "launch_count": {"pods": list(WAVE_PROFILE_PODS),
+                           "waves_and_launches": counted,
+                           "per_wave": per_wave, "fixed": fixed},
+          **out})
+    return out
+
+
+def cold_start_child(env_extra, cache_dir) -> dict:
+    """One process of the cold-start pair (testing/cold_start.py) with
+    ``env_extra`` over this process's environment and the cache dir set;
+    returns its JSON line."""
+    env = dict(os.environ)
+    env.pop("KOORD_TPU_WARMUP", None)
+    env.update(env_extra, KOORD_TPU_COMPILE_CACHE_DIR=cache_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "koordinator_tpu_torch.testing.cold_start",
+         "--device", "cuda"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=COLD_START_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        raise AssertionError(f"cold_start: child {env_extra} exited "
+                             f"{proc.returncode}")
+    rep = json.loads(proc.stdout.strip().splitlines()[-1])
+    rep["process_wall_s"] = wall
+    return rep
+
+
+def run_cold_start():
+    """Two scheduler processes in turn on a fresh cache dir, on config 4's
+    churn store (testing/cold_start.py: cycle 0 and 2 churn cycles at the
+    default path): the cold one with warm-up off records its rungs; the
+    restart with warm-up "sync" replays them before its first cycle.
+    Gates: warmed == rungs > 0, failed == invalidated == 0, zero
+    steady-state step builds, the cold process's bindings every cycle.
+    Returns the full-chain launches of both children."""
+    import shutil
+    import tempfile
+
+    cache_dir = tempfile.mkdtemp(prefix="koord_cold_start_")
+    try:
+        cold = cold_start_child({"KOORD_TPU_WARMUP": "off"}, cache_dir)
+        warm = cold_start_child({"KOORD_TPU_WARMUP": "sync"}, cache_dir)
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    wu = warm["warmup"] or {}
+    problems = []
+    if not (wu.get("complete") and wu.get("rungs", 0) > 0
+            and wu.get("warmed") == wu.get("rungs")):
+        problems.append(f"not every rung warmed: {wu}")
+    if wu.get("failed") or wu.get("invalidated"):
+        problems.append(f"rungs failed or invalidated: {wu}")
+    if warm["steady_state_compiles"] or warm["steady_state_compiles_metric"]:
+        problems.append("the restart built steps in steady state")
+    if ([c["bindings_sha256"] for c in cold["cycles"]]
+            != [c["bindings_sha256"] for c in warm["cycles"]]):
+        problems.append("the restart's bindings differ from the cold run's")
+    for rep in (cold, warm):
+        if rep["last_backend"] != "cuda" or rep["launches"]["full_chain"] < 1:
+            problems.append(f"{rep['mode']}: backend {rep['last_backend']} "
+                            f"launches {rep['launches']}")
+    if problems:
+        raise AssertionError(f"cold_start: {problems}")
+
+    def summary(rep):
+        return {"construction_s": rep["construction_s"],
+                "construction_to_first_bind_s":
+                    rep["construction_to_first_bind_s"],
+                "cycle0_kernel_span_ms": rep["cycles"][0]["kernel_ms"],
+                "cycle_ms": [c["wall_s"] * 1e3 for c in rep["cycles"]],
+                "kernel_span_ms": [c["kernel_ms"] for c in rep["cycles"]],
+                "waves": [c["waves"] for c in rep["cycles"]],
+                "bound": [c["bound"] for c in rep["cycles"]],
+                "fixture_s": rep["fixture_s"],
+                "process_wall_s": rep["process_wall_s"],
+                "launches": rep["launches"]}
+
+    emit({"phase": "cold_start", "cold": summary(cold),
+          "restart": summary(warm), "warmup": wu,
+          "warmup_seconds": wu.get("seconds"),
+          "rungs_recorded": cold["index_rungs"],
+          "steady_state_compiles": warm["steady_state_compiles"],
+          "bindings_equal": True})
+    return {"full_chain": cold["launches"]["full_chain"]
+            + warm["launches"]["full_chain"],
+            "full_chain_replay": cold["launches"]["full_chain_replay"]
+            + warm["launches"]["full_chain_replay"]}
+
+
+def metric_sample(registry, series: str) -> float:
+    """One exposed series' value (0 while it is not exposed)."""
+    for line in registry.expose().splitlines():
+        name, _, value = line.rpartition(" ")
+        if name == series:
+            return float(value)
+    return 0.0
+
+
+def run_binary(device, name, synth="5000x10000", ticks=BINARY_TICKS):
+    """The port's koord-descheduler or koord-manager binary on the card,
+    its main() at --synth ``synth`` for ``ticks`` ticks
+    BINARY_INTERVAL seconds apart: exit 0, and one pass on the card a
+    tick (the descheduler's rebalance windows, the manager's colo passes
+    by engine, read off each binary's registry as deltas)."""
+    from koordinator_tpu_torch import manager_metrics
+    from koordinator_tpu_torch.cmd import koord_descheduler, koord_manager
+    from koordinator_tpu_torch.descheduler import metrics as dm
+
+    main_fn, registry, series, seconds = {
+        "koord_descheduler": (
+            koord_descheduler.main, dm.REGISTRY,
+            'koord_device_window_seconds_count{consumer="rebalance",'
+            'path="serial"}', "koord_descheduler_rebalance_pass_seconds_sum"),
+        "koord_manager": (
+            koord_manager.main, manager_metrics.REGISTRY,
+            'koord_manager_colo_passes_total{engine="device"}',
+            "koord_manager_colo_pass_seconds_sum"),
+    }[name]
+    # the earlier phases' garbage is collected first, outside the timing
+    t0 = time.perf_counter()
+    gc.collect()
+    gc_s = time.perf_counter() - t0
+    before = metric_sample(registry, series)
+    pass_s0 = metric_sample(registry, seconds)
+    t0 = time.perf_counter()
+    rc = main_fn(["--synth", synth, "--max-ticks", str(ticks),
+                  "--interval", str(BINARY_INTERVAL), "--device", device])
+    wall = time.perf_counter() - t0
+    passes = metric_sample(registry, series) - before
+    if rc != 0 or passes != ticks:
+        raise AssertionError(f"{name}: rc {rc}, {passes} device passes in "
+                             f"{ticks} ticks")
+    emit({"phase": name, "synth": synth, "ticks": ticks,
+          "interval_s": BINARY_INTERVAL, "rc": rc, "wall_s": wall,
+          "device_passes": passes,
+          "passes_s": metric_sample(registry, seconds) - pass_s0,
+          "gc_collect_s": gc_s})
+
+
 def free_port() -> int:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -2800,7 +3220,18 @@ def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
     }
 
 
+# wall seconds of each phase: the time from the previous phase line to
+# its own (phases run one after another, each ending with its line)
+PHASE_SECONDS = {}
+_last_emit = [time.perf_counter()]
+
+
 def emit(obj) -> None:
+    if "phase" in obj:
+        now = time.perf_counter()
+        PHASE_SECONDS[obj["phase"]] = (PHASE_SECONDS.get(obj["phase"], 0.0)
+                                       + now - _last_emit[0])
+        _last_emit[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -2921,6 +3352,8 @@ def main() -> int:
     wave_launches, replay_entry, fc4 = run_scheduler_waves(device)
     run_scheduler_waves_mixed(device)
     run_waves_carried(device, fc4)
+    # ---- storage-aware clusters: config 4 with PVCs, PVs, StorageClasses
+    storage_launches = run_storage(device)
     # ---- the degradation ladder at config 4, then the sim's scenarios
     ladder_launches = run_ladder(device)
     sim_launches = run_sim(device)
@@ -2937,13 +3370,23 @@ def main() -> int:
     explain_launches = {"scheduler_explain": run_scheduler_explain(device),
                         "ladder_explain": run_ladder_explain(device),
                         "koord_scheduler": run_koord_scheduler(device)}
+    # ---- cold start: a cold process and a warm restart, then the
+    # descheduler's and the manager's binaries
+    cold_launches = run_cold_start()
+    run_binary(device, "koord_descheduler")
+    run_binary(device, "koord_manager")
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
         launches_sim=sim_launches["full_chain_replay"],
         launches_explain={k: v["full_chain_replay"]
                           for k, v in explain_launches.items()})
+    replay_entry.update(
+        launches_storage=storage_launches["full_chain_replay"],
+        launches_cold_start=cold_launches["full_chain_replay"])
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
+                                 + storage_launches["full_chain_replay"]
+                                 + cold_launches["full_chain_replay"]
                                  + sim_launches["full_chain_replay"]
                                  + sum(v["full_chain_replay"]
                                        for v in explain_launches.values()))
@@ -3049,6 +3492,8 @@ def main() -> int:
     count_res, terms_res = run_explain_round(
         dev_fc, args, ng, ngroups, active, n_nodes, out_full, plain_ms,
         kernel_ms)
+    # ---- the wave-parallel round against kernel 1
+    run_wave_round(dev_fc, args, ng, ngroups, active)
 
     # ---- mixed features, then prod mode, kernel against the plain round
     m_nodes, m_pods = 1000, 2000
@@ -3072,12 +3517,16 @@ def main() -> int:
     run_loadaware_global(LoadAwareArgs(), la_inputs, la_plain, device)
     run_generic(device)
 
+    emit({"phase_seconds": PHASE_SECONDS,
+          "total_seconds": time.perf_counter() - SCRIPT_START})
     emit({"kernels": [
         kernel_entry("full_chain_round", "full_chain.cu",
                      "koordinator_tpu/ops/pallas_full_chain.py:90",
                      main_launches + scheduler_launches
                      + wave_launches["full_chain"]
                      + ladder_launches["full_chain"]
+                     + storage_launches["full_chain"]
+                     + cold_launches["full_chain"]
                      + sim_launches["full_chain"] + colocated_launches
                      + colo_launches
                      + sum(la["full_chain"]
@@ -3087,6 +3536,8 @@ def main() -> int:
                      launches_scheduler=scheduler_launches,
                      launches_waves=wave_launches["full_chain"],
                      launches_ladder=ladder_launches["full_chain"],
+                     launches_storage=storage_launches["full_chain"],
+                     launches_cold_start=cold_launches["full_chain"],
                      launches_sim=sim_launches["full_chain"],
                      launches_rebalance_colocated=colocated_launches,
                      launches_colo_colocated=colo_launches,

@@ -131,6 +131,8 @@ class DeviceRebalancer:
         self.timeline = timeline
         self.last_decision_id: Optional[str] = None
         self._steps: Dict[int, object] = {}  # per-node cap -> step
+        # whether the last _get_step built the step (a warm-up rung)
+        self._last_step_compiled = False
         self._own_snapshot = None
         self._seq = 0
         self._warned_host_only = False
@@ -188,9 +190,8 @@ class DeviceRebalancer:
         return self._own_snapshot
 
     def _get_step(self, cap: int):
-        # no compile to record: the JAX package's warm-up rung for this
-        # pass (record_step_compile) comes with the port's warm-up slice
         step = self._steps.get(cap)
+        self._last_step_compiled = step is None
         if step is None:
             from koordinator_tpu_torch.balance.step import (
                 build_rebalance_step,
@@ -383,12 +384,29 @@ class DeviceRebalancer:
         try:
             with self.tracer.span("score", decision_id=win.decision_id):
                 dev = snap.upload_fields(fields)
-                out = step(dev["rb_usage_pct"], dev["rb_has_metric"],
-                           dev["rb_low_thr"], dev["rb_high_thr"],
-                           dev["rb_rhs_hi"], dev["rb_rhs_lo"],
-                           dev["rb_pod_node"], dev["rb_pod_prio"],
-                           dev["rb_pod_cpu"], dev["rb_pod_req"],
-                           dev["rb_pod_ok"])
+                step_args = (dev["rb_usage_pct"], dev["rb_has_metric"],
+                             dev["rb_low_thr"], dev["rb_high_thr"],
+                             dev["rb_rhs_hi"], dev["rb_rhs_lo"],
+                             dev["rb_pod_node"], dev["rb_pod_prio"],
+                             dev["rb_pod_cpu"], dev["rb_pod_req"],
+                             dev["rb_pod_ok"])
+                if self._last_step_compiled:
+                    # the warm-up index (scheduler/warmup.py): record the
+                    # fresh rung so a restarted process can pay the pass's
+                    # first-call costs off the bind path; the padded
+                    # shapes ride the meta, one rung per shape bucket
+                    from koordinator_tpu_torch.scheduler.warmup import (
+                        record_step_compile,
+                    )
+
+                    record_step_compile(
+                        "rebalance",
+                        {"cap": int(
+                            plugin.args.max_pods_to_evict_per_node),
+                         "p_pad": int(dev["rb_pod_node"].shape[0]),
+                         "n_pad": int(dev["rb_usage_pct"].shape[0])},
+                        step_args)
+                out = step(*step_args)
             with self.tracer.span("readback"):
                 try:
                     (sel_count, cand_count, sel_pod, sel_node, sel_score,

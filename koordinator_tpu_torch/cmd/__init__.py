@@ -2,10 +2,12 @@
 
 The reference ships five cooperating binaries (koord-scheduler,
 koord-descheduler, koord-manager, koordlet, koord-runtime-proxy). The port
-has the scheduler so far; each module here is a thin CLI over the
-corresponding library runner, launchable as
+has the scheduler, the descheduler and the manager so far; each module
+here is a thin CLI over the corresponding library runner, launchable as
 
     python -m koordinator_tpu_torch.cmd.koord_scheduler --synth 50x200
+    python -m koordinator_tpu_torch.cmd.koord_descheduler --synth 50x200
+    python -m koordinator_tpu_torch.cmd.koord_manager --synth 50x200
 
 A copy of the JAX package's cmd/__init__.py. Cluster state comes from
 `--state cluster.json` (the minimal schema below) or `--synth NxP` (N

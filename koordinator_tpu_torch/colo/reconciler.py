@@ -36,9 +36,7 @@ Departures from the JAX package's reconciler, as in the port's
     oracles: NodeResourceController + compute_runtime_quotas); there is
     no ``no-mesh`` rung;
   * a mesh (``mesh=`` or ``KOORD_TPU_MESH``) comes with the parallel/
-    slice of the port and raises NotImplementedError here;
-  * no compile is recorded for a warm-up ladder (the JAX package's
-    ``record_step_compile``): that comes with the port's warm-up slice.
+    slice of the port and raises NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -184,6 +182,8 @@ class DeviceColoReconciler:
         self.timeline = timeline
         self.last_decision_id: Optional[str] = None
         self._steps: Dict[Tuple[str, str], object] = {}  # policies -> step
+        # whether the last _get_step built the step (a warm-up rung)
+        self._last_step_compiled = False
         self._own_snapshot = None
         self._seq = 0
         self._warned_host_only = False
@@ -244,6 +244,7 @@ class DeviceColoReconciler:
         # the policy strings key the cache — a config hot-reload that
         # flips the calculate policy reuses the step built for it before
         step = self._steps.get(policies)
+        self._last_step_compiled = step is None
         if step is None:
             from koordinator_tpu_torch.colo.step import build_colo_step
 
@@ -495,8 +496,26 @@ class DeviceColoReconciler:
             with self.tracer.span("kernel", mesh="0",
                                   decision_id=win.decision_id):
                 dev = snap.upload_fields(fields)
-                out = step(*(dev[f"colo_{name}"] for name in STEP_FIELDS),
-                           plan=plan)
+                step_args = tuple(dev[f"colo_{name}"]
+                                  for name in STEP_FIELDS)
+                if self._last_step_compiled:
+                    # the warm-up index (scheduler/warmup.py): record the
+                    # fresh rung so a restarted process can pay the pass's
+                    # first-call costs off the bind path; the padded
+                    # shapes and the water-filling plan ride the meta
+                    from koordinator_tpu_torch.scheduler.warmup import (
+                        record_step_compile,
+                    )
+
+                    record_step_compile(
+                        "colo",
+                        {"policies": [view["cpu_policy"],
+                                      view["memory_policy"]],
+                         "n_pad": int(dev["colo_capacity"].shape[0]),
+                         "g_pad": int(dev["colo_q_parent"].shape[0]),
+                         "plan": [int(v) for v in plan]},
+                        step_args)
+                out = step(*step_args, plan=plan)
             with self.tracer.span("readback"):
                 try:
                     (batch_cpu, batch_mem, mid_cpu, mid_mem, runtime,

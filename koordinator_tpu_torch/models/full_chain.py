@@ -198,11 +198,19 @@ def pod_independent_rows(fc: FullChainInputs):
 
 
 def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
-                       bal_idx=(-1, -1), explain_terms: bool = False):
+                       bal_idx=(-1, -1), explain_terms: bool = False,
+                       wave_rows: bool = False):
     """The per-pod PreFilter + Filter + Score + select math of the plain
     round. Returns evaluate(i, *state) -> (found, best, zone_at_best), all
     0-d tensors: nothing is read back to the host, so on the card the loop
     queues its work without a sync per pod.
+
+    With ``wave_rows`` (the wave-parallel round, models/wave_chain.py)
+    evaluate appends (admit, score, bal_row, best_score), as the JAX
+    package's evaluator returns them: the pod-level PreFilter verdict, the
+    feasibility-masked [N] score, the unmasked [N] balanced-allocation term
+    (zeros when the axes were sliced away) and the best score; the wave
+    step vmaps it over a window of pods.
 
     With ``explain_terms`` (explain="full") evaluate appends the pod's
     attribution row, [EXPLAIN_TERMS] f32: the winning node's la_score,
@@ -296,7 +304,10 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
                     (requested[:, axis] + req_fit[axis]) * inv, 1.0)
 
             std = (_frac(ci, bal_inv_c) - _frac(mi, bal_inv_m)).abs() * 0.5
-            numa_score = numa_score + torch.floor((1.0 - std) * 100.0)
+            bal_row = torch.floor((1.0 - std) * 100.0)
+            numa_score = numa_score + bal_row
+        else:
+            bal_row = torch.zeros_like(numa_score)
         # preferred node affinity: a static profile row (0 without one)
         if fc.pref_scores.shape[1]:
             pid = fc.pod_pref_id[i]
@@ -335,6 +346,9 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
             terms = torch.stack([la_score[best], numa_score[best],
                                  pref[best], score[best], runner])
             return found, best, zone[best], terms
+        if wave_rows:
+            return (found, best, zone[best], admit, score, bal_row,
+                    score[best])
         return found, best, zone[best]
 
     return evaluate
@@ -630,8 +644,11 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
     no size sends a CUDA batch to the plain round. ``step.last_state`` says
     which state the last CUDA round kept ("smem" or "global").
 
-    ``kernel="serial"`` forces the plain round on any device; "auto" is the
-    selection above. The wave kernel comes with a later slice of the port.
+    ``kernel="serial"`` forces the plain round on any device; "wave" the
+    wave-parallel round (models/wave_chain.py: plain PyTorch on the inputs'
+    device, ``last_backend`` "wave"; it emits no attribution, so an
+    explain step takes the selection below instead, as the JAX package
+    pins explain off its wave kernel); "auto" is the selection above.
 
     ``explain`` ("counts" | "full", koordexplain): the step takes the extra
     ``n_real`` and returns ExplainOut as its 4th output, as
@@ -643,12 +660,15 @@ def build_best_full_chain_step(args: LoadAwareArgs, num_gangs: int,
     it runs the plain step ("serial"). No size sends a CUDA batch to the
     plain round or the plain counts."""
     _check_explain(explain)
-    if kernel == "wave":
-        raise NotImplementedError(
-            "kernel='wave' comes with a later slice of the port "
-            "(models/wave_chain.py)")
-    if kernel not in ("auto", "serial"):
+    if kernel not in ("auto", "serial", "wave"):
         raise ValueError(f"unknown kernel {kernel!r}")
+    if kernel == "wave" and explain is None:
+        from koordinator_tpu_torch.models.wave_chain import (
+            build_wave_full_chain_step,
+        )
+
+        return build_wave_full_chain_step(args, num_gangs, num_groups,
+                                          active_axes=active_axes)
     plain = build_full_chain_step(args, num_gangs, num_groups,
                                   active_axes=active_axes, explain=explain)
     if kernel == "serial":

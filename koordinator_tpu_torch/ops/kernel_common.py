@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, NamedTuple, Tuple
@@ -64,6 +65,10 @@ def find_nvcc() -> str:
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build-and-load at a time in a process: a background warm-up ladder
+# and the cycle thread may both reach a kernel first, and two builds of
+# one source would write the same temporary file
+_LIBS_LOCK = threading.Lock()
 BUILD_LOG: Dict[str, Dict[str, object]] = {}
 # Macros every build defines, e.g. ("KOORD_TRACE",) for testing/pod_trace.py;
 # set before the first kernel is built.
@@ -123,8 +128,11 @@ def load_library(source: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<source>, built on first use."""
     lib = _LIBS.get(source)
     if lib is None:
-        lib = ctypes.CDLL(str(build_libraries(source)[source]))
-        _LIBS[source] = lib
+        with _LIBS_LOCK:
+            lib = _LIBS.get(source)
+            if lib is None:
+                lib = ctypes.CDLL(str(build_libraries(source)[source]))
+                _LIBS[source] = lib
     return lib
 
 

@@ -504,17 +504,6 @@ def _mesh_requested(mesh) -> bool:
     return str(raw).strip().lower() not in ("", "0", "off", "false", "no")
 
 
-def _warmup_requested(warmup) -> bool:
-    """KOORD_TPU_WARMUP (or ``warmup=``) asks for the warm-up ladder:
-    "auto" does only when KOORD_TPU_COMPILE_CACHE_DIR is set, as in the
-    JAX package; the port has no warm-up ladder yet."""
-    raw = (os.environ.get("KOORD_TPU_WARMUP", "auto") if warmup is None
-           else str(warmup)).strip().lower()
-    if raw in ("", "auto"):
-        return bool(os.environ.get("KOORD_TPU_COMPILE_CACHE_DIR", "").strip())
-    return raw not in ("0", "off", "false", "no")
-
-
 class Scheduler:
     """koord-scheduler analog: batched cycles against the object store.
 
@@ -553,8 +542,6 @@ class Scheduler:
             _refuse("the gRPC sidecar dispatch", "transport")
         if _mesh_requested(mesh):
             _refuse("mesh-backed dispatch", "parallel/")
-        if _warmup_requested(warmup):
-            _refuse("the warm-up ladder", "warm-up")
         # koordexplain (KOORD_TPU_EXPLAIN): None=off, "counts", "full".
         # Unknown strings fail loudly, as in the JAX package.
         if explain not in (None, "off", "counts", "full"):
@@ -642,10 +629,54 @@ class Scheduler:
         # split (snapshot/encode/kernel/bind)
         self.tracer = Tracer()
         # the step memo, keyed by shape signature; one per scheduler, so
-        # no step is ever shared between two schedulers
+        # no step is ever shared between two schedulers. It is shared with
+        # the background warm-up ladder, whose thread replays rungs through
+        # the same _get_*step chokepoints while the cycle thread
+        # dispatches: the lock covers only the dict probes, never a step
+        # build (a racing miss costs one duplicate build, last write wins)
+        self._step_lock = threading.Lock()
+        # koordlint: guarded-by(_step_lock)
         self._step_cache: Dict[Tuple, object] = {}
-        # whether the most recent _get_step call built a fresh step
-        self._last_step_compiled = False
+        # per-thread: whether this thread's most recent _get_*step call
+        # built a fresh step (the background ladder's misses must not leak
+        # into the cycle thread's compiled-dispatch attribution)
+        self._step_tls = threading.local()
+        # cumulative wall seconds of pack/encode work and of compile work
+        # (step builds + the kernel windows of freshly built steps, where
+        # a kernel library loads, + the warm-up ladder's zero calls); the
+        # sim's crash-restart report splits its recovery wall clock with
+        # these. Lock-guarded: the background ladder adds from its thread
+        self._wall_lock = threading.Lock()
+        self.pack_wall_seconds = 0.0     # koordlint: guarded-by(_wall_lock)
+        self.compile_wall_seconds = 0.0  # koordlint: guarded-by(_wall_lock)
+        # warm-up (scheduler/warmup.py): KOORD_TPU_COMPILE_CACHE_DIR arms
+        # the rung index; the ladder (started at the END of construction)
+        # replays recorded rungs so a restarted scheduler's first cycle is
+        # an in-memory step-cache hit with the card's first-call costs paid
+        from koordinator_tpu_torch.scheduler.warmup import (
+            compile_cache_dir_from_env,
+            configure_compile_cache,
+            warmup_mode_from_env,
+        )
+
+        self.compile_cache_dir = configure_compile_cache()
+        self._warmup_mode = (warmup_mode_from_env() if warmup is None
+                             else warmup)
+        if self._warmup_mode == "auto":
+            # keyed on the ENV knob, not the process-wide dir: a test (or
+            # co-resident tool) that armed the index for itself must not
+            # opt every later Scheduler into a background ladder
+            self._warmup_mode = ("background"
+                                 if compile_cache_dir_from_env()
+                                 else "off")
+        self.warmup = None
+        # steady-state compile guard: armed when warm-up completes, dropped
+        # on every ladder transition (those legitimately re-key the step
+        # cache). A miss while armed counts and calls compile_miss_hook.
+        # Single-writer bool handoff (the ladder thread arms it once, the
+        # cycle thread reads/clears): deliberately lock-free
+        self._steady_state = False   # koordlint: guarded-by(none)
+        self.compile_miss_hook = None
         # the backend of the last dispatch ("cuda" or "serial") and the
         # count of dispatch windows: one kernel launch per window on the
         # card, which is how a run shows the cycle went through the kernel
@@ -730,17 +761,6 @@ class Scheduler:
         # chained waves abandoned by a deadline overrun: their pinned rows
         # and events stay referenced until the events complete
         self._abandoned_waves: List[Tuple] = []
-        # no warm-up ladder in the port yet (the warm-up slice): these
-        # stay as the JAX Scheduler has them with warm-up off, and the
-        # steady-state compile hook never fires
-        self.warmup = None
-        self.compile_miss_hook = None
-        # cumulative wall seconds of pack/encode work and of compile work
-        # (step builds + the kernel windows of freshly built steps, where
-        # a kernel library loads); the sim's crash-restart report splits
-        # its recovery wall clock with these
-        self.pack_wall_seconds = 0.0
-        self.compile_wall_seconds = 0.0
         # liveness for health_snapshot: (wall clock, waves) of the last
         # completed cycle, read from other threads
         self._health_lock = threading.Lock()
@@ -785,6 +805,89 @@ class Scheduler:
                 numa_plugin=self.extender.plugin("NodeNUMAResource"),
             )
             self.device_snapshot = self._new_device_snapshot()
+        # warm-up ladder LAST: it replays rungs through _get_*step, which
+        # reads the final transformer registrations
+        if self._warmup_mode != "off" and self.compile_cache_dir:
+            from koordinator_tpu_torch.scheduler.warmup import WarmupRunner
+
+            self.warmup = WarmupRunner(
+                self, background=self._warmup_mode == "background")
+            self.warmup.start()
+
+    # ------------------------------------------------------------------
+    def note_warmup_complete(self, stats: Dict) -> None:
+        """The warm-up ladder finished: arm the steady-state compile guard
+        — from here on, a step-cache miss in the hot path is flagged until
+        a ladder transition legitimately re-keys the cache. The guard arms
+        only when the ladder actually COVERED something (a first boot
+        against an empty index promised nothing)."""
+        scheduler_metrics.WARMUP_COMPLETE.set(1.0)
+        self._steady_state = (
+            stats.get("warmed", 0) + stats.get("built", 0)) > 0
+        logger.info(
+            "warm-up ladder complete: %d/%d rungs warmed in %.2fs "
+            "(%d skipped, %d failed, %d invalidated)",
+            stats["warmed"], stats["rungs"], stats["seconds"],
+            stats["skipped"], stats["failed"], stats["invalidated"])
+
+    def _add_compile_wall(self, seconds: float) -> None:
+        with self._wall_lock:
+            self.compile_wall_seconds += seconds
+
+    def _add_pack_wall(self, seconds: float) -> None:
+        with self._wall_lock:
+            self.pack_wall_seconds += seconds
+
+    @property
+    def _last_step_compiled(self) -> bool:
+        """Whether THIS thread's most recent _get_*step call built a fresh
+        step (thread-local: the background warm-up ladder's misses must
+        never leak into the cycle thread's attribution)."""
+        return getattr(self._step_tls, "compiled", False)
+
+    @_last_step_compiled.setter
+    def _last_step_compiled(self, value: bool) -> None:
+        self._step_tls.compiled = bool(value)
+
+    def _note_compile_miss(self, key: Tuple) -> None:
+        """Step-cache miss accounting, with the steady-state flagging the
+        warm-up contract promises (a warm restart binds its first pod with
+        ZERO of these)."""
+        self._last_step_compiled = True
+        scheduler_metrics.COMPILE_CACHE_MISSES.inc()
+        if self._steady_state:
+            scheduler_metrics.STEADY_STATE_COMPILES.inc()
+            hook = self.compile_miss_hook
+            if hook is not None:
+                hook(key)
+
+    def _record_step_compile(self, kind: str, meta: Dict, args: Tuple) -> None:
+        """Record a freshly built rung into the warm-up index (a no-op
+        without a cache dir). Best-effort by contract — the index is for
+        the NEXT process."""
+        if self.compile_cache_dir is None:
+            return
+        from koordinator_tpu_torch.scheduler.warmup import record_step_compile
+
+        record_step_compile(kind, meta, args, self.compile_cache_dir)
+
+    def _step_meta(self, signature: Tuple, ng: int, ngroups: int, active,
+                   explain, **extra) -> Dict:
+        meta = {
+            "signature": [int(x) for x in signature],
+            "ng": int(ng), "ngroups": int(ngroups),
+            "active": [int(a) for a in active],
+            "explain": explain,
+            # config the step structure bakes in: a replaying scheduler
+            # whose prod split or transformer registrations differ would
+            # build a different carry than the recorded specs — warm-up
+            # must skip such rungs, not trip over them
+            "prod": bool(self.args.score_according_prod_usage),
+            "score_tag": [[name, int(epoch)]
+                          for name, epoch in self._score_pass_tag()],
+        }
+        meta.update(extra)
+        return meta
 
     # ------------------------------------------------------------------
     def _new_device_snapshot(self):
@@ -867,6 +970,10 @@ class Scheduler:
         effective settings re-applied, and a flight-recorder dump (the
         preceding cycles' decision records ARE the incident context)."""
         scheduler_metrics.DEGRADED_LEVEL.set(float(record["to_level"]))
+        # a ladder transition legitimately re-keys the step cache (the
+        # explain level): drop the steady-state compile guard — it re-arms
+        # only with the next warm-up ladder (a restart)
+        self._steady_state = False
         log = (logger.warning if record["to_level"] > record["from_level"]
                else logger.info)
         log("dispatch degradation ladder: %s -> %s (%s)",
@@ -1157,17 +1264,18 @@ class Scheduler:
     def _cached_step(self, key: Tuple, build) -> object:
         """The step memo: a hit, or ``build()`` timed by a ``compile``
         span and cached under ``key``."""
-        step = self._step_cache.get(key)
+        with self._step_lock:
+            step = self._step_cache.get(key)
         if step is not None:
             self._last_step_compiled = False
             scheduler_metrics.COMPILE_CACHE_HITS.inc()
             return step
-        self._last_step_compiled = True
-        scheduler_metrics.COMPILE_CACHE_MISSES.inc()
+        self._note_compile_miss(key)
         with self.tracer.span("compile", signature=str(key)) as csp:
             step = build()
-        self.compile_wall_seconds += csp.duration_seconds
-        self._step_cache[key] = step
+        self._add_compile_wall(csp.duration_seconds)
+        with self._step_lock:
+            self._step_cache[key] = step
         return step
 
     def _device_score_passes(self) -> Tuple:
@@ -2026,7 +2134,7 @@ class Scheduler:
             ssp.attributes["nodes"] = str(len(state.nodes))
             ssp.attributes["pods"] = str(len(pending))
         if not state.nodes:
-            self.pack_wall_seconds += time.perf_counter() - t_pack
+            self._add_pack_wall(time.perf_counter() - t_pack)
             return None
         with self.tracer.span("encode"):
             cs = (self.snapshot_cache.stats
@@ -2071,7 +2179,7 @@ class Scheduler:
             self._last_batch = (
                 fc, {key: j for j, key in enumerate(pods.keys)},
                 len(state.nodes), None)
-        self.pack_wall_seconds += time.perf_counter() - t_pack
+        self._add_pack_wall(time.perf_counter() - t_pack)
         if self.encode_observer is not None:
             # parity/test hook: the post-reduce host arrays — the
             # ScheduleInputs level the pack-overlap byte-parity gates on
@@ -2224,6 +2332,18 @@ class Scheduler:
                             fc = to_device(fc_host, self.device)
                     if snap is not None:
                         snap.begin_dispatch()
+                    if self._last_step_compiled:
+                        # the warm-up index: a fresh build's rung (step
+                        # meta + call specs) so the NEXT process can
+                        # pre-build this exact step
+                        self._record_step_compile(
+                            "serial",
+                            self._step_meta(
+                                (pods.padded_size, nodes.padded_size,
+                                 fc_host.quota_runtime.shape[0]),
+                                ng, ngroups, active, explain),
+                            (fc, len(nodes.names))
+                            if explain is not None else (fc,))
                     t_dispatch = time.perf_counter()
                     win.mark_dispatch("serial")
                     try:
@@ -2291,7 +2411,7 @@ class Scheduler:
                 if self._last_step_compiled:
                     # the kernel library loaded in this window: its wall
                     # is compile time for the restart attribution split
-                    self.compile_wall_seconds += ksp.duration_seconds
+                    self._add_compile_wall(ksp.duration_seconds)
                 self._close_window(win, attempts, had_deadline, level0)
                 return chosen
             except Exception as exc:
@@ -2631,6 +2751,17 @@ class Scheduler:
                         fc_host, side_fields, assemble_sides)
                     if snap is not None:
                         snap.begin_dispatch()
+                    if self._last_step_compiled:
+                        self._record_step_compile(
+                            "fused",
+                            self._step_meta(
+                                (pods.padded_size, nodes.padded_size,
+                                 fc_host.quota_runtime.shape[0]),
+                                ng, ngroups, active, explain,
+                                waves=int(k_waves),
+                                sides_tag=list(res_ctx["tag"])),
+                            (fc, sides, len(nodes.names))
+                            if explain is not None else (fc, sides))
                     t_dispatch = time.perf_counter()
                     win.mark_dispatch("fused")
                     try:
@@ -2715,7 +2846,7 @@ class Scheduler:
         result.kernel_seconds += ksp.duration_seconds
         scheduler_metrics.KERNEL_SECONDS.observe(ksp.duration_seconds)
         if self._last_step_compiled:
-            self.compile_wall_seconds += ksp.duration_seconds
+            self._add_compile_wall(ksp.duration_seconds)
         self._close_window(win, attempts, had_deadline, level0)
 
         # ---- replay the waves as logical cycles. The state mirror is
@@ -3055,6 +3186,17 @@ class Scheduler:
                     if self.fault_injector is not None:
                         self.fault_injector("fused")
                     carry = self._initial_chain_carry(fc, sides, explain)
+                    if chain_compiled:
+                        self._record_step_compile(
+                            "chain",
+                            self._step_meta(
+                                (pods.padded_size, nodes.padded_size,
+                                 fc_host.quota_runtime.shape[0]),
+                                ng, ngroups, active, explain,
+                                sides_tag=list(res_ctx["tag"])),
+                            (fc, carry, sides, n_real)
+                            if explain is not None
+                            else (fc, carry, sides))
                     carry, handle0 = self._dispatch_chain_wave(
                         step, fc, carry, sides, n_real, explain)
                     self.last_backend = (
@@ -3098,7 +3240,7 @@ class Scheduler:
         result.kernel_seconds += window_seconds
         scheduler_metrics.KERNEL_SECONDS.observe(window_seconds)
         if chain_compiled:
-            self.compile_wall_seconds += window_seconds
+            self._add_compile_wall(window_seconds)
         result.device_busy_seconds += window_seconds
         scheduler_metrics.WAVES_PER_DISPATCH.observe(float(executed))
         # the timeline window closes at the chain's LAST device sync

@@ -10,11 +10,11 @@ where store events or plugin epochs dirtied them, and the cold code path is
 otherwise identical so cached and cold builds cannot drift
 (tests/test_torch_snapshot_cache.py diffs every array).
 
-A copy of the JAX package's builder with one piece left for a later slice
-of the port: the PVC/PV/StorageClass classification (VolumeZone,
-VolumeBinding). A state carrying storage objects raises
-NotImplementedError; pvc_names without storage objects stay opaque
-CSI-count tokens and produce vol_needed, as in the reference.
+A copy of the JAX package's pack. Any PVC, PV or StorageClass object
+turns on the volume classification (VolumeZone pairs, VolumeBinding
+alternatives and rejections, all riding the admission bitmask);
+pvc_names without storage objects stay opaque CSI-count tokens and
+produce vol_needed, as in the reference.
 """
 
 from __future__ import annotations
@@ -187,6 +187,26 @@ class ClusterState:
     now: float = 0.0
 
 
+def volume_zone_pairs(pod: Pod, pvcs: Dict[str, object],
+                      pvs: Dict[str, object]):
+    """VolumeZone filter folded into the admission-signature machinery: a
+    pod mounting a claim whose bound PV carries zone/region topology labels
+    may only land on nodes carrying the same labels — exactly a
+    nodeSelector pair, so it rides the existing (taints x selector) group
+    bitmask with no new kernel state. Unbound claims contribute nothing
+    (upstream VolumeZone skips them; volume binding is out of scope)."""
+    pairs = []
+    for claim in pod.spec.pvc_names:
+        pvc = pvcs.get(f"{pod.meta.namespace}/{claim}")
+        if pvc is None or not getattr(pvc, "volume_name", ""):
+            continue
+        pv = pvs.get(pvc.volume_name)
+        if pv is None:
+            continue
+        pairs.extend(pv.zone_pairs())
+    return frozenset(pairs)
+
+
 def _pod_cpuset_flags(pod: Pod, default_policy: str = FULL_PCPUS) -> Tuple[bool, float, bool]:
     """(needs_bind, cores_needed, full_pcpus) — AllowUseCPUSet + resource-spec
     annotation (nodenumaresource/plugin.go:219-268)."""
@@ -298,10 +318,6 @@ def build_full_chain_inputs(
     blocks consult event-maintained memos instead of walking the cluster;
     the code path is otherwise IDENTICAL, so cached and cold builds cannot
     drift (tests/test_snapshot_cache.py diffs every produced array)."""
-    if state.pvcs or state.pvs or state.storage_classes:
-        raise NotImplementedError(
-            "PVC/PV/StorageClass volume classification (VolumeZone, "
-            "VolumeBinding) comes with a later slice of the port")
     if cache is not None:
         cache.begin_build()
     # ---- gangs indexed first so pods pack in one pass; quota ids are filled
@@ -414,12 +430,47 @@ def build_full_chain_inputs(
     # selector pairs) signatures -> group ids, pod tolerations +
     # nodeSelector -> group bitmasks. This is how TaintToleration AND
     # NodeAffinity (nodeSelector) batch into one bit test.
-    # VolumeZone pairs and VolumeBinding alternatives/rejections ride the
-    # admission bitmask; the classification filling them comes with a
-    # later slice (storage objects raise above), so they stay empty here
-    zone_pairs_by_key: Dict[str, frozenset] = {}
+    # VolumeZone: PV topology labels become per-pod required pairs riding
+    # the admission bitmask (no new kernel state). VolumeBinding (unbound
+    # WaitForFirstConsumer claims) rides the same bitmask as OR-of-AND
+    # alternatives — scheduler/volumebinding.py — so the kernel's one bit
+    # test covers schedule-time volume feasibility too, in every backend.
+    zone_pairs_by_key = {}
     vb_any_of_by_key: Dict[str, tuple] = {}
     vb_reason_by_key: Dict[str, str] = {}
+    # volume-aware mode: any PVC/PV/StorageClass object in the store turns
+    # classification on (a cluster that has ever used storage keeps its
+    # StorageClasses even when all claims are deleted, so a pod referencing
+    # a vanished claim is still PreFilter-rejected). A store with NONE of
+    # the three is the informal harness mode where pvc_names are opaque
+    # CSI-count tokens (synth clusters, kernel-level benches).
+    if state.pvcs or state.pvs or state.storage_classes:
+        from koordinator_tpu_torch.scheduler.volumebinding import (
+            any_of_pair_universe,
+            classify_pod_volumes,
+            index_pvs_by_class,
+        )
+
+        pvs_by_class = None  # built once, on the first cache miss
+        for key, pod in pods_by_key_pending.items():
+            if not pod.spec.pvc_names:
+                continue
+            zp = volume_zone_pairs(pod, state.pvcs, state.pvs)
+            if zp:
+                zone_pairs_by_key[key] = zp
+            vb = (cache.pod_vb(pod) if cache is not None else None)
+            if vb is None:
+                if pvs_by_class is None:
+                    pvs_by_class = index_pvs_by_class(state.pvs)
+                vb = classify_pod_volumes(
+                    pod, state.pvcs, state.pvs, state.storage_classes,
+                    pvs_by_class=pvs_by_class)
+                if cache is not None:
+                    cache.put_pod_vb(pod, vb)
+            if vb.reason is not None:
+                vb_reason_by_key[key] = vb.reason
+            elif vb.any_of_sets:
+                vb_any_of_by_key[key] = vb.any_of_sets
     # distinct nodeSelector/affinity pair universe: per-pod pair sets are
     # cached in the pack memo (frozensets hash-cache themselves), so the
     # warm path unions a handful of DISTINCT sets instead of walking every
@@ -444,6 +495,11 @@ def build_full_chain_inputs(
     else:
         sel_pairs = selector_pairs_of(pods_by_key_pending.values(),
                                       zone_pairs_by_key)
+    if vb_any_of_by_key:
+        sel_pairs = frozenset(
+            sel_pairs
+            | {p for sets in vb_any_of_by_key.values()
+               for p in any_of_pair_universe(sets)})
     if cache is not None:
         node_taint_ids, admission_groups, adm_seq = cache.node_admission(
             state.nodes, sel_pairs)

@@ -44,6 +44,7 @@ from koordinator_tpu_torch.client.store import (
     KIND_PV,
     KIND_PVC,
     KIND_STORAGECLASS,
+    EventType,
     ObjectStore,
 )
 from koordinator_tpu_torch.scheduler.frameworkext import CycleContext, Plugin
@@ -196,9 +197,25 @@ class VolumeBindingPlugin(Plugin):
 
     def __init__(self) -> None:
         self._store: ObjectStore = None  # type: ignore[assignment]
+        # _pick_pv's candidates: per storage class, (capacity, name, store
+        # key) of every PV in pick order; None until rebuilt
+        self._pv_order: Optional[Dict[str, List[Tuple[int, str, str]]]] = None
 
     def register(self, store: ObjectStore) -> None:
         self._store = store
+        self._pv_order = None
+        store.subscribe(KIND_PV, self._on_pv, replay=False)
+
+    def _on_pv(self, event: EventType, pv: PersistentVolume,
+               old: Optional[PersistentVolume]) -> None:
+        """A bind rewrites a PV's claim and phase, never its class,
+        capacity or name: the pick order holds. Anything else rebuilds
+        it."""
+        if (event == EventType.MODIFIED and old is not None
+                and old.storage_class_name == pv.storage_class_name
+                and old.capacity.quantities == pv.capacity.quantities):
+            return
+        self._pv_order = None
 
     # ------------------------------------------------------------------
     def _assumed(self, ctx: CycleContext) -> Dict[str, str]:
@@ -322,20 +339,30 @@ class VolumeBindingPlugin(Plugin):
     def _pick_pv(self, pvc: PersistentVolumeClaim, node_labels: Dict[str, str],
                  assumed: Dict[str, str]) -> Optional[PersistentVolume]:
         """Smallest matching PV whose topology the node satisfies (upstream
-        volume_binding FindMatchingVolume: smallest capacity, then name)."""
-        best: Optional[PersistentVolume] = None
-        best_key: Optional[Tuple[int, str]] = None
-        for pv in self._store.list(KIND_PV):
-            if pv.meta.name in assumed and assumed[pv.meta.name] != pvc.meta.key:
+        volume_binding FindMatchingVolume: smallest capacity, then name).
+        The claim's class's PVs are walked in (capacity, name) order, so
+        the first match is the smallest: the JAX package's scan over every
+        PV, without visiting the rest."""
+        order = self._pv_order
+        if order is None:
+            order = {}
+            for pv in self._store.list(KIND_PV):
+                order.setdefault(pv.storage_class_name, []).append(
+                    (sum(pv.capacity.quantities.values()), pv.meta.name,
+                     pv.meta.key))
+            for cands in order.values():
+                cands.sort()
+            self._pv_order = order
+        for _capacity, name, key in order.get(pvc.storage_class_name, ()):
+            if name in assumed and assumed[name] != pvc.meta.key:
                 continue
-            if not pv_matches_claim(pv, pvc):
+            pv = self._store.get(KIND_PV, key)
+            if pv is None or not pv_matches_claim(pv, pvc):
                 continue
             if any(node_labels.get(k) != v for k, v in pv.zone_pairs()):
                 continue
-            key = (sum(pv.capacity.quantities.values()), pv.meta.name)
-            if best_key is None or key < best_key:
-                best, best_key = pv, key
-        return best
+            return pv
+        return None
 
     def _release(self, ctx: CycleContext, picks: List[Tuple[str, str]]) -> None:
         assumed = self._assumed(ctx)

@@ -21,6 +21,9 @@ from koordinator_tpu_torch.client.store import (
     KIND_NODE_TOPOLOGY,
     KIND_POD,
     KIND_POD_GROUP,
+    KIND_PV,
+    KIND_PVC,
+    KIND_STORAGECLASS,
     ObjectStore,
 )
 from koordinator_tpu_torch.testing.synth import synth_full_cluster
@@ -46,6 +49,12 @@ def store_from_state(state, store=None):
         store.add(KIND_ELASTIC_QUOTA, q)
     for t in state.topologies.values():
         store.add(KIND_NODE_TOPOLOGY, t)
+    for sc in state.storage_classes.values():
+        store.add(KIND_STORAGECLASS, sc)
+    for pv in state.pvs.values():
+        store.add(KIND_PV, pv)
+    for pvc in state.pvcs.values():
+        store.add(KIND_PVC, pvc)
     return store
 
 
@@ -70,20 +79,25 @@ def arrival_specs(cycle: int, arrivals: int) -> List[Dict]:
 
 def add_arrivals(store, specs: List[Dict], created: float,
                  objects=None, resource_list=None) -> None:
-    """Add the arrival pods to ``store``, created at ``created``. The JAX
-    package's twin passes its own ``objects`` module and ``ResourceList``."""
+    """Add the arrival pods to ``store``, created at ``created``, with the
+    claims a spec names (``claims``, testing/storage.claim_arrivals). The
+    JAX package's twin passes its own ``objects`` module and
+    ``ResourceList``."""
     meta_cls = objects.ObjectMeta if objects is not None else ObjectMeta
     pod_cls = objects.Pod if objects is not None else Pod
     spec_cls = objects.PodSpec if objects is not None else PodSpec
     rl = resource_list if resource_list is not None else ResourceList
     for b in specs:
-        store.add(KIND_POD, pod_cls(
+        pod = pod_cls(
             meta=meta_cls(name=b["name"], namespace="churn", uid=b["uid"],
                           creation_timestamp=created),
             spec=spec_cls(priority=b["prio"],
                           requests=rl.of(cpu=b["cpu"], memory=b["mem"],
                                          pods=1)),
-        ))
+        )
+        if b.get("claims"):
+            pod.spec.pvc_names = list(b["claims"])
+        store.add(KIND_POD, pod)
 
 
 def cycle_dump(sched) -> Dict:

@@ -73,8 +73,13 @@ def test_selector_forms():
     step = build_best_full_chain_step(args, ng, ngroups)
     chosen, _req, _q = step(fc)
     assert step.last_backend == "serial" and chosen.shape == (16,)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_best_full_chain_step(args, ng, ngroups, kernel="wave")
+    # the wave-parallel round is ported: plain PyTorch on the inputs'
+    # device, the plain round's bindings
+    wave = build_best_full_chain_step(args, ng, ngroups, kernel="wave")
+    assert wave.last_backend == "wave"
+    assert torch.equal(wave(fc)[0], chosen)
+    with pytest.raises(ValueError, match="kernel"):
+        build_best_full_chain_step(args, ng, ngroups, kernel="pallas")
     # explain is ported: on CPU tensors the plain step with its 4th output
     ex = build_best_full_chain_step(args, ng, ngroups, explain="counts")
     out = ex(fc, 16)

@@ -114,10 +114,21 @@ def test_mixed_pack_matches_reference(seed, prod):
 
 
 def test_storage_objects_raise_not_implemented():
+    """Storage objects used to raise here; the classification is ported:
+    a StorageClass turns it on, so a pod naming a claim that does not
+    exist is PreFilter-rejected with the JAX package's reason, where the
+    same pod without storage objects keeps an opaque CSI token."""
+    from koordinator_tpu_torch.api.objects import ObjectMeta, StorageClass
+
     _, state = synth_full_cluster(8, 8, seed=0)
-    state.pvcs = {"default/claim": object()}
-    with pytest.raises(NotImplementedError, match="later slice"):
-        build_full_chain_inputs(state, LoadAwareArgs())
+    pod = state.pending_pods[0]
+    pod.spec.pvc_names = ["claim"]
+    fc, pods, *_ = build_full_chain_inputs(state, LoadAwareArgs())
+    assert fc.vol_needed[0].sum() == 1 and not pods.unschedulable_reasons
+    state.storage_classes = {"local": StorageClass(
+        meta=ObjectMeta(name="local", namespace=""))}
+    fc, pods, *_ = build_full_chain_inputs(state, LoadAwareArgs())
+    assert pods.unschedulable_reasons[0] == "persistentvolumeclaim not found"
 
 
 def test_import_leaves_jax_out():
@@ -128,6 +139,13 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.scheduler.parity, "
             "koordinator_tpu_torch.scheduler.cycle, "
             "koordinator_tpu_torch.scheduler.snapshot_cache, "
+            "koordinator_tpu_torch.scheduler.warmup, "
+            "koordinator_tpu_torch.scheduler.config_v1beta2, "
+            "koordinator_tpu_torch.models.wave_chain, "
+            "koordinator_tpu_torch.testing.storage, "
+            "koordinator_tpu_torch.testing.cold_start, "
+            "koordinator_tpu_torch.cmd.koord_descheduler, "
+            "koordinator_tpu_torch.cmd.koord_manager, "
             "koordinator_tpu_torch.models.fused_waves, "
             "koordinator_tpu_torch.scheduler.pipeline_parity, "
             "koordinator_tpu_torch.testing.churn, "

@@ -441,17 +441,28 @@ def test_rebalance_pack_is_the_shared_pack():
     (dict(mesh=4), "mesh"),
     (dict(mesh="auto"), "mesh"),
     (dict(sidecar_address="localhost:1"), "sidecar"),
-    (dict(warmup="sync"), "warm-up"),
-    (dict(warmup="background"), "warm-up"),
+    (dict(warmup="sync"), None),
+    (dict(warmup="background"), None),
 ], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
         "sidecar", "warmup-sync", "warmup-background"])
-def test_left_out_knobs_raise(kwargs, match):
-    """The knobs of paths a later slice brings raise, naming them; explain
-    attribution is ported (match None): its knob takes effect."""
+def test_left_out_knobs_raise(kwargs, match, tmp_path, monkeypatch):
+    """The knobs of paths a later slice brings raise, naming them;
+    explain attribution and the warm-up ladder are ported (match None):
+    their knobs take effect."""
     kwargs = {"waves": 1, **kwargs}
     if match is None:
+        if "warmup" in kwargs:
+            monkeypatch.setenv("KOORD_TPU_COMPILE_CACHE_DIR",
+                               str(tmp_path / "cc"))
         sched = Scheduler(ObjectStore(), device="cpu", **kwargs)
-        assert sched.explain_spec == kwargs["explain"]
+        if "warmup" in kwargs:
+            assert sched._warmup_mode == kwargs["warmup"]
+            sched.warmup.join(timeout=60)
+            assert sched.warmup.background == (
+                kwargs["warmup"] == "background")
+            assert sched.warmup.stats["complete"] is True
+        else:
+            assert sched.explain_spec == kwargs["explain"]
         return
     with pytest.raises(NotImplementedError, match=match):
         Scheduler(ObjectStore(), device="cpu", **kwargs)
@@ -461,7 +472,7 @@ def test_left_out_knobs_raise(kwargs, match):
     ("KOORD_TPU_MESH", "2"), ("KOORD_TPU_EXPLAIN", "counts"),
     ("KOORD_TPU_WARMUP", "sync"), ("KOORD_TPU_WAVES", "4"),
 ])
-def test_left_out_env_knobs_raise(monkeypatch, env, value):
+def test_left_out_env_knobs_raise(monkeypatch, tmp_path, env, value):
     monkeypatch.setenv(env, value)
     if env == "KOORD_TPU_WAVES":
         # the fused dispatch is ported: the knob pins K, and its per-wave
@@ -475,6 +486,20 @@ def test_left_out_env_knobs_raise(monkeypatch, env, value):
         # explain is ported: the knob takes effect
         assert Scheduler(ObjectStore(), device="cpu",
                          waves=1).explain_spec == "counts"
+        return
+    if env == "KOORD_TPU_WARMUP":
+        # the warm-up ladder is ported: the knob takes effect, and it runs
+        # once a cache dir is set
+        assert Scheduler(ObjectStore(), device="cpu",
+                         waves=1)._warmup_mode == "sync"
+        monkeypatch.setenv("KOORD_TPU_COMPILE_CACHE_DIR",
+                           str(tmp_path / "cc"))
+        sched = Scheduler(ObjectStore(), device="cpu", waves=1)
+        assert sched.warmup.stats["complete"] is True
+        monkeypatch.setenv(env, "auto")
+        sched = Scheduler(ObjectStore(), device="cpu", waves=1)
+        assert sched._warmup_mode == "background"
+        sched.warmup.join(timeout=60)
         return
     with pytest.raises(NotImplementedError):
         Scheduler(ObjectStore(), device="cpu", waves=1)
