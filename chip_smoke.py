@@ -127,6 +127,12 @@ Phases, one JSON line each:
           the PodMigrationJob lists must be equal, order included. Prints
           the host and device pass times, the device pass's spans, and
           the victim and job counts.
+  lownodeload_floor  (inside rebalance, before run_once) the compiled
+          serial floor (native/serial_floor.cpp, g++ -O2 -ffp-contract=off
+          -fno-fast-math, built into build/native/) on pack_floor_inputs of
+          the same store, on the host CPU: its victims must be the device
+          pass's pods. Prints its ms (median of 3) beside the host oracle's
+          and the device pass's medians.
   rebalance_colocated  config 4 (churn_store(5000, 10000, seed=42)):
           Scheduler(store) through cycle 0, then Descheduler(store,
           scheduler=sched): the rb_* fields ride the scheduler's
@@ -204,6 +210,23 @@ Phases, one JSON line each:
           cmd.koord_descheduler.main and cmd.koord_manager.main, on the
           card at --synth 5000x10000 for 3 ticks 1 s apart: exit 0 and one
           device pass a tick (rebalance windows, colo passes by engine).
+  scheduler_sidecar  config 4 (churn_store(5000, 10000, seed=42)) through
+          Scheduler(store, device="cuda", sidecar_address=...) against a
+          ScheduleBatch server in this process (serve_sidecar on an
+          abstract unix socket, SidecarServer(device="cuda")), beside its
+          serial twin Scheduler(waves=1) on an identical store, for cycle
+          0 and 2 churn cycles of 1000 arrivals: bindings, failure lists
+          and canonical dumps identical, every cycle demoted with reason
+          sidecar, no fallback, kernel 1 launched by the server. Then the
+          server stops and one more churn cycle must bind as the twin does
+          through the Scheduler's own step (kernel 1 launched locally),
+          with sidecar_fallbacks 1.
+  soak    the sim's 1000-cycle soak on the card (a dispatch fault, a
+          store-write fault, a dispatch storm to the host fallback, three
+          dead-sidecar cycles; pipeline on, waves auto): the binding log's
+          SHA-256 the JAX package's (pinned), three sidecar fallbacks, no
+          invariant breach, the store-write fault the only cycle
+          exception. No CPU twin (time limit).
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -221,6 +244,21 @@ Phases, one JSON line each:
           median of repeated rounds after a warm-up) and the plain torch
           round on the card over the same inputs, as its explain "full"
           variant, which must give the same bindings.
+  sidecar_grpc  the same batch over gRPC: serve_sidecar around main's
+          SidecarServer on an abstract unix socket, a SidecarClient sending
+          it (1 cold call, 3 warm): chosen, requested and quota_used equal
+          the in-process call's bit for bit, one kernel 1 launch a call.
+          Prints the request and response bytes, a warm call's split
+          (pack, serialize, transport, the handler's unpack, upload,
+          round, permit, readback and response, the decode) and
+          kernel_seconds. The C++ client does not run: the card's machine
+          has no protoc and no libprotobuf headers.
+  compiled_floor  the compiled serial floor on main's batch on the host
+          CPU (median of 3): its bindings equal kernel 1's and the plain
+          round's bit for bit. Prints vs_compiled_floor (the floor's
+          seconds over the warm schedule_batch call's, bench.py's ratio)
+          and the round-only ratio (over kernel 1's CUDA-event time), with
+          the card's name and power limit.
   explain_round  koordexplain's two kernels at config 4 (P = 10240)
           against that plain round: the stage-count pass
           (csrc/explain_counts.cu) equal to the plain counts exactly;
@@ -452,6 +490,16 @@ MIXED_CYCLES = 2
 # seconds between them
 COLD_START_TIMEOUT_S = 600
 BINARY_TICKS, BINARY_INTERVAL = 3, 1.0
+# slice 11: the compiled floors' timed runs; the gRPC phase's warm calls;
+# the sidecar Scheduler's churn cycles after cycle 0 (the server up; one
+# more runs with it stopped); and koordinator_tpu.sim's soak (its catalog
+# 1000 cycles, seed 7) on the CPU: the binding log's SHA-256, which
+# tests/test_torch_sim.py pins too
+FLOOR_REPS = 3
+SIDECAR_REPS = 3
+SIDECAR_CHURN = 2
+SOAK_JAX_SHA256 = (
+    "ec11853b366b054bae39759292b5a9540823fc6083de5f83cf7cb6e38287e880")
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -1664,7 +1712,7 @@ def run_rebalance(device, n_pods=50_000, n_nodes=5_000):
         raise AssertionError(f"rebalance warm-up served "
                              f"{plugin.last_pass_stats['engine']}")
     t0 = time.perf_counter()
-    view, _src = plugin._view(now)
+    view, pods_src = plugin._view(now)
     view_s = time.perf_counter() - t0
     low = plugin._thr_vec(plugin.args.low_thresholds)
     high = plugin._thr_vec(plugin.args.high_thresholds)
@@ -1712,6 +1760,9 @@ def run_rebalance(device, n_pods=50_000, n_nodes=5_000):
     step_ms = time_cuda(lambda: step(*args), REPS)
     launches = profile_launches(lambda: step(*args))
     nbytes = rebalance_bytes(args, out)
+    # the compiled serial floor on the same store, before run_once moves it
+    run_lownodeload_floor(store, plugin, pods_src, host, now, host_ms,
+                          device_ms)
     # the descheduler end to end against its host twin
     twin_store = rebalance_store(n_pods, n_nodes, now)
     twin = Descheduler(twin_store, rebalance="host")
@@ -3186,6 +3237,279 @@ def run_koord_scheduler(device, synth="5000x10000", ticks=3,
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 11: the compiled serial floors, the gRPC sidecar, the Scheduler's
+# sidecar dispatch and the soak
+# ---------------------------------------------------------------------------
+
+
+def sidecar_address(tag: str) -> str:
+    """A Linux abstract unix socket: no file, no path length to fit."""
+    return f"unix-abstract:koord-chip-smoke-{tag}-{os.getpid()}"
+
+
+def run_lownodeload_floor(store, plugin, pods_src, picked, now, host_ms,
+                          device_ms):
+    """BASELINE config 5's LowNodeLoad pass as the compiled serial floor
+    (native/serial_floor.cpp on the host CPU) on pack_floor_inputs of the
+    same store: its victims must be the device pass's, as a set of pods."""
+    from koordinator_tpu_torch.descheduler.lownodeload import (
+        pack_floor_inputs,
+    )
+    from koordinator_tpu_torch.native import floor as native_floor
+
+    t0 = time.perf_counter()
+    native_floor.load()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pods_l, arrays = pack_floor_inputs(store, plugin, now)
+    pack_s = time.perf_counter() - t0
+    floor_ms = []
+    for _ in range(FLOOR_REPS):
+        t0 = time.perf_counter()
+        victim = native_floor.lownodeload_floor_native(**arrays)
+        floor_ms.append((time.perf_counter() - t0) * 1e3)
+    floor_keys = {pods_l[i].meta.key for i in np.nonzero(victim)[0]}
+    pass_keys = {pods_src[k].meta.key for k in picked}
+    if floor_keys != pass_keys:
+        raise AssertionError(
+            f"lownodeload_floor: {len(floor_keys)} floor victims against "
+            f"{len(pass_keys)} from the device pass, or other pods")
+    emit({"phase": "lownodeload_floor", "pods": len(pods_l),
+          "nodes": int(arrays["alloc"].shape[0]), "victims": len(floor_keys),
+          "victims_equal": True, "floor_build_seconds": build_s,
+          "pack_floor_inputs_seconds": pack_s, "floor_ms": floor_ms,
+          "floor_ms_median": statistics.median(floor_ms),
+          "device_pass_ms_median": statistics.median(device_ms),
+          "host_pass_ms_median": statistics.median(host_ms)})
+
+
+def run_compiled_floor(fc, args, ng, ngroups, active, chosen, plain_chosen,
+                       kernel_ms, warm_s, card):
+    """BASELINE config 4's full chain as the compiled serial floor on the
+    host CPU, on the batch kernel 1 served through
+    SidecarServer.schedule_batch: its bindings must equal kernel 1's and
+    the plain round's, bit for bit. vs_compiled_floor is the floor's
+    seconds over the warm schedule_batch call's (bench.py's ratio), the
+    round-only ratio over kernel 1's CUDA-event time beside it."""
+    from koordinator_tpu_torch.native import floor as native_floor
+
+    t0 = time.perf_counter()
+    native_floor.load()
+    build_s = time.perf_counter() - t0
+    floor_s = []
+    for _ in range(FLOOR_REPS):
+        t0 = time.perf_counter()
+        floor_chosen = native_floor.serial_schedule_full_native(
+            fc, args, num_groups=ngroups, active_axes=active)
+        floor_s.append(time.perf_counter() - t0)
+    mism = {"kernel": int((floor_chosen != chosen).sum()),
+            "plain": int((floor_chosen != plain_chosen).sum())}
+    if any(mism.values()):
+        raise AssertionError(f"compiled_floor: the floor's bindings differ: "
+                             f"{mism}")
+    median_s = statistics.median(floor_s)
+    valid = int(np.asarray(fc.base.pod_valid).sum())
+    emit({"phase": "compiled_floor", "P": int(chosen.shape[0]),
+          "N": int(np.asarray(fc.base.allocatable).shape[0]),
+          "pods": valid, "pods_bound": int((floor_chosen >= 0).sum()),
+          "mismatches": mism, "floor_build_seconds": build_s,
+          "floor_seconds": floor_s, "floor_seconds_median": median_s,
+          "floor_pods_per_s": valid / median_s,
+          "kernel_round_ms": kernel_ms,
+          "schedule_batch_warm_ms": warm_s * 1e3,
+          "vs_compiled_floor": median_s / warm_s,
+          "vs_compiled_floor_round": median_s / (kernel_ms / 1e3),
+          "card": card})
+
+
+def run_sidecar_grpc(server, fc, args, ng, ngroups, active, main_out,
+                     in_process_s, card):
+    """The config 4 batch over gRPC: serve_sidecar on an abstract unix
+    socket in this process around the main path's SidecarServer (its step
+    is built), a SidecarClient sending the batch. Every call's chosen,
+    requested and quota_used must equal the in-process call's, bit for
+    bit, and launch kernel 1 once. Prints the message sizes and a warm
+    call's split (median of SIDECAR_REPS): pack and serialize on the
+    client, the transport (the call's wall less the handler's), the
+    handler's unpack and upload, round, permit, readback and response,
+    and the client's decode. The C++ client is not run: the card's machine
+    has no protoc and no libprotobuf headers to build it."""
+    from koordinator_tpu_torch.scheduler.sidecar import (
+        SidecarClient,
+        pack_request,
+        serve_sidecar,
+        tensor_to_np,
+    )
+
+    address = sidecar_address("grpc")
+    grpc_server = serve_sidecar(address, server)
+    client = SidecarClient(address)
+    splits, kernel_seconds = [], []
+    try:
+        fck.launches = 0
+        t0 = time.perf_counter()
+        client.schedule_batch(pack_request(fc, ng, ngroups, args,
+                                           active_axes=active))
+        cold_s = time.perf_counter() - t0
+        for _ in range(SIDECAR_REPS):
+            t0 = time.perf_counter()
+            req = pack_request(fc, ng, ngroups, args, active_axes=active)
+            pack_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            blob = req.SerializeToString()
+            serialize_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            resp = client.schedule_batch(req)
+            call_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = tuple(tensor_to_np(t) for t in (
+                resp.chosen, resp.requested, resp.quota_used))
+            decode_s = time.perf_counter() - t0
+            srv = dict(server.last_timings)
+            handler_s = sum(srv.values())
+            for a, b in zip(out, main_out):
+                if a.shape != b.shape or a.dtype != b.dtype or (a != b).any():
+                    raise AssertionError("sidecar_grpc: the gRPC call's "
+                                         "outputs differ from the in-process "
+                                         "call's")
+            splits.append({"pack": pack_s, "serialize": serialize_s,
+                           "transport": call_s - handler_s,
+                           **{f"server_{k}": v for k, v in srv.items()},
+                           "decode": decode_s,
+                           "total": pack_s + call_s + decode_s})
+            kernel_seconds.append(resp.kernel_seconds)
+        launches = fck.launches
+    finally:
+        client.close()
+        grpc_server.stop(0)
+    if server.device.type == "cuda" and (
+            launches != 1 + SIDECAR_REPS or server.last_backend != "cuda"):
+        raise AssertionError(f"sidecar_grpc: {launches} kernel launches in "
+                             f"{1 + SIDECAR_REPS} calls, backend "
+                             f"{server.last_backend}")
+    split = median_split(splits)
+    emit({"phase": "sidecar_grpc", "address": "unix-abstract",
+          "request_bytes": len(blob), "response_bytes": resp.ByteSize(),
+          "cold_call_s": cold_s, "warm_split_s": split,
+          "kernel_seconds": kernel_seconds,
+          "in_process_warm_s": in_process_s,
+          "overhead_over_in_process_s": split["total"] - in_process_s,
+          "launches": launches, "outputs_equal": True,
+          "cpp_client": "not built: no protoc, no libprotobuf headers on "
+                        "this machine", "card": card})
+    return launches
+
+
+def run_scheduler_sidecar(device, n_nodes=5000, n_pods=10000):
+    """Config 4's churn store through Scheduler(device=, sidecar_address=)
+    against a ScheduleBatch server in this process, beside its serial twin
+    Scheduler(waves=1) on an identical store, for cycle 0 and
+    SIDECAR_CHURN churn cycles: bindings, failure lists and the canonical
+    dumps (PodScheduled messages) identical every cycle, every cycle
+    demoted with reason sidecar, no fallback, kernel 1 launched by the
+    server. Then the server stops and one more churn cycle runs: the
+    Scheduler's own step on the card (kernel 1 launches here), one
+    fallback, the twin's bindings. Returns the phase's kernel 1
+    launches."""
+    from koordinator_tpu_torch.scheduler.sidecar import serve_sidecar
+
+    arrivals = n_pods // 10
+    address = sidecar_address("scheduler")
+    server = SidecarServer(device=device)
+    grpc_server = serve_sidecar(address, server)
+    (store, state), (twin_store, _s) = (
+        churn_store(n_nodes, n_pods, seed=42) for _ in range(2))
+    sched = Scheduler(store, device=device, sidecar_address=address)
+    twin = Scheduler(twin_store, device=device, waves=1)
+    now = state.now
+    rows, total = [], 0
+    try:
+        for c in range(2 + SIDECAR_CHURN):
+            if c == 1 + SIDECAR_CHURN:
+                grpc_server.stop(0)  # the sidecar dies
+            if c:
+                specs = arrival_specs(c, arrivals)
+                for s in (store, twin_store):
+                    add_arrivals(s, specs, now + c)
+            fck.launches = 0
+            t0 = time.perf_counter()
+            res = sched.run_cycle(now=now + 2 * c)
+            wall = time.perf_counter() - t0
+            launches = fck.launches
+            total += launches
+            twin_res, twin_wall, twin_launches, _gc = checked_cycle(
+                f"scheduler_sidecar cycle {c} twin", twin, twin.run_cycle,
+                now + 2 * c)
+            dead = c == 1 + SIDECAR_CHURN
+            want_backend = (("cuda" if device == "cuda" else "serial")
+                            if dead else "sidecar")
+            if (result_key(res) != result_key(twin_res)
+                    or cycle_dump(sched) != cycle_dump(twin)):
+                raise AssertionError(f"scheduler_sidecar cycle {c}: the "
+                                     f"sidecar's cycle differs from the twin")
+            if ("sidecar" not in res.demotions
+                    or sched.sidecar_fallbacks != int(dead)
+                    or sched.last_backend != want_backend
+                    or (device == "cuda" and launches < 1)):
+                raise AssertionError(
+                    f"scheduler_sidecar cycle {c}: demotions "
+                    f"{res.demotions}, fallbacks {sched.sidecar_fallbacks}, "
+                    f"backend {sched.last_backend}, launches {launches}")
+            rows.append({"cycle": c, "server": "stopped" if dead else "up",
+                         "bound": len(res.bound), "ms": wall * 1e3,
+                         "twin_ms": twin_wall * 1e3,
+                         "kernel_span_ms": res.kernel_seconds * 1e3,
+                         "demotions": res.demotions,
+                         "backend": sched.last_backend,
+                         "launches": launches, "twin_launches": twin_launches,
+                         "fallbacks": sched.sidecar_fallbacks})
+    finally:
+        grpc_server.stop(0)
+    emit({"phase": "scheduler_sidecar", "nodes": n_nodes, "pods": n_pods,
+          "cycles": rows, "twin_equal": True,
+          "sidecar_fallbacks": sched.sidecar_fallbacks})
+    return total
+
+
+def run_soak(device):
+    """The sim's soak on the card at its catalog 1000 cycles (four faults:
+    a transient dispatch fault, a store-write fault, a dispatch storm down
+    to the host fallback, three dead-sidecar cycles; pipeline on, waves
+    auto): the binding log's SHA-256 must be the JAX package's, with zero
+    invariant breaches, the store-write fault the only cycle exception,
+    and three sidecar fallbacks. No CPU twin (the time limit): the CPU's
+    equality to the JAX package is tests/test_torch_sim.py's. Returns the
+    kernels' launches."""
+    fck.launches = fck.replay_launches = sk.launches = 0
+    t0 = time.perf_counter()
+    report = run_scenario(SCENARIOS["soak"], device=device)
+    wall = time.perf_counter() - t0
+    launches = {"full_chain": fck.launches,
+                "full_chain_replay": fck.replay_launches}
+    if (report.binding_log_sha256 != SOAK_JAX_SHA256
+            or report.sidecar_fallbacks != 3 or report.invariant_breaches
+            or len(report.cycle_exceptions) != 1
+            or report.final_level != "full"
+            or (device == "cuda" and launches["full_chain"] < 1)):
+        raise AssertionError(
+            f"soak: sha {report.binding_log_sha256}, fallbacks "
+            f"{report.sidecar_fallbacks}, breaches "
+            f"{report.invariant_breaches[:3]}, exceptions "
+            f"{report.cycle_exceptions[:3]}, level {report.final_level}, "
+            f"launches {launches}")
+    emit({"phase": "soak", "cycles": SCENARIOS["soak"].cycles,
+          "sha256": report.binding_log_sha256, "jax_sha_equal": True,
+          "bindings": len(report.binding_log),
+          "sidecar_fallbacks": report.sidecar_fallbacks,
+          "cycles_at_level": report.cycles_at_level,
+          "cycle_exceptions": len(report.cycle_exceptions),
+          "invariant_breaches": 0, "wall_s": wall,
+          "ms_per_cycle": wall / SCENARIOS["soak"].cycles * 1e3,
+          "launches": launches, "cpu_twin": "not run (time limit)"})
+    return launches
+
+
 def explain_entry(name, source, replaces, key, launches, res):
     """The kernels-line entry of one koordexplain kernel: its launches on
     the main path's explain phases (``key`` in each phase's counts, split
@@ -3375,6 +3699,9 @@ def main() -> int:
     cold_launches = run_cold_start()
     run_binary(device, "koord_descheduler")
     run_binary(device, "koord_manager")
+    # ---- the Scheduler over the gRPC sidecar, then the 1000-cycle soak
+    sidecar_sched_launches = run_scheduler_sidecar(device)
+    soak_launches = run_soak(device)
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
@@ -3383,10 +3710,12 @@ def main() -> int:
                           for k, v in explain_launches.items()})
     replay_entry.update(
         launches_storage=storage_launches["full_chain_replay"],
-        launches_cold_start=cold_launches["full_chain_replay"])
+        launches_cold_start=cold_launches["full_chain_replay"],
+        launches_soak=soak_launches["full_chain_replay"])
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
                                  + storage_launches["full_chain_replay"]
                                  + cold_launches["full_chain_replay"]
+                                 + soak_launches["full_chain_replay"]
                                  + sim_launches["full_chain_replay"]
                                  + sum(v["full_chain_replay"]
                                        for v in explain_launches.values()))
@@ -3470,6 +3799,12 @@ def main() -> int:
           "plain_compared_pods": int(P), "mismatches": mism,
           "max_abs_err": err, "ops": ops, "bound_bytes_ms": bytes_ms,
           "bound_ops_ms": ops_ms})
+    # ---- the same batch over gRPC, then the compiled serial floor on it
+    grpc_launches = run_sidecar_grpc(
+        server, fc, args, ng, ngroups, active,
+        (chosen, requested, quota_used), warm["total"], card)
+    run_compiled_floor(fc, args, ng, ngroups, active, chosen,
+                       out_p[0].cpu().numpy(), kernel_ms, warm["total"], card)
 
     # ---- the same kernel with its carried state in device memory
     glob = fck.build_cuda_full_chain_step(args, ng, ngroups, active,
@@ -3528,7 +3863,8 @@ def main() -> int:
                      + storage_launches["full_chain"]
                      + cold_launches["full_chain"]
                      + sim_launches["full_chain"] + colocated_launches
-                     + colo_launches
+                     + colo_launches + grpc_launches
+                     + sidecar_sched_launches + soak_launches["full_chain"]
                      + sum(la["full_chain"]
                            for la in explain_launches.values()),
                      mism, err, kernel_ms,
@@ -3541,6 +3877,9 @@ def main() -> int:
                      launches_sim=sim_launches["full_chain"],
                      launches_rebalance_colocated=colocated_launches,
                      launches_colo_colocated=colo_launches,
+                     launches_sidecar_grpc=grpc_launches,
+                     launches_scheduler_sidecar=sidecar_sched_launches,
+                     launches_soak=soak_launches["full_chain"],
                      launches_explain={k: v["full_chain"] for k, v in
                                        explain_launches.items()}),
         la_kernel, replay_entry,

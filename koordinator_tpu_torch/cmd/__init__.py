@@ -1,11 +1,13 @@
 """Binary entrypoints — the analog of the reference's cmd/ tree.
 
 The reference ships five cooperating binaries (koord-scheduler,
-koord-descheduler, koord-manager, koordlet, koord-runtime-proxy). The port
-has the scheduler, the descheduler and the manager so far; each module
-here is a thin CLI over the corresponding library runner, launchable as
+koord-descheduler, koord-manager, koordlet, koord-runtime-proxy), and the
+rebuild adds a sixth, the scheduling sidecar. The port has the scheduler,
+the sidecar, the descheduler and the manager so far; each module here is a
+thin CLI over the corresponding library runner, launchable as
 
     python -m koordinator_tpu_torch.cmd.koord_scheduler --synth 50x200
+    python -m koordinator_tpu_torch.cmd.koord_sidecar --listen unix:///tmp/s.sock
     python -m koordinator_tpu_torch.cmd.koord_descheduler --synth 50x200
     python -m koordinator_tpu_torch.cmd.koord_manager --synth 50x200
 

@@ -5,10 +5,11 @@ into the upstream scheduler app; here the cycle driver IS the scheduleOne
 loop). Serves the frameworkext debug/services endpoints and the scheduler
 metrics registry over HTTP (with /explain, /healthz, the flight recorder
 and the device timeline), and gates cycles on leader election when
---leader-elect is set. A copy of the JAX package's binary: the cycle runs
-on the card (--device cpu runs the plain versions, as the tests do), and
---sidecar-address raises NotImplementedError through the Scheduler, since
-the port has no gRPC sidecar transport yet. KOORD_TPU_EXPLAIN, like every
+--leader-elect is set, and can offload the kernel pass to a scheduling
+sidecar (--sidecar-address, a koord_sidecar's address) with in-process
+degradation. A copy of the JAX package's binary: the cycle runs on the
+card (--device cpu runs the plain versions, as the tests do), and so does
+the local step a sidecar fallback runs. KOORD_TPU_EXPLAIN, like every
 KOORD_TPU_* knob, is read by the Scheduler.
 
     KOORD_TPU_EXPLAIN=counts python -m koordinator_tpu_torch.cmd.koord_scheduler \
@@ -38,8 +39,7 @@ def main(argv=None) -> int:
     ap.add_argument("--leader-elect", action="store_true")
     ap.add_argument("--identity", default="koord-scheduler-0")
     ap.add_argument("--sidecar-address",
-                    help="gRPC address of the scheduling sidecar (not in "
-                         "the port yet: raises)")
+                    help="gRPC address of the scheduling sidecar")
     ap.add_argument("--services-port", type=int, default=0,
                     help="serve /apis/v1/... debug endpoints (0 = off)")
     ap.add_argument("--obs-port", type=int, default=0,
@@ -81,7 +81,9 @@ def main(argv=None) -> int:
         print(
             f"koord-scheduler: bound={len(result.bound)} "
             f"failed={len(result.failed)} rejected={len(result.rejected)} "
-            f"kernel={result.kernel_seconds * 1000:.1f}ms",
+            f"kernel={result.kernel_seconds * 1000:.1f}ms"
+            + (f" sidecar_fallbacks={sched.sidecar_fallbacks}"
+               if args.sidecar_address else ""),
             file=sys.stderr,
         )
 

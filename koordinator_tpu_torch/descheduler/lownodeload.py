@@ -338,3 +338,51 @@ class LowNodeLoad:
                         self.store.add(KIND_POD_MIGRATION_JOB, job)
                         jobs.append(job)
         return jobs
+
+
+def pack_floor_inputs(store: ObjectStore, plugin: LowNodeLoad,
+                      now: float):
+    """Pack the store into the arrays `native.floor.lownodeload_floor_native`
+    consumes, with the SAME classification inputs balance() sees. One home
+    for this encoding, so the compiled floor and the plugin can never drift
+    onto different encodings silently (the JAX package's
+    descheduler/lownodeload.py pack_floor_inputs, copied).
+
+    Returns (pods list, dict of keyword arrays for the floor call)."""
+    nodes = store.list(KIND_NODE)
+    node_idx = {n.meta.name: i for i, n in enumerate(nodes)}
+    alloc = np.stack([n.allocatable.to_vector() for n in nodes])
+    usage_pct = np.zeros_like(alloc, np.float32)
+    has_metric = np.zeros(len(nodes), np.int32)
+    for i, node in enumerate(nodes):
+        nm = store.get(KIND_NODE_METRIC, f"/{node.meta.name}")
+        if nm is None or nm.update_time <= 0:
+            continue
+        if now - nm.update_time >= plugin.args.node_metric_expiration_seconds:
+            continue
+        a = alloc[i]
+        u = nm.node_metric.node_usage.to_vector()
+        usage_pct[i] = np.where(a > 0, u * 100.0 / np.maximum(a, 1e-9), 0.0)
+        has_metric[i] = 1
+    pods = [p for p in store.list(KIND_POD)
+            if p.is_assigned and not p.is_terminated]
+    pod_req = np.stack([p.spec.requests.to_vector() for p in pods]) \
+        if pods else np.zeros((0, NUM_RESOURCES), np.float32)
+    arrays = dict(
+        alloc=alloc,
+        usage_pct=usage_pct,
+        has_metric=has_metric,
+        low_thr=plugin._thr_vec(plugin.args.low_thresholds),
+        high_thr=plugin._thr_vec(plugin.args.high_thresholds),
+        pod_node=np.asarray(
+            [node_idx.get(p.spec.node_name, -1) for p in pods], np.int32),
+        pod_prio=np.asarray([p.spec.priority or 0 for p in pods], np.int32),
+        pod_req=pod_req,
+        movable=np.asarray(
+            [p.meta.owner_kind != "DaemonSet" and not has_pdb_like_guard(p)
+             for p in pods], np.int32),
+        pod_sort_cpu=np.asarray(
+            [p.spec.requests[ResourceName.CPU] for p in pods], np.float32),
+        max_evict_per_node=plugin.args.max_pods_to_evict_per_node,
+    )
+    return pods, arrays

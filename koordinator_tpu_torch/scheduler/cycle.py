@@ -29,9 +29,13 @@ one-wave dispatches, and the host replays wave w while the device runs
 wave w+1; off, all K waves run in one call before the replay. Either way
 the bindings, conditions, gang and quota writes are those of K serial
 cycles, and the JAX package's byte for byte (tests/test_torch_cycle.py,
-tests/test_torch_cycle_waves.py). The paths a later slice brings raise
-NotImplementedError and never run something else silently: the mesh, the
-gRPC sidecar and the warm-up ladder.
+tests/test_torch_cycle_waves.py). With ``sidecar_address`` every cycle
+sends its batch over gRPC to a ScheduleBatch server (scheduler/sidecar.py,
+the single-round protocol: waves and explain demote, reasons "sidecar" and
+"explain-sidecar"), and a transport failure runs the Scheduler's own step
+on its device, counted in ``sidecar_fallbacks``. The mesh, which a later
+slice brings, raises NotImplementedError and never runs something else
+silently.
 
 koordexplain (``explain="counts"|"full"`` or KOORD_TPU_EXPLAIN) rides every
 dispatch: the per-stage reject counts of every pod (per wave on the fused
@@ -130,6 +134,10 @@ from koordinator_tpu_torch.scheduler.frameworkext import (
     ScoreTransformer,
 )
 from koordinator_tpu_torch.scheduler.diagnose import format_stage_counts
+from koordinator_tpu_torch.scheduler.sidecar import (
+    SidecarClient,
+    schedule_batch_or_fallback,
+)
 from koordinator_tpu_torch.scheduler.plugins import DEFAULT_PLUGINS
 from koordinator_tpu_torch.scheduler.snapshot import (
     ClusterState,
@@ -141,8 +149,8 @@ RESERVATION_POD_PREFIX = "__reservation__/"
 
 # koordwatch demotion registry: every reason a cycle can run below its
 # configured wave/explain/mesh level (_note_demotion refuses any other).
-# This port reaches the two wave-depth residues; the rest name rungs of
-# paths a later slice brings.
+# This port reaches all but the mesh's two, which name rungs of a path a
+# later slice brings.
 DEMOTION_REASONS = frozenset({
     # wave-depth demotions (_effective_waves)
     "ladder-serial-waves",      # degradation ladder at/below serial rung
@@ -538,10 +546,20 @@ class Scheduler:
         import dataclasses as _dc
 
         self.device = check_device(device)
-        if sidecar_address:
-            _refuse("the gRPC sidecar dispatch", "transport")
+        # the host event loop may offload the kernel pass to a gRPC
+        # sidecar (the Go<->sidecar integration shape); a transport failure
+        # runs this Scheduler's own step on its device instead, never
+        # wedging the cycle (_dispatch_sidecar)
+        self._sidecar_client = (
+            SidecarClient(sidecar_address) if sidecar_address else None)
+        self.sidecar_fallbacks = 0
         if _mesh_requested(mesh):
-            _refuse("mesh-backed dispatch", "parallel/")
+            if self._sidecar_client is None:
+                _refuse("mesh-backed dispatch", "parallel/")
+            # the sidecar RPC protocol is single-device, so a sidecar
+            # turns the mesh off, as in the JAX package
+            logger.warning("KOORD_TPU_MESH ignored: the sidecar RPC "
+                           "protocol is single-device")
         # koordexplain (KOORD_TPU_EXPLAIN): None=off, "counts", "full".
         # Unknown strings fail loudly, as in the JAX package.
         if explain not in (None, "off", "counts", "full"):
@@ -955,14 +973,16 @@ class Scheduler:
         rungs whose feature was never on. On one GPU that leaves full ->
         serial-waves -> no-explain -> host-fallback, skipping the rungs of
         waves and explain where they are off (waves=1, explain off: full
-        -> host-fallback)."""
+        -> host-fallback). A sidecar turns both off: its protocol is
+        single-round and ships only the chosen vector."""
         waves_capable = (self.waves_spec == "auto"
                          or (isinstance(self.waves_spec, int)
                              and self.waves_spec > 1))
         return {
             "mesh": False,  # no mesh until the parallel/ slice
-            "waves": waves_capable,
-            "explain": self.explain_spec is not None,
+            "waves": waves_capable and self._sidecar_client is None,
+            "explain": (self.explain_spec is not None
+                        and self._sidecar_client is None),
         }
 
     def _on_ladder_transition(self, record: dict) -> None:
@@ -1333,13 +1353,15 @@ class Scheduler:
             res=nres > 0, score_passes=self._device_score_passes()))
 
     def _effective_explain(self):
-        """This cycle's koordexplain level. The degradation ladder's
-        no-explain rung (and below) pins it off, through the koordwatch
-        chokepoint. The JAX package also demotes it off for the sidecar
-        path (explain-sidecar); the port refuses the sidecar at
-        construction, so that demotion cannot happen here."""
+        """This cycle's koordexplain level. The sidecar path demotes to
+        off: the RPC protocol ships only the chosen vector, so attribution
+        falls back to the host recompute. The degradation ladder's
+        no-explain rung (and below) pins it off too. Every demotion routes
+        through the koordwatch chokepoint."""
         if self.explain_spec is None:
             return self.explain_spec  # nothing configured: not a demotion
+        if self._sidecar_client is not None:
+            return self._note_demotion("explain-sidecar", None)
         if self.ladder.level >= LEVEL_NO_EXPLAIN:
             return self._note_demotion("explain-ladder", None)
         return self.explain_spec
@@ -1387,8 +1409,7 @@ class Scheduler:
         genuinely non-expressible residues demote to K=1 (the exact serial
         path): a ScoreTransformer without ``device_pass`` and claim
         entanglement, plus the degradation ladder at or below its
-        serial-waves rung. The sidecar, the JAX package's other demotion,
-        is refused at construction in this port."""
+        serial-waves rung and the single-round sidecar protocol."""
         self._claim_analysis = None
         spec = self.waves_spec if override is None else override
         k = _auto_waves(len(pending)) if spec == "auto" else int(spec)
@@ -1398,6 +1419,9 @@ class Scheduler:
         if self.ladder.level >= LEVEL_SERIAL_WAVES:
             # degradation ladder: fused dispatch demoted off
             return self._note_demotion("ladder-serial-waves", 1)
+        if self._sidecar_client is not None:
+            # the sidecar RPC protocol is single-round
+            return self._note_demotion("sidecar", 1)
         if any(isinstance(t, ScoreTransformer)
                and getattr(t, "device_pass", None) is None
                for t in self.extender.transformers):
@@ -2247,8 +2271,12 @@ class Scheduler:
         if enc is None:
             return rejected_pods, [(p, "no schedulable node") for p in pending]
         fc, pods, nodes, ng, ngroups, active = enc
-        chosen = self._dispatch_serial(fc, pods, nodes, ng, ngroups,
-                                       active, result)
+        if self._sidecar_client is not None:
+            chosen = self._dispatch_sidecar(fc, pods, nodes, ng, ngroups,
+                                            active, result)
+        else:
+            chosen = self._dispatch_serial(fc, pods, nodes, ng, ngroups,
+                                           active, result)
 
         # apply bindings in queue order
         with self.tracer.span("bind") as bsp:
@@ -2281,6 +2309,38 @@ class Scheduler:
         return rejected_pods, failed_pods
 
     # ------------------------------------------------------------------
+    def _dispatch_sidecar(self, fc, pods, nodes, ng, ngroups, active,
+                          result: CycleResult) -> np.ndarray:
+        """Sidecar-served batch pass: the RPC layer owns its own
+        degradation (a transport failure runs this Scheduler's keyed step
+        on its device: kernel 1 on the card), so the ladder does not wrap
+        this path. ``last_backend`` says "sidecar" for a served batch and
+        the local step's backend after a fallback."""
+        # the sidecar protocol ships only the chosen vector: explain
+        # resolves to off through the koordwatch chokepoint (the reason
+        # is accounted, the value is None)
+        explain = self._effective_explain()
+        step = self._get_step(
+            (pods.padded_size, nodes.padded_size, fc.quota_runtime.shape[0]),
+            ng, ngroups, active, explain=explain,
+        )
+        with self.tracer.span(
+                "kernel",
+                compiled="1" if self._last_step_compiled else "0") as ksp:
+            chosen, _, _, used_fallback = schedule_batch_or_fallback(
+                self._sidecar_client, fc, ng, ngroups, self.args,
+                active_axes=active, local_step=step, device=self.device,
+            )
+            if used_fallback:
+                self.sidecar_fallbacks += 1
+                scheduler_metrics.SIDECAR_FALLBACKS.inc()
+                self.last_backend = step.last_backend
+            else:
+                self.last_backend = "sidecar"
+        result.kernel_seconds += ksp.duration_seconds
+        scheduler_metrics.KERNEL_SECONDS.observe(ksp.duration_seconds)
+        return chosen
+
     def _dispatch_serial(self, fc_host, pods, nodes, ng, ngroups, active,
                          result: CycleResult) -> np.ndarray:
         """The single-round device-dispatch window, wrapped in the

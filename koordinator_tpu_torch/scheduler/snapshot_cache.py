@@ -811,8 +811,12 @@ class DeviceSnapshot:
                     self.stats["bytes_scattered"] += int(
                         new[rows].nbytes)
                     return dev2
-        dev = as_tensor(new, self.device)
-        self._fields[name] = (new.copy(), dev)
+        # the mirror owns its arrays: on the CPU a tensor aliases the
+        # array it is made from, and the pack reuses and rewrites the
+        # caller's arrays in place while this entry may still be reused
+        host = new.copy()
+        dev = as_tensor(host, self.device)
+        self._fields[name] = (host, dev)
         self.stats["put"] += 1
         self.stats["bytes_put"] += int(new.nbytes)
         return dev

@@ -34,12 +34,10 @@ the simulator at the start of each sim cycle:
     (every RPC raises) for ``count`` cycles, exercising the sidecar's
     own local-step fallback path.
 
-The port runs every kind but two: the gRPC sidecar comes with its
-transport slice and mesh dispatch with its parallel/ slice, so a
-``sidecar`` or ``device_loss`` fault raises NotImplementedError when it
-fires (and the simulator refuses a scenario with a ``sidecar`` fault at
-construction). The dispatch windows let NotImplementedError through, so
-it is never mistaken for a device fault.
+The port runs every kind but one: mesh dispatch comes with its parallel/
+slice, so a ``device_loss`` fault raises NotImplementedError when it
+fires. The dispatch windows let NotImplementedError through, so it is
+never mistaken for a device fault.
 
 Everything is deterministic: faults fire at fixed cycles with fixed
 budgets, no randomness. The latency sleep is real wall time but the sim
@@ -165,14 +163,28 @@ class FaultPlan:
 
     # ---- sidecar ------------------------------------------------------
     def sidecar_armed(self) -> bool:
-        """True while a sidecar fault cycle is active; the JAX package's
-        simulator swaps a dead client stub in/out of the scheduler. The
-        port has no sidecar yet: an armed sidecar fault raises."""
+        """True while a sidecar fault cycle is active; the simulator
+        swaps a dead client stub in/out of the scheduler. Consumes one
+        budget unit per armed cycle."""
         if self._budget["sidecar"] > 0:
-            raise NotImplementedError(
-                "the sidecar fault needs the gRPC sidecar dispatch, which "
-                "comes with the transport slice of the port")
+            self._budget["sidecar"] -= 1
+            self.injected.append(
+                {"cycle": self._cycle, "kind": "sidecar", "detail": "stub"})
+            return True
         return False
+
+
+class DeadSidecarClient:
+    """A sidecar client whose every RPC raises a channel-level transport
+    failure: what a timed-out / crashed gRPC peer looks like to
+    schedule_batch_or_fallback, which must degrade to the local step
+    (scheduler/sidecar.py catches ConnectionError/OSError)."""
+
+    def schedule_batch(self, request):
+        raise ConnectionError("sidecar timeout (injected)")
+
+    def close(self) -> None:
+        pass
 
 
 class FaultyStore:

@@ -26,11 +26,11 @@ Everything is deterministic for a (scenario, seed) pair — the binding
 log is byte-stable, the same on the card as on the CPU, and the same as
 the JAX package's sim (tests/test_torch_sim.py holds them together).
 
-A copy of the JAX package's harness. Scenarios whose configuration needs
-a part the port does not have yet raise NotImplementedError at
-construction and name the slice that brings it: a sidecar fault (a
-dead gRPC sidecar) and mesh dispatch (``mesh``); explain attribution
-(``explain``) runs as configured. A co-located descheduler
+A copy of the JAX package's harness. A scenario whose configuration needs
+mesh dispatch (``mesh``), which the port does not have yet, raises
+NotImplementedError at construction and names the slice that brings it;
+explain attribution (``explain``) and dead-sidecar cycles run as
+configured. A co-located descheduler
 (``descheduler_every``) and a co-located koord-manager (``colo_every``)
 share the scheduler's
 snapshot, device mirror and device, as in the JAX package.
@@ -70,7 +70,11 @@ from koordinator_tpu_torch.client.store import (
     KIND_POD_GROUP,
     ObjectStore,
 )
-from koordinator_tpu_torch.sim.faults import FaultPlan, FaultyStore
+from koordinator_tpu_torch.sim.faults import (
+    DeadSidecarClient,
+    FaultPlan,
+    FaultyStore,
+)
 from koordinator_tpu_torch.sim.invariants import check_invariants
 from koordinator_tpu_torch.sim.scenarios import Scenario
 
@@ -431,14 +435,10 @@ class SimReport:
 def require_ported(sc: Scenario) -> None:
     """A scenario needing a part the port does not have yet: raise,
     naming the slice that brings it, never run something else."""
-    for needed, part, slice_name in (
-            (any(f.kind == "sidecar" for f in sc.faults),
-             "the sidecar fault (a dead gRPC sidecar)", "transport"),
-            (sc.mesh is not None, "mesh-backed dispatch", "parallel/")):
-        if needed:
-            raise NotImplementedError(
-                f"scenario {sc.name!r} needs {part}, which comes with the "
-                f"{slice_name} slice of the port")
+    if sc.mesh is not None:
+        raise NotImplementedError(
+            f"scenario {sc.name!r} needs mesh-backed dispatch, which comes "
+            f"with the parallel/ slice of the port")
 
 
 class ChurnSimulator:
@@ -493,6 +493,7 @@ class ChurnSimulator:
         self._restart_wall = 0.0
         self._prior_transitions: List[dict] = []
         self._prior_flight_dumps = 0
+        self._prior_sidecar_fallbacks = 0
         self._prior_deadline_overruns = 0
         self._build_world()
         self._build_scheduler(flight_dir)
@@ -1167,6 +1168,7 @@ class ChurnSimulator:
         old = self.sched
         self._prior_transitions.extend(old.ladder.transitions)
         self._prior_flight_dumps += old.flight.dumps
+        self._prior_sidecar_fallbacks += old.sidecar_fallbacks
         self._prior_deadline_overruns += old.dispatch_watchdog.overruns
         if self.desch is not None and self.desch.rebalancer is not None:
             # the descheduler dies with the scheduler process: its
@@ -1264,9 +1266,10 @@ class ChurnSimulator:
         if cycle in sc.restart_at:
             self._crash_restart(cycle)
         self.plan.begin_cycle(cycle)
-        # sidecar fault window: the JAX package swaps a dead client in
-        # here; the port has no sidecar yet, so an armed fault raises
-        self.plan.sidecar_armed()
+        # sidecar fault window: swap a dead client in (the sidecar layer
+        # must degrade to the local step, never wedge the cycle)
+        self.sched._sidecar_client = (DeadSidecarClient()
+                                      if self.plan.sidecar_armed() else None)
         # cluster events before arrivals, arrivals before the cycle —
         # a fixed order is what makes the run reproducible
         self._finish_gangs(cycle)
@@ -1406,6 +1409,8 @@ class ChurnSimulator:
         self.report.final_pending = self._pending_count()
         self.report.hotspots_open = len(self._hotspots)
         self.report.faults_injected = len(self.plan.injected)
+        self.report.sidecar_fallbacks = (
+            self._prior_sidecar_fallbacks + self.sched.sidecar_fallbacks)
         self.report.ladder_transitions = (
             self._prior_transitions + list(self.sched.ladder.transitions))
         self.report.final_level = self.sched.ladder.level_name

@@ -75,3 +75,19 @@ def test_device_flag(main, capsys):
     with pytest.raises(SystemExit):
         main(["--synth", "6x6", "--max-ticks", "1", "--device", "tpu"])
     assert "invalid choice" in capsys.readouterr().err
+
+
+def test_koord_sidecar_device_flag(monkeypatch, capsys, tmp_path):
+    """koord-sidecar's --device: cuda by default, raising where there is
+    none (before it listens), and nothing but cuda or cpu."""
+    import torch
+
+    from koordinator_tpu_torch.cmd import koord_sidecar
+
+    with pytest.raises(SystemExit):
+        koord_sidecar.main(["--device", "tpu"])
+    assert "invalid choice" in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        koord_sidecar.main(["--listen", f"unix://{tmp_path}/s.sock"])
+    assert not (tmp_path / "s.sock").exists()

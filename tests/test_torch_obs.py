@@ -269,8 +269,38 @@ def test_koord_scheduler_serves_explain(monkeypatch, capsys):
     assert seen["unschedulable"][0]["message"].startswith("0/")
 
 
-def test_koord_scheduler_sidecar_address_raises():
-    with pytest.raises(NotImplementedError, match="sidecar"):
-        koord_scheduler.main(["--synth", "4x4", "--max-ticks", "1",
-                              "--device", "cpu",
-                              "--sidecar-address", "localhost:1"])
+def test_koord_scheduler_ticks_against_a_live_sidecar(tmp_path, capsys):
+    """The two binaries as a user runs them: koord_sidecar in its own
+    process at --device cpu, koord_scheduler --sidecar-address pointed at
+    it; every tick binds through the sidecar (no fallback), and the tick
+    line says so."""
+    import os
+    import subprocess
+    import sys
+
+    repo = Path(__file__).resolve().parents[1]
+    sock = tmp_path / "sidecar.sock"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "koordinator_tpu_torch.cmd.koord_sidecar",
+         "--listen", f"unix://{sock}", "--device", "cpu"],
+        cwd=repo, env=dict(os.environ, PYTHONPATH=str(repo)),
+        stderr=subprocess.PIPE, text=True)
+    try:
+        deadline = time.time() + 120
+        while not sock.exists() and proc.poll() is None:
+            assert time.time() < deadline, "koord_sidecar never listened"
+            time.sleep(0.05)
+        assert proc.poll() is None, proc.stderr.read()
+        assert koord_scheduler.main(["--synth", "8x40", "--max-ticks", "2",
+                                     "--device", "cpu", "--interval", "0",
+                                     "--sidecar-address",
+                                     f"unix://{sock}"]) == 0
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stderr.close()
+    ticks = re.findall(r"koord-scheduler: bound=(\d+) .* "
+                       r"sidecar_fallbacks=(\d+)", capsys.readouterr().err)
+    assert len(ticks) == 2
+    assert int(ticks[0][0]) > 0
+    assert [f for _b, f in ticks] == ["0", "0"]

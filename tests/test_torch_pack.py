@@ -188,7 +188,13 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.obs.server, "
             "koordinator_tpu_torch.obs.__main__, "
             "koordinator_tpu_torch.cmd, "
-            "koordinator_tpu_torch.cmd.koord_scheduler\n"
+            "koordinator_tpu_torch.cmd.koord_scheduler, "
+            "koordinator_tpu_torch.cmd.koord_sidecar, "
+            "koordinator_tpu_torch.scheduler.sidecar_pb2, "
+            "koordinator_tpu_torch.native, "
+            "koordinator_tpu_torch.native.build, "
+            "koordinator_tpu_torch.native.floor, "
+            "koordinator_tpu_torch.sim.faults\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"

@@ -8,9 +8,13 @@ cycle 40 and lasts 12) — goes through both packages' sims once per test
 process (cached), and the reports must agree: the
 binding log's SHA-256, the ladder's residency per level and its
 transitions, zero invariant breaches and zero cycle exceptions on both
-sides, and the SLO report. The scenarios that need a later slice raise
-NotImplementedError naming it, and so do the fault kinds the port cannot
-model yet. The CLI is driven in-process at ``--device cpu``.
+sides, and the SLO report. A small scenario with dead-sidecar cycles
+must give the JAX package's report too, and ``soak`` at its full 1000
+cycles the JAX package's binding-log SHA (pinned: the JAX package's soak
+takes longer than the tier-1 budget affords; the slow test recomputes
+it). The scenarios that need a later slice raise NotImplementedError
+naming it, and so does the fault kind the port cannot model yet. The CLI
+is driven in-process at ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -21,8 +25,10 @@ import json
 
 import pytest
 
+from koordinator_tpu.sim.faults import Fault as RefFault
 from koordinator_tpu.sim.harness import run_scenario as ref_run
 from koordinator_tpu.sim.scenarios import SCENARIOS as REF_SCENARIOS
+from koordinator_tpu.sim.scenarios import Scenario as RefScenario
 
 from koordinator_tpu_torch.sim import (
     SCENARIOS,
@@ -43,7 +49,11 @@ from koordinator_tpu_torch.sim.harness import run_scenario
 RUN = {"smoke": 35, "gang-storm": 40, "spot-churn": 40, "crash-restart": 22,
        "drain-storm": 55, "hotspot": 55, "overcommit-shift": 55}
 # the scenarios that need a later slice, and the slice each names
-LEFT_OUT = {"soak": "transport", "fault-ladder": "parallel/"}
+LEFT_OUT = {"fault-ladder": "parallel/"}
+# koordinator_tpu.sim's soak (all 1000 cycles, seed 7) on the CPU: the
+# binding log's SHA-256, which chip_smoke.py pins too
+SOAK_SHA256 = ("ec11853b366b054bae39759292b5a9540823fc6083de5f83cf7cb6e38"
+               "287e880")
 # report keys that hold wall-clock or per-process numbers
 WALL_KEYS = ("wall_seconds", "pipeline", "restart")
 
@@ -128,30 +138,68 @@ def test_left_out_scenarios_name_their_slice(name):
         ChurnSimulator(SCENARIOS[name], device="cpu")
 
 
-@pytest.mark.parametrize("kind,match", [
-    ("sidecar", "transport"), ("device_loss", "parallel/")])
+@pytest.mark.parametrize("kind,match", [("device_loss", "parallel/")])
 def test_left_out_faults_name_their_slice(kind, match):
-    """A sidecar fault is refused when the simulator is built; a device
-    loss (which a scenario without a mesh may still carry) when it fires.
-    Either way FaultPlan raises the moment such a fault is armed."""
-    fault = Fault(cycle=1, kind=kind, devices=(1,) if kind == "device_loss"
-                  else ())
+    """A device loss (which a scenario without a mesh may still carry)
+    raises when it fires: FaultPlan raises the moment it is armed."""
+    fault = Fault(cycle=1, kind=kind, devices=(1,))
     sc = Scenario(name="mini", seed=23, cycles=3, nodes=4, arrival_rate=2.0,
                   faults=(fault,))
-    if kind == "sidecar":
-        with pytest.raises(NotImplementedError, match=match):
-            ChurnSimulator(sc, device="cpu")
-        plan = FaultPlan([fault])
-        plan.begin_cycle(0)
-        assert not plan.sidecar_armed()
-        plan.begin_cycle(1)
-        with pytest.raises(NotImplementedError, match=match):
-            plan.sidecar_armed()
-        return
     sim = ChurnSimulator(sc, device="cpu")
     sim._run_one_cycle(0)
     with pytest.raises(NotImplementedError, match=match):
         sim._run_one_cycle(1)
+
+
+def test_sidecar_fault_arms_for_its_count():
+    plan = FaultPlan([Fault(cycle=1, kind="sidecar", count=2)])
+    plan.begin_cycle(0)
+    assert not plan.sidecar_armed()
+    plan.begin_cycle(1)
+    assert plan.sidecar_armed() and plan.sidecar_armed()
+    assert not plan.sidecar_armed()
+    assert [f["kind"] for f in plan.injected] == ["sidecar", "sidecar"]
+
+
+@pytest.mark.parametrize("waves", [1, "auto"])
+def test_sidecar_fault_fires_and_is_absorbed(waves):
+    """Dead-sidecar cycles (a stub client whose every call raises a
+    transport failure) fall back to the local step: every armed cycle
+    counts one fallback, pods keep binding, no cycle raises, and the
+    report equals the JAX package's."""
+    kw = dict(name="mini-sidecar", seed=31, cycles=9, nodes=6,
+              initial_pods=20, arrival_rate=4.0, waves=waves)
+    sc = Scenario(faults=(Fault(cycle=2, kind="sidecar", count=3),), **kw)
+    port = run_scenario(sc, device="cpu")
+    ref = ref_run(RefScenario(
+        faults=(RefFault(cycle=2, kind="sidecar", count=3),), **kw))
+    assert port.sidecar_fallbacks == ref.sidecar_fallbacks == 3
+    assert port.faults_injected == 3
+    assert port.cycle_exceptions == [] and port.invariant_breaches == []
+    assert port.binding_log_sha256 == ref.binding_log_sha256
+    assert _comparable(port) == _comparable(ref)
+
+
+def test_soak_matches_the_reference_sha():
+    """The 1000-cycle acceptance soak with its four faults (dispatch,
+    store write, a dispatch storm to the host fallback, three dead-sidecar
+    cycles), pipeline on, waves auto: the JAX package's binding log."""
+    report = run_scenario(SCENARIOS["soak"], device="cpu")
+    assert report.binding_log_sha256 == SOAK_SHA256
+    assert report.sidecar_fallbacks == 3
+    assert report.invariant_breaches == []
+    # the store-write fault is the only cycle exception
+    assert len(report.cycle_exceptions) == 1
+    assert report.final_level == "full"
+    assert report.cycles_at_level == {"full": 854, "serial-waves": 34,
+                                      "host-fallback": 112}
+    assert report.descheduler_runs > 0 and report.migration_jobs_created > 0
+
+
+@pytest.mark.slow
+def test_soak_sha_is_the_reference_soak():
+    """The pin above is koordinator_tpu.sim's soak (~75 s on the CPU)."""
+    assert ref_run(REF_SCENARIOS["soak"]).binding_log_sha256 == SOAK_SHA256
 
 
 @pytest.mark.parametrize("name", ["drain-storm", "hotspot"])
@@ -264,7 +312,7 @@ def test_cli_lists_the_catalog(capsys):
     ([], 4),
     (["no-such-scenario", "--device", "cpu"], 4),
     (["smoke", "--waves", "x", "--device", "cpu"], 4),
-    (["soak", "--device", "cpu"], 5),
+    (["soak", "--cycles", "2", "--device", "cpu", "--quiet"], 0),
     (["fault-ladder", "--device", "cpu"], 5),
 ], ids=["no-scenario", "unknown", "bad-waves", "soak", "fault-ladder"])
 def test_cli_usage_contract(argv, code, capsys):

@@ -440,15 +440,15 @@ def test_rebalance_pack_is_the_shared_pack():
     (dict(explain="full"), None),
     (dict(mesh=4), "mesh"),
     (dict(mesh="auto"), "mesh"),
-    (dict(sidecar_address="localhost:1"), "sidecar"),
     (dict(warmup="sync"), None),
     (dict(warmup="background"), None),
 ], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
-        "sidecar", "warmup-sync", "warmup-background"])
+        "warmup-sync", "warmup-background"])
 def test_left_out_knobs_raise(kwargs, match, tmp_path, monkeypatch):
     """The knobs of paths a later slice brings raise, naming them;
     explain attribution and the warm-up ladder are ported (match None):
-    their knobs take effect."""
+    their knobs take effect. The sidecar's dispatches
+    (test_sidecar_knob_dispatches)."""
     kwargs = {"waves": 1, **kwargs}
     if match is None:
         if "warmup" in kwargs:
@@ -466,6 +466,43 @@ def test_left_out_knobs_raise(kwargs, match, tmp_path, monkeypatch):
         return
     with pytest.raises(NotImplementedError, match=match):
         Scheduler(ObjectStore(), device="cpu", **kwargs)
+
+
+def test_sidecar_knob_dispatches(tmp_path):
+    """``sidecar_address`` used to raise; now every cycle's batch goes to
+    the ScheduleBatch server at that address and binds as the in-process
+    serial dispatch does."""
+    from koordinator_tpu_torch.scheduler.sidecar import serve_sidecar
+
+    address = f"unix://{tmp_path}/sidecar.sock"
+    server = serve_sidecar(address, device="cpu")
+    try:
+        store, state = churn_store(8, 40, seed=2)
+        sched = Scheduler(store, device="cpu", waves=1,
+                          sidecar_address=address)
+        res = sched.run_cycle(now=state.now)
+    finally:
+        server.stop(0)
+    twin_store, _ = churn_store(8, 40, seed=2)
+    twin = Scheduler(twin_store, device="cpu", waves=1).run_cycle(
+        now=state.now)
+    assert sched.last_backend == "sidecar" and sched.sidecar_fallbacks == 0
+    assert res.bound and ([(b.pod_key, b.node_name) for b in res.bound]
+                          == [(b.pod_key, b.node_name) for b in twin.bound])
+
+
+def test_mirror_owns_its_tensors_on_the_cpu():
+    """On the CPU a tensor aliases the array it is made from: the mirror
+    must keep its own copy, or a caller rewriting a reused host array in
+    place (the pack does) changes a tensor a later upload reuses."""
+    snap = DeviceSnapshot(device="cpu")
+    first = np.arange(16, dtype=np.float32)
+    dev = snap._one("f", first)
+    first[:] = -1.0  # the caller reuses its buffer
+    again = snap._one("f", np.arange(16, dtype=np.float32))
+    assert snap.stats["reused"] == 1
+    np.testing.assert_array_equal(again.numpy(), np.arange(16))
+    assert again is dev
 
 
 @pytest.mark.parametrize("env,value", [
