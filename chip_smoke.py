@@ -1,5 +1,5 @@
-"""Drive the port's scheduling rounds, its descheduler and its manager on
-one NVIDIA H100 and check them.
+"""Drive the port's scheduling rounds, its descheduler, its manager and
+its node agent on one NVIDIA H100 and check them.
 
     python3 chip_smoke.py    # 10240 pods x 5120 nodes, one card
 
@@ -227,6 +227,55 @@ Phases, one JSON line each:
           SHA-256 the JAX package's (pinned), three sidecar fallbacks, no
           invariant breach, the store-write fault the only cycle
           exception. No CPU twin (time limit).
+  node_probe  the koordlet's device probes on this card:
+          collect_gpu_devices reports one device, nvidia-smi's uuid, minor
+          0, torch's total memory as gpu_memory; sample_gpu_devices' bytes
+          in use rise by at least 1 GiB with a 1 GiB allocation; a child
+          process samples as a fresh agent does, and its bytes in use less
+          this process's are the CUDA context an agent costs the card.
+          The perf reader (native/perf_reader.cpp) builds into
+          build/native/; perf.available() is printed (False where the
+          kernel denies perf_event_open).
+  node_agent  the colocation loop at config 4's width with a GPU pool:
+          two stores from churn_store(5000, 10000, seed=42), 64 nodes of
+          each (testing/gpu_pool.py) running a koordlet Daemon on its own
+          FakeFS with the real device collector (each publishes this
+          card), a manager tick (GPUDeviceResource writes the pool's GPU
+          totals; the replica then stops, its webhook refusing the synth
+          world's LSR/koord-batch pods at bind time), 128 GPU-share pods
+          (gpu_core and gpu_memory_ratio cycling 25, 50, 100: 7,425 of
+          the pool's 6,400 core-percent), then Scheduler(store) at its
+          defaults beside a waves=1 twin through cycle 0 and 1 churn
+          cycle of 1000 arrivals (1 of the 2 first planned, for the time
+          limit). Gates: the twins' bindings and failure
+          lists equal every cycle and their final dumps (PodScheduled
+          messages) equal; kernel 1 once per serial window and in every
+          wave; the round's R above config 4's 3; the last cycle's first
+          R = 5 round with a GPU pod (kernel 1's generic instance) equal
+          to the plain round on the same tensors, in shared and in device
+          memory; every bound GPU pod on a pool node, each card's gpu_core
+          at most 100 and gpu_memory at most its total, every
+          allocation's minor the probed one on a node whose Device CR
+          names the probed uuid; for each pending GPU pod and each pool
+          node, the Filter stages that reject it (the scheduler's own
+          diagnosis over one more twin cycle, which binds nothing): every
+          pair rejected, the GPU axes exactly where the card lacks the
+          pod's gpu_core by the allocation annotations, no device reason
+          in a PodScheduled message; the GPU outcome's SHA-256 the pinned
+          one. Prints each cycle's R and kernel 1's route (state,
+          instance), the spans, the GPU pods bound, the rejection split
+          and a pool Daemon.run_once's median ms (timed after the cycles).
+  demo    cmd.demo.main([]) in this process with its defaults (the card):
+          exit 0, "demo complete", 2 of its 3 BE pods bound (the JAX
+          demo's outcome: the batch allocatable fits two) through kernel 1
+          and their BE cgroup values read back from its FakeFS.
+  node_binaries  cmd.koordlet.main --fake-node for two ticks: exit 0 and
+          its log's Device CR line naming this card; then cmd/koord_runtime_proxy.py
+          (--mode cri) as a child process between a fake containerd and
+          the koordlet's hook server over unix sockets
+          (testing/cri.py): a BE pod's RunPodSandbox and CreateContainer,
+          the container request reaching containerd with the hook's
+          cgroup writes.
   scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
@@ -315,6 +364,7 @@ JAX package.
 from __future__ import annotations
 
 import gc
+import hashlib
 import json
 import os
 import socket
@@ -341,6 +391,7 @@ from koordinator_tpu_torch.models.full_chain import (
     build_full_chain_step,
     cycle_start_state,
     explain_stage_counts,
+    plain_round,
     resolve_balance_idx,
     resolve_weight_idx,
 )
@@ -500,6 +551,16 @@ SIDECAR_REPS = 3
 SIDECAR_CHURN = 2
 SOAK_JAX_SHA256 = (
     "ec11853b366b054bae39759292b5a9540823fc6083de5f83cf7cb6e38287e880")
+# slice 12, the node side: the GPU pool (64 of config 4's 5,000 nodes, one
+# card each), its GPU-share pods and the churn cycles after cycle 0 (1 of
+# the 2 first planned: with 2, the four node phases took 99.6 s of the
+# 90 s they may add, NVIDIA H100 80GB HBM3, 700.00 W)
+GIB = 1024 ** 3
+NODE_POOL, NODE_GPU_PODS, NODE_CHURN = 64, 128, 1
+# node_agent's GPU outcome (gpu_outcome_hash) for seed 42, pinned from a
+# run on the card: 55 of the 128 GPU pods bound, filling 31 cards
+NODE_AGENT_OUTCOME = (
+    "4ee342900c9a575bf165c59581bd13b33c6211278810c86e634f3329717e7336")
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -3510,6 +3571,491 @@ def run_soak(device):
     return launches
 
 
+def nvidia_smi_uuid() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# a child process that samples the card as a fresh node agent does: its
+# first sample opens the CUDA context, then it reports what it saw
+PROBE_CHILD = (
+    "import json, time\n"
+    "from koordinator_tpu_torch.koordlet.metricsadvisor import "
+    "sample_gpu_devices\n"
+    "t0 = time.perf_counter(); first = sample_gpu_devices()\n"
+    "t1 = time.perf_counter(); again = sample_gpu_devices()\n"
+    "t2 = time.perf_counter()\n"
+    "print(json.dumps({'first_ms': (t1 - t0) * 1e3, "
+    "'warm_ms': (t2 - t1) * 1e3, 'mem_bytes': again[0]['mem_bytes']}))\n")
+
+
+def run_node_probe():
+    """The koordlet's two device probes on the card: collect_gpu_devices
+    reports exactly this card (nvidia-smi's uuid, torch's total memory);
+    sample_gpu_devices' bytes in use rise by at least 1 GiB with a 1 GiB
+    allocation; a fresh agent process's context cost (its first sample's
+    bytes in use less this process's); the perf reader built from the
+    port's source into build/native/. Returns the probed device."""
+    from koordinator_tpu_torch.koordlet.metricsadvisor import (
+        sample_gpu_devices,
+    )
+    from koordinator_tpu_torch.koordlet.statesinformer import (
+        collect_gpu_devices,
+    )
+    from koordinator_tpu_torch.native import perf
+    from koordinator_tpu_torch.native.build import BUILD_DIR
+
+    t0 = time.perf_counter()
+    devices = collect_gpu_devices()
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    props = torch.cuda.get_device_properties(0)
+    smi_uuid = nvidia_smi_uuid()
+    if len(devices) != torch.cuda.device_count() or len(devices) != 1:
+        raise AssertionError(f"node_probe: {len(devices)} devices")
+    (dev,) = devices
+    if (dev.uuid != smi_uuid or dev.minor != 0 or not dev.health
+            or dev.type != "gpu"
+            or dev.resources[ResourceName.GPU_MEMORY] != props.total_memory
+            or dev.resources[ResourceName.GPU_CORE] != 100
+            or dev.resources[ResourceName.GPU_MEMORY_RATIO] != 100):
+        raise AssertionError(f"node_probe: probed {dev}, nvidia-smi "
+                             f"{smi_uuid}, total {props.total_memory}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    before = sample_gpu_devices()
+    sample_ms = (time.perf_counter() - t0) * 1e3
+    block = torch.empty(GIB, dtype=torch.uint8, device="cuda")
+    torch.cuda.synchronize()
+    after = sample_gpu_devices()
+    rise = after[0]["mem_bytes"] - before[0]["mem_bytes"]
+    del block
+    torch.cuda.empty_cache()
+    if (before[0]["uuid"] != smi_uuid or rise < GIB
+            or not 0.0 < after[0]["core_pct"] <= 100.0):
+        raise AssertionError(f"node_probe: samples {before} -> {after}")
+    base = sample_gpu_devices()[0]["mem_bytes"]
+    child = subprocess.run([sys.executable, "-c", PROBE_CHILD],
+                           capture_output=True, text=True, timeout=120,
+                           check=True, cwd=os.path.dirname(
+                               os.path.abspath(__file__)))
+    agent = json.loads(child.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    lib = perf.build()
+    perf_build_s = time.perf_counter() - t0
+    if lib.parent != BUILD_DIR or not lib.exists():
+        raise AssertionError(f"node_probe: libkoordperf at {lib}")
+    emit({"phase": "node_probe", "uuid": dev.uuid, "nvidia_smi_uuid":
+          smi_uuid, "gpu_memory": dev.resources[ResourceName.GPU_MEMORY],
+          "total_memory": props.total_memory, "probe_ms": probe_ms,
+          "sample_ms": sample_ms, "mem_bytes_before": before[0]["mem_bytes"],
+          "mem_bytes_after_1GiB": after[0]["mem_bytes"], "rise": rise,
+          "core_pct_after": after[0]["core_pct"],
+          "agent_context_bytes": agent["mem_bytes"] - base,
+          "agent_first_sample_ms": agent["first_ms"],
+          "agent_warm_sample_ms": agent["warm_ms"],
+          "perf_library": os.path.relpath(lib, os.getcwd()),
+          "perf_build_s": perf_build_s, "perf_available": perf.available()})
+    return dev
+
+
+def run_node_agent(device, dev, n_nodes=5000, n_pods=10000):
+    """The colocation loop at config 4's width with a GPU pool: two stores
+    from churn_store(5000, 10000, seed=42), NODE_POOL nodes of each
+    running a koordlet Daemon on its own FakeFS with the default (real)
+    device collector, a manager tick (GPUDeviceResource writes the pool's
+    GPU totals), NODE_GPU_PODS GPU-share pods, then Scheduler(store) at
+    its defaults beside a waves=1 twin for cycle 0 and NODE_CHURN churn
+    cycles. Gates: the twins' bindings, failure lists and PodScheduled
+    messages identical; kernel 1 once per serial window and in every wave,
+    the round's R and route printed; one R = 5 round of the last cycle
+    held against the plain round on the same tensors in both states
+    (check_gpu_round); every bound GPU pod on a pool node, each card's
+    gpu_core at most 100 and gpu_memory at most its total, the
+    annotation's minor the probed one on a node whose Device CR names the
+    probed uuid; why each pending GPU pod stays pending (explain_gpu_pending);
+    the GPU outcome's hash the pinned one. Then each pool Daemon's
+    run_once, timed. Returns the kernels' launches."""
+    from koordinator_tpu_torch.client.store import KIND_DEVICE, KIND_NODE
+    from koordinator_tpu_torch.manager import Manager
+    from koordinator_tpu_torch.testing import gpu_pool
+
+    retries0 = retries_now()
+    arrivals = n_pods // 10
+    worlds = []
+    try:
+        t0 = time.perf_counter()
+        for _w in range(2):
+            store, state = churn_store(n_nodes, n_pods, seed=42)
+            pool = gpu_pool.pool_nodes(store, NODE_POOL)
+            worlds.append((store, state, pool, gpu_pool.start_pool_agents(
+                store, pool, state.now)))
+            mgr = Manager(store, identity="node-agent", device=device)
+            mgr.tick(now=state.now + 11)
+            # the webhook refuses churn_store's LSR/koord-batch pods at bind
+            # time (in the JAX package too): the replica stops
+            mgr.stop(now=state.now + 11)
+            gpu_pool.add_gpu_share_pods(store, gpu_pool.gpu_share_specs(
+                NODE_GPU_PODS), state.now + 12)
+        fixture_s = time.perf_counter() - t0
+        (store, state, pool, agents), (twin_store, _s, _p, _a) = worlds
+        devices = {d.meta.name: d for d in store.list(KIND_DEVICE)}
+        if sorted(devices) != sorted(pool) or any(
+                [(x.uuid, x.minor) for x in d.devices]
+                != [(dev.uuid, dev.minor)] for d in devices.values()):
+            raise AssertionError(f"node_agent: Device CRs {len(devices)}")
+        totals = {n.meta.name: n.allocatable[ResourceName.GPU_CORE]
+                  for n in store.list(KIND_NODE)
+                  if n.allocatable[ResourceName.GPU_CORE]}
+        if totals != {name: 100 for name in pool}:
+            raise AssertionError(f"node_agent: GPU totals {totals}")
+        sched = Scheduler(store, device=device)
+        twin = Scheduler(twin_store, waves=1, device=device)
+        rounds, captured = [], {}
+        real_round = fck.full_chain_round
+
+        def spy(fc, weight_idx, prod_mode, bal_idx, **kw):
+            R = int(fc.base.fit_requests.shape[1])
+            if (captured.get("armed") and R >= 5 and "fc" not in captured
+                    and bool(((fc.base.fit_requests[:, 3:] > 0).any(1)
+                              & fc.base.pod_valid).any())):
+                captured.update(fc=clone_fc(fc), args=(
+                    list(weight_idx), prod_mode, tuple(bal_idx)))
+            out = real_round(fc, weight_idx, prod_mode, bal_idx, **kw)
+            rounds.append((R, dict(fck.last_launch)))
+            return out
+
+        now = state.now + 15
+        total = {"full_chain": 0, "full_chain_replay": 0}
+        rows = []
+        fck.full_chain_round = spy
+        try:
+            for c in range(1 + NODE_CHURN):
+                if c:
+                    specs = arrival_specs(c, arrivals)
+                    for st in (store, twin_store):
+                        add_arrivals(st, specs, now + c)
+                t = now + 2 * c
+                rounds.clear()
+                # the last cycle's first R = 5 round with a GPU pod is
+                # kept for check_gpu_round
+                captured["armed"] = c == NODE_CHURN
+                res, wall, la, k = wave_cycle(f"node_agent cycle {c}", sched,
+                                              t)
+                captured["armed"] = False
+                twin_key = ([], [], [])
+                twin_wall, twin_launches = 0.0, 0
+                for _w in range(res.waves):
+                    res_t, w, n, _gc = checked_cycle(
+                        f"node_agent cycle {c} serial", twin, twin.run_cycle,
+                        t)
+                    twin_wall += w
+                    twin_launches += n
+                    for part, got in zip(twin_key, result_key(res_t)):
+                        part.extend(got)
+                if result_key(res) != twin_key:
+                    raise AssertionError(f"node_agent cycle {c}: the twins "
+                                         "disagree")
+                for key in total:
+                    total[key] += la[key]
+                total["full_chain"] += twin_launches
+                widths = sorted({r for r, _l in rounds})
+                rows.append({"cycle": c, "K": k, "logical_cycles": res.waves,
+                             "bound": len(res.bound),
+                             "failed": len(res.failed),
+                             "gpu_bound": sum(b.pod_key.startswith("gpu/")
+                                              for b in res.bound),
+                             "gpu_failed": sum(k.startswith("gpu/")
+                                               for k in res.failed),
+                             "cycle_ms": wall * 1e3,
+                             "spans_ms": span_split(sched, WAVE_SPANS),
+                             "twin_ms": twin_wall * 1e3, "launches": la,
+                             "twin_launches": twin_launches, "R": widths,
+                             "route": sorted({(l["state"], l["instance"])
+                                              for _r, l in rounds})})
+        finally:
+            fck.full_chain_round = real_round
+        sched.flush_deferred()
+        if cycle_dump(sched) != cycle_dump(twin):
+            raise AssertionError("node_agent: the final dumps differ")
+        assert_ladder_full("node_agent", retries0, sched, twin)
+        if not all(r["R"] for r in rows) or max(
+                max(r["R"]) for r in rows) <= 3:
+            raise AssertionError(f"node_agent: the GPU axes never reached "
+                                 f"the round: R {[r['R'] for r in rows]}")
+        if "fc" not in captured:
+            raise AssertionError("node_agent: no R = 5 round in the last "
+                                 "cycle")
+        gpu_round = check_gpu_round(captured["fc"], *captured["args"])
+        # DeviceShare's outcome on the pool
+        used = {}
+        gpu_pods = [p for p in store.list(KIND_POD)
+                    if p.meta.namespace == "gpu"]
+        for pod in gpu_pods:
+            if not pod.spec.node_name:
+                continue
+            if pod.spec.node_name not in pool:
+                raise AssertionError(f"node_agent: {pod.meta.key} on "
+                                     f"{pod.spec.node_name}, off the pool")
+            for alloc in gpu_pool.allocations(pod)["gpu"]:
+                if alloc["minor"] != dev.minor:
+                    raise AssertionError(f"node_agent: {alloc}")
+                u = used.setdefault(pod.spec.node_name, [0, 0])
+                u[0] += alloc["core"]
+                u[1] += alloc["memory"]
+        total_memory = dev.resources[ResourceName.GPU_MEMORY]
+        if any(c > 100 or m > total_memory for c, m in used.values()):
+            raise AssertionError(f"node_agent: a card overcommitted {used}")
+        bound_gpu = sum(1 for p in gpu_pods if p.spec.node_name)
+        if not 0 < bound_gpu < NODE_GPU_PODS:
+            raise AssertionError(f"node_agent: {bound_gpu} of "
+                                 f"{NODE_GPU_PODS} GPU pods bound")
+        pending = explain_gpu_pending(
+            twin, now + 2 * NODE_CHURN + 2, gpu_pods, pool,
+            {name: u[0] for name, u in used.items()})
+        outcome = gpu_outcome_hash(gpu_pods)
+        if outcome != NODE_AGENT_OUTCOME:
+            raise AssertionError(f"node_agent: the GPU outcome's hash "
+                                 f"{outcome}, pinned {NODE_AGENT_OUTCOME}")
+        # each pool Daemon's run_once, after the cycles (the pods are
+        # bound), on a fresh /proc/stat sample
+        run_once_ms = []
+        for daemon, fs in agents:
+            fs.set_proc("stat", "cpu  3000 0 3000 16000 0 0 0 0 0 0\n")
+            t0 = time.perf_counter()
+            daemon.run_once(now=now + 2 * NODE_CHURN + 4)
+            run_once_ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for _st, _s2, _p2, ag in worlds:
+            gpu_pool.cleanup(ag)
+    emit({"phase": "node_agent", "nodes": n_nodes, "pods": n_pods,
+          "pool": NODE_POOL, "gpu_pods": NODE_GPU_PODS,
+          "gpu_core_asked": sum(s["gpu"] for s in gpu_pool.gpu_share_specs(
+              NODE_GPU_PODS)),
+          "churn_cycles": NODE_CHURN, "fixture_seconds": fixture_s,
+          "run_once_ms_median": statistics.median(run_once_ms),
+          "run_once_ms_max": max(run_once_ms),
+          "gpu_pods_bound": bound_gpu, "cards_used": len(used),
+          "gpu_core_used": sum(c for c, _m in used.values()),
+          "gpu_outcome_sha256": outcome, "gpu_round": gpu_round,
+          "gpu_pending": pending,
+          "twins_identical_every_cycle": True, "final_dumps_identical": True,
+          "ladder_full": True, "launches": total, "cycles": rows})
+    return total
+
+
+def check_gpu_round(fc, weight_idx, prod_mode, bal_idx):
+    """Kernel 1 at R = 5 (cpu, memory, pods and the two GPU axes the
+    GPU-share pods ask for) against the plain round on the same card
+    tensors: chosen, requested and quota_used equal (0 mismatches, max
+    |err| 0.0) with the carried state in shared memory where it fits and
+    in device memory (budget 0); both launches on the generic instance.
+    These launches are checks and count for no path."""
+    R = int(fc.base.fit_requests.shape[1])
+    valid = fc.base.pod_valid
+    gpu_rows = int(((fc.base.fit_requests[:, 3:] > 0).any(1)
+                    & valid).sum())
+    if R != 5 or not gpu_rows:
+        raise AssertionError(f"node_agent: the kept round has R {R} and "
+                             f"{gpu_rows} GPU pods")
+    N = int(fc.base.allocatable.shape[0])
+    t0 = time.perf_counter()
+    chosen_p, state_p = plain_round(fc, weight_idx, prod_mode, bal_idx)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain = (chosen_p, state_p[0], state_p[5])
+    out = {"R": R, "P": int(valid.shape[0]), "pods": int(valid.sum()),
+           "gpu_pods": gpu_rows, "N": N, "plain_s": plain_s,
+           "pods_chosen": int((chosen_p >= 0).sum())}
+    for budget in (None, 0):
+        got = fck.full_chain_round(fc, weight_idx, prod_mode, bal_idx,
+                                   smem_budget_bytes=budget)
+        launch = dict(fck.last_launch)
+        torch.cuda.synchronize()
+        mism, err = compare(f"node_agent R = 5 budget {budget}", got, plain,
+                            N)
+        if launch["instance"] != "generic" or (
+                budget == 0 and launch["state"] != "global"):
+            raise AssertionError(f"node_agent: R = 5 at budget {budget} ran "
+                                 f"{launch}")
+        out["budget_0" if budget == 0 else "default"] = {
+            "state": launch["state"], "instance": launch["instance"],
+            "smem_bytes_per_block": launch["smem_bytes_per_block"],
+            "mismatches": mism, "max_abs_err": err}
+    return out
+
+
+def explain_gpu_pending(twin, now, gpu_pods, pool, card_core):
+    """Why each pending GPU pod stays pending. One more serial cycle of
+    the twin (it must bind nothing) keeps its host batch
+    (``encode_observer``); for every pending GPU pod and every pool node
+    the scheduler's own diagnosis (scheduler/diagnose.py) gives the
+    Filter stages that reject it. Gates: every (pod, pool node) pair is
+    rejected; the GPU axes reject exactly where the card lacks the pod's
+    gpu_core by the allocation annotations (``card_core``: the cores
+    allocated per node), so DeviceShare's Filter refuses only full cards;
+    each pod's PodScheduled message is the Filter breakdown, naming no
+    device reason of DeviceShare's Reserve. Returns the split: pairs per
+    set of rejecting stages, "insufficient resources" split into the GPU
+    axes and cpu/memory/pods."""
+    import collections
+
+    from koordinator_tpu_torch.scheduler.diagnose import (
+        _stage_verdicts,
+        shared_state,
+    )
+
+    batches = []
+    twin.encode_observer = batches.append
+    try:
+        res, _w, _n, _gc = checked_cycle("node_agent diagnosis", twin,
+                                         twin.run_cycle, now)
+    finally:
+        twin.encode_observer = None
+    pending = [p for p in gpu_pods if not p.spec.node_name]
+    if res.bound or sorted(res.failed) != sorted(
+            p.meta.key for p in pending):
+        raise AssertionError(f"node_agent diagnosis: {len(res.bound)} "
+                             f"bound, {len(res.failed)} failed")
+    fc = batches[-1]
+    base = fc.base
+    fit = np.asarray(base.fit_requests, np.float32)
+    alloc = np.asarray(base.allocatable, np.float32)
+    valid = np.asarray(base.pod_valid, bool)
+    n = int(np.asarray(base.node_ok).shape[0])
+    rows = np.flatnonzero(valid & (fit[:, 3:] > 0).any(1))
+    cols = np.flatnonzero(alloc[:, 3] > 0)
+    if fit.shape[1] != 5 or len(rows) != len(pending) or len(cols) != len(
+            pool):
+        raise AssertionError(f"node_agent diagnosis: R {fit.shape[1]}, "
+                             f"{len(rows)} GPU rows, {len(cols)} GPU nodes")
+    shared = shared_state(fc, n)
+    req = shared["requested"]
+    # the round's per-node gpu_core in use is DeviceShare's allocations
+    core_in_use = sorted(int(v) for v in req[cols, 3])
+    card_use = sorted(card_core.get(name, 0) for name in pool)
+    if core_in_use != card_use:
+        raise AssertionError("node_agent diagnosis: the round's gpu_core in "
+                             "use differs from the allocation annotations")
+    split = collections.Counter()
+    for i in rows:
+        _gang, _quota, reasons = _stage_verdicts(fc, int(i), n,
+                                                 shared=shared)
+        asks = fit[i][None, :] > 0
+        short = asks & (req[cols] + fit[i][None, :] > alloc[cols])
+        for j, col in enumerate(cols):
+            stages = [label for label, bad in reasons.items()
+                      if bad[col] and label != "insufficient resources"]
+            if short[j, 3:].any():
+                stages.append("GPU axes")
+            if short[j, :3].any():
+                stages.append("cpu/memory/pods")
+            if not stages:
+                raise AssertionError(f"node_agent diagnosis: pod row {i} "
+                                     f"passes every Filter on node {col}")
+            card_free = 100 - req[col, 3]
+            if short[j, 3:].any() != (fit[i, 3] > card_free):
+                raise AssertionError(f"node_agent diagnosis: the GPU axes "
+                                     f"on node {col} with {card_free} "
+                                     f"gpu_core free, pod asks {fit[i, 3]}")
+            split[" + ".join(sorted(stages))] += 1
+    for pod in pending:
+        cond = pod.get_condition("PodScheduled")
+        if (cond is None or cond.reason != "Unschedulable"
+                or not cond.message.startswith("0/")
+                or "gpu" in cond.message):
+            raise AssertionError(f"node_agent: {pod.meta.key} pending with "
+                                 f"{cond}")
+    room = 100 - req[cols, 3] >= fit[rows, 3].min()
+    numa = np.asarray(fc.numa_policy)[cols] != 0
+    return {"pods": len(pending), "pairs": len(pending) * len(pool),
+            "cards_with_room": int(room.sum()),
+            "numa_policy_nodes": int(numa.sum()),
+            "cards_with_room_on_numa_policy_nodes": int((room & numa).sum()),
+            "split": dict(split.most_common())}
+
+
+def gpu_outcome_hash(gpu_pods) -> str:
+    """SHA-256 of the GPU pods' outcome: each pod's node, its allocations'
+    (minor, core) and its PodScheduled message, in pod-key order. Card
+    memory and uuid are left out, so the pin does not name one card."""
+    from koordinator_tpu_torch.testing.gpu_pool import allocations
+
+    rows = []
+    for pod in sorted(gpu_pods, key=lambda p: p.meta.key):
+        cores = [[a["minor"], a["core"]]
+                 for a in allocations(pod).get("gpu", [])]
+        cond = pod.get_condition("PodScheduled")
+        rows.append([pod.meta.key, pod.spec.node_name, cores,
+                     None if cond is None else cond.message])
+    return hashlib.sha256(json.dumps(rows).encode()).hexdigest()
+
+
+def run_demo():
+    """The all-in-one demo, cmd.demo.main([]), in this process with its
+    defaults (the card): exit 0, "demo complete", its BE pods bound
+    through kernel 1 (the count rises) and their BE cgroup values read
+    back from its FakeFS. The JAX package's demo binds 2 of its 3 BE pods
+    (the batch allocatable fits two; tests/test_torch_node_cmd.py holds
+    the port's log to the JAX one line for line). Returns kernel 1's
+    launches."""
+    import contextlib
+    import io
+
+    from koordinator_tpu_torch.cmd import demo
+
+    err = io.StringIO()
+    fck.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = demo.main([])
+    wall = time.perf_counter() - t0
+    log = err.getvalue().splitlines()
+    bound = [ln for ln in log if ln.startswith("[koord-scheduler] bound")]
+    enforced = "[koordlet] BE cgroups enforced: cfs_quota=200000 bvt=-1"
+    if (rc != 0 or not log or not log[-1].startswith("demo complete")
+            or len(bound) != 1 or not bound[0].startswith(
+                "[koord-scheduler] bound 2 BE pods")
+            or enforced not in log or fck.launches < 1 or sk.launches):
+        raise AssertionError(f"demo: rc {rc}, launches {fck.launches}, "
+                             f"log {log}")
+    emit({"phase": "demo", "rc": rc, "wall_s": wall,
+          "launches": {"full_chain": fck.launches}, "bound": bound[0],
+          "cgroups": enforced})
+    return fck.launches
+
+
+def run_node_binaries(dev):
+    """The koordlet binary (cmd.koordlet.main --fake-node, two ticks):
+    exit 0 and its log's Device CR line naming the probed card; then the
+    runtime proxy binary's CRI round trip (testing/cri.py
+    binary_roundtrip)."""
+    import contextlib
+    import io
+
+    from koordinator_tpu_torch.cmd import koordlet
+    from koordinator_tpu_torch.testing.cri import binary_roundtrip
+
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = koordlet.main(["--fake-node", "--max-ticks", "2",
+                            "--interval", "0"])
+    koordlet_s = time.perf_counter() - t0
+    log = err.getvalue().splitlines()
+    want = f"koordlet: Device CR gpu/{dev.minor}/{dev.uuid}"
+    if rc != 0 or want not in log:
+        raise AssertionError(f"node_binaries: koordlet rc {rc}, log {log}")
+    t0 = time.perf_counter()
+    cri = binary_roundtrip()
+    cri_s = time.perf_counter() - t0
+    emit({"phase": "node_binaries", "koordlet_rc": rc,
+          "koordlet_s": koordlet_s, "device_cr": want,
+          "cri_s": cri_s, **cri})
+
+
 def explain_entry(name, source, replaces, key, launches, res):
     """The kernels-line entry of one koordexplain kernel: its launches on
     the main path's explain phases (``key`` in each phase's counts, split
@@ -3702,6 +4248,13 @@ def main() -> int:
     # ---- the Scheduler over the gRPC sidecar, then the 1000-cycle soak
     sidecar_sched_launches = run_scheduler_sidecar(device)
     soak_launches = run_soak(device)
+    # ---- the node side: the koordlet's probes of this card, the
+    # colocation loop with a GPU pool at config 4's width, the demo, the
+    # koordlet and runtime-proxy binaries
+    dev = run_node_probe()
+    node_launches = run_node_agent(device, dev)
+    demo_launches = run_demo()
+    run_node_binaries(dev)
     replay_entry.update(
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
@@ -3711,8 +4264,10 @@ def main() -> int:
     replay_entry.update(
         launches_storage=storage_launches["full_chain_replay"],
         launches_cold_start=cold_launches["full_chain_replay"],
-        launches_soak=soak_launches["full_chain_replay"])
+        launches_soak=soak_launches["full_chain_replay"],
+        launches_node_agent=node_launches["full_chain_replay"])
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
+                                 + node_launches["full_chain_replay"]
                                  + storage_launches["full_chain_replay"]
                                  + cold_launches["full_chain_replay"]
                                  + soak_launches["full_chain_replay"]
@@ -3865,6 +4420,7 @@ def main() -> int:
                      + sim_launches["full_chain"] + colocated_launches
                      + colo_launches + grpc_launches
                      + sidecar_sched_launches + soak_launches["full_chain"]
+                     + node_launches["full_chain"] + demo_launches
                      + sum(la["full_chain"]
                            for la in explain_launches.values()),
                      mism, err, kernel_ms,
@@ -3880,6 +4436,8 @@ def main() -> int:
                      launches_sidecar_grpc=grpc_launches,
                      launches_scheduler_sidecar=sidecar_sched_launches,
                      launches_soak=soak_launches["full_chain"],
+                     launches_node_agent=node_launches["full_chain"],
+                     launches_demo=demo_launches,
                      launches_explain={k: v["full_chain"] for k, v in
                                        explain_launches.items()}),
         la_kernel, replay_entry,

@@ -8,6 +8,7 @@ twice. A failed build raises NativeBuildError with the compiler's output.
 
     libkoordfloor-<digest>.so     g++ -O2 -fPIC -shared -ffp-contract=off
                                   -fno-fast-math serial_floor.cpp
+    libkoordperf-<digest>.so      g++ -O2 -fPIC -shared perf_reader.cpp
     koord_sidecar_client-<digest> protoc --cpp_out of scheduler/sidecar.proto,
                                   then g++ sidecar_client.cpp sidecar.pb.cc
                                   -lprotobuf
@@ -32,6 +33,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 # FMA contraction, no fast-math reassociation.
 FLOOR_FLAGS = ("-O2", "-fPIC", "-Wall", "-shared", "-ffp-contract=off",
                "-fno-fast-math")
+PERF_FLAGS = ("-O2", "-fPIC", "-Wall", "-shared")
 CLIENT_FLAGS = ("-O2", "-Wall")
 
 _BUILD_LOCK = threading.Lock()
@@ -62,19 +64,32 @@ def _run(cmd: Sequence[str], what: str, timeout: int = 300) -> None:
             f"{proc.stdout}{proc.stderr}")
 
 
-def build_floor(source: Path = NATIVE_DIR / "serial_floor.cpp",
-                build_dir: Path = BUILD_DIR) -> Path:
-    """build/native/libkoordfloor-<digest>.so from ``source``, compiled
-    unless it exists."""
-    out = build_dir / f"libkoordfloor-{digest([source], FLOOR_FLAGS)}.so"
+def _build_library(stem: str, source: Path, flags: Sequence[str],
+                   build_dir: Path) -> Path:
+    """build_dir/<stem>-<digest>.so from ``source``, compiled unless it
+    exists."""
+    out = build_dir / f"{stem}-{digest([source], flags)}.so"
     with _BUILD_LOCK:
         if not out.exists():
             build_dir.mkdir(parents=True, exist_ok=True)
             tmp = build_dir / f"{out.name}.{os.getpid()}.tmp"
-            _run(["g++", *FLOOR_FLAGS, "-o", str(tmp), str(source)],
+            _run(["g++", *flags, "-o", str(tmp), str(source)],
                  f"building {source.name}")
             os.replace(tmp, out)
     return out
+
+
+def build_floor(source: Path = NATIVE_DIR / "serial_floor.cpp",
+                build_dir: Path = BUILD_DIR) -> Path:
+    """build/native/libkoordfloor-<digest>.so from ``source``."""
+    return _build_library("libkoordfloor", source, FLOOR_FLAGS, build_dir)
+
+
+def build_perf(source: Path = NATIVE_DIR / "perf_reader.cpp",
+               build_dir: Path = BUILD_DIR) -> Path:
+    """build/native/libkoordperf-<digest>.so from ``source``: the perf
+    counter reader of the koordlet's CPI collector (native/perf.py)."""
+    return _build_library("libkoordperf", source, PERF_FLAGS, build_dir)
 
 
 def build_sidecar_client(build_dir: Path = BUILD_DIR) -> Path:

@@ -194,6 +194,43 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.native, "
             "koordinator_tpu_torch.native.build, "
             "koordinator_tpu_torch.native.floor, "
+            "koordinator_tpu_torch.utils.histogram, "
+            "koordinator_tpu_torch.koordlet, "
+            "koordinator_tpu_torch.koordlet.util, "
+            "koordinator_tpu_torch.koordlet.util.system, "
+            "koordinator_tpu_torch.koordlet.util.machineinfo, "
+            "koordinator_tpu_torch.koordlet.util.kidled, "
+            "koordinator_tpu_torch.koordlet.util.resctrl, "
+            "koordinator_tpu_torch.koordlet.util.coresched, "
+            "koordinator_tpu_torch.koordlet.metrics, "
+            "koordinator_tpu_torch.koordlet.audit, "
+            "koordinator_tpu_torch.koordlet.resourceexecutor, "
+            "koordinator_tpu_torch.koordlet.metriccache, "
+            "koordinator_tpu_torch.koordlet.pleg, "
+            "koordinator_tpu_torch.koordlet.kubeletstub, "
+            "koordinator_tpu_torch.koordlet.prediction, "
+            "koordinator_tpu_torch.koordlet.statesinformer, "
+            "koordinator_tpu_torch.koordlet.metricsadvisor, "
+            "koordinator_tpu_torch.koordlet.qosmanager, "
+            "koordinator_tpu_torch.koordlet.runtimehooks, "
+            "koordinator_tpu_torch.koordlet.hookserver, "
+            "koordinator_tpu_torch.koordlet.nri, "
+            "koordinator_tpu_torch.koordlet.nri_pb2, "
+            "koordinator_tpu_torch.koordlet.server, "
+            "koordinator_tpu_torch.koordlet.daemon, "
+            "koordinator_tpu_torch.runtimeproxy, "
+            "koordinator_tpu_torch.runtimeproxy.api_pb2, "
+            "koordinator_tpu_torch.runtimeproxy.cri_pb2, "
+            "koordinator_tpu_torch.runtimeproxy.server, "
+            "koordinator_tpu_torch.runtimeproxy.hookclient, "
+            "koordinator_tpu_torch.runtimeproxy.criserver, "
+            "koordinator_tpu_torch.runtimeproxy.dockerserver, "
+            "koordinator_tpu_torch.native.perf, "
+            "koordinator_tpu_torch.cmd.koordlet, "
+            "koordinator_tpu_torch.cmd.demo, "
+            "koordinator_tpu_torch.cmd.koord_runtime_proxy, "
+            "koordinator_tpu_torch.testing.gpu_pool, "
+            "koordinator_tpu_torch.testing.cri, "
             "koordinator_tpu_torch.sim.faults\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
