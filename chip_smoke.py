@@ -14,7 +14,7 @@ Phases, one JSON line each:
           Scheduler(store, waves=1, device="cuda") — plain, under
           CyclePipeline, and with IncrementalSnapshot off (the full-rebuild
           twin) — through cycle 0 (cold, the first kernel call of the run)
-          and 1 warm-up + 3 measured churn cycles of 1000 arrivals each. The
+          and 1 warm-up + 2 measured churn cycles of 1000 arrivals each. The
           twins' ordered bindings, failed and rejected lists must be
           identical every cycle, and every dispatch window must have
           launched the full-chain kernel exactly once (launch counts set to
@@ -37,7 +37,7 @@ Phases, one JSON line each:
           defaults, (b) the same with replay_overlap=False (all K waves in
           one call), (c) Scheduler(store, waves=1, device="cuda") running as
           many serial cycles as (a) consumed (CycleResult.waves), through
-          cycle 0 and 1 warm-up + 2 measured churn cycles of 1000 arrivals.
+          cycle 0 and 1 warm-up + 1 measured churn cycle of 1000 arrivals.
           The concatenated bound sequences and failed/rejected lists must be
           identical every round, and the canonical dumps after a final flush.
           Prints the K each cycle resolved to, the device waves run and the
@@ -46,8 +46,17 @@ Phases, one JSON line each:
           at cycle 0's kept set (CUDA events, median of 10) against the
           plain replay_kept on the card, bit for bit, with its state in
           shared memory and again in device memory (smem_budget_bytes=0,
-          the replay_global line).
-  scheduler_waves_mixed  the mixed cluster (1000 x 2000) with default
+          the replay_global line). Prints the default path's outcome
+          SHA-256 (bindings, failed/rejected lists, PodScheduled
+          conditions).
+  scheduler_mesh  the same default path on a mesh of 2 virtual shards of
+          the card (parallel/mesh.py): churn_store(5000, 10000, seed=42)
+          through Scheduler(store, mesh=2 shards, device="cuda"), the
+          cycles scheduler_waves ran; every wave's node fields gathered
+          from the shards into kernel 1 and its replay instance (the
+          steps built for the mesh), the outcome's SHA-256 equal to
+          scheduler_waves' (no new twin).
+  scheduler_waves_mixed  the mixed cluster (500 x 1000) with default
           waves on the card and in a CPU twin (the plain wave step): the
           canonical dumps must be identical after each of 2 cycles. As
           mixed_cluster builds it, the world's shared claims overflow the
@@ -96,13 +105,12 @@ Phases, one JSON line each:
           again once the ladder is above the host fallback. Prints the
           transitions, each cycle's ms and level beside (b)'s, and the
           host-fallback pass's seconds.
-  sim     the sim's smoke (50 cycles), gang-storm (150 of its 300),
-          spot-churn (60 of 300), crash-restart (36), drain-storm (60 of
-          200), hotspot (160) and
-          overcommit-shift (160) scenarios
-          on the card, each with a CPU twin in this process (gang-storm's
-          cut to 40 cycles, spot-churn's to 30 and drain-storm's to 40 for
-          the time limit): the CPU's binding log equal to the card's over
+  sim     the sim's smoke (50 cycles), gang-storm (60 of its 300),
+          spot-churn (40 of 300), crash-restart (36), drain-storm (40 of
+          200), hotspot (80 of 160) and overcommit-shift (80 of 160)
+          scenarios on the card, each with a CPU twin in this process
+          (gang-storm's cut to 40 cycles and spot-churn's to 30, for the
+          time limit): the CPU's binding log equal to the card's over
           the same cycles, zero invariant breaches and cycle exceptions on
           both, smoke's ladder round trip in cycles_at_level. drain-storm
           and hotspot run the co-located descheduler: every rebalance pass
@@ -111,10 +119,16 @@ Phases, one JSON line each:
           card and the CPU. overcommit-shift runs the co-located manager:
           every round a device colo pass, none on the host, the staleness
           SLO met, the colo report equal on the CPU, and the binding log's
-          SHA the JAX package's at 160 cycles (printed beside the older
-          record in COLO_r01.json). Prints each scenario's SHA prefix,
-          cycles at each level, SLO flags, rebalance passes and wall
-          seconds on each device.
+          SHA the JAX package's at the same 80 cycles (printed beside the
+          older record of 160 in COLO_r01.json). Prints each scenario's
+          SHA prefix, cycles at each level, SLO flags, rebalance passes
+          and wall seconds on each device.
+  fault_ladder  the sim's fault-ladder scenario (72 cycles, mesh = 2
+          virtual shards of the card, fused waves, explain counts, a
+          150 ms deadline; a device loss naming shard 1, a slow device, a
+          fault storm, a crash-restart): its binding log's SHA-256 equal
+          to the JAX package's, its ladder walk the plan's, two deadline
+          overruns, launches of kernel 1 and the stage-count pass.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
           running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
           cut) through Descheduler(store, device="cuda"): a warm-up pass,
@@ -140,6 +154,11 @@ Phases, one JSON line each:
           victims over the same view, run_once writes one job per victim,
           and the scheduler's ladder stays at full. Prints the victim
           count (0 included).
+  rebalance_mesh  config 5 through a standalone Descheduler whose pass
+          runs on KOORD_TPU_MESH=2 virtual shards of the card beside a
+          single-device one on an identical store: 4 passes' victims
+          (order included), classification and margins, then run_once's
+          migration jobs, equal.
   colo    config 4's nodes, pods and NodeMetrics (churn_store(5000, 10000,
           seed=42)) without its ElasticQuotas, one NodeMetric in 20 stale,
           through Manager(store, device="cuda"): 2 warm-up and 10 timed
@@ -153,6 +172,10 @@ Phases, one JSON line each:
           pass, and the step alone (CUDA events, median of 10) against the
           same step on the CPU, bit for bit, with its launches
           (torch.profiler) and its bytes bound.
+  colo_mesh  the same world through a standalone Manager whose pass runs
+          on KOORD_TPU_MESH=2 virtual shards of the card, beside a
+          single-device Manager on an identical store: 5 ticks' published
+          batch/mid integers and degraded sets equal.
   colo_quota  config 4's quota tree (root, 25 teams, 74 jobs; G = 128
           padded), the root given a shared weight, on the largest prefix
           of config 4's nodes inside the fold's f32 envelope (found with
@@ -189,7 +212,8 @@ Phases, one JSON line each:
           planned, with zero invariant breaches; the stage-count pass
           launches on every cycle above no-explain and on none at it.
   koord_scheduler  the port's binary, cmd.koord_scheduler.main, on the
-          card at --synth 5000x10000 with KOORD_TPU_EXPLAIN=counts and
+          card at --synth KOORD_SCHEDULER_SYNTH (2500x5000) with
+          KOORD_TPU_EXPLAIN=counts and
           KOORD_TPU_WAVES=1 (BINARY_ENV says why), three ticks
           KOORD_SCHEDULER_INTERVAL seconds apart, --obs-port on a
           free port; between the last two /healthz, /metrics and /explain
@@ -197,7 +221,7 @@ Phases, one JSON line each:
           added to the binary's store) over HTTP, each /explain body
           equal to the Scheduler's own record.
   cold_start  two child processes in turn (testing/cold_start.py, config 4's
-          churn store at the default path, cycle 0 and 2 churn cycles) on
+          churn store at the default path, cycle 0 and 1 churn cycle) on
           a fresh KOORD_TPU_COMPILE_CACHE_DIR: the cold process with
           warm-up off records the steps it builds in the rung index; the
           restart with KOORD_TPU_WARMUP=sync replays them before its first
@@ -276,10 +300,10 @@ Phases, one JSON line each:
           (testing/cri.py): a BE pod's RunPodSandbox and CreateContainer,
           the container request reaching containerd with the hook's
           cgroup writes.
-  scheduler_mixed  mixed_cluster(101, 1000 nodes, 2000 pods) as a store,
+  scheduler_mixed  mixed_cluster(101, 500 nodes, 1000 pods) as a store,
           through Scheduler(device="cuda", waves=1) and a
           Scheduler(device="cpu", waves=1) twin (the plain round) for cycle 0
-          and 1 churn cycle of 200 arrivals: the canonical dumps of both
+          and 1 churn cycle of 100 arrivals: the canonical dumps of both
           worlds (every pod's node, annotations and PodScheduled condition,
           every PodGroup's status, every ElasticQuota's used vector) must be
           identical after every cycle.
@@ -325,7 +349,7 @@ Phases, one JSON line each:
           inputs and each wave's [W, N] rows.
   main_global  the same kernel with its carried state in device memory
           (smem_budget_bytes=0), against the plain round of `main`.
-  mixed   mixed_cluster at 1000 nodes x 2000 pods (affinity, spread,
+  mixed   mixed_cluster at 500 nodes x 1000 pods (affinity, spread,
           preferred node/pod affinity, ports, images, CSI volume groups,
           taints): kernel against the plain round.
   prod    the mixed cluster with score_according_prod_usage: kernel against
@@ -336,7 +360,7 @@ Phases, one JSON line each:
           on CUDA, with the launch counts read around that call; then the
           LoadAware kernel's time, the plain torch round on the card (same
           bindings, requested within 1e-4) and the numpy oracle
-          serial_schedule on the first 100 pods (same bindings).
+          serial_schedule on the first 50 pods (same bindings).
   loadaware_prod  the same with score_according_prod_usage.
   loadaware_global  the LoadAware kernel with its carried state in device
           memory (smem_budget_bytes=0), against the plain round of
@@ -345,8 +369,15 @@ Phases, one JSON line each:
           which takes their generic instances instead of the ones
           specialised for the common shape (3 axes, 2 zones, 2 weights):
           the full chain on the mixed cluster and the LoadAware round on
-          synth_cluster(1000, 2000, seed=7), each in both states against
+          synth_cluster(500, 1000, seed=7), each in both states against
           its plain round.
+  mesh_round  the sharded full-chain step (explain "full": kernel 1, its
+          terms instance and the stage-count pass on the gathered node
+          fields) and the sharded LoadAware step (kernel 2) at D = 1, 2,
+          3, 4 and 8 virtual shards of the card, on `main`'s batch and
+          `loadaware`'s, each against the single-device launches on the
+          same padded tensors: 0 mismatches; both timed (CUDA events,
+          median of 10).
 Every phase that injects no fault ends with each scheduler's ladder at
 full, no transition and no dispatch retry (ladder_full in its line).
 Each kernel's phase line names the launch: the state it kept (smem or
@@ -367,6 +398,7 @@ import gc
 import hashlib
 import json
 import os
+import pickle
 import socket
 import statistics
 import subprocess
@@ -429,10 +461,10 @@ from koordinator_tpu_torch.testing import (
     synth_cluster,
     synth_full_cluster,
 )
+from koordinator_tpu_torch.testing import churn, mesh_round
 from koordinator_tpu_torch.testing.churn import (
     add_arrivals,
     arrival_specs,
-    churn_store,
     cycle_dump,
     store_from_state,
 )
@@ -444,12 +476,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 10  # timed rounds after the warm-up
 # the numpy oracle's pods (bench.py's --serial-sample default is 200; cut
-# for the script's time limit)
-ORACLE_PODS = 100
+# to 100, then to 50, for the script's time limit)
+ORACLE_PODS = 50
 # bench.py run_churn's shape: warm-up (its 2, cut to 1 for the time limit)
-# and (with --smoke's count) 3 measured churn cycles, num_pods // 10
-# arrivals each
-CHURN_WARMUP, CHURN_MEASURED = 1, 3
+# and measured churn cycles (--smoke's count, 3, until the mesh phases
+# joined the script), num_pods // 10 arrivals each
+CHURN_WARMUP, CHURN_MEASURED = 1, 2
 # the spans a cycle is split into (direct children of the cycle root, and
 # the upload/readback and pack_incremental children of kernel and encode)
 CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
@@ -460,8 +492,8 @@ NESTED_SPANS = ("pack_incremental", "upload", "readback")
 WAVE_SPANS = CYCLE_SPANS + ("replay_drain",)
 # the default-waves phase: cycle 0, then warm-up and measured churn cycles
 # (3 measured until the storage, cold start, binary and wave phases
-# joined the script)
-WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 2
+# joined the script, 2 until the mesh phases did)
+WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 1
 # the ladder phase: churn cycles after cycle 0, the ladder's re-promotion
 # probe, the dispatch deadline armed in the faulted scheduler and the
 # delay of the latency fault (a wave 1 takes at most ~0.1 s on the card)
@@ -482,23 +514,24 @@ LADDER_FAULTS = (
 LADDER_LEVELS = [0, 0, 0, 0, 3, 5, 5, 3, 3, 0, 0]
 LADDER_WALK = [("full", "serial-waves"), ("serial-waves", "host-fallback"),
                ("host-fallback", "serial-waves"), ("serial-waves", "full")]
-# the sim phase: the catalog scenarios the port runs, on the card at
-# their catalog cycle counts but gang-storm's (cut to 150 of 300),
-# spot-churn's (60 of 300) and drain-storm's (60 of 200), for the
-# script's time limit since the explain phases and then the storage, cold
-# start, binary and wave phases joined it; the CPU twins of those three
-# cut further, to 40, 30 and 40 (the plain round's per-pod loop over their
-# backlog takes ~0.1-0.4 s a cycle on the host), held against the card
-# run's first cycles
-SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 150, 40),
-                 ("spot-churn", 60, 30), ("crash-restart", 36, 36),
-                 ("drain-storm", 60, 40), ("hotspot", 160, 160),
-                 ("overcommit-shift", 160, 160))
-# overcommit-shift's binding log at its catalog 160 cycles in the JAX
-# package as it stands (koordinator_tpu.sim.harness.run_scenario on the
-# CPU); COLO_r01.json holds an older tree's record of the same scenario
+# the sim phase: the catalog scenarios the port runs, on the card and in
+# a CPU twin, cut for the script's time limit: gang-storm to 60 of its 300
+# cycles (its CPU twin to 40), spot-churn to 40 of 300 (30), drain-storm
+# to 40 of 200, and hotspot and overcommit-shift to 80 of 160 (one
+# hotspot and its 30-cycle dissipation window, one prod-usage surge);
+# a CPU twin cut below its card run (the plain round's per-pod loop over
+# the backlog takes ~0.1-0.4 s a cycle on the host) is held against the
+# card run's first cycles
+SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 60, 40),
+                 ("spot-churn", 40, 30), ("crash-restart", 36, 36),
+                 ("drain-storm", 40, 40), ("hotspot", 80, 80),
+                 ("overcommit-shift", 80, 80))
+# overcommit-shift's binding log at the 80 cycles above in the JAX package
+# as it stands (koordinator_tpu.sim.harness.run_scenario on the CPU, with
+# resolved(cycles=80)); COLO_r01.json holds an older tree's record of the
+# scenario at its catalog 160
 OVERCOMMIT_SHIFT_JAX_SHA256 = (
-    "46a26eb5beb829a03723b3f27b2d3195ee26056b9ac6d0056edda89989f95823")
+    "1afd292185dc2cd14637d85e1387ae8f616ef50849309a907a6e027a439070f8")
 # the colo phases: warm-up and timed manager ticks, and one NodeMetric
 # in COLO_STALE_EVERY made stale (5% of config 4's nodes)
 COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 10, 20
@@ -507,8 +540,9 @@ COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 10, 20
 # window: retry, demote to serial waves, whose pass retries and demotes
 # to no-explain and binds there), its level after each cycle and its walk,
 # and the koord_scheduler binary's seconds between its two ticks (the
-# probe reads /explain between them)
-EXPLAIN_MEASURED = 2
+# probe reads /explain between them); 2 measured cycles until the mesh
+# phases joined the script
+EXPLAIN_MEASURED = 1
 EXPLAIN_LADDER_FAULTS = (
     Fault(cycle=1, kind="dispatch", count=4,
           message="ladder_explain: fault storm"),
@@ -520,26 +554,41 @@ EXPLAIN_LADDER_WALK = [("full", "serial-waves"),
                        ("serial-waves", "full")]
 KOORD_SCHEDULER_INTERVAL = 2.0
 # the binary's environment: explain counts, and serial dispatch. The
-# binary's --synth world is preemption-heavy: ~1,500 pods stay pending,
-# and the host's DefaultPreemption dry runs over 5,000 nodes take ~16 s a
-# logical cycle, so default waves (8 logical cycles at the first tick, 4
-# at the next) cost ~250 s over three ticks (NVIDIA H100 80GB HBM3,
-# 700.00 W); the default path with explain is scheduler_explain's
+# binary's --synth world is preemption-heavy: at 5000x10000 ~1,500 pods
+# stay pending, and the host's DefaultPreemption dry runs over 5,000 nodes
+# take ~16 s a logical cycle, so default waves (8 logical cycles at the
+# first tick, 4 at the next) cost ~250 s over three ticks (NVIDIA H100
+# 80GB HBM3, 700.00 W); the default path with explain is
+# scheduler_explain's
 BINARY_ENV = {"KOORD_TPU_EXPLAIN": "counts", "KOORD_TPU_WAVES": "1"}
+# the binary's --synth world: config 4's 5000x10000 until the mesh phases
+# joined the script, halved for its time limit (its three serial ticks
+# took 44-52 s there, most of it in those preemption dry runs)
+KOORD_SCHEDULER_SYNTH = "2500x5000"
 # the storage phase: the share of pending pods and arrivals carrying
 # claims, and the churn cycles after cycle 0
 STORAGE_CLAIMS, STORAGE_CHURN = 0.2, 2
 # the wave round's timed calls beside the compare call at P = 10240 (each
-# ~2,400 waves, ~20 s on the card) and at P = 1280, and the two batch
-# prefixes its launches are counted on
-WAVE_ROUND_REPS = (0, 2)
+# ~2,400 waves, ~20 s on the card) and at P = 1280 (2 until the mesh
+# phases joined the script), and the two batch prefixes its launches are
+# counted on
+WAVE_ROUND_REPS = (0, 1)
 WAVE_PROFILE_PODS = (32, 64)
 # the mixed-cluster cycle phases: cycle 0 and churn cycles (2 until the
 # slice-10 phases joined the script)
 MIXED_CYCLES = 2
+# the mixed clusters' nodes and pods (scheduler_mixed,
+# scheduler_waves_mixed, mixed, prod and generic's full chain; generic's
+# LoadAware round on synth_cluster at the same size): 1000 x 2000 until
+# the mesh phases joined the script, halved for its time limit (the packed
+# widths T, S, S2, PT, SI and VG are the same at both sizes)
+MIXED_NODES, MIXED_PODS = 500, 1000
 # a cold-start child's time limit, and the two binaries' ticks and the
 # seconds between them
 COLD_START_TIMEOUT_S = 600
+# the cold-start children's churn cycles after cycle 0 (the module's
+# default 2 until the mesh phases joined the script)
+COLD_START_CHURN = 1
 BINARY_TICKS, BINARY_INTERVAL = 3, 1.0
 # slice 11: the compiled floors' timed runs; the gRPC phase's warm calls;
 # the sidecar Scheduler's churn cycles after cycle 0 (the server up; one
@@ -732,13 +781,14 @@ def run_generic(device):
     states, each against its plain round on the card."""
     args = LoadAwareArgs(resource_weights={
         ResourceName.CPU: 1, ResourceName.MEMORY: 1, ResourceName.PODS: 1})
-    _c, state = mixed_cluster(7, 1000, 2000)
+    _c, state = mixed_cluster(7, MIXED_NODES, MIXED_PODS)
     fc, ng, ngroups, active = pack(state, args)
     dev_fc = to_device(fc, device)
     out_p = build_full_chain_step(args, ng, ngroups, active)(dev_fc)
     N = fc.base.allocatable.shape[0]
     inputs = loadaware_inputs(
-        synth_cluster(num_nodes=1000, num_pods=2000, seed=7), args)
+        synth_cluster(num_nodes=MIXED_NODES, num_pods=MIXED_PODS, seed=7),
+        args)
     dev_inputs = schedule_inputs_from_numpy(inputs._asdict(), device)
     la_p = build_schedule_step(args)(dev_inputs)
     for budget in (None, 0):
@@ -981,7 +1031,7 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
     return total_launches
 
 
-def run_scheduler_mixed(device, n_nodes=1000, n_pods=2000):
+def run_scheduler_mixed(device, n_nodes=MIXED_NODES, n_pods=MIXED_PODS):
     """The mixed cluster through the whole cycle on the card and in a CPU
     twin (the plain round): identical worlds after every cycle."""
     retries0 = retries_now()
@@ -1156,6 +1206,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     rows, walls = [], {"chained": [], "fused": [], "serial": []}
     splits = {"chained": [], "fused": []}
     cycle0 = {}
+    outcome = []  # the default path's result keys, for scheduler_mesh
     for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
         if c:
             specs = arrival_specs(c, arrivals)
@@ -1193,6 +1244,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
             raise AssertionError(f"scheduler_waves cycle {c}: twins disagree")
         if not keys["chained"][0]:
             raise AssertionError(f"scheduler_waves cycle {c}: nothing bound")
+        outcome.append(keys["chained"])
         for key in total:
             total[key] += la[key]
         rows.append({"cycle": c, "K": k_a, "logical_cycles": res_a.waves,
@@ -1218,6 +1270,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     dumps = [cycle_dump(s) for s in (chained, fused, serial)]
     if not (dumps[0] == dumps[1] == dumps[2]):
         raise AssertionError("scheduler_waves: the final dumps differ")
+    waves_sha = outcome_sha(outcome, store_a)
     assert_ladder_full("scheduler_waves", retries0, chained, fused, serial)
     if n_pods == 10000 and (rows[0]["K"] != 8
                             or any(r["K"] != 4 for r in rows[1:])):
@@ -1281,13 +1334,14 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
                      "max_abs_err": err, "bound_bytes_ms": bytes_ms,
                      "bound_ops_ms": ops_ms},
           "replay_global": {**launch_g, "kernel_ms": global_ms,
-                            "mismatches": mism_g, "max_abs_err": err_g}})
+                            "mismatches": mism_g, "max_abs_err": err_g},
+          "outcome_sha256": waves_sha})
     entry = kernel_entry(
         "full_chain_replay", "full_chain.cu",
         "koordinator_tpu/models/fused_waves.py:527 (an XLA fori_loop, no "
         "TPU kernel)", total["full_chain_replay"], mism, err, replay_ms,
         plain_ms, bytes_ms, ops_ms)
-    return total, entry, fc_c
+    return total, entry, fc_c, waves_sha
 
 
 def keep_shared_claims(state, keep):
@@ -1308,7 +1362,8 @@ def keep_shared_claims(state, keep):
     return kept
 
 
-def run_scheduler_waves_mixed(device, n_nodes=1000, n_pods=2000):
+def run_scheduler_waves_mixed(device, n_nodes=MIXED_NODES,
+                              n_pods=MIXED_PODS):
     """The mixed cluster with default waves on the card and in a CPU twin
     (the plain wave step): identical worlds after every cycle. The world as
     mixed_cluster builds it demotes to serial dispatch (checked here), so
@@ -1683,9 +1738,10 @@ def run_sim(device):
                            colo_r01["colo_device"]["batch_pods_bound"],
                        "overcommit_shifts":
                            colo_r01["colo_device"]["overcommit_shifts"]},
-          "cut": "on the card gang-storm runs 150 of its 300 catalog "
-                 "cycles, spot-churn 60 of 300 and drain-storm 60 of 200, "
-                 "their CPU twins 40, 30 and 40 (time limit)"})
+          "cut": "gang-storm runs 60 of its 300 catalog cycles on the "
+                 "card (40 on the CPU), spot-churn 40 of 300 (30), "
+                 "drain-storm 40 of 200, hotspot and overcommit-shift 80 "
+                 "of 160 (time limit)"})
     return total
 
 
@@ -3039,7 +3095,7 @@ def cold_start_child(env_extra, cache_dir) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "koordinator_tpu_torch.testing.cold_start",
-         "--device", "cuda"],
+         "--device", "cuda", "--cycles", str(COLD_START_CHURN)],
         cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
         capture_output=True, text=True, timeout=COLD_START_TIMEOUT_S)
     wall = time.perf_counter() - t0
@@ -3054,9 +3110,10 @@ def cold_start_child(env_extra, cache_dir) -> dict:
 
 def run_cold_start():
     """Two scheduler processes in turn on a fresh cache dir, on config 4's
-    churn store (testing/cold_start.py: cycle 0 and 2 churn cycles at the
-    default path): the cold one with warm-up off records its rungs; the
-    restart with warm-up "sync" replays them before its first cycle.
+    churn store (testing/cold_start.py: cycle 0 and COLD_START_CHURN churn
+    cycles at the default path): the cold one with warm-up off records its
+    rungs; the restart with warm-up "sync" replays them before its first
+    cycle.
     Gates: warmed == rungs > 0, failed == invalidated == 0, zero
     steady-state step builds, the cold process's bindings every cycle.
     Returns the full-chain launches of both children."""
@@ -3174,7 +3231,7 @@ def http_json(url: str):
         return resp.status, resp.read().decode()
 
 
-def run_koord_scheduler(device, synth="5000x10000", ticks=3,
+def run_koord_scheduler(device, synth=KOORD_SCHEDULER_SYNTH, ticks=3,
                         interval=KOORD_SCHEDULER_INTERVAL):
     """The port's koord-scheduler binary on the card:
     cmd.koord_scheduler.main at --synth ``synth`` with BINARY_ENV
@@ -4056,6 +4113,278 @@ def run_node_binaries(dev):
           "cri_s": cri_s, **cri})
 
 
+# ---------------------------------------------------------------------------
+# the mesh (parallel/): virtual shards of this card
+# ---------------------------------------------------------------------------
+
+# the mesh phases' shards of the card (the fault-ladder scenario's own mesh
+# is its catalog's 2)
+MESH_SHARDS = 2
+# koordinator_tpu.sim's fault-ladder (72 catalog cycles, seed 13) on the
+# CPU; tests/test_torch_sim.py pins it too
+FAULT_LADDER_JAX_SHA256 = ("e34631b68f3dd0bfa18371c00836b6e2583dea074009b6f0a"
+                           "3b0e82a5f2acb26")
+FAULT_LADDER_WALK = [
+    ("full", "partial-mesh"), ("partial-mesh", "full"), ("full", "no-mesh"),
+    ("no-mesh", "full"), ("full", "no-mesh"), ("no-mesh", "serial-waves"),
+    ("serial-waves", "no-explain"), ("no-explain", "host-fallback"),
+    ("host-fallback", "no-explain"), ("no-explain", "serial-waves"),
+    ("serial-waves", "no-mesh"), ("no-mesh", "full")]
+
+
+def outcome_sha(keys, store) -> str:
+    """SHA-256 of a run's per-cycle result keys (bindings in order, failed
+    and rejected lists) and every pod's PodScheduled condition."""
+    blob = json.dumps({"cycles": keys,
+                       "conditions": sorted(conditions(store).items())})
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+class mesh_env:
+    """KOORD_TORCH_VIRTUAL_DEVICES and KOORD_TPU_MESH set for the block
+    (the knobs a standalone descheduler or manager reads), then
+    restored."""
+
+    def __init__(self, shards: int) -> None:
+        self.values = {"KOORD_TORCH_VIRTUAL_DEVICES": str(shards),
+                       "KOORD_TPU_MESH": str(shards)}
+        self.saved = {}
+
+    def __enter__(self):
+        for k, v in self.values.items():
+            self.saved[k] = os.environ.get(k)
+            os.environ[k] = v
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_mesh_round(fc, args, ng, ngroups, active, n_real, la_inputs):
+    """The sharded full-chain step (explain "full") and the sharded
+    LoadAware step at D = 1, 2, 3, 4 and 8 virtual shards of the card,
+    each against the single-device launches on the same (padded) tensors:
+    config 4's batch and the LoadAware headline's (testing/mesh_round.py).
+    0 mismatches, CUDA events median of 10. These launches compare and are
+    not counted on the main path. Returns the sharded times by depth."""
+    rows = mesh_round.check_full_chain(fc, args, ng, ngroups, active,
+                                       n_real)
+    la_rows = mesh_round.check_schedule(la_inputs, args)
+    for row in rows:
+        bad = {k: v for k, v in row.items()
+               if k.endswith("mismatches") and v}
+        if bad:
+            raise AssertionError(f"mesh_round D={row['depth']}: {bad}")
+    for row in la_rows:
+        if row["mismatches"]:
+            raise AssertionError(f"mesh_round loadaware D={row['depth']}: "
+                                 f"{row['mismatches']} mismatches")
+    emit({"phase": "mesh_round", "full_chain": rows, "loadaware": la_rows,
+          "mismatches": 0})
+    return {
+        "full_chain": {str(r["depth"]): r["sharded_ms"] for r in rows},
+        "schedule_step": {str(r["depth"]): r["sharded_ms"]
+                          for r in la_rows}}
+
+
+def mesh_launches_now() -> dict:
+    return {"full_chain": fck.launches,
+            "full_chain_replay": fck.replay_launches,
+            "explain_counts": ek.launches,
+            "full_chain_terms": fck.terms_launches}
+
+
+def zero_mesh_launches() -> None:
+    fck.launches = fck.replay_launches = 0
+    fck.terms_launches = ek.launches = sk.launches = 0
+
+
+def run_scheduler_mesh(device, waves_sha, n_nodes=5000, n_pods=10000):
+    """Config 4's churn store through Scheduler(store, mesh=2 virtual shards
+    of the card) on the default path (auto waves, replay overlap): the
+    sharded upload, the sharded chained step (every wave's node fields
+    gathered into kernel 1 and its replay instance) and the per-shard
+    readback merge, through the cycles scheduler_waves ran. Its bindings, failed and
+    rejected lists and PodScheduled conditions must hash to the
+    single-device default path's SHA-256 (no new twin)."""
+    arrivals = n_pods // 10
+    retries0 = retries_now()
+    t0 = time.perf_counter()
+    store, state = churn_store(n_nodes, n_pods, seed=42)
+    sched = Scheduler(store, device=device,
+                      mesh=mesh_round.virtual_mesh(MESH_SHARDS, device))
+    fixture_s = time.perf_counter() - t0
+    if sched.mesh is None or sched.mesh.size != MESH_SHARDS or (
+            sched.waves_spec != "auto" or not sched.replay_overlap):
+        raise AssertionError("scheduler_mesh: not the default path on a "
+                             "mesh")
+    now = state.now
+    keys, rows, walls = [], [], []
+    total = {"full_chain": 0, "full_chain_replay": 0}
+    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
+        if c:
+            add_arrivals(store, arrival_specs(c, arrivals), now + c)
+        res, wall, la, k = wave_cycle(f"scheduler_mesh cycle {c}", sched,
+                                      now + 2 * c)
+        if not any(sched.mesh.tag in key for key in sched._step_cache):
+            raise AssertionError(f"scheduler_mesh cycle {c}: no step built "
+                                 "for the mesh")
+        keys.append(result_key(res))
+        for key in ("full_chain", "full_chain_replay"):
+            total[key] += la[key]
+        rows.append({"cycle": c, "K": k, "logical_cycles": res.waves,
+                     "bound": len(res.bound), "launches": la,
+                     "cycle_ms": wall * 1e3,
+                     "spans_ms": span_split(sched, WAVE_SPANS)})
+        if c > WAVE_CHURN_WARMUP:
+            walls.append(wall)
+    sched.flush_deferred()
+    sha = outcome_sha(keys, store)
+    if sha != waves_sha:
+        raise AssertionError(f"scheduler_mesh: outcome {sha} is not the "
+                             f"single-device default path's {waves_sha}")
+    assert_ladder_full("scheduler_mesh", retries0, sched)
+    emit({"phase": "scheduler_mesh", "shards": MESH_SHARDS,
+          "nodes": n_nodes, "pods": n_pods,
+          "fixture_seconds": fixture_s, "cycles": rows,
+          "cycle_ms": statistics.median(walls) * 1e3,
+          "outcome_sha256": sha, "equals_scheduler_waves": True,
+          "launches": total})
+    return total
+
+
+def run_fault_ladder(device):
+    """The sim's fault-ladder scenario on the card: mesh = 2 virtual shards
+    of the card, fused waves, explain counts, a 150 ms dispatch deadline; a
+    device loss naming shard 1 (partial-mesh), a slow device (the
+    watchdog's no-mesh), an anonymous storm down to the host fallback, a
+    crash-restart. Its binding log must hash to the JAX package's, its
+    ladder walk be the plan's."""
+    zero_mesh_launches()
+    t0 = time.perf_counter()
+    card = run_scenario(SCENARIOS["fault-ladder"], device=device)
+    card_s = time.perf_counter() - t0
+    launches = mesh_launches_now()
+    walk = [(t["from"], t["to"]) for t in card.ladder_transitions]
+    if card.binding_log_sha256 != FAULT_LADDER_JAX_SHA256:
+        raise AssertionError(f"fault_ladder: {card.binding_log_sha256} is "
+                             f"not the JAX package's {FAULT_LADDER_JAX_SHA256}")
+    if walk != FAULT_LADDER_WALK:
+        raise AssertionError(f"fault_ladder: walk {walk}")
+    if card.invariant_breaches or card.cycle_exceptions or (
+            card.deadline_overruns != 2):
+        raise AssertionError(
+            f"fault_ladder: {card.invariant_breaches[:3]} "
+            f"{card.cycle_exceptions[:3]} overruns {card.deadline_overruns}")
+    if device == "cuda" and (launches["full_chain"] < 1
+                             or launches["explain_counts"] < 1):
+        raise AssertionError(f"fault_ladder: no launch: {launches}")
+    emit({"phase": "fault_ladder", "cycles": card.cycles,
+          "sha256": card.binding_log_sha256, "jax_sha256_equal": True,
+          "transitions": walk, "cycles_at_level": card.cycles_at_level,
+          "deadline_overruns": card.deadline_overruns,
+          "bindings": len(card.binding_log), "card_seconds": card_s,
+          "launches": launches})
+    return launches
+
+
+def run_rebalance_mesh(device, n_pods=50_000, n_nodes=5_000):
+    """BASELINE config 5 through a standalone Descheduler whose pass runs
+    on KOORD_TPU_MESH=2 virtual shards of the card, beside a single-device
+    Descheduler on an identical store: the device passes' victims (order
+    included), classification and margins, then run_once's migration
+    jobs, must be equal."""
+    from koordinator_tpu_torch.descheduler.descheduler import Descheduler
+    from koordinator_tpu_torch.testing.rebalance_fixture import (
+        rebalance_store,
+    )
+
+    now = 1_000_000.0
+    t0 = time.perf_counter()
+    store_s, store_m = (rebalance_store(n_pods, n_nodes, now)
+                        for _ in range(2))
+    fixture_s = time.perf_counter() - t0
+    single = Descheduler(store_s, device=device, rebalance="on")
+    with mesh_env(MESH_SHARDS):
+        meshed = Descheduler(store_m, device=device, rebalance="on")
+    reb_s, reb_m = single.rebalancer, meshed.rebalancer
+    if reb_s.mesh is not None or reb_m.mesh is None or (
+            reb_m.mesh.size != MESH_SHARDS):
+        raise AssertionError("rebalance_mesh: the meshes are not 0 and 2")
+    plug_s = single.profiles[0].balance_plugins[0].inner
+    plug_m = meshed.profiles[0].balance_plugins[0].inner
+    view_s, _src = plug_s._view(now)
+    view_m, _src = plug_m._view(now)
+    ms_s, ms_m = [], []
+    for i in range(1 + 3):
+        t0 = time.perf_counter()
+        picked_s, stats_s = reb_s.select_victims(plug_s, view_s, now)
+        ms_s.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        picked_m, stats_m = reb_m.select_victims(plug_m, view_m, now)
+        ms_m.append((time.perf_counter() - t0) * 1e3)
+        if stats_s["engine"] != "device" or stats_m["engine"] != "device":
+            raise AssertionError(f"rebalance_mesh pass {i}: engines "
+                                 f"{stats_s['engine']} {stats_m['engine']}")
+        if picked_s.tolist() != picked_m.tolist():
+            raise AssertionError(f"rebalance_mesh pass {i}: victims differ")
+        for key in ("is_low", "is_high", "margin", "victim_nodes",
+                    "victim_scores"):
+            if not np.array_equal(stats_s[key], stats_m[key]):
+                raise AssertionError(f"rebalance_mesh pass {i}: {key}")
+    single.run_once(now=now)
+    meshed.run_once(now=now)
+    jobs_s, jobs_m = job_list(store_s), job_list(store_m)
+    if not jobs_s or jobs_s != jobs_m:
+        raise AssertionError(f"rebalance_mesh: {len(jobs_s)} single-device "
+                             f"jobs against {len(jobs_m)} on the mesh, or "
+                             "another order")
+    emit({"phase": "rebalance_mesh", "shards": MESH_SHARDS,
+          "pods": n_pods, "nodes": n_nodes, "fixture_seconds": fixture_s,
+          "victims": int(picked_m.size), "jobs": len(jobs_m),
+          "pass_ms": ms_m[1:], "single_device_pass_ms": ms_s[1:],
+          "pass_ms_median": statistics.median(ms_m[1:]),
+          "single_device_pass_ms_median": statistics.median(ms_s[1:]),
+          "victims_equal": True, "jobs_equal": True})
+
+
+def run_colo_mesh(device, n_nodes=5000, n_pods=10000):
+    """Config 4's colo world through a standalone Manager whose pass runs
+    on KOORD_TPU_MESH=2 virtual shards of the card, beside a single-device
+    Manager on an identical store: every tick's published batch/mid
+    integers and degraded set must be equal."""
+    from koordinator_tpu_torch.manager import Manager
+
+    t0 = time.perf_counter()
+    store_s, state = colo_store(n_nodes, n_pods)
+    store_m, _ = colo_store(n_nodes, n_pods)
+    fixture_s = time.perf_counter() - t0
+    single = Manager(store_s, identity="colo-single", device=device)
+    with mesh_env(MESH_SHARDS):
+        meshed = Manager(store_m, identity="colo-mesh", device=device)
+    if meshed.colo.mesh is None or meshed.colo.mesh.size != MESH_SHARDS:
+        raise AssertionError("colo_mesh: the pass is not on the mesh")
+    now = state.now
+    for k in range(COLO_WARMUP + 3):
+        now += 10.0
+        for s_ in (store_s, store_m):
+            shift_metrics(s_, k, now)
+        checked_colo_tick(f"colo_mesh tick {k}", meshed, single, now)
+        if single.colo.last_pass_stats.get("engine") != "device":
+            raise AssertionError(f"colo_mesh tick {k}: the single-device "
+                                 "twin left the card")
+    ms_m = [ms for ms, _ in colo_roots(meshed)][COLO_WARMUP:]
+    ms_s = [ms for ms, _ in colo_roots(single)][COLO_WARMUP:]
+    emit({"phase": "colo_mesh", "shards": MESH_SHARDS, "nodes": n_nodes,
+          "pods": n_pods, "fixture_seconds": fixture_s,
+          "pass_ms": ms_m, "single_device_pass_ms": ms_s,
+          "device_passes": meshed.colo.stats["device_passes"],
+          "writes_equal": True})
+
+
 def explain_entry(name, source, replaces, key, launches, res):
     """The kernels-line entry of one koordexplain kernel: its launches on
     the main path's explain phases (``key`` in each phase's counts, split
@@ -4091,9 +4420,15 @@ def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
 
 
 # wall seconds of each phase: the time from the previous phase line to
-# its own (phases run one after another, each ending with its line)
+# its own (phases run one after another, each ending with its line), and
+# of the full collections between phases
 PHASE_SECONDS = {}
+GC_SECONDS = [0.0]
 _last_emit = [time.perf_counter()]
+# with the cyclic collector off (main), the garbage of the phases so far
+# goes in one full collection at the first phase line after this many
+# tracked objects have piled up (a config 4 world is ~1.5-2 million)
+GC_PILE = 20_000_000
 
 
 def emit(obj) -> None:
@@ -4101,8 +4436,13 @@ def emit(obj) -> None:
         now = time.perf_counter()
         PHASE_SECONDS[obj["phase"]] = (PHASE_SECONDS.get(obj["phase"], 0.0)
                                        + now - _last_emit[0])
-        _last_emit[0] = now
     print(json.dumps(obj), flush=True)
+    if "phase" in obj:
+        t0 = time.perf_counter()
+        if gc.get_count()[0] > GC_PILE:
+            gc.collect()
+        _last_emit[0] = time.perf_counter()
+        GC_SECONDS[0] += _last_emit[0] - t0
 
 
 def card_line() -> str:
@@ -4155,6 +4495,23 @@ def time_cuda(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+_CHURN_STATES = {}
+
+
+def churn_store(num_nodes, num_pods, seed=42):
+    """testing/churn.churn_store's (store, state) with the synth run once
+    per shape and seed: every later call loads its own copy of that state
+    (a pickle round trip, about a third of the synth's time) into a new
+    store, so twin worlds still share no object."""
+    key = (num_nodes, num_pods, seed)
+    if key not in _CHURN_STATES:
+        store, state = churn.churn_store(num_nodes, num_pods, seed=seed)
+        _CHURN_STATES[key] = pickle.dumps(state, pickle.HIGHEST_PROTOCOL)
+        return store, state
+    state = pickle.loads(_CHURN_STATES[key])
+    return store_from_state(state), state
+
+
 def pack(state, args):
     fc, _pods, _nodes, _tree, _gi, ng, ngroups = build_full_chain_inputs(
         state, args)
@@ -4194,6 +4551,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     device = "cuda"
+    # Python's cyclic collector off, and a full collection between phases
+    # once GC_PILE tracked objects have piled up (emit): a full collection
+    # walks every live and dead world (2-10 s here), and the automatic
+    # ones (60, 134 s of an 840 s run) or one after every phase (45, 162 s
+    # of 786) cost more than the phases they sat in (NVIDIA H100 80GB
+    # HBM3, 700.00 W, chip_smoke_profile.py)
+    gc.disable()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -4219,7 +4583,9 @@ def main() -> int:
     scheduler_launches = run_scheduler(device)
     run_scheduler_mixed(device)
     # ---- the default path: auto waves, chained dispatch
-    wave_launches, replay_entry, fc4 = run_scheduler_waves(device)
+    wave_launches, replay_entry, fc4, waves_sha = run_scheduler_waves(device)
+    # ---- the same default path on a mesh of 2 virtual shards of the card
+    mesh_launches = run_scheduler_mesh(device, waves_sha)
     run_scheduler_waves_mixed(device)
     run_waves_carried(device, fc4)
     # ---- storage-aware clusters: config 4 with PVCs, PVs, StorageClasses
@@ -4227,19 +4593,26 @@ def main() -> int:
     # ---- the degradation ladder at config 4, then the sim's scenarios
     ladder_launches = run_ladder(device)
     sim_launches = run_sim(device)
-    # ---- the descheduler: config 5 standalone, then co-located at config 4
+    ladder_mesh_launches = run_fault_ladder(device)
+    # ---- the descheduler: config 5 standalone (and on a mesh), then
+    # co-located at config 4
     run_rebalance(device)
+    run_rebalance_mesh(device)
     colocated_launches = run_rebalance_colocated(device)
     # ---- the manager: the colo pass standalone at config 4's width, the
     # quota fold inside the f32 envelope, co-located on the mirror
     run_colo(device)
+    run_colo_mesh(device)
     run_colo_quota(device)
     colo_launches = run_colo_colocated(device)
     # ---- koordexplain: the default and serial paths with explain on,
     # the ladder through no-explain, the koord-scheduler binary
     explain_launches = {"scheduler_explain": run_scheduler_explain(device),
                         "ladder_explain": run_ladder_explain(device),
-                        "koord_scheduler": run_koord_scheduler(device)}
+                        "koord_scheduler": run_koord_scheduler(device),
+                        # the fault-ladder scenario runs explain counts on
+                        # its mesh
+                        "fault_ladder": ladder_mesh_launches}
     # ---- cold start: a cold process and a warm restart, then the
     # descheduler's and the manager's binaries
     cold_launches = run_cold_start()
@@ -4266,7 +4639,10 @@ def main() -> int:
         launches_cold_start=cold_launches["full_chain_replay"],
         launches_soak=soak_launches["full_chain_replay"],
         launches_node_agent=node_launches["full_chain_replay"])
+    replay_entry.update(
+        launches_scheduler_mesh=mesh_launches["full_chain_replay"])
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
+                                 + mesh_launches["full_chain_replay"]
                                  + node_launches["full_chain_replay"]
                                  + storage_launches["full_chain_replay"]
                                  + cold_launches["full_chain_replay"]
@@ -4386,7 +4762,7 @@ def main() -> int:
     run_wave_round(dev_fc, args, ng, ngroups, active)
 
     # ---- mixed features, then prod mode, kernel against the plain round
-    m_nodes, m_pods = 1000, 2000
+    m_nodes, m_pods = MIXED_NODES, MIXED_PODS
     _c, mstate = mixed_cluster(7, m_nodes, m_pods)
     dims = run_pair("mixed", mstate, LoadAwareArgs(), device)
     for key in ("T", "S", "S2", "PT", "SI"):
@@ -4406,8 +4782,12 @@ def main() -> int:
                   n_pods, device)
     run_loadaware_global(LoadAwareArgs(), la_inputs, la_plain, device)
     run_generic(device)
+    # ---- the sharded steps against the single-device kernels
+    sharded_ms = run_mesh_round(fc, args, ng, ngroups, active, n_nodes,
+                                la_inputs)
+    la_kernel["ms_sharded_by_depth"] = sharded_ms["schedule_step"]
 
-    emit({"phase_seconds": PHASE_SECONDS,
+    emit({"phase_seconds": PHASE_SECONDS, "gc_seconds": GC_SECONDS[0],
           "total_seconds": time.perf_counter() - SCRIPT_START})
     emit({"kernels": [
         kernel_entry("full_chain_round", "full_chain.cu",
@@ -4421,6 +4801,7 @@ def main() -> int:
                      + colo_launches + grpc_launches
                      + sidecar_sched_launches + soak_launches["full_chain"]
                      + node_launches["full_chain"] + demo_launches
+                     + mesh_launches["full_chain"]
                      + sum(la["full_chain"]
                            for la in explain_launches.values()),
                      mism, err, kernel_ms,
@@ -4438,8 +4819,10 @@ def main() -> int:
                      launches_soak=soak_launches["full_chain"],
                      launches_node_agent=node_launches["full_chain"],
                      launches_demo=demo_launches,
+                     launches_scheduler_mesh=mesh_launches["full_chain"],
                      launches_explain={k: v["full_chain"] for k, v in
-                                       explain_launches.items()}),
+                                       explain_launches.items()},
+                     ms_sharded_by_depth=sharded_ms["full_chain"]),
         la_kernel, replay_entry,
         explain_entry(
             "explain_counts", "explain_counts.cu",

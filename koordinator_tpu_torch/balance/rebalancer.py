@@ -6,19 +6,20 @@ The rebalancer is the descheduler-side consumer of the scheduler's
 machinery (``upload_fields``) under ``rb_*`` names, so a steady-state
 cluster ships only row deltas and the two consumers share one device
 mirror. Standalone, the rebalancer owns a private mirror on its device.
+With a mesh (``mesh=``: the co-located scheduler's configured mesh, or
+KOORD_TPU_MESH standalone) the ``rb_*`` node fields shard over it like the
+scheduler's own node arrays and the pass runs per shard
+(parallel/rebalance_mesh.py), its outputs replicated.
 
 Resilience reuses the scheduler's ladder machine
-(scheduler/degrade.DegradationLadder). On one card the rungs that
-change behaviour here are ``full`` (the pass on the card) and
-``host-fallback`` (the host ``LowNodeLoad`` oracle, decision-identical
-by the parity gate); there is no mesh, so no ``no-mesh`` rung. As in the
-port's Scheduler, the ladder absorbs only device faults
-(``degrade.is_device_fault``): any other failure of a pass leaves
-``select_victims`` with the ladder untouched, because a broken pass
-must not be served by the host oracle.
-
-A mesh (``mesh=`` or ``KOORD_TPU_MESH``) comes with the parallel/ slice
-of the port and raises NotImplementedError here.
+(scheduler/degrade.DegradationLadder) with the rungs that change
+behaviour here: ``full`` (the pass on the card; sharded under a mesh) ->
+``no-mesh`` (the single-device pass, skipped when no mesh is configured)
+-> ``host-fallback`` (the host ``LowNodeLoad`` oracle, decision-identical
+by the parity gate). As in the port's Scheduler, the ladder absorbs only
+device faults (``degrade.is_device_fault``): any other failure of a pass
+leaves ``select_victims`` with the ladder untouched, because a broken
+pass must not be served by the host oracle.
 """
 
 from __future__ import annotations
@@ -41,11 +42,18 @@ from koordinator_tpu_torch.scheduler.deadline import (
 )
 from koordinator_tpu_torch.scheduler.degrade import (
     LEVEL_HOST_FALLBACK,
+    LEVEL_NO_MESH,
     DegradationLadder,
     is_device_fault,
 )
 
 logger = logging.getLogger(__name__)
+
+# names of the node-axis upload fields — shared with
+# snapshot_cache._mesh_node_fields so the mesh-backed DeviceSnapshot
+# shards them exactly like the scheduler's own node arrays
+RB_NODE_FIELDS = ("rb_usage_pct", "rb_has_metric", "rb_rhs_hi",
+                  "rb_rhs_lo")
 
 
 def rebalance_from_env():
@@ -84,7 +92,10 @@ class DeviceRebalancer:
     caller asks for the CPU). ``snapshot_getter`` returns the scheduler's
     live ``DeviceSnapshot`` (it is rebuilt when the scheduler abandons a
     window, so the reference must be read per pass); without one the
-    rebalancer owns a private mirror on ``device``."""
+    rebalancer owns a private mirror on ``device``. ``mesh`` is the
+    configured mesh (parallel/mesh.py; an int or string is parsed as
+    KOORD_TPU_MESH is) — the ladder's no-mesh rung drops to a private
+    single-device mirror."""
 
     def __init__(self, device="cuda",
                  snapshot_getter: Optional[Callable[[], object]] = None,
@@ -96,14 +107,13 @@ class DeviceRebalancer:
                  timeline=None,
                  mesh=None) -> None:
         from koordinator_tpu_torch.models.convert import check_device
-        from koordinator_tpu_torch.scheduler.cycle import (
-            _mesh_requested,
-            _refuse,
-        )
 
-        if _mesh_requested(mesh):
-            _refuse("the mesh-sharded rebalance pass", "parallel/")
         self.device = check_device(device)
+        if isinstance(mesh, (int, str)):
+            from koordinator_tpu_torch.scheduler.cycle import resolve_mesh
+
+            mesh = resolve_mesh(mesh, self.device)
+        self.mesh = mesh
         self.snapshot_getter = snapshot_getter
         self.ladder = ladder if ladder is not None else DegradationLadder(
             promote_after=promote_after)
@@ -130,10 +140,12 @@ class DeviceRebalancer:
                 enabled=watch_from_env())
         self.timeline = timeline
         self.last_decision_id: Optional[str] = None
-        self._steps: Dict[int, object] = {}  # per-node cap -> step
+        # per-node cap (under a mesh: with the mesh's tag) -> step
+        self._steps: Dict[object, object] = {}
         # whether the last _get_step built the step (a warm-up rung)
         self._last_step_compiled = False
         self._own_snapshot = None
+        self._own_mesh_snapshot = None
         self._seq = 0
         self._warned_host_only = False
         # the outputs of a pass abandoned by a deadline overrun, kept
@@ -169,36 +181,56 @@ class DeviceRebalancer:
         self.flight.dump("dispatch_deadline")
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _features() -> Dict[str, bool]:
-        return {"mesh": False, "waves": False, "explain": False}
+    def _features(self) -> Dict[str, bool]:
+        return {"mesh": self.mesh is not None,
+                "waves": False, "explain": False}
 
-    def _snapshot(self):
-        """The device mirror for this pass: the scheduler's shared mirror
-        when co-located, else a private one on this rebalancer's
-        device."""
+    def _active_mesh(self):
+        return self.mesh if self.ladder.level < LEVEL_NO_MESH else None
+
+    def _snapshot(self, mesh):
+        """The device mirror for this pass. The scheduler's shared mirror
+        is used only while its mesh placement matches ours — otherwise
+        (the scheduler demoted independently, or we did) a private mirror
+        on this rebalancer's device, so the upload placement always
+        matches the step."""
         if self.snapshot_getter is not None:
             shared = self.snapshot_getter()
-            if shared is not None:
+            if shared is not None and getattr(shared, "mesh", None) is mesh:
                 return shared
-        if self._own_snapshot is None:
+        attr = "_own_snapshot" if mesh is None else "_own_mesh_snapshot"
+        snap = getattr(self, attr)
+        if snap is None:
             from koordinator_tpu_torch.scheduler.snapshot_cache import (
                 DeviceSnapshot,
             )
 
-            self._own_snapshot = DeviceSnapshot(device=self.device)
-        return self._own_snapshot
+            snap = DeviceSnapshot(device=self.device, mesh=mesh)
+            setattr(self, attr, snap)
+        return snap
 
-    def _get_step(self, cap: int):
-        step = self._steps.get(cap)
+    def _get_step(self, cap: int, mesh):
+        # device IDS, not just the count: the scheduler's partial-mesh
+        # rung can hand this pass two same-size submeshes over different
+        # survivors, and a step built for the old mesh must never serve
+        # the new one
+        key = cap if mesh is None else (cap, mesh.tag)
+        step = self._steps.get(key)
         self._last_step_compiled = step is None
         if step is None:
-            from koordinator_tpu_torch.balance.step import (
-                build_rebalance_step,
-            )
+            if mesh is not None:
+                from koordinator_tpu_torch.parallel.rebalance_mesh import (
+                    build_sharded_rebalance_step,
+                )
 
-            step = self._steps[cap] = build_rebalance_step(
-                cap, device=self.device)
+                step = build_sharded_rebalance_step(cap, mesh)
+            else:
+                from koordinator_tpu_torch.balance.step import (
+                    build_rebalance_step,
+                )
+
+                step = build_rebalance_step(cap, device=self.device)
+            self._steps[key] = step
         return step
 
     # ------------------------------------------------------------------
@@ -282,7 +314,9 @@ class DeviceRebalancer:
         # koordwatch: one decision id per pass (device OR host — jobs
         # need the join either way); the timeline window records only
         # completed device passes
-        win = self.timeline.open("rebalance", "serial")
+        win = self.timeline.open(
+            "rebalance",
+            "mesh" if self._active_mesh() is not None else "serial")
         self.last_decision_id = win.decision_id
         reason = self._device_eligible(view)
         if reason is not None:
@@ -299,7 +333,8 @@ class DeviceRebalancer:
             if self.ladder.level >= LEVEL_HOST_FALLBACK:
                 return self._host_pass(plugin, view, now, t0)
             try:
-                picked, stats = self._device_pass(plugin, view, win)
+                picked, stats = self._device_pass(plugin, view,
+                                                  self._active_mesh(), win)
             except Exception as exc:
                 if not is_device_fault(exc):
                     raise
@@ -345,7 +380,7 @@ class DeviceRebalancer:
         self.ladder.note_cycle()
         return picked, stats
 
-    def _device_pass(self, plugin, view, win):
+    def _device_pass(self, plugin, view, mesh, win):
         if self.fault_injector is not None:
             self.fault_injector()
         with self.tracer.span("classify") as csp:
@@ -354,8 +389,9 @@ class DeviceRebalancer:
             fields = self._prep(view, low_thr, high_thr)
             csp.attributes["nodes"] = str(view["alloc"].shape[0])
             csp.attributes["pods"] = str(view["pod_node"].shape[0])
-        step = self._get_step(int(plugin.args.max_pods_to_evict_per_node))
-        snap = self._snapshot()
+        step = self._get_step(int(plugin.args.max_pods_to_evict_per_node),
+                              mesh)
+        snap = self._snapshot(mesh)
         n = view["alloc"].shape[0]
 
         def sync_readback():
@@ -379,10 +415,12 @@ class DeviceRebalancer:
                     out.margin[:n].cpu().numpy())
 
         snap.begin_dispatch()
-        win.mark_dispatch("serial")
+        win.mark_dispatch("mesh" if mesh is not None else "serial")
         abandoned = False
         try:
-            with self.tracer.span("score", decision_id=win.decision_id):
+            with self.tracer.span("score", mesh=str(
+                    mesh.size if mesh is not None else 0),
+                    decision_id=win.decision_id):
                 dev = snap.upload_fields(fields)
                 step_args = (dev["rb_usage_pct"], dev["rb_has_metric"],
                              dev["rb_low_thr"], dev["rb_high_thr"],
@@ -404,7 +442,9 @@ class DeviceRebalancer:
                         {"cap": int(
                             plugin.args.max_pods_to_evict_per_node),
                          "p_pad": int(dev["rb_pod_node"].shape[0]),
-                         "n_pad": int(dev["rb_usage_pct"].shape[0])},
+                         "n_pad": int(dev["rb_usage_pct"].shape[0]),
+                         "mesh_tag": list(mesh.tag)
+                         if mesh is not None else []},
                         step_args)
                 out = step(*step_args)
             with self.tracer.span("readback"):
@@ -424,6 +464,8 @@ class DeviceRebalancer:
                     self._abandoned_out = out
                     if snap is self._own_snapshot:
                         self._own_snapshot = None
+                    if snap is self._own_mesh_snapshot:
+                        self._own_mesh_snapshot = None
                     raise
         finally:
             if not abandoned:

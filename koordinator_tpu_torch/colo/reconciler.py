@@ -31,12 +31,15 @@ Departures from the JAX package's reconciler, as in the port's
   * the ladder absorbs only device faults (``degrade.is_device_fault``):
     any other failure of a pass leaves ``reconcile`` with the ladder
     untouched, because a broken pass must not be served by the host
-    oracle. On one card the rungs that change behaviour are ``full``
-    (the pass on the card) and ``host-fallback`` (the retained host
-    oracles: NodeResourceController + compute_runtime_quotas); there is
-    no ``no-mesh`` rung;
-  * a mesh (``mesh=`` or ``KOORD_TPU_MESH``) comes with the parallel/
-    slice of the port and raises NotImplementedError here.
+    oracle. The rungs that change behaviour are ``full`` (the pass on
+    the card; sharded under a mesh) -> ``no-mesh`` (the single-device
+    pass, skipped when no mesh is configured) -> ``host-fallback`` (the
+    retained host oracles: NodeResourceController +
+    compute_runtime_quotas).
+
+With a mesh (``mesh=``: the co-located scheduler's configured mesh, or
+KOORD_TPU_MESH standalone) the ``colo_*`` node fields shard over it and
+the pass runs per shard (parallel/colo_mesh.py), its outputs replicated.
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ from koordinator_tpu_torch.scheduler.deadline import (
 )
 from koordinator_tpu_torch.scheduler.degrade import (
     LEVEL_HOST_FALLBACK,
+    LEVEL_NO_MESH,
     DegradationLadder,
     is_device_fault,
 )
@@ -141,19 +145,17 @@ class DeviceColoReconciler:
                  timeline=None,
                  mesh=None) -> None:
         from koordinator_tpu_torch.models.convert import check_device
-        from koordinator_tpu_torch.scheduler.cycle import (
-            _mesh_requested,
-            _refuse,
-        )
-
-        if _mesh_requested(mesh):
-            _refuse("the mesh-sharded colo pass", "parallel/")
         self.store = store
         self.controller = controller
         self.quota_plugin = quota_plugin
         self.pack = pack
         self.engine = engine  # "on" = device (ladder under it) | "host"
         self.device = check_device(device)
+        if isinstance(mesh, (int, str)):
+            from koordinator_tpu_torch.scheduler.cycle import resolve_mesh
+
+            mesh = resolve_mesh(mesh, self.device)
+        self.mesh = mesh
         self.snapshot_getter = snapshot_getter
         self.ladder = ladder if ladder is not None else DegradationLadder(
             promote_after=promote_after)
@@ -181,10 +183,12 @@ class DeviceColoReconciler:
                 enabled=watch_from_env())
         self.timeline = timeline
         self.last_decision_id: Optional[str] = None
-        self._steps: Dict[Tuple[str, str], object] = {}  # policies -> step
+        # policies (under a mesh: with the mesh's tag) -> step
+        self._steps: Dict[Tuple, object] = {}
         # whether the last _get_step built the step (a warm-up rung)
         self._last_step_compiled = False
         self._own_snapshot = None
+        self._own_mesh_snapshot = None
         self._seq = 0
         self._warned_host_only = False
         # the outputs of a pass abandoned by a deadline overrun, kept
@@ -220,36 +224,54 @@ class DeviceColoReconciler:
         self.flight.dump("dispatch_deadline")
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _features() -> Dict[str, bool]:
-        return {"mesh": False, "waves": False, "explain": False}
+    def _features(self) -> Dict[str, bool]:
+        return {"mesh": self.mesh is not None,
+                "waves": False, "explain": False}
 
-    def _snapshot(self):
-        """The device mirror for this pass: the scheduler's shared mirror
-        when co-located, else a private one on this reconciler's
-        device."""
+    def _active_mesh(self):
+        return self.mesh if self.ladder.level < LEVEL_NO_MESH else None
+
+    def _snapshot(self, mesh):
+        """The device mirror for this pass — the scheduler's shared
+        mirror while its mesh placement matches ours, else a private one
+        (the contract of balance/rebalancer._snapshot)."""
         if self.snapshot_getter is not None:
             shared = self.snapshot_getter()
-            if shared is not None:
+            if shared is not None and getattr(shared, "mesh", None) is mesh:
                 return shared
-        if self._own_snapshot is None:
+        attr = "_own_snapshot" if mesh is None else "_own_mesh_snapshot"
+        snap = getattr(self, attr)
+        if snap is None:
             from koordinator_tpu_torch.scheduler.snapshot_cache import (
                 DeviceSnapshot,
             )
 
-            self._own_snapshot = DeviceSnapshot(device=self.device)
-        return self._own_snapshot
+            snap = DeviceSnapshot(device=self.device, mesh=mesh)
+            setattr(self, attr, snap)
+        return snap
 
-    def _get_step(self, policies: Tuple[str, str]):
+    def _get_step(self, policies: Tuple[str, str], mesh):
         # the policy strings key the cache — a config hot-reload that
-        # flips the calculate policy reuses the step built for it before
-        step = self._steps.get(policies)
+        # flips the calculate policy reuses the step built for it before;
+        # under a mesh its device IDS too (two same-size submeshes never
+        # share a step)
+        key = policies if mesh is None else (policies, mesh.tag)
+        step = self._steps.get(key)
         self._last_step_compiled = step is None
         if step is None:
-            from koordinator_tpu_torch.colo.step import build_colo_step
+            if mesh is not None:
+                from koordinator_tpu_torch.parallel.colo_mesh import (
+                    build_sharded_colo_step,
+                )
 
-            step = self._steps[policies] = build_colo_step(
-                policies[0], policies[1], device=self.device)
+                step = build_sharded_colo_step(policies[0], policies[1],
+                                               mesh)
+            else:
+                from koordinator_tpu_torch.colo.step import build_colo_step
+
+                step = build_colo_step(policies[0], policies[1],
+                                       device=self.device)
+            self._steps[key] = step
         return step
 
     # ------------------------------------------------------------------
@@ -384,7 +406,8 @@ class DeviceColoReconciler:
             return 0
         # koordwatch: one decision id per pass (device or host); only a
         # completed device pass records a timeline window
-        win = self.timeline.open("colo", "serial")
+        win = self.timeline.open(
+            "colo", "mesh" if self._active_mesh() is not None else "serial")
         self.last_decision_id = win.decision_id
         if self.engine != "on":
             return self._host_pass(view, now, t0, engine="host-pinned")
@@ -403,7 +426,8 @@ class DeviceColoReconciler:
             if self.ladder.level >= LEVEL_HOST_FALLBACK:
                 return self._host_pass(view, now, t0)
             try:
-                changes = self._device_pass(view, qv, now, t0, win)
+                changes = self._device_pass(view, qv, now, t0,
+                                            self._active_mesh(), win)
             except Exception as exc:
                 if not is_device_fault(exc):
                     raise
@@ -454,7 +478,8 @@ class DeviceColoReconciler:
         self.ladder.note_cycle()
         return changes
 
-    def _device_pass(self, view, qv, now: float, t0: float, win) -> int:
+    def _device_pass(self, view, qv, now: float, t0: float, mesh,
+                     win) -> int:
         if self.fault_injector is not None:
             self.fault_injector()
         with self.tracer.span("encode") as esp:
@@ -464,8 +489,9 @@ class DeviceColoReconciler:
                 0 if qv is None else len(qv["names"]))
         from koordinator_tpu_torch.colo.step import STEP_FIELDS
 
-        step = self._get_step((view["cpu_policy"], view["memory_policy"]))
-        snap = self._snapshot()
+        step = self._get_step((view["cpu_policy"], view["memory_policy"]),
+                              mesh)
+        snap = self._snapshot(mesh)
         n = len(view["nodes"])
         g = 0 if qv is None else len(qv["names"])
 
@@ -490,11 +516,12 @@ class DeviceColoReconciler:
                     out.predicted_total.cpu().numpy())
 
         snap.begin_dispatch()
-        win.mark_dispatch("serial")
+        win.mark_dispatch("mesh" if mesh is not None else "serial")
         abandoned = False
         try:
-            with self.tracer.span("kernel", mesh="0",
-                                  decision_id=win.decision_id):
+            with self.tracer.span("kernel", mesh=str(
+                    mesh.size if mesh is not None else 0),
+                    decision_id=win.decision_id):
                 dev = snap.upload_fields(fields)
                 step_args = tuple(dev[f"colo_{name}"]
                                   for name in STEP_FIELDS)
@@ -513,7 +540,9 @@ class DeviceColoReconciler:
                                       view["memory_policy"]],
                          "n_pad": int(dev["colo_capacity"].shape[0]),
                          "g_pad": int(dev["colo_q_parent"].shape[0]),
-                         "plan": [int(v) for v in plan]},
+                         "plan": [int(v) for v in plan],
+                         "mesh_tag": list(mesh.tag)
+                         if mesh is not None else []},
                         step_args)
                 out = step(*step_args, plan=plan)
             with self.tracer.span("readback"):
@@ -534,6 +563,8 @@ class DeviceColoReconciler:
                     self._abandoned_out = out
                     if snap is self._own_snapshot:
                         self._own_snapshot = None
+                    if snap is self._own_mesh_snapshot:
+                        self._own_mesh_snapshot = None
                     raise
         finally:
             if not abandoned:

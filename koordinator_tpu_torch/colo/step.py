@@ -307,12 +307,7 @@ def build_colo_step(cpu_policy: str, memory_policy: str,
     """
     import torch
 
-    from koordinator_tpu_torch.slocontroller.noderesource import (
-        _batch_mid_kernel,
-    )
-
     dev = torch.device(device)
-    axes = [BATCH_CPU_AXIS, BATCH_MEM_AXIS, MID_CPU_AXIS, MID_MEM_AXIS]
 
     def step(*args, plan: Sequence[int]):
         if len(args) != len(STEP_FIELDS):
@@ -324,42 +319,73 @@ def build_colo_step(cpu_policy: str, memory_policy: str,
         if stray:
             raise ValueError(f"colo step built for {dev}: "
                              + ", ".join(stray))
-        (capacity, node_reserved, system_reserved, node_used, pod_all_used,
-         hp_used, hp_request, hp_max, prod_reclaimable, reclaim_pct,
-         mid_pct, degraded, q_parent, q_level, q_min, q_max, q_weight,
-         q_guarantee, q_request, q_used, q_allow_lent, q_enable_scale,
-         q_valid, q_total_base) = args
-        # ---- batch/mid: the host oracle's own function on these tensors
-        batch, mid = _batch_mid_kernel(
-            capacity, node_reserved, system_reserved, node_used,
-            pod_all_used, hp_used, hp_request, hp_max, prod_reclaimable,
-            reclaim_pct, mid_pct, degraded,
-            cpu_policy=cpu_policy, memory_policy=memory_policy)
-
-        # ---- predicted post-writeback cluster total: the writeback
-        # publishes int(column) per node (truncation = floor for these
-        # nonnegative values), so the new overcommit-axis totals are the
-        # floored column sums — exact f32 under the eligibility envelope
-        cols = torch.stack((batch[:, CPU], batch[:, MEM], mid[:, CPU],
-                            mid[:, MEM]), dim=1)
-        predicted_total = q_total_base.clone()
-        predicted_total[axes] = torch.floor(cols).sum(dim=0)
-
-        # ---- quota runtime fold + the revoke-candidate mask
-        runtime = device_runtime_quotas(
-            q_parent, q_level, q_min, q_max, q_weight, q_guarantee,
-            q_request, q_enable_scale, q_allow_lent, q_valid,
-            predicted_total, plan, scale_min_enabled=scale_min_enabled)
-        revoke_over = torch.where(q_valid[:, None],
-                                  torch.clamp_min(q_used - runtime, 0.0),
-                                  0.0)
-        revoke_mask = torch.any(revoke_over > 0, dim=-1) & q_valid
-
-        return ColoOut(
-            batch_cpu=batch[:, CPU], batch_mem=batch[:, MEM],
-            mid_cpu=mid[:, CPU], mid_mem=mid[:, MEM],
-            n_degraded=degraded.sum(dtype=torch.int32),
-            runtime=runtime, revoke_over=revoke_over,
-            revoke_mask=revoke_mask, predicted_total=predicted_total)
+        n_node = len(COLO_NODE_ARGS)
+        cols, n_degraded = node_columns(cpu_policy, memory_policy,
+                                        *args[:n_node])
+        return quota_fold(cols, n_degraded, *args[n_node:], plan=plan,
+                          scale_min_enabled=scale_min_enabled)
 
     return step
+
+
+# the step's node-axis inputs (the first of STEP_FIELDS)
+COLO_NODE_ARGS = STEP_FIELDS[:12]
+
+
+def node_columns(cpu_policy: str, memory_policy: str, capacity,
+                 node_reserved, system_reserved, node_used, pod_all_used,
+                 hp_used, hp_request, hp_max, prod_reclaimable, reclaim_pct,
+                 mid_pct, degraded):
+    """The pass's node-axis part, row by row: the batch/mid columns
+    [N, 4] (batch cpu, batch memory, mid cpu, mid memory; the host
+    oracle's own function on these tensors, staleness-degraded rows zero)
+    and the count of degraded rows. A mesh runs it per shard
+    (parallel/colo_mesh.py)."""
+    import torch
+
+    from koordinator_tpu_torch.slocontroller.noderesource import (
+        _batch_mid_kernel,
+    )
+
+    batch, mid = _batch_mid_kernel(
+        capacity, node_reserved, system_reserved, node_used,
+        pod_all_used, hp_used, hp_request, hp_max, prod_reclaimable,
+        reclaim_pct, mid_pct, degraded,
+        cpu_policy=cpu_policy, memory_policy=memory_policy)
+    cols = torch.stack((batch[:, CPU], batch[:, MEM], mid[:, CPU],
+                        mid[:, MEM]), dim=1)
+    return cols, degraded.sum(dtype=torch.int32)
+
+
+def quota_fold(cols, n_degraded, q_parent, q_level, q_min, q_max, q_weight,
+               q_guarantee, q_request, q_used, q_allow_lent, q_enable_scale,
+               q_valid, q_total_base, plan: Sequence[int],
+               scale_min_enabled: bool = True):
+    """The pass's cross-node part over the whole columns ``cols`` [N, 4]:
+    the predicted total, the quota runtime fold and the revoke mask."""
+    import torch
+
+    axes = [BATCH_CPU_AXIS, BATCH_MEM_AXIS, MID_CPU_AXIS, MID_MEM_AXIS]
+    # ---- predicted post-writeback cluster total: the writeback
+    # publishes int(column) per node (truncation = floor for these
+    # nonnegative values), so the new overcommit-axis totals are the
+    # floored column sums — exact f32 under the eligibility envelope
+    predicted_total = q_total_base.clone()
+    predicted_total[axes] = torch.floor(cols).sum(dim=0)
+
+    # ---- quota runtime fold + the revoke-candidate mask
+    runtime = device_runtime_quotas(
+        q_parent, q_level, q_min, q_max, q_weight, q_guarantee,
+        q_request, q_enable_scale, q_allow_lent, q_valid,
+        predicted_total, plan, scale_min_enabled=scale_min_enabled)
+    revoke_over = torch.where(q_valid[:, None],
+                              torch.clamp_min(q_used - runtime, 0.0),
+                              0.0)
+    revoke_mask = torch.any(revoke_over > 0, dim=-1) & q_valid
+
+    return ColoOut(
+        batch_cpu=cols[:, 0], batch_mem=cols[:, 1],
+        mid_cpu=cols[:, 2], mid_mem=cols[:, 3],
+        n_degraded=n_degraded,
+        runtime=runtime, revoke_over=revoke_over,
+        revoke_mask=revoke_mask, predicted_total=predicted_total)

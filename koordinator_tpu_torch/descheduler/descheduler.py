@@ -110,6 +110,8 @@ class Descheduler:
                         deadline_ms = dl * 1000.0 if dl else 0
                         self.rebalancer = DeviceRebalancer(
                             device=self.scheduler.device,
+                            mesh=getattr(self.scheduler,
+                                         "_configured_mesh", None),
                             snapshot_getter=getter,
                             dispatch_deadline_ms=deadline_ms,
                             # koordwatch: the co-located pass records
@@ -118,8 +120,14 @@ class Descheduler:
                             timeline=getattr(self.scheduler,
                                              "timeline", None))
                     else:
+                        from koordinator_tpu_torch.scheduler.cycle import (
+                            resolve_mesh,
+                        )
+
                         self.rebalancer = DeviceRebalancer(
-                            device=self.device, snapshot_getter=None)
+                            device=self.device,
+                            mesh=resolve_mesh(None, self.device),
+                            snapshot_getter=None)
                 inner.attach_device(self.rebalancer)
 
     def run_once(self, now: Optional[float] = None) -> dict:

@@ -24,8 +24,8 @@ standalone managers own their pack, quota plugin and mirror. ``host``
 pins the host oracles (the A/B twin), ``off`` detaches the colo
 subsystem entirely. Every controller reconcile is instrumented in the
 manager's Registry (manager_metrics) and the manager carries a Tracer +
-flight ring. A mesh (``KOORD_TPU_MESH``) comes with the parallel/ slice
-of the port and raises NotImplementedError.
+flight ring. A co-located reconciler runs on the scheduler's configured
+mesh; a standalone one reads ``KOORD_TPU_MESH`` (parallel/mesh.py).
 """
 
 from __future__ import annotations
@@ -124,16 +124,20 @@ class Manager:
             quota_plugin.register(self.store)
         if scheduler is not None:
             device = scheduler.device
+            mesh = getattr(scheduler, "_configured_mesh", None)
             getter = lambda: scheduler.device_snapshot  # noqa: E731
             dl = getattr(scheduler, "dispatch_deadline_seconds", None)
             deadline_ms = dl * 1000.0 if dl else 0
         else:
+            from koordinator_tpu_torch.scheduler.cycle import resolve_mesh
+
             device = self.device
+            mesh = resolve_mesh(None, device)
             getter = None
             deadline_ms = None
         return DeviceColoReconciler(
             self.store, controller, quota_plugin, pack,
-            device=device, snapshot_getter=getter,
+            device=device, mesh=mesh, snapshot_getter=getter,
             dispatch_deadline_ms=deadline_ms,
             tracer=self.tracer,
             engine=("on" if self.colo_mode == "on" else "host"),

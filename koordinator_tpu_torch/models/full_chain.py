@@ -199,7 +199,7 @@ def pod_independent_rows(fc: FullChainInputs):
 
 def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
                        bal_idx=(-1, -1), explain_terms: bool = False,
-                       wave_rows: bool = False):
+                       wave_rows: bool = False, shard_rows: bool = False):
     """The per-pod PreFilter + Filter + Score + select math of the plain
     round. Returns evaluate(i, *state) -> (found, best, zone_at_best), all
     0-d tensors: nothing is read back to the host, so on the card the loop
@@ -217,7 +217,19 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
     numa_score and pref terms, the best score and the runner-up
     max(max over n != best of the masked score, -1). With no feasible node
     the argmax still names the first index at the maximum (node 0) and the
-    row holds that node's terms, as the JAX package's does."""
+    row holds that node's terms, as the JAX package's does.
+
+    The round's only reductions over nodes are the spread minima and the
+    preferred pod-affinity max/min: ``evaluate.node_stats(i, aff_count)``
+    returns them ([T + 2]: per term the minimum count over the domains the
+    pod may use, then the max and min of the weighted counts over node_ok
+    nodes) and ``evaluate(..., stats=)`` takes them from outside. A sharded
+    round (parallel/full_chain_mesh.py) reduces each shard's node_stats
+    over the mesh, exact for a min and a max, and with ``shard_rows``
+    evaluate returns the shard's rows, (admit, masked score[N], zone[N],
+    la_score[N], numa_score[N], pref[N]), for the cross-shard select. The
+    pod-level verdict reads only replicated state: ``evaluate.pod_admit(i,
+    quota_used)`` computes it once for every shard (``admit=``)."""
     inputs = fc.base
     reject_np, reject_prod, gang_pod_ok = pod_independent_rows(fc)
     T = fc.aff_dom.shape[1]
@@ -230,19 +242,48 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
         bal_inv_c, bal_inv_m = (
             safe_reciprocal(inputs.allocatable[:, axis]) for axis in bal_idx)
 
+    ppref_on = bool(T and fc.ppref_w.shape[0])
+
+    def taint_row(i):
+        # TaintToleration: the pod's admission bitmask holds the node's group
+        return ((fc.pod_taint_mask[i].to(torch.int32)
+                 >> fc.node_taint_group) & 1) == 1
+
+    def ppref_raw(i, aff_count):
+        sid2 = fc.pod_ppref_id[i]
+        w_row = fc.ppref_w[torch.clamp_min(sid2, 0).long(), :T]
+        return (aff_count * w_row[None, :]).sum(dim=1)
+
+    def node_stats(i, aff_count, taint_ok=None):
+        if taint_ok is None:
+            taint_ok = taint_row(i)
+        out = [torch.where(dom_valid[:, t] & taint_ok, aff_count[:, t],
+                           float("inf")).min() for t in range(T)]
+        if ppref_on:
+            raw = ppref_raw(i, aff_count)
+            out += [torch.where(inputs.node_ok, raw, float("-inf")).max(),
+                    torch.where(inputs.node_ok, raw, float("inf")).min()]
+        else:
+            inf = torch.tensor(float("inf"), device=aff_count.device)
+            out += [-inf, inf]
+        return torch.stack(out)
+
+    def pod_admit(i, quota_used):
+        # ---- PreFilter: gang validity + quota admission (order-dependent)
+        quota_ok = quota_admit_row(
+            fc.requests[i], fc.quota_id[i], fc.quota_ancestors, quota_used,
+            fc.quota_runtime)
+        return gang_pod_ok[i] & quota_ok
+
     def evaluate(i, requested, delta_np, delta_pr, numa_free, bind_free,
                  quota_used, aff_count, anti_cover, aff_exists, port_used,
-                 vol_free):
+                 vol_free, stats=None, admit=None):
         req_fit = inputs.fit_requests[i]
         req = fc.requests[i]
         est = inputs.estimated[i]
         is_prod_i = inputs.is_prod[i]
-
-        # ---- PreFilter: gang validity + quota admission (order-dependent)
-        quota_ok = quota_admit_row(
-            req, fc.quota_id[i], fc.quota_ancestors, quota_used,
-            fc.quota_runtime)
-        admit = gang_pod_ok[i] & quota_ok
+        if admit is None:
+            admit = pod_admit(i, quota_used)
 
         # ---- Filter chain
         fit = fit_ok_row(req_fit, inputs.allocatable, requested)
@@ -253,9 +294,9 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
             fc.has_topology, bind_free, fc.cpus_per_core)
         numa_ok, zone = numa_admit_row(
             req, fc.needs_numa[i], numa_free, fc.numa_policy)
-        # TaintToleration: the pod's admission bitmask holds the node's group
-        taint_ok = ((fc.pod_taint_mask[i].to(torch.int32)
-                     >> fc.node_taint_group) & 1) == 1
+        taint_ok = taint_row(i)
+        if stats is None:
+            stats = node_stats(i, aff_count, taint_ok)
         # InterPodAffinity: required anti terms see an empty domain; required
         # affinity terms a match in a valid domain, or bootstrap (self-match
         # with no matching pod anywhere); symmetric anti-affinity; spread
@@ -273,8 +314,7 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
             # domains the pod is eligible for must stay within maxSkew
             skew = fc.pod_spread_skew[i, t]
             self_match = torch.where(match_t, 1.0, 0.0)
-            min_count = torch.where(
-                dom_valid_t & taint_ok, count_t, float("inf")).min()
+            min_count = stats[t]
             spread_ok = (skew <= 0) | (
                 dom_valid_t & (count_t + self_match - min_count <= skew))
             affinity_ok = affinity_ok & anti_ok & sym_ok & aff_ok & spread_ok
@@ -319,11 +359,9 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
         # preferred POD affinity: weighted matching-pod counts, max-min
         # normalized over node_ok nodes (upstream NormalizeScore)
         sid2 = fc.pod_ppref_id[i]
-        if T and fc.ppref_w.shape[0]:
-            w_row = fc.ppref_w[torch.clamp_min(sid2, 0).long(), :T]
-            raw = (aff_count * w_row[None, :]).sum(dim=1)
-            mx = torch.where(inputs.node_ok, raw, float("-inf")).max()
-            mn = torch.where(inputs.node_ok, raw, float("inf")).min()
+        if ppref_on:
+            raw = ppref_raw(i, aff_count)
+            mx, mn = stats[T], stats[T + 1]
             norm = torch.where(
                 mx > mn, torch.floor((raw - mn) * 100.0 / (mx - mn)), 0.0)
             pref = pref + torch.where(sid2 >= 0, norm, 0.0)
@@ -336,6 +374,8 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
         score = la_score + numa_score + pref
         score = torch.where(feasible, score, -1.0)
 
+        if shard_rows:
+            return admit, score, zone, la_score, numa_score, pref
         # ---- select: argmax returns the first maximal index (lowest-index
         # tie-break, the binding contract)
         best = torch.argmax(score)
@@ -351,6 +391,8 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
                     score[best])
         return found, best, zone[best]
 
+    evaluate.node_stats = node_stats
+    evaluate.pod_admit = pod_admit
     return evaluate
 
 
@@ -362,7 +404,9 @@ def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
     bind_free, quota_used, aff_count, anti_cover, aff_exists, port_used,
     vol_free); every tensor in it is the round's own copy, so updating in
     place saves a copy of each per pod. Returns the state (quota_used is
-    replaced, not updated)."""
+    replaced, not updated). On a mesh (parallel/full_chain_mesh.py) the
+    shard owning ``best`` commits here and every other shard applies
+    ``_commit_affinity`` over its own nodes."""
     inputs = fc.base
     (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,
      aff_count, anti_cover, aff_exists, port_used, vol_free) = state
@@ -390,20 +434,27 @@ def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
         fc.node_vol_group[best].long()]
     quota_used = quota_used_add_row(
         quota_used, req, fc.quota_id[i], fc.quota_ancestors, found)
-    # inter-pod affinity: the placed pod raises the count of every term it
-    # matches across the chosen node's whole domain, latches the term's
-    # exists flag (even on an unlabeled node), and raises anti_cover for the
-    # terms it carries as required anti-affinity
-    for t in range(T):
-        chosen_dom = fc.aff_dom[best, t]
-        in_dom = (chosen_dom >= 0) & (fc.aff_dom[:, t] == chosen_dom)
+    _commit_affinity(fc, i, found, fc.aff_dom[best] if T else None,
+                     aff_count, anti_cover, aff_exists)
+    return (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,
+            aff_count, anti_cover, aff_exists, port_used, vol_free)
+
+
+def _commit_affinity(fc: FullChainInputs, i, found, chosen_dom, aff_count,
+                     anti_cover, aff_exists) -> None:
+    """Inter-pod affinity: the placed pod raises the count of every term it
+    matches across the chosen node's whole domain (``chosen_dom`` [T], its
+    aff_dom row), latches the term's exists flag (even on an unlabeled
+    node), and raises anti_cover for the terms it carries as required
+    anti-affinity."""
+    for t in range(fc.aff_dom.shape[1]):
+        dom_t = chosen_dom[t]
+        in_dom = (dom_t >= 0) & (fc.aff_dom[:, t] == dom_t)
         match_t = found & fc.pod_aff_match[i, t]
         aff_count[:, t] += (match_t & in_dom).to(torch.float32)
         anti_cover[:, t] += (found & fc.pod_anti_req[i, t] & in_dom).to(
             torch.float32)
         aff_exists[t] = aff_exists[t] | match_t
-    return (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,
-            aff_count, anti_cover, aff_exists, port_used, vol_free)
 
 
 def plain_round(fc: FullChainInputs, weight_idx, prod_mode: bool, bal_idx,
@@ -456,8 +507,30 @@ def _count_chunk(n_nodes: int, width: int) -> int:
     return max(1, (1 << 22) // max(1, n_nodes * max(1, width)))
 
 
+def explain_spread_minima(fc: FullChainInputs, aff_count) -> torch.Tensor:
+    """[P, T] f32: per pod and term, the minimum matching count over this
+    ``fc``'s nodes in the domains the pod may use (valid domain, taint
+    admitted) — the spread minima explain_stage_counts reads. A mesh takes
+    the minimum of its shards' rows (exact)."""
+    P = fc.base.fit_requests.shape[0]
+    N, T = fc.aff_dom.shape
+    dom_valid = fc.aff_dom >= 0
+    out = torch.full((P, T), float("inf"), dtype=torch.float32,
+                     device=aff_count.device)
+    step = _count_chunk(N, 1)
+    for c0 in range(0, P, step):
+        sl = slice(c0, min(c0 + step, P))
+        taint_ok = ((fc.pod_taint_mask[sl].to(torch.int32)[:, None]
+                     >> fc.node_taint_group[None]) & 1) == 1
+        for t in range(T):
+            out[sl, t] = torch.where(
+                dom_valid[:, t][None] & taint_ok, aff_count[:, t][None],
+                float("inf")).min(dim=1)[0]
+    return out
+
+
 def explain_stage_counts(fc: FullChainInputs, filter_state,
-                         n_real) -> torch.Tensor:
+                         n_real, spread_min=None) -> torch.Tensor:
     """[P, NUM_EXPLAIN_STAGES] uint32: per-pod rejected-node counts at the
     frozen ``filter_state`` — the (requested, numa_free, bind_free,
     quota_used, aff_count, anti_cover, aff_exists, port_used, vol_free)
@@ -468,7 +541,9 @@ def explain_stage_counts(fc: FullChainInputs, filter_state,
     round's Filter predicates of make_pod_evaluator, vectorised over the
     nodes and chunked over the pods, counted per stage in EXPLAIN_STAGES
     order. The spread filter's minimum runs over every node, padded ones
-    included, as the round's does; only the counts stop at ``n_real``."""
+    included, as the round's does; only the counts stop at ``n_real``.
+    ``spread_min`` ([P, T], explain_spread_minima over every node) replaces
+    that minimum: a shard counts its own rows against the mesh's minima."""
     (requested, numa_free, bind_free, quota_used, aff_count, anti_cover,
      aff_exists, port_used, vol_free) = filter_state
     inputs = fc.base
@@ -529,8 +604,12 @@ def explain_stage_counts(fc: FullChainInputs, filter_state,
                       | (dom_t & (count_t > 0)) | bootstrap)
             skew = fc.pod_spread_skew[sl, t][:, None]
             self_match = torch.where(match_t, 1.0, 0.0)
-            min_count = torch.where(dom_t & taint_ok, count_t,
-                                    float("inf")).min(dim=1, keepdim=True)[0]
+            if spread_min is None:
+                min_count = torch.where(
+                    dom_t & taint_ok, count_t,
+                    float("inf")).min(dim=1, keepdim=True)[0]
+            else:
+                min_count = spread_min[sl, t][:, None]
             spread_ok = (skew <= 0) | (
                 dom_t & (count_t + self_match - min_count <= skew))
             affinity_ok = affinity_ok & anti_ok & sym_ok & aff_ok & spread_ok

@@ -1,0 +1,538 @@
+"""Sharded FULL plugin-chain step: the full-chain round over a mesh.
+
+The port's counterpart of the JAX package's parallel/full_chain_mesh.py,
+composing the same pieces the single-device steps compose
+(models/full_chain.py, models/fused_waves.py) on node-sharded state:
+
+  * node-axis state sharded over ALL mesh devices (``_FC_NODE_FIELDS`` and
+    the ScheduleInputs node fields): allocatable/requested/usage [N, R],
+    NUMA free/capacity [N, K, R], cpuset bind state [N], the affinity,
+    port, volume and preferred-score rows;
+  * pod arrays, the quota tree and the gangs replicated; the quota
+    admission and used-rollup run identically on every shard, so the
+    carried quota state never needs a collective;
+  * gang Permit over the replicated ``chosen`` vector, after the round.
+
+Per pod, each shard evaluates its own rows (make_pod_evaluator over the
+shard's view, ``shard_rows``); the round's only node reductions, the
+spread minima and the preferred pod-affinity max/min, are each shard's
+``node_stats`` reduced over the mesh (a min and a max: exact); the winners
+merge by (score, lowest global index) (parallel/mesh.WinnerMerge) and the
+shard owning the winner commits its row, while every shard applies the
+quota and the affinity domain over its own nodes. Bindings therefore equal
+the single-device round bit for bit at any mesh size. Across processes the
+reductions and the winner merge are gloo all-reduces. That is the plain
+sharded round, run for shards on the CPU.
+
+Shards on the card all sit on one card (parallel/mesh.py refuses a mesh
+across cards), so there the sharded steps gather the node fields
+(parallel/mesh.gather, a torch.cat of the shards), run the single-device
+step on them (kernel 1, its terms and replay instances, the stage-count
+pass) and split the node outputs back into their shards, as the JAX
+package's sharded steps are its single-device steps jitted with
+out_shardings. The wave steps do so on every device: there is one wave
+body, models/fused_waves.py's.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from koordinator_tpu_torch.models.full_chain import (
+    EXPLAIN_STAGE_GANG,
+    EXPLAIN_TERMS,
+    ExplainOut,
+    FullChainInputs,
+    _check_explain,
+    _commit_affinity,
+    commit_pod_state,
+    explain_spread_minima,
+    explain_stage_counts,
+    make_pod_evaluator,
+    permit,
+    resolve_balance_idx,
+)
+from koordinator_tpu_torch.models.scheduler_model import resolve_weight_idx
+from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
+from koordinator_tpu_torch.ops.quota import quota_used_add_row
+from koordinator_tpu_torch.parallel.mesh import (
+    Mesh,
+    NamedSharding,
+    P,
+    ShardedTensor,
+    WinnerMerge,
+    _node_axis_spec,
+    from_shards,
+    gather,
+    gather_tree,
+    put_on_mesh,
+    replicate,
+    shard_inputs_nodewise,
+    shard_views,
+    split_nodes,
+)
+
+# FullChainInputs fields indexed [N, ...] (sharded); everything else (pods,
+# quota tree, gangs) is replicated.
+_FC_NODE_FIELDS = frozenset(
+    {
+        "numa_free",
+        "numa_capacity",
+        "numa_policy",
+        "has_topology",
+        "bind_free",
+        "cpus_per_core",
+        "node_taint_group",
+        "aff_dom",
+        "aff_count",
+        "anti_cover",
+        "pref_scores",
+        "port_used",
+        "vol_free",
+        "node_vol_group",
+        "img_scores",
+    }
+)
+
+_INF = float("inf")
+
+
+def shard_full_chain_inputs(fc: FullChainInputs, mesh: Mesh) -> FullChainInputs:
+    """Place FullChainInputs on the mesh: node state sharded over all
+    devices, pod/quota/gang state replicated."""
+    node_spec = _node_axis_spec(mesh, flat=True)
+    base = shard_inputs_nodewise(fc.base, mesh)
+
+    def put(name, arr):
+        spec = node_spec if name in _FC_NODE_FIELDS else P()
+        return put_on_mesh(arr, NamedSharding(mesh, spec))
+
+    rest = {k: put(k, v) for k, v in fc._asdict().items() if k != "base"}
+    return FullChainInputs(base=base, **rest)
+
+
+# ---------------------------------------------------------------------------
+# the plain sharded pieces (shards on the CPU)
+# ---------------------------------------------------------------------------
+
+def _from_owner(mesh: Mesh, vals: Optional[torch.Tensor], size: int):
+    """The owning shard's f32 [size] values on every process: a min
+    all-reduce where the other processes give +inf."""
+    if not mesh.spans_processes:
+        return vals
+    t = (vals.to(torch.float32).reshape(size).clone() if vals is not None
+         else torch.full((size,), _INF, dtype=torch.float32))
+    return mesh.all_reduce(t, "min")
+
+
+def _round_init(fc: FullChainInputs):
+    """A shard's own copy of the round state, as plain_round starts it."""
+    inputs = fc.base
+    N, R = inputs.allocatable.shape[0], inputs.fit_requests.shape[1]
+    dev = inputs.allocatable.device
+    return (inputs.requested.clone(),
+            torch.zeros((N, R), dtype=torch.float32, device=dev),
+            torch.zeros((N, R), dtype=torch.float32, device=dev),
+            fc.numa_free.clone(), fc.bind_free.clone(),
+            fc.quota_used.clone(), fc.aff_count.clone(),
+            fc.anti_cover.clone(), fc.aff_exists.to(torch.bool).clone(),
+            fc.port_used.clone(), fc.vol_free.clone())
+
+
+def _commit(fcs, states, mesh: Mesh, per: int, prod_mode: bool, i, found,
+            g: int, zone, dom):
+    """Pod ``i``'s commit onto global node ``g`` on every local shard: the
+    owner its rows, the others the quota and the affinity domain ``dom``
+    (the chosen node's aff_dom row)."""
+    owner, b = divmod(g, per)
+    quota = None
+    for k, f in fcs.items():
+        if k == owner:
+            bt = torch.tensor(b, device=f.aff_dom.device)
+            states[k] = commit_pod_state(f, prod_mode, states[k], i, found,
+                                         bt, zone)
+            quota = states[k][5]
+        else:
+            _commit_affinity(f, i, found, dom, states[k][6], states[k][7],
+                             states[k][8])
+    # the quota state is replicated: one update, shared by every shard
+    if quota is None:
+        f = next(iter(fcs.values()))
+        quota = quota_used_add_row(next(iter(states.values()))[5],
+                                   f.requests[i], f.quota_id[i],
+                                   f.quota_ancestors, found)
+    for k, st in states.items():
+        if st[5] is not quota:
+            states[k] = st[:5] + (quota,) + st[6:]
+
+
+def sharded_plain_round(fcs: Dict[int, FullChainInputs], mesh: Mesh,
+                        per: int, weight_idx, prod_mode: bool, bal_idx,
+                        states=None, terms: bool = False):
+    """The serial round over the local shards ``fcs`` (k -> the shard's
+    view), each shard's state in ``states`` (k -> commit_pod_state's
+    11-tuple, updated in place; default: the views' own state). Returns
+    (chosen[P] int32 before Permit, states, terms rows [P, 5] or None)."""
+    if states is None:
+        states = {k: _round_init(f) for k, f in fcs.items()}
+    evs = {k: make_pod_evaluator(f, weight_idx, prod_mode, bal_idx,
+                                 shard_rows=True) for k, f in fcs.items()}
+    f0 = next(iter(fcs.values()))
+    P_ = f0.base.fit_requests.shape[0]
+    T = f0.aff_dom.shape[1]
+    dev = f0.base.allocatable.device
+    merge = WinnerMerge(mesh, per)
+    chosen = torch.full((P_,), -1, dtype=torch.int32, device=dev)
+    rows = (torch.zeros((P_, len(EXPLAIN_TERMS)), dtype=torch.float32,
+                        device=dev) if terms else None)
+    for i in torch.nonzero(f0.base.pod_valid).flatten().tolist():
+        st = torch.stack([evs[k].node_stats(i, states[k][6]) for k in evs])
+        # spread minima and the ppref min: min; the ppref max: max
+        red = torch.cat([st[:, :T].min(dim=0)[0], st[:, T:T + 1].max(dim=0)[0],
+                         st[:, T + 1:].min(dim=0)[0]])
+        if mesh.spans_processes:
+            red[T] = -red[T]
+            mesh.all_reduce(red, "min")
+            red[T] = -red[T]
+        k0 = next(iter(evs))
+        admit = evs[k0].pod_admit(i, states[k0][5])
+        outs = {k: evs[k](i, *states[k], stats=red, admit=admit)
+                for k in evs}
+        bests = []
+        for k, out in outs.items():
+            b = torch.argmax(out[1])
+            bests.append((k, out[1][b], b))
+        best_v, g = merge.merge(bests)
+        found = (best_v >= 0.0) & f0.base.pod_valid[i]
+        owner, b = divmod(g, per)
+        mine = outs.get(owner)
+        picked = (torch.cat([fcs[owner].aff_dom[b],
+                             mine[2][b].to(torch.float32).reshape(1),
+                             torch.stack([mine[3][b], mine[4][b],
+                                          mine[5][b]])])
+                  if mine is not None else None)
+        picked = _from_owner(mesh, picked, T + 4)
+        dom, zone = picked[:T], picked[T].to(torch.int32)
+        if terms:
+            runs = []
+            for k, out in outs.items():
+                sc = out[1]
+                if k == owner:
+                    sc = torch.where(
+                        torch.arange(sc.shape[0], device=sc.device) == b,
+                        -_INF, sc)
+                runs.append(sc.max())
+            runner = torch.stack(runs).max().reshape(1)
+            runner = mesh.all_reduce(runner, "max")[0]
+            rows[i] = torch.stack([picked[T + 1], picked[T + 2],
+                                   picked[T + 3], best_v,
+                                   torch.clamp_min(runner, -1.0)])
+        _commit(fcs, states, mesh, per, prod_mode, i, found, g, zone, dom)
+        chosen[i] = torch.where(
+            found, torch.tensor(g, dtype=torch.int32, device=dev), -1)
+    return chosen, states, rows
+
+
+def sharded_stage_counts(fcs: Dict[int, FullChainInputs], filter_states,
+                         mesh: Mesh, per: int, n_real) -> torch.Tensor:
+    """[P, NUM_EXPLAIN_STAGES] uint32: each shard counts its own rows
+    (explain_stage_counts over its view, n_real cut to its rows) against
+    the mesh's spread minima; the per-stage counts are integers, so the
+    shard sums are exact. The two pod-level verdict slots are the same on
+    every shard and taken from one."""
+    mins = torch.stack([explain_spread_minima(f, filter_states[k][4])
+                        for k, f in fcs.items()]).min(dim=0)[0]
+    mesh.all_reduce(mins, "min")
+    total = None
+    for k, f in fcs.items():
+        n_loc = max(0, min(per, int(n_real) - k * per))
+        c = explain_stage_counts(f, filter_states[k], n_loc,
+                                 spread_min=mins).to(torch.int64)
+        if total is None:
+            total = c
+        else:
+            total[:, :EXPLAIN_STAGE_GANG] += c[:, :EXPLAIN_STAGE_GANG]
+    if mesh.spans_processes:
+        node = total[:, :EXPLAIN_STAGE_GANG].contiguous()
+        mesh.all_reduce(node, "sum")
+        total[:, :EXPLAIN_STAGE_GANG] = node
+    return total.to(torch.uint32)
+
+
+def _filter_state(fc: FullChainInputs):
+    """explain_stage_counts' 9-tuple at the view's own state."""
+    return (fc.base.requested, fc.numa_free, fc.bind_free, fc.quota_used,
+            fc.aff_count, fc.anti_cover, fc.aff_exists.to(torch.bool),
+            fc.port_used, fc.vol_free)
+
+
+def _first(d: Dict[int, object]):
+    return d[min(d)]
+
+
+def _node_out(mesh: Mesh, per_shard: Dict[int, torch.Tensor]) -> ShardedTensor:
+    return from_shards([per_shard.get(k) for k in range(mesh.size)], mesh,
+                       _node_axis_spec(mesh, flat=True))
+
+
+# ---------------------------------------------------------------------------
+# the sharded steps
+# ---------------------------------------------------------------------------
+
+def build_sharded_full_chain_step(
+    args: LoadAwareArgs,
+    num_gangs: int,
+    num_groups: int,
+    mesh: Mesh,
+    active_axes=None,
+    explain=None,
+):
+    """The full-chain step over ``mesh``: FullChainInputs with node-sharded
+    fields (shard_full_chain_inputs, or the mesh-backed DeviceSnapshot) ->
+    (chosen[P] replicated, requested[N, R] node-sharded, quota_used[G, R]
+    replicated), plus the ExplainOut 4th output (and the extra ``n_real``
+    operand) when ``explain`` is "counts"/"full", its arrays replicated.
+    Shards on the card gather the node axis (parallel/mesh.gather, one
+    card holds every shard) and run the single-device CUDA step: kernel 1,
+    its terms instance at "full" and the stage-count pass. Shards on the
+    CPU run the plain sharded round."""
+    from koordinator_tpu_torch.ops.full_chain_kernel import (
+        build_cuda_full_chain_step,
+    )
+
+    _check_explain(explain)
+    weight_idx = resolve_weight_idx(args, active_axes)
+    bal_idx = resolve_balance_idx(active_axes)
+    prod_mode = args.score_according_prod_usage
+    full = explain == "full"
+    cuda_step = build_cuda_full_chain_step(
+        args, num_gangs, num_groups, active_axes=active_axes,
+        explain=explain)
+
+    def run_cuda(fc: FullChainInputs, n_real):
+        extra = () if explain is None else (n_real,)
+        out = cuda_step(gather_tree(fc), *extra)
+        wrapped = (replicate(out[0], mesh), split_nodes(out[1], mesh),
+                   replicate(out[2], mesh))
+        if explain is None:
+            return wrapped
+        ex = out[3]
+        return wrapped + (ExplainOut(
+            replicate(ex.stage_counts, mesh),
+            replicate(ex.terms, mesh) if full else None),)
+
+    def run(fc: FullChainInputs, n_real):
+        if fc.base.allocatable.local().is_cuda:
+            step.last_backend = "cuda"
+            return run_cuda(fc, n_real)
+        step.last_backend = "serial"
+        fcs = dict(shard_views(fc, mesh))
+        per = fc.base.allocatable.shape[0] // mesh.size
+        f0 = _first(fcs)
+        chosen, states, rows = sharded_plain_round(
+            fcs, mesh, per, weight_idx, prod_mode, bal_idx, terms=full)
+        chosen = permit(f0, chosen, num_gangs, num_groups)
+        out = (replicate(chosen, mesh),
+               _node_out(mesh, {k: st[0] for k, st in states.items()}),
+               replicate(_first(states)[5], mesh))
+        if explain is None:
+            return out
+        counts = sharded_stage_counts(
+            fcs, {k: _filter_state(f) for k, f in fcs.items()}, mesh, per,
+            n_real)
+        return out + (ExplainOut(
+            replicate(counts, mesh),
+            replicate(rows, mesh) if full else None),)
+
+    if explain is None:
+        def step(fc: FullChainInputs):
+            return run(fc, None)
+    else:
+        def step(fc: FullChainInputs, n_real):
+            return run(fc, n_real)
+
+    step.last_backend = None
+    return step
+
+
+# the carry slots (models/fused_waves.WAVE_STATE_FIELDS) on the node axis
+WAVE_STATE_NODE_SLOTS = frozenset({1, 2, 3, 4, 6, 7, 9, 10, 12, 13, 14})
+
+
+def wave_carry_shardings(mesh: Mesh, explain=None, prod: bool = False,
+                         claims: bool = False, res: bool = False):
+    """Shardings for the chained wave step's carry tuple: node-axis slots
+    sharded flat over the mesh, pod/quota/gang/reservation/term slots
+    replicated, feature-absent slots None."""
+    from koordinator_tpu_torch.models.fused_waves import (
+        NUM_WAVE_STATE,
+        WAVE_STATE_FIELDS,
+    )
+
+    node = NamedSharding(mesh, _node_axis_spec(mesh, flat=True))
+    rep = NamedSharding(mesh, P())
+    present = {
+        "est_sum_prod": prod,
+        "claim_new": claims,
+        "vol_new": claims,
+        "res_avail": res,
+        "res_remain": res,
+        "res_node": res,
+        "res_succ": res,
+    }
+    carry = tuple(
+        (None if not present.get(WAVE_STATE_FIELDS[i], True)
+         else node if i in WAVE_STATE_NODE_SLOTS else rep)
+        for i in range(NUM_WAVE_STATE))
+    if explain == "full":
+        carry = carry + (rep,)  # per-pod score-term rows
+    return carry
+
+
+def wave_side_shardings(mesh: Mesh, prod: bool = False,
+                        claims: bool = False, res: bool = False):
+    """Sharding tree for WaveSideInputs: [N, ...] operands follow the flat
+    node sharding, pod-axis/reservation operands replicate."""
+    from koordinator_tpu_torch.models.fused_waves import (
+        ClaimSides,
+        ProdSides,
+        ResSides,
+        WaveSideInputs,
+    )
+
+    node = NamedSharding(mesh, _node_axis_spec(mesh, flat=True))
+    rep = NamedSharding(mesh, P())
+    return WaveSideInputs(
+        la_est=node,
+        la_adj=node,
+        prod=ProdSides(est=node, adj=node) if prod else None,
+        claims=(ClaimSides(pod_claim=rep, pod_nonhot=rep, covered0=node)
+                if claims else None),
+        res=(ResSides(owner_match=rep, rank=rep, alloc=rep, once=rep,
+                      row_of=rep, pod_slot=rep, nominate_ok=rep)
+             if res else None),
+    )
+
+
+def _shard_carry(mesh: Mesh, carry) -> tuple:
+    """A whole wave carry on the mesh (wave_carry_shardings' layout): the
+    node-axis slots split into their shards, the other slots
+    replicated."""
+    return tuple(
+        None if t is None
+        else split_nodes(t, mesh) if i in WAVE_STATE_NODE_SLOTS
+        else replicate(t, mesh)
+        for i, t in enumerate(carry))
+
+
+def initial_sharded_wave_carry(fc: FullChainInputs, sides, mesh: Mesh,
+                               explain=None):
+    """models/fused_waves.initial_wave_carry over the mesh, node-axis
+    slots on their shards, the other slots replicated
+    (wave_carry_shardings' layout)."""
+    from koordinator_tpu_torch.models.fused_waves import initial_wave_carry
+
+    return _shard_carry(mesh, initial_wave_carry(
+        gather_tree(fc), gather_tree(sides), explain=explain))
+
+
+def build_sharded_fused_wave_step(
+    args: LoadAwareArgs,
+    num_gangs: int,
+    num_groups: int,
+    waves: int,
+    mesh: Mesh,
+    active_axes=None,
+    explain=None,
+    prod: bool = False,
+    claims: bool = False,
+    res: bool = False,
+    score_passes=(),
+):
+    """The fused multi-wave step (models/fused_waves.build_fused_wave_step)
+    over the mesh: (FullChainInputs, WaveSideInputs), node fields sharded
+    -> FusedWaveOut (+ ExplainOut), every output replicated. The node
+    fields are gathered (parallel/mesh.gather) and the single-device wave
+    body runs on them: kernel 1, its replay and the stage-count pass on
+    the card, the plain passes on the CPU."""
+    from koordinator_tpu_torch.models.fused_waves import (
+        FusedWaveOut,
+        build_fused_wave_step,
+    )
+
+    inner = build_fused_wave_step(
+        args, num_gangs, num_groups, waves, active_axes=active_axes,
+        explain=explain, prod=prod, claims=claims, res=res,
+        score_passes=score_passes)
+
+    def run(fc: FullChainInputs, sides, extra):
+        out = inner(gather_tree(fc), gather_tree(sides), *extra)
+        fw = out if explain is None else out[0]
+        fw = FusedWaveOut(*(replicate(t, mesh) for t in fw[:5]),
+                          waves_run=fw.waves_run)
+        if explain is None:
+            return fw
+        ex = out[1]
+        return fw, ExplainOut(
+            replicate(ex.stage_counts, mesh),
+            replicate(ex.terms, mesh) if ex.terms is not None else None)
+
+    if explain is None:
+        def step(fc: FullChainInputs, sides):
+            return run(fc, sides, ())
+    else:
+        def step(fc: FullChainInputs, sides, n_real):
+            return run(fc, sides, (n_real,))
+
+    return step
+
+
+def build_sharded_chained_wave_step(
+    args: LoadAwareArgs,
+    num_gangs: int,
+    num_groups: int,
+    mesh: Mesh,
+    active_axes=None,
+    explain=None,
+    prod: bool = False,
+    claims: bool = False,
+    res: bool = False,
+    score_passes=(),
+):
+    """One chained wave (models/fused_waves.build_chained_wave_step) over
+    the mesh: (FullChainInputs, carry, WaveSideInputs) -> (carry',
+    WaveChainOut[, counts_row]). The carry's node-axis slots come back on
+    their shards (wave_carry_shardings); the per-wave rows come back
+    replicated for the host merge (parallel/mesh.merge_readback).
+    ``initial_sharded_wave_carry`` builds the wave-0 carry. Each call
+    gathers the node fields and runs the single-device wave body, as
+    build_sharded_fused_wave_step does."""
+    from koordinator_tpu_torch.models.fused_waves import (
+        WaveChainOut,
+        build_chained_wave_step,
+    )
+
+    inner = build_chained_wave_step(
+        args, num_gangs, num_groups, active_axes=active_axes,
+        explain=explain, prod=prod, claims=claims, res=res,
+        score_passes=score_passes)
+
+    def run(fc: FullChainInputs, carry, sides, extra):
+        out = inner(gather_tree(fc), tuple(gather(t) for t in carry),
+                    gather_tree(sides), *extra)
+        wrapped = (_shard_carry(mesh, out[0]),
+                   WaveChainOut(*(replicate(t, mesh) for t in out[1])))
+        if explain is None:
+            return wrapped
+        return wrapped + (replicate(out[2], mesh),)
+
+    if explain is None:
+        def step(fc: FullChainInputs, carry, sides):
+            return run(fc, carry, sides, ())
+    else:
+        def step(fc: FullChainInputs, carry, sides, n_real):
+            return run(fc, carry, sides, (n_real,))
+
+    return step

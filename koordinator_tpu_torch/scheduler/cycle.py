@@ -33,9 +33,14 @@ tests/test_torch_cycle_waves.py). With ``sidecar_address`` every cycle
 sends its batch over gRPC to a ScheduleBatch server (scheduler/sidecar.py,
 the single-round protocol: waves and explain demote, reasons "sidecar" and
 "explain-sidecar"), and a transport failure runs the Scheduler's own step
-on its device, counted in ``sidecar_fallbacks``. The mesh, which a later
-slice brings, raises NotImplementedError and never runs something else
-silently.
+on its device, counted in ``sidecar_fallbacks``. With ``mesh`` (or
+KOORD_TPU_MESH=<n>|auto, parallel/mesh.py) the node axis shards over a mesh
+of shard devices (virtual shards of the card or the CPU, or shards across
+processes over gloo): the DeviceSnapshot uploads sharded, the sharded
+steps (parallel/full_chain_mesh.py; on the card the node fields gathered
+into kernel 1) run every dispatch shape, and the readback merges per shard,
+with bindings equal to the single-device path's. The ladder's partial-mesh
+and no-mesh rungs reconfigure it. A sidecar turns the mesh off.
 
 koordexplain (``explain="counts"|"full"`` or KOORD_TPU_EXPLAIN) rides every
 dispatch: the per-stage reject counts of every pod (per wave on the fused
@@ -60,6 +65,7 @@ groups, active axes; the fused step also by K and its side inputs).
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import threading
@@ -117,8 +123,11 @@ from koordinator_tpu_torch.scheduler.deadline import (
     deadline_seconds_from,
 )
 from koordinator_tpu_torch.scheduler.degrade import (
+    LEVEL_FULL,
     LEVEL_HOST_FALLBACK,
     LEVEL_NO_EXPLAIN,
+    LEVEL_NO_MESH,
+    LEVEL_PARTIAL_MESH,
     LEVEL_SERIAL_WAVES,
     DegradationLadder,
     FusedDispatchDemoted,
@@ -149,8 +158,6 @@ RESERVATION_POD_PREFIX = "__reservation__/"
 
 # koordwatch demotion registry: every reason a cycle can run below its
 # configured wave/explain/mesh level (_note_demotion refuses any other).
-# This port reaches all but the mesh's two, which name rungs of a path a
-# later slice brings.
 DEMOTION_REASONS = frozenset({
     # wave-depth demotions (_effective_waves)
     "ladder-serial-waves",      # degradation ladder at/below serial rung
@@ -495,21 +502,29 @@ def _apply_mirror_op(mirror: _WaveStateMirror, op: Tuple) -> None:
         raise ValueError(f"unknown mirror op {kind!r}")
 
 
-def _refuse(feature: str, slice_name: str):
-    """A path this slice of the port leaves out: raise, never run
-    something else silently."""
-    raise NotImplementedError(
-        f"{feature} comes with the {slice_name} slice of the port")
+def resolve_mesh(mesh, device):
+    """``mesh=`` of a Scheduler, DeviceRebalancer or DeviceColoReconciler:
+    None reads KOORD_TPU_MESH, an int or string is parsed as it
+    (parallel/mesh.mesh_from_env, over ``device``'s shard devices), a
+    Mesh is taken as it is."""
+    from koordinator_tpu_torch.parallel.mesh import mesh_from_env
+
+    if mesh is None:
+        return mesh_from_env(device=device)
+    if isinstance(mesh, (int, str)):
+        return mesh_from_env(env_value=mesh, device=device)
+    return mesh
 
 
-def _mesh_requested(mesh) -> bool:
-    """KOORD_TPU_MESH (or ``mesh=``) asks for mesh-backed dispatch unless
-    it reads as off; the port has no mesh yet."""
-    raw = (os.environ.get("KOORD_TPU_MESH", "") if mesh is None
-           else mesh)
-    if not isinstance(raw, (int, str)):
-        return True  # a mesh object
-    return str(raw).strip().lower() not in ("", "0", "off", "false", "no")
+def _local(t):
+    """A tensor this process holds: a replicated mesh output's local
+    replica (parallel/mesh.ShardedTensor), or the tensor itself."""
+    return t.local() if hasattr(t, "local") else t
+
+
+def _host(t) -> np.ndarray:
+    """A step output as host numpy, through one replica under a mesh."""
+    return _local(t).cpu().numpy()
 
 
 class Scheduler:
@@ -553,13 +568,33 @@ class Scheduler:
         self._sidecar_client = (
             SidecarClient(sidecar_address) if sidecar_address else None)
         self.sidecar_fallbacks = 0
-        if _mesh_requested(mesh):
-            if self._sidecar_client is None:
-                _refuse("mesh-backed dispatch", "parallel/")
-            # the sidecar RPC protocol is single-device, so a sidecar
-            # turns the mesh off, as in the JAX package
-            logger.warning("KOORD_TPU_MESH ignored: the sidecar RPC "
-                           "protocol is single-device")
+        # mesh-backed dispatch (KOORD_TPU_MESH=<ndev>|auto): node-state
+        # tensors shard over the mesh (parallel/mesh.py), each pod's rows
+        # compute per shard and the winners merge across shards. The
+        # sidecar RPC protocol is single-device, so a sidecar turns the
+        # mesh off, as in the JAX package.
+        if self._sidecar_client is None:
+            self.mesh = resolve_mesh(mesh, self.device)
+        else:
+            if (mesh if mesh is not None
+                    else os.environ.get("KOORD_TPU_MESH", "")) not in (
+                        "", "0", "off"):
+                logger.warning("KOORD_TPU_MESH ignored: the sidecar RPC "
+                               "protocol is single-device")
+            self.mesh = None
+        scheduler_metrics.MESH_DEVICES.set(
+            float(self.mesh.size) if self.mesh is not None else 0.0)
+        # koordguard: failures that name mesh devices demote mesh ->
+        # partial mesh (the survivors), anonymous ones mesh -> no mesh;
+        # clean cycles probe back up. Devices shed by attributable faults
+        # accumulate in _lost_device_ids until a promotion to full probes
+        # the whole mesh back.
+        self._configured_mesh = self.mesh
+        # (real nodes, padded node axis) of the last dispatch's upload:
+        # the mesh readback's shard-imbalance input
+        self._node_rows = (0, 0)
+        self._lost_device_ids: set = set()
+        self._submesh_cache: Dict[frozenset, object] = {}
         # koordexplain (KOORD_TPU_EXPLAIN): None=off, "counts", "full".
         # Unknown strings fail loudly, as in the JAX package.
         if explain not in (None, "off", "counts", "full"):
@@ -751,7 +786,8 @@ class Scheduler:
         # graceful-degradation ladder (scheduler/degrade.py): dispatch
         # failures demote fused waves -> serial waves -> the pure-host
         # fallback instead of killing the scheduler; clean cycles probe
-        # back up. The mesh rungs wait for their slice.
+        # back up. With a mesh configured, device faults first shed the
+        # named shard devices (partial-mesh), then the mesh (no-mesh).
         self.ladder = ladder if ladder is not None else DegradationLadder()
         self.ladder.observer = self._on_ladder_transition
         scheduler_metrics.DEGRADED_LEVEL.set(float(self.ladder.level))
@@ -822,6 +858,10 @@ class Scheduler:
                 loadaware_plugin=self.extender.plugin("LoadAwareScheduling"),
                 numa_plugin=self.extender.plugin("NodeNUMAResource"),
             )
+            self.device_snapshot = self._new_device_snapshot()
+        if self.device_snapshot is None and self.mesh is not None:
+            # the mesh path needs the device mirror even without the
+            # incremental-snapshot gate: it owns the sharded upload
             self.device_snapshot = self._new_device_snapshot()
         # warm-up ladder LAST: it replays rungs through _get_*step, which
         # reads the final transformer registrations
@@ -896,6 +936,7 @@ class Scheduler:
             "ng": int(ng), "ngroups": int(ngroups),
             "active": [int(a) for a in active],
             "explain": explain,
+            "mesh_tag": [int(i) for i in self._mesh_tag()],
             # config the step structure bakes in: a replaying scheduler
             # whose prod split or transformer registrations differ would
             # build a different carry than the recorded specs — warm-up
@@ -909,11 +950,11 @@ class Scheduler:
 
     # ------------------------------------------------------------------
     def _new_device_snapshot(self):
-        """Build a DeviceSnapshot on this scheduler's device with the
-        upload-failure hook propagated."""
+        """Build a DeviceSnapshot on this scheduler's device (under its
+        current mesh) with the upload-failure hook propagated."""
         from koordinator_tpu_torch.scheduler.snapshot_cache import DeviceSnapshot
 
-        snap = DeviceSnapshot(device=self.device)
+        snap = DeviceSnapshot(device=self.device, mesh=self.mesh)
         snap.fault_injector = self._upload_fault_injector
         return snap
 
@@ -945,10 +986,15 @@ class Scheduler:
             scheduler_metrics.WAVE_DEMOTIONS.inc(reason=reason)
         return value
 
+    def _window_path(self, base: str) -> str:
+        """The timeline path label for a dispatch window: the mesh
+        placement wins over the program shape."""
+        return "mesh" if self.mesh is not None else base
+
     def _open_window(self, base: str):
         """Open a device-timeline window for one dispatch pass; the
         minted decision id joins spans, flight records and /explain."""
-        win = self.timeline.open("scheduler", base)
+        win = self.timeline.open("scheduler", self._window_path(base))
         self._current_decision_id = win.decision_id
         self._cycle_decision_ids.append(win.decision_id)
         return win
@@ -979,7 +1025,7 @@ class Scheduler:
                          or (isinstance(self.waves_spec, int)
                              and self.waves_spec > 1))
         return {
-            "mesh": False,  # no mesh until the parallel/ slice
+            "mesh": self._configured_mesh is not None,
             "waves": waves_capable and self._sidecar_client is None,
             "explain": (self.explain_spec is not None
                         and self._sidecar_client is None),
@@ -998,15 +1044,57 @@ class Scheduler:
                else logger.info)
         log("dispatch degradation ladder: %s -> %s (%s)",
             record["from"], record["to"], record["reason"])
+        if record["to_level"] == LEVEL_FULL:
+            # re-promotion probes the FULL configured mesh back: the
+            # lost-device set resets, and a still-dead device re-records
+            # itself when the probe's dispatch fails attributably
+            self._lost_device_ids = set()
         self._apply_degraded_level()
         self.flight.dump("degradation")
 
+    def _partial_mesh(self):
+        """The surviving submesh for the partial-mesh rung: the
+        configured mesh minus every device id shed so far. Cached per
+        lost set, so _apply_degraded_level's identity compare sees a
+        stable Mesh while the set is unchanged."""
+        from koordinator_tpu_torch.parallel.mesh import surviving_submesh
+
+        key = frozenset(self._lost_device_ids)
+        hit = self._submesh_cache.get(key)
+        if hit is None:
+            # never None-valued: _on_dispatch_failure records losses only
+            # while survivors remain, so the submesh is non-empty
+            hit = surviving_submesh(self._configured_mesh, key)
+            self._submesh_cache[key] = hit
+        return hit
+
     def _apply_degraded_level(self) -> None:
-        """Reconcile the device placement with the ladder level. The
-        waves rung is consulted per cycle (_effective_waves); the mesh
-        rungs own device buffers and reconfigure here in the JAX package.
-        The port has no mesh until the parallel/ slice, so there is
-        nothing to reconcile."""
+        """Reconcile the mesh with the ladder level (the waves/explain
+        rungs are consulted per cycle by _effective_waves/_effective_
+        explain; the mesh owns device buffers, so it reconfigures here).
+        The partial-mesh rung runs the surviving submesh — the snapshot
+        and the step cache rebuild against it, re-padding through the
+        normal upload. Idempotent and cheap when nothing changed."""
+        if self.ladder.level >= LEVEL_NO_MESH:
+            want_mesh = None
+        elif (self.ladder.level == LEVEL_PARTIAL_MESH
+                and self._configured_mesh is not None):
+            want_mesh = self._partial_mesh()
+        else:
+            want_mesh = self._configured_mesh
+        if want_mesh is self.mesh:
+            return
+        self.mesh = want_mesh
+        scheduler_metrics.MESH_DEVICES.set(
+            float(want_mesh.size) if want_mesh is not None else 0.0)
+        # rebuild the device mirror for the new placement: the next upload
+        # repopulates it (one cycle of full puts, then steady-state
+        # reuse); the stats baseline resets with it
+        if self.snapshot_cache is not None or want_mesh is not None:
+            self.device_snapshot = self._new_device_snapshot()
+        else:
+            self.device_snapshot = None
+        self._upload_stats_last = {}
 
     def _on_deadline_overrun(self, path: str) -> None:
         """The dispatch watchdog abandoned a monitored sync: count it and
@@ -1057,11 +1145,37 @@ class Scheduler:
             # the slow round does not read
             self._abandon_device_state()
         features = self._ladder_features()
+        # koordguard partial-mesh: a failure that NAMES dead mesh devices
+        # engages the partial-mesh rung — record the loss first (the
+        # transition observer rebuilds the submesh), then let the ladder
+        # pick the rung. A repeat loss while already at partial-mesh
+        # shrinks the submesh in place.
         ids = attributable_device_ids(exc)
-        if ids:
-            # a failure naming dead mesh devices engages the partial-mesh
-            # rung only with a mesh configured; the port has none yet, so
-            # on one GPU the rung stays skipped
+        if ids and self._configured_mesh is not None:
+            all_ids = {d.id for d in self._configured_mesh.devices.flat}
+            named = ids & all_ids
+            fresh = named - self._lost_device_ids
+            survivors = all_ids - self._lost_device_ids - named
+            if named and survivors:
+                # engaged whenever the failure NAMES devices with
+                # survivors left — including the second attempt of the
+                # same fault, whose ids the retry already recorded
+                self._lost_device_ids |= fresh
+                features["partial_mesh"] = True
+                if (self.ladder.level == LEVEL_PARTIAL_MESH
+                        and self.mesh is not None
+                        and named & {d.id for d in self.mesh.devices.flat}):
+                    # the loss names a device still in the ACTIVE
+                    # submesh: shrink in place (both attempts of the
+                    # fault must see the flag; the submesh rebuilds only
+                    # on the ladder transition)
+                    features["partial_mesh_shrink"] = True
+                if fresh:
+                    logger.warning(
+                        "%s dispatch failure attributed to device(s) %s; "
+                        "%d of %d mesh devices survive", stage,
+                        sorted(fresh), len(survivors), len(all_ids))
+        elif ids:
             logger.warning("%s dispatch failure names device(s) %s; no "
                            "mesh to shed them from", stage, sorted(ids))
         action = self.ladder.on_failure(
@@ -1272,12 +1386,33 @@ class Scheduler:
         )
 
 
+    def _mesh_tag(self) -> Tuple:
+        """Step-cache key component for the mesh placement. Device IDS,
+        not just the count: the partial-mesh rung can produce two
+        same-size submeshes over different survivors across one
+        scheduler lifetime, and a step built for the old mesh must never
+        serve the new one."""
+        if self.mesh is None:
+            return ()
+        return self.mesh.tag
+
     def _get_step(self, signature: Tuple, ng: int, ngroups: int,
                   active, explain=None) -> object:
         # a shape-signature miss builds the step; on the card the kernel
         # library loads at the step's first call, in the NEXT kernel span,
         # which is why the kernel span carries compiled="1" on that cycle
-        key = (signature, ng, ngroups, tuple(active), explain)
+        key = (signature, ng, ngroups, tuple(active), explain,
+               self._mesh_tag())
+        mesh = self.mesh
+        if mesh is not None:
+            from koordinator_tpu_torch.parallel.full_chain_mesh import (
+                build_sharded_full_chain_step,
+            )
+
+            return self._cached_step(
+                key, lambda: build_sharded_full_chain_step(
+                    self.args, ng, ngroups, mesh, active_axes=active,
+                    explain=explain))
         return self._cached_step(key, lambda: build_best_full_chain_step(
             self.args, ng, ngroups, active_axes=active, explain=explain))
 
@@ -1328,7 +1463,15 @@ class Scheduler:
 
         nc, nres = sides_tag
         key = ("fused", waves, signature, ng, ngroups, tuple(active),
-               explain, sides_tag, self._score_pass_tag())
+               explain, self._mesh_tag(), sides_tag, self._score_pass_tag())
+        mesh = self.mesh
+        if mesh is not None:
+            from koordinator_tpu_torch.parallel.full_chain_mesh import (
+                build_sharded_fused_wave_step,
+            )
+
+            build_fused_wave_step = functools.partial(  # noqa: F811
+                build_sharded_fused_wave_step, mesh=mesh)
         return self._cached_step(key, lambda: build_fused_wave_step(
             self.args, ng, ngroups, waves=waves, active_axes=active,
             explain=explain,
@@ -1346,7 +1489,15 @@ class Scheduler:
 
         nc, nres = sides_tag
         key = ("chain", signature, ng, ngroups, tuple(active), explain,
-               sides_tag, self._score_pass_tag())
+               self._mesh_tag(), sides_tag, self._score_pass_tag())
+        mesh = self.mesh
+        if mesh is not None:
+            from koordinator_tpu_torch.parallel.full_chain_mesh import (
+                build_sharded_chained_wave_step,
+            )
+
+            build_chained_wave_step = functools.partial(  # noqa: F811
+                build_sharded_chained_wave_step, mesh=mesh)
         return self._cached_step(key, lambda: build_chained_wave_step(
             self.args, ng, ngroups, active_axes=active, explain=explain,
             prod=self.args.score_according_prod_usage, claims=nc > 0,
@@ -1454,6 +1605,13 @@ class Scheduler:
         self._cycle_attrib = {}
         self._cycle_terms = {}
         self._apply_degraded_level()
+        # koordwatch mesh accounting: a cycle dispatching below the
+        # CONFIGURED mesh placement (the ladder's no-mesh reconfiguration,
+        # or the partial-mesh submesh) is a demoted cycle
+        if (self._configured_mesh is not None
+                and self.mesh is not self._configured_mesh):
+            self._note_demotion(
+                "mesh-off" if self.mesh is None else "partial-mesh", None)
         result = CycleResult()
         carried_deferred = bool(self._deferred_diagnose)
         self._flushed_this_cycle = False
@@ -2239,18 +2397,57 @@ class Scheduler:
     def _readback_sync_now(self, *tensors):
         """The blocking readback body: ``.cpu().numpy()`` of each tensor.
         On a watchdog worker thread the CUDA device is set first (a new
-        thread starts on device 0)."""
+        thread starts on device 0). Mesh mode routes through the
+        per-shard merge (parallel/mesh.merge_readback) and its
+        observability."""
         import torch
 
         if self.sync_delay_injector is not None:
             # latency injection: a slow-not-dead device is a sync that
             # takes too long, exactly where the watchdog watches
             self.sync_delay_injector()
+        if self.mesh is not None:
+            return self._mesh_merge_readback(*tensors)
         out = []
         for t in tensors:
             if t.is_cuda:
                 torch.cuda.set_device(t.device)
             out.append(t.cpu().numpy())
+        return out
+
+    def _mesh_merge_readback(self, *arrays):
+        """Mesh-branch readback: merge the (replicated) compacted output
+        buffers from the per-shard copies (parallel/mesh.merge_readback),
+        then surface how the dispatch split across the mesh: per-shard
+        readback bytes and the real-row imbalance gauges, and a
+        ``shard[i]`` marker span per device under the kernel span.
+        ``_node_rows`` is the dispatch's (real nodes, padded node axis).
+        Under a deadline the body runs on the watchdog's worker, whose
+        spans land as detached roots, as in the JAX package."""
+        import torch
+
+        from koordinator_tpu_torch.parallel.mesh import (
+            merge_readback,
+            mesh_row_layout,
+        )
+
+        for a in arrays:
+            t = a.local() if hasattr(a, "local") else a
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                torch.cuda.set_device(t.device)
+        out, per_shard = merge_readback(*arrays)
+        n_real, n_padded = self._node_rows
+        rows = mesh_row_layout(self.mesh, n_real, n_padded)
+        mean_rows = float(np.mean(rows)) if rows else 0.0
+        scheduler_metrics.MESH_SHARD_IMBALANCE.set(
+            float(max(rows)) / mean_rows if mean_rows > 0 else 0.0)
+        for i, dev in enumerate(self.mesh.devices.flat):
+            nbytes = per_shard.get(dev.id, 0)
+            scheduler_metrics.MESH_SHARD_READBACK_BYTES.set(
+                float(nbytes), shard=str(i))
+            with self.tracer.span("shard", index=str(i), rows=str(rows[i]),
+                                  readback_bytes=str(nbytes)):
+                pass
         return out
 
     def _batch_pass(
@@ -2390,6 +2587,8 @@ class Scheduler:
                             self._record_upload_deltas()
                         else:
                             fc = to_device(fc_host, self.device)
+                    self._node_rows = (len(nodes.names),
+                                       int(fc.base.allocatable.shape[0]))
                     if snap is not None:
                         snap.begin_dispatch()
                     if self._last_step_compiled:
@@ -2442,9 +2641,9 @@ class Scheduler:
                             # above: these copies wait for nothing new
                             with self.tracer.span("readback",
                                                   explain=explain):
-                                explain_counts = ex_out.stage_counts.cpu(
-                                    ).numpy()
-                                terms_np = (ex_out.terms.cpu().numpy()
+                                explain_counts = _host(
+                                    ex_out.stage_counts)
+                                terms_np = (_host(ex_out.terms)
                                             if ex_out.terms is not None
                                             else None)
                     finally:
@@ -2809,6 +3008,8 @@ class Scheduler:
                         decision_id=win.decision_id) as ksp:
                     fc, sides = self._upload_wave_inputs(
                         fc_host, side_fields, assemble_sides)
+                    self._node_rows = (len(nodes.names),
+                                       int(fc.base.allocatable.shape[0]))
                     if snap is not None:
                         snap.begin_dispatch()
                     if self._last_step_compiled:
@@ -2834,7 +3035,7 @@ class Scheduler:
                         else:
                             out = step(fc, sides)
                         self.last_backend = (
-                            "cuda" if fc.base.allocatable.is_cuda
+                            "cuda" if _local(fc.base.allocatable).is_cuda
                             else "serial")
                         self.dispatches += 1
                         compacted = (out.bind_pods, out.bind_nodes,
@@ -2860,9 +3061,9 @@ class Scheduler:
                             # the dispatch completed at the sync above
                             with self.tracer.span("readback",
                                                   explain=explain):
-                                explain_counts = ex_out.stage_counts.cpu(
-                                    ).numpy()
-                                terms_np = (ex_out.terms.cpu().numpy()
+                                explain_counts = _host(
+                                    ex_out.stage_counts)
+                                terms_np = (_host(ex_out.terms)
                                             if ex_out.terms is not None
                                             else None)
                     finally:
@@ -3077,7 +3278,16 @@ class Scheduler:
     # ------------------------------------------------------------------
     def _initial_chain_carry(self, fc, sides, explain=None):
         """Wave-0 carried state for the chained dispatch, from the same
-        device-resident arrays the single-call step starts from."""
+        device-resident arrays the single-call step starts from; under a
+        mesh the node-axis slots stay the uploaded shards and the rest
+        replicate (parallel/full_chain_mesh.wave_carry_shardings)."""
+        if self.mesh is not None:
+            from koordinator_tpu_torch.parallel.full_chain_mesh import (
+                initial_sharded_wave_carry,
+            )
+
+            return initial_sharded_wave_carry(fc, sides, self.mesh,
+                                              explain=explain)
         return initial_wave_carry(fc, sides, explain=explain)
 
     def _dispatch_chain_wave(self, step, fc, carry, sides, n_real=None,
@@ -3093,15 +3303,19 @@ class Scheduler:
         import torch
 
         start = None
-        if fc.base.allocatable.is_cuda:
+        if _local(fc.base.allocatable).is_cuda:
             start = torch.cuda.Event(enable_timing=True)
             start.record()
         parts = []
         if explain is not None:
             carry, rows, counts_row = step(fc, carry, sides, n_real)
-            parts = [counts_row.view(torch.int32).reshape(-1)]
+            parts = [_local(counts_row).view(torch.int32).reshape(-1)]
         else:
             carry, rows = step(fc, carry, sides)
+        # under a mesh the rows come back replicated: one replica is read
+        # (the per-shard accounting of the chained path's readback rides
+        # the fused path's merge)
+        rows = type(rows)(*(_local(t) for t in rows))
         packed = torch.cat([*rows[:4], rows.count.reshape(1), *parts])
         n_counts = int(parts[0].numel()) if parts else 0
         if start is None:
@@ -3260,7 +3474,8 @@ class Scheduler:
                     carry, handle0 = self._dispatch_chain_wave(
                         step, fc, carry, sides, n_real, explain)
                     self.last_backend = (
-                        "cuda" if fc.base.allocatable.is_cuda else "serial")
+                        "cuda" if _local(fc.base.allocatable).is_cuda
+                        else "serial")
                     self.dispatches += 1
                     if self.pipeline_mode:
                         # the previous cycle's deferred host work drains
@@ -3488,7 +3703,7 @@ class Scheduler:
             # has no chain row), minus the pods a retry pass re-ran (its
             # kernel already stashed their rows; in the serial twin that
             # stash comes after the chain's and wins by order).
-            terms_np = carry[-1].cpu().numpy()
+            terms_np = _host(carry[-1])
             scheduler_metrics.EXPLAIN_READBACK_BYTES.inc(
                 int(terms_np.nbytes))
             kept_mask = device_kept

@@ -74,9 +74,13 @@ koordexplain passes (ops/explain_kernel.py, the full-chain kernel's terms
 instance): a failure of theirs that is not a device fault is not demoted
 away to the no-explain rung.
 
-On one GPU the live rungs are full -> serial-waves -> no-explain ->
-host-fallback; the mesh rungs wait for the port's parallel/ slice, and
-a scheduler skips the waves and explain rungs where those are off.
+The mesh rungs are live where a mesh is configured (KOORD_TPU_MESH or
+``Scheduler(mesh=)``, parallel/mesh.py: D virtual shards of the card, of
+the CPU, or shards across processes over gloo): a fault naming shard
+devices runs the surviving submesh (partial-mesh), an anonymous one drops
+the mesh (no-mesh). Without a mesh the live rungs are full ->
+serial-waves -> no-explain -> host-fallback, and a scheduler skips the
+waves and explain rungs where those are off.
 
 The host fallback trades scoring fidelity for survival: it binds only
 plain pods (gang and quota admission need the batched kernel's atomic

@@ -4,9 +4,9 @@ A copy of the Prometheus-style ``Registry`` (with its gauge, counter and
 histogram kinds) and the JAX package's scheduler metric catalog, names
 unchanged so one scrape config reads both. The encoding-overflow signals
 make conservative batch-encoding cuts first-class observables; the cycle
-driver (scheduler/cycle.py) bumps the rest. Metrics of paths the port
-does not run yet (fused waves, mesh, ladder, warm-up, sidecar) stay
-registered at zero.
+driver (scheduler/cycle.py) bumps the rest, the mesh gauges
+(``koord_scheduler_mesh_*``) included since the port runs its mesh
+(parallel/).
 """
 
 from __future__ import annotations

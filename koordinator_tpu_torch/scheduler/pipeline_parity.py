@@ -20,10 +20,14 @@ final assignments.
     single-call twin (replay overlap off);
   * ``run_carried_state_parity``: one world per piece of carried state
     (reservations, claims, prod-usage scoring, a device ScoreTransformer);
+  * ``run_mesh_parity``: the cycle on a mesh of ``ndev`` virtual shards
+    (parallel/) against the single-device path;
   * ``run_rebalance_parity``: the descheduler's device rebalance pass
-    against its host oracle, on the scheduler's shared snapshot;
+    against its host oracle, on the scheduler's shared snapshot (on a
+    mesh with ``ndev``);
   * ``run_colo_parity``: the manager's device colo pass against the host
-    oracles, on the scheduler's shared snapshot.
+    oracles, on the scheduler's shared snapshot (on a mesh with
+    ``ndev``).
 
 Each takes ``device=``: "cuda" (the default, the kernels) or "cpu" (the
 plain wave step); the scheduler harnesses take ``explain=`` too. The worlds and deltas are the JAX package's
@@ -892,15 +896,132 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
     }
 
 
-def run_rebalance_parity(num_nodes: int = 16, rounds: int = 4,
-                         seed: int = 11, arrivals: int = 18,
+def _mesh_arg(ndev: Optional[int], device):
+    """The Scheduler ``mesh=`` of a parity world: "off", or a mesh of
+    ``ndev`` virtual shards of ``device`` (testing/mesh_round.py)."""
+    if ndev is None:
+        return "off"
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    return virtual_mesh(ndev, device)
+
+
+def run_mesh_parity(ndev: int, waves: int = 1, num_nodes: int = 24,
+                    num_pods: int = 70, rounds: int = 2, seed: int = 11,
+                    arrivals: int = 9, explain: str = "off",
+                    device="cuda") -> dict:
+    """Mesh-backed dispatch vs the single-device path: byte-identical.
+
+    The mesh world runs the production cycle on a mesh of ``ndev`` virtual
+    shards of ``device`` (node-state tensors sharded, sharded upload and
+    owner-shard scatter, the sharded steps, the per-shard readback merge
+    — scheduler/cycle.py + parallel/); the twin runs the single-device
+    path. Both worlds use the SAME wave depth and explain level, so the
+    gate isolates the mesh dimension. Diffed per round: bound (pod, node,
+    annotations) sequences in order and the failure/victim/resize lists;
+    at the end: every PodScheduled condition, the gang/quota plugin
+    counters and the final assignments."""
+    import numpy as np
+
+    from koordinator_tpu_torch.client.store import KIND_POD
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+    from koordinator_tpu_torch.testing import synth_full_cluster
+
+    def make_world():
+        _cluster, state = synth_full_cluster(
+            num_nodes, num_pods, seed=seed, num_quotas=3, num_gangs=4,
+            topology_fraction=0.5, lsr_fraction=0.2)
+        return state, build_store_from_state(state)
+
+    state_s, store_single = make_world()
+    _state_m, store_mesh = make_world()
+    sched_single = Scheduler(store_single, waves=waves, explain=explain,
+                             mesh="off", device=device)
+    sched_mesh = Scheduler(store_mesh, waves=waves, explain=explain,
+                           mesh=_mesh_arg(ndev, device), device=device)
+    assert sched_mesh.mesh is not None and sched_mesh.mesh.size == ndev
+
+    now = state_s.now
+    mismatches: List[str] = []
+    fields = ("failed", "rejected", "preempted_victims", "resized",
+              "resize_pending")
+    for r in range(rounds + 1):
+        if r > 0:
+            apply_round_delta(store_single, r, now, arrivals)
+            apply_round_delta(store_mesh, r, now, arrivals)
+        t = now + 2 * r
+        res_s = sched_single.run_cycle(now=t)
+        res_m = sched_mesh.run_cycle(now=t)
+        if ([(b.pod_key, b.node_name, b.annotations) for b in res_s.bound]
+                != [(b.pod_key, b.node_name, b.annotations)
+                    for b in res_m.bound]):
+            mismatches.append(f"round {r}: bound sequence differs")
+        if res_s.waves != res_m.waves:
+            mismatches.append(f"round {r}: waves consumed differ "
+                              f"({res_s.waves} vs {res_m.waves})")
+        for f in fields:
+            if sorted(getattr(res_s, f)) != sorted(getattr(res_m, f)):
+                mismatches.append(f"round {r}: {f} differs")
+
+    cond_s, cond_m = _conditions(store_single), _conditions(store_mesh)
+    if cond_s != cond_m:
+        keys = {k for k in set(cond_s) | set(cond_m)
+                if cond_s.get(k) != cond_m.get(k)}
+        mismatches.append(
+            f"PodScheduled conditions differ for {len(keys)} pods "
+            f"(e.g. {sorted(keys)[:3]})")
+
+    def plugin_counters(sched):
+        gang = sched.extender.plugin("Coscheduling")
+        quota = sched.extender.plugin("ElasticQuota")
+        return (
+            {g: n for g, n in (gang.assumed if gang else {}).items() if n},
+            {q: tuple(np.asarray(v).tolist())
+             for q, v in (quota.used if quota else {}).items()
+             if np.asarray(v).any()},
+        )
+
+    gang_s, quota_s = plugin_counters(sched_single)
+    gang_m, quota_m = plugin_counters(sched_mesh)
+    if gang_s != gang_m:
+        mismatches.append(f"gang assumed counters differ: "
+                          f"{gang_s} vs {gang_m}")
+    if quota_s != quota_m:
+        mismatches.append("quota used counters differ")
+    assign_s = {p.meta.key: p.spec.node_name
+                for p in store_single.list(KIND_POD)}
+    assign_m = {p.meta.key: p.spec.node_name
+                for p in store_mesh.list(KIND_POD)}
+    if assign_s != assign_m:
+        diff = sorted(k for k in set(assign_s) | set(assign_m)
+                      if assign_s.get(k) != assign_m.get(k))
+        mismatches.append(
+            f"final pod->node assignments differ for {len(diff)} pods "
+            f"(e.g. {diff[:3]})")
+    _dump_on_mismatch(mismatches, sched_single, sched_mesh)
+
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "ndev": ndev,
+        "waves": waves,
+        "rounds": rounds + 1,
+        "pods": len(assign_s),
+        "conditions_checked": len(cond_s),
+        "explain": explain,
+        "device": str(device),
+    }
+
+
+def run_rebalance_parity(ndev: Optional[int] = None, num_nodes: int = 16,
+                         rounds: int = 4, seed: int = 11, arrivals: int = 18,
                          device="cuda") -> dict:
     """Device rebalance pass vs the host LowNodeLoad oracle:
     decision-identical on seeded churn, with the pack-memo-shared
     snapshot (koordbalance acceptance gate).
 
-    ONE world runs the production Scheduler on ``device`` (no mesh: that
-    comes with the parallel/ slice) plus a Descheduler wired as the
+    ONE world runs the production Scheduler on ``device`` (on a mesh of
+    ``ndev`` virtual shards when given) plus a Descheduler wired as the
     second snapshot consumer (``Descheduler(scheduler=...)``: the
     LowNodeLoad view comes from the scheduler's SnapshotCache
     subscription chain and the device pass uploads through the
@@ -954,7 +1075,7 @@ def run_rebalance_parity(num_nodes: int = 16, rounds: int = 4,
             update_time=now - 5,
             node_metric=NodeMetricInfo(node_usage=ResourceList.of(
                 cpu=6_000, memory=16 * GIB))))
-    sched = Scheduler(store, mesh="off", device=device)
+    sched = Scheduler(store, mesh=_mesh_arg(ndev, device), device=device)
     desch = Descheduler(store, scheduler=sched, rebalance="on")
     plugin = None
     for profile in desch.profiles:
@@ -1043,17 +1164,19 @@ def run_rebalance_parity(num_nodes: int = 16, rounds: int = 4,
         "rounds": rounds + 1,
         "pods": len(store.list(KIND_POD)),
         "conditions_checked": len(store.list(KIND_POD_MIGRATION_JOB)),
+        "ndev": ndev or 0,
     }
 
 
-def run_colo_parity(num_nodes: int = 12, rounds: int = 4, seed: int = 29,
-                    arrivals: int = 10, device="cuda") -> dict:
+def run_colo_parity(ndev: Optional[int] = None, num_nodes: int = 12,
+                    rounds: int = 4, seed: int = 29, arrivals: int = 10,
+                    device="cuda") -> dict:
     """Device colo pass vs the retained host oracles: decision-identical
     on seeded churn, with the pack fed from the SnapshotCache's existing
     subscriptions (koordcolo acceptance gate).
 
     TWO worlds run the identical seeded sequence — production Scheduler
-    on ``device`` (no mesh: that comes with the parallel/ slice) + a
+    on ``device`` (on a mesh of ``ndev`` virtual shards when given) + a
     co-located Manager — with only the colo engine differing (``colo="on"``
     vs ``colo="host"``).
     Every round applies churn (arrivals incl. quota-labeled and
@@ -1157,7 +1280,8 @@ def run_colo_parity(num_nodes: int = 12, rounds: int = 4, seed: int = 29,
                 min=ResourceList.of(cpu=6_000, memory=16 * GIB),
                 max=ResourceList.of(cpu=18_000, memory=56 * GIB)))
         cfg = SchedulerConfiguration()
-        sched = Scheduler(store, config=cfg, device=device)
+        sched = Scheduler(store, config=cfg, device=device,
+                          mesh=_mesh_arg(ndev, device))
         mgr = Manager(store, identity=f"mgr-{colo}", scheduler=sched,
                       colo=colo)
         plugin = sched.extender.plugin("ElasticQuota")
@@ -1345,6 +1469,7 @@ def run_colo_parity(num_nodes: int = 12, rounds: int = 4, seed: int = 29,
         "rounds": rounds + 1,
         "pods": len(worlds["on"][2].list(KIND_POD)),
         "conditions_checked": device_runtime_consumed,
+        "ndev": ndev or 0,
     }
 
 
@@ -1364,6 +1489,15 @@ def main(device="cuda") -> int:
                 for f in ("reservations", "claims", "prod", "transformer")]
     reports.append(run_rebalance_parity(device=device))
     reports.append(run_colo_parity(device=device))
+    # the mesh: 1/2/3/4/8 virtual shards, serial and fused K = 4, explain
+    # counts; the descheduler's and the manager's passes on 2 and 8
+    for nd in (1, 2, 3, 4, 8):
+        reports.append(run_mesh_parity(nd, device=device))
+        reports.append(run_mesh_parity(nd, waves=4, explain="counts",
+                                       device=device))
+    for nd in (2, 8):
+        reports.append(run_rebalance_parity(nd, device=device))
+        reports.append(run_colo_parity(nd, device=device))
     for report in reports:
         print(json.dumps(report))
     return 0 if all(r["ok"] for r in reports) else 1

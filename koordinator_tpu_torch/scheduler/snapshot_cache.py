@@ -697,6 +697,28 @@ def _is_resource_exhausted(exc: BaseException) -> bool:
             or "out of memory" in text or "allocation fail" in text)
 
 
+def _mesh_node_fields() -> Set[str]:
+    """Field names (FullChainInputs + ScheduleInputs + the fused side
+    arrays + the rebalance and colo node columns) whose leading axis is the
+    node axis — the set the mesh-backed DeviceSnapshot shards over all
+    devices; everything else is replicated. Derived from the sets the
+    sharders use (parallel/mesh.py, parallel/full_chain_mesh.py), so the
+    upload cannot disagree with the sharded steps' layout."""
+    from koordinator_tpu_torch.balance.rebalancer import RB_NODE_FIELDS
+    from koordinator_tpu_torch.colo.reconciler import COLO_NODE_FIELDS
+    from koordinator_tpu_torch.models.scheduler_model import ScheduleInputs
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        _FC_NODE_FIELDS,
+    )
+    from koordinator_tpu_torch.parallel.mesh import _SCHEDULE_POD_FIELDS
+
+    base_node = set(ScheduleInputs._fields) - set(_SCHEDULE_POD_FIELDS)
+    return (base_node | set(_FC_NODE_FIELDS)
+            | {"la_est_nonprod", "la_adj_nonprod", "la_est_prod",
+               "la_adj_prod", "claim_covered0"}
+            | set(RB_NODE_FIELDS) | set(COLO_NODE_FIELDS))
+
+
 class DeviceSnapshot:
     """Per-field mirror of the (sliced) FullChainInputs on ``device``.
 
@@ -712,16 +734,26 @@ class DeviceSnapshot:
     which a launched round may still read the mirror's tensors: while one
     is open a scatter writes into a clone (counted ``scattered_safe``)
     and the old tensor stays whole for the round; otherwise it writes in
-    place. Every copy runs on the current stream. There is no mesh in
-    the port yet: ``mesh=`` raises NotImplementedError."""
+    place. Every copy runs on the current stream.
+
+    With ``mesh`` (KOORD_TPU_MESH, parallel/mesh.py) every field is a
+    parallel/mesh.ShardedTensor: node-axis fields (_mesh_node_fields)
+    sharded over all mesh devices, zero-padded to the mesh factor by
+    ``put_on_mesh``, pod/quota/gang fields replicated. The host mirror is
+    kept in padded coordinates, so the change compare and the dirty rows
+    line up with the layout, and a row scatter writes each dirty row only
+    into the shard that owns it (a replicated field into its replica). The
+    in-flight ledger applies per shard: while a round may read the mirror,
+    a shard that takes a scatter is cloned first."""
 
     def __init__(self, device="cuda", mesh=None) -> None:
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh-backed DeviceSnapshot comes with the parallel/ "
-                "slice of the port")
         from koordinator_tpu_torch.models.convert import check_device
 
+        self.mesh = mesh
+        self._node_fields: Optional[Set[str]] = (
+            _mesh_node_fields() if mesh is not None else None)
+        if mesh is not None:
+            device = mesh.flat[0].device
         self.device = check_device(device)
         self._fields: Dict[str, Tuple[np.ndarray, object]] = {}
         # rounds launched on this snapshot's tensors and not yet synced;
@@ -784,10 +816,74 @@ class DeviceSnapshot:
                     f"({type(exc).__name__}: {exc})") from exc
             raise
 
+    def _sharding(self, name: str):
+        from koordinator_tpu_torch.parallel.mesh import (
+            NamedSharding,
+            P,
+            _node_axis_spec,
+        )
+
+        spec = (_node_axis_spec(self.mesh, flat=True)
+                if name in self._node_fields else P())
+        return NamedSharding(self.mesh, spec)
+
+    def _scatter_sharded(self, sharded, idx: np.ndarray, rows: np.ndarray):
+        """The row scatter on a mesh: each dirty row into the shard that
+        owns it (a replicated field: into each distinct replica), cloning
+        a written shard while a round may read the mirror."""
+        import torch
+
+        from koordinator_tpu_torch.models.convert import as_tensor
+        from koordinator_tpu_torch.parallel.mesh import ShardedTensor
+
+        with self._lock:
+            in_place = self._in_flight == 0
+        shards = list(sharded.shards)
+        if sharded.replicated:
+            groups = {}
+            for k, t in enumerate(shards):
+                if t is not None:
+                    groups.setdefault(id(t), []).append(k)
+            for ks in groups.values():
+                t = shards[ks[0]]
+                if not in_place:
+                    t = t.clone()
+                t.index_copy_(0, torch.from_numpy(idx.astype(np.int64)).to(
+                    t.device), as_tensor(rows, t.device))
+                for k in ks:
+                    shards[k] = t
+        else:
+            per = sharded.shape[0] // self.mesh.size
+            owner = idx // per
+            for k in np.unique(owner).tolist():
+                t = shards[k]
+                if t is None:
+                    continue  # another process holds this shard
+                sel = owner == k
+                if not in_place:
+                    t = t.clone()
+                t.index_copy_(
+                    0, torch.from_numpy((idx[sel] - k * per).astype(
+                        np.int64)).to(t.device),
+                    as_tensor(rows[sel], t.device))
+                shards[k] = t
+        if not in_place:
+            self.stats["scattered_safe"] += 1
+        return ShardedTensor(shards, sharded.shape, sharded.sharding)
+
     def _one_transfer(self, name: str, new) -> object:
         from koordinator_tpu_torch.models.convert import as_tensor
 
         new = np.asarray(new)
+        sharding = None
+        if self.mesh is not None:
+            from koordinator_tpu_torch.parallel.mesh import pad_for_sharding
+
+            # the host mirror is kept in PADDED coordinates so the change
+            # compare and the dirty-row indices line up with the layout;
+            # pad rows are constant zero and never show up dirty
+            sharding = self._sharding(name)
+            new = pad_for_sharding(new, sharding)
         hit = self._fields.get(name)
         if (hit is not None and hit[0].shape == new.shape
                 and hit[0].dtype == new.dtype):
@@ -805,7 +901,9 @@ class DeviceSnapshot:
                     (prev_np != new).any(axis=axes) if axes
                     else prev_np != new)[0]
                 if 0 < rows.size <= new.shape[0] * _SCATTER_FRACTION:
-                    dev2 = self._scatter(dev, rows, new[rows])
+                    dev2 = (self._scatter(dev, rows, new[rows])
+                            if sharding is None else
+                            self._scatter_sharded(dev, rows, new[rows]))
                     self._fields[name] = (new.copy(), dev2)
                     self.stats["scattered"] += 1
                     self.stats["bytes_scattered"] += int(
@@ -815,7 +913,12 @@ class DeviceSnapshot:
         # array it is made from, and the pack reuses and rewrites the
         # caller's arrays in place while this entry may still be reused
         host = new.copy()
-        dev = as_tensor(host, self.device)
+        if sharding is not None:
+            from koordinator_tpu_torch.parallel.mesh import put_on_mesh
+
+            dev = put_on_mesh(host, sharding)
+        else:
+            dev = as_tensor(host, self.device)
         self._fields[name] = (host, dev)
         self.stats["put"] += 1
         self.stats["bytes_put"] += int(new.nbytes)

@@ -368,9 +368,15 @@ class WarmupRunner:
     separate step caches, so the value there is the first-call costs paid).
 
     Every rung runs inside try/except — a corrupted entry or a failed zero
-    call counts as ``failed`` and warm-up continues. The port has no mesh,
-    so no rung is recorded under a mesh placement and none is build-only
-    (``built`` stays 0)."""
+    call counts as ``failed`` and warm-up continues.
+
+    Mesh discipline: a rung recorded under a mesh shard-id tuple replays
+    only when the scheduler's CURRENT placement matches (two same-size
+    submeshes never share a step); mismatches count as ``skipped``. Mesh
+    rungs are build-only (``built``): the build through the keyed
+    chokepoint pre-populates the step cache, and the first dispatch on
+    the mesh pays its kernels' first calls, as the JAX package's mesh
+    rungs leave their compile to the first dispatch."""
 
     def __init__(self, scheduler, background: bool = False) -> None:
         from koordinator_tpu_torch.obs import Tracer
@@ -389,6 +395,8 @@ class WarmupRunner:
     def _replay_scheduler_rung(self, entry: dict):
         sched = self.scheduler
         meta = entry["meta"]
+        if tuple(meta.get("mesh_tag", ())) != sched._mesh_tag():
+            return "skipped"
         # config the step structure bakes in must match THIS scheduler, or
         # the recorded specs describe a different carry (a co-resident
         # scheduler with another prod/transformer config recorded the
@@ -419,13 +427,18 @@ class WarmupRunner:
                 explain=explain, sides_tag=tuple(meta["sides_tag"]))
         else:
             return "skipped"
+        if meta.get("mesh_tag"):
+            return "built"
         self._zero_call(step, entry)
         return "warmed"
 
     def _replay_standalone_rung(self, entry: dict):
         """Rebalance/colo rungs, through their build functions on the
-        scheduler's device."""
+        scheduler's device; single-device only (a mesh build needs the
+        live mesh of the process that recorded it)."""
         meta = entry["meta"]
+        if tuple(meta.get("mesh_tag", ())):
+            return "skipped"
         device = self.scheduler.device
         kwargs = {}
         if entry["kind"] == "rebalance":

@@ -13,9 +13,9 @@ backpressure.
 Run named scenarios with ``python -m koordinator_tpu_torch.sim <scenario>
 [--device cuda|cpu]``; the catalog lives in
 :mod:`koordinator_tpu_torch.sim.scenarios`, copied whole from the JAX
-package. The scenarios that need mesh dispatch raise NotImplementedError
-until the slice that brings it lands (sim/harness.py); the 1000-cycle
-``soak``, with its dead-sidecar cycles, runs.
+package. Every scenario runs: a scenario's mesh is that many virtual shards
+of the sim's device (sim/harness.py), and the 1000-cycle ``soak`` runs
+with its dead-sidecar cycles.
 """
 
 from koordinator_tpu_torch.sim.faults import (  # noqa: F401

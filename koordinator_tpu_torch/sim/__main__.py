@@ -7,7 +7,7 @@
 
 Exit codes: 0 clean; 1 invariant breaches above --max-breaches;
 2 determinism check failed; 3 SLO missed under --enforce-slo;
-4 usage error; 5 the scenario needs a slice the port does not have yet.
+4 usage error.
 The SLO verdict is always REPORTED; it only fails the run when asked:
 sim time keeps the binding log deterministic, and the same on the card
 as on the CPU, but the wall clock differs between machines.
@@ -78,13 +78,7 @@ def main(argv=None) -> int:
             return 4
     sc = sc.resolved(cycles=args.cycles, seed=args.seed, waves=waves)
 
-    from koordinator_tpu_torch.sim.harness import require_ported, run_scenario
-
-    try:
-        require_ported(sc)
-    except NotImplementedError as exc:
-        print(str(exc), file=sys.stderr)
-        return 5
+    from koordinator_tpu_torch.sim.harness import run_scenario
 
     def progress(msg: str) -> None:
         if not args.quiet:

@@ -34,10 +34,9 @@ the simulator at the start of each sim cycle:
     (every RPC raises) for ``count`` cycles, exercising the sidecar's
     own local-step fallback path.
 
-The port runs every kind but one: mesh dispatch comes with its parallel/
-slice, so a ``device_loss`` fault raises NotImplementedError when it
-fires. The dispatch windows let NotImplementedError through, so it is
-never mistaken for a device fault.
+A ``device_loss`` fault needs a scheduler on a mesh (the scenario's
+``mesh``: that many virtual shards of the sim's device, sim/harness.py);
+the ids it names are the shard devices' (parallel/mesh.py MeshDevice.id).
 
 Everything is deterministic: faults fire at fixed cycles with fixed
 budgets, no randomness. The latency sleep is real wall time but the sim
@@ -58,6 +57,17 @@ FAULT_KINDS = ("dispatch", "device_loss", "latency", "oom_upload",
 class InjectedFault(RuntimeError):
     """The exception every injected fault raises — distinguishable from
     real bugs in sim reports."""
+
+
+class DeviceLossFault(InjectedFault):
+    """A dispatch fault attributable to specific mesh devices — carries
+    ``failed_device_ids``, the attribute
+    scheduler/degrade.attributable_device_ids reads to engage the
+    partial-mesh rung."""
+
+    def __init__(self, message: str, device_ids) -> None:
+        super().__init__(message)
+        self.failed_device_ids = frozenset(int(i) for i in device_ids)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,9 +138,10 @@ class FaultPlan:
         """Installed as ``Scheduler.fault_injector``; raises while the
         dispatch (or attributable device-loss) budget lasts."""
         if self._budget["device_loss"] > 0:
-            raise NotImplementedError(
-                "the device_loss fault needs mesh dispatch, which comes "
-                "with the parallel/ slice of the port")
+            raise DeviceLossFault(
+                self._consume("device_loss",
+                              f"{stage} devices={list(self._devices)}"),
+                self._devices)
         if self._budget["dispatch"] > 0:
             self._fire("dispatch", stage)
 

@@ -26,11 +26,10 @@ Everything is deterministic for a (scenario, seed) pair — the binding
 log is byte-stable, the same on the card as on the CPU, and the same as
 the JAX package's sim (tests/test_torch_sim.py holds them together).
 
-A copy of the JAX package's harness. A scenario whose configuration needs
-mesh dispatch (``mesh``), which the port does not have yet, raises
-NotImplementedError at construction and names the slice that brings it;
-explain attribution (``explain``) and dead-sidecar cycles run as
-configured. A co-located descheduler
+A copy of the JAX package's harness. A scenario's mesh (``mesh``) is
+that many virtual shards of the sim's device (parallel/mesh.py, the
+counterpart of the JAX sim's virtual CPU devices); explain attribution
+(``explain``) and dead-sidecar cycles run as configured. A co-located descheduler
 (``descheduler_every``) and a co-located koord-manager (``colo_every``)
 share the scheduler's
 snapshot, device mirror and device, as in the JAX package.
@@ -432,15 +431,6 @@ class SimReport:
         return out
 
 
-def require_ported(sc: Scenario) -> None:
-    """A scenario needing a part the port does not have yet: raise,
-    naming the slice that brings it, never run something else."""
-    if sc.mesh is not None:
-        raise NotImplementedError(
-            f"scenario {sc.name!r} needs mesh-backed dispatch, which comes "
-            f"with the parallel/ slice of the port")
-
-
 class ChurnSimulator:
     """Drive one scenario on ``device`` ("cuda", or "cpu"). ``run()``
     returns the :class:`SimReport`."""
@@ -450,7 +440,6 @@ class ChurnSimulator:
                  device: str = "cuda") -> None:
         import random
 
-        require_ported(scenario)
         self.device = device
         self.sc = scenario
         self.rng = random.Random(scenario.seed)
@@ -568,6 +557,16 @@ class ChurnSimulator:
                 max=ResourceList.of(cpu=total_cpu // 2,
                                     memory=self.sc.nodes * 32 * GIB)))
 
+    def _mesh(self):
+        """The scenario's mesh: ``sc.mesh`` virtual shards of the sim's
+        device (ids 0..mesh-1, the ids a device_loss fault names), or
+        "off"."""
+        if self.sc.mesh is None:
+            return "off"
+        from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+        return virtual_mesh(int(self.sc.mesh), self.device)
+
     def _build_scheduler(self, flight_dir: Optional[str]) -> None:
         from koordinator_tpu_torch.obs.flight import FlightRecorder
         from koordinator_tpu_torch.scheduler import metrics as scheduler_metrics
@@ -580,7 +579,7 @@ class ChurnSimulator:
             self.sched_store,
             waves=sc.waves,
             explain=sc.explain if sc.explain is not None else "off",
-            mesh="off",
+            mesh=self._mesh(),
             ladder=DegradationLadder(promote_after=sc.promote_after),
             dispatch_deadline_ms=(sc.dispatch_deadline_ms
                                   if sc.dispatch_deadline_ms is not None

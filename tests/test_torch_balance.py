@@ -400,15 +400,62 @@ def test_slow_readback_walks_the_ladder_and_drops_the_private_mirror():
     assert reb._own_snapshot._in_flight == 0
 
 
-@pytest.mark.parametrize("how", ["argument", "env"])
-def test_mesh_names_the_parallel_slice(how, monkeypatch):
-    if how == "env":
-        monkeypatch.setenv("KOORD_TPU_MESH", "4")
-        kw = {}
-    else:
-        kw = {"mesh": 2}
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        DeviceRebalancer(device="cpu", **kw)
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+def test_mesh(ndev):
+    """tests/test_balance.py TestRebalanceParityGate.test_mesh on the
+    port: the co-located rebalance pass on the scheduler's mesh of ndev
+    virtual CPU shards, against the host oracle."""
+    from koordinator_tpu_torch.scheduler.pipeline_parity import (
+        run_rebalance_parity,
+    )
+
+    rep = run_rebalance_parity(ndev, device="cpu")
+    assert rep["ok"], rep["mismatches"]
+    assert rep["ndev"] == ndev
+
+
+def test_mesh_rung_drops_to_single_device():
+    """A mesh fault demotes the pass to the single-device rung (no-mesh),
+    still on the device engine, with the host oracle's victims."""
+    from koordinator_tpu_torch.scheduler.degrade import LEVEL_NO_MESH
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    plugin, reb, expected = _small_plugin(
+        promote_after=64, mesh=virtual_mesh(2, "cpu"))
+    budget = {"left": 2}
+
+    def boom():
+        if budget["left"] > 0:
+            budget["left"] -= 1
+            raise InjectedFault("injected mesh fault")
+
+    reb.fault_injector = boom
+    picked, _src, _v = plugin.select_victims(now=NOW)
+    assert reb.ladder.level == LEVEL_NO_MESH
+    assert plugin.last_pass_stats["engine"] == "device"
+    assert picked.tolist() == expected
+    # the demoted pass ran the single-device step on a private mirror
+    assert reb._active_mesh() is None
+    assert list(reb._steps) == [plugin.args.max_pods_to_evict_per_node]
+    assert reb._own_snapshot is not None and reb._own_snapshot.mesh is None
+
+
+def test_mesh_pass_matches_single_device_pass():
+    """The sharded pass on 3 shards (a non-divisible padding) gives the
+    single-device pass's victims, classification and margins."""
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    plugin, _reb, expected = _small_plugin()
+    picked1, _s, _v = plugin.select_victims(now=NOW)
+    single = dict(plugin.last_pass_stats)
+    plugin3, reb3, _e = _small_plugin(mesh=virtual_mesh(3, "cpu"))
+    picked3, _s, _v = plugin3.select_victims(now=NOW)
+    stats = plugin3.last_pass_stats
+    assert stats["engine"] == "device" and reb3.mesh.size == 3
+    assert picked3.tolist() == picked1.tolist() == expected
+    for key in ("is_low", "is_high", "margin", "victim_nodes",
+                "victim_scores"):
+        np.testing.assert_array_equal(stats[key], single[key], err_msg=key)
 
 
 def test_device_defaults_to_cuda(monkeypatch):

@@ -559,10 +559,17 @@ def test_host_ineligible_is_counted_and_keeps_the_oracle():
 
 
 def test_mesh_and_missing_card_raise(monkeypatch):
+    """A standalone manager's pass runs on KOORD_TPU_MESH's mesh; a mesh
+    of more shard devices than are visible raises, as does a missing
+    card."""
     store = _store(nodes=1)
     monkeypatch.setenv("KOORD_TPU_MESH", "4")
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    monkeypatch.delenv("KOORD_TORCH_VIRTUAL_DEVICES", raising=False)
+    with pytest.raises(ValueError, match="KOORD_TPU_MESH=4"):
         Manager(store, colo="on", device="cpu")
+    monkeypatch.setenv("KOORD_TORCH_VIRTUAL_DEVICES", "4")
+    mgr = Manager(_store(nodes=1), colo="on", device="cpu")
+    assert mgr.colo.mesh.size == 4
     monkeypatch.delenv("KOORD_TPU_MESH")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -675,3 +682,19 @@ def test_run_colo_parity_rounds_match_reference():
     assert {t[3] for t in ticks if t[1] == "mgr-on"} == {"device"}
     assert any(t[6] is not None for t in ticks)
     assert any(entry[1] for entry in port if entry[0] == "revoke")
+
+
+@pytest.mark.parametrize("ndev", [1, 2, 4, 8])
+def test_mesh(ndev):
+    """tests/test_colo.py TestColoParity.test_mesh on the port: the
+    co-located colo pass on the scheduler's mesh of ndev virtual CPU
+    shards, against the host oracles (the port's single-device pass is
+    the yardstick of the column sums: gathered whole, never per-shard
+    partial sums)."""
+    from koordinator_tpu_torch.scheduler.pipeline_parity import (
+        run_colo_parity,
+    )
+
+    rep = run_colo_parity(ndev, device="cpu")
+    assert rep["ok"], rep["mismatches"]
+    assert rep["ndev"] == ndev

@@ -292,6 +292,14 @@ CONFIGS = {
         ("oom_upload", 0, dict(count=1)),
         ("dispatch", 2, dict(count=3)),
     ), [(FULL, HOST), (HOST, FULL)]),
+    # a 4-shard mesh (the JAX package's first 4 virtual CPU devices, the
+    # port's 4 virtual CPU shards: ids 0-3 in both): a device loss naming
+    # shard 3 runs the 3 survivors, an anonymous storm drops the mesh
+    "mesh": (60, dict(waves=2, mesh=4), (
+        ("device_loss", 0, dict(count=2, devices=(3,))),
+        ("dispatch", 4, dict(count=2)),
+    ), [(FULL, "partial-mesh"), ("partial-mesh", FULL), (FULL, "no-mesh"),
+        ("no-mesh", FULL)]),
 }
 
 
@@ -338,10 +346,10 @@ def _reference(name):
     pods, kwargs, faults, _walk = CONFIGS[name]
     _c, state = ref_synth(NODES, pods, seed=5, num_quotas=8, num_gangs=4)
     store = store_from_state(state, RefObjectStore())
-    sched = RefScheduler(store, explain="off", mesh="off", warmup="off",
-                         dispatch_deadline_ms=300,
-                         ladder=ref_degrade.DegradationLadder(promote_after=2),
-                         **kwargs)
+    sched = RefScheduler(store, **{
+        "explain": "off", "mesh": "off", "warmup": "off",
+        "dispatch_deadline_ms": 300,
+        "ladder": ref_degrade.DegradationLadder(promote_after=2), **kwargs})
     return _drive(sched, store, state, _plan(ref_faults, faults),
                   ref_metrics, _ref_add)
 
@@ -352,6 +360,10 @@ def test_fault_sequence_matches_reference(name):
     _c, state = synth_full_cluster(NODES, pods, seed=5, num_quotas=8,
                                    num_gangs=4)
     store = store_from_state(state)
+    if "mesh" in kwargs:
+        from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+        kwargs = dict(kwargs, mesh=virtual_mesh(kwargs["mesh"], "cpu"))
     sched = Scheduler(store, device="cpu", dispatch_deadline_ms=300,
                       ladder=degrade.DegradationLadder(promote_after=2),
                       **kwargs)
@@ -503,17 +515,144 @@ def test_kernel_contract_error_propagates(waves, overlap, failure):
     assert sum(p.is_assigned for p in store.list(KIND_POD)) == assigned
 
 
-def test_device_loss_fault_names_the_mesh_slice():
+def _lose(ids, budget):
+    """A dispatch hook raising a device loss that names ``ids``."""
+    holder = {"n": budget}
+
+    def hook(stage):
+        if holder["n"] > 0:
+            holder["n"] -= 1
+            raise port_faults.DeviceLossFault(f"link down on {ids}", ids)
+    return hook
+
+
+def test_partial_mesh_shrinks_in_place_on_second_loss():
+    """tests/test_koordguard.py's case on the port: a second device loss
+    while already ON a submesh sheds only the newly named device: 8 ->
+    lose {6, 7} -> 6 shards -> lose {5} -> 5 shards, still at the
+    partial-mesh rung, binds continuing — never a collapse to one
+    device."""
+    from koordinator_tpu_torch.api.objects import ObjectMeta, Pod, PodSpec
+    from koordinator_tpu_torch.api.resources import ResourceList
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    store, state = churn_store(16, 40, seed=23)
+    sched = Scheduler(store, mesh=virtual_mesh(8, "cpu"), waves=1,
+                      device="cpu")
+    sched.fault_injector = _lose((6, 7), 2)
+    sched.run_cycle(now=state.now)
+    assert sched.ladder.level == degrade.LEVEL_PARTIAL_MESH
+    assert sched.mesh.size == 6
+    for i in range(4):  # fresh pending pods for the next dispatches
+        store.add(KIND_POD, Pod(
+            meta=ObjectMeta(name=f"fresh-{i}", namespace="t",
+                            uid=f"fresh-{i}",
+                            creation_timestamp=state.now + 1),
+            spec=PodSpec(requests=ResourceList.of(cpu=200,
+                                                  memory=1 << 28))))
+    sched.fault_injector = _lose((5,), 2)
+    result = sched.run_cycle(now=state.now + 5)
+    assert sched.ladder.level == degrade.LEVEL_PARTIAL_MESH
+    assert sched.mesh.size == 5
+    assert sorted(d.id for d in sched.mesh.devices.flat) == [0, 1, 2, 3, 4]
+    assert result.bound
+    last = sched.ladder.transitions[-1]
+    assert (last["from"], last["to"]) == ("partial-mesh", "partial-mesh")
+    assert "partial-mesh" in result.demotions
+
+
+def test_device_loss_on_the_mesh_matches_a_single_device_twin():
+    """A loss naming 2 of 8 shards: the ladder lands on partial-mesh with
+    the 6 survivors, binds continue on the submesh decision for decision
+    a fault-free single-device twin's, and clean cycles re-promote to the
+    whole 8-shard mesh."""
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    store, state = churn_store(16, 40, seed=29)
+    twin_store, _ = churn_store(16, 40, seed=29)
+    sched = Scheduler(store, mesh=virtual_mesh(8, "cpu"), waves=1,
+                      device="cpu",
+                      ladder=degrade.DegradationLadder(promote_after=2))
+    twin = Scheduler(twin_store, waves=1, device="cpu")
+    sched.fault_injector = _lose((2, 5), 2)
+    sizes = []
+    for c in range(5):
+        now = state.now + 2 * c
+        if c:
+            for s_ in (store, twin_store):
+                add_arrivals(s_, arrival_specs(c, 8), now - 1)
+        res, ref = sched.run_cycle(now=now), twin.run_cycle(now=now)
+        assert ([(b.pod_key, b.node_name) for b in res.bound]
+                == [(b.pod_key, b.node_name) for b in ref.bound]), c
+        sizes.append(sched.mesh.size)
+    assert sizes[0] == 6 and sizes[-1] == 8
+    assert [(t["from"], t["to"]) for t in sched.ladder.transitions] == [
+        ("full", "partial-mesh"), ("partial-mesh", "full")]
+
+
+def test_anonymous_faults_drop_the_mesh_and_name_it():
+    """tests/test_koordwatch.py's ladder-demotion case on the port: an
+    anonymous fault burst on a mesh walks no-mesh -> serial-waves ->
+    no-explain, and the next cycle's demotions name the mesh and the
+    wave/explain chokepoints."""
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    store, state = churn_store(8, 12, seed=3)
+    sched = Scheduler(store, waves=4, explain="counts",
+                      mesh=virtual_mesh(2, "cpu"), device="cpu")
+    calls = {"n": 0}
+
+    def inj(stage):
+        calls["n"] += 1
+        if calls["n"] <= 4:
+            raise port_faults.InjectedFault("injected dispatch fault")
+
+    sched.fault_injector = inj
+    sched.run_cycle(now=state.now)
+    assert sched.ladder.level >= degrade.LEVEL_SERIAL_WAVES
+    add_arrivals(store, arrival_specs(1, 4), state.now + 1)
+    res2 = sched.run_cycle(now=state.now + 2)
+    assert "mesh-off" in res2.demotions
+    assert "ladder-serial-waves" in res2.demotions
+    if sched.ladder.level >= degrade.LEVEL_NO_EXPLAIN:
+        assert "explain-ladder" in res2.demotions
+
+
+def test_cycle_exception_dump_when_ladder_exhausted_on_mesh(monkeypatch):
+    """tests/test_flight_triggers.py's mesh case on the port: every
+    device dispatch fails AND the host fallback dies; the ladder walks
+    mesh -> no-mesh -> host fallback (a degradation dump each), the
+    bottom rung raises, and the cycle driver dumps cycle_exception and
+    re-raises."""
+    import koordinator_tpu_torch.scheduler.cycle as cycle_mod
+    from koordinator_tpu_torch.obs.flight import load_bundle
+    from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
+
+    def dumps(reason):
+        return port_metrics.FLIGHT_DUMPS.get(reason=reason) or 0.0
+
     store, state = churn_store(8, 16, seed=0)
-    plan = port_faults.FaultPlan([port_faults.Fault(
-        cycle=0, kind="device_loss", devices=(1,))])
-    sched = Scheduler(store, waves=1, device="cpu")
-    sched.fault_injector = plan.dispatch_hook
-    plan.begin_cycle(0)
-    before = _retries(port_metrics)
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    sched = Scheduler(store, waves=1, explain="off",
+                      mesh=virtual_mesh(2, "cpu"), device="cpu",
+                      ladder=degrade.DegradationLadder(promote_after=4))
+
+    def dead(stage):
+        raise port_faults.InjectedFault(f"device dead ({stage})")
+
+    def host_dead(fc, pods, n_real):
+        raise RuntimeError("host fallback dead too")
+
+    sched.fault_injector = dead
+    monkeypatch.setattr(cycle_mod, "host_fallback_schedule", host_dead)
+    degr_before, exc_before = dumps("degradation"), dumps("cycle_exception")
+    with pytest.raises(RuntimeError, match="host fallback dead"):
         sched.run_cycle(now=state.now)
-    _assert_ladder_untouched(sched, before)
+    assert sched.ladder.level == degrade.LEVEL_HOST_FALLBACK
+    assert dumps("degradation") == degr_before + 2
+    assert dumps("cycle_exception") == exc_before + 1
+    assert "host fallback dead" in sched.flight.snapshot()[-1]["error"]
+    _h, _r, errors = load_bundle(sched.flight.dump("post").splitlines())
+    assert not errors, errors
 
 
 def test_kernel_contract_errors_are_classified():

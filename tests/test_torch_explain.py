@@ -86,7 +86,7 @@ from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.scheduler import degrade
 from koordinator_tpu_torch.scheduler import pipeline_parity as pp
 from koordinator_tpu_torch.scheduler.cycle import Scheduler
-from koordinator_tpu_torch.sim import SCENARIOS, ChurnSimulator
+from koordinator_tpu_torch.sim import SCENARIOS
 from koordinator_tpu_torch.sim import faults as port_faults
 from koordinator_tpu_torch.sim.harness import run_scenario
 from koordinator_tpu_torch.testing.churn import (
@@ -548,13 +548,6 @@ def test_flight_bundle_validates_in_both_clis(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 # the sim
 # ---------------------------------------------------------------------------
-
-def test_fault_ladder_names_only_the_mesh():
-    with pytest.raises(NotImplementedError) as info:
-        ChurnSimulator(SCENARIOS["fault-ladder"], device="cpu")
-    msg = str(info.value)
-    assert "parallel/" in msg and "mesh" in msg and "explain" not in msg
-
 
 def _explain_ladder(cat):
     """fault-ladder without its mesh (and the mesh's device-loss fault)

@@ -195,6 +195,14 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.native.build, "
             "koordinator_tpu_torch.native.floor, "
             "koordinator_tpu_torch.utils.histogram, "
+            "koordinator_tpu_torch.utils.parallelize, "
+            "koordinator_tpu_torch.parallel, "
+            "koordinator_tpu_torch.parallel.mesh, "
+            "koordinator_tpu_torch.parallel.full_chain_mesh, "
+            "koordinator_tpu_torch.parallel.rebalance_mesh, "
+            "koordinator_tpu_torch.parallel.colo_mesh, "
+            "koordinator_tpu_torch.testing.mesh_round, "
+            "koordinator_tpu_torch.testing.multihost_worker, "
             "koordinator_tpu_torch.koordlet, "
             "koordinator_tpu_torch.koordlet.util, "
             "koordinator_tpu_torch.koordlet.util.system, "

@@ -48,8 +48,13 @@ from koordinator_tpu_torch.sim.harness import run_scenario
 # 55 too: its first surge fires at cycle 40 and lasts 12)
 RUN = {"smoke": 35, "gang-storm": 40, "spot-churn": 40, "crash-restart": 22,
        "drain-storm": 55, "hotspot": 55, "overcommit-shift": 55}
-# the scenarios that need a later slice, and the slice each names
-LEFT_OUT = {"fault-ladder": "parallel/"}
+# koordinator_tpu.sim's fault-ladder (its catalog 72 cycles, seed 13) on
+# the CPU: the binding log's SHA-256, which chip_smoke.py pins too
+FAULT_LADDER_SHA256 = ("e34631b68f3dd0bfa18371c00836b6e2583dea074009b6f0a3b"
+                       "0e82a5f2acb26")
+# the fault-ladder cycles the cross-package test affords: past the device
+# loss (8), the slow device (22) and the fault storm (34)
+FAULT_LADDER_CYCLES = 42
 # koordinator_tpu.sim's soak (all 1000 cycles, seed 7) on the CPU: the
 # binding log's SHA-256, which chip_smoke.py pins too
 SOAK_SHA256 = ("ec11853b366b054bae39759292b5a9540823fc6083de5f83cf7cb6e38"
@@ -132,23 +137,119 @@ def test_crash_restart_rebinds_within_its_slo():
     assert report.warmup == {}
 
 
-@pytest.mark.parametrize("name", sorted(LEFT_OUT))
-def test_left_out_scenarios_name_their_slice(name):
-    with pytest.raises(NotImplementedError, match=LEFT_OUT[name]):
-        ChurnSimulator(SCENARIOS[name], device="cpu")
+def test_fault_ladder_matches_reference():
+    """The koordguard scenario (mesh=2 virtual shards, fused waves,
+    explain counts, a 150 ms deadline) through its device loss, slow
+    device and fault storm, in both packages: the same binding log, ladder
+    walk, residency and deadline overruns."""
+    sc = dataclasses.replace(SCENARIOS["fault-ladder"],
+                             cycles=FAULT_LADDER_CYCLES)
+    port = run_scenario(sc, device="cpu")
+    ref = ref_run(dataclasses.replace(REF_SCENARIOS["fault-ladder"],
+                                      cycles=FAULT_LADDER_CYCLES))
+    assert port.binding_log == ref.binding_log
+    assert port.binding_log_sha256 == ref.binding_log_sha256
+    assert port.ladder_transitions == ref.ladder_transitions
+    assert port.cycles_at_level == ref.cycles_at_level
+    assert port.deadline_overruns == ref.deadline_overruns == 2
+    assert port.invariant_breaches == [] and port.cycle_exceptions == []
 
 
-@pytest.mark.parametrize("kind,match", [("device_loss", "parallel/")])
-def test_left_out_faults_name_their_slice(kind, match):
-    """A device loss (which a scenario without a mesh may still carry)
-    raises when it fires: FaultPlan raises the moment it is armed."""
-    fault = Fault(cycle=1, kind=kind, devices=(1,))
-    sc = Scenario(name="mini", seed=23, cycles=3, nodes=4, arrival_rate=2.0,
-                  faults=(fault,))
+def test_fault_ladder_walks_koordguard_rungs(monkeypatch):
+    """tests/test_sim.py's koordguard acceptance pin and
+    tests/test_koordwatch.py's demotion profile, on the port's whole
+    catalog run: (1) a device loss naming shard 1 lands the ladder on
+    partial-mesh (the 1-shard submesh, still a mesh dispatch) and clean
+    cycles re-promote to the whole mesh; (2) a slow-not-dead device
+    demotes through the watchdog within one cycle; (3) an anonymous storm
+    walks the remaining rungs to the host fallback; pods bind throughout
+    with zero breaches; every demoted cycle is attributed; the binding
+    log is the JAX package's (FAULT_LADDER_SHA256)."""
+    from koordinator_tpu_torch.scheduler import metrics as sm
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+
+    tallied = {"cycles": 0, "by_reason": {}}
+    orig_run = Scheduler.run_cycle
+
+    def spy(self, now=None, waves=None):
+        res = orig_run(self, now=now, waves=waves)
+        if res.demotions:
+            tallied["cycles"] += 1
+            reason = res.demotions[0]
+            tallied["by_reason"][reason] = (
+                tallied["by_reason"].get(reason, 0) + 1)
+        return res
+
+    monkeypatch.setattr(Scheduler, "run_cycle", spy)
+    overruns0 = sum(v for _l, v in sm.DISPATCH_DEADLINE_OVERRUNS.samples())
+    retries0 = dict((labels["stage"], v)
+                    for labels, v in sm.DISPATCH_RETRIES.samples())
+    report = run_scenario(SCENARIOS["fault-ladder"], device="cpu")
+    assert report.binding_log_sha256 == FAULT_LADDER_SHA256
+    assert report.invariant_breaches == []
+    assert report.cycle_exceptions == []
+    walk = [(t["from"], t["to"]) for t in report.ladder_transitions]
+    assert walk[:4] == [("full", "partial-mesh"), ("partial-mesh", "full"),
+                        ("full", "no-mesh"), ("no-mesh", "full")]
+    assert walk[4:8] == [("full", "no-mesh"), ("no-mesh", "serial-waves"),
+                         ("serial-waves", "no-explain"),
+                         ("no-explain", "host-fallback")]
+    assert report.final_level == "full"
+    assert report.deadline_overruns == 2
+    overruns1 = sum(v for _l, v in sm.DISPATCH_DEADLINE_OVERRUNS.samples())
+    assert overruns1 - overruns0 == 2
+    for level in ("partial-mesh", "no-mesh", "host-fallback"):
+        assert report.cycles_at_level.get(level, 0) > 0, level
+    degraded = set(range(8, 14)) | set(range(34, 40))
+    assert any(int(line.split("\t")[0]) in degraded
+               for line in report.binding_log)
+    assert report.flight_dumps >= len(report.ladder_transitions)
+    retries = dict((labels["stage"], v)
+                   for labels, v in sm.DISPATCH_RETRIES.samples())
+    assert (sum(retries.values()) - sum(retries0.values())) >= 8
+    assert report.restarts == 1
+    # the demotion profile sums exactly to the demoted cycles, and to an
+    # independent tally at the run_cycle boundary
+    prof = report.to_dict()["demotions"]
+    assert report.cycles_demoted > 0
+    assert sum(prof["by_reason"].values()) == prof["cycles_demoted"]
+    assert prof["cycles_demoted"] == tallied["cycles"]
+    assert prof["by_reason"] == tallied["by_reason"]
+    assert "partial-mesh" in prof["by_reason"] and "mesh-off" in (
+        prof["by_reason"])
+
+
+def test_partial_mesh_survives_losing_two_of_eight_devices():
+    """tests/test_sim.py's partial-mesh pin on the port: an 8-shard mesh
+    loses 2 named shards -> the ladder lands on partial-mesh with the 6
+    survivors, binds continue on the submesh byte-identical to a
+    fault-free single-device twin, and clean cycles re-promote to the
+    whole 8-shard mesh."""
+    sc = Scenario(
+        name="partial-mesh-8to6", seed=29, cycles=16, nodes=8,
+        arrival_rate=5.0, departure_rate=1.0, queue_cap=96,
+        ttb_slo_seconds=600.0, mesh=8, promote_after=4,
+        faults=(Fault(cycle=4, kind="device_loss", count=2,
+                      devices=(6, 7), message="two chips lost"),))
     sim = ChurnSimulator(sc, device="cpu")
-    sim._run_one_cycle(0)
-    with pytest.raises(NotImplementedError, match=match):
-        sim._run_one_cycle(1)
+    sizes = {}
+    for cycle in range(sc.cycles):
+        sim._run_one_cycle(cycle)
+        mesh = sim.sched.mesh
+        sizes[cycle] = mesh.size if mesh is not None else 0
+    report = sim.run_report()
+    assert report.invariant_breaches == []
+    assert report.cycle_exceptions == []
+    assert sizes[3] == 8 and sizes[4] == 6
+    walk = [(t["from"], t["to"]) for t in report.ladder_transitions]
+    assert walk[0] == ("full", "partial-mesh")
+    assert ("partial-mesh", "full") in walk
+    assert sizes[sc.cycles - 1] == 8
+    assert any(int(line.split("\t")[0]) in set(range(4, 9))
+               for line in report.binding_log)
+    twin = run_scenario(dataclasses.replace(sc, mesh=None, faults=()),
+                        device="cpu")
+    assert twin.binding_log == report.binding_log
 
 
 def test_sidecar_fault_arms_for_its_count():
@@ -313,7 +414,8 @@ def test_cli_lists_the_catalog(capsys):
     (["no-such-scenario", "--device", "cpu"], 4),
     (["smoke", "--waves", "x", "--device", "cpu"], 4),
     (["soak", "--cycles", "2", "--device", "cpu", "--quiet"], 0),
-    (["fault-ladder", "--device", "cpu"], 5),
+    # the mesh is ported: the scenario runs (it exited 5 before)
+    (["fault-ladder", "--cycles", "2", "--device", "cpu", "--quiet"], 0),
 ], ids=["no-scenario", "unknown", "bad-waves", "soak", "fault-ladder"])
 def test_cli_usage_contract(argv, code, capsys):
     assert sim_main(argv) == code
@@ -336,3 +438,23 @@ def test_cli_device_defaults_to_cuda(monkeypatch, capsys):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sim_main(["smoke", "--cycles", "1", "--quiet"])
     capsys.readouterr()
+
+
+@pytest.mark.parametrize("mesh", [None, 2])
+def test_host_fallback_holds_invariants_under_permanent_device_loss(mesh):
+    """tests/test_sim.py's case on the port, with and without a mesh: the
+    device never comes back, every cycle after the walk runs the pure-host
+    pass (on a mesh the walk sheds the mesh first), and the capacity and
+    hostPort invariants hold through sustained churn."""
+    sc = Scenario(name="dead-device", seed=23, cycles=12, nodes=6,
+                  arrival_rate=6.0, departure_rate=1.0, be_fraction=0.3,
+                  queue_cap=64, ttb_slo_seconds=600.0, promote_after=3,
+                  mesh=mesh,
+                  faults=(Fault(cycle=0, kind="dispatch", count=10**6),))
+    report = run_scenario(sc, device="cpu")
+    assert report.invariant_breaches == []
+    assert report.final_level == "host-fallback"
+    assert report.pods_bound > 20
+    assert report.cycle_exceptions == []
+    walk = [t["to"] for t in report.ladder_transitions]
+    assert ("no-mesh" in walk) == (mesh is not None)

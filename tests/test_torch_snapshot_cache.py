@@ -366,15 +366,6 @@ def test_mirror_tensors_equal_host_and_to_device_through_churn():
 # what this slice leaves out, and no fallback hiding the device
 # ---------------------------------------------------------------------------
 
-def test_descheduler_and_manager_packs_raise():
-    """A mesh-backed mirror still raises. The descheduler's and the
-    manager's packs, which raised here before their slices, are served
-    now: test_rebalance_pack_is_the_shared_pack and
-    test_colo_pack_is_the_shared_pack."""
-    with pytest.raises(NotImplementedError, match="parallel"):
-        DeviceSnapshot(device="cpu", mesh=object())
-
-
 def test_colo_pack_is_the_shared_pack():
     """colo_pack returns one pack, fed from the cache's own subscriptions:
     it replays the running pods at attach and follows later pod, node and
@@ -438,18 +429,25 @@ def test_rebalance_pack_is_the_shared_pack():
 @pytest.mark.parametrize("kwargs,match", [
     (dict(explain="counts"), None),
     (dict(explain="full"), None),
-    (dict(mesh=4), "mesh"),
-    (dict(mesh="auto"), "mesh"),
+    (dict(mesh=4), None),
+    (dict(mesh="auto"), None),
     (dict(warmup="sync"), None),
     (dict(warmup="background"), None),
 ], ids=["explain-counts", "explain-full", "mesh", "mesh-auto",
         "warmup-sync", "warmup-background"])
 def test_left_out_knobs_raise(kwargs, match, tmp_path, monkeypatch):
     """The knobs of paths a later slice brings raise, naming them;
-    explain attribution and the warm-up ladder are ported (match None):
-    their knobs take effect. The sidecar's dispatches
+    explain attribution, the warm-up ladder and the mesh are ported
+    (match None): their knobs take effect (the mesh over the CPU's
+    virtual shard devices). The sidecar's dispatches
     (test_sidecar_knob_dispatches)."""
     kwargs = {"waves": 1, **kwargs}
+    if "mesh" in kwargs:
+        monkeypatch.setenv("KOORD_TORCH_VIRTUAL_DEVICES", "4")
+        sched = Scheduler(ObjectStore(), device="cpu", **kwargs)
+        assert sched.mesh.size == 4
+        assert sched.device_snapshot.mesh is sched.mesh
+        return
     if match is None:
         if "warmup" in kwargs:
             monkeypatch.setenv("KOORD_TPU_COMPILE_CACHE_DIR",
@@ -518,6 +516,15 @@ def test_left_out_env_knobs_raise(monkeypatch, tmp_path, env, value):
         monkeypatch.setenv("KOORD_TPU_EXPLAIN", "counts")
         assert Scheduler(ObjectStore(), device="cpu").explain_spec == (
             "counts")
+        return
+    if env == "KOORD_TPU_MESH":
+        # the mesh is ported: the knob takes effect over the visible
+        # shard devices, and more than are visible raises
+        with pytest.raises(ValueError, match="KOORD_TPU_MESH=2"):
+            Scheduler(ObjectStore(), device="cpu", waves=1)
+        monkeypatch.setenv("KOORD_TORCH_VIRTUAL_DEVICES", "2")
+        assert Scheduler(ObjectStore(), device="cpu",
+                         waves=1).mesh.size == 2
         return
     if env == "KOORD_TPU_EXPLAIN":
         # explain is ported: the knob takes effect
