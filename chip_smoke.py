@@ -14,7 +14,7 @@ Phases, one JSON line each:
           Scheduler(store, waves=1, device="cuda") — plain, under
           CyclePipeline, and with IncrementalSnapshot off (the full-rebuild
           twin) — through cycle 0 (cold, the first kernel call of the run)
-          and 1 warm-up + 2 measured churn cycles of 1000 arrivals each. The
+          and 1 warm-up + 1 measured churn cycle of 1000 arrivals. The
           twins' ordered bindings, failed and rejected lists must be
           identical every cycle, and every dispatch window must have
           launched the full-chain kernel exactly once (launch counts set to
@@ -37,7 +37,7 @@ Phases, one JSON line each:
           defaults, (b) the same with replay_overlap=False (all K waves in
           one call), (c) Scheduler(store, waves=1, device="cuda") running as
           many serial cycles as (a) consumed (CycleResult.waves), through
-          cycle 0 and 1 warm-up + 1 measured churn cycle of 1000 arrivals.
+          cycle 0 and 1 measured churn cycle of 1000 arrivals.
           The concatenated bound sequences and failed/rejected lists must be
           identical every round, and the canonical dumps after a final flush.
           Prints the K each cycle resolved to, the device waves run and the
@@ -76,7 +76,7 @@ Phases, one JSON line each:
           pending pods and of each cycle's 1000 arrivals carry 1-2 claims
           (half of the arrivals' a bound claim shared by two pods). The
           default path (auto waves, chained) and a serial twin run cycle 0
-          and 2 churn cycles, the dynamic provisioner creating PVs for the
+          and 1 churn cycle, the dynamic provisioner creating PVs for the
           claims the scheduler selected nodes for in between. Bindings,
           failure lists, every claim's and volume's binding (the PV picks)
           and the canonical dumps (PodScheduled messages) must be equal
@@ -94,7 +94,8 @@ Phases, one JSON line each:
           device="cuda") at its defaults for cycle 0 and 10 churn cycles of
           1000 arrivals; (a) with a FaultPlan on its three hooks, a 2 s
           dispatch deadline and a ladder that promotes after 2 clean
-          cycles, (b) unfaulted. One dispatch fault, one upload OOM and one
+          cycles, (b) unfaulted (cycles 0-3 only). One dispatch fault, one
+          upload OOM and one
           4 s readback each retry at full, and (a) must equal (b) through
           them; then a fault storm demotes full -> serial-waves (the fused
           window's pass re-runs serially) -> host-fallback, and clean
@@ -129,6 +130,26 @@ Phases, one JSON line each:
           fault storm, a crash-restart): its binding log's SHA-256 equal
           to the JAX package's, its ladder walk the plan's, two deadline
           overruns, launches of kernel 1 and the stage-count pass.
+  racecheck  koordrace on the card (sim/racecheck.py check_races): the
+          smoke scenario's first 24 cycles (10 nodes, the cycle-20
+          dispatch fault down to the host fallback and back) at fused
+          waves K = 2 (the catalog's smoke dispatches serially and never
+          reaches the replay instance) under the race harness at
+          preemption seeds 101 and 202: every guarded-field touchpoint of
+          the static guard map witness-checked and seeded to yield, the
+          canonical lock order checked as locks are taken, /metrics and
+          /debug/timeline scraped the whole run, the pipeline overlap on,
+          the dispatch watchdog armed (30 s) over the chained dispatch's
+          readback of each wave, the warm-up ladder in the background.
+          The seeds share one rung index, so the second seed's ladder
+          replays the first's rungs on its own CUDA stream while its
+          first cycles dispatch. 0 witnesses, 0 order inversions, 0 torn
+          scrapes, touches at both seeds, no static race finding over the
+          port's tree, both binding logs the JAX package's racecheck
+          SHA-256 at waves=2, the second seed's ladder warmed, kernel 1
+          and its replay instance launched inside the phase. Prints each
+          seed's bindings, SHA, touches, preemptions, scrapes, unchecked
+          touches and warm-up stats, the launches and the seconds.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
           running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
           cut) through Descheduler(store, device="cuda"): a warm-up pass,
@@ -161,7 +182,7 @@ Phases, one JSON line each:
           migration jobs, equal.
   colo    config 4's nodes, pods and NodeMetrics (churn_store(5000, 10000,
           seed=42)) without its ElasticQuotas, one NodeMetric in 20 stale,
-          through Manager(store, device="cuda"): 2 warm-up and 10 timed
+          through Manager(store, device="cuda"): 2 warm-up and 5 timed
           ticks with 50 NodeMetrics changed a tick, then a tick under each
           calculate policy (usage, request, maxUsageRequest) after a
           ConfigMap hot reload, each beside a Manager(colo="host") twin on
@@ -197,8 +218,8 @@ Phases, one JSON line each:
           through the default path (auto waves, chained dispatch) with
           explain "counts" and "full" beside an explain-off twin, and a
           serial "counts" twin (waves=1) running as many cycles as the
-          default path consumed: cycle 0, one warm-up and EXPLAIN_MEASURED
-          churn cycles of 1000 arrivals. Bindings, failure lists and every
+          default path consumed: cycle 0 and EXPLAIN_MEASURED churn
+          cycles of 1000 arrivals. Bindings, failure lists and every
           PodScheduled message equal every cycle; on every cycle with
           explain on, one stage-count pass (explain_counts.cu) per round,
           and at "full" every round in kernel 1's terms instance; none
@@ -239,7 +260,7 @@ Phases, one JSON line each:
           ScheduleBatch server in this process (serve_sidecar on an
           abstract unix socket, SidecarServer(device="cuda")), beside its
           serial twin Scheduler(waves=1) on an identical store, for cycle
-          0 and 2 churn cycles of 1000 arrivals: bindings, failure lists
+          0 and 1 churn cycle of 1000 arrivals: bindings, failure lists
           and canonical dumps identical, every cycle demoted with reason
           sidecar, no fallback, kernel 1 launched by the server. Then the
           server stops and one more churn cycle must bind as the twin does
@@ -288,7 +309,8 @@ Phases, one JSON line each:
           in a PodScheduled message; the GPU outcome's SHA-256 the pinned
           one. Prints each cycle's R and kernel 1's route (state,
           instance), the spans, the GPU pods bound, the rejection split
-          and a pool Daemon.run_once's median ms (timed after the cycles).
+          and a pool Daemon.run_once's median ms (16 of them, timed after
+          the cycles).
   demo    cmd.demo.main([]) in this process with its defaults (the card):
           exit 0, "demo complete", 2 of its 3 BE pods bound (the JAX
           demo's outcome: the batch allocatable fits two) through kernel 1
@@ -360,7 +382,7 @@ Phases, one JSON line each:
           on CUDA, with the launch counts read around that call; then the
           LoadAware kernel's time, the plain torch round on the card (same
           bindings, requested within 1e-4) and the numpy oracle
-          serial_schedule on the first 50 pods (same bindings).
+          serial_schedule on the first 25 pods (same bindings).
   loadaware_prod  the same with score_according_prod_usage.
   loadaware_global  the LoadAware kernel with its carried state in device
           memory (smem_budget_bytes=0), against the plain round of
@@ -394,15 +416,20 @@ JAX package.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 import gc
 import hashlib
 import json
 import os
 import pickle
+import resource
+import shutil
 import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.parse
@@ -476,12 +503,16 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 REPS = 10  # timed rounds after the warm-up
 # the numpy oracle's pods (bench.py's --serial-sample default is 200; cut
-# to 100, then to 50, for the script's time limit)
-ORACLE_PODS = 50
-# bench.py run_churn's shape: warm-up (its 2, cut to 1 for the time limit)
+# to 100, then to 50, then to 25 when the racecheck phase joined the
+# script, for its time limit)
+ORACLE_PODS = 25
+# bench.py run_churn's shape: warm-up (its 2, cut to 1 for the time
+# limit; without it the serial cycle measured was the first churn cycle,
+# 960.9 ms against 668.9-891.4 after one, NVIDIA H100 80GB HBM3, 700.00 W)
 # and measured churn cycles (--smoke's count, 3, until the mesh phases
-# joined the script), num_pods // 10 arrivals each
-CHURN_WARMUP, CHURN_MEASURED = 1, 2
+# joined the script, 2 until the racecheck phase did), num_pods // 10
+# arrivals each
+CHURN_WARMUP, CHURN_MEASURED = 1, 1
 # the spans a cycle is split into (direct children of the cycle root, and
 # the upload/readback and pack_incremental children of kernel and encode)
 CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
@@ -490,14 +521,21 @@ CYCLE_SPANS = ("reservation_prepass", "snapshot", "encode", "compile",
 NESTED_SPANS = ("pack_incremental", "upload", "readback")
 # the fused path adds the chained replay's span (wave_replay children)
 WAVE_SPANS = CYCLE_SPANS + ("replay_drain",)
-# the default-waves phase: cycle 0, then warm-up and measured churn cycles
+# the default-waves phase: cycle 0, then warm-up (1 until the racecheck
+# phase joined the script: on the card the default path's first churn
+# cycle takes what the next one does, 1397 against 1363 ms, NVIDIA H100
+# 80GB HBM3, 700.00 W) and measured churn cycles
 # (3 measured until the storage, cold start, binary and wave phases
 # joined the script, 2 until the mesh phases did)
-WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 1, 1
+WAVE_CHURN_WARMUP, WAVE_CHURN_MEASURED = 0, 1
 # the ladder phase: churn cycles after cycle 0, the ladder's re-promotion
 # probe, the dispatch deadline armed in the faulted scheduler and the
 # delay of the latency fault (a wave 1 takes at most ~0.1 s on the card)
 LADDER_CYCLES, LADDER_PROMOTE_AFTER = 10, 2
+# the unfaulted twin (b) runs cycle 0 and the retry-only faults' cycles,
+# the ones (a) is held to it (all 11 until the racecheck phase joined the
+# script)
+LADDER_TWIN_CYCLES = 4
 LADDER_DEADLINE_MS, LADDER_DELAY_MS = 2000.0, 4000.0
 # the fault plan, by churn cycle, and the ladder level after each cycle
 LADDER_FAULTS = (
@@ -532,17 +570,21 @@ SIM_SCENARIOS = (("smoke", 50, 50), ("gang-storm", 60, 40),
 # scenario at its catalog 160
 OVERCOMMIT_SHIFT_JAX_SHA256 = (
     "1afd292185dc2cd14637d85e1387ae8f616ef50849309a907a6e027a439070f8")
-# the colo phases: warm-up and timed manager ticks, and one NodeMetric
-# in COLO_STALE_EVERY made stale (5% of config 4's nodes)
-COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 10, 20
-# koordexplain: the measured churn cycles of scheduler_explain (after
-# cycle 0 and one warm-up), the explain ladder's fault storm (the fused
-# window: retry, demote to serial waves, whose pass retries and demotes
-# to no-explain and binds there), its level after each cycle and its walk,
-# and the koord_scheduler binary's seconds between its two ticks (the
-# probe reads /explain between them); 2 measured cycles until the mesh
-# phases joined the script
-EXPLAIN_MEASURED = 1
+# the colo phases: warm-up and timed manager ticks (colo's timed ticks
+# 10 until the racecheck phase joined the script; colo_quota's quota
+# churn keeps its 10), and one NodeMetric in COLO_STALE_EVERY made stale
+# (5% of config 4's nodes)
+COLO_WARMUP, COLO_TICKS, COLO_STALE_EVERY = 2, 5, 20
+QUOTA_TICKS = 10
+# koordexplain: the warm-up and measured churn cycles of
+# scheduler_explain after cycle 0 (1 warm-up until the racecheck phase
+# joined the script; see WAVE_CHURN_WARMUP), the explain ladder's fault
+# storm (the fused window: retry, demote to serial waves, whose pass
+# retries and demotes to no-explain and binds there), its level after
+# each cycle and its walk, and the koord_scheduler binary's seconds
+# between its two ticks (the probe reads /explain between them); 2
+# measured cycles until the mesh phases joined the script
+EXPLAIN_WARMUP, EXPLAIN_MEASURED = 0, 1
 EXPLAIN_LADDER_FAULTS = (
     Fault(cycle=1, kind="dispatch", count=4,
           message="ladder_explain: fault storm"),
@@ -566,13 +608,15 @@ BINARY_ENV = {"KOORD_TPU_EXPLAIN": "counts", "KOORD_TPU_WAVES": "1"}
 # took 44-52 s there, most of it in those preemption dry runs)
 KOORD_SCHEDULER_SYNTH = "2500x5000"
 # the storage phase: the share of pending pods and arrivals carrying
-# claims, and the churn cycles after cycle 0
-STORAGE_CLAIMS, STORAGE_CHURN = 0.2, 2
+# claims, and the churn cycles after cycle 0 (2 until the racecheck phase
+# joined the script; the provisioner serves cycle 0's claims before
+# cycle 1)
+STORAGE_CLAIMS, STORAGE_CHURN = 0.2, 1
 # the wave round's timed calls beside the compare call at P = 10240 (each
-# ~2,400 waves, ~20 s on the card) and at P = 1280 (2 until the mesh
-# phases joined the script), and the two batch prefixes its launches are
-# counted on
-WAVE_ROUND_REPS = (0, 1)
+# ~2,400 waves, ~24 s on the card) and at P = 1280 (2 until the mesh
+# phases joined the script, 1 until the racecheck phase did), and the two
+# batch prefixes its launches are counted on
+WAVE_ROUND_REPS = (0, 0)
 WAVE_PROFILE_PODS = (32, 64)
 # the mixed-cluster cycle phases: cycle 0 and churn cycles (2 until the
 # slice-10 phases joined the script)
@@ -597,7 +641,9 @@ BINARY_TICKS, BINARY_INTERVAL = 3, 1.0
 # tests/test_torch_sim.py pins too
 FLOOR_REPS = 3
 SIDECAR_REPS = 3
-SIDECAR_CHURN = 2
+# (2 churn cycles with the server up until the racecheck phase joined the
+# script)
+SIDECAR_CHURN = 1
 SOAK_JAX_SHA256 = (
     "ec11853b366b054bae39759292b5a9540823fc6083de5f83cf7cb6e38287e880")
 # slice 12, the node side: the GPU pool (64 of config 4's 5,000 nodes, one
@@ -606,6 +652,9 @@ SOAK_JAX_SHA256 = (
 # 90 s they may add, NVIDIA H100 80GB HBM3, 700.00 W)
 GIB = 1024 ** 3
 NODE_POOL, NODE_GPU_PODS, NODE_CHURN = 64, 128, 1
+# the pool Daemons whose run_once is timed after the cycles (all 64 until
+# the racecheck phase joined the script)
+NODE_RUN_ONCE_TIMED = 16
 # node_agent's GPU outcome (gpu_outcome_hash) for seed 42, pinned from a
 # run on the card: 55 of the 128 GPU pods bound, filling 31 cards
 NODE_AGENT_OUTCOME = (
@@ -1506,9 +1555,10 @@ def run_ladder(device, n_nodes=5000, n_pods=10000):
     total = {"full_chain": 0, "full_chain_replay": 0}
     rows, fallback_s = [], []
     for c in range(1 + LADDER_CYCLES):
+        with_twin = c < LADDER_TWIN_CYCLES
         if c:
             specs = arrival_specs(c, arrivals)
-            for store in (store_a, store_b):
+            for store in (store_a, store_b) if with_twin else (store_a,):
                 add_arrivals(store, specs, now + c)
         t = now + 2 * c
         plan.begin_cycle(c)
@@ -1517,7 +1567,10 @@ def run_ladder(device, n_nodes=5000, n_pods=10000):
         puts0 = (snap0.stats["put"], twin.device_snapshot.stats["put"])
         res_a, wall_a, la, k_a = ladder_cycle(faulted, t)
         hf_s = host_fallback_seconds(faulted)
-        res_b, wall_b, lb, k_b = ladder_cycle(twin, t)
+        res_b, wall_b, lb, k_b = (
+            ladder_cycle(twin, t) if with_twin
+            else (None, None, {"full_chain": 0, "full_chain_replay": 0},
+                  None))
         level = faulted.ladder.level
         dr = {s: retries_now()[s] - r0[s] for s in r0}
         for key in total:
@@ -1528,7 +1581,7 @@ def run_ladder(device, n_nodes=5000, n_pods=10000):
         if level != LADDER_LEVELS[c]:
             raise AssertionError(f"ladder cycle {c}: level {level}, "
                                  f"expected {LADDER_LEVELS[c]}")
-        if c < 4 and result_key(res_a) != result_key(res_b):
+        if with_twin and result_key(res_a) != result_key(res_b):
             raise AssertionError(f"ladder cycle {c}: (a) differs from (b) "
                                  "through a retry-only fault")
         expect = {1: {"fused": 1.0, "serial": 0.0},
@@ -1571,8 +1624,10 @@ def run_ladder(device, n_nodes=5000, n_pods=10000):
             fallback_s.append(hf_s)
         rows.append({"cycle": c, "level": faulted.ladder.level_name,
                      "K": k_a, "twin_K": k_b, "waves": res_a.waves,
-                     "ms": wall_a * 1e3, "twin_ms": wall_b * 1e3,
-                     "bound": len(res_a.bound), "twin_bound": len(res_b.bound),
+                     "ms": wall_a * 1e3,
+                     "twin_ms": wall_b * 1e3 if with_twin else None,
+                     "bound": len(res_a.bound),
+                     "twin_bound": len(res_b.bound) if with_twin else None,
                      "retries": dr, "launches": la,
                      "host_fallback_s": hf_s})
     transitions = [(t["from"], t["to"]) for t in faulted.ladder.transitions]
@@ -1598,7 +1653,6 @@ def run_ladder(device, n_nodes=5000, n_pods=10000):
           "invariant_breaches": 0, "cycles": rows,
           "host_fallback_seconds": fallback_s,
           "repromoted_cycle_ms": rows[-1]["ms"],
-          "twin_cycle_ms": rows[-1]["twin_ms"],
           "launches": total})
     return total
 
@@ -2144,8 +2198,8 @@ def colo_step_check(tag, view, args, plan, device, compare_total):
 
 def run_colo(device, n_nodes=5000, n_pods=10000):
     """Config 4's nodes, pods and NodeMetrics without ElasticQuotas through
-    the standalone Manager(store, device="cuda"): 2 warm-up and 10 timed
-    ticks with metric churn, then one tick under each calculate policy
+    the standalone Manager(store, device="cuda"): 2 warm-up and COLO_TICKS
+    timed ticks with metric churn, then one tick under each calculate policy
     after a ConfigMap hot reload, each against a Manager(colo="host")
     twin on an identical store; then the step alone."""
     from koordinator_tpu_torch.manager import Manager
@@ -2319,8 +2373,6 @@ def run_colo_quota(device):
     matrix equals the host compute_runtime_quotas over the same
     post-writeback store, the revoke victim lists are equal (order
     included); then the step alone and the fold's launches."""
-    import dataclasses
-
     from koordinator_tpu_torch.colo.step import build_colo_step
     from koordinator_tpu_torch.manager import Manager
     from koordinator_tpu_torch.scheduler.config import SchedulerConfiguration
@@ -2352,7 +2404,7 @@ def run_colo_quota(device):
     (store, mgr, revoker), (twin_store, twin, twin_revoker) = worlds
     now = state.now
     pass_ms, victims, consumed = [], 0, 0
-    for k in range(COLO_TICKS):
+    for k in range(QUOTA_TICKS):
         now += 10.0
         for s in (store, twin_store):
             quota_churn(s, k, now, n_nodes)
@@ -2369,7 +2421,7 @@ def run_colo_quota(device):
             raise AssertionError(f"colo_quota tick {k}: revoke victims "
                                  f"{got[:3]} != {want[:3]}")
         victims += len(got)
-    if consumed < COLO_TICKS or victims < 1:
+    if consumed < QUOTA_TICKS or victims < 1:
         raise AssertionError(f"colo_quota: device runtime consumed "
                              f"{consumed} times, {victims} victims")
     view, step_args, plan = colo_step_args(mgr, now, device)
@@ -2689,7 +2741,7 @@ def run_scheduler_explain(device, n_nodes=5000, n_pods=10000,
     """Config 4 through the default path (auto waves, chained dispatch)
     with explain "counts" and "full" beside an explain-off twin, and a
     serial "counts" twin (waves=1) running as many cycles as the default
-    path consumed: cycle 0, one warm-up and ``measured`` churn cycles of
+    path consumed: cycle 0, EXPLAIN_WARMUP and ``measured`` churn cycles of
     n_pods // 10 arrivals. The bindings, failure lists and every
     PodScheduled message must be equal every cycle. Returns the phase's
     launches per kernel."""
@@ -2713,7 +2765,7 @@ def run_scheduler_explain(device, n_nodes=5000, n_pods=10000,
     splits = {name: [] for name in ("off", "counts", "full")}
     ex_bytes = {name: [] for name in scheds}
     rows = []
-    for c in range(1 + 1 + measured):
+    for c in range(1 + EXPLAIN_WARMUP + measured):
         if c:
             specs = arrival_specs(c, arrivals)
             for store, _state in worlds.values():
@@ -2728,7 +2780,7 @@ def run_scheduler_explain(device, n_nodes=5000, n_pods=10000,
                          "launches": la, "explain_readback_bytes": xb}
             for key in total:
                 total[key] += la[key]
-            if c > 1:
+            if c > EXPLAIN_WARMUP:
                 walls[name].append(wall)
                 splits[name].append(span_split(scheds[name], WAVE_SPANS))
                 ex_bytes[name].append(xb)
@@ -2748,7 +2800,7 @@ def run_scheduler_explain(device, n_nodes=5000, n_pods=10000,
                 part.extend(got)
         keys["serial"] = ser_key
         row["serial"] = {"ms": wall_s * 1e3, "explain_readback_bytes": xb_s}
-        if c > 1:
+        if c > EXPLAIN_WARMUP:
             walls["serial"].append(wall_s)
             ex_bytes["serial"].append(xb_s)
         if not (keys["off"] == keys["counts"] == keys["full"]
@@ -3117,9 +3169,6 @@ def run_cold_start():
     Gates: warmed == rungs > 0, failed == invalidated == 0, zero
     steady-state step builds, the cold process's bindings every cycle.
     Returns the full-chain launches of both children."""
-    import shutil
-    import tempfile
-
     cache_dir = tempfile.mkdtemp(prefix="koord_cold_start_")
     try:
         cold = cold_start_child({"KOORD_TPU_WARMUP": "off"}, cache_dir)
@@ -3199,10 +3248,6 @@ def run_binary(device, name, synth="5000x10000", ticks=BINARY_TICKS):
             'koord_manager_colo_passes_total{engine="device"}',
             "koord_manager_colo_pass_seconds_sum"),
     }[name]
-    # the earlier phases' garbage is collected first, outside the timing
-    t0 = time.perf_counter()
-    gc.collect()
-    gc_s = time.perf_counter() - t0
     before = metric_sample(registry, series)
     pass_s0 = metric_sample(registry, seconds)
     t0 = time.perf_counter()
@@ -3216,8 +3261,7 @@ def run_binary(device, name, synth="5000x10000", ticks=BINARY_TICKS):
     emit({"phase": name, "synth": synth, "ticks": ticks,
           "interval_s": BINARY_INTERVAL, "rc": rc, "wall_s": wall,
           "device_passes": passes,
-          "passes_s": metric_sample(registry, seconds) - pass_s0,
-          "gc_collect_s": gc_s})
+          "passes_s": metric_sample(registry, seconds) - pass_s0})
 
 
 def free_port() -> int:
@@ -3879,7 +3923,7 @@ def run_node_agent(device, dev, n_nodes=5000, n_pods=10000):
         # each pool Daemon's run_once, after the cycles (the pods are
         # bound), on a fresh /proc/stat sample
         run_once_ms = []
-        for daemon, fs in agents:
+        for daemon, fs in agents[:NODE_RUN_ONCE_TIMED]:
             fs.set_proc("stat", "cpu  3000 0 3000 16000 0 0 0 0 0 0\n")
             t0 = time.perf_counter()
             daemon.run_once(now=now + 2 * NODE_CHURN + 4)
@@ -3957,8 +4001,6 @@ def explain_gpu_pending(twin, now, gpu_pods, pool, card_core):
     device reason of DeviceShare's Reserve. Returns the split: pairs per
     set of rejecting stages, "insufficient resources" split into the GPU
     axes and cpu/memory/pods."""
-    import collections
-
     from koordinator_tpu_torch.scheduler.diagnose import (
         _stage_verdicts,
         shared_state,
@@ -4291,6 +4333,67 @@ def run_fault_ladder(device):
     return launches
 
 
+# koordinator_tpu.sim.racecheck's run_racecheck(preempt_seed=101) on the
+# CPU over racecheck_scenario(24) at waves=2 (the catalog's smoke
+# dispatches serially, and its waves=1 log, eda59ef2..., never reaches the
+# replay instance); tests/test_torch_racecheck_gate.py pins both
+RACECHECK_WAVES_JAX_SHA256 = ("97ba4807280ecd6a3c756daa5ddfa9e98e077eb9936e"
+                              "2f40af3e5d86d6d64bb8")
+RACECHECK_SEEDS = (101, 202)
+RACECHECK_CYCLES = 24
+# the gate's fused waves on the card (the catalog's serial dispatch at
+# both seeds, then a third run at waves=2, until the script's time limit)
+RACECHECK_WAVES = 2
+
+
+def run_racecheck(device):
+    """koordrace's gate on the card: check_races at both preemption seeds
+    at RACECHECK_WAVES (the chained dispatch: kernel 1 and its replay
+    instance), over one rung index (the second seed's background ladder
+    replays the first's rungs while its first cycles dispatch). Fails on
+    any failure class of the gate, a binding log that is not the JAX
+    package's, a second seed whose ladder warmed nothing, or a phase that
+    launched neither kernel 1 nor its replay instance."""
+    from koordinator_tpu_torch.sim.racecheck import check_races
+
+    # the threads the earlier phases left behind: the harness traces only
+    # the ones it starts, the others still take the GIL when they wake
+    left = collections.Counter(t.name.rstrip("0123456789-_ ")
+                               for t in threading.enumerate())
+    zero_mesh_launches()
+    t0 = time.perf_counter()
+    gate = check_races(seeds=RACECHECK_SEEDS, cycles=RACECHECK_CYCLES,
+                       device=device, waves=RACECHECK_WAVES)
+    phase_s = time.perf_counter() - t0
+    launches = mesh_launches_now()
+    if gate.failures:
+        raise AssertionError("racecheck: " + "; ".join(gate.failures[:10]))
+    shas = [r.binding_log_sha256 for r in gate.reports]
+    if shas != [RACECHECK_WAVES_JAX_SHA256] * len(RACECHECK_SEEDS):
+        raise AssertionError(f"racecheck: binding logs {shas}, not the JAX "
+                             f"package's {RACECHECK_WAVES_JAX_SHA256}")
+    if gate.reports[-1].warmup.get("warmed", 0) < 1:
+        raise AssertionError(f"racecheck: the second seed's ladder warmed "
+                             f"nothing: {gate.reports[-1].warmup}")
+    if launches["full_chain"] < 1 or launches["full_chain_replay"] < 1:
+        raise AssertionError(f"racecheck: no launch: {launches}")
+    emit({"phase": "racecheck", "cycles": RACECHECK_CYCLES,
+          "waves": RACECHECK_WAVES,
+          "runs": [{"seed": r.preempt_seed, "bindings": r.bindings,
+                    "sha256": r.binding_log_sha256,
+                    "touches": r.touches, "preemptions": r.preemptions,
+                    "scrapes": r.scrapes, "unchecked": r.unchecked,
+                    "witnesses": len(r.witnesses),
+                    "order_violations": len(r.order_violations),
+                    "scrape_errors": len(r.scrape_errors),
+                    "warmup": r.warmup}
+                   for r in gate.reports],
+          "static_findings": len(gate.static), "jax_sha256_equal": True,
+          "launches": launches, "threads_before": dict(left),
+          "seconds": phase_s})
+    return launches
+
+
 def run_rebalance_mesh(device, n_pods=50_000, n_nodes=5_000):
     """BASELINE config 5 through a standalone Descheduler whose pass runs
     on KOORD_TPU_MESH=2 virtual shards of the card, beside a single-device
@@ -4420,15 +4523,9 @@ def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
 
 
 # wall seconds of each phase: the time from the previous phase line to
-# its own (phases run one after another, each ending with its line), and
-# of the full collections between phases
+# its own (phases run one after another, each ending with its line)
 PHASE_SECONDS = {}
-GC_SECONDS = [0.0]
 _last_emit = [time.perf_counter()]
-# with the cyclic collector off (main), the garbage of the phases so far
-# goes in one full collection at the first phase line after this many
-# tracked objects have piled up (a config 4 world is ~1.5-2 million)
-GC_PILE = 20_000_000
 
 
 def emit(obj) -> None:
@@ -4438,11 +4535,7 @@ def emit(obj) -> None:
                                        + now - _last_emit[0])
     print(json.dumps(obj), flush=True)
     if "phase" in obj:
-        t0 = time.perf_counter()
-        if gc.get_count()[0] > GC_PILE:
-            gc.collect()
         _last_emit[0] = time.perf_counter()
-        GC_SECONDS[0] += _last_emit[0] - t0
 
 
 def card_line() -> str:
@@ -4551,12 +4644,15 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     device = "cuda"
-    # Python's cyclic collector off, and a full collection between phases
-    # once GC_PILE tracked objects have piled up (emit): a full collection
-    # walks every live and dead world (2-10 s here), and the automatic
-    # ones (60, 134 s of an 840 s run) or one after every phase (45, 162 s
-    # of 786) cost more than the phases they sat in (NVIDIA H100 80GB
-    # HBM3, 700.00 W, chip_smoke_profile.py)
+    # Python's cyclic collector off for the whole run, and what piled up
+    # frozen at the end, so the interpreter's exit does not walk it
+    # either: a full collection walks every live and dead world (a config
+    # 4 world with its Scheduler leaves ~0.8 million objects in cycles),
+    # and the automatic ones (60, 134 s of an 840 s run), one after every
+    # phase (45, 162 s of 786) or one per 20 million objects (4, 47 s of
+    # 818) cost more than the phases they sat in (NVIDIA H100 80GB HBM3,
+    # 700.00 W, chip_smoke_profile.py); the host memory this costs is the
+    # last phase line's max_rss_mib
     gc.disable()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4594,6 +4690,8 @@ def main() -> int:
     ladder_launches = run_ladder(device)
     sim_launches = run_sim(device)
     ladder_mesh_launches = run_fault_ladder(device)
+    # ---- koordrace: the race gate over the smoke scenario on the card
+    race_launches = run_racecheck(device)
     # ---- the descheduler: config 5 standalone (and on a mesh), then
     # co-located at config 4
     run_rebalance(device)
@@ -4632,6 +4730,7 @@ def main() -> int:
         launches_waves=replay_entry["launches"],
         launches_ladder=ladder_launches["full_chain_replay"],
         launches_sim=sim_launches["full_chain_replay"],
+        launches_racecheck=race_launches["full_chain_replay"],
         launches_explain={k: v["full_chain_replay"]
                           for k, v in explain_launches.items()})
     replay_entry.update(
@@ -4648,6 +4747,7 @@ def main() -> int:
                                  + cold_launches["full_chain_replay"]
                                  + soak_launches["full_chain_replay"]
                                  + sim_launches["full_chain_replay"]
+                                 + race_launches["full_chain_replay"]
                                  + sum(v["full_chain_replay"]
                                        for v in explain_launches.values()))
 
@@ -4787,8 +4887,11 @@ def main() -> int:
                                 la_inputs)
     la_kernel["ms_sharded_by_depth"] = sharded_ms["schedule_step"]
 
-    emit({"phase_seconds": PHASE_SECONDS, "gc_seconds": GC_SECONDS[0],
-          "total_seconds": time.perf_counter() - SCRIPT_START})
+    emit({"phase_seconds": PHASE_SECONDS,
+          "total_seconds": time.perf_counter() - SCRIPT_START,
+          "tracked_objects": sum(gc.get_count()),
+          "max_rss_mib": resource.getrusage(
+              resource.RUSAGE_SELF).ru_maxrss / 1024})
     emit({"kernels": [
         kernel_entry("full_chain_round", "full_chain.cu",
                      "koordinator_tpu/ops/pallas_full_chain.py:90",
@@ -4797,7 +4900,8 @@ def main() -> int:
                      + ladder_launches["full_chain"]
                      + storage_launches["full_chain"]
                      + cold_launches["full_chain"]
-                     + sim_launches["full_chain"] + colocated_launches
+                     + sim_launches["full_chain"]
+                     + race_launches["full_chain"] + colocated_launches
                      + colo_launches + grpc_launches
                      + sidecar_sched_launches + soak_launches["full_chain"]
                      + node_launches["full_chain"] + demo_launches
@@ -4812,6 +4916,7 @@ def main() -> int:
                      launches_storage=storage_launches["full_chain"],
                      launches_cold_start=cold_launches["full_chain"],
                      launches_sim=sim_launches["full_chain"],
+                     launches_racecheck=race_launches["full_chain"],
                      launches_rebalance_colocated=colocated_launches,
                      launches_colo_colocated=colo_launches,
                      launches_sidecar_grpc=grpc_launches,
@@ -4839,6 +4944,7 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": 1}})
+    gc.freeze()
     return 0
 
 

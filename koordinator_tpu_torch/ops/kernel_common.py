@@ -64,7 +64,7 @@ def find_nvcc() -> str:
                               "machine with the CUDA toolkit")
 
 
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # koordlint: guarded-by(_LIBS_LOCK)
 # one build-and-load at a time in a process: a background warm-up ladder
 # and the cycle thread may both reach a kernel first, and two builds of
 # one source would write the same temporary file
@@ -126,7 +126,9 @@ def build_libraries(*sources: str) -> Dict[str, Path]:
 
 def load_library(source: str) -> ctypes.CDLL:
     """The ctypes handle of csrc/<source>, built on first use."""
-    lib = _LIBS.get(source)
+    # the double-checked fast path: a loaded library is never replaced,
+    # and dict.get is atomic under the GIL
+    lib = _LIBS.get(source)  # koordlint: disable=unguarded-shared-field
     if lib is None:
         with _LIBS_LOCK:
             lib = _LIBS.get(source)

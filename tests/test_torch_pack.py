@@ -239,7 +239,25 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.cmd.koord_runtime_proxy, "
             "koordinator_tpu_torch.testing.gpu_pool, "
             "koordinator_tpu_torch.testing.cri, "
-            "koordinator_tpu_torch.sim.faults\n"
+            "koordinator_tpu_torch.sim.faults, "
+            "koordinator_tpu_torch.sim.racecheck, "
+            "koordinator_tpu_torch.analysis, "
+            "koordinator_tpu_torch.analysis.__main__, "
+            "koordinator_tpu_torch.analysis.core, "
+            "koordinator_tpu_torch.analysis.guards, "
+            "koordinator_tpu_torch.analysis.rules, "
+            "koordinator_tpu_torch.analysis.rules.balance, "
+            "koordinator_tpu_torch.analysis.rules.colo, "
+            "koordinator_tpu_torch.analysis.rules.compilecache, "
+            "koordinator_tpu_torch.analysis.rules.concurrency, "
+            "koordinator_tpu_torch.analysis.rules.demotion, "
+            "koordinator_tpu_torch.analysis.rules.jaxtrace, "
+            "koordinator_tpu_torch.analysis.rules.loops, "
+            "koordinator_tpu_torch.analysis.rules.pipeline, "
+            "koordinator_tpu_torch.analysis.rules.race, "
+            "koordinator_tpu_torch.analysis.rules.wire\n"
+            "from koordinator_tpu_torch.analysis import all_rules\n"
+            "assert len(all_rules()) == 23, sorted(all_rules())\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'koordinator_tpu' "
             "or m.startswith('koordinator_tpu.')]\n"
