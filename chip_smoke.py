@@ -56,6 +56,14 @@ Phases, one JSON line each:
           from the shards into kernel 1 and its replay instance (the
           steps built for the mesh), the outcome's SHA-256 equal to
           scheduler_waves' (no new twin).
+  scheduler_xchg  the same default path on a mesh of 2 virtual CARDS of
+          the card (testing/mesh_round.exchanging_mesh: mesh.exchange set,
+          the route a mesh of two cards takes): the cycles scheduler_waves
+          ran, every wave's round in kernel 1's exchange instance (each
+          shard a cluster of one launch, the pod's stats and winner
+          exchanged through the mailboxes) and its replay in the per-card
+          replay, no single-device launch and no node row gathered; the
+          outcome's SHA-256 equal to scheduler_waves'.
   scheduler_waves_mixed  the mixed cluster (500 x 1000) with default
           waves on the card and in a CPU twin (the plain wave step): the
           canonical dumps must be identical after each of 2 cycles. As
@@ -399,7 +407,20 @@ Phases, one JSON line each:
           3, 4 and 8 virtual shards of the card, on `main`'s batch and
           `loadaware`'s, each against the single-device launches on the
           same padded tensors: 0 mismatches; both timed (CUDA events,
-          median of 10).
+          median of 10). Then the instances over a mesh of cards
+          (testing/mesh_round.py): at D = 2, 4 and 8 virtual cards, all
+          in one launch, kernel 1's round and terms instances, the
+          per-card replay, the per-card stage counts and kernel 2's
+          exchange instance against the single-device kernels, bit for bit
+          (timed at D = 2); a lone shard of a D = 2 exchange times out
+          (the exchange's 2 s limit) naming shard 1 and the next launch
+          passes; the sharded steps
+          (explain "full", LoadAware) on 2 exchanging virtual cards with
+          their launch counts set to 0 before and read after, against the
+          single-device kernels; and each instance against its plain
+          version on the card (the plain sharded round with its terms,
+          the plain per-shard replay and counts, the plain sharded
+          LoadAware round) on the first PLAIN_PODS valid pods.
 Every phase that injects no fault ends with each scheduler's ladder at
 full, no transition and no dispatch retry (ladder_full in its line).
 Each kernel's phase line names the launch: the state it kept (smem or
@@ -409,7 +430,10 @@ equal to the plain round's: 0 mismatches and max |err| 0.0. Then a line
 of each phase's wall seconds and the script's, the
 kernels line (kernel 1, kernel 2, the replay instance, the stage-count
 pass and the terms instance, each with its launches on the scheduler
-paths), the card line, and the result line. Any failure raises: the
+paths; then their instances over a mesh of cards: kernel 1's exchange
+round and terms round, the per-card replay, the per-card stage counts and
+kernel 2's exchange instance, with their launches on scheduler_xchg and
+mesh_round's exchange path), the card line, and the result line. Any failure raises: the
 script exits non-zero and prints no result. It imports neither JAX nor the
 JAX package.
 """
@@ -488,7 +512,7 @@ from koordinator_tpu_torch.testing import (
     synth_cluster,
     synth_full_cluster,
 )
-from koordinator_tpu_torch.testing import churn, mesh_round
+from koordinator_tpu_torch.testing import churn, cross_card, mesh_round
 from koordinator_tpu_torch.testing.churn import (
     add_arrivals,
     arrival_specs,
@@ -4215,21 +4239,90 @@ def run_mesh_round(fc, args, ng, ngroups, active, n_real, la_inputs):
     rows = mesh_round.check_full_chain(fc, args, ng, ngroups, active,
                                        n_real)
     la_rows = mesh_round.check_schedule(la_inputs, args)
-    for row in rows:
+    x_rows = mesh_round.check_exchange(fc, args, ng, ngroups, active, n_real,
+                                       la_inputs)
+    timeout = mesh_round.check_timeout(fc, args, active)
+    path = mesh_round.check_sharded_exchange(fc, args, ng, ngroups, active,
+                                             n_real, la_inputs)
+    for row in rows + x_rows + [timeout, path]:
         bad = {k: v for k, v in row.items()
                if k.endswith("mismatches") and v}
         if bad:
-            raise AssertionError(f"mesh_round D={row['depth']}: {bad}")
+            raise AssertionError(f"mesh_round D={row.get('depth')}: {bad}")
     for row in la_rows:
         if row["mismatches"]:
             raise AssertionError(f"mesh_round loadaware D={row['depth']}: "
                                  f"{row['mismatches']} mismatches")
+    if timeout["seconds"] > 2 * timeout["timeout_s"] + 1.0:
+        raise AssertionError(f"mesh_round: the timeout took {timeout}")
     emit({"phase": "mesh_round", "full_chain": rows, "loadaware": la_rows,
+          "exchange": x_rows, "timeout": timeout, "exchange_path": path,
           "mismatches": 0})
     return {
         "full_chain": {str(r["depth"]): r["sharded_ms"] for r in rows},
         "schedule_step": {str(r["depth"]): r["sharded_ms"]
-                          for r in la_rows}}
+                          for r in la_rows},
+        "exchange": x_rows[0], "path": path}
+
+
+def run_scheduler_xchg(device, waves_sha, n_nodes=5000, n_pods=10000):
+    """Config 4's churn store through Scheduler(store, mesh=2 virtual cards
+    of the card, exchanging) on the default path, through the cycles
+    scheduler_waves ran: every wave's round in kernel 1's exchange
+    instance and its replay in the per-card replay, with every launch
+    count set to 0 before each cycle and read after (no single-device
+    launch), no node row gathered; the outcome's SHA-256 must equal the
+    single-device default path's. Returns the exchange launches."""
+    arrivals = n_pods // 10
+    retries0 = retries_now()
+    t0 = time.perf_counter()
+    store, state = churn_store(n_nodes, n_pods, seed=42)
+    mesh = mesh_round.exchanging_mesh(MESH_SHARDS, device)
+    sched = Scheduler(store, device=device, mesh=mesh)
+    fixture_s = time.perf_counter() - t0
+    if sched.mesh is not mesh or not mesh.exchange or (
+            sched.waves_spec != "auto" or not sched.replay_overlap):
+        raise AssertionError("scheduler_xchg: not the default path on an "
+                             "exchanging mesh")
+    now = state.now
+    keys, rows = [], []
+    total = collections.Counter()
+    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
+        if c:
+            add_arrivals(store, arrival_specs(c, arrivals), now + c)
+        zero_mesh_launches()
+        cross_card.zero_xchg_launches()
+        t0 = time.perf_counter()
+        with cross_card.no_gather():
+            res = sched.run_cycle(now=now + 2 * c)
+        wall = time.perf_counter() - t0
+        la = {**mesh_launches_now(), "schedule_step": sk.launches,
+              **cross_card.xchg_launches()}
+        kspan = last_cycle_root(sched).find("kernel")
+        k = int(kspan.attributes.get("waves", "1")) if kspan else 1
+        if (sched.last_backend != "cuda" or la["full_chain_xchg"] < 1
+                or any(la[key] for key in ("full_chain", "full_chain_replay",
+                                           "schedule_step"))
+                or (k > 1 and la["full_chain_xchg_replay"] < 1)):
+            raise AssertionError(f"scheduler_xchg cycle {c}: K {k}, backend "
+                                 f"{sched.last_backend}, launches {la}")
+        keys.append(result_key(res))
+        total.update(la)
+        rows.append({"cycle": c, "K": k, "logical_cycles": res.waves,
+                     "bound": len(res.bound), "launches": la,
+                     "cycle_ms": wall * 1e3,
+                     "spans_ms": span_split(sched, WAVE_SPANS)})
+    sched.flush_deferred()
+    sha = outcome_sha(keys, store)
+    if sha != waves_sha:
+        raise AssertionError(f"scheduler_xchg: outcome {sha} is not the "
+                             f"single-device default path's {waves_sha}")
+    assert_ladder_full("scheduler_xchg", retries0, sched)
+    emit({"phase": "scheduler_xchg", "shards": MESH_SHARDS,
+          "nodes": n_nodes, "pods": n_pods, "fixture_seconds": fixture_s,
+          "cycles": rows, "outcome_sha256": sha,
+          "equals_scheduler_waves": True, "launches": dict(total)})
+    return dict(total)
 
 
 def mesh_launches_now() -> dict:
@@ -4500,6 +4593,77 @@ def explain_entry(name, source, replaces, key, launches, res):
         **{f"launches_{phase}": n for phase, n in per_phase.items()})
 
 
+def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
+                 replay_entry, count_res):
+    """The kernels-line entries of the instances over a mesh of cards.
+    Their launches: the scheduler_xchg phase's (the default path on 2
+    exchanging virtual cards: kernel 1's exchange round, the per-card
+    replay) and the sharded steps' run in mesh_round (the terms instance,
+    the per-card stage counts, kernel 2's exchange instance); ms: the
+    CUDA-event medians at D = 2 (testing/mesh_round.check_exchange);
+    plain_ms and the errors: the plain versions on the card on the first
+    PLAIN_PODS valid pods (check_sharded_exchange, ``plain_pods``; the
+    stage counts on every pod). The work is the single-device kernels', so
+    are the bounds."""
+    x, path = sharded_ms["exchange"], sharded_ms["path"]
+    la = path["launches"]
+    common = {"plain_pods": path["plain_pods"], "shards": x["depth"]}
+    kbytes = (bytes_ms, ops_ms)
+    rbound = replay_entry["bound_ms"]
+    rbound = ((rbound, 0.0) if replay_entry["bound_by"] == "bytes"
+              else (0.0, rbound))
+    lbound = la_kernel["bound_ms"]
+    lbound = ((lbound, 0.0) if la_kernel["bound_by"] == "bytes"
+              else (0.0, lbound))
+    cbound = ((count_res["bytes_ms"], count_res["ops_ms"]))
+    return [
+        kernel_entry(
+            "full_chain_round_xchg", "full_chain.cu",
+            "koordinator_tpu/ops/pallas_full_chain.py:90 (over a mesh of "
+            "cards: parallel/full_chain_mesh.py:82)",
+            sched_launches["full_chain_xchg"] + la[
+                "full_chain_kernel.xchg_launches"],
+            path["round_plain_mismatches"], path["round_err"],
+            x["round_xchg_ms"], path["round_plain_ms"], *kbytes,
+            launches_scheduler_xchg=sched_launches["full_chain_xchg"],
+            launches_sharded_step=la["full_chain_kernel.xchg_launches"],
+            ms_single=x["round_single_ms"], **common),
+        kernel_entry(
+            "full_chain_terms_xchg", "full_chain.cu",
+            "koordinator_tpu/models/full_chain.py:549 (the explain=full body "
+            "of the XLA serial step, no TPU kernel), over a mesh of cards",
+            la["full_chain_kernel.xchg_terms_launches"],
+            path["terms_plain_mismatches"], path["round_err"],
+            x["terms_xchg_ms"], path["round_plain_ms"], *kbytes,
+            ms_single=x["terms_single_ms"], **common),
+        kernel_entry(
+            "full_chain_replay_cards", "full_chain.cu",
+            "koordinator_tpu/models/fused_waves.py:527 (the kept-only "
+            "replay, an XLA fori_loop, no TPU kernel), per card",
+            sched_launches["full_chain_xchg_replay"],
+            path["replay_plain_mismatches"], path["replay_err"],
+            x["replay_cards_ms"], path["replay_plain_ms"], *rbound,
+            ms_single=x["replay_single_ms"],
+            replay_plain_pods=path["replay_pods"], **common),
+        kernel_entry(
+            "explain_counts_shards", "explain_counts.cu",
+            "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"
+            " a jax.vmap in XLA, no TPU kernel), per card",
+            la["explain_kernel.shard_launches"],
+            path["counts_plain_mismatches"], 0.0, x["counts_shards_ms"],
+            path["counts_plain_ms"], *cbound,
+            ms_single=x["counts_single_ms"], shards=x["depth"]),
+        kernel_entry(
+            "schedule_step_xchg", "schedule_step.cu",
+            "koordinator_tpu/ops/pallas_step.py:46 (over a mesh of cards: "
+            "koordinator_tpu/parallel/mesh.py build_sharded_schedule_step)",
+            la["schedule_kernel.xchg_launches"],
+            path["loadaware_plain_mismatches"], path["loadaware_err"],
+            x["loadaware_xchg_ms"], path["loadaware_plain_ms"], *lbound,
+            ms_single=x["loadaware_single_ms"], **common),
+    ]
+
+
 def kernel_entry(name, source, replaces, launches, mism, err, ms, plain_ms,
                  bytes_ms, ops_ms, **extra):
     """One kernel's entry of the kernels line. No PyTorch call computes
@@ -4680,8 +4844,10 @@ def main() -> int:
     run_scheduler_mixed(device)
     # ---- the default path: auto waves, chained dispatch
     wave_launches, replay_entry, fc4, waves_sha = run_scheduler_waves(device)
-    # ---- the same default path on a mesh of 2 virtual shards of the card
+    # ---- the same default path on a mesh of 2 virtual shards of the card,
+    # then on 2 exchanging virtual cards
     mesh_launches = run_scheduler_mesh(device, waves_sha)
+    xchg_launches = run_scheduler_xchg(device, waves_sha)
     run_scheduler_waves_mixed(device)
     run_waves_carried(device, fc4)
     # ---- storage-aware clusters: config 4 with PVCs, PVs, StorageClasses
@@ -4929,6 +5095,8 @@ def main() -> int:
                                        explain_launches.items()},
                      ms_sharded_by_depth=sharded_ms["full_chain"]),
         la_kernel, replay_entry,
+        *xchg_entries(sharded_ms, xchg_launches, bytes_ms, ops_ms,
+                      la_kernel, replay_entry, count_res),
         explain_entry(
             "explain_counts", "explain_counts.cu",
             "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"

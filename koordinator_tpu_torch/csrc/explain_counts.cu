@@ -26,6 +26,13 @@
 // stages in registers; warp sums and shared-memory atomics give the
 // block's 9 counters. The pod's record is read from device memory (cached),
 // so a record of any width fits.
+//
+// Over a mesh of cards each card counts its own rows (parallel/
+// full_chain_mesh.py): a first launch per shard writes the shard's spread
+// minima (`spread_out`, no counts), the wrapper takes their minimum over
+// the shards, and a second launch counts the shard's real rows against
+// those minima (`spread_in`, no first sweep); the integer counts are then
+// summed over the shards.
 
 #include "filter_chain.cuh"
 
@@ -60,6 +67,8 @@ struct ExplainParams {
   const float* runtime;        // [G, R]
   const float* quota_used;     // [G, R]
   uint32_t* counts;            // [P, 11] (output)
+  const float* spread_in;      // [P, T] the mesh's spread minima, or null
+  float* spread_out;           // [P, T] minima only (output), or null
   int P, N, R, K, G, D, T, PT, n_real;
   int rec_stride, off_fit, off_req, off_est, off_aff, off_anti, off_match,
       off_skew, off_ports, off_vol;
@@ -109,20 +118,29 @@ __global__ void __launch_bounds__(kThreads)
   if (tid < koord::kNumNodeStages) stage_sum[tid] = 0u;
 
   // ---- sweep 1: the spread minima over every node (padded ones too, as
-  // the round takes them), for the terms with a positive skew
-  for (int t = 0; t < T; ++t) {
-    if (!(pod.skew[t] > 0.0f)) continue;  // the same branch in every thread
-    const float m = koord::warp_min(koord::spread_min_part(
-        pod, t, 0, tid, p.N, kThreads, T, fs.cnt, gn));
-    if (lane == 0) part[warp * Tp + t] = m;
+  // the round takes them), for the terms with a positive skew; over a
+  // mesh, the minima the wrapper took over every shard
+  if (p.spread_in == nullptr) {
+    for (int t = 0; t < T; ++t) {
+      if (!(pod.skew[t] > 0.0f)) continue;  // the same branch in every thread
+      const float m = koord::warp_min(koord::spread_min_part(
+          pod, t, 0, tid, p.N, kThreads, T, fs.cnt, gn));
+      if (lane == 0) part[warp * Tp + t] = m;
+    }
+    __syncthreads();
   }
-  __syncthreads();
   for (int t = tid; t < T; t += kThreads) {
     float m = CUDART_INF_F;
-    if (pod.skew[t] > 0.0f)
-      for (int w = 0; w < kWarps; ++w) m = fminf(m, part[w * Tp + t]);
+    if (pod.skew[t] > 0.0f) {
+      if (p.spread_in != nullptr)
+        m = p.spread_in[(size_t)i * T + t];
+      else
+        for (int w = 0; w < kWarps; ++w) m = fminf(m, part[w * Tp + t]);
+    }
     spread_min[t] = m;
+    if (p.spread_out != nullptr) p.spread_out[(size_t)i * T + t] = m;
   }
+  if (p.spread_out != nullptr) return;  // the same branch in every thread
   __syncthreads();
 
   // ---- sweep 2: each thread's real nodes, stage by stage

@@ -57,6 +57,25 @@
 // plain round, so its row is node 0's terms with best and runner -1. Its
 // `chosen`, requested and quota are the round's, bit for bit.
 //
+// The exchange instances (`kXchg`, kernel_common.cuh "The exchange") run
+// the round, the terms round and the replay over a mesh whose shards sit on
+// different cards, each card holding only its own node rows. A launch runs
+// its card's L shards as L clusters. The round has two exchanges per pod,
+// at the two points where the one-card round already merges over its
+// cluster: the spread minima and the preferred pod-affinity max/min, for a
+// pod that has them (min and max: exact under any split), and the winner.
+// A shard's winner entry carries, beside its best (score, global index),
+// what the owner's commit gives the others: the node's aff_dom row, and in
+// the terms instance its three plugin terms and the shard's runner-up (a
+// pod refused at PreFilter takes shard 0's node 0 terms). The merge takes
+// (score, lowest global index), as the cluster merge does across its
+// blocks; the owning shard reserves, every shard updates its quota copy
+// and its own slice of the affinity domain; the gang verdict is in the
+// records, the same on every card. The replay needs no merge: each card
+// replays the kept pods onto its own rows, the non-owners reading the
+// chosen nodes' aff_dom rows from `dom_rows`, gathered once by the wrapper
+// (a mailbox would make every replayed pod wait on every card).
+//
 // The Filter predicates live in filter_chain.cuh, shared with the
 // koordexplain stage-count pass (explain_counts.cu).
 
@@ -70,6 +89,12 @@ namespace {
 
 constexpr int kMaxWeights = 16;
 constexpr int kNumTerms = 5;  // models/full_chain.EXPLAIN_TERMS
+// The winner entry's payload: score, global index, runner-up, the three
+// terms, then the node's aff_dom row [T]; the merged result pushed into
+// each block: status, global index, score, runner-up, the three terms, a
+// spare word, then the aff_dom row.
+constexpr int kWinHead = 6;
+constexpr int kResHead = 8;
 using koord::kRecCores;
 using koord::kRecImg;
 using koord::kRecPpref;
@@ -120,6 +145,8 @@ struct FullChainParams {
   uint8_t* aff_exists_out;   // [T] the exists flags after the last pod
   float* terms;              // [P, 5] the terms instance's rows (output,
                              // zero preset); null selects the plain round
+  const float* dom_rows;     // [P, T] the per-card replay: each kept pod's
+                             // chosen node's aff_dom row
   // ---- sizes and static switches
   int P, N, R, K, G, D, T, S, S2, ppref_stride, PT, SI, VG;
   int prod_mode, bal_c, bal_m, n_widx;
@@ -129,6 +156,8 @@ struct FullChainParams {
   // ---- cluster plan
   int cluster_size, nodes_per_block, node_threads, state_in_smem, replay;
   int widx[kMaxWeights];
+  // ---- the mesh of cards (x.L = 0: one device, N rows, one cluster)
+  koord::Xchg x;
 };
 
 // Dynamic shared memory of one block (ops/full_chain_kernel.py
@@ -136,8 +165,14 @@ struct FullChainParams {
 struct FcSmem {
   size_t bar, ring, part_warp, part_blk, part_red, warp_red, admit, exists;
   size_t part_wrun, part_brun;  // the terms instance's runner-up partials
+  size_t xbar, xres, xout;      // the exchange's mbarriers and results
   size_t quota, runtime, anc, node, flags, total;
 };
+
+// 32-bit words of one exchange result (even, for the 8-byte pushes).
+__host__ __device__ inline int fc_result_words(int T) {
+  return (kResHead + T + 1) & ~1;
+}
 
 // Carried and read-only float rows per node kept in shared memory.
 __host__ __device__ inline int fc_node_floats(const FullChainParams& p) {
@@ -160,6 +195,12 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
   L.exists = koord::smem_take(at, (size_t)(p.T > 0 ? p.T : 1) * 4);
   L.part_wrun = koord::smem_take(at, 2 * (size_t)nw * 4);
   L.part_brun = koord::smem_take(at, 2 * (size_t)p.cluster_size * 8);
+  if (p.x.L > 0 && !p.replay) {
+    const int xw = fc_result_words(p.T);
+    L.xbar = koord::smem_take(at, 2 * 8);
+    L.xres = koord::smem_take(at, 2 * (size_t)xw * 4);
+    L.xout = koord::smem_take(at, (size_t)xw * 4);
+  }
   if (p.state_in_smem) {
     L.quota = koord::smem_take(at, (size_t)p.G * p.R * 4);
     L.runtime = koord::smem_take(at, (size_t)p.G * p.R * 4);
@@ -175,9 +216,10 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
 // kR, kK, kW > 0 fix R, K and the weighted-axis count at compile time, so
 // the node loop's short loops unroll completely; 0 reads them from `p`.
 // kReplay selects the kept-only replay (the records are the kept pods'),
-// kTerms the round that also writes the koordexplain terms rows.
+// kTerms the round that also writes the koordexplain terms rows, kXchg the
+// instance over a mesh of cards (p.x).
 template <bool kStateInSmem, int kR, int kK, int kW, bool kReplay,
-          bool kTerms>
+          bool kTerms, bool kXchg>
 __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     full_chain_kernel(const FullChainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -200,7 +242,16 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   const bool ctrl = warp == NW;  // the control warp owns no node
   const int C = p.cluster_size, rank = (int)cluster.block_rank();
   const int Nb = p.nodes_per_block;
-  const int lo = min(rank * Nb, p.N), nloc = min(lo + Nb, p.N) - lo;
+  // this cluster's shard: rows [row0, row0 + per) of the launch's arrays,
+  // global rows from gbase (one device: the whole array)
+  const int l = kXchg ? (int)(blockIdx.x / C) : 0;
+  const int per = kXchg ? p.x.per : p.N;
+  const int row0 = l * per;
+  const int me = kXchg ? p.x.shard[l] : 0, gbase = me * per;
+  const int lo = row0 + min(rank * Nb, per);
+  const int nloc = min(rank * Nb + Nb, per) - min(rank * Nb, per);
+  // writes the launch's outputs that every shard holds alike
+  const bool lead = rank == 0 && l == 0;
   const int R = kR ? kR : p.R, K = kK ? kK : p.K, W = kW ? kW : p.n_widx;
   const int T = p.T, D = p.D, G = p.G;
   const int Q = T + 2, S = koord::kRingStages, stride = p.rec_stride;
@@ -263,7 +314,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     bind_v = g_bind, vol_v = g_vol, port_v = g_port, cnt_v = g_cnt;
     anti_v = g_anti, alloc_v = g_alloc, tnp_v = g_tnp, tpr_v = g_tpr;
     nflags = p.node_flags + lo;
-    quota = p.quota_blocks + (size_t)rank * G * R;
+    quota = p.quota_blocks + (size_t)(l * C + rank) * G * R;
     runtime = p.runtime;
     anc = p.anc;
   }
@@ -271,8 +322,13 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   for (int t = tid; t < T; t += blockDim.x) aff_exists[t] = p.aff_exists0[t];
 
   const int nv = *p.n_valid;
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.xbar);  // [2]
+  uint32_t* xres = reinterpret_cast<uint32_t*>(smem + L.xres);  // [2][XW]
+  uint32_t* xout = reinterpret_cast<uint32_t*>(smem + L.xout);  // [XW]
+  const int XW = fc_result_words(T);
   if (!kReplay && ctrl && lane == 0) {
     for (int s = 0; s < S + 2; ++s) koord::mbar_init(&bar[s], 1);
+    if (kXchg) for (int s = 0; s < 2; ++s) koord::mbar_init(&xbar[s], 1);
     koord::fence_mbar_init();
     for (int v = 0; v < S - 1 && v < nv; ++v)
       koord::bulk_load(ring + v * stride, p.records + (size_t)v * stride,
@@ -298,7 +354,8 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   // ancestor chain to its own copy and raises the affinity counts over its
   // slice of the node's domain. One piece of code for the round and the
   // replay.
-  auto reserve = [&](const uint32_t* rec, int best_n, int32_t* zone_out) {
+  auto reserve = [&](const uint32_t* rec, int best_n, int32_t* zone_out,
+                     const float* dom_row) {
     const uint32_t pf = rec[koord::kRecFlags];
     const bool is_prod = pf & koord::kPodProd;
     const bool needs_numa = pf & koord::kPodNuma;
@@ -368,7 +425,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       if (!m && !a) continue;
       if (m) aff_exists[t] = 1;
       if (ctrl) continue;
-      const float dom = __ldg(p.aff_dom + (size_t)best_n * T + t);
+      const float dom = kXchg ? dom_row[t] : __ldg(dom_row + t);
       if (!(dom >= 0.0f)) continue;
       for (int j = tid; j < nloc; j += NT) {
         if (__ldg(p.aff_dom + (size_t)(lo + j) * T + t) != dom) continue;
@@ -385,11 +442,22 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     for (int v = 0; v < nv; ++v) {
       const uint32_t* rec = p.records + (size_t)v * stride;
       const int pod = (int)rec[koord::kRecPod];
-      reserve(rec, p.chosen[pod], p.zones + pod);
+      const int g = p.chosen[pod];
+      if constexpr (kXchg) {
+        // the owner's rows on its card; the domain row from the gather
+        reserve(rec, g / per == me ? row0 + g - gbase : -1, p.zones + pod,
+                p.dom_rows + (size_t)pod * T);
+      } else {
+        reserve(rec, g, p.zones + pod, p.aff_dom + (size_t)g * T);
+      }
     }
   }
   // ---- the round (the replay instance ran its pods above)
   int nred = 0;  // cluster reductions passed, the same count in every thread
+  int nx = 0;    // exchanges passed (kXchg), the same count in every thread
+  // the last pod whose record load was issued, and the pod a failed
+  // exchange stopped at (-1: none)
+  int issued = min(S - 1, nv) - 1, stopped = -1;
   for (int v = 0; v < (kReplay ? 0 : nv); ++v) {
     const int st = v % S;
     koord::mbar_wait(&bar[st], (v / S) & 1);
@@ -473,6 +541,48 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
         if (lane == 0) warp_red[warp * Q + q] = x;
       }
       __syncwarp();
+      if constexpr (kXchg) {
+        // ---- the extremes over every shard: publish the cluster's, merge
+        // every shard's (min, the ppref max a max), push the result
+        const int par = nx & 1;
+        const unsigned long long seq = p.x.seq0 + (unsigned long long)nx;
+        uint32_t* res = xres + par * XW;
+        const int words = (1 + Q + 1) & ~1;
+        if (ctrl && rank == 0) {
+          // lane d publishes into shard d's mailbox
+          if (lane < p.x.D) {
+            const uint32_t* ext =
+                reinterpret_cast<const uint32_t*>(warp_red + NW * Q);
+            volatile uint32_t* pl = koord::xpayload(p.x, lane, par, me);
+            for (int q = 0; q < Q; ++q) pl[q] = ext[q];
+            koord::fence_sys();
+            koord::st_relaxed_sys(koord::xentry(p.x, lane, par, me), seq);
+          }
+          const unsigned missing = koord::xwait(p.x, me, par, seq);
+          for (int q = 0; q < Q; ++q) {
+            const bool take_max = q == T;
+            float y = take_max ? -CUDART_INF_F : CUDART_INF_F;
+            if (lane < p.x.D && missing == 0u)
+              y = __uint_as_float(koord::xpayload(p.x, me, par, lane)[q]);
+            y = take_max ? koord::warp_max(y) : koord::warp_min(y);
+            if (lane == 0) xout[1 + q] = __float_as_uint(y);
+          }
+          if (lane == 0) {
+            xout[0] = missing;
+            if (missing) atomicOr(p.x.err, missing);
+          }
+          __syncwarp();
+          koord::xbroadcast(xout, res, &xbar[par], words, C);
+        }
+        if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], words * 4);
+        koord::mbar_wait(&xbar[par], (nx >> 1) & 1);
+        ++nx;
+        if (res[0] != 0u) {
+          stopped = v;
+          break;
+        }
+        wred = reinterpret_cast<const float*>(res + 1);
+      }
     }
 
     // ---- Filter + Score over this thread's nodes, lowest-index best.
@@ -552,7 +662,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
           } else {
             run_s = fmaxf(run_s, score);
           }
-          if (n == 0) z_la = la, z_nu = nu, z_pref = pref;
+          if (n == row0) z_la = la, z_nu = nu, z_pref = pref;
         } else if (score > best_s) {
           best_s = score;
           best_n = n;
@@ -597,6 +707,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // Every node warp has finished this pod's node loop, so none still
       // reads pod v - 1's stage: refill it with pod v + S - 1.
       const int nxt = v + S - 1;
+      if (nxt < nv) issued = nxt;
       if (lane == 0 && nxt < nv)
         koord::bulk_load(ring + (nxt % S) * stride,
                          p.records + (size_t)nxt * stride, stride * 4,
@@ -609,37 +720,138 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     KOORD_STAMP(v, 3)  // every block's best is in
     koord::warp_argmax_of(part_blk + (v & 1) * C, C, best_s, best_n);
     const bool admit = s_admit[v & 1];
-    const bool found = admit && best_s >= 0.0f && (pf & koord::kPodValid);
-    if (ctrl && lane == 0 && rank == 0)
-      p.chosen[rec[koord::kRecPod]] = found ? best_n : -1;
+    // the cluster's runner-up: the winning block's own, every other
+    // block's best
+    float runner = -CUDART_INF_F;
     if constexpr (kTerms) {
       const int2 bb = lane < C ? part_blk[(v & 1) * C + lane]
                                : koord::pack_best(-CUDART_INF_F, INT32_MAX);
       const float br =
           lane < C ? __int_as_float(part_brun[(v & 1) * C + lane].x)
                    : -CUDART_INF_F;
-      const float runner =
-          koord::warp_max(bb.y == best_n ? br : __int_as_float(bb.x));
-      // a pod refused at PreFilter: every node scores -1 in the plain
-      // round, so the row is node 0's, with best and runner-up -1
-      const int tn = admit ? best_n : 0;
-      const int jt = tn - lo;
-      if (!ctrl && jt >= 0 && jt < nloc && jt % NT == tid) {
-        const bool mine = my_n == tn;
-        float* row = p.terms + (size_t)rec[koord::kRecPod] * kNumTerms;
-        row[0] = mine ? my_la : z_la;
-        row[1] = mine ? my_nu : z_nu;
-        row[2] = mine ? my_pref : z_pref;
-        row[3] = admit ? best_s : -1.0f;
-        row[4] = admit ? fmaxf(runner, -1.0f) : -1.0f;
+      runner = koord::warp_max(bb.y == best_n ? br : __int_as_float(bb.x));
+    }
+    // the winner's global index, and its aff_dom row
+    int gwin = best_n;
+    const float* dom_row = p.aff_dom + (size_t)best_n * T;
+    float x_la = 0.0f, x_nu = 0.0f, x_pref = 0.0f;
+    if constexpr (kXchg) {
+      // ---- the winner over every shard. The owner of the cluster's best
+      // publishes it (the terms instance: for a pod refused at PreFilter
+      // the owner of the shard's first node, whose terms the row takes)
+      const int par = nx & 1;
+      const unsigned long long seq = p.x.seq0 + (unsigned long long)nx;
+      uint32_t* res = xres + par * XW;
+      const int pub = (kTerms && !admit) ? row0 : best_n;
+      const int jp = pub - lo;
+      if (!ctrl && jp >= 0 && jp < nloc && jp % NT == tid) {
+        const bool mine = my_n == pub;
+        for (int d = 0; d < p.x.D; ++d) {
+          volatile uint32_t* pl = koord::xpayload(p.x, d, par, me);
+          pl[0] = __float_as_uint(best_s);
+          pl[1] = (uint32_t)(gbase + best_n - row0);
+          pl[2] = __float_as_uint(runner);
+          pl[3] = __float_as_uint(mine ? my_la : z_la);
+          pl[4] = __float_as_uint(mine ? my_nu : z_nu);
+          pl[5] = __float_as_uint(mine ? my_pref : z_pref);
+          for (int t = 0; t < T; ++t)
+            pl[kWinHead + t] =
+                __float_as_uint(__ldg(p.aff_dom + (size_t)pub * T + t));
+        }
+        koord::fence_sys();
+        for (int d = 0; d < p.x.D; ++d)
+          koord::st_relaxed_sys(koord::xentry(p.x, d, par, me), seq);
+      }
+      if (ctrl && rank == 0) {
+        const unsigned missing = koord::xwait(p.x, me, par, seq);
+        const bool in = lane < p.x.D && missing == 0u;
+        volatile uint32_t* pl = koord::xpayload(p.x, me, par, in ? lane : 0);
+        float ws = in ? __uint_as_float(pl[0]) : -CUDART_INF_F;
+        int wn = in ? (int)pl[1] : INT32_MAX;
+        const float es = ws;
+        const int en = wn;
+        koord::warp_argmax(ws, wn);
+        const float er = in ? __uint_as_float(pl[2]) : -CUDART_INF_F;
+        const float xr = koord::warp_max(en == wn ? er : es);
+        // the entry the result's terms and aff_dom row come from
+        const unsigned at = __ballot_sync(koord::kFullMask, in && en == wn);
+        const int wl = at ? __ffs(at) - 1 : 0;
+        const int tl = (kTerms && !admit) ? 0 : wl;
+        volatile uint32_t* tp = koord::xpayload(p.x, me, par, tl);
+        volatile uint32_t* dp = koord::xpayload(p.x, me, par, wl);
+        if (lane == 0) {
+          xout[0] = missing;
+          xout[1] = (uint32_t)wn;
+          xout[2] = __float_as_uint(ws);
+          xout[3] = __float_as_uint(xr);
+          xout[7] = 0u;
+          if (missing) atomicOr(p.x.err, missing);
+        }
+        if (lane < 3)
+          xout[4 + lane] = (kTerms && !missing) ? tp[3 + lane] : 0u;
+        for (int t = lane; t < T; t += 32)
+          xout[kResHead + t] = missing ? 0u : dp[kWinHead + t];
+        if (lane == 0 && ((kResHead + T) & 1)) xout[kResHead + T] = 0u;
+        __syncwarp();
+        koord::xbroadcast(xout, res, &xbar[par], XW, C);
+      }
+      if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], XW * 4);
+      koord::mbar_wait(&xbar[par], (nx >> 1) & 1);
+      ++nx;
+      if (res[0] != 0u) {
+        stopped = v;
+        break;
+      }
+      gwin = (int)res[1];
+      best_s = __uint_as_float(res[2]);
+      runner = __uint_as_float(res[3]);
+      x_la = __uint_as_float(res[4]);
+      x_nu = __uint_as_float(res[5]);
+      x_pref = __uint_as_float(res[6]);
+      dom_row = reinterpret_cast<const float*>(res + kResHead);
+    }
+    const bool found = admit && best_s >= 0.0f && (pf & koord::kPodValid);
+    if (ctrl && lane == 0 && lead)
+      p.chosen[rec[koord::kRecPod]] = found ? gwin : -1;
+    if constexpr (kTerms) {
+      float* row = p.terms + (size_t)rec[koord::kRecPod] * kNumTerms;
+      if constexpr (kXchg) {
+        if (ctrl && lane == 0 && lead) {
+          row[0] = x_la;
+          row[1] = x_nu;
+          row[2] = x_pref;
+          row[3] = admit ? best_s : -1.0f;
+          row[4] = admit ? fmaxf(runner, -1.0f) : -1.0f;
+        }
+      } else {
+        // a pod refused at PreFilter: every node scores -1 in the plain
+        // round, so the row is node 0's, with best and runner-up -1
+        const int tn = admit ? best_n : 0;
+        const int jt = tn - lo;
+        if (!ctrl && jt >= 0 && jt < nloc && jt % NT == tid) {
+          const bool mine = my_n == tn;
+          row[0] = mine ? my_la : z_la;
+          row[1] = mine ? my_nu : z_nu;
+          row[2] = mine ? my_pref : z_pref;
+          row[3] = admit ? best_s : -1.0f;
+          row[4] = admit ? fmaxf(runner, -1.0f) : -1.0f;
+        }
       }
     }
     KOORD_STAMP(v, 4)  // merged
     if (!found) continue;
 
-    reserve(rec, best_n, nullptr);
+    // the owner's rows where this shard holds the winner
+    const int own =
+        kXchg ? (gwin / per == me ? row0 + gwin - gbase : -1) : gwin;
+    reserve(rec, own, nullptr, dom_row);
     KOORD_STAMP(v, 5)  // reserved
   }
+  // A failed exchange left the loop: no block leaves while a record it
+  // asked for is still being copied into its shared memory.
+  if (kXchg && stopped >= 0 && ctrl && lane == 0)
+    for (int u = stopped + 1; u <= issued; ++u)
+      koord::mbar_wait(&bar[u % S], (u / S) & 1);
 
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();
@@ -653,10 +865,10 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     koord::copy_view(g_port, port_v, nloc, p.PT);
     koord::copy_view(g_cnt, cnt_v, nloc, T);
     koord::copy_view(g_anti, anti_v, nloc, T);
-    float* out = p.quota_blocks + (size_t)rank * G * R;
+    float* out = p.quota_blocks + (size_t)(l * C + rank) * G * R;
     for (int e = tid; e < G * R; e += blockDim.x) out[e] = quota[e];
   }
-  if (rank == 0)
+  if (lead)
     for (int t = tid; t < T; t += blockDim.x)
       p.aff_exists_out[t] = aff_exists[t] ? 1 : 0;
 }
@@ -672,26 +884,43 @@ bool common_instance(const FullChainParams& p) {
   return p.R == 3 && p.K == 2 && p.n_widx == (p.replay ? 3 : 2);
 }
 
-template <bool kReplay, bool kTerms>
-int launch_mode(const FullChainParams& p, void* stream) {
+template <bool kReplay, bool kTerms, bool kXchg, bool kSmem, bool kCommon>
+int launch_one(const FullChainParams& p, void* stream, bool query) {
+  constexpr int kCommonW = kReplay ? 3 : 2;
+  auto kernel =
+      kCommon ? full_chain_kernel<kSmem, 3, 2, kCommonW, kReplay, kTerms, kXchg>
+              : full_chain_kernel<kSmem, 0, 0, 0, kReplay, kTerms, kXchg>;
   const size_t smem = fc_smem_layout(p).total;
   const int threads = p.node_threads + 32, C = p.cluster_size;
-  constexpr int kCommonW = kReplay ? 3 : 2;
+  if (query) return koord::max_clusters(kernel, C, threads, smem);
+  return koord::launch_cluster(kernel, p, C, threads, smem, stream,
+                               kXchg ? p.x.L : 1);
+}
+
+template <bool kReplay, bool kTerms, bool kXchg>
+int launch_mode(const FullChainParams& p, void* stream, bool query) {
   if (p.state_in_smem)
     return common_instance(p)
-               ? koord::launch_cluster(
-                     full_chain_kernel<true, 3, 2, kCommonW, kReplay, kTerms>,
-                     p, C, threads, smem, stream)
-               : koord::launch_cluster(
-                     full_chain_kernel<true, 0, 0, 0, kReplay, kTerms>, p, C,
-                     threads, smem, stream);
+               ? launch_one<kReplay, kTerms, kXchg, true, true>(p, stream, query)
+               : launch_one<kReplay, kTerms, kXchg, true, false>(p, stream,
+                                                                 query);
   return common_instance(p)
-             ? koord::launch_cluster(
-                   full_chain_kernel<false, 3, 2, kCommonW, kReplay, kTerms>,
-                   p, C, threads, smem, stream)
-             : koord::launch_cluster(
-                   full_chain_kernel<false, 0, 0, 0, kReplay, kTerms>, p, C,
-                   threads, smem, stream);
+             ? launch_one<kReplay, kTerms, kXchg, false, true>(p, stream, query)
+             : launch_one<kReplay, kTerms, kXchg, false, false>(p, stream,
+                                                                query);
+}
+
+template <bool kXchg>
+int launch_kind(const FullChainParams& p, void* stream, bool query) {
+  if (p.replay) return launch_mode<true, false, kXchg>(p, stream, query);
+  return p.terms != nullptr ? launch_mode<false, true, kXchg>(p, stream, query)
+                            : launch_mode<false, false, kXchg>(p, stream,
+                                                               query);
+}
+
+int launch_any(const FullChainParams& p, void* stream, bool query) {
+  return p.x.L > 0 ? launch_kind<true>(p, stream, query)
+                   : launch_kind<false>(p, stream, query);
 }
 
 }  // namespace
@@ -711,13 +940,26 @@ int full_chain_instance(const FullChainParams* params) {
   return common_instance(*params);
 }
 
+// 32-bit payload words of one mailbox entry for T affinity terms (the
+// winner's; the stats entry's T + 2 is never longer).
+int full_chain_payload_words(int T) { return kWinHead + T; }
+
+// Clusters of this launch's instance the current device holds at once
+// (negative: a cudaError_t).
+int full_chain_max_clusters(const FullChainParams* params) {
+  return launch_any(*params, nullptr, true);
+}
+
 // Launches one round (with `terms` set, the terms instance; with `replay`,
-// one kept-only replay) on `stream` as one cluster; returns a cudaError_t
+// one kept-only replay; with x.L > 0, the instance over a mesh of cards, as
+// x.L clusters) on `stream` on the current device; returns a cudaError_t
 // (0 = launched).
 int full_chain_launch(const FullChainParams* params, void* stream) {
-  if (params->replay) return launch_mode<true, false>(*params, stream);
-  return params->terms != nullptr ? launch_mode<false, true>(*params, stream)
-                                  : launch_mode<false, false>(*params, stream);
+  return launch_any(*params, stream, false);
 }
+
+// Peer access from the current device to device `peer` (0 or a
+// cudaError_t; on already counts as 0).
+int koord_enable_peer(int peer) { return koord::enable_peer(peer); }
 
 }  // extern "C"

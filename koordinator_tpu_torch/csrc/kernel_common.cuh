@@ -285,6 +285,159 @@ __device__ __forceinline__ float cluster_extreme(Cluster& cluster,
   return take_max ? warp_max(x) : warp_min(x);
 }
 
+// ---------------------------------------------------------------------------
+// The exchange between the shards of a mesh of cards (mirrored by
+// ops/kernel_common.py, "The exchange").
+//
+// A mesh of D shards holds each shard's node rows on its own card. A launch
+// on one card runs that card's L shards as L clusters of C blocks (cluster
+// l = blocks [l * C, (l + 1) * C)); shard x.shard[l] holds the global rows
+// [shard * per, (shard + 1) * per), which are rows [l * per, (l + 1) * per)
+// of the launch's arrays. On D cards L = 1 on each; on one card L = D, which
+// runs the same protocol through the card's own memory.
+//
+// Each shard has a mailbox in its card's memory: [2 parities][D senders]
+// entries of entry_words 8-byte words, word 0 the entry's sequence and the
+// rest its payload (32-bit words). `boxes` lists every shard's mailbox at
+// addresses this card reaches (peer access is on for every pair of cards).
+// Exchange k of a launch has the sequence seq0 + k and the parity k & 1:
+//   publish: one thread of the shard writes its payload into entry [shard]
+//     of every shard's mailbox, then one system-scope fence, then the
+//     sequence into each entry (a release: fence, then relaxed stores);
+//   wait: the cluster's poller (block 0's control warp), lane e < D polling
+//     entry [e] of its own mailbox with relaxed system-scope loads until it
+//     holds the sequence, then reading it once more with an acquire (the
+//     lanes' payload reads follow a __syncwarp), or until %globaltimer has
+//     passed timeout_ns: then the bits of the shards that did not arrive go
+//     to *err and every block of the cluster leaves the round (no trap:
+//     the card stays usable);
+//   merge: in the poller's lanes, then pushed into every block of the
+//     cluster (st.async onto the block's exchange mbarrier).
+// The wrapper raises the sequences from launch to launch, so no mailbox is
+// ever reset. An entry is rewritten two exchanges later, and a shard sends
+// exchange k + 1 only after every thread of it has read exchange k, so no
+// shard overwrites an entry that another still has to read.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxLocalShards = 8;  // clusters of one launch
+constexpr int kMaxShards = 32;      // a poller lane per shard
+
+// Field order is mirrored by ops/kernel_common.py (_Xchg).
+struct Xchg {
+  unsigned long long* const* boxes;  // [D] every shard's mailbox
+  unsigned int* err;                 // [1] bits of the shards that timed out
+  unsigned long long seq0;           // the launch's first sequence (>= 1)
+  long long timeout_ns;              // the wait for one exchange
+  int D;                             // shards of the mesh
+  int L;                             // shards of this launch (0: no mesh)
+  int per;                           // rows of one shard
+  int entry_words;                   // 8-byte words of one mailbox entry
+  int shard[kMaxLocalShards];        // cluster l's shard
+};
+
+__device__ __forceinline__ unsigned long long* xentry(const Xchg& x, int box,
+                                                      int par, int from) {
+  return x.boxes[box] + ((size_t)par * x.D + from) * x.entry_words;
+}
+
+__device__ __forceinline__ volatile uint32_t* xpayload(const Xchg& x,
+                                                       int box, int par,
+                                                       int from) {
+  return reinterpret_cast<volatile uint32_t*>(xentry(x, box, par, from) + 1);
+}
+
+__device__ __forceinline__ void st_relaxed_sys(unsigned long long* at,
+                                               unsigned long long v) {
+  asm volatile("st.relaxed.sys.global.u64 [%0], %1;\n" ::"l"(at), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ld_acquire_sys(
+    const unsigned long long* at) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(at)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed_sys(
+    const unsigned long long* at) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.sys.global.u64 %0, [%1];\n"
+               : "=l"(v)
+               : "l"(at)
+               : "memory");
+  return v;
+}
+
+// Orders this thread's memory operations before the fence against those
+// after it, at system scope (with a relaxed store after it, a release;
+// with a relaxed load before it, an acquire).
+__device__ __forceinline__ void fence_sys() {
+  asm volatile("fence.acq_rel.sys;\n" ::: "memory");
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// One thread: `n` payload words into entry [from] of every shard's
+// mailbox, one fence, then the sequence into each entry.
+__device__ __forceinline__ void xsend_all(const Xchg& x, int par, int from,
+                                          unsigned long long seq,
+                                          const uint32_t* words, int n) {
+  for (int d = 0; d < x.D; ++d) {
+    volatile uint32_t* pl = xpayload(x, d, par, from);
+    for (int k = 0; k < n; ++k) pl[k] = words[k];
+  }
+  fence_sys();
+  for (int d = 0; d < x.D; ++d) st_relaxed_sys(xentry(x, d, par, from), seq);
+}
+
+// The poller warp: lane e < D waits for entry [e] of shard `box`'s mailbox
+// to hold `seq`. Returns, in every lane, the bits of the shards whose entry
+// had not arrived when the time limit passed (0: all arrived, their
+// payloads visible to this warp).
+__device__ __forceinline__ unsigned xwait(const Xchg& x, int box, int par,
+                                          unsigned long long seq) {
+  const int lane = threadIdx.x & 31;
+  bool have = lane >= x.D;
+  const unsigned long long* e = have ? nullptr : xentry(x, box, par, lane);
+  const long long t0 = global_ns();
+  for (;;) {
+    if (!have) have = ld_relaxed_sys(e) == seq;
+    const unsigned missing = __ballot_sync(kFullMask, !have);
+    if (missing == 0u) {
+      // the acquire: this lane's entry read again (it holds `seq` until
+      // this shard has read it), ordering the payload reads after it
+      if (lane < x.D) ld_acquire_sys(e);
+      __syncwarp();
+      return 0u;
+    }
+    if (global_ns() - t0 > x.timeout_ns) return missing;
+  }
+}
+
+// The poller warp: `nwords` (even) words at `src` (this block's shared
+// memory) into the slot at the offset of `dst` in every block of the
+// cluster, each completing nwords * 4 bytes on the block's mbarrier at the
+// offset of `bar`.
+__device__ __forceinline__ void xbroadcast(const uint32_t* src,
+                                           const uint32_t* dst,
+                                           const uint64_t* bar, int nwords,
+                                           int nblocks) {
+  const int lane = threadIdx.x & 31, pairs = nwords / 2;
+  for (int e = lane; e < nblocks * pairs; e += 32) {
+    const int rank = e / pairs, k = e - rank * pairs;
+    push_pair(reinterpret_cast<const int2*>(dst) + k, bar, rank,
+              make_int2((int)src[2 * k], (int)src[2 * k + 1]));
+  }
+}
+
 // Copy a [nloc, width] slice between two views, by every thread of the block.
 __device__ __forceinline__ void copy_view(const View& dst, const View& src,
                                           int nloc, int width) {
@@ -294,12 +447,15 @@ __device__ __forceinline__ void copy_view(const View& dst, const View& src,
   }
 }
 
-// Launch `kernel` as one cluster of `cluster` blocks of `threads` threads
-// with `smem` bytes of dynamic shared memory; returns a cudaError_t (0 =
-// launched). A cluster the card cannot place is reported before the launch.
+// Launch `kernel` as `clusters` clusters of `cluster` blocks of `threads`
+// threads with `smem` bytes of dynamic shared memory, on the current
+// device; returns a cudaError_t (0 = launched). Clusters the card cannot
+// place together are reported before the launch: the exchange instances'
+// clusters wait on each other, so all of them must be resident at once.
 template <class Kernel, class Params>
 inline int launch_cluster(Kernel kernel, const Params& params, int cluster,
-                          int threads, size_t smem, void* stream) {
+                          int threads, size_t smem, void* stream,
+                          int clusters = 1) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -309,7 +465,7 @@ inline int launch_cluster(Kernel kernel, const Params& params, int cluster,
     if (err != cudaSuccess) return (int)err;
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.gridDim = dim3(cluster * clusters, 1, 1);
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = (cudaStream_t)stream;
@@ -323,10 +479,48 @@ inline int launch_cluster(Kernel kernel, const Params& params, int cluster,
   int active = 0;
   err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
   if (err != cudaSuccess) return (int)err;
-  if (active < 1) return (int)cudaErrorLaunchOutOfResources;
+  if (active < clusters) return (int)cudaErrorLaunchOutOfResources;
   err = cudaLaunchKernelEx(&cfg, kernel, params);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Clusters of `cluster` blocks of `kernel` the current device can hold at
+// once with `smem` bytes per block (negative: a cudaError_t).
+template <class Kernel>
+inline int max_clusters(Kernel kernel, int cluster, int threads,
+                        size_t smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && cluster > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int active = 0;
+  err = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  return err == cudaSuccess ? active : -(int)err;
+}
+
+// Peer access from the current device to `peer` (0, or a cudaError_t);
+// access already on counts as success.
+inline int enable_peer(int peer) {
+  const cudaError_t err = cudaDeviceEnablePeerAccess(peer, 0);
+  if (err == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();  // the error is not sticky: clear it
+    return 0;
+  }
+  return (int)err;
 }
 
 }  // namespace koord

@@ -34,6 +34,14 @@
 // wrapper puts the valid pods first, so the whole cluster walks only those;
 // each pod costs one push of every block's best to every block (the merge
 // of kernel_common.cuh) and no cluster-wide barrier.
+//
+// The exchange instance (`kXchg`, kernel_common.cuh "The exchange") runs
+// the round over a mesh whose shards sit on different cards, a card's L
+// shards as L clusters of one launch: per pod, once the cluster has merged
+// its blocks' bests, the owner of its best publishes (score, global index)
+// to every shard, the poller merges the D entries by (score, lowest global
+// index) and pushes the winner into every block, and the shard that owns it
+// commits. The plain version is parallel/mesh.py _plain_sharded_schedule.
 
 #include <cooperative_groups.h>
 
@@ -72,12 +80,19 @@ struct ScheduleStepParams {
   // ---- cluster plan
   int cluster_size, nodes_per_block, node_threads, state_in_smem;
   int widx[kMaxWeights];
+  // ---- the mesh of cards (x.L = 0: one device, N rows, one cluster)
+  koord::Xchg x;
 };
+
+// 32-bit words of the exchange's payload and of its result (status,
+// global index, score, a spare word).
+constexpr int kPayloadWords = 2;
+constexpr int kResultWords = 4;
 
 // Dynamic shared memory of one block (ops/schedule_kernel.py
 // estimate_smem_bytes mirrors it).
 struct SsSmem {
-  size_t bar, ring, part_warp, part_blk, node, flags, total;
+  size_t bar, ring, part_warp, part_blk, xbar, xres, xout, node, flags, total;
 };
 
 __host__ __device__ inline SsSmem ss_smem_layout(const ScheduleStepParams& p) {
@@ -88,6 +103,11 @@ __host__ __device__ inline SsSmem ss_smem_layout(const ScheduleStepParams& p) {
   L.ring = koord::smem_take(at, (size_t)koord::kRingStages * p.rec_stride * 4);
   L.part_warp = koord::smem_take(at, 2 * (size_t)nw * 8);
   L.part_blk = koord::smem_take(at, 2 * (size_t)p.cluster_size * 8);
+  if (p.x.L > 0) {
+    L.xbar = koord::smem_take(at, 2 * 8);
+    L.xres = koord::smem_take(at, 2 * (size_t)kResultWords * 4);
+    L.xout = koord::smem_take(at, (size_t)kResultWords * 4);
+  }
   if (p.state_in_smem) {
     // requested, two deltas, allocatable, two terms
     const size_t floats = 2 * (size_t)p.R + 4 * (size_t)p.n_widx;
@@ -99,8 +119,9 @@ __host__ __device__ inline SsSmem ss_smem_layout(const ScheduleStepParams& p) {
 }
 
 // kW > 0 fixes the weighted-axis count at compile time, so the score loop
-// unrolls completely; 0 reads it from `p`.
-template <bool kStateInSmem, int kW>
+// unrolls completely; 0 reads it from `p`. kXchg: the instance over a mesh
+// of cards (p.x).
+template <bool kStateInSmem, int kW, bool kXchg>
 __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     schedule_step_kernel(const ScheduleStepParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -117,7 +138,14 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   const bool ctrl = warp == NW;  // the control warp owns no node
   const int C = p.cluster_size, rank = (int)cluster.block_rank();
   const int Nb = p.nodes_per_block, N = p.N;
-  const int lo = min(rank * Nb, N), nloc = min(lo + Nb, N) - lo;
+  // this cluster's shard: columns [row0, row0 + per) of the launch's
+  // axis-major arrays, global nodes from gbase (one device: all N)
+  const int l = kXchg ? (int)(blockIdx.x / C) : 0;
+  const int per = kXchg ? p.x.per : N;
+  const int row0 = l * per;
+  const int me = kXchg ? p.x.shard[l] : 0, gbase = me * per;
+  const int lo = row0 + min(rank * Nb, per);
+  const int nloc = min(rank * Nb + Nb, per) - min(rank * Nb, per);
   const int R = p.R, W = kW ? kW : p.n_widx, S = koord::kRingStages;
   const int stride = p.rec_stride;
 
@@ -155,9 +183,13 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     nflags = p.node_flags + lo;
   }
 
+  uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.xbar);  // [2]
+  uint32_t* xres = reinterpret_cast<uint32_t*>(smem + L.xres);  // [2][4]
+  uint32_t* xout = reinterpret_cast<uint32_t*>(smem + L.xout);  // [4]
   const int nv = *p.n_valid;
   if (ctrl && lane == 0) {
     for (int s = 0; s < S + 2; ++s) koord::mbar_init(&bar[s], 1);
+    if (kXchg) for (int s = 0; s < 2; ++s) koord::mbar_init(&xbar[s], 1);
     koord::fence_mbar_init();
     for (int v = 0; v < S - 1 && v < nv; ++v)
       koord::bulk_load(ring + v * stride, p.records + (size_t)v * stride,
@@ -169,6 +201,9 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   // every block has started and initialised its shared memory
   cluster.sync();
 
+  // the last pod whose record load was issued, and the pod a failed
+  // exchange stopped at (-1: none)
+  int issued = min(S - 1, nv) - 1, stopped = -1;
   for (int v = 0; v < nv; ++v) {
     const int st = v % S;
     koord::mbar_wait(&bar[st], (v / S) & 1);
@@ -237,6 +272,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // Every node warp has finished this pod's node loop, so none still
       // reads pod v - 1's stage: refill it with pod v + S - 1.
       const int nxt = v + S - 1;
+      if (nxt < nv) issued = nxt;
       if (lane == 0 && nxt < nv)
         koord::bulk_load(ring + (nxt % S) * stride,
                          p.records + (size_t)nxt * stride, stride * 4,
@@ -247,14 +283,54 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     koord::mbar_wait(&merge_bar[v & 1], (v >> 1) & 1);
     KOORD_STAMP(v, 3)  // every block's best is in
     koord::warp_argmax_of(part_blk + (v & 1) * C, C, best_s, best_n);
+    int gwin = best_n;
+    if constexpr (kXchg) {
+      // ---- the winner over every shard (pod v is exchange v)
+      const int par = v & 1;
+      const unsigned long long seq = p.x.seq0 + (unsigned long long)v;
+      uint32_t* res = xres + par * kResultWords;
+      const int jp = best_n - lo;
+      if (!ctrl && jp >= 0 && jp < nloc && jp % NT == tid) {
+        const uint32_t words[kPayloadWords] = {
+            __float_as_uint(best_s), (uint32_t)(gbase + best_n - row0)};
+        koord::xsend_all(p.x, par, me, seq, words, kPayloadWords);
+      }
+      if (ctrl && rank == 0) {
+        const unsigned missing = koord::xwait(p.x, me, par, seq);
+        const bool in = lane < p.x.D && missing == 0u;
+        volatile uint32_t* pl = koord::xpayload(p.x, me, par, in ? lane : 0);
+        float ws = in ? __uint_as_float(pl[0]) : -CUDART_INF_F;
+        int wn = in ? (int)pl[1] : INT32_MAX;
+        koord::warp_argmax(ws, wn);
+        if (lane == 0) {
+          xout[0] = missing;
+          xout[1] = (uint32_t)wn;
+          xout[2] = __float_as_uint(ws);
+          xout[3] = 0u;
+          if (missing) atomicOr(p.x.err, missing);
+        }
+        __syncwarp();
+        koord::xbroadcast(xout, res, &xbar[par], kResultWords, C);
+      }
+      if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], kResultWords * 4);
+      koord::mbar_wait(&xbar[par], (v >> 1) & 1);
+      if (res[0] != 0u) {
+        stopped = v;
+        break;
+      }
+      gwin = (int)res[1];
+      best_s = __uint_as_float(res[2]);
+    }
     const bool found = best_s >= 0.0f && (pf & koord::kPodValid);
-    if (ctrl && lane == 0 && rank == 0)
-      p.chosen[rec[koord::kRecPod]] = found ? best_n : -1;
+    if (ctrl && lane == 0 && rank == 0 && l == 0)
+      p.chosen[rec[koord::kRecPod]] = found ? gwin : -1;
     KOORD_STAMP(v, 4)  // merged
     if (!found) continue;
 
-    // ---- Commit: the owner of the chosen node updates its rows
-    const int jb = best_n - lo;
+    // ---- Commit: the owner of the chosen node updates its rows (the
+    // shard that holds it)
+    const int jb =
+        (kXchg ? (gwin / per == me ? row0 + gwin - gbase : -1) : gwin) - lo;
     if (!ctrl && jb >= 0 && jb < nloc && jb % NT == tid) {
       for (int r = 0; r < R; ++r)
         req_v(jb, r) = __fadd_rn(req_v(jb, r), fit_req[r]);
@@ -267,6 +343,12 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     KOORD_STAMP(v, 5)  // committed
   }
 
+  // A failed exchange left the loop: no block leaves while a record it
+  // asked for is still being copied into its shared memory.
+  if (kXchg && stopped >= 0 && ctrl && lane == 0)
+    for (int u = stopped + 1; u <= issued; ++u)
+      koord::mbar_wait(&bar[u % S], (u / S) & 1);
+
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();
   if constexpr (kStateInSmem) {
@@ -277,6 +359,35 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
 }
 
 KOORD_TRACE_COPY(schedule_step_trace_copy)
+
+namespace {
+
+template <bool kXchg, bool kSmem, bool kCommon>
+int launch_one(const ScheduleStepParams& p, void* stream, bool query) {
+  auto kernel = schedule_step_kernel<kSmem, kCommon ? 2 : 0, kXchg>;
+  const size_t smem = ss_smem_layout(p).total;
+  const int threads = p.node_threads + 32, C = p.cluster_size;
+  if (query) return koord::max_clusters(kernel, C, threads, smem);
+  return koord::launch_cluster(kernel, p, C, threads, smem, stream,
+                               kXchg ? p.x.L : 1);
+}
+
+template <bool kXchg>
+int launch_mode(const ScheduleStepParams& p, void* stream, bool query) {
+  const bool common = p.n_widx == 2;
+  if (p.state_in_smem)
+    return common ? launch_one<kXchg, true, true>(p, stream, query)
+                  : launch_one<kXchg, true, false>(p, stream, query);
+  return common ? launch_one<kXchg, false, true>(p, stream, query)
+                : launch_one<kXchg, false, false>(p, stream, query);
+}
+
+int launch_any(const ScheduleStepParams& p, void* stream, bool query) {
+  return p.x.L > 0 ? launch_mode<true>(p, stream, query)
+                   : launch_mode<false>(p, stream, query);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -293,22 +404,20 @@ int schedule_step_instance(const ScheduleStepParams* params) {
   return params->n_widx == 2;
 }
 
-// Launches one round on `stream` as one cluster; returns a cudaError_t
-// (0 = launched).
+// 32-bit payload words of one mailbox entry.
+int schedule_step_payload_words() { return kPayloadWords; }
+
+// Clusters of this launch's instance the current device holds at once
+// (negative: a cudaError_t).
+int schedule_step_max_clusters(const ScheduleStepParams* params) {
+  return launch_any(*params, nullptr, true);
+}
+
+// Launches one round on `stream` on the current device, as one cluster
+// (x.L > 0: the instance over a mesh of cards, as x.L clusters); returns a
+// cudaError_t (0 = launched).
 int schedule_step_launch(const ScheduleStepParams* params, void* stream) {
-  const ScheduleStepParams& p = *params;
-  const size_t smem = ss_smem_layout(p).total;
-  const int threads = p.node_threads + 32, C = p.cluster_size;
-  const bool common = schedule_step_instance(params);
-  if (p.state_in_smem)
-    return common ? koord::launch_cluster(schedule_step_kernel<true, 2>, p, C,
-                                          threads, smem, stream)
-                  : koord::launch_cluster(schedule_step_kernel<true, 0>, p, C,
-                                          threads, smem, stream);
-  return common ? koord::launch_cluster(schedule_step_kernel<false, 2>, p, C,
-                                        threads, smem, stream)
-                : koord::launch_cluster(schedule_step_kernel<false, 0>, p, C,
-                                        threads, smem, stream);
+  return launch_any(*params, stream, false);
 }
 
 }  // extern "C"

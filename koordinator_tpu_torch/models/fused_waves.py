@@ -33,7 +33,10 @@ a wave queues its work without a host sync. Pre-passes 0a/0b are torch on
 the card's tensors, a loop over pods that reads each decision back: slow at
 a large P, and run only while reservations ride the batch. For CPU tensors
 pass 1 is the plain round's loop (models/full_chain.py) and pass 3 the
-plain ``replay_kept``. The choice reads only the inputs' device.
+plain ``replay_kept``. The choice reads only the inputs' device, unless
+the caller hands the body its own passes (``WaveBackend``): the mesh of
+cards' exchange route (parallel/full_chain_mesh.py) runs the same body
+with its node-axis state on the cards' shards.
 
 Two dispatch shapes share the one wave body (``_make_wave_body``):
 
@@ -228,6 +231,48 @@ def _carry_fc_variants(fc: FullChainInputs, sides: WaveSideInputs):
     return fc_carry, fc_nom
 
 
+class WaveBackend:
+    """The wave body's node-axis passes: ``round`` is pass 1 (chosen [P]
+    first, the terms rows last under ``terms``), ``replay`` pass 3
+    ((state', zones)), ``counts`` the stage counts at a state and
+    ``zeros`` node-axis f32 zeros shaped like a state row. This one runs
+    them on the inputs' device: the kernels for CUDA tensors, the plain
+    passes for CPU tensors."""
+
+    def __init__(self, cuda: bool) -> None:
+        self.cuda = cuda
+
+    def round(self, fc_k, weight_idx, prod_mode, bal_idx, terms: bool):
+        if self.cuda:
+            from koordinator_tpu_torch.ops.full_chain_kernel import (
+                full_chain_round,
+            )
+
+            return full_chain_round(fc_k, weight_idx, prod_mode, bal_idx,
+                                    terms=terms)
+        return plain_round(fc_k, weight_idx, prod_mode, bal_idx,
+                           terms=terms)
+
+    def replay(self, fc_carry, chosen, kept, state0, prod_mode):
+        if self.cuda:
+            from koordinator_tpu_torch.ops.full_chain_kernel import (
+                full_chain_replay,
+            )
+
+            return full_chain_replay(fc_carry, chosen, kept, state0,
+                                     prod_mode)
+        return replay_kept(fc_carry, prod_mode, state0, chosen, kept)
+
+    def counts(self, fc_k, state, n_real):
+        from koordinator_tpu_torch.ops.explain_kernel import explain_counts
+
+        return explain_counts(fc_k, state, n_real)
+
+    def zeros(self, like):
+        return torch.zeros(tuple(like.shape), dtype=torch.float32,
+                           device=like.device)
+
+
 def _round_state(requested, delta_np, delta_pr, numa_free, bind_free,
                  quota_used, aff_count, anti_cover, aff_exists, port_used,
                  vol_free):
@@ -306,18 +351,20 @@ def _nomination_prepass(fc, fc_nom, sides, prod_mode, chain, res_avail,
 def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
                     bal_idx, num_gangs: int, num_groups: int,
                     prod_mode: bool, score_passes=(), explain=None,
-                    n_real=None):
+                    n_real=None, backend=None):
     """The ONE wave body both dispatch shapes run: carry (WAVE_STATE_FIELDS
     layout, then ``ex_terms`` under explain "full") -> (carry', WaveChainOut,
     done, counts_w), done a 0-d bool tensor (the fixpoint) and counts_w
     the wave's [P, 11] stage counts at wave-start state (None with explain
-    off). Pass 1, pass 3 and the counts take the kernels for CUDA tensors
-    and the plain versions for CPU tensors."""
+    off). Pass 1, pass 3 and the counts are ``backend``'s (WaveBackend
+    when None: the kernels for CUDA tensors and the plain versions for CPU
+    tensors)."""
     inputs = fc.base
     P, R = inputs.fit_requests.shape
     N = inputs.allocatable.shape[0]
-    dev = inputs.allocatable.device
-    cuda = inputs.allocatable.is_cuda
+    dev = inputs.fit_requests.device
+    if backend is None:
+        backend = WaveBackend(inputs.allocatable.is_cuda)
     has_claims = sides.claims is not None
     has_res = sides.res is not None
     fc_carry, fc_nom = _carry_fc_variants(fc, sides)
@@ -401,22 +448,8 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
             # per-wave attribution at wave-START state (after the
             # pre-passes): the counts logical cycle w formats for the pods
             # it leaves unbound
-            from koordinator_tpu_torch.ops.explain_kernel import (
-                explain_counts,
-            )
-
-            counts_w = explain_counts(fc_k, cycle_start_state(fc_k),
-                                      n_real)
-        if cuda:
-            from koordinator_tpu_torch.ops.full_chain_kernel import (
-                full_chain_round,
-            )
-
-            pass1 = full_chain_round(fc_k, weight_idx, prod_mode, bal_idx,
-                                     terms=full)
-        else:
-            pass1 = plain_round(fc_k, weight_idx, prod_mode, bal_idx,
-                                terms=full)
+            counts_w = backend.counts(fc_k, cycle_start_state(fc_k), n_real)
+        pass1 = backend.round(fc_k, weight_idx, prod_mode, bal_idx, full)
         chosen = pass1[0]
 
         # ---- Permit against the CARRIED assumed counters
@@ -432,21 +465,12 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
         # ---- pass 3: kept-only replay from the WAVE-START state;
         # est_sum rides the delta_np slot (est_sum_prod the delta_pr slot)
         # so the fold order matches the assign-cache append order
-        zero = torch.zeros((N, R), dtype=torch.float32, device=dev)
         state0 = (requested, est_sum,
-                  est_sum_prod if prod_mode else zero, numa_free, bind_free,
-                  quota_used, aff_count, anti_cover, aff_exists, port_used,
-                  vol_free)
-        if cuda:
-            from koordinator_tpu_torch.ops.full_chain_kernel import (
-                full_chain_replay,
-            )
-
-            rout, zones = full_chain_replay(fc_carry, chosen, kept, state0,
-                                            prod_mode)
-        else:
-            rout, zones = replay_kept(fc_carry, prod_mode, state0, chosen,
-                                      kept)
+                  est_sum_prod if prod_mode else backend.zeros(requested),
+                  numa_free, bind_free, quota_used, aff_count, anti_cover,
+                  aff_exists, port_used, vol_free)
+        rout, zones = backend.replay(fc_carry, chosen, kept, state0,
+                                     prod_mode)
         (requested, est_sum, est_pr_out, numa_free, bind_free, quota_used,
          aff_count, anti_cover, aff_exists, port_used, vol_free) = rout
         if prod_mode:
@@ -521,7 +545,7 @@ def initial_wave_carry(fc: FullChainInputs, sides: WaveSideInputs,
     _check_explain(explain)
     P = fc.base.fit_requests.shape[0]
     N = fc.base.allocatable.shape[0]
-    dev = fc.base.allocatable.device
+    dev = fc.base.fit_requests.device
     f32 = torch.float32
     if sides.claims is not None:
         nc = sides.claims.pod_claim.shape[1]
@@ -570,7 +594,7 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
                           num_groups: int, waves: int, active_axes=None,
                           explain=None, prod: bool = False,
                           claims: bool = False, res: bool = False,
-                          score_passes=()):
+                          score_passes=(), backend=None):
     """(FullChainInputs, WaveSideInputs) -> FusedWaveOut: up to ``waves``
     waves in one call, on the inputs' device.
 
@@ -587,7 +611,8 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
     and returns (FusedWaveOut, ExplainOut) with per-WAVE stage counts
     [waves, P, NUM_EXPLAIN_STAGES], each wave's row at its wave-start
     state (the rows of waves not run stay 0), and at "full" the terms
-    rows of the wave that kept each pod."""
+    rows of the wave that kept each pod. ``backend``: the wave body's
+    passes (WaveBackend by the inputs' device when None)."""
     if not 1 <= waves <= MAX_WAVES:
         raise ValueError(f"waves must be in [1, {MAX_WAVES}], got {waves}")
     _check_wave_args(args, prod)
@@ -598,11 +623,11 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
 
     def run(fc: FullChainInputs, sides: WaveSideInputs, n_real):
         P = fc.base.fit_requests.shape[0]
-        dev = fc.base.allocatable.device
+        dev = fc.base.fit_requests.device
         body = _make_wave_body(fc, sides, weight_idx, bal_idx, num_gangs,
                                num_groups, prod_mode,
                                score_passes=score_passes, explain=explain,
-                               n_real=n_real)
+                               n_real=n_real, backend=backend)
         carry = initial_wave_carry(fc, sides, explain=explain)
         out = [torch.full((P,), -1, dtype=torch.int32, device=dev)
                for _ in range(4)]
@@ -644,7 +669,8 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
 def build_chained_wave_step(args: LoadAwareArgs, num_gangs: int,
                             num_groups: int, active_axes=None, explain=None,
                             prod: bool = False, claims: bool = False,
-                            res: bool = False, score_passes=()):
+                            res: bool = False, score_passes=(),
+                            backend=None):
     """ONE wave per call, carried state on the inputs' device between calls.
 
     (FullChainInputs, carry, WaveSideInputs) -> (carry', WaveChainOut),
@@ -660,7 +686,9 @@ def build_chained_wave_step(args: LoadAwareArgs, num_gangs: int,
     and returns (carry', WaveChainOut, counts_row[P, S]) — this wave's
     attribution at wave-START state, the row the fused step's [K, P, S]
     buffer holds at index w; at "full" the carry's ``ex_terms`` slot (from
-    initial_wave_carry(explain="full")) carries the terms rows."""
+    initial_wave_carry(explain="full")) carries the terms rows.
+    ``backend``: the wave body's passes (WaveBackend by the inputs' device
+    when None)."""
     _check_wave_args(args, prod)
     _check_explain(explain)
     weight_idx = resolve_weight_idx(args, active_axes)
@@ -672,7 +700,7 @@ def build_chained_wave_step(args: LoadAwareArgs, num_gangs: int,
         body = _make_wave_body(fc, sides, weight_idx, bal_idx, num_gangs,
                                num_groups, prod_mode,
                                score_passes=score_passes, explain=explain,
-                               n_real=n_real)
+                               n_real=n_real, backend=backend)
         new_carry, rows, _done, counts_w = body(tuple(carry[:width]))
         if explain is None:
             return new_carry, rows

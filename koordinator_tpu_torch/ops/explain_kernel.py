@@ -12,6 +12,12 @@ node flag bytes, checks every tensor and launches one block per pod on the
 current stream. For tensors on the CPU it returns the plain version,
 models/full_chain.explain_stage_counts; for CUDA tensors it launches the
 kernel or raises. ``launches`` counts the launches.
+
+``explain_counts_shards`` is the pass over a mesh of cards: each shard's
+rows counted on its own card, against the spread minima over every shard
+(a first launch per shard writes its minima, the wrapper takes their
+minimum), the integer counts summed over the shards. ``shard_launches``
+counts its launches (two per shard where the pods have spread terms).
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ from koordinator_tpu_torch.models.full_chain import (
 from koordinator_tpu_torch.ops.kernel_common import (
     KernelContractError,
     check_tensor,
+    launch_device,
     launch_error,
     load_library,
+    on_device,
 )
 
 SOURCE = "explain_counts.cu"
@@ -37,6 +45,7 @@ THREADS = 256  # csrc/explain_counts.cu kThreads
 DEFAULT_SMEM_BYTES = 48 * 1024  # a launch without the opt-in attribute
 
 launches = 0
+shard_launches = 0
 last_launch: dict = {}
 
 _P = ctypes.c_void_p
@@ -44,7 +53,7 @@ _PTR_FIELDS = (
     "records", "alloc", "requested", "node_flags", "cpc", "policy",
     "taint_group", "vol_group", "aff_dom", "numa", "bind_free", "vol_free",
     "port_used", "aff_count", "anti_cover", "aff_exists", "anc", "runtime",
-    "quota_used", "counts",
+    "quota_used", "counts", "spread_in", "spread_out",
 )
 _INT_FIELDS = (
     "P", "N", "R", "K", "G", "D", "T", "PT", "n_real",
@@ -90,13 +99,60 @@ def explain_counts(fc, filter_state, n_real) -> torch.Tensor:
     at the frozen ``filter_state`` (models/full_chain.explain_stage_counts'
     9-tuple) over the first ``n_real`` nodes: the kernel for CUDA
     tensors, the plain version for CPU tensors."""
+    global launches
     if not fc.base.allocatable.is_cuda:
         return explain_stage_counts(fc, filter_state, n_real)
-    return _launch(fc, filter_state, int(n_real))
+    out = _launch(fc, filter_state, int(n_real))
+    launches += 1
+    return out
 
 
-def _launch(fc, filter_state, n_real: int):
-    global launches, last_launch
+def explain_counts_shards(shards, n_real) -> torch.Tensor:
+    """The stage counts over a mesh of cards: ``shards`` [(fc, filter_state,
+    first)] per shard, each on its card (the shard's rows and the pod
+    fields; ``first`` its first global row), ``n_real`` the mesh's real
+    nodes. Each shard counts its own real rows against the spread minima
+    over every shard; the node stages' counts are summed over the shards
+    (integers: exact), the gang and quota verdicts taken from the first.
+    Returns [P, NUM_EXPLAIN_STAGES] uint32 on the first shard's card."""
+    global shard_launches
+    from koordinator_tpu_torch.models.full_chain import EXPLAIN_STAGE_GANG
+
+    fc0 = shards[0][0]
+    dev0 = launch_device(fc0.base.allocatable)
+    P, T = fc0.base.fit_requests.shape[0], fc0.aff_dom.shape[1]
+    mins = None
+    if T > 0:
+        parts = []
+        for fc, state, _first in shards:
+            out = torch.empty((P, T), dtype=torch.float32,
+                              device=fc.base.allocatable.device)
+            _launch(fc, state, 0, spread_out=out)
+            parts.append(out)
+            shard_launches += 1
+        mins = torch.stack([m.to(dev0) for m in parts]).amin(dim=0)
+    total = None
+    for fc, state, first in shards:
+        per = fc.base.allocatable.shape[0]
+        n_loc = max(0, min(per, int(n_real) - int(first)))
+        spread_in = (mins.to(fc.base.allocatable.device)
+                     if mins is not None else None)
+        c = _launch(fc, state, n_loc, spread_in=spread_in)
+        shard_launches += 1
+        c = c.to(dev0).to(torch.int64)
+        if total is None:
+            total = c
+        else:
+            total[:, :EXPLAIN_STAGE_GANG] += c[:, :EXPLAIN_STAGE_GANG]
+    return total.to(torch.uint32)
+
+
+def _launch(fc, filter_state, n_real: int, spread_in=None,
+            spread_out=None):
+    """One launch over ``fc``'s rows: the counts, or with ``spread_out``
+    ([P, T] f32) only the spread minima of its rows; ``spread_in`` the
+    minima to count against instead of its own."""
+    global last_launch
     from koordinator_tpu_torch.ops.full_chain_kernel import (
         _dims,
         node_flags,
@@ -118,7 +174,7 @@ def _launch(fc, filter_state, n_real: int):
     reject_np, reject_pr, gang_ok = pod_independent_rows(fc)
     records = pack_records(fc, gang_ok)
     lay = record_layout(R, T, PT, VG)
-    dev = inputs.allocatable.device
+    dev = launch_device(inputs.allocatable)
     out = torch.empty((P, NUM_EXPLAIN_STAGES), dtype=torch.uint32,
                       device=dev)
     f32, i32, u8 = torch.float32, torch.int32, torch.uint8
@@ -148,27 +204,31 @@ def _launch(fc, filter_state, n_real: int):
         "runtime": (f(fc.quota_runtime), f32, (G, R)),
         "quota_used": (f(quota_used), f32, (G, R)),
         "counts": (out, torch.uint32, (P, NUM_EXPLAIN_STAGES)),
+        "spread_in": (spread_in, f32, (P, T)),
+        "spread_out": (spread_out, f32, (P, T)),
     }
     params = _Params()
     for name in _PTR_FIELDS:
         t, dtype, shape = args[name]
-        setattr(params, name, check_tensor(name, t, dtype, shape))
+        setattr(params, name,
+                None if t is None else check_tensor(name, t, dtype, shape))
     sizes = dict(d, n_real=max(0, min(n_real, N)), **lay)
     for name in _INT_FIELDS:
         setattr(params, name, sizes[name])
     lib = _lib()
     # The temporaries above may be freed before the kernel ends: the caching
     # allocator hands their memory only to later work on this same stream.
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.explain_launch(ctypes.byref(params), ctypes.c_void_p(stream))
+    with on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.explain_launch(ctypes.byref(params),
+                                 ctypes.c_void_p(stream))
     if err != 0:
         raise launch_error("explain_counts", err,
                            f"{P} blocks x {THREADS} threads, {nbytes} B of "
                            "shared memory per block")
-    launches += 1
     last_launch = {
         "instance": ("common" if lib.explain_instance(ctypes.byref(params))
                      else "generic"),
         "blocks": P, "block_threads": THREADS, "smem_bytes_per_block": nbytes,
     }
-    return out
+    return out if spread_out is None else spread_out

@@ -27,9 +27,19 @@ decision-time score terms ([P, 5] f32, models/full_chain.EXPLAIN_TERMS).
 `build_cuda_full_chain_step(explain=...)` adds the stage counts at the
 cycle-start state from the CUDA pass of ops/explain_kernel.py.
 
+`full_chain_round_cards` and `full_chain_replay_cards` launch the
+instances over a mesh of cards (csrc/kernel_common.cuh, "The exchange"):
+each card's launch runs its shards as clusters, on that card's rows only;
+the round's clusters exchange their stats and winners through the mesh's
+mailboxes (ops/kernel_common.Mailboxes), the replay's need no exchange.
+Every card's launch is queued before any is waited on, and a card whose
+entries never arrive ends the others' rounds with ExchangeTimeout.
+
 `launches` counts the round's launches (the terms instance's included),
 `terms_launches` the terms instance's and `replay_launches` the replay's,
-so a run can show that its main path went through the kernel.
+so a run can show that its main path went through the kernel;
+`xchg_launches`, `xchg_terms_launches` and `xchg_replay_launches` count
+the mesh-of-cards instances' launches, one per card.
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from koordinator_tpu_torch.models.full_chain import (
 )
 from koordinator_tpu_torch.ops.kernel_common import (
     CLUSTER_SIZE,
+    MAX_LOCAL_SHARDS,
     NODE_HAS_TOPO,
     NODE_OK,
     NODE_REJECT_NP,
@@ -66,13 +77,17 @@ from koordinator_tpu_torch.ops.kernel_common import (
     RING_STAGES,
     SMEM_BUDGET_BYTES,
     KernelContractError,
+    Mailboxes,
     SyncClock,
+    _Xchg,
     check_tensor,
     choose_state,
     cluster_plan,
     f32_words,
+    launch_device,
     launch_error,
     load_library,
+    on_device,
     pack_bits,
     smem_take,
     unpack_bits,
@@ -91,7 +106,13 @@ REC_HEADER = 8
 launches = 0
 terms_launches = 0
 replay_launches = 0
+xchg_launches = 0
+xchg_terms_launches = 0
+xchg_replay_launches = 0
 last_launch: dict = {}
+# the winner's exchange payload words ahead of its aff_dom row, and the
+# merged result's (csrc/full_chain.cu kWinHead, kResHead)
+WIN_HEAD, RES_HEAD = 6, 8
 
 _P = ctypes.c_void_p
 _PTR_FIELDS = (
@@ -101,7 +122,7 @@ _PTR_FIELDS = (
     "ppref_w", "weights", "anc", "runtime", "quota_init", "aff_exists0",
     "requested", "delta_np", "delta_pr", "numa", "bind_free", "vol_free",
     "port_used", "aff_count", "anti_cover", "quota_blocks", "chosen",
-    "zones", "aff_exists_out", "terms",
+    "zones", "aff_exists_out", "terms", "dom_rows",
 )
 _INT_FIELDS = (
     "P", "N", "R", "K", "G", "D", "T", "S", "S2", "ppref_stride", "PT", "SI",
@@ -118,7 +139,7 @@ class _Params(ctypes.Structure):
 
     _fields_ = ([(f, _P) for f in _PTR_FIELDS]
                 + [(f, ctypes.c_int) for f in _INT_FIELDS]
-                + [("widx", ctypes.c_int * MAX_WEIGHTS)])
+                + [("widx", ctypes.c_int * MAX_WEIGHTS), ("x", _Xchg)])
 
 
 def _lib():
@@ -132,6 +153,12 @@ def _lib():
         lib.full_chain_launch.restype = ctypes.c_int
         lib.full_chain_launch.argtypes = [ctypes.POINTER(_Params),
                                           ctypes.c_void_p]
+        lib.full_chain_max_clusters.restype = ctypes.c_int
+        lib.full_chain_max_clusters.argtypes = [ctypes.POINTER(_Params)]
+        lib.full_chain_payload_words.restype = ctypes.c_int
+        lib.full_chain_payload_words.argtypes = [ctypes.c_int]
+        lib.koord_enable_peer.restype = ctypes.c_int
+        lib.koord_enable_peer.argtypes = [ctypes.c_int]
         size = lib.full_chain_params_size()
         if size != ctypes.sizeof(_Params):
             raise KernelContractError(
@@ -263,10 +290,24 @@ def node_flags(fc, reject_np, reject_pr) -> torch.Tensor:
     return flags.to(torch.uint8)
 
 
+def payload_words(T: int) -> int:
+    """32-bit payload words of one mailbox entry of the round over a mesh
+    of cards (csrc/full_chain.cu full_chain_payload_words): the winner's
+    score, global index, runner-up and three terms, then its aff_dom row;
+    the stats entry's T + 2 words are never more."""
+    return WIN_HEAD + int(T)
+
+
+def result_words(T: int) -> int:
+    """32-bit words of one merged exchange result in shared memory (even,
+    csrc/full_chain.cu fc_result_words)."""
+    return (RES_HEAD + int(T) + 1) & ~1
+
+
 def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
                         D: int, T: int, PT: int, VG: int,
                         cluster_size: int = CLUSTER_SIZE,
-                        state: str = "smem") -> int:
+                        state: str = "smem", exchange: bool = False) -> int:
     """Dynamic shared memory of one block, from the shapes alone (csrc/
     full_chain.cu fc_smem_layout): the mbarriers, the record ring, the
     warps' and blocks' argmax partials, the reduction partials, the
@@ -275,13 +316,18 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
     rows (requested, two deltas, NUMA zones, bindable cpus, volume
     headroom, ports, affinity counts and covers), allocatable and the two
     terms, and the node flags. The terms instance's runner-up partials
-    (per warp and per block) are in every layout."""
+    (per warp and per block) are in every layout; the round over a mesh of
+    cards (``exchange``, ``n_nodes`` one shard's rows) adds its exchange
+    mbarriers and results."""
     plan = cluster_plan(n_nodes, cluster_size)
     nw, nb, Q = plan.node_threads // 32, plan.nodes_per_block, T + 2
     stride = record_layout(R, T, PT, VG)["rec_stride"]
     regions = [(RING_STAGES + 2) * 8, RING_STAGES * stride * 4, 2 * nw * 8,
                2 * cluster_size * 8, 2 * Q * nw * 4, (nw + 1) * Q * 4, 2 * 4,
                max(T, 1) * 4, 2 * nw * 4, 2 * cluster_size * 8]
+    if exchange:
+        xw = result_words(T)
+        regions += [2 * 8, 2 * xw * 4, xw * 4]
     if state == "smem":
         node_floats = (R + 2 * W + K * R + 2 + PT + 2 * T) + (R + 2 * W)
         regions += [G * R * 4, G * R * 4, G * D * 4, node_floats * nb * 4, nb]
@@ -292,14 +338,18 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
 
 
 def state_for(fc, weight_idx, smem_budget_bytes=None,
-              cluster_size: int = CLUSTER_SIZE):
+              cluster_size: int = CLUSTER_SIZE, shards: int = 1,
+              exchange: bool = False):
     """(state, plan, smem bytes per block) of a launch over ``fc``: the
     shared-memory state where its layout fits the budget, else device
-    memory. Reads shapes only, so it runs on any device."""
+    memory. ``shards``: the launch's clusters over a mesh of cards, each
+    over N / shards rows; ``exchange``: the round's exchange regions.
+    Reads shapes only, so it runs on any device."""
     d = _dims(fc)
-    shape = dict(n_nodes=d["N"], R=d["R"], W=len(weight_idx), K=d["K"],
+    n_nodes = d["N"] // int(shards)
+    shape = dict(n_nodes=n_nodes, R=d["R"], W=len(weight_idx), K=d["K"],
                  G=d["G"], D=d["D"], T=d["T"], PT=d["PT"], VG=d["VG"],
-                 cluster_size=cluster_size)
+                 cluster_size=cluster_size, exchange=exchange)
     state = choose_state(estimate_smem_bytes(**shape), smem_budget_bytes)
     smem = estimate_smem_bytes(**shape, state=state)
     if smem > SMEM_BUDGET_BYTES:
@@ -310,18 +360,22 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
             f"a pod record of {stride} words needs {smem} B of shared "
             f"memory per block, above the {SMEM_BUDGET_BYTES} B a block "
             "may take")
-    return state, cluster_plan(d["N"], cluster_size), smem
+    return state, cluster_plan(n_nodes, cluster_size), smem
 
 
 def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
             chosen, zones, replay: bool, cluster_size: int,
-            smem_budget_bytes, terms=None):
-    """Check every tensor, fill FullChainParams and launch one cluster on
-    the current stream. ``state`` holds the carried tensors the kernel
-    updates in place (requested, delta_np, delta_pr, numa, bind_free,
-    vol_free, port_used, aff_count, anti_cover) and the read-only
-    quota_init, aff_exists0, term_np and term_pr. ``terms`` ([P, 5] f32,
-    zeros) selects the terms instance, which fills it. Returns
+            smem_budget_bytes, terms=None, xchg=None, dom_rows=None):
+    """Check every tensor, fill FullChainParams and launch on the current
+    stream of the tensors' card. ``state`` holds the carried tensors the
+    kernel updates in place (requested, delta_np, delta_pr, numa,
+    bind_free, vol_free, port_used, aff_count, anti_cover) and the
+    read-only quota_init, aff_exists0, term_np and term_pr. ``terms``
+    ([P, 5] f32, zeros) selects the terms instance, which fills it.
+    ``xchg`` (a koord::Xchg) selects the instance over a mesh of cards: the
+    launch's xchg.L shards as clusters, each over N / L rows, with the
+    largest cluster size up to ``cluster_size`` at which the card holds
+    all of them at once (the replay reads ``dom_rows``). Returns
     (quota_blocks, aff_exists_out)."""
     global last_launch
     inputs = fc.base
@@ -331,13 +385,16 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
     P, N, R, K, G, D, T = (d[k] for k in "PNRKGDT")
     S, PT, SI, VG = d["S"], d["PT"], d["SI"], d["VG"]
     W = len(widx)
-    kind, plan, smem_bytes = state_for(fc, widx, smem_budget_bytes,
-                                       cluster_size)
+    shards = xchg.L if xchg is not None else 1
+    if N % shards:
+        raise ValueError(f"{N} rows do not split into {shards} shards")
+    exchange = xchg is not None and not replay
     lay = record_layout(R, T, PT, VG)
     reject_np, reject_pr, _gang_ok = pod_independent_rows(fc)
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
-    dev = inputs.allocatable.device
-    quota_blocks = torch.empty((cluster_size, G, R), dtype=f32, device=dev)
+    dev = launch_device(inputs.allocatable)
+    quota_blocks = torch.empty((shards * cluster_size, G, R), dtype=f32,
+                               device=dev)
     aff_exists_out = torch.zeros(T, dtype=u8, device=dev)
     args = {
         "records": (records, i32, (P, lay["rec_stride"])),
@@ -368,11 +425,12 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         "port_used": (state["port_used"], f32, (N, PT)),
         "aff_count": (state["aff_count"], f32, (N, T)),
         "anti_cover": (state["anti_cover"], f32, (N, T)),
-        "quota_blocks": (quota_blocks, f32, (cluster_size, G, R)),
+        "quota_blocks": (quota_blocks, f32, (shards * cluster_size, G, R)),
         "chosen": (chosen, i32, (P,)),
         "zones": (zones, i32, (P,)),
         "aff_exists_out": (aff_exists_out, u8, (T,)),
         "terms": (terms, f32, (P, NUM_TERMS)),
+        "dom_rows": (dom_rows, f32, (P, T)),
     }
     params = _Params()
     for name in _PTR_FIELDS:
@@ -380,42 +438,69 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         # a field the launch's mode does not use stays a null pointer
         setattr(params, name,
                 None if t is None else check_tensor(name, t, dtype, shape))
-    sizes = dict(d, ppref_stride=fc.ppref_w.shape[1],
-                 prod_mode=int(bool(prod_mode)), bal_c=int(bal_idx[0]),
-                 bal_m=int(bal_idx[1]), n_widx=W, **lay,
-                 cluster_size=cluster_size,
-                 nodes_per_block=plan.nodes_per_block,
-                 node_threads=plan.node_threads,
-                 state_in_smem=int(kind == "smem"), replay=int(replay))
-    for name in _INT_FIELDS:
-        setattr(params, name, sizes[name])
-    for j, r in enumerate(widx):
-        params.widx[j] = int(r)
-
-    lib = _lib()
-    c_bytes = lib.full_chain_smem_bytes(ctypes.byref(params))
-    if c_bytes != smem_bytes:
-        raise KernelContractError(
-            f"estimate_smem_bytes says {smem_bytes} bytes, "
-            f"the kernel's layout {c_bytes}")
-    # The temporaries above may be freed before the kernel ends: the caching
-    # allocator hands their memory only to later work on this same stream.
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.full_chain_launch(ctypes.byref(params), ctypes.c_void_p(stream))
+    if xchg is not None:
+        params.x = xchg
     what = ("replay" if replay else
             "terms round" if terms is not None else "round")
+    if xchg is not None:
+        what += f" over {shards} shard(s) of a mesh of cards"
+    lib = _lib()
+    # one device: the given cluster size; a mesh of cards: the largest
+    # whose clusters the card holds together
+    sizes_tried = ([cluster_size] if xchg is None else
+                   [c for c in (16, 8, 4, 2, 1) if c <= cluster_size])
+    with on_device(dev):
+        for c_size in sizes_tried:
+            kind, plan, smem_bytes = state_for(
+                fc, widx, smem_budget_bytes, c_size, shards, exchange)
+            sizes = dict(d, ppref_stride=fc.ppref_w.shape[1],
+                         prod_mode=int(bool(prod_mode)),
+                         bal_c=int(bal_idx[0]), bal_m=int(bal_idx[1]),
+                         n_widx=W, **lay, cluster_size=c_size,
+                         nodes_per_block=plan.nodes_per_block,
+                         node_threads=plan.node_threads,
+                         state_in_smem=int(kind == "smem"),
+                         replay=int(replay))
+            for name in _INT_FIELDS:
+                setattr(params, name, sizes[name])
+            for j, r in enumerate(widx):
+                params.widx[j] = int(r)
+            if xchg is None:
+                break
+            held = lib.full_chain_max_clusters(ctypes.byref(params))
+            if held < 0:
+                raise launch_error(f"full_chain {what}", -held,
+                                   "the occupancy query")
+            if held >= shards:
+                break
+        else:
+            raise KernelContractError(
+                f"full_chain {what}: the card holds fewer than {shards} "
+                f"clusters at every cluster size up to {cluster_size}")
+        c_bytes = lib.full_chain_smem_bytes(ctypes.byref(params))
+        if c_bytes != smem_bytes:
+            raise KernelContractError(
+                f"estimate_smem_bytes says {smem_bytes} bytes, "
+                f"the kernel's layout {c_bytes}")
+        # The temporaries above may be freed before the kernel ends: the
+        # caching allocator hands their memory only to later work on this
+        # same stream.
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.full_chain_launch(ctypes.byref(params),
+                                    ctypes.c_void_p(stream))
     if err != 0:
         raise launch_error(f"full_chain {what}", err,
-                           f"cluster of {cluster_size} x "
+                           f"{shards} cluster(s) of {c_size} x "
                            f"{plan.block_threads} threads, {smem_bytes} B "
                            "of shared memory per block")
     instance = ("common" if lib.full_chain_instance(ctypes.byref(params))
                 else "generic")
     last_launch = {"state": kind, "instance": instance,
-                   "cluster_size": cluster_size,
+                   "cluster_size": c_size,
                    "block_threads": plan.block_threads,
                    "nodes_per_block": plan.nodes_per_block,
-                   "smem_bytes_per_block": smem_bytes, "mode": what}
+                   "smem_bytes_per_block": smem_bytes, "mode": what,
+                   "shards": shards}
     return quota_blocks, aff_exists_out
 
 
@@ -435,8 +520,24 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
     tensors anywhere but on the card."""
     global launches, terms_launches
     _require_cuda("full_chain_round", fc)
-    inputs = fc.base
     widx = list(weight_idx)
+    records, n_valid, state, chosen, rows = _round_buffers(fc, widx, terms)
+    quota_blocks, _exists = _launch(
+        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen, None,
+        False, cluster_size, smem_budget_bytes, terms=rows)
+    launches += 1
+    if terms:
+        terms_launches += 1
+        return chosen, state["requested"], quota_blocks[0], rows
+    return chosen, state["requested"], quota_blocks[0]
+
+
+def _round_buffers(fc, widx, terms: bool):
+    """(records, n_valid, state, chosen, rows) of a round over ``fc``: the
+    packed records (valid pods first), the kernel's carried state (the
+    round's own copies, updated in place), the chosen vector (-1 preset)
+    and the terms rows (zeros, None without ``terms``)."""
+    inputs = fc.base
     P, N = inputs.fit_requests.shape[0], inputs.allocatable.shape[0]
     W = len(widx)
     _rnp, _rpr, gang_ok = pod_independent_rows(fc)
@@ -462,14 +563,7 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
     chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
     rows = (torch.zeros((P, NUM_TERMS), dtype=f32, device=dev) if terms
             else None)
-    quota_blocks, _exists = _launch(
-        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen, None,
-        False, cluster_size, smem_budget_bytes, terms=rows)
-    launches += 1
-    if terms:
-        terms_launches += 1
-        return chosen, state["requested"], quota_blocks[0], rows
-    return chosen, state["requested"], quota_blocks[0]
+    return records, n_valid, state, chosen, rows
 
 
 def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
@@ -496,10 +590,29 @@ def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
     takes on its own. Raises for tensors anywhere but on the card."""
     global replay_launches
     _require_cuda("full_chain_replay", fc_carry)
+    R = fc_carry.base.fit_requests.shape[1]
+    records, n_kept, buffers, zones = _replay_buffers(fc_carry, kept, state)
+    quota_blocks, exists = _launch(
+        fc_carry, list(range(R)), prod_mode, (-1, -1), records,
+        n_kept, buffers, chosen.to(torch.int32).contiguous(), zones, True,
+        CLUSTER_SIZE, smem_budget_bytes)
+    replay_launches += 1
+    return _replay_out(buffers, quota_blocks, exists), zones
+
+
+def _replay_out(b, quota_blocks, exists):
+    return (b["requested"], b["delta_np"], b["delta_pr"], b["numa"],
+            b["bind_free"], quota_blocks[0], b["aff_count"], b["anti_cover"],
+            exists.to(torch.bool), b["port_used"], b["vol_free"])
+
+
+def _replay_buffers(fc_carry, kept, state):
+    """(records, n_kept, buffers, zones) of a replay over ``fc_carry``: the
+    kept pods' records first, the carried state's own copies and the zones
+    (-1 preset)."""
     inputs = fc_carry.base
     P, R = inputs.fit_requests.shape
     N = inputs.allocatable.shape[0]
-    widx = list(range(R))
     (requested, est_sum, est_pr, numa_free, bind_free, quota_used,
      aff_count, anti_cover, aff_exists, port_used, vol_free) = state
     _rnp, _rpr, gang_ok = pod_independent_rows(fc_carry)
@@ -524,15 +637,113 @@ def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
         "anti_cover": anti_cover.to(f32).clone(),
     }
     zones = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    quota_blocks, exists = _launch(
-        fc_carry, widx, prod_mode, (-1, -1), records,
-        n_kept, buffers, chosen.to(torch.int32).contiguous(), zones, True,
-        CLUSTER_SIZE, smem_budget_bytes)
-    replay_launches += 1
-    b = buffers
-    return ((b["requested"], b["delta_np"], b["delta_pr"], b["numa"],
-             b["bind_free"], quota_blocks[0], b["aff_count"], b["anti_cover"],
-             exists.to(torch.bool), b["port_used"], b["vol_free"]), zones)
+    return records, n_kept, buffers, zones
+
+
+# ---------------------------------------------------------------------------
+# the instances over a mesh of cards
+# ---------------------------------------------------------------------------
+
+def enable_peer_access(cards) -> None:
+    """Peer access on between every ordered pair of ``cards`` (CUDA
+    devices), so that each card's kernels reach every other card's
+    mailboxes. The caller has checked torch.cuda.can_device_access_peer
+    (parallel/mesh.Mesh.check_peer_access); a refusal here raises."""
+    lib = _lib()
+    for a in cards:
+        for b in cards:
+            if a == b:
+                continue
+            with on_device(a):
+                err = lib.koord_enable_peer(int(b.index))
+            if err != 0:
+                raise launch_error(
+                    f"peer access from {a} to {b}", err,
+                    "cudaDeviceEnablePeerAccess")
+
+
+def full_chain_round_cards(cards, weight_idx, prod_mode: bool, bal_idx,
+                           box: Mailboxes, *, terms: bool = False,
+                           smem_budget_bytes=None):
+    """One round over a mesh of cards in the exchange instance.
+
+    ``cards``: [(fc, shards)] per card, ``fc`` the card's FullChainInputs
+    (its shards' node rows side by side in shard order, each shard ``per``
+    rows; the pod fields, alike on every card), ``shards`` their indices
+    in the mesh; ``box`` the mesh's Mailboxes. Every card's launch is
+    queued before any is waited on; then each card's error word is read,
+    and a shard whose entries never arrived raises ExchangeTimeout.
+    Returns, per card, what full_chain_round returns for that card's rows:
+    (chosen[P] with global node indices, requested of its rows, quota_used
+    [, terms rows])."""
+    global xchg_launches, xchg_terms_launches
+    widx = list(weight_idx)
+    T = cards[0][0].aff_dom.shape[1]
+    P = cards[0][0].base.fit_requests.shape[0]
+    lib = _lib()
+    if lib.full_chain_payload_words(T) != payload_words(T):
+        raise KernelContractError("the mailbox payload layout disagrees "
+                                  "with the kernel's")
+    box.ensure(payload_words(T))
+    ready = []
+    for fc, shards in cards:
+        _require_cuda("full_chain_round_cards", fc)
+        dev = launch_device(fc.base.allocatable)
+        with on_device(dev):
+            ready.append((fc, shards, dev, _round_buffers(fc, widx, terms)))
+    # two exchanges per pod at most: the stats and the winner
+    seq0 = box.begin(2 * P)
+    per = cards[0][0].base.allocatable.shape[0] // len(cards[0][1])
+    out = []
+    for fc, shards, dev, (records, n_valid, state, chosen, rows) in ready:
+        quota_blocks, _exists = _launch(
+            fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen,
+            None, False, CLUSTER_SIZE, smem_budget_bytes, terms=rows,
+            xchg=box.xchg(dev, shards, per, seq0))
+        item = (chosen, state["requested"], quota_blocks[0])
+        out.append(item + ((rows,) if terms else ()))
+        xchg_launches += 1
+        if terms:
+            xchg_terms_launches += 1
+    box.check("full_chain round over a mesh of cards")
+    return out
+
+
+def full_chain_replay_cards(cards, prod_mode: bool, n_shards: int, *,
+                            smem_budget_bytes=None):
+    """The kept-only replay over a mesh of cards: each card replays the
+    kept pods onto its own rows, with no exchange.
+
+    ``cards``: [(fc_carry, shards, chosen, kept, state, dom_rows)] per
+    card, all on that card: the card's FullChainInputs in carry form (its
+    shards' rows side by side), their shard indices, pass 1's global node
+    per pod, the kept mask, the card's wave-start 11-tuple (as
+    full_chain_replay's) and the [P, T] aff_dom rows of each kept pod's
+    chosen node, gathered from the owners. Returns, per card, (state',
+    zones[P]) with the zone of each kept pod whose node the card holds, -1
+    elsewhere."""
+    global xchg_replay_launches
+    ready = []
+    for fc, shards, chosen, kept, state, dom_rows in cards:
+        _require_cuda("full_chain_replay_cards", fc)
+        dev = launch_device(fc.base.allocatable, chosen, kept, dom_rows)
+        with on_device(dev):
+            ready.append((fc, shards, chosen, dom_rows,
+                          _replay_buffers(fc, kept, state)))
+    out = []
+    for fc, shards, chosen, dom_rows, (records, n_kept, buffers,
+                                       zones) in ready:
+        R = fc.base.fit_requests.shape[1]
+        per = fc.base.allocatable.shape[0] // len(shards)
+        x = Mailboxes.local(n_shards, shards, per)
+        quota_blocks, exists = _launch(
+            fc, list(range(R)), prod_mode, (-1, -1), records, n_kept,
+            buffers, chosen.to(torch.int32).contiguous(), zones, True,
+            CLUSTER_SIZE, smem_budget_bytes, xchg=x,
+            dom_rows=dom_rows.to(torch.float32).contiguous())
+        out.append((_replay_out(buffers, quota_blocks, exists), zones))
+        xchg_replay_launches += 1
+    return out
 
 
 def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,

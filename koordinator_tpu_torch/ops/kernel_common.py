@@ -11,6 +11,7 @@ is built when a module is imported, so the package imports where there is no
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -30,6 +31,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     # XLA does not contract a*b+c into an FMA; nvcc does by default
     "--fmad=false",
+    # compile a source's kernel instances on every core: full_chain.cu's 24
+    # instances took 36-39 s in one thread, 19 s split (H100 machine, 8
+    # cores, nvcc 12.9)
+    "--split-compile=0",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
@@ -289,6 +294,172 @@ class SyncClock:
 
     def restart(self) -> None:
         self.t0 = time.perf_counter()
+
+
+def launch_device(*tensors) -> torch.device:
+    """The one CUDA device every given tensor (None skipped) lies on: a
+    kernel launches there. Raises for tensors on different devices."""
+    devs = {t.device for t in tensors if t is not None}
+    if len(devs) != 1:
+        raise ValueError(f"a launch takes tensors on one device, got "
+                         f"{sorted(str(d) for d in devs)}")
+    dev = devs.pop()
+    if dev.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {dev}")
+    return dev if dev.index is not None else torch.device(
+        "cuda", torch.cuda.current_device())
+
+
+@contextlib.contextmanager
+def on_device(dev: torch.device):
+    """The block with ``dev`` as the current CUDA device: a launch sets its
+    shared-memory attribute, checks its occupancy and runs there."""
+    with torch.cuda.device(dev):
+        yield
+
+
+# ---------------------------------------------------------------------------
+# The exchange between the shards of a mesh of cards (csrc/kernel_common.cuh
+# "The exchange"): one mailbox per shard on its card, [2 parities][D
+# senders][entry_words] int64 words, word 0 of an entry its sequence and the
+# rest its payload as 32-bit words; a table of every shard's mailbox address
+# on each card; an error word per card, where a launch leaves the bits of
+# the shards whose entries never arrived.
+# ---------------------------------------------------------------------------
+
+MAX_LOCAL_SHARDS = 8   # clusters of one launch (kMaxLocalShards)
+MAX_SHARDS = 32        # shards of a mesh of cards (kMaxShards)
+EXCHANGE_TIMEOUT_S = 2.0  # the wait for one exchange before the round ends
+
+
+class _Xchg(ctypes.Structure):
+    """Mirror of koord::Xchg in csrc/kernel_common.cuh, field for field."""
+
+    _fields_ = [("boxes", ctypes.c_void_p), ("err", ctypes.c_void_p),
+                ("seq0", ctypes.c_ulonglong), ("timeout_ns", ctypes.c_longlong),
+                ("D", ctypes.c_int), ("L", ctypes.c_int), ("per", ctypes.c_int),
+                ("entry_words", ctypes.c_int),
+                ("shard", ctypes.c_int * MAX_LOCAL_SHARDS)]
+
+
+def mailbox_entry_words(payload_words: int) -> int:
+    """8-byte words of one mailbox entry: the sequence, then the payload's
+    32-bit words in pairs."""
+    return 1 + -(-int(payload_words) // 2)
+
+
+def mailbox_shape(n_shards: int, payload_words: int) -> Tuple[int, int, int]:
+    """[parities, senders, words] of one shard's mailbox."""
+    return (2, int(n_shards), mailbox_entry_words(payload_words))
+
+
+class ExchangeTimeout(RuntimeError):
+    """An exchange launch ended because entries of some shards never
+    arrived within the time limit: their cards are lost or never launched.
+    A device fault (scheduler/degrade.is_device_fault) naming those shards'
+    mesh devices in ``failed_device_ids``, so the ladder runs the surviving
+    submesh."""
+
+    def __init__(self, what: str, failed_shards: Sequence[int],
+                 failed_device_ids: Sequence[int]) -> None:
+        self.failed_shards = tuple(int(k) for k in failed_shards)
+        self.failed_device_ids = tuple(int(i) for i in failed_device_ids)
+        super().__init__(
+            f"{what}: no entry from shard(s) {list(self.failed_shards)} "
+            f"(mesh devices {list(self.failed_device_ids)}) within the "
+            "exchange's time limit")
+
+
+class Mailboxes:
+    """The exchange's buffers for one mesh of cards: ``devices[k]`` the
+    card of shard k, ``device_ids[k]`` its mesh device id. Buffers are
+    made at first use and grown for a wider payload; the sequence count
+    only grows, so no mailbox is ever reset. One launch group runs at a
+    time on a mesh's mailboxes (the Scheduler's cycle thread; warm-up
+    only builds mesh steps): two at once would overwrite each other's
+    entries and time out."""
+
+    def __init__(self, devices: Sequence[torch.device],
+                 device_ids: Sequence[int]) -> None:
+        if not 1 <= len(devices) <= MAX_SHARDS:
+            raise ValueError(f"a mesh of cards holds 1..{MAX_SHARDS} "
+                             f"shards, got {len(devices)}")
+        self.devices = [torch.device(d) for d in devices]
+        self.device_ids = [int(i) for i in device_ids]
+        self.entry_words = 0
+        self.boxes: List[torch.Tensor] = []
+        self.tables: Dict[torch.device, torch.Tensor] = {}
+        self.errs: Dict[torch.device, torch.Tensor] = {}
+        self.next_seq = 1
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def cards(self) -> Dict[torch.device, List[int]]:
+        """Each card's shards, in shard order."""
+        out: Dict[torch.device, List[int]] = {}
+        for k, d in enumerate(self.devices):
+            out.setdefault(d, []).append(k)
+        return out
+
+    def ensure(self, payload_words: int) -> None:
+        words = mailbox_entry_words(payload_words)
+        if words <= self.entry_words:
+            return
+        shape = mailbox_shape(self.size, payload_words)
+        self.boxes = [torch.zeros(shape, dtype=torch.int64, device=d)
+                      for d in self.devices]
+        ptrs = [b.data_ptr() for b in self.boxes]
+        self.tables = {d: torch.tensor(ptrs, dtype=torch.int64, device=d)
+                       for d in self.cards()}
+        self.errs = {d: torch.zeros(1, dtype=torch.int32, device=d)
+                     for d in self.cards()}
+        self.entry_words = words
+
+    def begin(self, exchanges: int) -> int:
+        """The first sequence of a launch group that runs at most
+        ``exchanges`` exchanges; the error words start at 0."""
+        seq0 = self.next_seq
+        self.next_seq += int(exchanges) + 1
+        for e in self.errs.values():
+            e.zero_()
+        return seq0
+
+    def xchg(self, card: torch.device, shards: Sequence[int], per: int,
+             seq0: int) -> _Xchg:
+        """The koord::Xchg of ``card``'s launch over its ``shards``."""
+        x = Mailboxes.local(self.size, shards, per)
+        x.boxes = self.tables[card].data_ptr()
+        x.err = self.errs[card].data_ptr()
+        x.seq0 = int(seq0)
+        x.timeout_ns = int(EXCHANGE_TIMEOUT_S * 1e9)
+        x.entry_words = self.entry_words
+        return x
+
+    @staticmethod
+    def local(n_shards: int, shards: Sequence[int], per: int) -> _Xchg:
+        """The koord::Xchg of a launch over ``shards`` with no mailboxes
+        (the replay, which exchanges nothing)."""
+        if not 1 <= len(shards) <= MAX_LOCAL_SHARDS:
+            raise ValueError(f"a launch runs 1..{MAX_LOCAL_SHARDS} shards, "
+                             f"got {len(shards)}")
+        x = _Xchg()
+        x.D, x.L, x.per = int(n_shards), len(shards), int(per)
+        for j, k in enumerate(shards):
+            x.shard[j] = int(k)
+        return x
+
+    def check(self, what: str) -> None:
+        """Read every card's error word (a sync on each card) and raise
+        ExchangeTimeout naming the shards that never arrived."""
+        missing = 0
+        for e in self.errs.values():
+            missing |= int(e.item()) & 0xFFFFFFFF
+        if missing:
+            shards = [k for k in range(self.size) if missing >> k & 1]
+            raise ExchangeTimeout(what, shards,
+                                  [self.device_ids[k] for k in shards])
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,

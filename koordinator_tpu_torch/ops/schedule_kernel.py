@@ -15,8 +15,14 @@ cluster design"). `requested` comes back in the JAX layout, [N, R].
 alone; past the budget the same kernel keeps its carried state in device
 memory (`last_launch["state"]`).
 
-`launches` counts the kernel's launches, so a run can show that its main
-path went through the kernel.
+`schedule_round_cards` launches the exchange instance over a mesh of
+cards (csrc/kernel_common.cuh, "The exchange"): each card's launch runs its
+shards as clusters over its own rows, the per-pod winners exchanged through
+the mesh's mailboxes (ops/kernel_common.Mailboxes).
+
+`launches` counts the kernel's launches and `xchg_launches` the exchange
+instance's (one per card), so a run can show that its main path went
+through the kernel.
 """
 
 from __future__ import annotations
@@ -39,12 +45,16 @@ from koordinator_tpu_torch.ops.kernel_common import (
     REC_POD,
     RING_STAGES,
     KernelContractError,
+    Mailboxes,
+    _Xchg,
     check_tensor,
     choose_state,
     cluster_plan,
     f32_words,
+    launch_device,
     launch_error,
     load_library,
+    on_device,
     smem_take,
     valid_first,
     words_f32,
@@ -57,7 +67,10 @@ REC_AXES = 2  # 4 words: the axes a pod requests, one byte each
 REC_HEADER = REC_AXES + MAX_AXES // 4
 
 launches = 0
+xchg_launches = 0
 last_launch: dict = {}
+PAYLOAD_WORDS = 2  # an exchange entry: score, global index
+RESULT_WORDS = 4   # a merged result: status, global index, score, spare
 
 _P = ctypes.c_void_p
 _PTR_FIELDS = (
@@ -78,7 +91,7 @@ class _Params(ctypes.Structure):
 
     _fields_ = ([(f, _P) for f in _PTR_FIELDS]
                 + [(f, ctypes.c_int) for f in _INT_FIELDS]
-                + [("widx", ctypes.c_int * MAX_WEIGHTS)])
+                + [("widx", ctypes.c_int * MAX_WEIGHTS), ("x", _Xchg)])
 
 
 def _lib():
@@ -92,6 +105,9 @@ def _lib():
         lib.schedule_step_launch.restype = ctypes.c_int
         lib.schedule_step_launch.argtypes = [ctypes.POINTER(_Params),
                                              ctypes.c_void_p]
+        lib.schedule_step_max_clusters.restype = ctypes.c_int
+        lib.schedule_step_max_clusters.argtypes = [ctypes.POINTER(_Params)]
+        lib.schedule_step_payload_words.restype = ctypes.c_int
         size = lib.schedule_step_params_size()
         if size != ctypes.sizeof(_Params):
             raise KernelContractError(
@@ -187,17 +203,21 @@ def node_flags(inputs, reject_np, reject_pr) -> torch.Tensor:
 
 def estimate_smem_bytes(n_nodes: int, R: int, W: int,
                         cluster_size: int = CLUSTER_SIZE,
-                        state: str = "smem") -> int:
+                        state: str = "smem", exchange: bool = False) -> int:
     """Dynamic shared memory of one block, from the shapes alone (csrc/
     schedule_step.cu ss_smem_layout): the mbarriers, the record ring, the
-    warps' and blocks' argmax partials; in the "smem" state also the
-    block's node slice of requested, the two deltas, allocatable, the two
-    terms and the flags."""
+    warps' and blocks' argmax partials; over a mesh of cards
+    (``exchange``, ``n_nodes`` one shard's rows) the exchange's mbarriers
+    and results; in the "smem" state also the block's node slice of
+    requested, the two deltas, allocatable, the two terms and the
+    flags."""
     plan = cluster_plan(n_nodes, cluster_size)
     nw, nb = plan.node_threads // 32, plan.nodes_per_block
     regions = [(RING_STAGES + 2) * 8,
                RING_STAGES * record_layout(R)["rec_stride"] * 4, 2 * nw * 8,
                2 * cluster_size * 8]
+    if exchange:
+        regions += [2 * 8, 2 * RESULT_WORDS * 4, RESULT_WORDS * 4]
     if state == "smem":
         regions += [(2 * R + 4 * W) * nb * 4, nb]
     at = 0
@@ -207,13 +227,17 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int,
 
 
 def state_for(inputs, weight_idx, smem_budget_bytes=None,
-              cluster_size: int = CLUSTER_SIZE):
-    """(state, plan, smem bytes per block) of a launch over ``inputs``.
-    Reads shapes only, so it runs on any device."""
+              cluster_size: int = CLUSTER_SIZE, shards: int = 1,
+              exchange: bool = False):
+    """(state, plan, smem bytes per block) of a launch over ``inputs``
+    (``exchange``: the exchange instance, its ``shards`` clusters each over
+    N / shards rows). Reads shapes only, so it runs on any device."""
     N, R = inputs.allocatable.shape
-    shape = dict(n_nodes=N, R=R, W=len(weight_idx), cluster_size=cluster_size)
+    n = N // int(shards)
+    shape = dict(n_nodes=n, R=R, W=len(weight_idx), cluster_size=cluster_size,
+                 exchange=exchange)
     state = choose_state(estimate_smem_bytes(**shape), smem_budget_bytes)
-    return (state, cluster_plan(N, cluster_size),
+    return (state, cluster_plan(n, cluster_size),
             estimate_smem_bytes(**shape, state=state))
 
 
@@ -222,20 +246,64 @@ def schedule_round(inputs, weight_idx, prod_mode: bool, *,
     """One round in the kernel: ScheduleInputs (CUDA tensors) ->
     (chosen[P] int32, requested[N, R] f32). Raises for tensors anywhere but
     on the card."""
-    global launches, last_launch
+    global launches
     if not inputs.allocatable.is_cuda:
         raise ValueError("schedule_round launches the CUDA kernel and takes "
                          f"CUDA tensors, got {inputs.allocatable.device}")
+    buf = _buffers(inputs, weight_idx)
+    _launch(inputs, weight_idx, prod_mode, buf, cluster_size,
+            smem_budget_bytes)
+    launches += 1
+    return buf["chosen"][0], buf["requested"][0].t().contiguous()
+
+
+def schedule_round_cards(cards, weight_idx, prod_mode: bool, box: Mailboxes,
+                         *, smem_budget_bytes=None):
+    """One round over a mesh of cards in the exchange instance:
+    ``cards`` [(inputs, shards)] per card, ``inputs`` the card's
+    ScheduleInputs (its shards' node rows side by side in shard order; the
+    pod fields), ``shards`` their mesh indices; ``box`` the mesh's
+    Mailboxes. Every card's launch is queued before any is waited on;
+    then a shard whose entries never arrived raises ExchangeTimeout.
+    Returns, per card, (chosen[P] with global node indices, requested of
+    its rows [n, R])."""
+    global xchg_launches
+    for inputs, _shards in cards:
+        if not inputs.allocatable.is_cuda:
+            raise ValueError("schedule_round_cards takes CUDA tensors, got "
+                             f"{inputs.allocatable.device}")
+    if _lib().schedule_step_payload_words() != PAYLOAD_WORDS:
+        raise KernelContractError("the mailbox payload layout disagrees "
+                                  "with the kernel's")
+    box.ensure(PAYLOAD_WORDS)
+    ready = []
+    for inputs, shards in cards:
+        dev = launch_device(inputs.allocatable)
+        with on_device(dev):
+            ready.append((inputs, shards, dev,
+                          _buffers(inputs, weight_idx)))
+    seq0 = box.begin(cards[0][0].fit_requests.shape[0])
+    per = cards[0][0].allocatable.shape[0] // len(cards[0][1])
+    for inputs, shards, dev, buf in ready:
+        _launch(inputs, weight_idx, prod_mode, buf, CLUSTER_SIZE,
+                smem_budget_bytes, xchg=box.xchg(dev, shards, per, seq0))
+        xchg_launches += 1
+    box.check("schedule_step round over a mesh of cards")
+    return [(buf["chosen"][0], buf["requested"][0].t().contiguous())
+            for _inputs, _shards, _dev, buf in ready]
+
+
+def _buffers(inputs, weight_idx) -> dict:
+    """name -> (tensor, dtype, shape) of a launch over ``inputs``: the
+    packed records (valid pods first), the axis-major node arrays and the
+    carried state (the round's own copies, updated in place)."""
     P, R = inputs.fit_requests.shape
     N = inputs.allocatable.shape[0]
     W = len(weight_idx)
     if R > MAX_AXES or W > MAX_WEIGHTS:
         raise ValueError(f"at most {MAX_AXES} axes and {MAX_WEIGHTS} "
                          "weighted axes")
-    state, plan, smem_bytes = state_for(inputs, weight_idx, smem_budget_bytes,
-                                        cluster_size)
     lay = record_layout(R)
-
     reject_np, reject_pr = node_rejects(inputs)
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
     dev = inputs.allocatable.device
@@ -245,10 +313,7 @@ def schedule_round(inputs, weight_idx, prod_mode: bool, *,
     def axis_major(t):  # [N, k] -> [k, N]
         return t.to(f32).t().contiguous()
 
-    # carried state: the round's own copies, updated in place by the kernel
-    requested_t = axis_major(inputs.requested)
-    chosen = torch.full((P,), -1, dtype=i32, device=dev)
-    args = {
+    return {
         "records": (records, i32, (P, lay["rec_stride"])),
         "n_valid": (n_valid, i32, (1,)),
         "alloc": (axis_major(inputs.allocatable), f32, (R, N)),
@@ -256,47 +321,85 @@ def schedule_round(inputs, weight_idx, prod_mode: bool, *,
         "term_pr": (axis_major(inputs.la_term_prod[:, widx]), f32, (W, N)),
         "node_flags": (node_flags(inputs, reject_np, reject_pr), u8, (N,)),
         "weights": (inputs.weights, f32, (R,)),
-        "requested": (requested_t, f32, (R, N)),
+        "requested": (axis_major(inputs.requested), f32, (R, N)),
         "delta_np": (torch.zeros((W, N), dtype=f32, device=dev), f32, (W, N)),
         "delta_pr": (torch.zeros((W, N), dtype=f32, device=dev), f32, (W, N)),
-        "chosen": (chosen, i32, (P,)),
+        "chosen": (torch.full((P,), -1, dtype=i32, device=dev), i32, (P,)),
     }
+
+
+def _launch(inputs, weight_idx, prod_mode: bool, args: dict,
+            cluster_size: int, smem_budget_bytes, xchg=None) -> None:
+    """Check every tensor of ``args`` (_buffers), fill ScheduleStepParams
+    and launch on the current stream of the tensors' card; ``xchg`` (a
+    koord::Xchg) selects the exchange instance, its xchg.L shards as
+    clusters at the largest cluster size up to ``cluster_size`` whose
+    clusters the card holds together."""
+    global last_launch
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    W = len(weight_idx)
+    shards = xchg.L if xchg is not None else 1
+    if N % shards:
+        raise ValueError(f"{N} rows do not split into {shards} shards")
+    lay = record_layout(R)
+    dev = launch_device(inputs.allocatable)
     params = _Params()
     for name in _PTR_FIELDS:
         t, dtype, shape = args[name]
         setattr(params, name, check_tensor(name, t, dtype, shape))
-    sizes = dict(P=P, N=N, R=R, prod_mode=int(bool(prod_mode)), n_widx=W,
-                 **lay, cluster_size=cluster_size,
-                 nodes_per_block=plan.nodes_per_block,
-                 node_threads=plan.node_threads,
-                 state_in_smem=int(state == "smem"))
-    for name in _INT_FIELDS:
-        setattr(params, name, sizes[name])
-    for j, r in enumerate(widx):
+    if xchg is not None:
+        params.x = xchg
+    for j, r in enumerate(weight_idx):
         params.widx[j] = int(r)
-
+    what = ("schedule_step kernel" if xchg is None else
+            f"schedule_step kernel over {shards} shard(s) of a mesh of cards")
     lib = _lib()
-    c_bytes = lib.schedule_step_smem_bytes(ctypes.byref(params))
-    if c_bytes != smem_bytes:
-        raise KernelContractError(
-            f"estimate_smem_bytes says {smem_bytes} bytes, "
-            f"the kernel's layout {c_bytes}")
-    # The temporaries above may be freed before the kernel ends: the caching
-    # allocator hands their memory only to later work on this same stream.
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.schedule_step_launch(ctypes.byref(params),
-                                   ctypes.c_void_p(stream))
+    sizes_tried = ([cluster_size] if xchg is None else
+                   [c for c in (16, 8, 4, 2, 1) if c <= cluster_size])
+    with on_device(dev):
+        for c_size in sizes_tried:
+            state, plan, smem_bytes = state_for(
+                inputs, weight_idx, smem_budget_bytes, c_size, shards,
+                exchange=xchg is not None)
+            sizes = dict(P=P, N=N, R=R, prod_mode=int(bool(prod_mode)),
+                         n_widx=W, **lay, cluster_size=c_size,
+                         nodes_per_block=plan.nodes_per_block,
+                         node_threads=plan.node_threads,
+                         state_in_smem=int(state == "smem"))
+            for name in _INT_FIELDS:
+                setattr(params, name, sizes[name])
+            if xchg is None:
+                break
+            held = lib.schedule_step_max_clusters(ctypes.byref(params))
+            if held < 0:
+                raise launch_error(what, -held, "the occupancy query")
+            if held >= shards:
+                break
+        else:
+            raise KernelContractError(
+                f"{what}: the card holds fewer than {shards} clusters at "
+                f"every cluster size up to {cluster_size}")
+        c_bytes = lib.schedule_step_smem_bytes(ctypes.byref(params))
+        if c_bytes != smem_bytes:
+            raise KernelContractError(
+                f"estimate_smem_bytes says {smem_bytes} bytes, "
+                f"the kernel's layout {c_bytes}")
+        # The temporaries of _buffers may be freed before the kernel ends:
+        # the caching allocator hands their memory only to later work on
+        # this same stream.
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.schedule_step_launch(ctypes.byref(params),
+                                       ctypes.c_void_p(stream))
     if err != 0:
-        raise launch_error("schedule_step kernel", err,
-                           f"cluster of {cluster_size} x "
+        raise launch_error(what, err,
+                           f"{shards} cluster(s) of {c_size} x "
                            f"{plan.block_threads} threads, {smem_bytes} B "
                            "of shared memory per block")
-    launches += 1
     instance = ("common" if lib.schedule_step_instance(ctypes.byref(params))
                 else "generic")
     last_launch = {"state": state, "instance": instance,
-                   "cluster_size": cluster_size,
+                   "cluster_size": c_size,
                    "block_threads": plan.block_threads,
                    "nodes_per_block": plan.nodes_per_block,
-                   "smem_bytes_per_block": smem_bytes}
-    return chosen, requested_t.t().contiguous()
+                   "smem_bytes_per_block": smem_bytes, "shards": shards}

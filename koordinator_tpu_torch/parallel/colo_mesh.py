@@ -6,7 +6,8 @@ inputs (the NodeResource pipeline columns and the degrade mask, ``colo_*``
 fields of the mesh-backed DeviceSnapshot) arrive sharded, the quota-tree
 arrays replicated. Each shard computes its rows' batch/mid columns
 (colo/step.node_columns, row by row); the columns are gathered whole (the
-local shards side by side, across processes an all-gather over gloo), so
+local shards side by side, on a mesh of cards onto the first shard's
+card, across processes an all-gather over gloo), so
 the predicted total's f32 column sums reduce in the single-device order
 rather than as per-shard partial sums; the quota fold
 (colo/step.quota_fold) runs on every process's replica. The outputs are
@@ -51,7 +52,8 @@ def build_sharded_colo_step(cpu_policy: str, memory_policy: str,
                                 *(a[k] for a in node))
                 for k in node[0]}
         cols = gather_rows(mesh, {k: r[0] for k, r in rows.items()})
-        n_degraded = torch.stack([r[1] for r in rows.values()]).sum(
+        n_degraded = torch.stack([r[1].to(cols.device)
+                                  for r in rows.values()]).sum(
             dtype=torch.int32)
         n_degraded = mesh.all_reduce(n_degraded.reshape(1), "sum")[0]
         return quota_fold(cols, n_degraded,

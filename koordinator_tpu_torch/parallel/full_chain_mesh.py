@@ -24,14 +24,30 @@ the single-device round bit for bit at any mesh size. Across processes the
 reductions and the winner merge are gloo all-reduces. That is the plain
 sharded round, run for shards on the CPU.
 
-Shards on the card all sit on one card (parallel/mesh.py refuses a mesh
-across cards), so there the sharded steps gather the node fields
+Shards that share one card (or the CPU) are gathered for the wave steps
+and, on the card, for the round: the sharded steps gather the node fields
 (parallel/mesh.gather, a torch.cat of the shards), run the single-device
 step on them (kernel 1, its terms and replay instances, the stage-count
 pass) and split the node outputs back into their shards, as the JAX
 package's sharded steps are its single-device steps jitted with
-out_shardings. The wave steps do so on every device: there is one wave
-body, models/fused_waves.py's.
+out_shardings.
+
+A mesh of cards (``mesh.exchange``) takes the exchange route instead:
+every node-axis array stays on its shard's card, and the one wave body of
+models/fused_waves.py runs with ``CardBackend``'s passes, each over every
+card at once: kernel 1's exchange instance (ops/full_chain_kernel.py
+``full_chain_round_cards``; the cards swap each pod's stats and winner
+through the mesh's mailboxes), the per-card replay (each card replays the
+kept pods onto its own rows, the chosen nodes' aff_dom rows gathered once
+before it, ``gather_dom_rows``) and the per-card stage counts
+(ops/explain_kernel.py ``explain_counts_shards``). The pod-level work
+(Permit, the compacted rows, the gang counters) runs once, on the first
+shard's card, and its outputs are replicated. On the CPU the same route
+runs the plain sharded pieces (``sharded_plain_round``,
+``sharded_replay_kept``, ``sharded_stage_counts``), so the CPU tests drive
+the card route's wave body. The exchange route takes no reservations,
+hot-claim columns or device score transformers (their passes index node
+rows across shards): such a dispatch on a mesh of cards raises.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ from koordinator_tpu_torch.models.full_chain import (
     _check_explain,
     _commit_affinity,
     commit_pod_state,
+    cycle_start_state,
     explain_spread_minima,
     explain_stage_counts,
     make_pod_evaluator,
@@ -57,20 +74,23 @@ from koordinator_tpu_torch.models.full_chain import (
 from koordinator_tpu_torch.models.scheduler_model import resolve_weight_idx
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.ops.quota import quota_used_add_row
+from koordinator_tpu_torch.ops.numa import numa_zone_for_node
 from koordinator_tpu_torch.parallel.mesh import (
+    _SCHEDULE_POD_FIELDS,
     Mesh,
     NamedSharding,
     P,
     ShardedTensor,
     WinnerMerge,
     _node_axis_spec,
+    card_view,
     from_shards,
     gather,
     gather_tree,
     put_on_mesh,
     replicate,
     shard_inputs_nodewise,
-    shard_views,
+    split_card_rows,
     split_nodes,
 )
 
@@ -235,6 +255,40 @@ def sharded_plain_round(fcs: Dict[int, FullChainInputs], mesh: Mesh,
     return chosen, states, rows
 
 
+def sharded_replay_kept(fcs: Dict[int, FullChainInputs], mesh: Mesh,
+                        per: int, prod_mode: bool, states, chosen, kept):
+    """The kept-only replay over the local shards ``fcs`` (k -> the shard's
+    view of the carry-form inputs): each kept pod, in queue order, commits
+    onto its chosen node's shard (the zone re-picked there under the replay
+    state) while every shard applies the quota and the chosen node's
+    affinity domain over its own rows (``_commit``). ``states`` (k -> the
+    11-tuple) is not modified. Returns (k -> state', zones[P] int32, -1
+    outside the kept pods): models/fused_waves.replay_kept, sharded."""
+    from koordinator_tpu_torch.models.fused_waves import _round_state
+
+    states = {k: _round_state(*st) for k, st in states.items()}
+    f0 = next(iter(fcs.values()))
+    T = f0.aff_dom.shape[1]
+    dev = chosen.device
+    zones = torch.full((chosen.shape[0],), -1, dtype=torch.int32, device=dev)
+    yes = torch.ones((), dtype=torch.bool, device=dev)
+    for i in torch.nonzero(kept).flatten().tolist():
+        g = int(chosen[i])
+        owner, b = divmod(g, per)
+        picked = None
+        if owner in fcs:
+            f = fcs[owner]
+            zone = numa_zone_for_node(f.requests[i], f.needs_numa[i],
+                                      states[owner][3][b], f.numa_policy[b])
+            picked = torch.cat([f.aff_dom[b].to(torch.float32),
+                                zone.to(torch.float32).reshape(1)])
+        picked = _from_owner(mesh, picked, T + 1)
+        dom, zone = picked[:T], picked[T].to(torch.int32)
+        _commit(fcs, states, mesh, per, prod_mode, i, yes, g, zone, dom)
+        zones[i] = zone
+    return states, zones
+
+
 def sharded_stage_counts(fcs: Dict[int, FullChainInputs], filter_states,
                          mesh: Mesh, per: int, n_real) -> torch.Tensor:
     """[P, NUM_EXPLAIN_STAGES] uint32: each shard counts its own rows
@@ -261,13 +315,6 @@ def sharded_stage_counts(fcs: Dict[int, FullChainInputs], filter_states,
     return total.to(torch.uint32)
 
 
-def _filter_state(fc: FullChainInputs):
-    """explain_stage_counts' 9-tuple at the view's own state."""
-    return (fc.base.requested, fc.numa_free, fc.bind_free, fc.quota_used,
-            fc.aff_count, fc.anti_cover, fc.aff_exists.to(torch.bool),
-            fc.port_used, fc.vol_free)
-
-
 def _first(d: Dict[int, object]):
     return d[min(d)]
 
@@ -275,6 +322,198 @@ def _first(d: Dict[int, object]):
 def _node_out(mesh: Mesh, per_shard: Dict[int, torch.Tensor]) -> ShardedTensor:
     return from_shards([per_shard.get(k) for k in range(mesh.size)], mesh,
                        _node_axis_spec(mesh, flat=True))
+
+
+# ---------------------------------------------------------------------------
+# the exchange route: node-axis arrays on their shards' cards
+# ---------------------------------------------------------------------------
+
+def node_rows(fc: FullChainInputs, lo: int, hi: int) -> FullChainInputs:
+    """``fc`` with its node-axis fields cut to rows [lo, hi)."""
+    base = fc.base._replace(**{
+        k: v[lo:hi] for k, v in fc.base._asdict().items()
+        if k not in _SCHEDULE_POD_FIELDS})
+    return fc._replace(base=base, **{
+        k: getattr(fc, k)[lo:hi] for k in _FC_NODE_FIELDS})
+
+
+def hybrid(nt):
+    """``nt`` (a NamedTuple of ShardedTensors, nested NamedTuples, tensors
+    or None) with each replicated ShardedTensor replaced by its first local
+    copy: the form the exchange route's wave body takes, node-axis arrays
+    on their shards and the pod-level ones on the first shard's card."""
+    if isinstance(nt, ShardedTensor):
+        return nt.local() if nt.replicated else nt
+    if isinstance(nt, tuple) and hasattr(nt, "_fields"):
+        return type(nt)(*(hybrid(v) for v in nt))
+    return nt
+
+
+def replay_state0(fc: FullChainInputs, prod: bool):
+    """A replay's wave-start 11-tuple at ``fc``'s own state: requested,
+    the LoadAware terms as the estimate sums (the prod one only in
+    ``prod`` mode), then the round state fields."""
+    return (fc.base.requested, fc.base.la_term_nonprod,
+            fc.base.la_term_prod if prod else None, fc.numa_free,
+            fc.bind_free, fc.quota_used, fc.aff_count, fc.anti_cover,
+            fc.aff_exists.to(torch.bool), fc.port_used, fc.vol_free)
+
+
+def gather_dom_rows(cards, chosen, kept, per: int):
+    """The aff_dom row of each kept pod's chosen node, [P, T] f32 on each
+    card (zeros outside the kept pods): ``cards`` [(fc, shards)] per card,
+    each card reading the rows it holds, combined on the first card and
+    copied to every card, once before a replay. ``chosen`` and ``kept``
+    on the first card."""
+    dev0 = chosen.device
+    P, T = chosen.shape[0], cards[0][0].aff_dom.shape[1]
+    dom = torch.zeros((P, T), dtype=torch.float32, device=dev0)
+    g = torch.clamp_min(chosen.to(torch.int64), 0)
+    shard = g // per
+    for fc, shards in cards:
+        pos = torch.full((int(shard.max()) + 2 if P else 1,), -1,
+                         dtype=torch.int64, device=dev0)
+        for j, k in enumerate(shards):
+            if k < pos.shape[0]:
+                pos[k] = j
+        at = pos[torch.clamp_max(shard, pos.shape[0] - 1)]
+        mine = kept & (at >= 0)
+        local = torch.where(mine, at * per + g - shard * per, 0)
+        dev = fc.aff_dom.device
+        part = fc.aff_dom.to(torch.float32)[local.to(dev)].to(dev0)
+        dom = torch.where(mine[:, None], part, dom)
+    return [dom.to(fc.aff_dom.device) for fc, _shards in cards]
+
+
+class CardBackend:
+    """The wave body's passes (models/fused_waves.WaveBackend) over a mesh
+    whose node-axis arrays stay on their shards: inputs in ``hybrid``
+    form, each pass run over every card at once, its node-axis outputs
+    back on their shards and its pod-level outputs on the first shard's
+    card. On the card: the exchange instances; on the CPU: the plain
+    sharded pieces."""
+
+    def __init__(self, mesh: Mesh) -> None:
+        self.mesh = mesh
+
+    def _per(self, fc) -> int:
+        return fc.base.allocatable.shape[0] // self.mesh.size
+
+    def _cuda(self, fc) -> bool:
+        return fc.base.allocatable.local().is_cuda
+
+    def _shard_fcs(self, fc) -> Dict[int, FullChainInputs]:
+        """k -> shard k's view (pod-level fields on its device)."""
+        mesh = self.mesh
+        return {k: card_view(fc, [k], mesh.flat[k].device)
+                for k in range(mesh.size) if mesh.local(k)}
+
+    def _cards(self, nt):
+        return [(dev, ks, card_view(nt, ks, dev))
+                for dev, ks in self.mesh.card_shards()]
+
+    def _node_out(self, per_card) -> ShardedTensor:
+        shards = [None] * self.mesh.size
+        for (_dev, ks), t in per_card:
+            for k, part in zip(ks, split_card_rows(t, len(ks))):
+                shards[k] = part
+        return _node_out(self.mesh, dict(enumerate(shards)))
+
+    def round(self, fc, weight_idx, prod_mode, bal_idx, terms: bool):
+        """(chosen[P] before Permit, requested node-sharded, quota_used
+        [, terms rows])."""
+        mesh = self.mesh
+        if not self._cuda(fc):
+            chosen, states, rows = sharded_plain_round(
+                self._shard_fcs(fc), mesh, self._per(fc), weight_idx,
+                prod_mode, bal_idx, terms=terms)
+            out = (chosen, _node_out(mesh, {k: st[0]
+                                            for k, st in states.items()}),
+                   _first(states)[5])
+            return out + ((rows,) if terms else ())
+        from koordinator_tpu_torch.ops.full_chain_kernel import (
+            full_chain_round_cards,
+        )
+
+        cards = self._cards(fc)
+        outs = full_chain_round_cards([(v, ks) for _d, ks, v in cards],
+                                      weight_idx, prod_mode, bal_idx,
+                                      mesh.mailboxes(), terms=terms)
+        requested = self._node_out([((d, ks), o[1])
+                                    for (d, ks, _v), o in zip(cards, outs)])
+        return (outs[0][0], requested, outs[0][2]) + (
+            (outs[0][3],) if terms else ())
+
+    def replay(self, fc_carry, chosen, kept, state0, prod_mode):
+        """(state' with its node-axis slots on their shards, zones[P])."""
+        mesh = self.mesh
+        per = self._per(fc_carry)
+        if not self._cuda(fc_carry):
+            fcs = self._shard_fcs(fc_carry)
+            states = {k: tuple(card_view(x, [k], mesh.flat[k].device)
+                               for x in state0) for k in fcs}
+            states, zones = sharded_replay_kept(fcs, mesh, per, prod_mode,
+                                                states, chosen, kept)
+            out = tuple(
+                _node_out(mesh, {k: st[i] for k, st in states.items()})
+                if i in _STATE_NODE_SLOTS else _first(states)[i]
+                for i in range(len(state0)))
+            return out, zones
+        from koordinator_tpu_torch.ops.full_chain_kernel import (
+            full_chain_replay_cards,
+        )
+
+        cards = self._cards(fc_carry)
+        doms = gather_dom_rows([(v, ks) for _d, ks, v in cards], chosen,
+                               kept, per)
+        jobs = [(v, ks, chosen.to(d), kept.to(d),
+                 tuple(card_view(x, ks, d) for x in state0), dom)
+                for (d, ks, v), dom in zip(cards, doms)]
+        outs = full_chain_replay_cards(jobs, prod_mode, mesh.size)
+        state = tuple(
+            self._node_out([((d, ks), o[0][i])
+                            for (d, ks, _v), o in zip(cards, outs)])
+            if i in _STATE_NODE_SLOTS else outs[0][0][i]
+            for i in range(len(state0)))
+        zones = outs[0][1]
+        for _st, z in outs[1:]:
+            zones = torch.maximum(zones, z.to(zones.device))
+        return state, zones
+
+    def counts(self, fc, state, n_real):
+        """[P, 11] stage counts at ``state`` (cycle_start_state's
+        9-tuple), on the first shard's card."""
+        mesh = self.mesh
+        per = self._per(fc)
+        views = self._shard_fcs(fc)
+        states = {k: tuple(card_view(x, [k], mesh.flat[k].device)
+                           for x in state) for k in views}
+        if not self._cuda(fc):
+            return sharded_stage_counts(views, states, mesh, per, n_real)
+        from koordinator_tpu_torch.ops.explain_kernel import (
+            explain_counts_shards,
+        )
+
+        return explain_counts_shards(
+            [(views[k], states[k], k * per) for k in sorted(views)], n_real)
+
+    def zeros(self, like: ShardedTensor) -> ShardedTensor:
+        return ShardedTensor(
+            [None if t is None else torch.zeros_like(t, dtype=torch.float32)
+             for t in like.shards], like.shape, like.sharding)
+
+
+# the replay state's node-axis slots (models/full_chain.commit_pod_state's
+# 11-tuple): all but quota_used and aff_exists
+_STATE_NODE_SLOTS = frozenset({0, 1, 2, 3, 4, 6, 7, 9, 10})
+
+
+def _check_exchange_route(claims: bool, res: bool, score_passes) -> None:
+    if claims or res or score_passes:
+        raise NotImplementedError(
+            "a mesh of cards runs the wave steps without hot-claim columns, "
+            "reservation rows or device score transformers (their passes "
+            "index node rows across shards)")
 
 
 # ---------------------------------------------------------------------------
@@ -294,10 +533,12 @@ def build_sharded_full_chain_step(
     (chosen[P] replicated, requested[N, R] node-sharded, quota_used[G, R]
     replicated), plus the ExplainOut 4th output (and the extra ``n_real``
     operand) when ``explain`` is "counts"/"full", its arrays replicated.
-    Shards on the card gather the node axis (parallel/mesh.gather, one
-    card holds every shard) and run the single-device CUDA step: kernel 1,
-    its terms instance at "full" and the stage-count pass. Shards on the
-    CPU run the plain sharded round."""
+    Shards of one card gather the node axis (parallel/mesh.gather) and run
+    the single-device CUDA step: kernel 1, its terms instance at "full"
+    and the stage-count pass. A mesh of cards (``mesh.exchange``) runs
+    CardBackend's passes: kernel 1's exchange instance and the per-card
+    stage counts, each card over its own rows. Shards on the CPU run the
+    plain sharded round (the same passes' CPU side)."""
     from koordinator_tpu_torch.ops.full_chain_kernel import (
         build_cuda_full_chain_step,
     )
@@ -323,28 +564,24 @@ def build_sharded_full_chain_step(
             replicate(ex.stage_counts, mesh),
             replicate(ex.terms, mesh) if full else None),)
 
+    backend = CardBackend(mesh)
+
     def run(fc: FullChainInputs, n_real):
-        if fc.base.allocatable.local().is_cuda:
+        cuda = fc.base.allocatable.local().is_cuda
+        if cuda and not mesh.exchange:
             step.last_backend = "cuda"
             return run_cuda(fc, n_real)
-        step.last_backend = "serial"
-        fcs = dict(shard_views(fc, mesh))
-        per = fc.base.allocatable.shape[0] // mesh.size
-        f0 = _first(fcs)
-        chosen, states, rows = sharded_plain_round(
-            fcs, mesh, per, weight_idx, prod_mode, bal_idx, terms=full)
-        chosen = permit(f0, chosen, num_gangs, num_groups)
-        out = (replicate(chosen, mesh),
-               _node_out(mesh, {k: st[0] for k, st in states.items()}),
-               replicate(_first(states)[5], mesh))
+        step.last_backend = "cuda-exchange" if cuda else "serial"
+        hfc = hybrid(fc)
+        out = backend.round(hfc, weight_idx, prod_mode, bal_idx, full)
+        chosen = permit(hfc, out[0], num_gangs, num_groups)
+        wrapped = (replicate(chosen, mesh), out[1], replicate(out[2], mesh))
         if explain is None:
-            return out
-        counts = sharded_stage_counts(
-            fcs, {k: _filter_state(f) for k, f in fcs.items()}, mesh, per,
-            n_real)
-        return out + (ExplainOut(
+            return wrapped
+        counts = backend.counts(hfc, cycle_start_state(hfc), n_real)
+        return wrapped + (ExplainOut(
             replicate(counts, mesh),
-            replicate(rows, mesh) if full else None),)
+            replicate(out[3], mesh) if full else None),)
 
     if explain is None:
         def step(fc: FullChainInputs):
@@ -417,11 +654,11 @@ def wave_side_shardings(mesh: Mesh, prod: bool = False,
 
 
 def _shard_carry(mesh: Mesh, carry) -> tuple:
-    """A whole wave carry on the mesh (wave_carry_shardings' layout): the
-    node-axis slots split into their shards, the other slots
-    replicated."""
+    """A wave carry on the mesh (wave_carry_shardings' layout): the
+    node-axis slots split into their shards (kept where they are already
+    sharded), the other slots replicated."""
     return tuple(
-        None if t is None
+        t if t is None or isinstance(t, ShardedTensor)
         else split_nodes(t, mesh) if i in WAVE_STATE_NODE_SLOTS
         else replicate(t, mesh)
         for i, t in enumerate(carry))
@@ -434,6 +671,9 @@ def initial_sharded_wave_carry(fc: FullChainInputs, sides, mesh: Mesh,
     (wave_carry_shardings' layout)."""
     from koordinator_tpu_torch.models.fused_waves import initial_wave_carry
 
+    if mesh.exchange:
+        return _shard_carry(mesh, initial_wave_carry(
+            hybrid(fc), hybrid(sides), explain=explain))
     return _shard_carry(mesh, initial_wave_carry(
         gather_tree(fc), gather_tree(sides), explain=explain))
 
@@ -456,19 +696,27 @@ def build_sharded_fused_wave_step(
     -> FusedWaveOut (+ ExplainOut), every output replicated. The node
     fields are gathered (parallel/mesh.gather) and the single-device wave
     body runs on them: kernel 1, its replay and the stage-count pass on
-    the card, the plain passes on the CPU."""
+    the card, the plain passes on the CPU. A mesh of cards
+    (``mesh.exchange``) runs the same wave body over its shards with
+    CardBackend's passes, gathering nothing."""
     from koordinator_tpu_torch.models.fused_waves import (
         FusedWaveOut,
         build_fused_wave_step,
     )
 
-    inner = build_fused_wave_step(
-        args, num_gangs, num_groups, waves, active_axes=active_axes,
-        explain=explain, prod=prod, claims=claims, res=res,
-        score_passes=score_passes)
+    kw = dict(active_axes=active_axes, explain=explain, prod=prod,
+              claims=claims, res=res, score_passes=score_passes)
+    inner = build_fused_wave_step(args, num_gangs, num_groups, waves, **kw)
+    xinner = (build_fused_wave_step(args, num_gangs, num_groups, waves,
+                                    backend=CardBackend(mesh), **kw)
+              if mesh.exchange else None)
 
     def run(fc: FullChainInputs, sides, extra):
-        out = inner(gather_tree(fc), gather_tree(sides), *extra)
+        if mesh.exchange:
+            _check_exchange_route(claims, res, score_passes)
+            out = xinner(hybrid(fc), hybrid(sides), *extra)
+        else:
+            out = inner(gather_tree(fc), gather_tree(sides), *extra)
         fw = out if explain is None else out[0]
         fw = FusedWaveOut(*(replicate(t, mesh) for t in fw[:5]),
                           waves_run=fw.waves_run)
@@ -508,20 +756,29 @@ def build_sharded_chained_wave_step(
     replicated for the host merge (parallel/mesh.merge_readback).
     ``initial_sharded_wave_carry`` builds the wave-0 carry. Each call
     gathers the node fields and runs the single-device wave body, as
-    build_sharded_fused_wave_step does."""
+    build_sharded_fused_wave_step does; a mesh of cards runs it over its
+    shards with CardBackend's passes, the carry's node-axis slots staying
+    on their shards."""
     from koordinator_tpu_torch.models.fused_waves import (
         WaveChainOut,
         build_chained_wave_step,
     )
 
-    inner = build_chained_wave_step(
-        args, num_gangs, num_groups, active_axes=active_axes,
-        explain=explain, prod=prod, claims=claims, res=res,
-        score_passes=score_passes)
+    kw = dict(active_axes=active_axes, explain=explain, prod=prod,
+              claims=claims, res=res, score_passes=score_passes)
+    inner = build_chained_wave_step(args, num_gangs, num_groups, **kw)
+    xinner = (build_chained_wave_step(args, num_gangs, num_groups,
+                                      backend=CardBackend(mesh), **kw)
+              if mesh.exchange else None)
 
     def run(fc: FullChainInputs, carry, sides, extra):
-        out = inner(gather_tree(fc), tuple(gather(t) for t in carry),
-                    gather_tree(sides), *extra)
+        if mesh.exchange:
+            _check_exchange_route(claims, res, score_passes)
+            out = xinner(hybrid(fc), tuple(hybrid(t) for t in carry),
+                         hybrid(sides), *extra)
+        else:
+            out = inner(gather_tree(fc), tuple(gather(t) for t in carry),
+                        gather_tree(sides), *extra)
         wrapped = (_shard_carry(mesh, out[0]),
                    WaveChainOut(*(replicate(t, mesh) for t in out[1])))
         if explain is None:

@@ -7,9 +7,11 @@ ALL of them (flat), pod arrays replicate. Two shardings cover the compute:
   1. serial-parity step: the node axis of [N, ...] arrays split into D
      contiguous shards; each pod's filter/score rows are computed per shard
      and the winners merge by (score, lowest global index), so bindings
-     equal the single-device round at any mesh size. Shards on the card
+     equal the single-device round at any mesh size. Shards of one card
      share it, so there the step gathers the node axis (``gather``) and
-     launches the single-device kernel.
+     launches the single-device kernel; shards on several cards keep their
+     rows on their own cards and run the kernels' exchange instances
+     (``Mesh.exchange``).
   2. score matrix: the [P, N] matrix split over both mesh axes.
 
 A ``MeshDevice`` is the counterpart of a ``jax.Device``: an integer id, the
@@ -29,9 +31,16 @@ of a node-axis array holds global rows [s * per, (s + 1) * per). A
 replicated array keeps one copy per distinct device, shared by the shards
 on that device.
 
-A mesh whose shards sit on two or more different cards is refused: its
-per-pod winner exchange between cards is a kernel of its own that this
-port does not have.
+A mesh whose shards sit on two or more cards of one process exchanges
+(``Mesh.exchange``): its scheduling steps launch the kernels' exchange
+instances on each card over that card's rows, and per pod the cards swap
+their bests through mailboxes in each other's memory (ops/kernel_common.py
+"The exchange"), with peer access on between every pair of cards; no node
+row is gathered onto another card. A mesh of shards on ONE card (or the
+CPU) does not exchange: there the steps gather, as above. Testing code may
+set ``exchange`` on a one-card mesh, whose shards then run the exchange
+instances as clusters of one launch. A mesh of cards held by several
+processes is refused (CROSS_PROCESS_CARDS).
 """
 
 from __future__ import annotations
@@ -55,9 +64,10 @@ logger = logging.getLogger(__name__)
 
 # shard devices each visible device appears as (unset: 1)
 VIRTUAL_DEVICES_ENV = "KOORD_TORCH_VIRTUAL_DEVICES"
-CROSS_CARD = ("a mesh whose shards sit on two or more different cards needs "
-              "a per-pod winner exchange between cards, which the port "
-              "does not have")
+CROSS_PROCESS_CARDS = ("a mesh of cards held by several processes needs its "
+                       "per-pod exchange to cross processes, which the "
+                       "port does not have: its cards' mailboxes are in "
+                       "one process's reach only")
 
 
 class MeshDevice(NamedTuple):
@@ -124,10 +134,61 @@ class Mesh:
         flat = list(devices.flat)
         cards = {d.device for d in flat if d.device.type == "cuda"}
         procs = {d.process for d in flat}
-        if len(cards) > 1 or (cards and len(procs) > 1):
-            raise NotImplementedError(CROSS_CARD)
+        if cards and len(procs) > 1:
+            raise NotImplementedError(CROSS_PROCESS_CARDS)
         self.rank, self.world = _process_group()
         self.spans_processes = len(procs) > 1
+        # the exchange route: shards on two or more cards (testing code may
+        # set it on a one-card mesh); building the mesh touches no card
+        self.exchange = len(cards) > 1
+        self._mailboxes = None
+
+    @property
+    def cards(self) -> List[torch.device]:
+        """The distinct devices of the mesh's shards, in shard order."""
+        out: List[torch.device] = []
+        for d in self.devices.flat:
+            if d.device not in out:
+                out.append(d.device)
+        return out
+
+    def check_peer_access(self) -> None:
+        """Raise, naming the pair, unless every card of the mesh can reach
+        every other card's memory (torch.cuda.can_device_access_peer): the
+        exchange's mailboxes need it, and no other route is taken."""
+        cards = [c for c in self.cards if c.type == "cuda"]
+        for a in cards:
+            for b in cards:
+                if a != b and not torch.cuda.can_device_access_peer(a, b):
+                    raise RuntimeError(
+                        f"a mesh of cards needs peer access between every "
+                        f"pair of its cards: {a} cannot reach {b}")
+
+    def mailboxes(self):
+        """The exchange's mailboxes (ops/kernel_common.Mailboxes), made at
+        first use: peer access checked and turned on for every pair of
+        cards, then one mailbox per shard on its card."""
+        if self._mailboxes is None:
+            from koordinator_tpu_torch.ops.full_chain_kernel import (
+                enable_peer_access,
+            )
+            from koordinator_tpu_torch.ops.kernel_common import Mailboxes
+
+            self.check_peer_access()
+            if len(self.cards) > 1:
+                enable_peer_access(self.cards)
+            flat = self.flat
+            self._mailboxes = Mailboxes([d.device for d in flat],
+                                        [d.id for d in flat])
+        return self._mailboxes
+
+    def card_shards(self) -> List[Tuple[torch.device, List[int]]]:
+        """(device, its shards in shard order) of every device of the
+        mesh, in the order of their first shard."""
+        groups: Dict[torch.device, List[int]] = {}
+        for k, d in enumerate(self.flat):
+            groups.setdefault(d.device, []).append(k)
+        return list(groups.items())
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -222,14 +283,19 @@ def mesh_from_env(env_value=None, device="cuda") -> Optional[Mesh]:
 def surviving_submesh(mesh: Mesh, lost_device_ids) -> Optional[Mesh]:
     """The partial-mesh rung's submesh: the configured mesh minus the
     devices a dispatch fault was attributed to, re-factored 2-D by
-    ``make_mesh``. Non-divisible node axes re-pad on upload, so any
-    survivor count is a valid mesh. None when nothing survives (the
-    scheduler records losses only while survivors remain)."""
+    ``make_mesh``, on the configured mesh's route (``exchange``).
+    Non-divisible node axes re-pad on upload, so any survivor count is a
+    valid mesh. None when nothing survives (the scheduler records losses
+    only while survivors remain)."""
     lost = {int(i) for i in lost_device_ids}
     survivors = [d for d in mesh.devices.flat if d.id not in lost]
     if not survivors:
         return None
-    return make_mesh(survivors)
+    sub = make_mesh(survivors)
+    # a mesh of cards keeps its route: the survivors of one card run the
+    # exchange instances as clusters of one launch
+    sub.exchange = sub.exchange or mesh.exchange
+    return sub
 
 
 class PartitionSpec(tuple):
@@ -375,6 +441,17 @@ class ShardedTensor:
         out = self.numpy()
         return out if dtype is None else out.astype(dtype)
 
+    def __add__(self, other: "ShardedTensor") -> "ShardedTensor":
+        """Shard by shard, with an array of the same sharding."""
+        if not isinstance(other, ShardedTensor) or (
+                other.sharding.spec != self.sharding.spec
+                or other.shape[0] != self.shape[0]):
+            return NotImplemented
+        return ShardedTensor(
+            [None if a is None else a + b
+             for a, b in zip(self.shards, other.shards)],
+            self.shape, self.sharding)
+
     def __repr__(self) -> str:
         return (f"ShardedTensor(shape={tuple(self.shape)}, "
                 f"spec={self.sharding.spec}, shards={len(self.shards)})")
@@ -409,13 +486,17 @@ def gather(x):
     across the processes of a mesh that spans them, a gloo all-gather), a
     replicated one's local copy; anything else as it is. One card holds
     every shard of a mesh on the card, so there this is a torch.cat on
-    the card."""
+    the card; on a mesh of cards each card's rows are copied to the first
+    shard's card (the rebalance and colo passes' gathers; the scheduling
+    steps never gather there)."""
     if not isinstance(x, ShardedTensor):
         return x
     if x.replicated:
         return x.local()
+    parts = [t for t in x.shards if t is not None]
+    first = parts[0].device
     return cat_over_processes(
-        x.mesh, torch.cat([t for t in x.shards if t is not None]))
+        x.mesh, torch.cat([t.to(first) for t in parts]))
 
 
 def cat_over_processes(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
@@ -582,16 +663,21 @@ class WinnerMerge:
 def build_sharded_schedule_step(args: LoadAwareArgs, mesh: Mesh):
     """The serial-parity LoadAware step over ``mesh``: node-sharded
     ScheduleInputs (shard_inputs_nodewise) -> (chosen[P] int32 replicated,
-    requested[N, R] node-sharded). Shards on the card gather the node
+    requested[N, R] node-sharded). Shards of one card gather the node
     fields (``gather``) and launch kernel 2 (ops/schedule_kernel.py
     ``schedule_round``) on them, then split ``requested`` back into its
-    shards; shards on the CPU run the plain sharded round: per pod, each
-    shard evaluates its rows, the winners merge by (score, lowest global
-    index) and the owning shard commits."""
+    shards; a mesh of cards (``mesh.exchange``) launches kernel 2's
+    exchange instance on each card over its own rows
+    (``schedule_round_cards``); shards on the CPU run the plain sharded
+    round: per pod, each shard evaluates its rows, the winners merge by
+    (score, lowest global index) and the owning shard commits."""
     weight_idx = resolve_weight_idx(args)
     prod_mode = args.score_according_prod_usage
 
     def step(inputs: ScheduleInputs):
+        if inputs.allocatable.local().is_cuda and mesh.exchange:
+            step.last_backend = "cuda-exchange"
+            return _exchange_schedule(inputs, mesh, weight_idx, prod_mode)
         if inputs.allocatable.local().is_cuda:
             from koordinator_tpu_torch.ops.schedule_kernel import (
                 schedule_round,
@@ -606,6 +692,53 @@ def build_sharded_schedule_step(args: LoadAwareArgs, mesh: Mesh):
 
     step.last_backend = None
     return step
+
+
+def card_view(nt, shards: Sequence[int], device: torch.device):
+    """One card's view of ``nt`` (a NamedTuple of ShardedTensors, nested
+    NamedTuples, tensors or None) for its ``shards``: a node-sharded array
+    its shards' rows side by side (the one shard's tensor itself where the
+    card holds one), a replicated one the copy on the card, a plain tensor
+    copied to the card."""
+    def view(x):
+        if isinstance(x, ShardedTensor):
+            if x.replicated:
+                return x.shards[shards[0]]
+            parts = [x.shards[k] for k in shards]
+            return parts[0] if len(parts) == 1 else torch.cat(parts)
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(view(v) for v in x))
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        return x
+
+    return view(nt)
+
+
+def split_card_rows(t: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """A card's [n * per, ...] rows back into its ``n`` shards' views."""
+    per = t.shape[0] // n
+    return [t[j * per:(j + 1) * per] for j in range(n)]
+
+
+def _exchange_schedule(inputs: ScheduleInputs, mesh: Mesh, weight_idx,
+                       prod_mode: bool):
+    """Kernel 2's exchange instance over a mesh of cards: each card's
+    launch over its own shards' rows, the winners exchanged per pod."""
+    from koordinator_tpu_torch.ops.schedule_kernel import (
+        schedule_round_cards,
+    )
+
+    groups = mesh.card_shards()
+    cards = [(card_view(inputs, ks, dev), ks) for dev, ks in groups]
+    outs = schedule_round_cards(cards, weight_idx, prod_mode,
+                                mesh.mailboxes())
+    shards: List[Optional[torch.Tensor]] = [None] * mesh.size
+    for (_dev, ks), (_chosen, requested) in zip(groups, outs):
+        for k, t in zip(ks, split_card_rows(requested, len(ks))):
+            shards[k] = t
+    spec = _node_axis_spec(mesh, flat=True)
+    return replicate(outs[0][0], mesh), from_shards(shards, mesh, spec)
 
 
 def _plain_sharded_schedule(inputs: ScheduleInputs, mesh: Mesh, weight_idx,
@@ -692,7 +825,7 @@ def build_sharded_score_matrix(args: LoadAwareArgs, mesh: Mesh):
 
 __all__ = [
     "MeshDevice", "Mesh", "NamedSharding", "PartitionSpec", "ShardedTensor",
-    "build_sharded_schedule_step",
+    "build_sharded_schedule_step", "card_view",
     "build_sharded_score_matrix", "make_mesh", "merge_readback",
     "mesh_from_env", "mesh_row_layout", "pad_for_sharding", "put_on_mesh",
     "shard_inputs_2d", "shard_inputs_nodewise", "surviving_submesh",

@@ -7,7 +7,9 @@ of the mesh-backed DeviceSnapshot) arrive sharded, the pod arrays
 replicated. Each shard classifies its own node rows
 (balance/step.classify_rows); the classified rows and the rhs limbs are
 gathered into whole columns (an all-gather: within a process the local
-shards side by side, across processes over gloo), and the pod-axis part —
+shards side by side, on a mesh of cards on the first shard's card —
+the pass is small and the JAX step is XLA, not a kernel — across
+processes over gloo), and the pod-axis part —
 the candidate mask, the stable victim order, the freed prefix and the
 greedy selection (balance/step.select_victims) — runs on every process's
 replica over the gathered columns, in the single-device order. The
@@ -28,11 +30,14 @@ from koordinator_tpu_torch.parallel.mesh import (
 
 def gather_rows(mesh: Mesh, per_shard) -> torch.Tensor:
     """Whole node columns from per-shard rows (k -> tensor, this
-    process's shards): the local shards side by side, and across the
+    process's shards): the local shards side by side (on a mesh of cards,
+    each card's rows copied to the first shard's card), and across the
     processes of a mesh that spans them an all-gather (gloo) in shard
     order."""
+    keys = sorted(per_shard)
+    first = per_shard[keys[0]].device
     return cat_over_processes(
-        mesh, torch.cat([per_shard[k] for k in sorted(per_shard)]))
+        mesh, torch.cat([per_shard[k].to(first) for k in keys]))
 
 
 def local_shards(x):

@@ -117,7 +117,8 @@ def attributable_device_ids(exc: BaseException) -> frozenset:
     sim's device-loss fault carries it, and a runtime integration can
     attach the same attribute after parsing a device error. Only an
     attributable failure can engage the partial-mesh rung: anonymous
-    faults cannot pick survivors."""
+    faults cannot pick survivors. A mesh of cards' exchange timeout
+    (ops/kernel_common.ExchangeTimeout) names the lost card's shards."""
     ids = getattr(exc, "failed_device_ids", None)
     if not ids:
         return frozenset()
@@ -131,11 +132,14 @@ def is_device_fault(exc: BaseException) -> bool:
     """May the ladder absorb this dispatch-window failure? Only a
     recognised device fault: an injected one (sim/faults.InjectedFault),
     a device allocation failure (scheduler/snapshot_cache.
-    DeviceAllocationError, or torch's own out-of-memory error) or a
-    deadline overrun (scheduler/deadline.DispatchDeadlineExceeded). Every
-    other failure propagates out of the cycle (module docstring)."""
+    DeviceAllocationError, or torch's own out-of-memory error), a
+    deadline overrun (scheduler/deadline.DispatchDeadlineExceeded) or a
+    mesh of cards' exchange that timed out on a lost card
+    (ops/kernel_common.ExchangeTimeout, which names the card's shards).
+    Every other failure propagates out of the cycle (module docstring)."""
     import torch
 
+    from koordinator_tpu_torch.ops.kernel_common import ExchangeTimeout
     from koordinator_tpu_torch.scheduler.deadline import (
         DispatchDeadlineExceeded,
     )
@@ -146,7 +150,7 @@ def is_device_fault(exc: BaseException) -> bool:
 
     return isinstance(exc, (InjectedFault, DeviceAllocationError,
                             torch.cuda.OutOfMemoryError,
-                            DispatchDeadlineExceeded))
+                            DispatchDeadlineExceeded, ExchangeTimeout))
 
 
 class FusedDispatchDemoted(Exception):

@@ -11,7 +11,10 @@ device-memory state, and prints the median cycles per pod of each phase of
 that thread: waiting for the record, its node loop, publishing its warp's
 best, waiting for every block's best, merging them, reserving (pods that
 bind), and the whole pod; then the card's nvidia-smi name, power limit and
-SM clock. The stamps add a few instructions per phase, so the traced round
+SM clock. The full chain's round also runs as its exchange instance over 2
+virtual cards of the card (both shards clusters of one launch, block 0 of
+each stamping the same slots): there "merge" holds the cross-shard
+exchange. The stamps add a few instructions per phase, so the traced round
 is a little slower than the plain build.
 """
 
@@ -89,10 +92,15 @@ def main() -> int:
         synth_cluster(num_nodes=5000, num_pods=10000, seed=42), args)._asdict(),
         "cuda")
     wl = resolve_weight_idx(args)
+    box = kernel_common.Mailboxes([dev_fc.base.allocatable.device] * 2,
+                                  [0, 1])
     runs = (
         ("full_chain", fck, int(fc.base.pod_valid.sum()),
          lambda b: fck.full_chain_round(dev_fc, wi, False, bi,
                                         smem_budget_bytes=b)),
+        ("full_chain", fck, int(fc.base.pod_valid.sum()),
+         lambda b: fck.full_chain_round_cards(
+             [(dev_fc, [0, 1])], wi, False, bi, box, smem_budget_bytes=b)),
         ("schedule_step", sk, int(inputs.pod_valid.sum().item()),
          lambda b: sk.schedule_round(inputs, wl, False, smem_budget_bytes=b)),
     )
@@ -109,6 +117,7 @@ def main() -> int:
             print(json.dumps({"kernel": name,
                               "state": module.last_launch["state"],
                               "instance": module.last_launch["instance"],
+                              "shards": module.last_launch.get("shards", 1),
                               "cycles": phases(buf, n_pods)}), flush=True)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",

@@ -202,6 +202,7 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.parallel.rebalance_mesh, "
             "koordinator_tpu_torch.parallel.colo_mesh, "
             "koordinator_tpu_torch.testing.mesh_round, "
+            "koordinator_tpu_torch.testing.cross_card, "
             "koordinator_tpu_torch.testing.multihost_worker, "
             "koordinator_tpu_torch.koordlet, "
             "koordinator_tpu_torch.koordlet.util, "

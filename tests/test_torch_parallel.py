@@ -84,7 +84,7 @@ from koordinator_tpu_torch.parallel import (
     wave_side_shardings,
 )
 from koordinator_tpu_torch.parallel.mesh import (
-    CROSS_CARD,
+    CROSS_PROCESS_CARDS,
     MeshDevice,
     surviving_submesh,
 )
@@ -463,14 +463,27 @@ def test_surviving_submesh_refactors_the_survivors():
     assert surviving_submesh(mesh, range(8)) is None
 
 
-def test_shards_on_two_cards_raise_naming_the_exchange():
-    with pytest.raises(NotImplementedError, match="winner exchange"):
-        make_mesh([MeshDevice(0, torch.device("cuda", 0)),
-                   MeshDevice(1, torch.device("cuda", 1))])
-    assert "cards" in CROSS_CARD
-    # shards of one card, or of the CPU, make a mesh
-    assert make_mesh([MeshDevice(k, torch.device("cuda", 0))
-                      for k in range(3)]).size == 3
+def test_card_mesh_across_processes_raises():
+    """A mesh of cards held by several processes is refused, naming what
+    it lacks; shards of one card, or of the CPU, make a mesh."""
+    with pytest.raises(NotImplementedError, match="several processes"):
+        make_mesh([MeshDevice(0, torch.device("cuda", 0), 0),
+                   MeshDevice(1, torch.device("cuda", 0), 1)])
+    assert "processes" in CROSS_PROCESS_CARDS
+    one = make_mesh([MeshDevice(k, torch.device("cuda", 0))
+                     for k in range(3)])
+    assert one.size == 3 and not one.exchange
+    assert not virtual_mesh(4, "cpu").exchange
+
+
+def test_shards_on_two_cards_exchange():
+    """Shards on two cards of one process make a mesh that exchanges (no
+    card is touched to build it), each card holding its own shards."""
+    mesh = make_mesh([MeshDevice(k, torch.device("cuda", k // 2))
+                      for k in range(4)])
+    assert mesh.size == 4 and mesh.exchange
+    assert mesh.card_shards() == [(torch.device("cuda", 0), [0, 1]),
+                                  (torch.device("cuda", 1), [2, 3])]
 
 
 def test_virtual_devices_setting(monkeypatch):
