@@ -1250,7 +1250,8 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     chained dispatch), against the single-call twin and the serial twin;
     then the replay instance alone at cycle 0's kept set against the plain
     replay on the card. Returns (the default twin's launches, the replay
-    instance's kernels-line entry, cycle 0's first-wave inputs)."""
+    instance's kernels-line entry, cycle 0's first-wave inputs with their
+    active axes)."""
     arrivals = n_pods // 10
     retries0 = retries_now()
     t0 = time.perf_counter()
@@ -1274,12 +1275,21 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
                 tuple(t.clone() for t in state_), prod_mode)
         return real_replay(fc_carry, chosen, kept, state_, prod_mode, **kw)
 
+    real_build = fused_waves.build_chained_wave_step
+    axes = {}
+
+    def spy_build(*a, **kw):
+        # the active axes of the chained step's batch, for waves_carried
+        axes.setdefault("active", kw["active_axes"])
+        return real_build(*a, **kw)
+
     now = state.now
     total = {"full_chain": 0, "full_chain_replay": 0}
     rows, walls = [], {"chained": [], "fused": [], "serial": []}
     splits = {"chained": [], "fused": []}
     cycle0 = {}
     outcome = []  # the default path's result keys, for scheduler_mesh
+    fused_waves.build_chained_wave_step = spy_build
     for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
         if c:
             specs = arrival_specs(c, arrivals)
@@ -1338,6 +1348,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
             walls["serial"].append(wall_c)
             splits["chained"].append(split_a)
             splits["fused"].append(split_b)
+    fused_waves.build_chained_wave_step = real_build
     for sched in (chained, fused):
         sched.flush_deferred()
     dumps = [cycle_dump(s) for s in (chained, fused, serial)]
@@ -1414,7 +1425,7 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
         "koordinator_tpu/models/fused_waves.py:527 (an XLA fori_loop, no "
         "TPU kernel)", total["full_chain_replay"], mism, err, replay_ms,
         plain_ms, bytes_ms, ops_ms)
-    return total, entry, fc_c, waves_sha
+    return total, entry, (fc_c, axes["active"]), waves_sha
 
 
 def keep_shared_claims(state, keep):
@@ -1496,9 +1507,18 @@ def run_scheduler_waves_mixed(device, n_nodes=MIXED_NODES,
 
 
 def run_waves_carried(device, fc4):
-    """The carried-state worlds on the card, each against its serial twin;
-    then the shared memory of a config-4 launch whose records carry a
-    claim world's [P, N] volume view. No dispatch may retry."""
+    """The carried-state worlds on the card, each against its serial twin
+    on one card; the shared memory of a config-4 launch whose records
+    carry a claim world's [P, N] volume view; then the worlds again with
+    the fused world on 2 exchanging virtual cards and kernel 1's exchange
+    round at config 4 over the claim view built per card against the
+    single-device round over the [P, N] view (testing/cross_card.py
+    ``check_worlds``: the per-card reservation pre-passes, claim view and
+    boundary and score passes; exchange launches and no single-device
+    launch in the fused world's cycles, no node row gathered, bit for
+    bit). No dispatch may retry. Returns the exchange route's
+    launches."""
+    fc4, active = fc4
     retries0 = retries_now()
     reports = []
     for feature in ("reservations", "claims", "prod", "transformer"):
@@ -1522,10 +1542,21 @@ def run_waves_carried(device, fc4):
     if smem > SMEM_BUDGET_BYTES:
         raise AssertionError("waves_carried: a claim-world launch does not "
                              "fit a block")
+    worlds = cross_card.check_worlds(
+        mesh_round.exchanging_mesh(MESH_SHARDS, device), fc4,
+        resolve_weight_idx(LoadAwareArgs(), active), False,
+        resolve_balance_idx(active), device=device)
+    xchg = collections.Counter()
+    for world in cross_card.WORLDS:
+        xchg.update(worlds[world]["launches"])
+    assert_ladder_full("waves_carried on 2 exchanging virtual cards",
+                       retries0)
     emit({"phase": "waves_carried", "reports": reports,
           "claims_full_size": {"P": int(P), "N": int(N), "VG": int(N),
                                "state": kind, "smem_bytes_per_block": smem,
-                               "budget": SMEM_BUDGET_BYTES}})
+                               "budget": SMEM_BUDGET_BYTES},
+          "xchg": worlds, "launches_xchg": dict(xchg)})
+    return dict(xchg)
 
 
 def retries_now() -> dict:
@@ -4269,21 +4300,66 @@ def run_scheduler_xchg(device, waves_sha, n_nodes=5000, n_pods=10000):
     """Config 4's churn store through Scheduler(store, mesh=2 virtual cards
     of the card, exchanging) on the default path, through the cycles
     scheduler_waves ran: every wave's round in kernel 1's exchange
-    instance and its replay in the per-card replay, with every launch
-    count set to 0 before each cycle and read after (no single-device
-    launch), no node row gathered; the outcome's SHA-256 must equal the
-    single-device default path's. Returns the exchange launches."""
-    arrivals = n_pods // 10
+    instance and its replay in the per-card replay (``xchg_churn``); the
+    outcome's SHA-256 must equal the single-device default path's. Then
+    the same churn with pipeline_parity's parity transformer (a
+    DeviceScoreTransformer) registered, on 2 exchanging virtual cards and
+    on one card: the two SHA-256 must be equal. Returns the exchange
+    launches of the plain and the transformer run, and the one-card
+    transformer run's launches."""
     retries0 = retries_now()
+    mesh = mesh_round.exchanging_mesh(MESH_SHARDS, device)
+    sha, rows, total, fixture_s = xchg_churn("scheduler_xchg", device, mesh,
+                                             n_nodes, n_pods)
+    if sha != waves_sha:
+        raise AssertionError(f"scheduler_xchg: outcome {sha} is not the "
+                             f"single-device default path's {waves_sha}")
+    tf = {}
+    for tag, mesh_ in (("one_card", None),
+                       ("xchg", mesh_round.exchanging_mesh(MESH_SHARDS,
+                                                           device))):
+        tf[tag] = dict(zip(("outcome_sha256", "cycles", "launches",
+                            "fixture_seconds"),
+                           xchg_churn(f"scheduler_xchg transformer {tag}",
+                                      device, mesh_, n_nodes, n_pods,
+                                      transformer=True)))
+    if tf["xchg"]["outcome_sha256"] != tf["one_card"]["outcome_sha256"]:
+        raise AssertionError(f"scheduler_xchg: the transformer churn on 2 "
+                             f"exchanging virtual cards is not its one-card "
+                             f"twin's: {tf}")
+    assert_ladder_full("scheduler_xchg", retries0)
+    emit({"phase": "scheduler_xchg", "shards": MESH_SHARDS,
+          "nodes": n_nodes, "pods": n_pods, "fixture_seconds": fixture_s,
+          "cycles": rows, "outcome_sha256": sha,
+          "equals_scheduler_waves": True, "launches": total,
+          "transformer": tf, "transformer_equals_one_card": True,
+          "transformer_moved_outcome": (
+              tf["one_card"]["outcome_sha256"] != waves_sha)})
+    return total, tf["xchg"]["launches"], tf["one_card"]["launches"]
+
+
+def xchg_churn(tag, device, mesh, n_nodes, n_pods, transformer=False):
+    """Config 4's churn store through the default path (auto waves, replay
+    overlap) for the cycles scheduler_waves ran, with the parity
+    transformer registered when ``transformer``: on ``mesh`` (an
+    exchanging mesh: exchange launches, no single-device launch) or on one
+    card (``mesh`` None: single-device launches, no exchange launch).
+    Every launch count is set to 0 before each cycle and read after; no
+    node row is gathered, no cycle demotes, the ladder stays full.
+    Returns (the outcome's SHA-256, the cycles' rows, the launches, the
+    fixture's seconds)."""
+    arrivals = n_pods // 10
     t0 = time.perf_counter()
     store, state = churn_store(n_nodes, n_pods, seed=42)
-    mesh = mesh_round.exchanging_mesh(MESH_SHARDS, device)
-    sched = Scheduler(store, device=device, mesh=mesh)
+    sched = (Scheduler(store, device=device) if mesh is None
+             else Scheduler(store, device=device, mesh=mesh))
+    if transformer:
+        sched.extender.register_transformer(
+            pipeline_parity._make_parity_transformer())
     fixture_s = time.perf_counter() - t0
-    if sched.mesh is not mesh or not mesh.exchange or (
+    if sched.mesh is not mesh or (mesh is not None and not mesh.exchange) or (
             sched.waves_spec != "auto" or not sched.replay_overlap):
-        raise AssertionError("scheduler_xchg: not the default path on an "
-                             "exchanging mesh")
+        raise AssertionError(f"{tag}: not the default path")
     now = state.now
     keys, rows = [], []
     total = collections.Counter()
@@ -4300,12 +4376,16 @@ def run_scheduler_xchg(device, waves_sha, n_nodes=5000, n_pods=10000):
               **cross_card.xchg_launches()}
         kspan = last_cycle_root(sched).find("kernel")
         k = int(kspan.attributes.get("waves", "1")) if kspan else 1
-        if (sched.last_backend != "cuda" or la["full_chain_xchg"] < 1
-                or any(la[key] for key in ("full_chain", "full_chain_replay",
-                                           "schedule_step"))
-                or (k > 1 and la["full_chain_xchg_replay"] < 1)):
-            raise AssertionError(f"scheduler_xchg cycle {c}: K {k}, backend "
-                                 f"{sched.last_backend}, launches {la}")
+        single = la["full_chain"] + la["full_chain_replay"]
+        if mesh is None:
+            wrong = la["full_chain_xchg"] or not single
+        else:
+            wrong = (la["full_chain_xchg"] < 1 or single or la["schedule_step"]
+                     or (k > 1 and la["full_chain_xchg_replay"] < 1))
+        if sched.last_backend != "cuda" or res.demotions or wrong:
+            raise AssertionError(f"{tag} cycle {c}: K {k}, backend "
+                                 f"{sched.last_backend}, demotions "
+                                 f"{res.demotions}, launches {la}")
         keys.append(result_key(res))
         total.update(la)
         rows.append({"cycle": c, "K": k, "logical_cycles": res.waves,
@@ -4313,16 +4393,10 @@ def run_scheduler_xchg(device, waves_sha, n_nodes=5000, n_pods=10000):
                      "cycle_ms": wall * 1e3,
                      "spans_ms": span_split(sched, WAVE_SPANS)})
     sched.flush_deferred()
-    sha = outcome_sha(keys, store)
-    if sha != waves_sha:
-        raise AssertionError(f"scheduler_xchg: outcome {sha} is not the "
-                             f"single-device default path's {waves_sha}")
-    assert_ladder_full("scheduler_xchg", retries0, sched)
-    emit({"phase": "scheduler_xchg", "shards": MESH_SHARDS,
-          "nodes": n_nodes, "pods": n_pods, "fixture_seconds": fixture_s,
-          "cycles": rows, "outcome_sha256": sha,
-          "equals_scheduler_waves": True, "launches": dict(total)})
-    return dict(total)
+    if sched.ladder.level != 0 or sched.ladder.transitions:
+        raise AssertionError(f"{tag}: the ladder moved: "
+                             f"{sched.ladder.transitions}")
+    return outcome_sha(keys, store), rows, dict(total), fixture_s
 
 
 def mesh_launches_now() -> dict:
@@ -4594,12 +4668,14 @@ def explain_entry(name, source, replaces, key, launches, res):
 
 
 def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
-                 replay_entry, count_res):
+                 replay_entry, count_res, more_launches):
     """The kernels-line entries of the instances over a mesh of cards.
     Their launches: the scheduler_xchg phase's (the default path on 2
     exchanging virtual cards: kernel 1's exchange round, the per-card
-    replay) and the sharded steps' run in mesh_round (the terms instance,
-    the per-card stage counts, kernel 2's exchange instance); ms: the
+    replay), ``more_launches``' (phase -> its launches on the exchange
+    route: the transformer churn, the carried worlds) and the sharded
+    steps' run in mesh_round (the terms instance, the per-card stage
+    counts, kernel 2's exchange instance); ms: the
     CUDA-event medians at D = 2 (testing/mesh_round.check_exchange);
     plain_ms and the errors: the plain versions on the card on the first
     PLAIN_PODS valid pods (check_sharded_exchange, ``plain_pods``; the
@@ -4616,18 +4692,26 @@ def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
     lbound = ((lbound, 0.0) if la_kernel["bound_by"] == "bytes"
               else (0.0, lbound))
     cbound = ((count_res["bytes_ms"], count_res["ops_ms"]))
+
+    def more(key):
+        split = {f"launches_{ph}": la_[key]
+                 for ph, la_ in more_launches.items()}
+        return sum(split.values()), split
+
+    more_round, split_round = more("full_chain_xchg")
+    more_replay, split_replay = more("full_chain_xchg_replay")
     return [
         kernel_entry(
             "full_chain_round_xchg", "full_chain.cu",
             "koordinator_tpu/ops/pallas_full_chain.py:90 (over a mesh of "
             "cards: parallel/full_chain_mesh.py:82)",
             sched_launches["full_chain_xchg"] + la[
-                "full_chain_kernel.xchg_launches"],
+                "full_chain_kernel.xchg_launches"] + more_round,
             path["round_plain_mismatches"], path["round_err"],
             x["round_xchg_ms"], path["round_plain_ms"], *kbytes,
             launches_scheduler_xchg=sched_launches["full_chain_xchg"],
             launches_sharded_step=la["full_chain_kernel.xchg_launches"],
-            ms_single=x["round_single_ms"], **common),
+            **split_round, ms_single=x["round_single_ms"], **common),
         kernel_entry(
             "full_chain_terms_xchg", "full_chain.cu",
             "koordinator_tpu/models/full_chain.py:549 (the explain=full body "
@@ -4640,10 +4724,11 @@ def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
             "full_chain_replay_cards", "full_chain.cu",
             "koordinator_tpu/models/fused_waves.py:527 (the kept-only "
             "replay, an XLA fori_loop, no TPU kernel), per card",
-            sched_launches["full_chain_xchg_replay"],
+            sched_launches["full_chain_xchg_replay"] + more_replay,
             path["replay_plain_mismatches"], path["replay_err"],
             x["replay_cards_ms"], path["replay_plain_ms"], *rbound,
-            ms_single=x["replay_single_ms"],
+            launches_scheduler_xchg=sched_launches["full_chain_xchg_replay"],
+            **split_replay, ms_single=x["replay_single_ms"],
             replay_plain_pods=path["replay_pods"], **common),
         kernel_entry(
             "explain_counts_shards", "explain_counts.cu",
@@ -4847,9 +4932,10 @@ def main() -> int:
     # ---- the same default path on a mesh of 2 virtual shards of the card,
     # then on 2 exchanging virtual cards
     mesh_launches = run_scheduler_mesh(device, waves_sha)
-    xchg_launches = run_scheduler_xchg(device, waves_sha)
+    xchg_launches, tf_xchg_launches, tf_one_launches = run_scheduler_xchg(
+        device, waves_sha)
     run_scheduler_waves_mixed(device)
-    run_waves_carried(device, fc4)
+    carried_xchg_launches = run_waves_carried(device, fc4)
     # ---- storage-aware clusters: config 4 with PVCs, PVs, StorageClasses
     storage_launches = run_storage(device)
     # ---- the degradation ladder at config 4, then the sim's scenarios
@@ -4905,9 +4991,12 @@ def main() -> int:
         launches_soak=soak_launches["full_chain_replay"],
         launches_node_agent=node_launches["full_chain_replay"])
     replay_entry.update(
-        launches_scheduler_mesh=mesh_launches["full_chain_replay"])
+        launches_scheduler_mesh=mesh_launches["full_chain_replay"],
+        launches_scheduler_xchg_one_card=tf_one_launches[
+            "full_chain_replay"])
     replay_entry["launches"] += (ladder_launches["full_chain_replay"]
                                  + mesh_launches["full_chain_replay"]
+                                 + tf_one_launches["full_chain_replay"]
                                  + node_launches["full_chain_replay"]
                                  + storage_launches["full_chain_replay"]
                                  + cold_launches["full_chain_replay"]
@@ -5072,6 +5161,7 @@ def main() -> int:
                      + sidecar_sched_launches + soak_launches["full_chain"]
                      + node_launches["full_chain"] + demo_launches
                      + mesh_launches["full_chain"]
+                     + tf_one_launches["full_chain"]
                      + sum(la["full_chain"]
                            for la in explain_launches.values()),
                      mism, err, kernel_ms,
@@ -5091,12 +5181,16 @@ def main() -> int:
                      launches_node_agent=node_launches["full_chain"],
                      launches_demo=demo_launches,
                      launches_scheduler_mesh=mesh_launches["full_chain"],
+                     launches_scheduler_xchg_one_card=tf_one_launches[
+                         "full_chain"],
                      launches_explain={k: v["full_chain"] for k, v in
                                        explain_launches.items()},
                      ms_sharded_by_depth=sharded_ms["full_chain"]),
         la_kernel, replay_entry,
         *xchg_entries(sharded_ms, xchg_launches, bytes_ms, ops_ms,
-                      la_kernel, replay_entry, count_res),
+                      la_kernel, replay_entry, count_res,
+                      {"scheduler_xchg_transformer": tf_xchg_launches,
+                       "waves_carried": carried_xchg_launches}),
         explain_entry(
             "explain_counts", "explain_counts.cu",
             "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"

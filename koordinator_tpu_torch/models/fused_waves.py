@@ -235,9 +235,13 @@ class WaveBackend:
     """The wave body's node-axis passes: ``round`` is pass 1 (chosen [P]
     first, the terms rows last under ``terms``), ``replay`` pass 3
     ((state', zones)), ``counts`` the stage counts at a state and
-    ``zeros`` node-axis f32 zeros shaped like a state row. This one runs
-    them on the inputs' device: the kernels for CUDA tensors, the plain
-    passes for CPU tensors."""
+    ``zeros`` node-axis f32 zeros shaped like a state row; and the pieces
+    that index node rows by a global node index or rewrite every node row
+    at once: ``succeeded_fold`` (pass 0a), ``nominate`` (pass 0b's commit
+    of one nomination), ``claim_view`` and ``advance_claims`` (the hot
+    claims' volume view and wave-boundary update) and ``score_passes``.
+    This one runs them on the inputs' device: the kernels for CUDA
+    tensors, the plain passes for CPU tensors."""
 
     def __init__(self, cuda: bool) -> None:
         self.cuda = cuda
@@ -271,6 +275,56 @@ class WaveBackend:
     def zeros(self, like):
         return torch.zeros(tuple(like.shape), dtype=torch.float32,
                            device=like.device)
+
+    def succeeded_fold(self, requested, res_succ, res_node, fit_requests,
+                       alloc):
+        """Pass 0a: each allocate-once row consumed a wave ago adds its
+        consumer's fit requests less the row's allocatable to its node's
+        requested row. Integer-valued packed units: exact in any
+        grouping."""
+        requested = requested.clone()
+        for r in torch.nonzero(res_succ >= 0).flatten().tolist():
+            p = int(res_succ[r])
+            noden = max(int(res_node[r]), 0)
+            delta = fit_requests[p] - alloc[r]
+            requested[noden] = requested[noden] + 1.0 * delta
+        return requested
+
+    def nominate(self, fc, fc_nom, prod_mode, chain, i, noden):
+        """Pass 0b's commit of pod ``i`` onto node ``noden`` (0-d): the
+        NUMA zone picked under ``chain`` (the 11-tuple, updated in place),
+        then everything but the node's requested row. Returns (chain,
+        zone)."""
+        zone = numa_zone_for_node(fc.requests[i], fc.needs_numa[i],
+                                  chain[3][noden], fc.numa_policy[noden])
+        found = torch.ones((), dtype=torch.bool, device=zone.device)
+        chain = commit_pod_state(fc_nom, prod_mode, chain, i, found, noden,
+                                 zone)
+        return chain, zone
+
+    def claim_view(self, fc, claims, claim_new):
+        """(vol_needed, node_vol_group) of a wave: the per-(pod, node)
+        volume view at the wave-start claim state, one group per node."""
+        N = fc.base.allocatable.shape[0]
+        return (effective_vol_needed(fc.vol_needed, fc.node_vol_group,
+                                     claims.pod_claim, claim_new),
+                torch.arange(N, dtype=torch.int32,
+                             device=fc.base.fit_requests.device))
+
+    def advance_claims(self, chosen, kept, claims, claim_new, vol_new,
+                       vol_free0):
+        """The wave boundary's claim state (ops/volumes.advance_claim_state):
+        (claim_new', vol_new', vol_free')."""
+        return advance_claim_state(chosen, kept, claims.pod_claim,
+                                   claims.pod_nonhot, claims.covered0,
+                                   claim_new, vol_new, vol_free0)
+
+    def score_passes(self, fc_w, passes):
+        """The device-expressible ScoreTransformers' passes over a wave's
+        inputs, in order."""
+        for tf in passes:
+            fc_w = tf(fc_w)
+        return fc_w
 
 
 def _round_state(requested, delta_np, delta_pr, numa_free, bind_free,
@@ -307,18 +361,20 @@ def replay_kept(fc_carry: FullChainInputs, prod_mode: bool, state, chosen,
 
 
 def _nomination_prepass(fc, fc_nom, sides, prod_mode, chain, res_avail,
-                        res_remain, res_succ, res_node, assigned):
+                        res_remain, res_succ, res_node, assigned, backend):
     """Pass 0b: owner pods, in queue order, bind onto reservation rows that
     became Available in an earlier wave of the dispatch, consuming their
     carried remainders; the earliest-created fitting candidate wins (the
     host nominator's sort). Commits everything but the node's requested
-    row (``fc_nom``). Reads each pod's decision back to the host.
+    row (``fc_nom``, ``backend.nominate``). The choice reads only the
+    pod-level reservation state. Reads each pod's decision back to the
+    host.
 
     Returns (chain, res_avail, res_remain, res_succ, assigned, rows) with
     rows the nominations' (pod, node, zone, slot) in order."""
     inputs = fc.base
     res = sides.res
-    dev = inputs.allocatable.device
+    dev = inputs.fit_requests.device
     rank_inf = torch.tensor(_RANK_INF, dtype=torch.int32, device=dev)
     res_avail, res_remain = res_avail.clone(), res_remain.clone()
     res_succ, assigned = res_succ.clone(), assigned.clone()
@@ -332,11 +388,8 @@ def _nomination_prepass(fc, fc_nom, sides, prod_mode, chain, res_avail,
             continue
         r = int(torch.argmin(torch.where(cand, res.rank, rank_inf)))
         noden = torch.clamp_min(res_node[r], 0).long()
-        zone = numa_zone_for_node(req, fc.needs_numa[i], chain[3][noden],
-                                  fc.numa_policy[noden])
-        found = torch.ones((), dtype=torch.bool, device=dev)
-        chain = commit_pod_state(fc_nom, prod_mode, chain, i, found, noden,
-                                 zone)
+        chain, zone = backend.nominate(fc, fc_nom, prod_mode, chain, i,
+                                       noden)
         res_remain[r] = res_remain[r] + (-1.0 * req)
         if float(res.once[r]) > 0.5:
             # allocate-once: the consumed row leaves the candidate set and
@@ -361,7 +414,6 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
     tensors)."""
     inputs = fc.base
     P, R = inputs.fit_requests.shape
-    N = inputs.allocatable.shape[0]
     dev = inputs.fit_requests.device
     if backend is None:
         backend = WaveBackend(inputs.allocatable.is_cuda)
@@ -387,17 +439,14 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
             # reservation stops being counted and its consumer falls back
             # to direct accounting — (requested - alloc) + consumer_fit.
             # Integer-valued packed units: exact in any grouping.
-            requested = requested.clone()
-            for r in torch.nonzero(res_succ >= 0).flatten().tolist():
-                p = int(res_succ[r])
-                noden = max(int(res_node[r]), 0)
-                delta = inputs.fit_requests[p] - sides.res.alloc[r]
-                requested[noden] = requested[noden] + 1.0 * delta
+            requested = backend.succeeded_fold(
+                requested, res_succ, res_node, inputs.fit_requests,
+                sides.res.alloc)
             res_succ = torch.full_like(res_succ, -1)
             # ---- pass 0b: the nomination pre-pass over carried
             # reservation state
             est_pr_state = (est_sum_prod if prod_mode
-                            else torch.zeros_like(est_sum))
+                            else backend.zeros(est_sum))
             chain = _round_state(requested, est_sum, est_pr_state,
                                  numa_free, bind_free, quota_used,
                                  aff_count, anti_cover, aff_exists,
@@ -405,7 +454,7 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
             (chain, res_avail, res_remain, res_succ, assigned,
              nom_rows) = _nomination_prepass(
                  fc, fc_nom, sides, prod_mode, chain, res_avail, res_remain,
-                 res_succ, res_node, assigned)
+                 res_succ, res_node, assigned, backend)
             (requested, est_sum, est_pr_state, numa_free, bind_free,
              quota_used, aff_count, anti_cover, aff_exists, port_used,
              vol_free) = chain
@@ -424,15 +473,14 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
         fc_w = fc._replace(base=base_w)
         if has_claims:
             # the per-(pod, node) volume view at wave-start claim state
-            fc_w = fc_w._replace(
-                vol_needed=effective_vol_needed(
-                    fc.vol_needed, fc.node_vol_group,
-                    sides.claims.pod_claim, claim_new),
-                node_vol_group=torch.arange(N, dtype=i32, device=dev))
-        for tf in score_passes:
+            vol_needed, vol_group = backend.claim_view(fc, sides.claims,
+                                                       claim_new)
+            fc_w = fc_w._replace(vol_needed=vol_needed,
+                                 node_vol_group=vol_group)
+        if score_passes:
             # device-expressible ScoreTransformers (frameworkext.py),
             # re-applied to each wave's rebuilt inputs
-            fc_w = tf(fc_w)
+            fc_w = backend.score_passes(fc_w, score_passes)
 
         # ---- pass 1: the serial round at the carried state; only its
         # node per pod is used. fc_w keeps the dispatch-start
@@ -498,10 +546,8 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
         # the boundary rebuilds the claim columns and the attachable count
         # set-wise (ops/volumes.py)
         if has_claims:
-            claim_new, vol_new, vol_free = advance_claim_state(
-                chosen, kept, sides.claims.pod_claim,
-                sides.claims.pod_nonhot, sides.claims.covered0,
-                claim_new, vol_new, fc.vol_free)
+            claim_new, vol_new, vol_free = backend.advance_claims(
+                chosen, kept, sides.claims, claim_new, vol_new, fc.vol_free)
         if has_res:
             # a KEPT reservation pseudo-pod row turned its CR Available on
             # its chosen node: consumable by the NEXT wave's pass 0b
@@ -537,20 +583,23 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
 
 
 def initial_wave_carry(fc: FullChainInputs, sides: WaveSideInputs,
-                       explain=None):
+                       explain=None, backend=None):
     """The wave-0 carry (WAVE_STATE_FIELDS layout), on the inputs' device.
     Feature-absent slots are None. Under explain "full" the carry also
     holds the per-pod terms rows (zeros; the wave that keeps a pod writes
-    its row)."""
+    its row). ``backend`` makes the node-axis zeros (WaveBackend by the
+    inputs' device when None)."""
     _check_explain(explain)
     P = fc.base.fit_requests.shape[0]
-    N = fc.base.allocatable.shape[0]
     dev = fc.base.fit_requests.device
     f32 = torch.float32
+    if backend is None:
+        backend = WaveBackend(fc.base.allocatable.is_cuda)
     if sides.claims is not None:
-        nc = sides.claims.pod_claim.shape[1]
-        claim_new0 = torch.zeros((N, nc), dtype=f32, device=dev)
-        vol_new0 = torch.zeros(N, dtype=f32, device=dev)
+        # [N, NC] and [N]: shaped like the dispatch-start coverage and the
+        # volume headroom
+        claim_new0 = backend.zeros(sides.claims.covered0)
+        vol_new0 = backend.zeros(fc.vol_free)
     else:
         claim_new0 = vol_new0 = None
     if sides.res is not None:
@@ -628,7 +677,8 @@ def build_fused_wave_step(args: LoadAwareArgs, num_gangs: int,
                                num_groups, prod_mode,
                                score_passes=score_passes, explain=explain,
                                n_real=n_real, backend=backend)
-        carry = initial_wave_carry(fc, sides, explain=explain)
+        carry = initial_wave_carry(fc, sides, explain=explain,
+                                   backend=backend)
         out = [torch.full((P,), -1, dtype=torch.int32, device=dev)
                for _ in range(4)]
         counts = torch.zeros(waves, dtype=torch.int32, device=dev)

@@ -354,7 +354,8 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
     smem = estimate_smem_bytes(**shape, state=state)
     if smem > SMEM_BUDGET_BYTES:
         # the record ring alone outgrows a block: no state fits (a claim
-        # world's [P, N] volume view adds N words to every record)
+        # world's volume view adds a word per node column to every record:
+        # N on one device, the card's rows on a mesh of cards)
         stride = record_layout(d["R"], d["T"], d["PT"], d["VG"])["rec_stride"]
         raise KernelContractError(
             f"a pod record of {stride} words needs {smem} B of shared "
@@ -669,8 +670,10 @@ def full_chain_round_cards(cards, weight_idx, prod_mode: bool, bal_idx,
 
     ``cards``: [(fc, shards)] per card, ``fc`` the card's FullChainInputs
     (its shards' node rows side by side in shard order, each shard ``per``
-    rows; the pod fields, alike on every card), ``shards`` their indices
-    in the mesh; ``box`` the mesh's Mailboxes. Every card's launch is
+    rows; the pod fields, alike on every card, but for a hot-claim world's
+    volume view, which is the card's own [P, rows] columns with one group
+    per row), ``shards`` their indices in the mesh; ``box`` the mesh's
+    Mailboxes. Every card's launch is
     queued before any is waited on; then each card's error word is read,
     and a shard whose entries never arrived raises ExchangeTimeout.
     Returns, per card, what full_chain_round returns for that card's rows:

@@ -40,14 +40,18 @@ card at once: kernel 1's exchange instance (ops/full_chain_kernel.py
 through the mesh's mailboxes), the per-card replay (each card replays the
 kept pods onto its own rows, the chosen nodes' aff_dom rows gathered once
 before it, ``gather_dom_rows``) and the per-card stage counts
-(ops/explain_kernel.py ``explain_counts_shards``). The pod-level work
-(Permit, the compacted rows, the gang counters) runs once, on the first
-shard's card, and its outputs are replicated. On the CPU the same route
-runs the plain sharded pieces (``sharded_plain_round``,
-``sharded_replay_kept``, ``sharded_stage_counts``), so the CPU tests drive
-the card route's wave body. The exchange route takes no reservations,
-hot-claim columns or device score transformers (their passes index node
-rows across shards): such a dispatch on a mesh of cards raises.
+(ops/explain_kernel.py ``explain_counts_shards``). The pieces of the body
+that index node rows by a global node index run per card too: the
+reservation pre-passes commit onto the shard owning the node, the hot
+claims' [P, N] volume view is built as each card's [P, rows] columns (a
+ShardedTensor split along its second dimension) and advanced by each
+card over the pods it holds, and the device score transformers rewrite
+each card's view. The pod-level work (Permit, the compacted rows, the
+gang counters, the nomination choice) runs once, on the first shard's
+card, and its outputs are replicated. On the CPU the same route runs the
+plain sharded pieces (``sharded_plain_round``, ``sharded_replay_kept``,
+``sharded_stage_counts``), so the CPU tests drive the card route's wave
+body.
 """
 
 from __future__ import annotations
@@ -75,6 +79,10 @@ from koordinator_tpu_torch.models.scheduler_model import resolve_weight_idx
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 from koordinator_tpu_torch.ops.quota import quota_used_add_row
 from koordinator_tpu_torch.ops.numa import numa_zone_for_node
+from koordinator_tpu_torch.ops.volumes import (
+    advance_claim_state,
+    effective_vol_needed,
+)
 from koordinator_tpu_torch.parallel.mesh import (
     _SCHEDULE_POD_FIELDS,
     Mesh,
@@ -169,14 +177,15 @@ def _commit(fcs, states, mesh: Mesh, per: int, prod_mode: bool, i, found,
     owner, b = divmod(g, per)
     quota = None
     for k, f in fcs.items():
+        dev = f.aff_dom.device
         if k == owner:
-            bt = torch.tensor(b, device=f.aff_dom.device)
-            states[k] = commit_pod_state(f, prod_mode, states[k], i, found,
-                                         bt, zone)
+            bt = torch.tensor(b, device=dev)
+            states[k] = commit_pod_state(f, prod_mode, states[k], i,
+                                         found.to(dev), bt, zone.to(dev))
             quota = states[k][5]
         else:
-            _commit_affinity(f, i, found, dom, states[k][6], states[k][7],
-                             states[k][8])
+            _commit_affinity(f, i, found.to(dev), dom.to(dev), states[k][6],
+                             states[k][7], states[k][8])
     # the quota state is replicated: one update, shared by every shard
     if quota is None:
         f = next(iter(fcs.values()))
@@ -385,6 +394,45 @@ def gather_dom_rows(cards, chosen, kept, per: int):
     return [dom.to(fc.aff_dom.device) for fc, _shards in cards]
 
 
+def _view(nt, shards, device):
+    """card_view of ``nt`` for ``shards``; a FullChainInputs whose volume
+    view is split by node columns (CardBackend.claim_view) takes its own
+    columns' group index, ``arange`` of them, as the single-device view
+    has one group per node."""
+    view = card_view(nt, shards, device)
+    vol = getattr(nt, "vol_needed", None)
+    if isinstance(vol, ShardedTensor) and not vol.replicated:
+        view = view._replace(node_vol_group=torch.arange(
+            view.vol_needed.shape[1], dtype=torch.int32, device=device))
+    return view
+
+
+def _merge_views(mesh: Mesh, x, parts, check: bool):
+    """A hybrid-form field ``x`` rebuilt from views that rewrote it:
+    ``parts`` [(shards, view in, view out)]. A field no view changed stays
+    ``x``; a node-axis one goes back to its shards (along its node
+    dimension); a pod-level one is the first view's, and with ``check``
+    every view's must be equal."""
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(
+            _merge_views(mesh, v, [(ks, a[j], b[j]) for ks, a, b in parts],
+                         check)
+            for j, v in enumerate(x)))
+    if all(b is a for _ks, a, b in parts):
+        return x
+    if isinstance(x, ShardedTensor):
+        shards = [None] * mesh.size
+        for ks, _a, b in parts:
+            for k, t in zip(ks, split_card_rows(b, len(ks), x.node_dim)):
+                shards[k] = t
+        return ShardedTensor(shards, x.shape, x.sharding)
+    first = parts[0][2]
+    if check and not all(torch.equal(b, first) for _ks, _a, b in parts):
+        raise ValueError("a device score pass gave the cards different "
+                         "pod-level fields")
+    return first
+
+
 class CardBackend:
     """The wave body's passes (models/fused_waves.WaveBackend) over a mesh
     whose node-axis arrays stay on their shards: inputs in ``hybrid``
@@ -402,14 +450,16 @@ class CardBackend:
     def _cuda(self, fc) -> bool:
         return fc.base.allocatable.local().is_cuda
 
+    def _local(self):
+        return [k for k in range(self.mesh.size) if self.mesh.local(k)]
+
     def _shard_fcs(self, fc) -> Dict[int, FullChainInputs]:
         """k -> shard k's view (pod-level fields on its device)."""
         mesh = self.mesh
-        return {k: card_view(fc, [k], mesh.flat[k].device)
-                for k in range(mesh.size) if mesh.local(k)}
+        return {k: _view(fc, [k], mesh.flat[k].device) for k in self._local()}
 
     def _cards(self, nt):
-        return [(dev, ks, card_view(nt, ks, dev))
+        return [(dev, ks, _view(nt, ks, dev))
                 for dev, ks in self.mesh.card_shards()]
 
     def _node_out(self, per_card) -> ShardedTensor:
@@ -502,18 +552,119 @@ class CardBackend:
             [None if t is None else torch.zeros_like(t, dtype=torch.float32)
              for t in like.shards], like.shape, like.sharding)
 
+    def succeeded_fold(self, requested, res_succ, res_node, fit_requests,
+                       alloc):
+        """Pass 0a per card: each Succeeded row's delta goes to the
+        requested row of the shard owning its node, at the local index."""
+        per = requested.shape[0] // self.mesh.size
+        requested = requested.clone()
+        for r in torch.nonzero(res_succ >= 0).flatten().tolist():
+            p = int(res_succ[r])
+            owner, b = divmod(max(int(res_node[r]), 0), per)
+            rows = requested.shards[owner]
+            if rows is None:
+                continue  # another process's shard
+            delta = (fit_requests[p] - alloc[r]).to(rows.device)
+            rows[b] = rows[b] + 1.0 * delta
+        return requested
+
+    def nominate(self, fc, fc_nom, prod_mode, chain, i, noden):
+        """Pass 0b's commit per card: the shard owning the node picks the
+        NUMA zone under its own state and commits ``fc_nom`` onto its row,
+        every other shard takes the quota and the node's aff_dom row
+        (``_commit``, as sharded_replay_kept does). ``chain``'s node-axis
+        slots are updated in place on their shards."""
+        mesh = self.mesh
+        per = self._per(fc)
+        g = int(noden)
+        owner, b = divmod(g, per)
+        views = self._shard_fcs(fc)
+        states = {k: tuple(card_view(x, [k], mesh.flat[k].device)
+                           for x in chain) for k in views}
+        T = fc.aff_dom.shape[1]
+        picked = None
+        if owner in views:
+            f = views[owner]
+            zone = numa_zone_for_node(f.requests[i], f.needs_numa[i],
+                                      states[owner][3][b], f.numa_policy[b])
+            picked = torch.cat([f.aff_dom[b].to(torch.float32),
+                                zone.to(torch.float32).reshape(1)])
+        picked = _from_owner(mesh, picked, T + 1)
+        dom, zone = picked[:T], picked[T].to(torch.int32)
+        yes = torch.ones((), dtype=torch.bool, device=zone.device)
+        _commit(self._shard_fcs(fc_nom), states, mesh, per, prod_mode, i,
+                yes, g, zone, dom)
+        quota = _first(states)[5].to(chain[5].device)
+        return chain[:5] + (quota,) + chain[6:], zone
+
+    def claim_view(self, fc, claims, claim_new):
+        """The volume view per card: each shard's [P, per] columns, the
+        frozen needs gathered by its own nodes' groups less the claims its
+        nodes newly attached (ops/volumes.effective_vol_needed), split
+        along the second dimension; the group index is the global
+        ``arange`` (each view takes its own, ``_view``)."""
+        mesh = self.mesh
+        per = self._per(fc)
+        vol = [None] * mesh.size
+        groups = [None] * mesh.size
+        for k in self._local():
+            grp = fc.node_vol_group.shards[k]
+            dev = grp.device
+            vol[k] = effective_vol_needed(
+                fc.vol_needed.to(dev), grp, claims.pod_claim.to(dev),
+                claim_new.shards[k])
+            groups[k] = torch.arange(k * per, (k + 1) * per,
+                                     dtype=torch.int32, device=dev)
+        spec = _node_axis_spec(mesh, flat=True)
+        return (from_shards(vol, mesh, P(None, *spec), dim=1),
+                from_shards(groups, mesh, spec))
+
+    def advance_claims(self, chosen, kept, claims, claim_new, vol_new,
+                       vol_free0):
+        """The claim state's wave boundary per card: each shard advances
+        its own rows over the kept pods whose node it holds, at local
+        indices (ops/volumes.advance_claim_state; its sums are of 0/1 and
+        small integers, so the split is exact)."""
+        mesh = self.mesh
+        per = claim_new.shape[0] // mesh.size
+        outs = {}
+        for k in self._local():
+            rows = claim_new.shards[k]
+            dev = rows.device
+            node = chosen.to(dev).to(torch.int64) - k * per
+            mine = kept.to(dev) & (node >= 0) & (node < per)
+            outs[k] = advance_claim_state(
+                torch.where(mine, node, 0), mine, claims.pod_claim.to(dev),
+                claims.pod_nonhot.to(dev), claims.covered0.shards[k], rows,
+                vol_new.shards[k], vol_free0.shards[k])
+        return tuple(_node_out(mesh, {k: o[j] for k, o in outs.items()})
+                     for j in range(3))
+
+    def score_passes(self, fc_w, passes):
+        """The device score transformers over each card's view (each
+        shard's on the CPU, where the shards stand for cards): node-axis
+        fields go back to their shards, pod-level fields (``weights``, …)
+        come from the first card. Exact by the DeviceScoreTransformer
+        contract (scheduler/frameworkext.py): a pass rewrites score-side
+        fields only, with elementwise and gather ops, so a card's rows come
+        out as the single device's same rows and the pod-level fields alike
+        on every card; on the CPU that is checked."""
+        cuda = self._cuda(fc_w)
+        groups = (self.mesh.card_shards() if cuda else
+                  [(self.mesh.flat[k].device, [k]) for k in self._local()])
+        parts = []
+        for dev, ks in groups:
+            view = _view(fc_w, ks, dev)
+            out = view
+            for tf in passes:
+                out = tf(out)
+            parts.append((ks, view, out))
+        return _merge_views(self.mesh, fc_w, parts, check=not cuda)
+
 
 # the replay state's node-axis slots (models/full_chain.commit_pod_state's
 # 11-tuple): all but quota_used and aff_exists
 _STATE_NODE_SLOTS = frozenset({0, 1, 2, 3, 4, 6, 7, 9, 10})
-
-
-def _check_exchange_route(claims: bool, res: bool, score_passes) -> None:
-    if claims or res or score_passes:
-        raise NotImplementedError(
-            "a mesh of cards runs the wave steps without hot-claim columns, "
-            "reservation rows or device score transformers (their passes "
-            "index node rows across shards)")
 
 
 # ---------------------------------------------------------------------------
@@ -668,12 +819,15 @@ def initial_sharded_wave_carry(fc: FullChainInputs, sides, mesh: Mesh,
                                explain=None):
     """models/fused_waves.initial_wave_carry over the mesh, node-axis
     slots on their shards, the other slots replicated
-    (wave_carry_shardings' layout)."""
+    (wave_carry_shardings' layout). On a mesh of cards the slots it makes
+    new (the hot claims' claim_new and vol_new) are made on their shards'
+    cards (CardBackend.zeros)."""
     from koordinator_tpu_torch.models.fused_waves import initial_wave_carry
 
     if mesh.exchange:
         return _shard_carry(mesh, initial_wave_carry(
-            hybrid(fc), hybrid(sides), explain=explain))
+            hybrid(fc), hybrid(sides), explain=explain,
+            backend=CardBackend(mesh)))
     return _shard_carry(mesh, initial_wave_carry(
         gather_tree(fc), gather_tree(sides), explain=explain))
 
@@ -713,7 +867,6 @@ def build_sharded_fused_wave_step(
 
     def run(fc: FullChainInputs, sides, extra):
         if mesh.exchange:
-            _check_exchange_route(claims, res, score_passes)
             out = xinner(hybrid(fc), hybrid(sides), *extra)
         else:
             out = inner(gather_tree(fc), gather_tree(sides), *extra)
@@ -773,7 +926,6 @@ def build_sharded_chained_wave_step(
 
     def run(fc: FullChainInputs, carry, sides, extra):
         if mesh.exchange:
-            _check_exchange_route(claims, res, score_passes)
             out = xinner(hybrid(fc), tuple(hybrid(t) for t in carry),
                          hybrid(sides), *extra)
         else:

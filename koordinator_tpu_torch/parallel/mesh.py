@@ -418,6 +418,19 @@ class ShardedTensor:
         return next(t for t in self.shards if t is not None)
 
     @property
+    def node_dim(self) -> int:
+        """The dimension the array is split along: 0 for the node-axis
+        arrays, 1 for a [P, N] array whose node axis is its second."""
+        return next(d for d, e in enumerate(self.sharding.spec)
+                    if e is not None)
+
+    def clone(self) -> "ShardedTensor":
+        """Each shard's own copy, in the same sharding."""
+        return ShardedTensor(
+            [None if t is None else t.clone() for t in self.shards],
+            self.shape, self.sharding)
+
+    @property
     def addressable_shards(self):
         """(MeshDevice, tensor, global index) of every shard this process
         holds."""
@@ -473,10 +486,12 @@ def replicate(t: torch.Tensor, mesh: Mesh) -> ShardedTensor:
 
 
 def from_shards(shards: List[Optional[torch.Tensor]], mesh: Mesh,
-                spec: PartitionSpec) -> ShardedTensor:
-    """A node-axis (dimension 0) ShardedTensor from per-shard tensors."""
+                spec: PartitionSpec, dim: int = 0) -> ShardedTensor:
+    """A node-axis ShardedTensor from per-shard tensors split along
+    ``dim`` (``spec``'s sharded entry)."""
     first = next(t for t in shards if t is not None)
-    shape = (first.shape[0] * len(shards),) + tuple(first.shape[1:])
+    shape = list(first.shape)
+    shape[dim] *= len(shards)
     return ShardedTensor(list(shards), shape, NamedSharding(mesh, spec))
 
 
@@ -698,14 +713,16 @@ def card_view(nt, shards: Sequence[int], device: torch.device):
     """One card's view of ``nt`` (a NamedTuple of ShardedTensors, nested
     NamedTuples, tensors or None) for its ``shards``: a node-sharded array
     its shards' rows side by side (the one shard's tensor itself where the
-    card holds one), a replicated one the copy on the card, a plain tensor
+    card holds one; side by side along the node axis, the second for a
+    [P, N] array), a replicated one the copy on the card, a plain tensor
     copied to the card."""
     def view(x):
         if isinstance(x, ShardedTensor):
             if x.replicated:
                 return x.shards[shards[0]]
             parts = [x.shards[k] for k in shards]
-            return parts[0] if len(parts) == 1 else torch.cat(parts)
+            return (parts[0] if len(parts) == 1
+                    else torch.cat(parts, dim=x.node_dim))
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*(view(v) for v in x))
         if isinstance(x, torch.Tensor):
@@ -715,10 +732,12 @@ def card_view(nt, shards: Sequence[int], device: torch.device):
     return view(nt)
 
 
-def split_card_rows(t: torch.Tensor, n: int) -> List[torch.Tensor]:
-    """A card's [n * per, ...] rows back into its ``n`` shards' views."""
-    per = t.shape[0] // n
-    return [t[j * per:(j + 1) * per] for j in range(n)]
+def split_card_rows(t: torch.Tensor, n: int,
+                    dim: int = 0) -> List[torch.Tensor]:
+    """A card's n * per rows (along ``dim``) back into its ``n`` shards'
+    views."""
+    per = t.shape[dim] // n
+    return [t.narrow(dim, j * per, per) for j in range(n)]
 
 
 def _exchange_schedule(inputs: ScheduleInputs, mesh: Mesh, weight_idx,

@@ -40,6 +40,7 @@ on the card:
 from __future__ import annotations
 
 import sys
+from collections import Counter
 from typing import Dict, List, Optional
 
 GIB = 1024 ** 3
@@ -727,9 +728,25 @@ def _claims_round_delta(store, round_idx: int, now: float) -> None:
                          pvc_names=pvcs)))
 
 
+def _launch_counts() -> dict:
+    """The kernel wrappers' launch counters, by kernel and instance."""
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.ops import full_chain_kernel as fck
+
+    return {"full_chain": fck.launches,
+            "full_chain_replay": fck.replay_launches,
+            "full_chain_terms": fck.terms_launches,
+            "explain_counts": ek.launches,
+            "full_chain_xchg": fck.xchg_launches,
+            "full_chain_xchg_replay": fck.xchg_replay_launches,
+            "full_chain_xchg_terms": fck.xchg_terms_launches,
+            "explain_counts_shards": ek.shard_launches}
+
+
 def run_carried_state_parity(feature: str, k_waves: int = 4,
                              overlap: bool = True, rounds: int = 2,
-                             seed: int = 11, device="cuda") -> dict:
+                             seed: int = 11, device="cuda",
+                             mesh=None) -> dict:
     """One byte-parity gate per retired fused-wave demotion.
 
     ``feature`` selects the carried state under test:
@@ -747,7 +764,10 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
 
     The fused world runs K waves per dispatch (overlap on — the default
     production shape), the serial twin runs K single-round cycles, both on
-    ``device``; diffed per round: bound (pod, node,
+    ``device``; with ``mesh`` the fused world's Scheduler runs on that
+    mesh (a mesh of cards: the exchange route) and the twin on one
+    device, and ``fused_launches`` counts the kernel launches the fused
+    world's cycles made; diffed per round: bound (pod, node,
     annotations) sequences and the failure/rejection/victim lists; at
     end of stream: every PodScheduled condition tuple, gang/quota plugin
     counters and final assignments. A regression that re-demotes (the
@@ -793,7 +813,8 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
     sched_serial = Scheduler(store_serial, args=args, waves=1,
                              device=device)
     sched_fused = Scheduler(store_fused, args=args, waves=k_waves,
-                            device=device, replay_overlap=overlap)
+                            device=device, replay_overlap=overlap,
+                            **({} if mesh is None else {"mesh": mesh}))
     if transformer_factory is not None:
         sched_serial.extender.register_transformer(transformer_factory())
         sched_fused.extender.register_transformer(transformer_factory())
@@ -803,6 +824,7 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
     fields = ("failed", "rejected", "preempted_victims", "resized",
               "resize_pending")
     fused_engaged = 0
+    fused_launches: Counter = Counter()
     for r in range(rounds + 1):
         if r > 0:
             round_delta(store_serial, r, now)
@@ -820,7 +842,10 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
         fused_lists = {f: [] for f in fields}
         consumed = 0
         while consumed < k_waves:
+            before = _launch_counts()
             res = pipeline.run_cycle(now=t, waves=k_waves - consumed)
+            fused_launches.update(
+                {k: v - before[k] for k, v in _launch_counts().items()})
             if res.waves <= 0:
                 mismatches.append(f"round {r}: fused cycle consumed 0")
                 break
@@ -844,7 +869,10 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
         for f in fields:
             if ser_lists[f] != fused_lists[f]:
                 mismatches.append(f"round {r}: {f} differs")
+    before = _launch_counts()
     pipeline.flush()
+    fused_launches.update(
+        {k: v - before[k] for k, v in _launch_counts().items()})
     if not fused_engaged:
         mismatches.append("fused path never ran multi-wave: the gate "
                           "would be vacuous (did a demotion sneak back?)")
@@ -891,8 +919,10 @@ def run_carried_state_parity(feature: str, k_waves: int = 4,
         "pods": len(assign_s),
         "conditions_checked": len(cond_s),
         "fused_engaged": fused_engaged,
+        "fused_launches": dict(fused_launches),
         "overlap": overlap,
         "device": str(device),
+        "mesh": None if mesh is None else mesh.size,
     }
 
 

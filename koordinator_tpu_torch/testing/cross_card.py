@@ -23,6 +23,16 @@ then stays unverified). Each check prints one JSON line:
               lists, PodScheduled conditions) equal, with no node row
               gathered (the mesh's gathers raise) and the exchange
               instances launched;
+  worlds      the carried worlds (reservation rows, hot-claim columns, a
+              device score transformer, prod scoring) through
+              scheduler/pipeline_parity.run_carried_state_parity with the
+              fused world on the mesh and its serial twin on the first
+              card: no mismatch, the exchange round and the per-card
+              replay launched and no single-device instance, no gather; then kernel 1's exchange round
+              at config 4 over a hot-claim world's volume view built per
+              card (each card's [P, rows] columns) against the
+              single-device round over the [P, N] view
+              (testing/mesh_round.check_claim_view), 0 mismatches;
   mesh_scale  2,048 pending pods over 50,000 nodes (bench.py's mesh-scale
               row): ops/full_chain_kernel.state_for of each card's launch
               against one card's, and kernel 1's exchange round against
@@ -188,6 +198,46 @@ def check_scheduler(mesh, device="cuda") -> dict:
     return row
 
 
+WORLDS = ("reservations", "claims", "transformer", "prod")
+# the fused world's launches of one device, which the exchange route
+# must not make
+SINGLE_DEVICE = ("full_chain", "full_chain_replay", "full_chain_terms",
+                 "explain_counts")
+
+
+def check_worlds(mesh, fc, weight_idx, prod_mode, bal_idx,
+                 device="cuda") -> dict:
+    """The carried worlds with the fused world on ``mesh``, then kernel
+    1's exchange round over the claim view at ``fc`` (one card's tensors,
+    the node axis a multiple of the mesh size); raises on any mismatch.
+    Returns each world's mismatches, multi-wave cycles and fused-world
+    launches, and the claim view's row."""
+    from koordinator_tpu_torch.scheduler.pipeline_parity import (
+        run_carried_state_parity,
+    )
+
+    row = {}
+    for world in WORLDS:
+        with no_gather():
+            report = run_carried_state_parity(world, device=device,
+                                              mesh=mesh)
+        la = report["fused_launches"]
+        if (not report["ok"] or report["fused_engaged"] < 1
+                or la["full_chain_xchg"] < 1
+                or la["full_chain_xchg_replay"] < 1
+                or any(la[k] for k in SINGLE_DEVICE)):
+            raise AssertionError(f"worlds {world}: {report}")
+        row[world] = {"mismatches": len(report["mismatches"]),
+                      "fused_engaged": report["fused_engaged"],
+                      "launches": la}
+    view = mesh_round.check_claim_view(fc, weight_idx, prod_mode, bal_idx,
+                                       mesh=mesh)
+    if view["mismatches"]:
+        raise AssertionError(f"worlds claim view: {view}")
+    row["claim_view"] = view
+    return row
+
+
 def check_mesh_scale(mesh, args) -> dict:
     """The mesh-scale shape: each card's state_for against one card's,
     and kernel 1's exchange round against its single-device round."""
@@ -266,6 +316,11 @@ def main(argv=None) -> int:
     print(json.dumps({"check": "timeout", **timeout}), flush=True)
     sched = check_scheduler(mesh)
     print(json.dumps({"check": "scheduler", **sched}), flush=True)
+    worlds = check_worlds(
+        mesh, to_device(mesh_round._padded_fc(fc, mesh), mesh.flat[0].device),
+        resolve_weight_idx(args, active), args.score_according_prod_usage,
+        resolve_balance_idx(active))
+    print(json.dumps({"check": "worlds", **worlds}), flush=True)
     if not opts.skip_scale:
         scale = check_mesh_scale(mesh, args)
         if scale["mismatches"]:

@@ -22,7 +22,10 @@ replay against the replay instance, the per-card stage counts against the
 stage-count pass and kernel 2's exchange instance against kernel 2, bit for
 bit. ``check_timeout`` launches shard 0 of a D = 2 exchange alone: it must
 end within the time limit with ExchangeTimeout naming shard 1, and the
-card must take the next launch.
+card must take the next launch. ``check_claim_view`` holds kernel 1's
+exchange round over a hot-claim world's per-card volume view (the wave
+body's, parallel/full_chain_mesh.CardBackend.claim_view) against the
+single-device round over the [P, N] view.
 """
 
 from __future__ import annotations
@@ -409,6 +412,83 @@ def check_timeout(fc_host, args, active, device="cuda", mesh=None) -> dict:
             "failed_shards": list(err.failed_shards),
             "failed_device_ids": list(err.failed_device_ids),
             "next_launch_mismatches": _mismatches(before, after)}
+
+
+def check_claim_view(fc, weight_idx, prod_mode: bool, bal_idx,
+                     depth: int = 2, device="cuda", mesh=None) -> dict:
+    """Kernel 1's exchange round over a hot-claim world's volume view as
+    the wave body builds it on a mesh of cards (CardBackend.claim_view:
+    each shard's [P, per] columns of the view, no claim attached yet, so
+    zeros; each card's launch over its [P, rows] columns with its own
+    group index) against the single-device round over the [P, N] view
+    (zeros, one group per node), on ``fc`` (one card's tensors, the node
+    axis a multiple of the mesh size): chosen, requested and quota_used
+    bit for bit. ``mesh``: default ``depth`` exchanging virtual cards of
+    this card. Reports each launch's state, shared memory and record, and
+    both rounds' CUDA-event medians."""
+    from koordinator_tpu_torch.models.fused_waves import ClaimSides
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        CardBackend,
+        hybrid,
+    )
+    from koordinator_tpu_torch.parallel.mesh import put_on_mesh
+
+    if mesh is None:
+        mesh = exchanging_mesh(depth, device)
+    P_, N = fc.base.fit_requests.shape[0], fc.base.allocatable.shape[0]
+    if N % mesh.size:
+        raise ValueError(f"{N} rows do not split into {mesh.size} shards")
+    dev = fc.base.allocatable.device
+    f32, i32 = torch.float32, torch.int32
+    keys = ("state", "smem_bytes_per_block", "cluster_size", "shards")
+
+    def record(f):
+        d = fk._dims(f)
+        return {"VG": d["VG"], "rec_stride": fk.record_layout(
+            d["R"], d["T"], d["PT"], d["VG"])["rec_stride"]}
+
+    one = fc._replace(vol_needed=torch.zeros((P_, N), dtype=f32, device=dev),
+                      node_vol_group=torch.arange(N, dtype=i32, device=dev))
+    c1, r1, q1 = fk.full_chain_round(one, weight_idx, prod_mode, bal_idx)
+    row = {"depth": mesh.size, "P": P_, "N": N,
+           "single": {**{k: fk.last_launch[k] for k in keys},
+                      **record(one)}}
+    hfc = hybrid(shard_full_chain_inputs(fc._replace(
+        vol_needed=torch.zeros((P_, 1), dtype=f32, device=dev),
+        node_vol_group=torch.zeros(N, dtype=i32, device=dev)), mesh))
+    backend = CardBackend(mesh)
+    none = put_on_mesh(np.zeros((N, 1), np.float32),
+                       NamedSharding(mesh, _node_axis_spec(mesh, flat=True)))
+    claims = ClaimSides(pod_claim=torch.zeros((P_, 1), dtype=f32, device=dev),
+                        pod_nonhot=torch.zeros(P_, dtype=f32, device=dev),
+                        covered0=none)
+    vol, groups = backend.claim_view(hfc, claims, none)
+    fc_w = hfc._replace(vol_needed=vol, node_vol_group=groups)
+    launches = []
+    real = fk._launch
+
+    def spy(f, *a, **k):
+        out = real(f, *a, **k)
+        launches.append({**{k: fk.last_launch[k] for k in keys}, **record(f)})
+        return out
+
+    fk._launch = spy
+    try:
+        cs, rs, qs = backend.round(fc_w, weight_idx, prod_mode, bal_idx,
+                                   False)
+    finally:
+        fk._launch = real
+    row["exchange"] = launches
+    row["mismatches"] = (_mismatches(c1.cpu(), cs.cpu())
+                         + _mismatches(r1.cpu(), np.asarray(rs))
+                         + _mismatches(q1.cpu(), qs.cpu()))
+    row["bound"] = int((c1 >= 0).sum())
+    row["single_ms"] = time_ms(
+        lambda: fk.full_chain_round(one, weight_idx, prod_mode, bal_idx))
+    row["xchg_ms"] = time_ms(
+        lambda: backend.round(fc_w, weight_idx, prod_mode, bal_idx, False))
+    return row
 
 
 # pods the exchange instances are held to their plain versions on (the

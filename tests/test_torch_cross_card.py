@@ -403,16 +403,9 @@ def test_per_shard_replay_and_counts_match_the_single_device(depth):
 
 
 def test_card_route_refuses_what_it_does_not_take():
-    """Hot-claim columns and reservation rows index node rows across
-    shards: a wave step on a mesh of cards with them raises, as does a
-    CUDA-only wrapper handed CPU tensors."""
-    from test_torch_fused_waves import _args
-
-    mesh = _exchanging(2)
-    step = fcm.build_sharded_fused_wave_step(_args(False), 1, 1, 2, mesh,
-                                             claims=True)
-    with pytest.raises(NotImplementedError, match="hot-claim"):
-        step(None, None)
+    """The exchange instances' wrappers take CUDA tensors only: a
+    wrapper handed CPU tensors raises. (The wave worlds the route once
+    refused, tests/test_torch_cross_card_worlds.py runs.)"""
     with pytest.raises(ValueError, match="CUDA"):
         sk.schedule_round_cards(
             [(_CpuInputs(), [0])], (0, 1), False,

@@ -25,7 +25,6 @@ import numpy as np
 import pytest
 import torch
 
-from koordinator_tpu.models import fused_waves as jfw
 from koordinator_tpu.models.scheduler_model import make_inputs as ref_inputs
 from koordinator_tpu.ops.loadaware import (
     LoadAwareArgs as RefArgs,
@@ -347,11 +346,22 @@ def _shard_sides(sides, mesh):
 
 
 def _ref_shard_sides(sides, rm, b):
+    """The JAX side inputs of the same world on the JAX mesh: the
+    LoadAware split and, where the world has them, the prod split, the
+    hot-claim and the reservation sides."""
+    from test_torch_fused_waves import _ref_sides
+
     sh = ref_side_shardings(rm, prod=b["prod"], claims=b["claims"],
                             res=b["res"])
-    ref = jfw.WaveSideInputs(la_est=sides.la_est, la_adj=sides.la_adj)
-    return jfw.WaveSideInputs(ref_put(ref.la_est, sh.la_est),
-                              ref_put(ref.la_adj, sh.la_adj))
+
+    def put(x, s):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(put(a, c) for a, c in zip(x, s)))
+        return ref_put(x, s)
+
+    return put(_ref_sides(sides), sh)
 
 
 @pytest.mark.parametrize("depth", DEPTHS)
