@@ -31,7 +31,7 @@ Phases, one JSON line each:
           "auto" (K = 8 at cycle 0's 10000 pending pods, 4 at the churn
           cycles' ~1126) with replay overlap on, the chained dispatch (each
           wave's evaluation in the full-chain kernel, its kept-only replay
-          in the kernel's replay instance, the host replaying wave w while
+          in the node-parallel replay kernel, the host replaying wave w while
           the card runs wave w+1). Three stores from churn_store(5000,
           10000, seed=42): (a) Scheduler(store, device="cuda") with its
           defaults, (b) the same with replay_overlap=False (all K waves in
@@ -42,18 +42,24 @@ Phases, one JSON line each:
           identical every round, and the canonical dumps after a final flush.
           Prints the K each cycle resolved to, the device waves run and the
           per-wave bound counts and device ms, cycle ms and span splits of
-          (a) and (b), both kernels' launches, and the replay instance alone
-          at cycle 0's kept set (CUDA events, median of 10) against the
-          plain replay_kept on the card, bit for bit, with its state in
-          shared memory and again in device memory (smem_budget_bytes=0,
-          the replay_global line). Prints the default path's outcome
+          (a) and (b), both kernels' launches, and the replay alone at
+          cycle 0's kept set (CUDA events, median of 10: the wrapper's call
+          and, apart, the kernels' launch alone; the most kept pods on one
+          node) against its plain version replay_kept on the card, bit
+          for bit, with no error bit set; then the kept pods of
+          mixed_cluster(7, 200 nodes, 400 pods) over affinity counts
+          planted at 2^24 - 1, on its active axes (the common-shape
+          instance) and on all 14 (the generic one), each against
+          replay_kept bit for bit, the kernel's one-by-one adds reported
+          by its error bit.
+          Prints the default path's outcome
           SHA-256 (bindings, failed/rejected lists, PodScheduled
           conditions).
   scheduler_mesh  the same default path on a mesh of 2 virtual shards of
           the card (parallel/mesh.py): churn_store(5000, 10000, seed=42)
           through Scheduler(store, mesh=2 shards, device="cuda"), the
           cycles scheduler_waves ran; every wave's node fields gathered
-          from the shards into kernel 1 and its replay instance (the
+          from the shards into kernel 1 and the replay kernel (the
           steps built for the mesh), the outcome's SHA-256 equal to
           scheduler_waves' (no new twin).
   scheduler_xchg  the same default path on a mesh of 2 virtual CARDS of
@@ -142,7 +148,7 @@ Phases, one JSON line each:
           smoke scenario's first 24 cycles (10 nodes, the cycle-20
           dispatch fault down to the host fallback and back) at fused
           waves K = 2 (the catalog's smoke dispatches serially and never
-          reaches the replay instance) under the race harness at
+          reaches the replay kernel) under the race harness at
           preemption seeds 101 and 202: every guarded-field touchpoint of
           the static guard map witness-checked and seeded to yield, the
           canonical lock order checked as locks are taken, /metrics and
@@ -155,7 +161,7 @@ Phases, one JSON line each:
           scrapes, touches at both seeds, no static race finding over the
           port's tree, both binding logs the JAX package's racecheck
           SHA-256 at waves=2, the second seed's ladder warmed, kernel 1
-          and its replay instance launched inside the phase. Prints each
+          and the replay kernel launched inside the phase. Prints each
           seed's bindings, SHA, touches, preemptions, scrapes, unchecked
           touches and warm-up stats, the launches and the seconds.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
@@ -414,7 +420,10 @@ Phases, one JSON line each:
           exchange instance against the single-device kernels, bit for bit
           (timed at D = 2); a lone shard of a D = 2 exchange times out
           (the exchange's 2 s limit) naming shard 1 and the next launch
-          passes; the sharded steps
+          passes; shard 1 launched late, its first entries planted at
+          shard 0's (shortened) deadline, ends every group with
+          ExchangeTimeout or the single-device bindings, never a trap
+          (check_deadline); the sharded steps
           (explain "full", LoadAware) on 2 exchanging virtual cards with
           their launch counts set to 0 before and read after, against the
           single-device kernels; and each instance against its plain
@@ -428,7 +437,7 @@ global), the instance (common or generic), cluster_size, block_threads and
 smem_bytes_per_block. Every phase holds the kernel's bindings and outputs
 equal to the plain round's: 0 mismatches and max |err| 0.0. Then a line
 of each phase's wall seconds and the script's, the
-kernels line (kernel 1, kernel 2, the replay instance, the stage-count
+kernels line (kernel 1, kernel 2, the replay kernel, the stage-count
 pass and the terms instance, each with its launches on the scheduler
 paths; then their instances over a mesh of cards: kernel 1's exchange
 round and terms round, the per-card replay, the per-card stage counts and
@@ -474,6 +483,7 @@ from koordinator_tpu_torch.models.full_chain import (
     build_full_chain_step,
     cycle_start_state,
     explain_stage_counts,
+    permit,
     plain_round,
     resolve_balance_idx,
     resolve_weight_idx,
@@ -513,6 +523,7 @@ from koordinator_tpu_torch.testing import (
     synth_full_cluster,
 )
 from koordinator_tpu_torch.testing import churn, cross_card, mesh_round
+from koordinator_tpu_torch.testing.kernel_ab import launch_alone_ms
 from koordinator_tpu_torch.testing.churn import (
     add_arrivals,
     arrival_specs,
@@ -1156,7 +1167,7 @@ def wave_cycle(tag, sched, now):
     """One cycle of ``sched`` with the launch counts set to 0 just before
     it and read just after. On the card the cycle must have run its rounds
     in the full-chain kernel, and a fused dispatch (K > 1) its kept-only
-    replays in the replay instance, one of each per device wave. Returns
+    replays in the replay kernel, one of each per device wave. Returns
     (result, wall seconds, launches, the K the cycle resolved to)."""
     d0 = sched.dispatches
     fck.launches = fck.replay_launches = sk.launches = 0
@@ -1209,20 +1220,24 @@ def clone_fc(fc):
 
 def replay_bound(fc, n_kept: int, n_numa: int):
     """(bytes ms, operations ms) of one kept-only replay on these inputs:
-    the kept pods' records, ``chosen`` and the carried state read once,
-    the state and the zones written once; per kept pod the Reserve's f32
-    operations (csrc/full_chain.cu): requested R, the LoadAware sums R,
-    bindable cpus and volume headroom 2, the quota chain D x R, and for a
-    pod with NUMA needs the zone fits K x R and the fill 3 x K x R."""
+    every pod's kept flag and chosen node, the kept pods' fields (fit
+    requests, requests and estimates, three flags, cores, quota id, the
+    match and anti bytes, the port bytes, one volume need), the node rows
+    the commit reads (policy, volume group, aff_dom), the ancestors and
+    the state read once, the state and the zones written once; per kept
+    pod the commit's f32 operations (csrc/filter_chain.cuh commit_node
+    and the quota cells): requested R, the LoadAware sums R, bindable cpus
+    and volume headroom 2, the quota chain D x R, and for a pod with NUMA
+    needs the zone fits K x R and the fill 3 x K x R."""
     P, R = fc.base.fit_requests.shape
     N = fc.base.allocatable.shape[0]
     K = fc.numa_free.shape[1]
     G, D = fc.quota_ancestors.shape
     T, PT = fc.aff_dom.shape[1], fc.port_used.shape[1]
-    VG = fc.vol_needed.shape[1]
-    stride = fck.record_layout(R, T, PT, VG)["rec_stride"]
     state = N * (3 * R + K * R + 2 + PT + 2 * T) + G * R + T
-    nbytes = n_kept * stride * 4 + P * 4 + 2 * state * 4 + P * 4
+    pod = 3 * R * 4 + 3 + 4 + 4 + 2 * T + PT + 4
+    nbytes = (P * 5 + n_kept * pod + N * (8 + 4 * T) + G * D * 4
+              + 2 * state * 4 + P * 4)
     ops = n_kept * (2 * R + 2 + D * R) + n_numa * 4 * K * R
     return nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
 
@@ -1245,10 +1260,57 @@ def replay_mismatch(out_k, zones_k, out_p, zones_p):
     return mism, err
 
 
+def check_replay_bound(device, seed=7, n_nodes=200, n_pods=400):
+    """The replay kernel past the affinity counts' exact range, on
+    mixed_cluster(seed, n_nodes, n_pods) (affinity and anti terms, which
+    config 4 lacks): its kernel round's kept pods after Permit, replayed
+    from its own state with every affinity count and anti cover planted
+    at 2^24 - 1, so that each node whose domain gains two or more takes
+    the kernel's one-by-one adds of 1.0; once on its active axes (R = 3,
+    K = 2: the common-shape instance) and once on every axis (R = 14,
+    K = 8: the generic instance). Each bit for bit against replay_kept,
+    and the kernel must report REPLAY_ERR_BOUND (the branch ran). These
+    launches compare and are not counted on the main path."""
+    from koordinator_tpu_torch.parallel.full_chain_mesh import replay_state0
+
+    args = LoadAwareArgs()
+    _c, state = mixed_cluster(seed, n_nodes, n_pods)
+    full, _p, _n, _t, _gi, ng, ngroups = build_full_chain_inputs(state, args)
+    fc, active = reduce_to_active_axes(full)
+    fc, full = to_device(fc, device), to_device(full, device)
+    prod = args.score_according_prod_usage
+    chosen = fck.full_chain_round(fc, resolve_weight_idx(args, active), prod,
+                                  resolve_balance_idx(active))[0]
+    kept = permit(fc, chosen, ng, ngroups) >= 0
+    out = {"world": f"mixed_cluster({seed}, {n_nodes}, {n_pods})",
+           "kept": int(kept.sum()), "terms": int(fc.aff_dom.shape[1])}
+    for want, world in (("common", fc), ("generic", full)):
+        st = list(replay_state0(world, prod))
+        st[2] = torch.zeros_like(st[0])  # est_sum_prod outside prod mode
+        for k in (6, 7):  # aff_count, anti_cover
+            st[k] = torch.full_like(st[k], float(2**24 - 1))
+        st = tuple(st)
+        out_k, zones_k = fck.full_chain_replay(world, chosen, kept, st, prod)
+        errors = fck.replay_errors()
+        instance = fck.last_replay["instance"]
+        out_p, zones_p = fused_waves.replay_kept(world, prod, st, chosen,
+                                                 kept)
+        mism, err = replay_mismatch(out_k, zones_k, out_p, zones_p)
+        if (mism or err != 0.0 or not errors & fck.REPLAY_ERR_BOUND
+                or instance != want):
+            raise AssertionError(
+                f"replay past 2^24 ({instance}, want {want}): {mism} values "
+                f"differ (max |err| {err}), error bits {errors}")
+        out[instance] = {"R": int(world.base.fit_requests.shape[1]),
+                         "K": int(world.numa_free.shape[1]),
+                         "errors": errors, "mismatches": mism}
+    return out
+
+
 def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     """Config 4 through Scheduler(store) with its defaults (auto waves,
     chained dispatch), against the single-call twin and the serial twin;
-    then the replay instance alone at cycle 0's kept set against the plain
+    then the replay kernel alone at cycle 0's kept set against the plain
     replay on the card. Returns (the default twin's launches, the replay
     instance's kernels-line entry, cycle 0's first-wave inputs with their
     active axes)."""
@@ -1361,14 +1423,24 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
         raise AssertionError(f"scheduler_waves: K per cycle "
                              f"{[r['K'] for r in rows]}, expected 8 then 4")
 
-    # ---- the replay instance alone at cycle 0's first wave
+    # ---- the replay alone at cycle 0's first wave: the wrapper's call as
+    # the wave body makes it, then the kernels' launch alone
     fc_c, chosen, kept, state0, prod = captured["args"]
     n_kept = int(kept.sum())
     n_numa = int((kept & fc_c.needs_numa).sum())
-    replay_ms = time_cuda(
-        lambda: real_replay(fc_c, chosen, kept, state0, prod), REPS)
-    out_k, zones_k = real_replay(fc_c, chosen, kept, state0, prod)
-    launch = launch_fields(fck)
+    most = int(torch.bincount(chosen[kept].long()).max()) if n_kept else 0
+
+    def replay():
+        return real_replay(fc_c, chosen, kept, state0, prod)
+
+    replay_ms = time_cuda(replay, REPS)
+    kernel_ms = launch_alone_ms(fck, "_replay_lib", "replay_launch", replay,
+                                REPS)
+    out_k, zones_k = replay()
+    launch = {k: v for k, v in fck.last_replay.items() if k != "errors"}
+    errors = fck.replay_errors()
+    if errors:
+        raise AssertionError(f"replay: error bits {errors} at config 4")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_p, zones_p = fused_waves.replay_kept(fc_c, prod, state0, chosen,
@@ -1377,24 +1449,9 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     plain_ms = (time.perf_counter() - t0) * 1e3
     mism, err = replay_mismatch(out_k, zones_k, out_p, zones_p)
     if mism or err != 0.0:
-        raise AssertionError(f"replay kernel disagrees with replay_kept: "
-                             f"{mism} values differ, max |err| {err}")
-    # the same replay with its carried state in device memory: the instance
-    # a shape past the shared-memory budget takes on its own
-    global_ms = time_cuda(
-        lambda: real_replay(fc_c, chosen, kept, state0, prod,
-                            smem_budget_bytes=0), REPS)
-    out_g, zones_g = real_replay(fc_c, chosen, kept, state0, prod,
-                                 smem_budget_bytes=0)
-    launch_g = launch_fields(fck)
-    if launch_g["state"] != "global":
-        raise AssertionError(f"replay with a zero budget kept its state in "
-                             f"{launch_g['state']}")
-    mism_g, err_g = replay_mismatch(out_g, zones_g, out_p, zones_p)
-    if mism_g or err_g != 0.0:
-        raise AssertionError(f"device-memory replay disagrees with "
-                             f"replay_kept: {mism_g} values differ, max "
-                             f"|err| {err_g}")
+        raise AssertionError(f"replay kernel disagrees with replay_kept "
+                             f"({mism} values, max |err| {err})")
+    planted = check_replay_bound(device)
     bytes_ms, ops_ms = replay_bound(fc_c, n_kept, n_numa)
     t_chained = statistics.median(walls["chained"])
     emit({"phase": "scheduler_waves", "nodes": n_nodes, "pods": n_pods,
@@ -1413,18 +1470,19 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
           "fused_spans_ms": median_split(splits["fused"]),
           "cycle0": cycle0,
           "replay": {"P": int(kept.shape[0]), "kept": n_kept,
-                     "kept_numa": n_numa, **launch, "kernel_ms": replay_ms,
-                     "plain_ms": plain_ms, "mismatches": mism,
-                     "max_abs_err": err, "bound_bytes_ms": bytes_ms,
-                     "bound_ops_ms": ops_ms},
-          "replay_global": {**launch_g, "kernel_ms": global_ms,
-                            "mismatches": mism_g, "max_abs_err": err_g},
+                     "kept_numa": n_numa, "most_kept_on_a_node": most,
+                     **launch, "wrapper_ms": replay_ms,
+                     "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                     "mismatches": mism, "max_abs_err": err,
+                     "errors": errors, "count_bound": planted,
+                     "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms},
           "outcome_sha256": waves_sha})
     entry = kernel_entry(
-        "full_chain_replay", "full_chain.cu",
-        "koordinator_tpu/models/fused_waves.py:527 (an XLA fori_loop, no "
+        "replay_by_node", "replay_by_node.cu",
+        "koordinator_tpu/models/fused_waves.py:559 (the rbody fori_loop, no "
         "TPU kernel)", total["full_chain_replay"], mism, err, replay_ms,
-        plain_ms, bytes_ms, ops_ms)
+        plain_ms, bytes_ms, ops_ms, kernel_alone_ms=kernel_ms,
+        most_kept_on_a_node=most)
     return total, entry, (fc_c, axes["active"]), waves_sha
 
 
@@ -4273,9 +4331,10 @@ def run_mesh_round(fc, args, ng, ngroups, active, n_real, la_inputs):
     x_rows = mesh_round.check_exchange(fc, args, ng, ngroups, active, n_real,
                                        la_inputs)
     timeout = mesh_round.check_timeout(fc, args, active)
+    deadline = mesh_round.check_deadline(fc, args, active)
     path = mesh_round.check_sharded_exchange(fc, args, ng, ngroups, active,
                                              n_real, la_inputs)
-    for row in rows + x_rows + [timeout, path]:
+    for row in rows + x_rows + [timeout, deadline, path]:
         bad = {k: v for k, v in row.items()
                if k.endswith("mismatches") and v}
         if bad:
@@ -4287,7 +4346,8 @@ def run_mesh_round(fc, args, ng, ngroups, active, n_real, la_inputs):
     if timeout["seconds"] > 2 * timeout["timeout_s"] + 1.0:
         raise AssertionError(f"mesh_round: the timeout took {timeout}")
     emit({"phase": "mesh_round", "full_chain": rows, "loadaware": la_rows,
-          "exchange": x_rows, "timeout": timeout, "exchange_path": path,
+          "exchange": x_rows, "timeout": timeout, "deadline": deadline,
+          "exchange_path": path,
           "mismatches": 0})
     return {
         "full_chain": {str(r["depth"]): r["sharded_ms"] for r in rows},
@@ -4415,7 +4475,7 @@ def run_scheduler_mesh(device, waves_sha, n_nodes=5000, n_pods=10000):
     """Config 4's churn store through Scheduler(store, mesh=2 virtual shards
     of the card) on the default path (auto waves, replay overlap): the
     sharded upload, the sharded chained step (every wave's node fields
-    gathered into kernel 1 and its replay instance) and the per-shard
+    gathered into kernel 1 and the replay kernel) and the per-shard
     readback merge, through the cycles scheduler_waves ran. Its bindings, failed and
     rejected lists and PodScheduled conditions must hash to the
     single-device default path's SHA-256 (no new twin)."""
@@ -4503,7 +4563,7 @@ def run_fault_ladder(device):
 # koordinator_tpu.sim.racecheck's run_racecheck(preempt_seed=101) on the
 # CPU over racecheck_scenario(24) at waves=2 (the catalog's smoke
 # dispatches serially, and its waves=1 log, eda59ef2..., never reaches the
-# replay instance); tests/test_torch_racecheck_gate.py pins both
+# replay kernel); tests/test_torch_racecheck_gate.py pins both
 RACECHECK_WAVES_JAX_SHA256 = ("97ba4807280ecd6a3c756daa5ddfa9e98e077eb9936e"
                               "2f40af3e5d86d6d64bb8")
 RACECHECK_SEEDS = (101, 202)
@@ -4520,7 +4580,7 @@ def run_racecheck(device):
     replays the first's rungs while its first cycles dispatch). Fails on
     any failure class of the gate, a binding log that is not the JAX
     package's, a second seed whose ladder warmed nothing, or a phase that
-    launched neither kernel 1 nor its replay instance."""
+    launched neither kernel 1 nor the replay kernel."""
     from koordinator_tpu_torch.sim.racecheck import check_races
 
     # the threads the earlier phases left behind: the harness traces only
@@ -4721,8 +4781,8 @@ def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
             x["terms_xchg_ms"], path["round_plain_ms"], *kbytes,
             ms_single=x["terms_single_ms"], **common),
         kernel_entry(
-            "full_chain_replay_cards", "full_chain.cu",
-            "koordinator_tpu/models/fused_waves.py:527 (the kept-only "
+            "replay_by_node_cards", "replay_by_node.cu",
+            "koordinator_tpu/models/fused_waves.py:559 (the kept-only "
             "replay, an XLA fori_loop, no TPU kernel), per card",
             sched_launches["full_chain_xchg_replay"] + more_replay,
             path["replay_plain_mismatches"], path["replay_err"],
@@ -4909,7 +4969,7 @@ def main() -> int:
 
     # ---- device + build: one nvcc per kernel source, all at once
     t0 = time.perf_counter()
-    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE)
+    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE)
     build_s = time.perf_counter() - t0
     ptxas = {stem: [ln.strip() for ln in str(log["ptxas"]).splitlines()
                     if "registers" in ln or "spill" in ln]

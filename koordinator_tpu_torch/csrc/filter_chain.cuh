@@ -219,4 +219,60 @@ __device__ __forceinline__ float spread_min_part(const FilterPod& pod, int t,
   return m;
 }
 
+// What one pod's commit onto a node reads of the pod.
+struct CommitPod {
+  const float* fit_req;  // [R]
+  const float* rq;       // [R] raw requests (NUMA)
+  const float* est;      // [R] LoadAware estimates, read at widx
+  float cores;           // bindable cpus taken when needs_bind
+  float vneed;           // new attachments in the node's volume group
+  bool is_prod, needs_numa, needs_bind;
+};
+
+// Reserve's owner-node part: pod c committed onto local node j of the
+// views (requested; the LoadAware sums of slots jj < W, each over axis
+// widx(jj); the NUMA zone re-picked under the current state, then taken;
+// bindable cpus; the ports `wants(s)` asks for; volume headroom). `policy`
+// is the node's NUMA policy. Returns the zone it picked (-1: none pinned,
+// or no NUMA needs). One piece of code for the round (full_chain.cu) and
+// the kept-pod replay (replay_by_node.cu): the node rows of
+// models/full_chain.commit_pod_state.
+template <class Widx, class Wants>
+__device__ __forceinline__ int commit_node(
+    const View& req, const View& dnp, const View& dpr, const View& numa,
+    const View& bind, const View& port, const View& vol, int j, int R,
+    int K, int W, int PT, Widx widx, bool prod_mode, int policy,
+    const CommitPod& c, Wants wants) {
+  int zone = -1;
+  for (int r = 0; r < R; ++r) req(j, r) = __fadd_rn(req(j, r), c.fit_req[r]);
+  for (int jj = 0; jj < W; ++jj) {
+    const float e = c.est[widx(jj)];
+    dnp(j, jj) = __fadd_rn(dnp(j, jj), e);
+    if (prod_mode && c.is_prod) dpr(j, jj) = __fadd_rn(dpr(j, jj), e);
+  }
+  if (c.needs_numa) {
+    // Only SingleNUMANode pins a zone; every other policy fills the
+    // lowest zones first (ops/numa.numa_spread_fill)
+    numa_admit(numa, j, R, K, c.rq, policy, zone);
+    if (zone >= 0) {
+      for (int r = 0; r < R; ++r)
+        numa(j, zone * R + r) = __fsub_rn(numa(j, zone * R + r), c.rq[r]);
+    } else {
+      for (int r = 0; r < R; ++r) {
+        float remaining = c.rq[r];
+        for (int k = 0; k < K; ++k) {
+          const float take = fminf(numa(j, k * R + r), remaining);
+          numa(j, k * R + r) = __fsub_rn(numa(j, k * R + r), take);
+          remaining = __fsub_rn(remaining, take);
+        }
+      }
+    }
+  }
+  if (c.needs_bind) bind(j, 0) = __fsub_rn(bind(j, 0), c.cores);
+  for (int s = 0; s < PT; ++s)
+    if (wants(s)) port(j, s) = fmaxf(port(j, s), 1.0f);
+  vol(j, 0) = __fsub_rn(vol(j, 0), c.vneed);
+  return zone;
+}
+
 }  // namespace koord

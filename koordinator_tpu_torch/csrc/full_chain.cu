@@ -35,14 +35,9 @@
 // owner thread reserves, every block updates its quota copy and its slice
 // of the affinity domain the same way.
 //
-// The replay instance (`kReplay`) is the fused waves' kept-only replay
-// (models/fused_waves.py, pass 2; the JAX package runs it as an XLA
-// fori_loop, fused_waves.py:527-559, with no TPU kernel): the pods that
-// survived the gang Permit, in queue order, each committed onto the node
-// pass 1 chose for it, from the wave-start state. No Filter, Score or
-// merge runs: the same Reserve code commits each pod, the owner re-picks
-// the NUMA zone under the replay state and writes it to `zones`, and no
-// pod waits on a barrier, since each block replays its own node slice.
+// The fused waves' kept-only replay is a kernel of its own
+// (replay_by_node.cu); the owner-node part of Reserve below is the one
+// commit_node of filter_chain.cuh both call.
 //
 // The terms instance (`kTerms`, koordexplain "full"; the JAX package
 // computes the same rows in the XLA body of its models/full_chain.py
@@ -58,8 +53,8 @@
 // `chosen`, requested and quota are the round's, bit for bit.
 //
 // The exchange instances (`kXchg`, kernel_common.cuh "The exchange") run
-// the round, the terms round and the replay over a mesh whose shards sit on
-// different cards, each card holding only its own node rows. A launch runs
+// the round and the terms round over a mesh whose shards sit on different
+// cards, each card holding only its own node rows. A launch runs
 // its card's L shards as L clusters. The round has two exchanges per pod,
 // at the two points where the one-card round already merges over its
 // cluster: the spread minima and the preferred pod-affinity max/min, for a
@@ -71,10 +66,11 @@
 // (score, lowest global index), as the cluster merge does across its
 // blocks; the owning shard reserves, every shard updates its quota copy
 // and its own slice of the affinity domain; the gang verdict is in the
-// records, the same on every card. The replay needs no merge: each card
-// replays the kept pods onto its own rows, the non-owners reading the
-// chosen nodes' aff_dom rows from `dom_rows`, gathered once by the wrapper
-// (a mailbox would make every replayed pod wait on every card).
+// records, the same on every card. An exchange is one 64-bit store per
+// payload word, the word beside the exchange's flag, and every block's
+// control warp reads the entries whole and merges them for its own block
+// (kernel_common.cuh): no fence, no sequence word, no second read, no
+// push from block to block.
 //
 // The Filter predicates live in filter_chain.cuh, shared with the
 // koordexplain stage-count pass (explain_counts.cu).
@@ -90,8 +86,8 @@ namespace {
 constexpr int kMaxWeights = 16;
 constexpr int kNumTerms = 5;  // models/full_chain.EXPLAIN_TERMS
 // The winner entry's payload: score, global index, runner-up, the three
-// terms, then the node's aff_dom row [T]; the merged result pushed into
-// each block: status, global index, score, runner-up, the three terms, a
+// terms, then the node's aff_dom row [T]; the merged result in each
+// block: status, global index, score, runner-up, the three terms, a
 // spare word, then the aff_dom row.
 constexpr int kWinHead = 6;
 constexpr int kResHead = 8;
@@ -130,7 +126,7 @@ struct FullChainParams {
   const uint8_t* aff_exists0;  // [T]
   // ---- carried state (initialised by the wrapper, updated in place)
   float* requested;          // [N, R] (output)
-  float* delta_np;           // [N, W] (the replay: W = R, every axis)
+  float* delta_np;           // [N, W]
   float* delta_pr;           // [N, W]
   float* numa;               // [N, K, R]
   float* bind_free;          // [N]
@@ -139,14 +135,10 @@ struct FullChainParams {
   float* aff_count;          // [N, T]
   float* anti_cover;         // [N, T]
   float* quota_blocks;       // [C, G, R] block copies; block 0's is output
-  int32_t* chosen;           // [P] (round: output, before Permit, -1
-                             // preset; replay: input, the node per pod)
-  int32_t* zones;            // [P] replay: the re-picked zone (output)
+  int32_t* chosen;           // [P] output, before Permit, -1 preset
   uint8_t* aff_exists_out;   // [T] the exists flags after the last pod
   float* terms;              // [P, 5] the terms instance's rows (output,
                              // zero preset); null selects the plain round
-  const float* dom_rows;     // [P, T] the per-card replay: each kept pod's
-                             // chosen node's aff_dom row
   // ---- sizes and static switches
   int P, N, R, K, G, D, T, S, S2, ppref_stride, PT, SI, VG;
   int prod_mode, bal_c, bal_m, n_widx;
@@ -154,7 +146,7 @@ struct FullChainParams {
   int rec_stride, off_fit, off_req, off_est, off_aff, off_anti, off_match,
       off_skew, off_ports, off_vol;
   // ---- cluster plan
-  int cluster_size, nodes_per_block, node_threads, state_in_smem, replay;
+  int cluster_size, nodes_per_block, node_threads, state_in_smem;
   int widx[kMaxWeights];
   // ---- the mesh of cards (x.L = 0: one device, N rows, one cluster)
   koord::Xchg x;
@@ -165,7 +157,8 @@ struct FullChainParams {
 struct FcSmem {
   size_t bar, ring, part_warp, part_blk, part_red, warp_red, admit, exists;
   size_t part_wrun, part_brun;  // the terms instance's runner-up partials
-  size_t xbar, xres, xout;      // the exchange's mbarriers and results
+  size_t xbar, xres;            // the exchange's mbarriers and results
+  size_t xstage;                // the polling warp's copy of every entry
   size_t quota, runtime, anc, node, flags, total;
 };
 
@@ -195,11 +188,12 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
   L.exists = koord::smem_take(at, (size_t)(p.T > 0 ? p.T : 1) * 4);
   L.part_wrun = koord::smem_take(at, 2 * (size_t)nw * 4);
   L.part_brun = koord::smem_take(at, 2 * (size_t)p.cluster_size * 8);
-  if (p.x.L > 0 && !p.replay) {
+  if (p.x.L > 0) {
     const int xw = fc_result_words(p.T);
     L.xbar = koord::smem_take(at, 2 * 8);
     L.xres = koord::smem_take(at, 2 * (size_t)xw * 4);
-    L.xout = koord::smem_take(at, (size_t)xw * 4);
+    L.xstage = koord::smem_take(
+        at, (size_t)koord::kMaxShards * koord::xpairs(kWinHead + p.T) * 4);
   }
   if (p.state_in_smem) {
     L.quota = koord::smem_take(at, (size_t)p.G * p.R * 4);
@@ -215,11 +209,9 @@ __host__ __device__ inline FcSmem fc_smem_layout(const FullChainParams& p) {
 
 // kR, kK, kW > 0 fix R, K and the weighted-axis count at compile time, so
 // the node loop's short loops unroll completely; 0 reads them from `p`.
-// kReplay selects the kept-only replay (the records are the kept pods'),
-// kTerms the round that also writes the koordexplain terms rows, kXchg the
-// instance over a mesh of cards (p.x).
-template <bool kStateInSmem, int kR, int kK, int kW, bool kReplay,
-          bool kTerms, bool kXchg>
+// kTerms selects the round that also writes the koordexplain terms rows,
+// kXchg the instance over a mesh of cards (p.x).
+template <bool kStateInSmem, int kR, int kK, int kW, bool kTerms, bool kXchg>
 __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     full_chain_kernel(const FullChainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -324,9 +316,9 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   const int nv = *p.n_valid;
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.xbar);  // [2]
   uint32_t* xres = reinterpret_cast<uint32_t*>(smem + L.xres);  // [2][XW]
-  uint32_t* xout = reinterpret_cast<uint32_t*>(smem + L.xout);  // [XW]
+  uint32_t* xstage = reinterpret_cast<uint32_t*>(smem + L.xstage);
   const int XW = fc_result_words(T);
-  if (!kReplay && ctrl && lane == 0) {
+  if (ctrl && lane == 0) {
     for (int s = 0; s < S + 2; ++s) koord::mbar_init(&bar[s], 1);
     if (kXchg) for (int s = 0; s < 2; ++s) koord::mbar_init(&xbar[s], 1);
     koord::fence_mbar_init();
@@ -349,62 +341,32 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   cluster.sync();
 
   // ---- Reserve of the pod in `rec` on node best_n: the owner of the node
-  // updates its rows (and writes the NUMA zone it picked to zone_out, -1
-  // for a pod without NUMA needs), every block adds the quota along the
+  // updates its rows (commit_node), every block adds the quota along the
   // ancestor chain to its own copy and raises the affinity counts over its
-  // slice of the node's domain. One piece of code for the round and the
-  // replay.
-  auto reserve = [&](const uint32_t* rec, int best_n, int32_t* zone_out,
-                     const float* dom_row) {
-    const uint32_t pf = rec[koord::kRecFlags];
-    const bool is_prod = pf & koord::kPodProd;
-    const bool needs_numa = pf & koord::kPodNuma;
-    const bool needs_bind = pf & koord::kPodBind;
-    const float cores = __uint_as_float(rec[kRecCores]);
+  // slice of the node's domain (dom_row, the node's aff_dom row).
+  auto reserve = [&](const uint32_t* rec, int best_n, const float* dom_row) {
     const int qid = (int)rec[kRecQuota];
-    const float* fit_req = reinterpret_cast<const float*>(rec + p.off_fit);
     const float* rq = reinterpret_cast<const float*>(rec + p.off_req);
-    const float* est = reinterpret_cast<const float*>(rec + p.off_est);
     const uint32_t* anti_req = rec + p.off_anti;
     const uint32_t* match = rec + p.off_match;
-    const uint32_t* wants = rec + p.off_ports;
-    const float* vneed = reinterpret_cast<const float*>(rec + p.off_vol);
-    int zone = -1;
     const int jb = best_n - lo;
     if (!ctrl && jb >= 0 && jb < nloc && jb % NT == tid) {
-      for (int r = 0; r < R; ++r)
-        req_v(jb, r) = __fadd_rn(req_v(jb, r), fit_req[r]);
-      for (int jj = 0; jj < W; ++jj) {
-        const float e = est[p.widx[jj]];
-        dnp_v(jb, jj) = __fadd_rn(dnp_v(jb, jj), e);
-        if (p.prod_mode && is_prod) dpr_v(jb, jj) = __fadd_rn(dpr_v(jb, jj), e);
-      }
-      if (needs_numa) {
-        // Only SingleNUMANode pins a zone; every other policy fills the
-        // lowest zones first (ops/numa.numa_spread_fill)
-        koord::numa_admit(numa_v, jb, R, K, rq, __ldg(p.policy + best_n),
-                          zone);
-        if (zone >= 0) {
-          for (int r = 0; r < R; ++r)
-            numa_v(jb, zone * R + r) =
-                __fsub_rn(numa_v(jb, zone * R + r), rq[r]);
-        } else {
-          for (int r = 0; r < R; ++r) {
-            float remaining = rq[r];
-            for (int k = 0; k < K; ++k) {
-              const float take = fminf(numa_v(jb, k * R + r), remaining);
-              numa_v(jb, k * R + r) = __fsub_rn(numa_v(jb, k * R + r), take);
-              remaining = __fsub_rn(remaining, take);
-            }
-          }
-        }
-      }
-      if (needs_bind) bind_v(jb, 0) = __fsub_rn(bind_v(jb, 0), cores);
-      for (int s = 0; s < p.PT; ++s)
-        if (koord::bit_at(wants, s)) port_v(jb, s) = fmaxf(port_v(jb, s), 1.0f);
-      vol_v(jb, 0) =
-          __fsub_rn(vol_v(jb, 0), vneed[__ldg(p.vol_group + best_n)]);
-      if (zone_out != nullptr) *zone_out = zone;
+      const uint32_t pf = rec[koord::kRecFlags];
+      const uint32_t* wants = rec + p.off_ports;
+      const koord::CommitPod c{
+          reinterpret_cast<const float*>(rec + p.off_fit), rq,
+          reinterpret_cast<const float*>(rec + p.off_est),
+          __uint_as_float(rec[kRecCores]),
+          reinterpret_cast<const float*>(rec + p.off_vol)[__ldg(
+              p.vol_group + best_n)],
+          (pf & koord::kPodProd) != 0, (pf & koord::kPodNuma) != 0,
+          (pf & koord::kPodBind) != 0};
+      koord::commit_node(req_v, dnp_v, dpr_v, numa_v, bind_v, port_v, vol_v,
+                         jb, R, K, W, p.PT,
+                         [&](int jj) { return p.widx[jj]; },
+                         p.prod_mode != 0,
+                         __ldg(p.policy + best_n), c,
+                         [&](int s) { return koord::bit_at(wants, s); });
     }
     // quota: every block adds along the ancestor chain to its own copy
     if (ctrl) {
@@ -435,30 +397,15 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     }
   };
 
-  if constexpr (kReplay) {
-    // ---- the kept pods in queue order, each onto its chosen node. Every
-    // thread reads the record from device memory (one line per pod,
-    // cached); the owner of the node writes the zone.
-    for (int v = 0; v < nv; ++v) {
-      const uint32_t* rec = p.records + (size_t)v * stride;
-      const int pod = (int)rec[koord::kRecPod];
-      const int g = p.chosen[pod];
-      if constexpr (kXchg) {
-        // the owner's rows on its card; the domain row from the gather
-        reserve(rec, g / per == me ? row0 + g - gbase : -1, p.zones + pod,
-                p.dom_rows + (size_t)pod * T);
-      } else {
-        reserve(rec, g, p.zones + pod, p.aff_dom + (size_t)g * T);
-      }
-    }
-  }
-  // ---- the round (the replay instance ran its pods above)
+  // ---- the round
   int nred = 0;  // cluster reductions passed, the same count in every thread
   int nx = 0;    // exchanges passed (kXchg), the same count in every thread
-  // the last pod whose record load was issued, and the pod a failed
-  // exchange stopped at (-1: none)
-  int issued = min(S - 1, nv) - 1, stopped = -1;
-  for (int v = 0; v < (kReplay ? 0 : nv); ++v) {
+  // the bits of the shards whose entries this block's wait first missed
+  // (kXchg; 0: none). A block whose wait timed out waits no more but goes
+  // on through every pod with no winner, so no merge of its cluster waits
+  // for a block that left; the wrapper discards the round.
+  unsigned missed = 0u;
+  for (int v = 0; v < nv; ++v) {
     const int st = v % S;
     koord::mbar_wait(&bar[st], (v / S) & 1);
     KOORD_STAMP(v, 0)  // the record is in
@@ -545,42 +492,36 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
         // ---- the extremes over every shard: publish the cluster's, merge
         // every shard's (min, the ppref max a max), push the result
         const int par = nx & 1;
-        const unsigned long long seq = p.x.seq0 + (unsigned long long)nx;
+        const unsigned flag = p.x.flag0 + (unsigned)nx;
         uint32_t* res = xres + par * XW;
         const int words = (1 + Q + 1) & ~1;
-        if (ctrl && rank == 0) {
-          // lane d publishes into shard d's mailbox
-          if (lane < p.x.D) {
-            const uint32_t* ext =
-                reinterpret_cast<const uint32_t*>(warp_red + NW * Q);
-            volatile uint32_t* pl = koord::xpayload(p.x, lane, par, me);
-            for (int q = 0; q < Q; ++q) pl[q] = ext[q];
-            koord::fence_sys();
-            koord::st_relaxed_sys(koord::xentry(p.x, lane, par, me), seq);
-          }
-          const unsigned missing = koord::xwait(p.x, me, par, seq);
+        if (ctrl) {
+          // lane d of block 0 publishes into shard d's mailbox
+          const uint32_t* ext =
+              reinterpret_cast<const uint32_t*>(warp_red + NW * Q);
+          if (rank == 0 && lane < p.x.D)
+            koord::xsend(p.x, lane, par, me, flag, Q,
+                         [&](int q) { return ext[q]; });
+          const int m = koord::xpairs(Q);
+          const unsigned missing =
+              missed ? missed : koord::xwait(p.x, me, par, flag, m, xstage);
           for (int q = 0; q < Q; ++q) {
             const bool take_max = q == T;
             float y = take_max ? -CUDART_INF_F : CUDART_INF_F;
             if (lane < p.x.D && missing == 0u)
-              y = __uint_as_float(koord::xpayload(p.x, me, par, lane)[q]);
+              y = __uint_as_float(xstage[lane * m + q]);
             y = take_max ? koord::warp_max(y) : koord::warp_min(y);
-            if (lane == 0) xout[1 + q] = __float_as_uint(y);
+            if (lane == 0) res[1 + q] = __float_as_uint(y);
           }
           if (lane == 0) {
-            xout[0] = missing;
-            if (missing) atomicOr(p.x.err, missing);
+            res[0] = missing;
+            if (missing && !missed) atomicOr(p.x.err, missing);
           }
-          __syncwarp();
-          koord::xbroadcast(xout, res, &xbar[par], words, C);
+          koord::xdeliver(&xbar[par]);
         }
-        if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], words * 4);
         koord::mbar_wait(&xbar[par], (nx >> 1) & 1);
         ++nx;
-        if (res[0] != 0u) {
-          stopped = v;
-          break;
-        }
+        missed = res[0];
         wred = reinterpret_cast<const float*>(res + 1);
       }
     }
@@ -707,7 +648,6 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // Every node warp has finished this pod's node loop, so none still
       // reads pod v - 1's stage: refill it with pod v + S - 1.
       const int nxt = v + S - 1;
-      if (nxt < nv) issued = nxt;
       if (lane == 0 && nxt < nv)
         koord::bulk_load(ring + (nxt % S) * stride,
                          p.records + (size_t)nxt * stride, stride * 4,
@@ -740,32 +680,36 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // publishes it (the terms instance: for a pod refused at PreFilter
       // the owner of the shard's first node, whose terms the row takes)
       const int par = nx & 1;
-      const unsigned long long seq = p.x.seq0 + (unsigned long long)nx;
+      const unsigned flag = p.x.flag0 + (unsigned)nx;
       uint32_t* res = xres + par * XW;
       const int pub = (kTerms && !admit) ? row0 : best_n;
       const int jp = pub - lo;
+      const int PW = kWinHead + T, m = koord::xpairs(PW);
       if (!ctrl && jp >= 0 && jp < nloc && jp % NT == tid) {
         const bool mine = my_n == pub;
-        for (int d = 0; d < p.x.D; ++d) {
-          volatile uint32_t* pl = koord::xpayload(p.x, d, par, me);
-          pl[0] = __float_as_uint(best_s);
-          pl[1] = (uint32_t)(gbase + best_n - row0);
-          pl[2] = __float_as_uint(runner);
-          pl[3] = __float_as_uint(mine ? my_la : z_la);
-          pl[4] = __float_as_uint(mine ? my_nu : z_nu);
-          pl[5] = __float_as_uint(mine ? my_pref : z_pref);
-          for (int t = 0; t < T; ++t)
-            pl[kWinHead + t] =
-                __float_as_uint(__ldg(p.aff_dom + (size_t)pub * T + t));
-        }
-        koord::fence_sys();
+        const uint32_t w0 = __float_as_uint(best_s);
+        const uint32_t w1 = (uint32_t)(gbase + best_n - row0);
+        const uint32_t w2 = __float_as_uint(runner);
+        const uint32_t w3 = __float_as_uint(mine ? my_la : z_la);
+        const uint32_t w4 = __float_as_uint(mine ? my_nu : z_nu);
+        const uint32_t w5 = __float_as_uint(mine ? my_pref : z_pref);
+        const float* dom = p.aff_dom + (size_t)pub * T;
         for (int d = 0; d < p.x.D; ++d)
-          koord::st_relaxed_sys(koord::xentry(p.x, d, par, me), seq);
+          koord::xsend(p.x, d, par, me, flag, PW, [&](int w) {
+            return w == 0   ? w0
+                   : w == 1 ? w1
+                   : w == 2 ? w2
+                   : w == 3 ? w3
+                   : w == 4 ? w4
+                   : w == 5 ? w5
+                            : __float_as_uint(__ldg(dom + w - kWinHead));
+          });
       }
-      if (ctrl && rank == 0) {
-        const unsigned missing = koord::xwait(p.x, me, par, seq);
+      if (ctrl) {
+        const unsigned missing =
+            missed ? missed : koord::xwait(p.x, me, par, flag, m, xstage);
         const bool in = lane < p.x.D && missing == 0u;
-        volatile uint32_t* pl = koord::xpayload(p.x, me, par, in ? lane : 0);
+        const uint32_t* pl = xstage + (in ? lane : 0) * m;
         float ws = in ? __uint_as_float(pl[0]) : -CUDART_INF_F;
         int wn = in ? (int)pl[1] : INT32_MAX;
         const float es = ws;
@@ -777,31 +721,26 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
         const unsigned at = __ballot_sync(koord::kFullMask, in && en == wn);
         const int wl = at ? __ffs(at) - 1 : 0;
         const int tl = (kTerms && !admit) ? 0 : wl;
-        volatile uint32_t* tp = koord::xpayload(p.x, me, par, tl);
-        volatile uint32_t* dp = koord::xpayload(p.x, me, par, wl);
+        const uint32_t* tp = xstage + tl * m;
+        const uint32_t* dp = xstage + wl * m;
         if (lane == 0) {
-          xout[0] = missing;
-          xout[1] = (uint32_t)wn;
-          xout[2] = __float_as_uint(ws);
-          xout[3] = __float_as_uint(xr);
-          xout[7] = 0u;
-          if (missing) atomicOr(p.x.err, missing);
+          res[0] = missing;
+          res[1] = (uint32_t)wn;
+          res[2] = __float_as_uint(ws);
+          res[3] = __float_as_uint(xr);
+          res[7] = 0u;
+          if (missing && !missed) atomicOr(p.x.err, missing);
         }
         if (lane < 3)
-          xout[4 + lane] = (kTerms && !missing) ? tp[3 + lane] : 0u;
+          res[4 + lane] = (kTerms && !missing) ? tp[3 + lane] : 0u;
         for (int t = lane; t < T; t += 32)
-          xout[kResHead + t] = missing ? 0u : dp[kWinHead + t];
-        if (lane == 0 && ((kResHead + T) & 1)) xout[kResHead + T] = 0u;
-        __syncwarp();
-        koord::xbroadcast(xout, res, &xbar[par], XW, C);
+          res[kResHead + t] = missing ? 0u : dp[kWinHead + t];
+        if (lane == 0 && ((kResHead + T) & 1)) res[kResHead + T] = 0u;
+        koord::xdeliver(&xbar[par]);
       }
-      if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], XW * 4);
       koord::mbar_wait(&xbar[par], (nx >> 1) & 1);
       ++nx;
-      if (res[0] != 0u) {
-        stopped = v;
-        break;
-      }
+      missed = res[0];  // missed: no winner, best_s is -inf
       gwin = (int)res[1];
       best_s = __uint_as_float(res[2]);
       runner = __uint_as_float(res[3]);
@@ -844,15 +783,9 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     // the owner's rows where this shard holds the winner
     const int own =
         kXchg ? (gwin / per == me ? row0 + gwin - gbase : -1) : gwin;
-    reserve(rec, own, nullptr, dom_row);
+    reserve(rec, own, dom_row);
     KOORD_STAMP(v, 5)  // reserved
   }
-  // A failed exchange left the loop: no block leaves while a record it
-  // asked for is still being copied into its shared memory.
-  if (kXchg && stopped >= 0 && ctrl && lane == 0)
-    for (int u = stopped + 1; u <= issued; ++u)
-      koord::mbar_wait(&bar[u % S], (u / S) & 1);
-
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();
   if constexpr (kStateInSmem) {
@@ -879,17 +812,15 @@ namespace {
 
 // The instance specialised for the common shape (the active-axis reduction
 // of most batches: cpu, memory and pods; two NUMA zones; cpu and memory
-// weighted, or every axis for the replay).
+// weighted).
 bool common_instance(const FullChainParams& p) {
-  return p.R == 3 && p.K == 2 && p.n_widx == (p.replay ? 3 : 2);
+  return p.R == 3 && p.K == 2 && p.n_widx == 2;
 }
 
-template <bool kReplay, bool kTerms, bool kXchg, bool kSmem, bool kCommon>
+template <bool kTerms, bool kXchg, bool kSmem, bool kCommon>
 int launch_one(const FullChainParams& p, void* stream, bool query) {
-  constexpr int kCommonW = kReplay ? 3 : 2;
-  auto kernel =
-      kCommon ? full_chain_kernel<kSmem, 3, 2, kCommonW, kReplay, kTerms, kXchg>
-              : full_chain_kernel<kSmem, 0, 0, 0, kReplay, kTerms, kXchg>;
+  auto kernel = kCommon ? full_chain_kernel<kSmem, 3, 2, 2, kTerms, kXchg>
+                        : full_chain_kernel<kSmem, 0, 0, 0, kTerms, kXchg>;
   const size_t smem = fc_smem_layout(p).total;
   const int threads = p.node_threads + 32, C = p.cluster_size;
   if (query) return koord::max_clusters(kernel, C, threads, smem);
@@ -897,25 +828,21 @@ int launch_one(const FullChainParams& p, void* stream, bool query) {
                                kXchg ? p.x.L : 1);
 }
 
-template <bool kReplay, bool kTerms, bool kXchg>
+template <bool kTerms, bool kXchg>
 int launch_mode(const FullChainParams& p, void* stream, bool query) {
   if (p.state_in_smem)
     return common_instance(p)
-               ? launch_one<kReplay, kTerms, kXchg, true, true>(p, stream, query)
-               : launch_one<kReplay, kTerms, kXchg, true, false>(p, stream,
-                                                                 query);
+               ? launch_one<kTerms, kXchg, true, true>(p, stream, query)
+               : launch_one<kTerms, kXchg, true, false>(p, stream, query);
   return common_instance(p)
-             ? launch_one<kReplay, kTerms, kXchg, false, true>(p, stream, query)
-             : launch_one<kReplay, kTerms, kXchg, false, false>(p, stream,
-                                                                query);
+             ? launch_one<kTerms, kXchg, false, true>(p, stream, query)
+             : launch_one<kTerms, kXchg, false, false>(p, stream, query);
 }
 
 template <bool kXchg>
 int launch_kind(const FullChainParams& p, void* stream, bool query) {
-  if (p.replay) return launch_mode<true, false, kXchg>(p, stream, query);
-  return p.terms != nullptr ? launch_mode<false, true, kXchg>(p, stream, query)
-                            : launch_mode<false, false, kXchg>(p, stream,
-                                                               query);
+  return p.terms != nullptr ? launch_mode<true, kXchg>(p, stream, query)
+                            : launch_mode<false, kXchg>(p, stream, query);
 }
 
 int launch_any(const FullChainParams& p, void* stream, bool query) {
@@ -950,10 +877,9 @@ int full_chain_max_clusters(const FullChainParams* params) {
   return launch_any(*params, nullptr, true);
 }
 
-// Launches one round (with `terms` set, the terms instance; with `replay`,
-// one kept-only replay; with x.L > 0, the instance over a mesh of cards, as
-// x.L clusters) on `stream` on the current device; returns a cudaError_t
-// (0 = launched).
+// Launches one round (with `terms` set, the terms instance; with x.L > 0,
+// the instance over a mesh of cards, as x.L clusters) on `stream` on the
+// current device; returns a cudaError_t (0 = launched).
 int full_chain_launch(const FullChainParams* params, void* stream) {
   return launch_any(*params, stream, false);
 }

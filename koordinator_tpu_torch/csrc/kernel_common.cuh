@@ -297,26 +297,40 @@ __device__ __forceinline__ float cluster_extreme(Cluster& cluster,
 // runs the same protocol through the card's own memory.
 //
 // Each shard has a mailbox in its card's memory: [2 parities][D senders]
-// entries of entry_words 8-byte words, word 0 the entry's sequence and the
-// rest its payload (32-bit words). `boxes` lists every shard's mailbox at
-// addresses this card reaches (peer access is on for every pair of cards).
-// Exchange k of a launch has the sequence seq0 + k and the parity k & 1:
-//   publish: one thread of the shard writes its payload into entry [shard]
-//     of every shard's mailbox, then one system-scope fence, then the
-//     sequence into each entry (a release: fence, then relaxed stores);
-//   wait: the cluster's poller (block 0's control warp), lane e < D polling
-//     entry [e] of its own mailbox with relaxed system-scope loads until it
-//     holds the sequence, then reading it once more with an acquire (the
-//     lanes' payload reads follow a __syncwarp), or until %globaltimer has
-//     passed timeout_ns: then the bits of the shards that did not arrive go
-//     to *err and every block of the cluster leaves the round (no trap:
-//     the card stays usable);
-//   merge: in the poller's lanes, then pushed into every block of the
-//     cluster (st.async onto the block's exchange mbarrier).
-// The wrapper raises the sequences from launch to launch, so no mailbox is
-// ever reset. An entry is rewritten two exchanges later, and a shard sends
-// exchange k + 1 only after every thread of it has read exchange k, so no
-// shard overwrites an entry that another still has to read.
+// entries of entry_pairs 8-byte pairs. A pair is one 32-bit payload word
+// (low half) and the exchange's 32-bit flag (high half), written by one
+// aligned 64-bit relaxed store, so the data carries its own notification:
+// a pair that holds the flag holds that exchange's word. `boxes` lists
+// every shard's mailbox at addresses this card reaches (peer access is on
+// for every pair of cards). Exchange k of a launch has the flag flag0 + k
+// and the parity k & 1:
+//   publish: one thread of the shard stores its m pairs (the payload's
+//     words, rounded up to an even count) into entry [shard] of every
+//     shard's mailbox; no fence, no sequence word;
+//   wait: every block's control warp polls, lane e < D reading entry [e]
+//     of its own shard's mailbox whole, two pairs per 16-byte load, into
+//     the lane's slice of a staging area in the block's shared memory,
+//     again until every pair holds the flag, or until %globaltimer has
+//     passed timeout_ns: then the bits of the shards that did not arrive
+//     go to *err and that block waits no more in the launch. Each block
+//     times its own wait, so blocks of one cluster may disagree about an
+//     entry that arrives at the deadline; none leaves early, though: a
+//     block that timed out goes on through every pod with no winner
+//     (still publishing), so every merge of its cluster is met and every
+//     block ends (no trap: the card stays usable). The wrapper reads every
+//     card's *err and raises, and the group's outputs are discarded;
+//   merge: in the polling lanes, from the staging area, into the block's
+//     own result slot, then one arrive on the block's exchange mbarrier
+//     (no push from block to block: every block reads the L2-resident
+//     entries itself).
+// Stores and loads take .gpu scope where every shard of the mesh runs in
+// this launch (L == D: one card's memory and L2), .sys scope only for a
+// mesh that spans cards. The wrapper raises the flags from launch to
+// launch and keeps them nonzero; before a flag would wrap past 2^32 - 1 it
+// zeroes the mailboxes and starts the count again, between launches. An
+// entry is rewritten two exchanges later, and a shard sends exchange k + 1
+// only after every thread of it has read exchange k, so no shard
+// overwrites an entry that another still has to read.
 // ---------------------------------------------------------------------------
 
 constexpr int kMaxLocalShards = 8;  // clusters of one launch
@@ -326,57 +340,50 @@ constexpr int kMaxShards = 32;      // a poller lane per shard
 struct Xchg {
   unsigned long long* const* boxes;  // [D] every shard's mailbox
   unsigned int* err;                 // [1] bits of the shards that timed out
-  unsigned long long seq0;           // the launch's first sequence (>= 1)
   long long timeout_ns;              // the wait for one exchange
+  unsigned int flag0;                // the launch's first flag (>= 1)
   int D;                             // shards of the mesh
   int L;                             // shards of this launch (0: no mesh)
   int per;                           // rows of one shard
-  int entry_words;                   // 8-byte words of one mailbox entry
+  int entry_pairs;                   // 8-byte pairs of one entry (even)
   int shard[kMaxLocalShards];        // cluster l's shard
 };
 
+// Pairs an exchange of `words` payload words stores and reads: even, for
+// the 16-byte loads.
+__host__ __device__ constexpr int xpairs(int words) {
+  return (words + 1) & ~1;
+}
+
 __device__ __forceinline__ unsigned long long* xentry(const Xchg& x, int box,
                                                       int par, int from) {
-  return x.boxes[box] + ((size_t)par * x.D + from) * x.entry_words;
+  return x.boxes[box] + ((size_t)par * x.D + from) * x.entry_pairs;
 }
 
-__device__ __forceinline__ volatile uint32_t* xpayload(const Xchg& x,
-                                                       int box, int par,
-                                                       int from) {
-  return reinterpret_cast<volatile uint32_t*>(xentry(x, box, par, from) + 1);
+__device__ __forceinline__ void st_pair(unsigned long long* at,
+                                        unsigned long long v, bool gpu) {
+  if (gpu)
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(at), "l"(v)
+                 : "memory");
+  else
+    asm volatile("st.relaxed.sys.global.u64 [%0], %1;\n" ::"l"(at), "l"(v)
+                 : "memory");
 }
 
-__device__ __forceinline__ void st_relaxed_sys(unsigned long long* at,
-                                               unsigned long long v) {
-  asm volatile("st.relaxed.sys.global.u64 [%0], %1;\n" ::"l"(at), "l"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ unsigned long long ld_acquire_sys(
-    const unsigned long long* at) {
-  unsigned long long v;
-  asm volatile("ld.acquire.sys.global.u64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(at)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ unsigned long long ld_relaxed_sys(
-    const unsigned long long* at) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.sys.global.u64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(at)
-               : "memory");
-  return v;
-}
-
-// Orders this thread's memory operations before the fence against those
-// after it, at system scope (with a relaxed store after it, a release;
-// with a relaxed load before it, an acquire).
-__device__ __forceinline__ void fence_sys() {
-  asm volatile("fence.acq_rel.sys;\n" ::: "memory");
+// Two pairs in one 16-byte load (each pair single-copy atomic).
+__device__ __forceinline__ void ld_pairs(const unsigned long long* at,
+                                         bool gpu, unsigned long long& a,
+                                         unsigned long long& b) {
+  if (gpu)
+    asm volatile("ld.relaxed.gpu.global.v2.u64 {%0, %1}, [%2];\n"
+                 : "=l"(a), "=l"(b)
+                 : "l"(at)
+                 : "memory");
+  else
+    asm volatile("ld.relaxed.sys.global.v2.u64 {%0, %1}, [%2];\n"
+                 : "=l"(a), "=l"(b)
+                 : "l"(at)
+                 : "memory");
 }
 
 __device__ __forceinline__ long long global_ns() {
@@ -385,36 +392,48 @@ __device__ __forceinline__ long long global_ns() {
   return t;
 }
 
-// One thread: `n` payload words into entry [from] of every shard's
-// mailbox, one fence, then the sequence into each entry.
-__device__ __forceinline__ void xsend_all(const Xchg& x, int par, int from,
-                                          unsigned long long seq,
-                                          const uint32_t* words, int n) {
-  for (int d = 0; d < x.D; ++d) {
-    volatile uint32_t* pl = xpayload(x, d, par, from);
-    for (int k = 0; k < n; ++k) pl[k] = words[k];
-  }
-  fence_sys();
-  for (int d = 0; d < x.D; ++d) st_relaxed_sys(xentry(x, d, par, from), seq);
+// One thread: `words` payload words, word(w) for w < words, as pairs under
+// `flag` into entry [from] of shard `box`'s mailbox (the padding pair, if
+// any, carries 0).
+template <class Word>
+__device__ __forceinline__ void xsend(const Xchg& x, int box, int par,
+                                      int from, unsigned flag, int words,
+                                      Word word) {
+  unsigned long long* e = xentry(x, box, par, from);
+  const bool gpu = x.L == x.D;
+  const unsigned long long hi = (unsigned long long)flag << 32;
+  for (int w = 0; w < xpairs(words); ++w)
+    st_pair(e + w, hi | (w < words ? word(w) : 0u), gpu);
 }
 
-// The poller warp: lane e < D waits for entry [e] of shard `box`'s mailbox
-// to hold `seq`. Returns, in every lane, the bits of the shards whose entry
-// had not arrived when the time limit passed (0: all arrived, their
-// payloads visible to this warp).
+// A polling warp: lane e < D reads entry [e] of shard `box`'s mailbox (m
+// pairs, even) into stage[e * m ...] until every pair holds `flag`.
+// Returns, in every lane, the bits of the shards whose entry had not
+// arrived when the time limit passed (0: all arrived, every lane's words
+// in the stage and visible to the warp).
 __device__ __forceinline__ unsigned xwait(const Xchg& x, int box, int par,
-                                          unsigned long long seq) {
+                                          unsigned flag, int m,
+                                          uint32_t* stage) {
   const int lane = threadIdx.x & 31;
+  const bool gpu = x.L == x.D;
   bool have = lane >= x.D;
   const unsigned long long* e = have ? nullptr : xentry(x, box, par, lane);
+  uint32_t* st = stage + lane * m;
   const long long t0 = global_ns();
   for (;;) {
-    if (!have) have = ld_relaxed_sys(e) == seq;
+    if (!have) {
+      bool all = true;
+      for (int w = 0; w < m; w += 2) {
+        unsigned long long a, b;
+        ld_pairs(e + w, gpu, a, b);
+        st[w] = (uint32_t)a;
+        st[w + 1] = (uint32_t)b;
+        all &= (uint32_t)(a >> 32) == flag && (uint32_t)(b >> 32) == flag;
+      }
+      have = all;
+    }
     const unsigned missing = __ballot_sync(kFullMask, !have);
     if (missing == 0u) {
-      // the acquire: this lane's entry read again (it holds `seq` until
-      // this shard has read it), ordering the payload reads after it
-      if (lane < x.D) ld_acquire_sys(e);
       __syncwarp();
       return 0u;
     }
@@ -422,20 +441,19 @@ __device__ __forceinline__ unsigned xwait(const Xchg& x, int box, int par,
   }
 }
 
-// The poller warp: `nwords` (even) words at `src` (this block's shared
-// memory) into the slot at the offset of `dst` in every block of the
-// cluster, each completing nwords * 4 bytes on the block's mbarrier at the
-// offset of `bar`.
-__device__ __forceinline__ void xbroadcast(const uint32_t* src,
-                                           const uint32_t* dst,
-                                           const uint64_t* bar, int nwords,
-                                           int nblocks) {
-  const int lane = threadIdx.x & 31, pairs = nwords / 2;
-  for (int e = lane; e < nblocks * pairs; e += 32) {
-    const int rank = e / pairs, k = e - rank * pairs;
-    push_pair(reinterpret_cast<const int2*>(dst) + k, bar, rank,
-              make_int2((int)src[2 * k], (int)src[2 * k + 1]));
-  }
+// Arrive on this block's mbarrier (release, CTA scope).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// The polling warp hands the merged result it wrote into this block's
+// result slot to the block: one arrive completes the block's exchange
+// mbarrier `bar` (its count is 1), whose waiters then read the slot.
+__device__ __forceinline__ void xdeliver(uint64_t* bar) {
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar);
 }
 
 // Copy a [nloc, width] slice between two views, by every thread of the block.

@@ -39,9 +39,10 @@
 // the round over a mesh whose shards sit on different cards, a card's L
 // shards as L clusters of one launch: per pod, once the cluster has merged
 // its blocks' bests, the owner of its best publishes (score, global index)
-// to every shard, the poller merges the D entries by (score, lowest global
-// index) and pushes the winner into every block, and the shard that owns it
-// commits. The plain version is parallel/mesh.py _plain_sharded_schedule.
+// to every shard, each block's control warp reads the D entries and merges
+// them by (score, lowest global index) for its own block, and the shard
+// that owns the winner commits. The plain version is parallel/mesh.py
+// _plain_sharded_schedule.
 
 #include <cooperative_groups.h>
 
@@ -92,7 +93,8 @@ constexpr int kResultWords = 4;
 // Dynamic shared memory of one block (ops/schedule_kernel.py
 // estimate_smem_bytes mirrors it).
 struct SsSmem {
-  size_t bar, ring, part_warp, part_blk, xbar, xres, xout, node, flags, total;
+  size_t bar, ring, part_warp, part_blk, xbar, xres, xstage, node, flags,
+      total;
 };
 
 __host__ __device__ inline SsSmem ss_smem_layout(const ScheduleStepParams& p) {
@@ -106,7 +108,8 @@ __host__ __device__ inline SsSmem ss_smem_layout(const ScheduleStepParams& p) {
   if (p.x.L > 0) {
     L.xbar = koord::smem_take(at, 2 * 8);
     L.xres = koord::smem_take(at, 2 * (size_t)kResultWords * 4);
-    L.xout = koord::smem_take(at, (size_t)kResultWords * 4);
+    L.xstage = koord::smem_take(
+        at, (size_t)koord::kMaxShards * koord::xpairs(kPayloadWords) * 4);
   }
   if (p.state_in_smem) {
     // requested, two deltas, allocatable, two terms
@@ -185,7 +188,7 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
 
   uint64_t* xbar = reinterpret_cast<uint64_t*>(smem + L.xbar);  // [2]
   uint32_t* xres = reinterpret_cast<uint32_t*>(smem + L.xres);  // [2][4]
-  uint32_t* xout = reinterpret_cast<uint32_t*>(smem + L.xout);  // [4]
+  uint32_t* xstage = reinterpret_cast<uint32_t*>(smem + L.xstage);
   const int nv = *p.n_valid;
   if (ctrl && lane == 0) {
     for (int s = 0; s < S + 2; ++s) koord::mbar_init(&bar[s], 1);
@@ -201,9 +204,11 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
   // every block has started and initialised its shared memory
   cluster.sync();
 
-  // the last pod whose record load was issued, and the pod a failed
-  // exchange stopped at (-1: none)
-  int issued = min(S - 1, nv) - 1, stopped = -1;
+  // the bits of the shards whose entries this block's wait first missed
+  // (kXchg; 0: none). A block whose wait timed out waits no more but goes
+  // on through every pod with no winner, so no merge of its cluster waits
+  // for a block that left; the wrapper discards the round.
+  unsigned missed = 0u;
   for (int v = 0; v < nv; ++v) {
     const int st = v % S;
     koord::mbar_wait(&bar[st], (v / S) & 1);
@@ -272,7 +277,6 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
       // Every node warp has finished this pod's node loop, so none still
       // reads pod v - 1's stage: refill it with pod v + S - 1.
       const int nxt = v + S - 1;
-      if (nxt < nv) issued = nxt;
       if (lane == 0 && nxt < nv)
         koord::bulk_load(ring + (nxt % S) * stride,
                          p.records + (size_t)nxt * stride, stride * 4,
@@ -287,37 +291,36 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     if constexpr (kXchg) {
       // ---- the winner over every shard (pod v is exchange v)
       const int par = v & 1;
-      const unsigned long long seq = p.x.seq0 + (unsigned long long)v;
+      const unsigned flag = p.x.flag0 + (unsigned)v;
       uint32_t* res = xres + par * kResultWords;
       const int jp = best_n - lo;
+      constexpr int m = koord::xpairs(kPayloadWords);
       if (!ctrl && jp >= 0 && jp < nloc && jp % NT == tid) {
-        const uint32_t words[kPayloadWords] = {
-            __float_as_uint(best_s), (uint32_t)(gbase + best_n - row0)};
-        koord::xsend_all(p.x, par, me, seq, words, kPayloadWords);
+        const uint32_t w0 = __float_as_uint(best_s);
+        const uint32_t w1 = (uint32_t)(gbase + best_n - row0);
+        for (int d = 0; d < p.x.D; ++d)
+          koord::xsend(p.x, d, par, me, flag, kPayloadWords,
+                       [&](int w) { return w == 0 ? w0 : w1; });
       }
-      if (ctrl && rank == 0) {
-        const unsigned missing = koord::xwait(p.x, me, par, seq);
+      if (ctrl) {
+        const unsigned missing =
+            missed ? missed : koord::xwait(p.x, me, par, flag, m, xstage);
         const bool in = lane < p.x.D && missing == 0u;
-        volatile uint32_t* pl = koord::xpayload(p.x, me, par, in ? lane : 0);
+        const uint32_t* pl = xstage + (in ? lane : 0) * m;
         float ws = in ? __uint_as_float(pl[0]) : -CUDART_INF_F;
         int wn = in ? (int)pl[1] : INT32_MAX;
         koord::warp_argmax(ws, wn);
         if (lane == 0) {
-          xout[0] = missing;
-          xout[1] = (uint32_t)wn;
-          xout[2] = __float_as_uint(ws);
-          xout[3] = 0u;
-          if (missing) atomicOr(p.x.err, missing);
+          res[0] = missing;
+          res[1] = (uint32_t)wn;
+          res[2] = __float_as_uint(ws);
+          res[3] = 0u;
+          if (missing && !missed) atomicOr(p.x.err, missing);
         }
-        __syncwarp();
-        koord::xbroadcast(xout, res, &xbar[par], kResultWords, C);
+        koord::xdeliver(&xbar[par]);
       }
-      if (ctrl && lane == 0) koord::mbar_expect(&xbar[par], kResultWords * 4);
       koord::mbar_wait(&xbar[par], (v >> 1) & 1);
-      if (res[0] != 0u) {
-        stopped = v;
-        break;
-      }
+      missed = res[0];  // missed: no winner, best_s is -inf
       gwin = (int)res[1];
       best_s = __uint_as_float(res[2]);
     }
@@ -342,12 +345,6 @@ __global__ void __launch_bounds__(koord::kMaxBlockThreads, 1)
     }
     KOORD_STAMP(v, 5)  // committed
   }
-
-  // A failed exchange left the loop: no block leaves while a record it
-  // asked for is still being copied into its shared memory.
-  if (kXchg && stopped >= 0 && ctrl && lane == 0)
-    for (int u = stopped + 1; u <= issued; ++u)
-      koord::mbar_wait(&bar[u % S], (u / S) & 1);
 
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();

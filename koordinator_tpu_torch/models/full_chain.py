@@ -396,21 +396,16 @@ def make_pod_evaluator(fc: FullChainInputs, weight_idx, prod_mode,
     return evaluate
 
 
-def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
-                     best, zone_at_best):
-    """Apply pod ``i``'s tentative binding to the round state, in place.
-
-    ``state`` is the 11-tuple (requested, delta_np, delta_pr, numa_free,
-    bind_free, quota_used, aff_count, anti_cover, aff_exists, port_used,
-    vol_free); every tensor in it is the round's own copy, so updating in
-    place saves a copy of each per pod. Returns the state (quota_used is
-    replaced, not updated). On a mesh (parallel/full_chain_mesh.py) the
-    shard owning ``best`` commits here and every other shard applies
-    ``_commit_affinity`` over its own nodes."""
+def commit_node_rows(fc: FullChainInputs, prod_mode: bool, state, i, found,
+                     best, zone_at_best) -> None:
+    """The node rows of pod ``i``'s commit onto node ``best``, in place:
+    requested, the LoadAware deltas, the NUMA zones (``zone_at_best``, or
+    the lowest-zones-first fill), bindable cpus, ports and volume headroom
+    (the owner-node part of csrc/filter_chain.cuh commit_node). ``state``
+    is commit_pod_state's 11-tuple."""
     inputs = fc.base
-    (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,
-     aff_count, anti_cover, aff_exists, port_used, vol_free) = state
-    T = fc.aff_dom.shape[1]
+    (requested, delta_np, delta_pr, numa_free, bind_free, _quota_used,
+     _aff_count, _anti_cover, _aff_exists, port_used, vol_free) = state
     PT = fc.port_used.shape[1]
     req_fit = inputs.fit_requests[i]
     req = fc.requests[i]
@@ -432,8 +427,25 @@ def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
             port_used[best], fnd * fc.pod_port_wants[i].to(torch.float32))
     vol_free[best] = vol_free[best] - fnd * fc.vol_needed[i][
         fc.node_vol_group[best].long()]
+
+
+def commit_pod_state(fc: FullChainInputs, prod_mode: bool, state, i, found,
+                     best, zone_at_best):
+    """Apply pod ``i``'s tentative binding to the round state, in place.
+
+    ``state`` is the 11-tuple (requested, delta_np, delta_pr, numa_free,
+    bind_free, quota_used, aff_count, anti_cover, aff_exists, port_used,
+    vol_free); every tensor in it is the round's own copy, so updating in
+    place saves a copy of each per pod. Returns the state (quota_used is
+    replaced, not updated). On a mesh (parallel/full_chain_mesh.py) the
+    shard owning ``best`` commits here and every other shard applies
+    ``_commit_affinity`` over its own nodes."""
+    (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,
+     aff_count, anti_cover, aff_exists, port_used, vol_free) = state
+    T = fc.aff_dom.shape[1]
+    commit_node_rows(fc, prod_mode, state, i, found, best, zone_at_best)
     quota_used = quota_used_add_row(
-        quota_used, req, fc.quota_id[i], fc.quota_ancestors, found)
+        quota_used, fc.requests[i], fc.quota_id[i], fc.quota_ancestors, found)
     _commit_affinity(fc, i, found, fc.aff_dom[best] if T else None,
                      aff_count, anti_cover, aff_exists)
     return (requested, delta_np, delta_pr, numa_free, bind_free, quota_used,

@@ -27,7 +27,7 @@ Carried state (``WAVE_STATE_FIELDS``) stays on the inputs' device between
 waves; feature-absent slots are None.
 
 For CUDA tensors pass 1 is the full-chain kernel (ops/full_chain_kernel.py
-``full_chain_round``) over ``fc_w`` and pass 3 its replay instance
+``full_chain_round``) over ``fc_w`` and pass 3 the node-parallel replay
 (``full_chain_replay``); Permit and the boundary are torch on the card, and
 a wave queues its work without a host sync. Pre-passes 0a/0b are torch on
 the card's tensors, a loop over pods that reads each decision back: slow at

@@ -16,10 +16,14 @@ alone. Where the shared-memory layout exceeds the budget, the same kernel
 keeps its carried state in device memory (`last_launch["state"]` says
 which).
 
-`full_chain_replay` launches the replay instance of the same kernel: the
-fused waves' kept-only replay (models/fused_waves.py, pass 2), which commits
-the pods that survived the gang Permit onto the nodes pass 1 chose, from the
-wave-start state, with the same Reserve code as the round.
+`full_chain_replay` launches the node-parallel replay (csrc/
+replay_by_node.cu): the fused waves' kept-only replay (models/fused_waves.py,
+pass 3), which commits the pods that survived the gang Permit onto the nodes
+pass 1 chose, from the wave-start state, through the round's own Reserve
+code (filter_chain.cuh commit_node). Its plain version is
+models/replay_by_node.py, the same decomposition in plain torch: each
+node's pods in queue order, each quota cell's pods in queue order, and the
+affinity counts per (term, domain) added once.
 
 `full_chain_round(..., terms=True)` launches the terms instance
 (koordexplain "full"): the same round, also writing each pod's
@@ -31,7 +35,8 @@ cycle-start state from the CUDA pass of ops/explain_kernel.py.
 instances over a mesh of cards (csrc/kernel_common.cuh, "The exchange"):
 each card's launch runs its shards as clusters, on that card's rows only;
 the round's clusters exchange their stats and winners through the mesh's
-mailboxes (ops/kernel_common.Mailboxes), the replay's need no exchange.
+mailboxes (ops/kernel_common.Mailboxes); the replay needs no exchange, each
+card replaying the kept pods onto its own rows.
 Every card's launch is queued before any is waited on, and a card whose
 entries never arrive ends the others' rounds with ExchangeTimeout.
 
@@ -65,6 +70,7 @@ from koordinator_tpu_torch.ops.kernel_common import (
     NODE_REJECT_NP,
     NODE_REJECT_PR,
     NODE_SCORE_VALID,
+    MAX_SHARDS,
     POD_BIND,
     POD_DS,
     POD_FULL_PCPUS,
@@ -83,6 +89,7 @@ from koordinator_tpu_torch.ops.kernel_common import (
     check_tensor,
     choose_state,
     cluster_plan,
+    exchange_pairs,
     f32_words,
     launch_device,
     launch_error,
@@ -97,6 +104,7 @@ from koordinator_tpu_torch.ops.kernel_common import (
 from koordinator_tpu_torch.ops.loadaware import LoadAwareArgs
 
 SOURCE = "full_chain.cu"
+REPLAY_SOURCE = "replay_by_node.cu"
 MAX_WEIGHTS = 16
 NUM_TERMS = len(EXPLAIN_TERMS)
 # pod record words after the header (csrc/full_chain.cu kRec*)
@@ -122,7 +130,7 @@ _PTR_FIELDS = (
     "ppref_w", "weights", "anc", "runtime", "quota_init", "aff_exists0",
     "requested", "delta_np", "delta_pr", "numa", "bind_free", "vol_free",
     "port_used", "aff_count", "anti_cover", "quota_blocks", "chosen",
-    "zones", "aff_exists_out", "terms", "dom_rows",
+    "aff_exists_out", "terms",
 )
 _INT_FIELDS = (
     "P", "N", "R", "K", "G", "D", "T", "S", "S2", "ppref_stride", "PT", "SI",
@@ -130,7 +138,6 @@ _INT_FIELDS = (
     "rec_stride", "off_fit", "off_req", "off_est", "off_aff", "off_anti",
     "off_match", "off_skew", "off_ports", "off_vol",
     "cluster_size", "nodes_per_block", "node_threads", "state_in_smem",
-    "replay",
 )
 
 
@@ -318,7 +325,8 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
     terms, and the node flags. The terms instance's runner-up partials
     (per warp and per block) are in every layout; the round over a mesh of
     cards (``exchange``, ``n_nodes`` one shard's rows) adds its exchange
-    mbarriers and results."""
+    mbarriers and results and the polling warp's staging area (the
+    winner's pairs for each possible shard)."""
     plan = cluster_plan(n_nodes, cluster_size)
     nw, nb, Q = plan.node_threads // 32, plan.nodes_per_block, T + 2
     stride = record_layout(R, T, PT, VG)["rec_stride"]
@@ -327,7 +335,8 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int, K: int, G: int,
                max(T, 1) * 4, 2 * nw * 4, 2 * cluster_size * 8]
     if exchange:
         xw = result_words(T)
-        regions += [2 * 8, 2 * xw * 4, xw * 4]
+        regions += [2 * 8, 2 * xw * 4,
+                    MAX_SHARDS * exchange_pairs(payload_words(T)) * 4]
     if state == "smem":
         node_floats = (R + 2 * W + K * R + 2 + PT + 2 * T) + (R + 2 * W)
         regions += [G * R * 4, G * R * 4, G * D * 4, node_floats * nb * 4, nb]
@@ -365,8 +374,8 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
 
 
 def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
-            chosen, zones, replay: bool, cluster_size: int,
-            smem_budget_bytes, terms=None, xchg=None, dom_rows=None):
+            chosen, cluster_size: int, smem_budget_bytes, terms=None,
+            xchg=None):
     """Check every tensor, fill FullChainParams and launch on the current
     stream of the tensors' card. ``state`` holds the carried tensors the
     kernel updates in place (requested, delta_np, delta_pr, numa,
@@ -376,8 +385,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
     ``xchg`` (a koord::Xchg) selects the instance over a mesh of cards: the
     launch's xchg.L shards as clusters, each over N / L rows, with the
     largest cluster size up to ``cluster_size`` at which the card holds
-    all of them at once (the replay reads ``dom_rows``). Returns
-    (quota_blocks, aff_exists_out)."""
+    all of them at once. Returns (quota_blocks, aff_exists_out)."""
     global last_launch
     inputs = fc.base
     if len(widx) > MAX_WEIGHTS:
@@ -389,7 +397,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
     shards = xchg.L if xchg is not None else 1
     if N % shards:
         raise ValueError(f"{N} rows do not split into {shards} shards")
-    exchange = xchg is not None and not replay
+    exchange = xchg is not None
     lay = record_layout(R, T, PT, VG)
     reject_np, reject_pr, _gang_ok = pod_independent_rows(fc)
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
@@ -428,10 +436,8 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         "anti_cover": (state["anti_cover"], f32, (N, T)),
         "quota_blocks": (quota_blocks, f32, (shards * cluster_size, G, R)),
         "chosen": (chosen, i32, (P,)),
-        "zones": (zones, i32, (P,)),
         "aff_exists_out": (aff_exists_out, u8, (T,)),
         "terms": (terms, f32, (P, NUM_TERMS)),
-        "dom_rows": (dom_rows, f32, (P, T)),
     }
     params = _Params()
     for name in _PTR_FIELDS:
@@ -441,8 +447,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
                 None if t is None else check_tensor(name, t, dtype, shape))
     if xchg is not None:
         params.x = xchg
-    what = ("replay" if replay else
-            "terms round" if terms is not None else "round")
+    what = "terms round" if terms is not None else "round"
     if xchg is not None:
         what += f" over {shards} shard(s) of a mesh of cards"
     lib = _lib()
@@ -460,8 +465,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
                          n_widx=W, **lay, cluster_size=c_size,
                          nodes_per_block=plan.nodes_per_block,
                          node_threads=plan.node_threads,
-                         state_in_smem=int(kind == "smem"),
-                         replay=int(replay))
+                         state_in_smem=int(kind == "smem"))
             for name in _INT_FIELDS:
                 setattr(params, name, sizes[name])
             for j, r in enumerate(widx):
@@ -524,8 +528,8 @@ def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
     widx = list(weight_idx)
     records, n_valid, state, chosen, rows = _round_buffers(fc, widx, terms)
     quota_blocks, _exists = _launch(
-        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen, None,
-        False, cluster_size, smem_budget_bytes, terms=rows)
+        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen,
+        cluster_size, smem_budget_bytes, terms=rows)
     launches += 1
     if terms:
         terms_launches += 1
@@ -567,9 +571,234 @@ def _round_buffers(fc, widx, terms: bool):
     return records, n_valid, state, chosen, rows
 
 
-def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
-                      smem_budget_bytes=None):
-    """The fused waves' kept-only replay in the kernel's replay instance.
+# ---------------------------------------------------------------------------
+# the kept-pod replay (csrc/replay_by_node.cu; its plain version is
+# models/replay_by_node.py)
+# ---------------------------------------------------------------------------
+
+# csrc/replay_by_node.cu kListPerThread, kPodsPerThread, kNodeBits,
+# kMaxAxes, kErr*
+REPLAY_LIST_PER_THREAD, REPLAY_PODS_PER_THREAD, REPLAY_NODE_BITS = 16, 8, 9
+REPLAY_MAX_AXES = 16
+REPLAY_ERR_BOUND, REPLAY_ERR_DOMAIN = 1, 2
+REPLAY_THREADS = (256, 128, 64, 32)  # node rows of a block, largest first
+last_replay: dict = {}
+
+_REPLAY_PTR_FIELDS = (
+    "kept", "chosen", "fit_req", "req", "est", "is_prod", "needs_numa",
+    "needs_bind", "cores", "quota_id", "match", "anti", "wants",
+    "vol_needed", "dom_rows",
+    "policy", "vol_group", "aff_dom", "anc",
+    "requested", "est_sum", "est_pr", "numa", "bind_free", "vol_free",
+    "port_used", "aff_count", "anti_cover", "quota", "exists",
+    "o_requested", "o_est_sum", "o_est_pr", "o_numa", "o_bind_free",
+    "o_vol_free", "o_port_used", "o_aff_count", "o_anti_cover", "o_quota",
+    "o_exists", "zones", "scratch",
+)
+_REPLAY_INT_FIELDS = ("P", "N", "R", "K", "T", "PT", "VG", "G", "D",
+                      "prod_mode", "ndom", "node_threads", "per", "L")
+
+
+class _ReplayParams(ctypes.Structure):
+    """Mirror of ReplayParams in csrc/replay_by_node.cu, field for field."""
+
+    _fields_ = ([(f, _P) for f in _REPLAY_PTR_FIELDS]
+                + [(f, ctypes.c_int) for f in _REPLAY_INT_FIELDS]
+                + [("shard", ctypes.c_int * MAX_LOCAL_SHARDS)])
+
+
+def _replay_lib():
+    lib = load_library(REPLAY_SOURCE)
+    if not getattr(lib, "_koord_bound", False):
+        lib.replay_params_size.restype = ctypes.c_int
+        lib.replay_smem_bytes.restype = ctypes.c_longlong
+        lib.replay_smem_bytes.argtypes = [ctypes.POINTER(_ReplayParams)]
+        lib.replay_instance.restype = ctypes.c_int
+        lib.replay_instance.argtypes = [ctypes.POINTER(_ReplayParams)]
+        lib.replay_launch.restype = ctypes.c_int
+        lib.replay_launch.argtypes = [ctypes.POINTER(_ReplayParams),
+                                      ctypes.c_void_p]
+        size = lib.replay_params_size()
+        if size != ctypes.sizeof(_ReplayParams):
+            raise KernelContractError(
+                f"ReplayParams layout mismatch: C {size} bytes, ctypes "
+                f"{ctypes.sizeof(_ReplayParams)}")
+        lib._koord_bound = True
+    return lib
+
+
+def replay_smem_bytes(node_threads: int, R: int, K: int, PT: int,
+                      G: int) -> int:
+    """Dynamic shared memory of one block of the replay's node kernel
+    (csrc/replay_by_node.cu rp_smem_layout): the prefix scratch, then the
+    larger of a node block's bucket list, its per-node segments and rows
+    (requested, the two LoadAware sums, NUMA zones, bindable cpus, volume
+    headroom, ports) and a quota block's multiplicities and staged
+    requests."""
+    nt = int(node_threads)
+    _, at = smem_take(0, (nt // 32 + 1) * 4)
+    role = at
+    _, at = smem_take(at, REPLAY_LIST_PER_THREAD * nt * 4)  # the list
+    _, at = smem_take(at, REPLAY_LIST_PER_THREAD * nt * 4)  # its segments
+    _, node_end = smem_take(at, (3 * R + K * R + 2 + PT) * nt * 4)
+    _, at = smem_take(role, max(G, 1) * 4)
+    _, at = smem_take(at, max(R, 1) * REPLAY_PODS_PER_THREAD * nt * 4)
+    return max(at, node_end)
+
+
+def replay_threads(R: int, K: int, PT: int, G: int) -> int:
+    """Node rows (and threads) of one replay block: the most of
+    REPLAY_THREADS whose shared memory fits a block; raises where none
+    does."""
+    for nt in REPLAY_THREADS:
+        if replay_smem_bytes(nt, R, K, PT, G) <= SMEM_BUDGET_BYTES:
+            return nt
+    raise KernelContractError(
+        f"the replay's node rows (R={R}, K={K}, PT={PT}) and quota groups "
+        f"(G={G}) need more than the {SMEM_BUDGET_BYTES} B of shared memory "
+        f"a block may take at {REPLAY_THREADS[-1]} rows a block")
+
+
+def _u8(t: torch.Tensor) -> torch.Tensor:
+    """A bool (or 0/1) tensor as contiguous uint8, a view where it can be."""
+    t = t.contiguous()
+    return t.view(torch.uint8) if t.dtype == torch.bool else t.to(torch.uint8)
+
+
+def _replay_launch(fc, chosen, kept, state, prod_mode: bool, shards, per: int,
+                   ndom: int, dom_rows=None):
+    """Check every tensor, fill ReplayParams and launch the replay over
+    ``fc``'s rows (``shards``' rows side by side, ``per`` each) on the
+    tensors' card. Returns (the state after the replay, the 11-tuple
+    layout; zones[P])."""
+    global last_replay
+    inputs = fc.base
+    P, R = inputs.fit_requests.shape
+    N = inputs.allocatable.shape[0]
+    K, T = fc.numa_free.shape[1], fc.aff_dom.shape[1]
+    PT, VG = fc.port_used.shape[1], fc.vol_needed.shape[1]
+    G, D = fc.quota_ancestors.shape
+    if P >= 1 << (31 - REPLAY_NODE_BITS):
+        raise KernelContractError(f"the replay takes fewer than "
+                                  f"{1 << (31 - REPLAY_NODE_BITS)} pods, "
+                                  f"got {P}")
+    if N < 1:
+        raise KernelContractError("the replay takes at least one node row")
+    if R > REPLAY_MAX_AXES:
+        raise KernelContractError(f"the replay takes at most "
+                                  f"{REPLAY_MAX_AXES} resource axes, got {R}")
+    (requested, est_sum, est_pr, numa_free, bind_free, quota_used,
+     aff_count, anti_cover, aff_exists, port_used, vol_free) = state
+    dev = launch_device(inputs.allocatable, chosen, kept, dom_rows)
+    f32, i32, u8 = torch.float32, torch.int32, torch.uint8
+
+    def f(t):
+        return t.to(f32).contiguous()
+
+    def new(*shape):
+        return torch.empty(shape, dtype=f32, device=dev)
+
+    out = {"o_requested": new(N, R), "o_est_sum": new(N, R),
+           "o_est_pr": new(N, R), "o_numa": new(N, K, R),
+           "o_bind_free": new(N), "o_vol_free": new(N),
+           "o_port_used": new(N, PT), "o_aff_count": new(N, T),
+           "o_anti_cover": new(N, T), "o_quota": new(G, R)}
+    o_exists = torch.empty(T, dtype=torch.bool, device=dev)
+    zones = torch.empty(P, dtype=i32, device=dev)
+    scratch = torch.empty(2 * T * ndom + T + 1, dtype=i32, device=dev)
+    args = {
+        "kept": (_u8(kept), u8, (P,)),
+        "chosen": (chosen.to(i32).contiguous(), i32, (P,)),
+        "fit_req": (f(inputs.fit_requests), f32, (P, R)),
+        "req": (f(fc.requests), f32, (P, R)),
+        "est": (f(inputs.estimated), f32, (P, R)),
+        "is_prod": (_u8(inputs.is_prod), u8, (P,)),
+        "needs_numa": (_u8(fc.needs_numa), u8, (P,)),
+        "needs_bind": (_u8(fc.needs_bind), u8, (P,)),
+        "cores": (f(fc.cores_needed), f32, (P,)),
+        "quota_id": (fc.quota_id.to(i32).contiguous(), i32, (P,)),
+        "match": (_u8(fc.pod_aff_match), u8, (P, T)),
+        "anti": (_u8(fc.pod_anti_req), u8, (P, T)),
+        "wants": (_u8(fc.pod_port_wants), u8, (P, PT)),
+        "vol_needed": (f(fc.vol_needed), f32, (P, VG)),
+        "dom_rows": (None if dom_rows is None else f(dom_rows), f32, (P, T)),
+        "policy": (fc.numa_policy.to(i32).contiguous(), i32, (N,)),
+        "vol_group": (fc.node_vol_group.to(i32).contiguous(), i32, (N,)),
+        "aff_dom": (f(fc.aff_dom), f32, (N, T)),
+        "anc": (fc.quota_ancestors.to(i32).contiguous(), i32, (G, D)),
+        "requested": (f(requested), f32, (N, R)),
+        "est_sum": (f(est_sum), f32, (N, R)),
+        "est_pr": (None if est_pr is None else f(est_pr), f32, (N, R)),
+        "numa": (f(numa_free), f32, (N, K, R)),
+        "bind_free": (f(bind_free), f32, (N,)),
+        "vol_free": (f(vol_free), f32, (N,)),
+        "port_used": (f(port_used), f32, (N, PT)),
+        "aff_count": (f(aff_count), f32, (N, T)),
+        "anti_cover": (f(anti_cover), f32, (N, T)),
+        "quota": (f(quota_used), f32, (G, R)),
+        "exists": (_u8(aff_exists), u8, (T,)),
+        **{k: (v, f32, tuple(v.shape)) for k, v in out.items()},
+        "o_exists": (o_exists, torch.bool, (T,)),
+        "zones": (zones, i32, (P,)),
+        "scratch": (scratch, i32, tuple(scratch.shape)),
+    }
+    params = _ReplayParams()
+    for name in _REPLAY_PTR_FIELDS:
+        t, dtype, shape = args[name]
+        setattr(params, name,
+                None if t is None else check_tensor(name, t, dtype, shape))
+    nt = replay_threads(R, K, PT, G)
+    sizes = dict(P=P, N=N, R=R, K=K, T=T, PT=PT, VG=VG, G=G, D=D,
+                 prod_mode=int(bool(prod_mode)), ndom=int(ndom),
+                 node_threads=nt, per=int(per), L=len(shards))
+    for name in _REPLAY_INT_FIELDS:
+        setattr(params, name, sizes[name])
+    if not 1 <= len(shards) <= MAX_LOCAL_SHARDS:
+        raise ValueError(f"a launch runs 1..{MAX_LOCAL_SHARDS} shards, "
+                         f"got {len(shards)}")
+    for j, k in enumerate(shards):
+        params.shard[j] = int(k)
+    smem = replay_smem_bytes(nt, R, K, PT, G)
+    lib = _replay_lib()
+    with on_device(dev):
+        c_bytes = lib.replay_smem_bytes(ctypes.byref(params))
+        if c_bytes != smem:
+            raise KernelContractError(
+                f"replay_smem_bytes says {smem} bytes, the kernel's layout "
+                f"{c_bytes}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.replay_launch(ctypes.byref(params), ctypes.c_void_p(stream))
+    if err != 0:
+        raise launch_error("replay", err,
+                           f"{-(-N // nt)} node blocks and {G} quota blocks "
+                           f"of {nt} threads, {smem} B of shared memory per "
+                           "block")
+    instance = ("common" if lib.replay_instance(ctypes.byref(params))
+                else "generic")
+    last_replay = {"instance": instance, "node_threads": nt,
+                   "node_blocks": -(-N // nt),
+                   "quota_blocks": G, "smem_bytes_per_block": smem,
+                   "shards": len(shards), "errors": scratch[-1:]}
+    state_out = (out["o_requested"], out["o_est_sum"], out["o_est_pr"],
+                 out["o_numa"], out["o_bind_free"], out["o_quota"],
+                 out["o_aff_count"], out["o_anti_cover"], o_exists,
+                 out["o_port_used"], out["o_vol_free"])
+    return state_out, zones
+
+
+def replay_errors(launch=None) -> int:
+    """The error bits of a replay launch (``last_replay`` when None; a
+    sync): REPLAY_ERR_BOUND where a count passed the exact range and the
+    kernel added its ones one by one (the outputs stay exact),
+    REPLAY_ERR_DOMAIN where a kept pod's domain id was not a dense id below
+    the mesh's node count, against the encoder's contract: that pod was
+    counted in no domain."""
+    launch = last_replay if launch is None else launch
+    return int(launch["errors"].item()) & 0xFFFFFFFF
+
+
+def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool):
+    """The fused waves' kept-only replay in the node-parallel kernel.
 
     ``fc_carry`` is the dispatch's FullChainInputs with reservation rows in
     their carry form (models/fused_waves._carry_fc_variants), ``chosen``
@@ -577,68 +806,23 @@ def full_chain_replay(fc_carry, chosen, kept, state, prod_mode: bool, *,
     survived Permit, and ``state`` the wave-start 11-tuple (requested,
     est_sum, est_sum_prod or None, numa_free, bind_free, quota_used,
     aff_count, anti_cover, aff_exists, port_used, vol_free), all CUDA
-    tensors. The kept pods are packed first, in queue order, and their
-    count is read by the kernel on the card (no host sync).
+    tensors, none of them modified. The kernel reads the per-pod fields of
+    ``fc_carry`` as they are (no records are packed) and finds the kept
+    pods itself: nothing waits for the card.
 
-    Returns (the state after committing every kept pod in queue order, in
-    the same layout with est_sum_prod zeros outside prod mode; zones[P]
-    int32, the zone re-picked per kept pod, -1 elsewhere). The kernel
-    carries the LoadAware sums on every resource axis here (W = R, the
-    weights' axes being only what the round scores), so est_sum and
-    est_sum_prod come back whole: equal, bit for bit, to the plain
-    ``replay_kept``'s. ``smem_budget_bytes`` is the round's: 0 keeps the
-    carried state in device memory, the instance a shape past the budget
-    takes on its own. Raises for tensors anywhere but on the card."""
+    Returns (the state after committing every kept pod, each node's in
+    queue order, in the same layout with est_sum_prod zeros outside prod
+    mode; zones[P] int32, the zone re-picked per kept pod, -1 elsewhere),
+    new tensors equal, bit for bit, to the plain ``replay_kept``'s and
+    ``replay_by_node``'s. The LoadAware sums are carried on every resource
+    axis (the weights' axes being only what the round scores). Raises for
+    tensors anywhere but on the card."""
     global replay_launches
     _require_cuda("full_chain_replay", fc_carry)
-    R = fc_carry.base.fit_requests.shape[1]
-    records, n_kept, buffers, zones = _replay_buffers(fc_carry, kept, state)
-    quota_blocks, exists = _launch(
-        fc_carry, list(range(R)), prod_mode, (-1, -1), records,
-        n_kept, buffers, chosen.to(torch.int32).contiguous(), zones, True,
-        CLUSTER_SIZE, smem_budget_bytes)
+    N = fc_carry.base.allocatable.shape[0]
+    out = _replay_launch(fc_carry, chosen, kept, state, prod_mode, [0], N, N)
     replay_launches += 1
-    return _replay_out(buffers, quota_blocks, exists), zones
-
-
-def _replay_out(b, quota_blocks, exists):
-    return (b["requested"], b["delta_np"], b["delta_pr"], b["numa"],
-            b["bind_free"], quota_blocks[0], b["aff_count"], b["anti_cover"],
-            exists.to(torch.bool), b["port_used"], b["vol_free"])
-
-
-def _replay_buffers(fc_carry, kept, state):
-    """(records, n_kept, buffers, zones) of a replay over ``fc_carry``: the
-    kept pods' records first, the carried state's own copies and the zones
-    (-1 preset)."""
-    inputs = fc_carry.base
-    P, R = inputs.fit_requests.shape
-    N = inputs.allocatable.shape[0]
-    (requested, est_sum, est_pr, numa_free, bind_free, quota_used,
-     aff_count, anti_cover, aff_exists, port_used, vol_free) = state
-    _rnp, _rpr, gang_ok = pod_independent_rows(fc_carry)
-    records, n_kept = valid_first(pack_records(fc_carry, gang_ok), kept)
-    f32, dev = torch.float32, inputs.allocatable.device
-    est_sum = est_sum.to(f32).contiguous()
-    buffers = {
-        # the round's score terms: not read by the replay
-        "term_np": est_sum,
-        "term_pr": est_sum,
-        "quota_init": quota_used.to(f32).contiguous(),
-        "aff_exists0": aff_exists.to(torch.uint8).contiguous(),
-        "requested": requested.to(f32).clone(),
-        "delta_np": est_sum.clone(),
-        "delta_pr": (est_pr.to(f32).clone() if est_pr is not None
-                     else torch.zeros((N, R), dtype=f32, device=dev)),
-        "numa": numa_free.to(f32).clone(),
-        "bind_free": bind_free.to(f32).clone(),
-        "vol_free": vol_free.to(f32).clone(),
-        "port_used": port_used.to(f32).clone(),
-        "aff_count": aff_count.to(f32).clone(),
-        "anti_cover": anti_cover.to(f32).clone(),
-    }
-    zones = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    return records, n_kept, buffers, zones
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -695,14 +879,14 @@ def full_chain_round_cards(cards, weight_idx, prod_mode: bool, bal_idx,
         with on_device(dev):
             ready.append((fc, shards, dev, _round_buffers(fc, widx, terms)))
     # two exchanges per pod at most: the stats and the winner
-    seq0 = box.begin(2 * P)
+    flag0 = box.begin(2 * P)
     per = cards[0][0].base.allocatable.shape[0] // len(cards[0][1])
     out = []
     for fc, shards, dev, (records, n_valid, state, chosen, rows) in ready:
         quota_blocks, _exists = _launch(
             fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen,
-            None, False, CLUSTER_SIZE, smem_budget_bytes, terms=rows,
-            xchg=box.xchg(dev, shards, per, seq0))
+            CLUSTER_SIZE, smem_budget_bytes, terms=rows,
+            xchg=box.xchg(dev, shards, per, flag0))
         item = (chosen, state["requested"], quota_blocks[0])
         out.append(item + ((rows,) if terms else ()))
         xchg_launches += 1
@@ -712,10 +896,10 @@ def full_chain_round_cards(cards, weight_idx, prod_mode: bool, bal_idx,
     return out
 
 
-def full_chain_replay_cards(cards, prod_mode: bool, n_shards: int, *,
-                            smem_budget_bytes=None):
+def full_chain_replay_cards(cards, prod_mode: bool, n_shards: int):
     """The kept-only replay over a mesh of cards: each card replays the
-    kept pods onto its own rows, with no exchange.
+    kept pods onto its own rows in the node-parallel kernel, with no
+    exchange.
 
     ``cards``: [(fc_carry, shards, chosen, kept, state, dom_rows)] per
     card, all on that card: the card's FullChainInputs in carry form (its
@@ -726,25 +910,12 @@ def full_chain_replay_cards(cards, prod_mode: bool, n_shards: int, *,
     zones[P]) with the zone of each kept pod whose node the card holds, -1
     elsewhere."""
     global xchg_replay_launches
-    ready = []
+    out = []
     for fc, shards, chosen, kept, state, dom_rows in cards:
         _require_cuda("full_chain_replay_cards", fc)
-        dev = launch_device(fc.base.allocatable, chosen, kept, dom_rows)
-        with on_device(dev):
-            ready.append((fc, shards, chosen, dom_rows,
-                          _replay_buffers(fc, kept, state)))
-    out = []
-    for fc, shards, chosen, dom_rows, (records, n_kept, buffers,
-                                       zones) in ready:
-        R = fc.base.fit_requests.shape[1]
         per = fc.base.allocatable.shape[0] // len(shards)
-        x = Mailboxes.local(n_shards, shards, per)
-        quota_blocks, exists = _launch(
-            fc, list(range(R)), prod_mode, (-1, -1), records, n_kept,
-            buffers, chosen.to(torch.int32).contiguous(), zones, True,
-            CLUSTER_SIZE, smem_budget_bytes, xchg=x,
-            dom_rows=dom_rows.to(torch.float32).contiguous())
-        out.append((_replay_out(buffers, quota_blocks, exists), zones))
+        out.append(_replay_launch(fc, chosen, kept, state, prod_mode, shards,
+                                  per, n_shards * per, dom_rows=dom_rows))
         xchg_replay_launches += 1
     return out
 

@@ -321,36 +321,40 @@ def on_device(dev: torch.device):
 # ---------------------------------------------------------------------------
 # The exchange between the shards of a mesh of cards (csrc/kernel_common.cuh
 # "The exchange"): one mailbox per shard on its card, [2 parities][D
-# senders][entry_words] int64 words, word 0 of an entry its sequence and the
-# rest its payload as 32-bit words; a table of every shard's mailbox address
-# on each card; an error word per card, where a launch leaves the bits of
-# the shards whose entries never arrived.
+# senders][entry_pairs] int64 pairs, each pair one 32-bit payload word (low
+# half) under the exchange's 32-bit flag (high half), written by one 64-bit
+# store; a table of every shard's mailbox address on each card; an error
+# word per card, where a launch leaves the bits of the shards whose entries
+# never arrived.
 # ---------------------------------------------------------------------------
 
 MAX_LOCAL_SHARDS = 8   # clusters of one launch (kMaxLocalShards)
 MAX_SHARDS = 32        # shards of a mesh of cards (kMaxShards)
 EXCHANGE_TIMEOUT_S = 2.0  # the wait for one exchange before the round ends
+MAX_FLAG = 2**32 - 1   # flags are 32-bit and never 0
 
 
 class _Xchg(ctypes.Structure):
     """Mirror of koord::Xchg in csrc/kernel_common.cuh, field for field."""
 
     _fields_ = [("boxes", ctypes.c_void_p), ("err", ctypes.c_void_p),
-                ("seq0", ctypes.c_ulonglong), ("timeout_ns", ctypes.c_longlong),
+                ("timeout_ns", ctypes.c_longlong), ("flag0", ctypes.c_uint),
                 ("D", ctypes.c_int), ("L", ctypes.c_int), ("per", ctypes.c_int),
-                ("entry_words", ctypes.c_int),
+                ("entry_pairs", ctypes.c_int),
                 ("shard", ctypes.c_int * MAX_LOCAL_SHARDS)]
 
 
-def mailbox_entry_words(payload_words: int) -> int:
-    """8-byte words of one mailbox entry: the sequence, then the payload's
-    32-bit words in pairs."""
-    return 1 + -(-int(payload_words) // 2)
+def exchange_pairs(payload_words: int) -> int:
+    """8-byte pairs an exchange of ``payload_words`` words stores and reads:
+    one per word, rounded up to an even count for the 16-byte loads
+    (kernel_common.cuh xpairs); also the entry width of a mailbox whose
+    widest exchange has that payload."""
+    return (int(payload_words) + 1) & ~1
 
 
 def mailbox_shape(n_shards: int, payload_words: int) -> Tuple[int, int, int]:
-    """[parities, senders, words] of one shard's mailbox."""
-    return (2, int(n_shards), mailbox_entry_words(payload_words))
+    """[parities, senders, pairs] of one shard's mailbox."""
+    return (2, int(n_shards), exchange_pairs(payload_words))
 
 
 class ExchangeTimeout(RuntimeError):
@@ -373,11 +377,14 @@ class ExchangeTimeout(RuntimeError):
 class Mailboxes:
     """The exchange's buffers for one mesh of cards: ``devices[k]`` the
     card of shard k, ``device_ids[k]`` its mesh device id. Buffers are
-    made at first use and grown for a wider payload; the sequence count
-    only grows, so no mailbox is ever reset. One launch group runs at a
-    time on a mesh's mailboxes (the Scheduler's cycle thread; warm-up
-    only builds mesh steps): two at once would overwrite each other's
-    entries and time out."""
+    made at first use and grown for a wider payload. The flags count up
+    from launch group to launch group (``next_seq``, the next group's first
+    flag) and are never 0; a group whose flags would pass MAX_FLAG first
+    zeroes every mailbox, waits for that on each card, and starts the count
+    again at 1, so no stale entry can hold a flag still to come. One launch
+    group runs at a time on a mesh's mailboxes (the Scheduler's cycle
+    thread; warm-up only builds mesh steps): two at once would overwrite
+    each other's entries and time out."""
 
     def __init__(self, devices: Sequence[torch.device],
                  device_ids: Sequence[int]) -> None:
@@ -386,7 +393,7 @@ class Mailboxes:
                              f"shards, got {len(devices)}")
         self.devices = [torch.device(d) for d in devices]
         self.device_ids = [int(i) for i in device_ids]
-        self.entry_words = 0
+        self.entry_pairs = 0
         self.boxes: List[torch.Tensor] = []
         self.tables: Dict[torch.device, torch.Tensor] = {}
         self.errs: Dict[torch.device, torch.Tensor] = {}
@@ -404,8 +411,8 @@ class Mailboxes:
         return out
 
     def ensure(self, payload_words: int) -> None:
-        words = mailbox_entry_words(payload_words)
-        if words <= self.entry_words:
+        pairs = exchange_pairs(payload_words)
+        if pairs <= self.entry_pairs:
             return
         shape = mailbox_shape(self.size, payload_words)
         self.boxes = [torch.zeros(shape, dtype=torch.int64, device=d)
@@ -415,32 +422,53 @@ class Mailboxes:
                        for d in self.cards()}
         self.errs = {d: torch.zeros(1, dtype=torch.int32, device=d)
                      for d in self.cards()}
-        self.entry_words = words
+        self.entry_pairs = pairs
 
     def begin(self, exchanges: int) -> int:
-        """The first sequence of a launch group that runs at most
-        ``exchanges`` exchanges; the error words start at 0."""
-        seq0 = self.next_seq
-        self.next_seq += int(exchanges) + 1
+        """The first flag of a launch group that runs at most
+        ``exchanges`` exchanges (flags flag0 .. flag0 + exchanges - 1, all
+        in 1..MAX_FLAG); the error words start at 0."""
+        exchanges = int(exchanges)
+        if exchanges + 1 > MAX_FLAG:
+            raise ValueError(f"{exchanges} exchanges do not fit the 32-bit "
+                             "flags of one launch group")
+        if self.next_seq + exchanges > MAX_FLAG:
+            self.restart()
+        flag0 = self.next_seq
+        self.next_seq += exchanges + 1
         for e in self.errs.values():
             e.zero_()
-        return seq0
+        return flag0
+
+    def restart(self) -> None:
+        """Zero every mailbox and start the flags again at 1. Every card
+        is synchronised after its zeroing, so no launch of the next group
+        (whose writes reach other cards' mailboxes) runs before every
+        mailbox is clean; the last group's launches have all ended by
+        then, as each card's zeroing is queued after its own."""
+        for b in self.boxes:
+            b.zero_()
+        for d in self.cards():
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+        self.next_seq = 1
 
     def xchg(self, card: torch.device, shards: Sequence[int], per: int,
-             seq0: int) -> _Xchg:
-        """The koord::Xchg of ``card``'s launch over its ``shards``."""
+             flag0: int) -> _Xchg:
+        """The koord::Xchg of ``card``'s launch over its ``shards``, its
+        first flag ``flag0`` (begin's)."""
         x = Mailboxes.local(self.size, shards, per)
         x.boxes = self.tables[card].data_ptr()
         x.err = self.errs[card].data_ptr()
-        x.seq0 = int(seq0)
+        x.flag0 = int(flag0)
         x.timeout_ns = int(EXCHANGE_TIMEOUT_S * 1e9)
-        x.entry_words = self.entry_words
+        x.entry_pairs = self.entry_pairs
         return x
 
     @staticmethod
     def local(n_shards: int, shards: Sequence[int], per: int) -> _Xchg:
         """The koord::Xchg of a launch over ``shards`` with no mailboxes
-        (the replay, which exchanges nothing)."""
+        yet."""
         if not 1 <= len(shards) <= MAX_LOCAL_SHARDS:
             raise ValueError(f"a launch runs 1..{MAX_LOCAL_SHARDS} shards, "
                              f"got {len(shards)}")

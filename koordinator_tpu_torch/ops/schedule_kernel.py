@@ -44,12 +44,14 @@ from koordinator_tpu_torch.ops.kernel_common import (
     REC_FLAGS,
     REC_POD,
     RING_STAGES,
+    MAX_SHARDS,
     KernelContractError,
     Mailboxes,
     _Xchg,
     check_tensor,
     choose_state,
     cluster_plan,
+    exchange_pairs,
     f32_words,
     launch_device,
     launch_error,
@@ -208,16 +210,17 @@ def estimate_smem_bytes(n_nodes: int, R: int, W: int,
     schedule_step.cu ss_smem_layout): the mbarriers, the record ring, the
     warps' and blocks' argmax partials; over a mesh of cards
     (``exchange``, ``n_nodes`` one shard's rows) the exchange's mbarriers
-    and results; in the "smem" state also the block's node slice of
-    requested, the two deltas, allocatable, the two terms and the
-    flags."""
+    and results and the polling warp's staging area; in the "smem" state
+    also the block's node slice of requested, the two deltas,
+    allocatable, the two terms and the flags."""
     plan = cluster_plan(n_nodes, cluster_size)
     nw, nb = plan.node_threads // 32, plan.nodes_per_block
     regions = [(RING_STAGES + 2) * 8,
                RING_STAGES * record_layout(R)["rec_stride"] * 4, 2 * nw * 8,
                2 * cluster_size * 8]
     if exchange:
-        regions += [2 * 8, 2 * RESULT_WORDS * 4, RESULT_WORDS * 4]
+        regions += [2 * 8, 2 * RESULT_WORDS * 4,
+                    MAX_SHARDS * exchange_pairs(PAYLOAD_WORDS) * 4]
     if state == "smem":
         regions += [(2 * R + 4 * W) * nb * 4, nb]
     at = 0
@@ -282,11 +285,11 @@ def schedule_round_cards(cards, weight_idx, prod_mode: bool, box: Mailboxes,
         with on_device(dev):
             ready.append((inputs, shards, dev,
                           _buffers(inputs, weight_idx)))
-    seq0 = box.begin(cards[0][0].fit_requests.shape[0])
+    flag0 = box.begin(cards[0][0].fit_requests.shape[0])
     per = cards[0][0].allocatable.shape[0] // len(cards[0][1])
     for inputs, shards, dev, buf in ready:
         _launch(inputs, weight_idx, prod_mode, buf, CLUSTER_SIZE,
-                smem_budget_bytes, xchg=box.xchg(dev, shards, per, seq0))
+                smem_budget_bytes, xchg=box.xchg(dev, shards, per, flag0))
         xchg_launches += 1
     box.check("schedule_step round over a mesh of cards")
     return [(buf["chosen"][0], buf["requested"][0].t().contiguous())

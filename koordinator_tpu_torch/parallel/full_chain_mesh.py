@@ -27,9 +27,9 @@ sharded round, run for shards on the CPU.
 Shards that share one card (or the CPU) are gathered for the wave steps
 and, on the card, for the round: the sharded steps gather the node fields
 (parallel/mesh.gather, a torch.cat of the shards), run the single-device
-step on them (kernel 1, its terms and replay instances, the stage-count
-pass) and split the node outputs back into their shards, as the JAX
-package's sharded steps are its single-device steps jitted with
+step on them (kernel 1 and its terms instance, the replay kernel, the
+stage-count pass) and split the node outputs back into their shards, as
+the JAX package's sharded steps are its single-device steps jitted with
 out_shardings.
 
 A mesh of cards (``mesh.exchange``) takes the exchange route instead:

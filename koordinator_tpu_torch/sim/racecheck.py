@@ -799,7 +799,7 @@ def check_races(seeds: Tuple[int, ...] = (101, 202), cycles: int = 24,
     seed after the first has a background ladder that replays the rungs
     recorded before it. ``waves`` sets the scenario's fused waves (None:
     the catalog's serial dispatch; at 2 or more the chained dispatch and
-    kernel 1's replay instance run)."""
+    the replay kernel run)."""
     sc = racecheck_scenario(cycles)
     if waves is not None:
         sc = dataclasses.replace(sc, waves=waves)

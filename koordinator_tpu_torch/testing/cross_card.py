@@ -290,7 +290,7 @@ def main(argv=None) -> int:
         print("cross_card: CUDA is not available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE)
+    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE)
     mesh = card_mesh()
     print(json.dumps({"check": "mesh", "cards": len(mesh.cards),
                       "shards": mesh.size, "exchange": mesh.exchange,

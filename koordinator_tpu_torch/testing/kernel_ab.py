@@ -1,6 +1,9 @@
-"""Compare kernel source trees on one card, in one call.
+"""Compare kernel source trees, or whole package trees, on one card, in
+one call.
 
     python3 -m koordinator_tpu_torch.testing.kernel_ab NAME=DIR [NAME=DIR ...]
+    python3 -m koordinator_tpu_torch.testing.kernel_ab --packages \
+        NAME=ROOT [NAME=ROOT ...]
 
 Each DIR holds a full_chain.cu, a schedule_step.cu and the kernel_common.cuh
 they include, with the parameter structs and C entry points of the
@@ -18,12 +21,31 @@ timed (CUDA events, median of 10 after a warm-up) in both states, for the
 trees in the order given and again in reverse, so that a drift of the card
 shows as a difference between the two passes. One JSON line per check and
 per timing, then the card's nvidia-smi name and power limit.
+
+With --packages each ROOT holds a whole koordinator_tpu_torch (say the
+parent commit's, unpacked under build/, and `.`), whose wrappers may differ
+from this one's. Each runs in a process of its own with that package first
+on the path, in the order given and again in reverse: it builds its
+kernels, then (1) the instances over a mesh of cards at D = 2 virtual cards
+of the card, at config 4 (testing/mesh_round.check_exchange: kernel 1's
+exchange round and terms round, the per-card replay, the per-card stage
+counts and kernel 2's exchange instance, each held bit for bit against the
+single-device kernels, then timed), and (2) the kept-pod replay at cycle 0's
+kept set (the config 4 round after Permit, from the cycle-start state):
+the wrapper's call and, apart, the kernel's launch alone (CUDA events
+around the library call), held bit for bit against the plain replay_kept
+the first time a tree runs. Every run's outputs must hash alike across the
+trees. Then each tree's testing/pod_trace.py runs once (its exchange
+instance's "merge" phase cycles). One JSON line per run, then the card's
+nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -153,10 +175,163 @@ def loadaware_case(args):
         inputs, wl, False, smem_budget_bytes=b)
 
 
+def launch_alone_ms(module, getter: str, name: str, fn,
+                    reps: int = REPS) -> float:
+    """Median milliseconds of the library call ``name`` (a kernel's
+    launch) inside ``fn`` over ``reps`` runs after a warm-up: CUDA events
+    around that call only, the wrapper's own work outside them.
+    ``module.getter`` returns the library; a stand-in answers for it
+    during the runs."""
+    orig = getattr(module, getter)
+    lib = orig()
+    real = getattr(lib, name)
+    spans = []
+
+    class Timed:
+        def __getattr__(self, attr):
+            return getattr(lib, attr)
+
+    def timed(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(*a)
+        stop.record()
+        spans.append((start, stop))
+        return out
+
+    stand_in = Timed()
+    setattr(stand_in, name, timed)
+    setattr(module, getter, lambda: stand_in)
+    try:
+        for _ in range(reps + 1):
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, getter, orig)
+    return statistics.median(a.elapsed_time(b) for a, b in spans[1:])
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def worker(plain: bool) -> int:
+    """One package's exchange and replay measurements (run with that
+    package first on the path); prints one JSON line."""
+    from koordinator_tpu_torch.models import fused_waves
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.parallel.full_chain_mesh import replay_state0
+    from koordinator_tpu_torch.testing import mesh_round
+
+    replay_source = getattr(fck, "REPLAY_SOURCE", None)
+    kernel_common.build_libraries(
+        fck.SOURCE, sk.SOURCE, ek.SOURCE,
+        *([replay_source] if replay_source else []))
+    args = LoadAwareArgs()
+    _c, state = synth_full_cluster(5000, 10000, seed=42, num_quotas=100,
+                                   num_gangs=200)
+    fc, _p, _n, _t, _gi, ng, ngroups = build_full_chain_inputs(state, args)
+    fc, active = reduce_to_active_axes(fc)
+    la_host = loadaware_inputs(synth_cluster(num_nodes=5000, num_pods=10000,
+                                             seed=42), args)
+    row, = mesh_round.check_exchange(fc, args, ng, ngroups, active, 5000,
+                                     la_host, depths=(2,))
+    bad = {k: v for k, v in row.items() if k.endswith("mismatches") and v}
+    if bad:
+        raise AssertionError(f"the exchange instances disagree: {bad}")
+    dev = to_device(fc, "cuda")
+    wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
+    chosen = fck.full_chain_round(dev, wi, False, bi)[0]
+    kept = permit(dev, chosen, ng, ngroups) >= 0
+    state0 = replay_state0(dev, False)
+
+    def replay():
+        return fck.full_chain_replay(dev, chosen, kept, state0, False)
+
+    out, zones = replay()
+    outputs = list(out) + [zones]
+    res = {"exchange": row, "kept": int(kept.sum()),
+           "most_kept_on_a_node": int(torch.bincount(
+               chosen[kept].long()).max()),
+           "replay_wrapper_ms": time_ms(replay),
+           "replay_kernel_ms": (
+               launch_alone_ms(fck, "_replay_lib", "replay_launch", replay)
+               if replay_source else
+               launch_alone_ms(fck, "_lib", "full_chain_launch", replay)),
+           "digest": _digest(outputs)}
+    if plain:
+        filled = tuple(torch.zeros_like(dev.base.requested) if t is None
+                       else t for t in state0)
+        want, want_zones = fused_waves.replay_kept(dev, False, filled,
+                                                   chosen, kept)
+        res["replay_plain_mismatches"] = sum(
+            mesh_round._mismatches(a.cpu(), b.cpu())
+            for a, b in zip(outputs, list(want) + [want_zones]))
+        if res["replay_plain_mismatches"]:
+            raise AssertionError("the replay disagrees with replay_kept")
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def packages_main(specs) -> int:
+    """The --packages A/B: each tree's worker, in order and reversed, then
+    each tree's pod_trace."""
+    script = str(Path(__file__).resolve())
+    digests = set()
+    checked = set()
+    for name, root in specs + specs[::-1]:
+        env = dict(os.environ, PYTHONPATH=str(root))
+        cmd = [sys.executable, script, "--worker"]
+        if name not in checked:
+            cmd.append("--plain")
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-8000:], file=sys.stderr)
+            raise RuntimeError(f"kernel_ab: the {name} worker failed")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        checked.add(name)
+        digests.add(res.pop("digest"))
+        print(json.dumps({"tree": name, **res}), flush=True)
+    for name, root in specs:
+        env = dict(os.environ, PYTHONPATH=str(root))
+        proc = subprocess.run(
+            [sys.executable, "-m", "koordinator_tpu_torch.testing.pod_trace"],
+            cwd=root, env=env, capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-8000:], file=sys.stderr)
+            raise RuntimeError(f"kernel_ab: the {name} pod_trace failed")
+        for line in proc.stdout.strip().splitlines():
+            if line.startswith("{"):
+                print(json.dumps({"tree": name, "pod_trace": json.loads(
+                    line)}), flush=True)
+    if len(digests) != 1:
+        raise AssertionError("the trees' replay outputs differ")
+    print(json.dumps({"replay_outputs_equal_across_trees": True}))
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--worker"]:
+        return worker("--plain" in sys.argv)
+    if sys.argv[1:2] == ["--packages"]:
+        specs = []
+        for arg in sys.argv[2:]:
+            name, _, path = arg.partition("=")
+            specs.append((name, Path(path).resolve()))
+        status = packages_main(specs)
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip())
+        return status
     trees = []
     for arg in sys.argv[1:]:
         name, _, path = arg.partition("=")

@@ -18,11 +18,15 @@ D = 2, 4 and 8 virtual cards of this one card, all D shards as clusters of
 one launch, which exchange through the card's own memory by the protocol
 that crosses NVLink between cards: kernel 1's round and terms instances
 (chosen before Permit, requested, quota_used, the terms rows), the per-card
-replay against the replay instance, the per-card stage counts against the
+replay against the single-card replay, the per-card stage counts against the
 stage-count pass and kernel 2's exchange instance against kernel 2, bit for
 bit. ``check_timeout`` launches shard 0 of a D = 2 exchange alone: it must
 end within the time limit with ExchangeTimeout naming shard 1, and the
-card must take the next launch. ``check_claim_view`` holds kernel 1's
+card must take the next launch. ``check_deadline`` launches shard 1 late,
+behind a spin near the (shortened) time limit, so that shard 0's blocks,
+each timing its own wait, may disagree about an entry that arrives at the
+deadline: every launch group must end with ExchangeTimeout or with the
+single-device bindings, never a trap. ``check_claim_view`` holds kernel 1's
 exchange round over a hot-claim world's per-card volume view (the wave
 body's, parallel/full_chain_mesh.CardBackend.claim_view) against the
 single-device round over the [P, N] view.
@@ -411,6 +415,101 @@ def check_timeout(fc_host, args, active, device="cuda", mesh=None) -> dict:
     return {"timeout_s": EXCHANGE_TIMEOUT_S, "seconds": seconds,
             "failed_shards": list(err.failed_shards),
             "failed_device_ids": list(err.failed_device_ids),
+            "next_launch_mismatches": _mismatches(before, after)}
+
+
+def check_deadline(fc_host, args, active, device="cuda", trials=48,
+                   timeout_s=20e-3, band_s=20e-6) -> dict:
+    """Kernel 1's round over D = 2 virtual cards of this card, each shard
+    a launch of its own on a stream of its own, shard 1's behind a spin
+    (torch.cuda._sleep, queued before either launch) of about the
+    exchange's time limit, shortened to ``timeout_s`` (which still covers
+    the host's time to queue both launches). A coarse pass and a bisection find the spin at which
+    shard 0's first wait starts to time out; then ``trials`` spins spread
+    over +-``band_s`` around it plant shard 1's first entries at the
+    deadline, where the blocks of shard 0's cluster, each timing its own
+    wait, may disagree. Every launch group must end with ExchangeTimeout
+    or with both shards' chosen equal to the single-device round's (no
+    trap), and the card must then run the single-device round to the same
+    bindings as before. Reports the counts of each outcome."""
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.ops.kernel_common import ExchangeTimeout
+    from koordinator_tpu_torch.parallel.full_chain_mesh import node_rows
+    from koordinator_tpu_torch.parallel.mesh import card_view
+
+    widx = resolve_weight_idx(args, active)
+    bal = resolve_balance_idx(active)
+    prod = args.score_according_prod_usage
+    mesh = exchanging_mesh(2, device)
+    dev = mesh.flat[0].device
+    fc = to_device(_padded_fc(fc_host, mesh), dev)
+    per = fc.base.allocatable.shape[0] // 2
+    P = fc.base.fit_requests.shape[0]
+    before = fk.full_chain_round(fc, widx, prod, bal)[0].cpu()
+    views = [card_view(node_rows(fc, k * per, (k + 1) * per), [k], dev)
+             for k in range(2)]
+    box = mesh.mailboxes()
+    box.ensure(fk.payload_words(fc.aff_dom.shape[1]))
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    # the spin's cycles per second, from one timed spin
+    with torch.cuda.device(dev):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10**7)
+        stop.record()
+        stop.synchronize()
+    hz = 10**7 / (start.elapsed_time(stop) * 1e-3)
+
+    def launch(delay_s) -> bool:
+        """One group; True when it timed out."""
+        bufs = [fk._round_buffers(v, widx, False) for v in views]
+        flag0 = box.begin(2 * P)
+        main = torch.cuda.current_stream(dev)
+        for s in streams:
+            s.wait_stream(main)
+        with torch.cuda.stream(streams[1]):
+            torch.cuda._sleep(max(int(delay_s * hz), 1))
+        for k, (view, s) in enumerate(zip(views, streams)):
+            with torch.cuda.stream(s):
+                records, n_valid, state, chosen, _rows = bufs[k]
+                x = box.xchg(dev, [k], per, flag0)
+                x.timeout_ns = int(timeout_s * 1e9)
+                fk._launch(view, widx, prod, bal, records, n_valid, state,
+                           chosen, fk.CLUSTER_SIZE, None, xchg=x)
+        for s in streams:
+            main.wait_stream(s)
+        try:
+            box.check("full_chain round, shard 1 late")
+        except ExchangeTimeout:
+            return True
+        for k in range(2):
+            bad = _mismatches(before, bufs[k][3].cpu())
+            if bad:
+                raise AssertionError(f"shard {k} of a late group that did "
+                                     f"not time out: {bad} mismatches")
+        return False
+
+    coarse = [timeout_s * f for f in np.linspace(0.25, 2.0, 8)]
+    outcomes = [launch(d) for d in coarse]
+    if not outcomes[-1] or outcomes[0]:
+        raise AssertionError(f"no deadline in the coarse spins: {outcomes}")
+    hi = coarse[outcomes.index(True)]
+    lo = coarse[outcomes.index(True) - 1]
+    for _ in range(12):
+        mid = 0.5 * (lo + hi)
+        if launch(mid):
+            hi = mid
+        else:
+            lo = mid
+    edge = 0.5 * (lo + hi)
+    band = [launch(edge + d)
+            for d in np.linspace(-band_s, band_s, trials)]
+    after = fk.full_chain_round(fc, widx, prod, bal)[0].cpu()
+    return {"timeout_s": timeout_s, "edge_spin_s": edge,
+            "band_s": band_s, "trials": trials,
+            "timed_out": int(sum(band)),
+            "bound": int(len(band) - sum(band)),
             "next_launch_mismatches": _mismatches(before, after)}
 
 

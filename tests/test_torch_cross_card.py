@@ -119,28 +119,39 @@ def test_mailbox_layout_mirrors_the_kernels():
     assert _constant(full, "kResHead") == fck.RES_HEAD
     assert _constant(step, "kPayloadWords") == sk.PAYLOAD_WORDS
     assert _constant(step, "kResultWords") == sk.RESULT_WORDS
-    # koord::Xchg: two pointers, two 8-byte words, four ints, the shards
-    assert ctypes.sizeof(kc._Xchg) == 8 * 4 + 4 * 4 + 4 * kc.MAX_LOCAL_SHARDS
+    # koord::Xchg, field for field: two pointers, the timeout, the first
+    # flag, four ints, the shards (80 bytes with the tail's padding)
+    body = re.search(r"struct Xchg \{(.*?)\n\};", common, re.S).group(1)
+    names = re.findall(r"\b(\w+)(?:\[\w+\])?;", body)
+    assert names == [f for f, _ in kc._Xchg._fields_]
+    assert ctypes.sizeof(kc._Xchg) == (8 * 3 + 4 * 5
+                                       + 4 * kc.MAX_LOCAL_SHARDS + 4)
     # FullChainParams and ScheduleStepParams end with it
     assert fck._Params.x.offset + ctypes.sizeof(kc._Xchg) == ctypes.sizeof(
         fck._Params)
     assert sk._Params.x.offset + ctypes.sizeof(kc._Xchg) == ctypes.sizeof(
         sk._Params)
+    # a pair per payload word, an even count (kernel_common.cuh xpairs)
+    assert "return (words + 1) & ~1;" in common
     for T in (0, 1, 5, 32):
         # an entry holds the winner's payload and the stats' T + 2 words
         words = fck.payload_words(T)
         assert words >= T + 2
-        assert kc.mailbox_shape(4, words) == (2, 4, 1 + -(-words // 2))
+        assert kc.mailbox_shape(4, words) == (2, 4, words + words % 2)
+        assert kc.exchange_pairs(T + 2) <= kc.exchange_pairs(words)
         assert fck.result_words(T) % 2 == 0
         assert fck.result_words(T) >= fck.RES_HEAD + T
-        # the exchange's regions, 16-aligned, in every layout
+        # the exchange's regions, 16-aligned, in every layout: mbarriers,
+        # results, the polling warp's staging area
         base = fck.estimate_smem_bytes(640, 3, 2, 2, 10, 3, T, 4, 1)
         xw = fck.result_words(T)
-        extra = sum((n + 15) & ~15 for n in (16, 2 * xw * 4, xw * 4))
+        extra = sum((n + 15) & ~15 for n in (
+            16, 2 * xw * 4, kc.MAX_SHARDS * kc.exchange_pairs(words) * 4))
         assert fck.estimate_smem_bytes(640, 3, 2, 2, 10, 3, T, 4, 1,
                                        exchange=True) == base + extra
-    extra = sum((n + 15) & ~15 for n in (16, 2 * sk.RESULT_WORDS * 4,
-                                         sk.RESULT_WORDS * 4))
+    extra = sum((n + 15) & ~15 for n in (
+        16, 2 * sk.RESULT_WORDS * 4,
+        kc.MAX_SHARDS * kc.exchange_pairs(sk.PAYLOAD_WORDS) * 4))
     assert sk.estimate_smem_bytes(640, 14, 2, exchange=True) == (
         sk.estimate_smem_bytes(640, 14, 2) + extra)
 
@@ -156,6 +167,88 @@ def test_mailboxes_group_shards_by_card_and_raise_the_sequence():
     assert (x.D, x.L, x.per, list(x.shard)[:2]) == (4, 2, 640, [2, 3])
     with pytest.raises(ValueError):
         kc.Mailboxes.local(9, list(range(9)), 10)
+
+
+def _flags(flag0, exchanges):
+    return range(flag0, flag0 + exchanges)
+
+
+def test_mailboxes_never_issue_flag_zero_and_restart_before_the_wrap():
+    box = kc.Mailboxes([torch.device("cpu")] * 2, [0, 1])
+    box.ensure(fck.payload_words(3))
+    assert box.entry_pairs == kc.exchange_pairs(fck.payload_words(3))
+    # a flag near the top, left in the mailboxes by earlier launch groups
+    pair = ((kc.MAX_FLAG - 1) << 32 | 7) - (1 << 64)  # as an int64
+    for b in box.boxes:
+        b.fill_(pair)
+    box.next_seq = kc.MAX_FLAG - 20
+    flag0 = box.begin(20)  # its flags reach MAX_FLAG - 1: no restart
+    assert list(_flags(flag0, 20))[-1] == kc.MAX_FLAG - 1
+    assert all(int(b.abs().sum()) > 0 for b in box.boxes)
+    assert box.begin(1) == 1  # MAX_FLAG + 1 would come next: restart first
+    assert all(int(b.abs().sum()) == 0 for b in box.boxes)
+    # every group's flags are 32-bit, nonzero and new since the restart
+    rng = np.random.default_rng(3)
+    box.next_seq = kc.MAX_FLAG - 5000
+    seen, restarts = set(), 0
+    for _ in range(400):
+        n = int(rng.integers(0, 40))
+        flag0 = box.begin(n)
+        if flag0 == 1:  # a restart: the mailboxes hold no flag any more
+            seen, restarts = set(), restarts + 1
+        flags = set(_flags(flag0, n))
+        assert all(1 <= f <= kc.MAX_FLAG for f in flags)
+        assert not flags & seen
+        seen |= flags
+    assert restarts >= 1
+    with pytest.raises(ValueError, match="32-bit"):
+        box.begin(kc.MAX_FLAG)
+
+
+def test_mailboxes_carry_the_time_limit_into_each_launch():
+    box = kc.Mailboxes([torch.device("cpu")] * 2, [0, 1])
+    box.ensure(fck.payload_words(2))
+    flag0 = box.begin(4)
+    x = box.xchg(torch.device("cpu"), [1], 8, flag0)
+    assert x.timeout_ns == int(kc.EXCHANGE_TIMEOUT_S * 1e9)
+    assert (x.flag0, x.D, x.L, x.per, x.shard[0]) == (flag0, 2, 1, 8, 1)
+    assert x.entry_pairs == box.entry_pairs
+
+
+@pytest.mark.parametrize("source", ["full_chain.cu", "schedule_step.cu"])
+def test_a_timed_out_block_runs_every_pod_and_waits_no_more(source):
+    """Each block times its own wait, so blocks of one cluster may disagree
+    about an entry that arrives at the deadline: none may leave the pod
+    loop on a missed exchange (its cluster's merges would wait for it), and
+    a block that missed one waits on no later exchange."""
+    src = (CSRC / source).read_text()
+    loop = src[src.index("for (int v = 0; v < nv; ++v)"):]
+    loop = loop[:loop.index("cluster.sync();\n  if constexpr (kStateInSmem)")]
+    waits = re.findall(r"=\s*(missed \? missed : )?koord::xwait\(", loop)
+    assert waits and all(guard for guard in waits)
+    assert loop.count("missed = res[0];") == len(waits)
+    # the only way out of a pod is to the next pod
+    assert "break;" not in loop
+    assert "stopped" not in src
+    # err takes the missed shards once per block
+    assert src.count("if (missing && !missed) atomicOr(p.x.err, missing);") \
+        == len(waits)
+
+
+def test_round_trip_params_mirror_the_kernel():
+    from koordinator_tpu_torch.testing import mailbox_rtt
+
+    src = (CSRC / mailbox_rtt.SOURCE).read_text()
+    body = re.search(r"struct RttParams \{(.*?)\n\};", src, re.S).group(1)
+    names = []
+    for decl in re.sub(r"//[^\n]*", "", body).split(";"):
+        if decl.strip():
+            first, *rest = decl.split(",")
+            names += [first.split()[-1].lstrip("*")] + [r.strip() for r in rest]
+    assert names == [f for f, _ in mailbox_rtt._RttParams._fields_]
+    assert ctypes.sizeof(mailbox_rtt._RttParams) == 8 * 4 + 4 * 4
+    # the round trip goes through the exchange's own store and load
+    assert "koord::st_pair(" in src and "koord::ld_pairs(" in src
 
 
 class _Fake:

@@ -521,10 +521,16 @@ def test_plain_round_chosen_matches_reference_wave1():
 # ---------------------------------------------------------------------------
 
 def test_replay_params_mirror_the_kernel():
+    """The replay is a kernel of its own (csrc/replay_by_node.cu): the
+    round's parameters lost its fields, and ReplayParams is mirrored field
+    for field."""
+    from test_torch_kernel import _struct_fields
+
     names = [f for f, _ in fck._Params._fields_]
-    assert names.index("zones") == names.index("chosen") + 1
-    assert names.index("aff_exists_out") == names.index("zones") + 1
-    assert names.index("replay") == names.index("state_in_smem") + 1
+    assert not {"zones", "dom_rows", "replay"} & set(names)
+    assert names.index("aff_exists_out") == names.index("chosen") + 1
+    assert _struct_fields(fck.REPLAY_SOURCE, "ReplayParams") == [
+        f for f, _ in fck._ReplayParams._fields_]
 
 
 def test_replay_refuses_cpu_tensors():
@@ -537,10 +543,10 @@ def test_replay_refuses_cpu_tensors():
 
 
 def test_replay_records_come_from_fc_carry():
-    """The replay packs its records from the carry form: reservation
+    """The replay reads its pods from the carry form: reservation
     pseudo-pod rows commit the template's allocatable with no estimate,
-    NUMA or affinity footprint, and the kept pods come first, in queue
-    order."""
+    NUMA or affinity footprint; packed as the round packs its records, the
+    kept pods come first, in queue order."""
     fc, sides, _b = _world_inputs("reservations")
     tfc, tsides = _fc(fc), _sides(sides)
     fc_carry, fc_nom = fw._carry_fc_variants(tfc, tsides)

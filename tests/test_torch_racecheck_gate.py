@@ -2,8 +2,8 @@
 seeds on the CPU, held to the JAX package's racecheck binding log, the
 second seed's background ladder replaying the rungs the first recorded
 into the gate's one rung index; and the gate over the same scenario at
-fused waves (K = 2: on the card the chained dispatch, kernel 1 and its
-replay instance), held to the JAX package's run of it.
+fused waves (K = 2: on the card the chained dispatch, kernel 1 and the
+replay kernel), held to the JAX package's run of it.
 
 The JAX package's ``run_racecheck(preempt_seed=101)`` runs in a
 subprocess, and its waves run in another, both started before the port's
