@@ -375,7 +375,13 @@ Phases, one JSON line each:
           quota of the instance without terms, and the whole explain
           step (Permit, counts, terms) equal to the plain round's bit for
           bit; both timed (CUDA events, median of 10) at P = 10240 and
-          at the churn wave's P = 1280 beside kernel 1 without terms.
+          at the churn wave's P = 1280 beside kernel 1 without terms. The
+          pass also equals the plain counts at P = 1280; called alone it
+          is timed as a call, as its launch alone and as its kernel's
+          device time (torch.profiler); the explain step must launch it
+          once on the round's own pack (ops/explain_kernel.self_packs
+          stays 0), and the step at "counts" and the round with the pass
+          beside it are timed against the step and the round without.
   wave_round  the wave-parallel round (models/wave_chain.py, plain
           PyTorch, kernel="wave" in the selector) at config 4 (P = 10240)
           and at P = 1280: chosen, requested and quota_used equal to
@@ -387,7 +393,9 @@ Phases, one JSON line each:
           (smem_budget_bytes=0), against the plain round of `main`.
   mixed   mixed_cluster at 500 nodes x 1000 pods (affinity, spread,
           preferred node/pod affinity, ports, images, CSI volume groups,
-          taints): kernel against the plain round.
+          taints): kernel against the plain round; the stage-count pass
+          against the plain counts at the cycle-start and a perturbed
+          state, alone and over 2 and 3 shards of the card.
   prod    the mixed cluster with score_according_prod_usage: kernel against
           the plain round.
   loadaware  the LoadAware-only round of bench.py's default chain
@@ -523,7 +531,11 @@ from koordinator_tpu_torch.testing import (
     synth_full_cluster,
 )
 from koordinator_tpu_torch.testing import churn, cross_card, mesh_round
-from koordinator_tpu_torch.testing.kernel_ab import launch_alone_ms
+from koordinator_tpu_torch.testing.kernel_ab import (
+    counts_timings,
+    launch_alone_ms,
+    pod_rows,
+)
 from koordinator_tpu_torch.testing.churn import (
     add_arrivals,
     arrival_specs,
@@ -2676,18 +2688,6 @@ def explain_bytes(fc) -> int:
         P * NUM_EXPLAIN_STAGES * 4)
 
 
-def pod_rows(fc, n: int):
-    """The first ``n`` pods of a batch: every per-pod field cut to its
-    first n rows (the churn wave's P out of config 4's)."""
-    P = fc.base.fit_requests.shape[0]
-
-    def cut(t):
-        return t[:n].contiguous() if t.dim() and t.shape[0] == P else t
-
-    return type(fc)(type(fc.base)(*(cut(t) for t in fc.base)),
-                    *(cut(t) for t in fc[1:]))
-
-
 def bits_equal(a, b) -> int:
     """Entries of two f32 tensors that differ bit for bit."""
     return int((a.contiguous().view(torch.int32)
@@ -2703,7 +2703,13 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
     quota equal the instance without terms and its rows the plain round's
     bit for bit; then both timed (CUDA events, median of REPS) at P =
     10240 and at the churn wave's P = 1280 beside kernel 1 without terms
-    (``kernel_ms`` at 10240). Returns the two kernels-line entries."""
+    (``kernel_ms`` at 10240). The pass also equals the plain counts at P =
+    1280; called alone it is timed three ways (the call, its launch alone,
+    its kernel's device time under torch.profiler), and the explain step
+    must take the round's pack (no pack of the pass's own) and launch it
+    once, beside the round: the step at "counts" and the round with the
+    pass beside it are timed against the step and the round without.
+    Returns the two kernels-line entries."""
     wi, bi = resolve_weight_idx(args, active), resolve_balance_idx(active)
     prod = args.score_according_prod_usage
     state = cycle_start_state(dev_fc)
@@ -2717,6 +2723,16 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
         raise AssertionError(f"explain_round: the stage-count pass "
                              f"disagrees with the plain counts in {c_mism} "
                              f"entries ({ek.launches} launches)")
+    wave = pod_rows(dev_fc, 1280)
+    wstate = cycle_start_state(wave)
+    counts_w = ek.explain_counts(wave, wstate, n_real)
+    count_launch_1280 = dict(ek.last_launch)
+    c_mism_1280 = int((counts_w.to(torch.int64) != explain_stage_counts(
+        wave, wstate, n_real).to(torch.int64)).sum())
+    if c_mism_1280:
+        raise AssertionError(f"explain_round: the stage-count pass "
+                             f"disagrees with the plain counts at P = 1280 "
+                             f"in {c_mism_1280} entries")
     fck.terms_launches = 0
     out_t = fck.full_chain_round(dev_fc, wi, prod, bi, terms=True)
     out_n = fck.full_chain_round(dev_fc, wi, prod, bi)
@@ -2731,9 +2747,14 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
                              f"{t_mism} values of chosen/requested/quota")
     step = fck.build_cuda_full_chain_step(args, ng, ngroups, active,
                                           explain="full")
+    ek.launches = ek.self_packs = 0
     out_k = step(dev_fc, n_real)
     torch.cuda.synchronize()
     terms_launch = launch_fields(fck)
+    if ek.launches != 1 or ek.self_packs != 0:
+        raise AssertionError(f"explain_round: the explain step launched the "
+                             f"pass {ek.launches} times and packed "
+                             f"{ek.self_packs} times for it")
     terms_mism = bits_equal(out_k[3].terms, out_full[3].terms)
     s_mism = int((out_k[0] != out_full[0]).sum()) + bits_equal(
         out_k[1], out_full[1]) + bits_equal(out_k[2], out_full[2]) + int(
@@ -2751,14 +2772,22 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
         raise AssertionError("explain_round: a bound pod's runner-up beats "
                              "its best")
     # the times: the pass and kernel 1 with and without terms, at both P
-    count_ms = time_cuda(lambda: ek.explain_counts(dev_fc, state, n_real),
-                         REPS)
+    alone = counts_timings(ek, dev_fc, n_real)
+    alone_1280 = counts_timings(ek, wave, n_real)
+    # the kernels line's time: the call as the main path makes it, on the
+    # round's pack
+    count_ms = alone["call_on_pack_ms"]
+    count_ms_1280 = alone_1280["call_on_pack_ms"]
+    steps = {ex: fck.build_cuda_full_chain_step(args, ng, ngroups, active,
+                                                explain=ex)
+             for ex in (None, "counts")}
+    step_off_ms = time_cuda(lambda: steps[None](dev_fc), REPS)
+    step_counts_ms = time_cuda(lambda: steps["counts"](dev_fc, n_real),
+                               REPS)
+    beside_ms = time_cuda(lambda: fck.full_chain_round(
+        dev_fc, wi, prod, bi, counts_n_real=n_real), REPS)
     terms_ms = time_cuda(lambda: fck.full_chain_round(
         dev_fc, wi, prod, bi, terms=True), REPS)
-    wave = pod_rows(dev_fc, 1280)
-    wstate = cycle_start_state(wave)
-    count_ms_1280 = time_cuda(lambda: ek.explain_counts(wave, wstate,
-                                                        n_real), REPS)
     terms_ms_1280 = time_cuda(lambda: fck.full_chain_round(
         wave, wi, prod, bi, terms=True), REPS)
     round_ms_1280 = time_cuda(lambda: fck.full_chain_round(
@@ -2782,9 +2811,17 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
     t_bytes_ms = (tensor_bytes(dev_fc) + P * 4 * (1 + len(fck.EXPLAIN_TERMS))
                   ) / HBM_BYTES_PER_S * 1e3
     emit({"phase": "explain_round", "P": int(P), "n_real": int(n_real),
-          "stage_counts": {"launch": count_launch, "mismatches": c_mism,
+          "stage_counts": {"launch": count_launch,
+                           "launch_P1280": count_launch_1280,
+                           "mismatches": c_mism,
+                           "mismatches_P1280": c_mism_1280,
                            "kernel_ms": count_ms,
                            "kernel_ms_P1280": count_ms_1280,
+                           "alone": alone, "alone_P1280": alone_1280,
+                           "step_off_ms": step_off_ms,
+                           "step_counts_ms": step_counts_ms,
+                           "round_ms": kernel_ms,
+                           "round_beside_ms": beside_ms,
                            "plain_ms": count_plain_ms,
                            "bound_bytes_ms": c_bytes_ms,
                            "bound_ops_ms": c_ops_ms,
@@ -2827,9 +2864,10 @@ def explain_cycle(tag, sched, now):
     """One cycle with every launch count (and the explain readback
     counter) set to 0 just before it and read just after. On the card:
     with explain on, one stage-count pass per device wave (per dispatch
-    on the serial path) and, at "full", every round in the terms
-    instance; with explain off, neither."""
-    ek.launches = fck.terms_launches = 0
+    on the serial path), on the round's own pack (none of its own) and,
+    at "full", every round in the terms instance; with explain off,
+    neither."""
+    ek.launches = ek.self_packs = fck.terms_launches = 0
     ex0 = scheduler_metrics.EXPLAIN_READBACK_BYTES.get() or 0.0
     res, wall, launches, k = wave_cycle(tag, sched, now)
     launches.update(explain_launches_now())
@@ -2841,9 +2879,11 @@ def explain_cycle(tag, sched, now):
                              or launches["full_chain_terms"]):
             raise AssertionError(f"{tag}: explain off launched {launches}")
         if spec is not None and (launches["explain_counts"] != rounds
-                                 or ex_bytes <= 0):
+                                 or ek.self_packs != 0 or ex_bytes <= 0):
             raise AssertionError(f"{tag}: {rounds} rounds, launches "
-                                 f"{launches}, {ex_bytes} explain bytes")
+                                 f"{launches}, {ek.self_packs} packs of "
+                                 f"the pass's own, {ex_bytes} explain "
+                                 "bytes")
         if (spec == "full") != (launches["full_chain_terms"] == rounds):
             raise AssertionError(f"{tag}: terms launches {launches}")
     return res, wall, launches, k, ex_bytes
@@ -4921,8 +4961,60 @@ def pack(state, args):
     return fc, ng, ngroups, active
 
 
+def check_counts_world(tag, fc, seed=7) -> dict:
+    """The stage-count pass on a world with affinity, spread, port and
+    volume terms (the paths config 4 leaves dark: the spread minima, the
+    affinity rows of the tile), at the cycle-start state and at a
+    perturbed one (more requested, more affinity counts on labelled
+    domains, more ports in use; from ``seed``), over every row and a cut
+    below it: equal to the plain counts exactly, called alone and over 2
+    and 3 shards of the card (per-card minima and counts)."""
+    from koordinator_tpu_torch.parallel.full_chain_mesh import node_rows
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    N = fc.base.allocatable.shape[0]
+    # the node rows of cycle_start_state's 9-tuple (not quota_used, not
+    # the exists flags)
+    NODE_SLOTS = (0, 1, 2, 4, 5, 7, 8)
+
+    def rand(shape, hi):
+        return torch.randint(0, hi, tuple(shape), generator=g).to(
+            fc.base.allocatable.device, torch.float32)
+
+    start = cycle_start_state(fc)
+    dom = (fc.aff_dom >= 0).to(torch.float32)
+    perturbed = (start[0] + rand(start[0].shape, 3) * 500.0, *start[1:4],
+                 start[4] + dom * rand(start[4].shape, 2), start[5],
+                 start[6], torch.maximum(start[7], rand(start[7].shape, 2)),
+                 start[8])
+    ek.launches = ek.shard_launches = 0
+    mism = {}
+    for name, state in (("cycle_start", start), ("perturbed", perturbed)):
+        for n_real in (N, N - 7):
+            want = explain_stage_counts(fc, state, n_real).to(torch.int64)
+            got = {"alone": ek.explain_counts(fc, state, n_real)}
+            for depth in (2, 3):
+                cut = [N * k // depth for k in range(depth + 1)]
+                got[f"shards_{depth}"] = ek.explain_counts_shards(
+                    [(node_rows(fc, lo, hi),
+                      tuple(t[lo:hi] if i in NODE_SLOTS else t
+                            for i, t in enumerate(state)), lo)
+                     for lo, hi in zip(cut, cut[1:])], n_real)
+            for key, c in got.items():
+                k = f"{name}_{n_real}_{key}"
+                mism[k] = int((c.to(torch.int64) != want).sum())
+    if any(mism.values()) or ek.launches != 4:
+        raise AssertionError(f"{tag}: the stage-count pass disagrees with "
+                             f"the plain counts: {mism}")
+    return {"mismatches": mism, "launches": ek.launches,
+            "shard_launches": ek.shard_launches,
+            "spread_pods": int((fc.pod_spread_skew > 0).any(1).sum()),
+            "rejections": int(want[:, :9].sum())}
+
+
 def run_pair(tag, state, args, device):
-    """Kernel and plain round over one cluster on the card."""
+    """Kernel and plain round over one cluster on the card; on the mixed
+    cluster also the stage-count pass against its plain counts."""
     fc, ng, ngroups, active = pack(state, args)
     dev_fc = to_device(fc, device)
     kern = fck.build_cuda_full_chain_step(args, ng, ngroups, active)
@@ -4941,10 +5033,12 @@ def run_pair(tag, state, args, device):
                 PT=int(fc.port_used.shape[1]),
                 SI=int(fc.img_scores.shape[1]),
                 VG=int(fc.vol_needed.shape[1]))
+    counts = (check_counts_world(tag, dev_fc) if tag == "mixed" else None)
     emit({"phase": tag, **dims, **launch,
           "prod_mode": args.score_according_prod_usage,
           "pods_bound": int((out_k[0] >= 0).sum().item()),
-          "mismatches": mism, "max_abs_err": err})
+          "mismatches": mism, "max_abs_err": err,
+          **({"stage_counts": counts} if counts else {})})
     return dims
 
 

@@ -85,8 +85,10 @@ __device__ __forceinline__ FilterPod filter_pod(const uint32_t* rec,
 }
 
 // NUMA admission of local node j: (ok, zone) as ops/numa.numa_admit_row;
-// zone is -1 unless the node's policy pins a single zone.
-__device__ __forceinline__ bool numa_admit(const View& nf, int j, int R,
+// zone is -1 unless the node's policy pins a single zone. `nf` is a View
+// or a type with its (j, a) accessor.
+template <class V>
+__device__ __forceinline__ bool numa_admit(const V& nf, int j, int R,
                                            int K, const float* rq, int pol,
                                            int& zone) {
   int first = -1;
@@ -112,13 +114,31 @@ __device__ __forceinline__ bool numa_admit(const View& nf, int j, int R,
   return fits_total;
 }
 
-// The read-only node rows the chain indexes by global node n.
+// The read-only node rows the chain indexes by global node n, in device
+// memory (read through the non-coherent cache). filter_stages reads them
+// through these accessors only, so a kernel that stages a tile of nodes in
+// shared memory hands it a type of its own with the same accessors.
 struct FilterNodes {
   const float* cpc;          // [N] cpus per core
   const int32_t* policy;     // [N]
   const int32_t* taint_group;  // [N]
   const int32_t* vol_group;  // [N]
   const float* aff_dom;      // [N, T]
+  __device__ __forceinline__ float cpc_at(int n) const {
+    return __ldg(cpc + n);
+  }
+  __device__ __forceinline__ int policy_at(int n) const {
+    return __ldg(policy + n);
+  }
+  __device__ __forceinline__ int taint_at(int n) const {
+    return __ldg(taint_group + n);
+  }
+  __device__ __forceinline__ int vgroup_at(int n) const {
+    return __ldg(vol_group + n);
+  }
+  __device__ __forceinline__ float dom_at(int n, int T, int t) const {
+    return __ldg(aff_dom + (size_t)n * T + t);
+  }
 };
 
 // The node's carried Filter state, by local node j (a block's slice in
@@ -129,12 +149,15 @@ struct FilterState {
 
 // The stages of the Filter chain that reject global node n (local j, flag
 // byte nf) for `pod`: a mask of kStage* bits, 0 where the node passes.
-// `aff_exists` [T] holds the first-replica bootstrap flags and
+// `s` is FilterState or a type with its members' (j, a) accessors,
+// indexed by j; `g` is FilterNodes or a type with its accessors, indexed
+// by n. `aff_exists` [T] holds the first-replica bootstrap flags and
 // `spread_min` [T] the pod's minimum count over the domains it is
 // eligible for (read only for a term with a positive skew).
+template <class State, class Nodes>
 __device__ __forceinline__ unsigned filter_stages(
     const FilterPod& pod, int j, int n, unsigned nf, int R, int K, int T,
-    int PT, const FilterState& s, const FilterNodes& g,
+    int PT, const State& s, const Nodes& g,
     const int* aff_exists, const float* spread_min) {
   unsigned bad = (nf & kNodeOk) ? 0u : kStageNode;
   // Fit
@@ -153,7 +176,7 @@ __device__ __forceinline__ unsigned filter_stages(
   // floors; they differ only for negative operands, and cores and
   // cpus-per-core are both positive here.
   if (pod.needs_bind) {
-    const float cpc = fmaxf(__ldg(g.cpc + n), 1.0f);
+    const float cpc = fmaxf(g.cpc_at(n), 1.0f);
     const bool smt_ok =
         !pod.full_pcpus | (fabsf(fmodf(pod.cores, cpc)) < 0.5f);
     const bool ok = ((nf & kNodeHasTopo) != 0) & smt_ok &
@@ -164,17 +187,17 @@ __device__ __forceinline__ unsigned filter_stages(
   if (pod.needs_numa) {
     int zone;
     const bool ok =
-        numa_admit(s.numa, j, R, K, pod.rq, __ldg(g.policy + n), zone);
+        numa_admit(s.numa, j, R, K, pod.rq, g.policy_at(n), zone);
     bad |= ok ? 0u : kStageNuma;
   }
   // TaintToleration: bit test of the admission mask
-  const bool taint_ok = ((pod.tmask >> __ldg(g.taint_group + n)) & 1) == 1;
+  const bool taint_ok = ((pod.tmask >> g.taint_at(n)) & 1) == 1;
   bad |= taint_ok ? 0u : kStageTaint;
   // InterPodAffinity, symmetric anti-affinity, PodTopologySpread
   bool aff_ok = true;
   for (int t = 0; t < T; ++t) {
     const float cnt = s.cnt(j, t);
-    const bool dom_valid = __ldg(g.aff_dom + (size_t)n * T + t) >= 0.0f;
+    const bool dom_valid = g.dom_at(n, T, t) >= 0.0f;
     const bool m = bit_at(pod.match, t);
     aff_ok &= !bit_at(pod.anti_req, t) | (cnt <= 0.0f);
     aff_ok &= !m | (s.anti(j, t) <= 0.0f);
@@ -193,7 +216,7 @@ __device__ __forceinline__ unsigned filter_stages(
     ports_ok &= !bit_at(pod.wants, q) | (s.port(j, q) <= 0.0f);
   bad |= ports_ok ? 0u : kStagePorts;
   // NodeVolumeLimits per volume group
-  const float vn = pod.vneed[__ldg(g.vol_group + n)];
+  const float vn = pod.vneed[g.vgroup_at(n)];
   const bool vol_ok = (vn <= 0.0f) | (s.vol(j, 0) >= vn);
   bad |= vol_ok ? 0u : kStageVolume;
   return bad;

@@ -542,7 +542,7 @@ def explain_spread_minima(fc: FullChainInputs, aff_count) -> torch.Tensor:
 
 
 def explain_stage_counts(fc: FullChainInputs, filter_state,
-                         n_real, spread_min=None) -> torch.Tensor:
+                         n_real, spread_min=None, rows=None) -> torch.Tensor:
     """[P, NUM_EXPLAIN_STAGES] uint32: per-pod rejected-node counts at the
     frozen ``filter_state`` — the (requested, numa_free, bind_free,
     quota_used, aff_count, anti_cover, aff_exists, port_used, vol_free)
@@ -555,7 +555,9 @@ def explain_stage_counts(fc: FullChainInputs, filter_state,
     order. The spread filter's minimum runs over every node, padded ones
     included, as the round's does; only the counts stop at ``n_real``.
     ``spread_min`` ([P, T], explain_spread_minima over every node) replaces
-    that minimum: a shard counts its own rows against the mesh's minima."""
+    that minimum: a shard counts its own rows against the mesh's minima.
+    ``rows`` (reject_np[N], reject_prod[N], gang_pod_ok[P]) replaces
+    pod_independent_rows(fc): what a caller read from packed inputs."""
     (requested, numa_free, bind_free, quota_used, aff_count, anti_cover,
      aff_exists, port_used, vol_free) = filter_state
     inputs = fc.base
@@ -565,7 +567,8 @@ def explain_stage_counts(fc: FullChainInputs, filter_state,
     T = fc.aff_dom.shape[1]
     PT = port_used.shape[1]
     dev = inputs.allocatable.device
-    reject_np, reject_prod, gang_pod_ok = pod_independent_rows(fc)
+    reject_np, reject_prod, gang_pod_ok = (
+        pod_independent_rows(fc) if rows is None else rows)
     real = torch.arange(N, device=dev) < int(n_real)
     dom_valid = fc.aff_dom >= 0                                   # [N, T]
     total_free = zone_total(numa_free)                            # [N, R]

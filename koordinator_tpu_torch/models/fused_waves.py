@@ -52,7 +52,8 @@ Two dispatch shapes share the one wave body (``_make_wave_body``):
 koordexplain (``explain="counts"|"full"``) adds outputs only: each wave's
 stage counts at its wave-START state (after the pre-passes: the state
 serial cycle w's packed batch holds), from the CUDA pass of
-ops/explain_kernel.py on the card and the plain explain_stage_counts on
+ops/explain_kernel.py on the card (``WaveBackend.round_counts``: on pass
+1's packed records, beside pass 1) and the plain explain_stage_counts on
 the CPU; and at "full" the pass-1 terms rows, carried in the ``ex_terms``
 slot after WAVE_STATE_FIELDS, where the wave that finally keeps a pod
 writes its row (pass 1 in the full-chain kernel's terms instance on the
@@ -271,6 +272,23 @@ class WaveBackend:
         from koordinator_tpu_torch.ops.explain_kernel import explain_counts
 
         return explain_counts(fc_k, state, n_real)
+
+    def round_counts(self, fc_k, weight_idx, prod_mode, bal_idx,
+                     terms: bool, n_real):
+        """(pass 1's outputs, the wave's stage counts at ``fc_k``'s own
+        state). On the card the pass takes the round's packed records and
+        runs beside it (full_chain_round's ``counts_n_real``)."""
+        if self.cuda:
+            from koordinator_tpu_torch.ops.full_chain_kernel import (
+                full_chain_round,
+            )
+
+            out = full_chain_round(fc_k, weight_idx, prod_mode, bal_idx,
+                                   terms=terms, counts_n_real=n_real)
+            return out[:-1], out[-1]
+        counts = self.counts(fc_k, cycle_start_state(fc_k), n_real)
+        return self.round(fc_k, weight_idx, prod_mode, bal_idx,
+                          terms), counts
 
     def zeros(self, like):
         return torch.zeros(tuple(like.shape), dtype=torch.float32,
@@ -491,13 +509,15 @@ def _make_wave_body(fc: FullChainInputs, sides: WaveSideInputs, weight_idx,
             quota_used=quota_used, aff_count=aff_count,
             anti_cover=anti_cover, aff_exists=aff_exists,
             port_used=port_used, vol_free=vol_free)
-        counts_w = None
-        if explain is not None:
-            # per-wave attribution at wave-START state (after the
+        if explain is None:
+            pass1 = backend.round(fc_k, weight_idx, prod_mode, bal_idx, full)
+            counts_w = None
+        else:
+            # with the per-wave attribution at wave-START state (after the
             # pre-passes): the counts logical cycle w formats for the pods
             # it leaves unbound
-            counts_w = backend.counts(fc_k, cycle_start_state(fc_k), n_real)
-        pass1 = backend.round(fc_k, weight_idx, prod_mode, bal_idx, full)
+            pass1, counts_w = backend.round_counts(
+                fc_k, weight_idx, prod_mode, bal_idx, full, n_real)
         chosen = pass1[0]
 
         # ---- Permit against the CARRIED assumed counters

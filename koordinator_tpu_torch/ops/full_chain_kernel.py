@@ -28,8 +28,11 @@ affinity counts per (term, domain) added once.
 `full_chain_round(..., terms=True)` launches the terms instance
 (koordexplain "full"): the same round, also writing each pod's
 decision-time score terms ([P, 5] f32, models/full_chain.EXPLAIN_TERMS).
-`build_cuda_full_chain_step(explain=...)` adds the stage counts at the
-cycle-start state from the CUDA pass of ops/explain_kernel.py.
+`full_chain_round(..., counts_n_real=n)` also runs the stage-count pass of
+ops/explain_kernel.py at the inputs' own state, on the round's packed
+records and node flags, on a side stream beside the round (joined before
+it returns); `build_cuda_full_chain_step(explain=...)` takes its stage
+counts from there.
 
 `full_chain_round_cards` and `full_chain_replay_cards` launch the
 instances over a mesh of cards (csrc/kernel_common.cuh, "The exchange"):
@@ -55,8 +58,8 @@ import torch
 
 from koordinator_tpu_torch.models.full_chain import (
     EXPLAIN_TERMS,
+    NUM_EXPLAIN_STAGES,
     ExplainOut,
-    cycle_start_state,
     permit,
     pod_independent_rows,
     resolve_balance_idx,
@@ -247,6 +250,16 @@ def pack_records(fc, gang_ok) -> torch.Tensor:
     return rec
 
 
+def round_pack(fc):
+    """(records, n_valid, node flags) as a round packs them for the kernel:
+    pack_records with the valid pods first (valid_first) and node_flags,
+    on the inputs' device."""
+    reject_np, reject_pr, gang_ok = pod_independent_rows(fc)
+    records, n_valid = valid_first(pack_records(fc, gang_ok),
+                                   fc.base.pod_valid)
+    return records, n_valid, node_flags(fc, reject_np, reject_pr)
+
+
 def unpack_records(rec: torch.Tensor, R: int, T: int, PT: int,
                    VG: int) -> dict:
     """Inverse of pack_records: the per-pod fields by their FullChainInputs
@@ -373,8 +386,8 @@ def state_for(fc, weight_idx, smem_budget_bytes=None,
     return state, cluster_plan(n_nodes, cluster_size), smem
 
 
-def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
-            chosen, cluster_size: int, smem_budget_bytes, terms=None,
+def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, flags,
+            state, chosen, cluster_size: int, smem_budget_bytes, terms=None,
             xchg=None):
     """Check every tensor, fill FullChainParams and launch on the current
     stream of the tensors' card. ``state`` holds the carried tensors the
@@ -399,7 +412,6 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         raise ValueError(f"{N} rows do not split into {shards} shards")
     exchange = xchg is not None
     lay = record_layout(R, T, PT, VG)
-    reject_np, reject_pr, _gang_ok = pod_independent_rows(fc)
     u8, f32, i32 = torch.uint8, torch.float32, torch.int32
     dev = launch_device(inputs.allocatable)
     quota_blocks = torch.empty((shards * cluster_size, G, R), dtype=f32,
@@ -411,7 +423,7 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, state,
         "alloc": (inputs.allocatable, f32, (N, R)),
         "term_np": (state["term_np"], f32, (N, W)),
         "term_pr": (state["term_pr"], f32, (N, W)),
-        "node_flags": (node_flags(fc, reject_np, reject_pr), u8, (N,)),
+        "node_flags": (flags, u8, (N,)),
         "cpc": (fc.cpus_per_core, f32, (N,)),
         "policy": (fc.numa_policy, i32, (N,)),
         "taint_group": (fc.node_taint_group, i32, (N,)),
@@ -517,37 +529,80 @@ def _require_cuda(fn: str, fc) -> None:
 
 def full_chain_round(fc, weight_idx, prod_mode: bool, bal_idx, *,
                      cluster_size: int = CLUSTER_SIZE,
-                     smem_budget_bytes=None, terms: bool = False):
+                     smem_budget_bytes=None, terms: bool = False,
+                     counts_n_real=None):
     """One round in the kernel: FullChainInputs (CUDA tensors) ->
     (chosen[P] int32 before Permit, requested[N, R], quota_used[G, R]),
     and with ``terms`` (the terms instance) a 4th item, the [P, 5] f32
     koordexplain terms rows (0 for pods outside pod_valid). Raises for
-    tensors anywhere but on the card."""
+    tensors anywhere but on the card.
+
+    With ``counts_n_real`` a last item, the [P, 11] uint32 stage counts
+    at ``fc``'s own state over its first ``counts_n_real`` nodes (ops/
+    explain_kernel.py): the pass reads the round's packed records and node
+    flags and runs on a side stream beside the round (it depends on
+    nothing the round writes), on the SMs the round's one cluster leaves
+    idle; the current stream waits for it before this returns."""
     global launches, terms_launches
     _require_cuda("full_chain_round", fc)
     widx = list(weight_idx)
-    records, n_valid, state, chosen, rows = _round_buffers(fc, widx, terms)
+    records, n_valid, flags, state, chosen, rows = _round_buffers(
+        fc, widx, terms)
+    # the pass waits for the packing only: recorded before the round is
+    # queued, so that the round's cluster takes its SMs first
+    packed = (torch.cuda.current_stream(records.device).record_event()
+              if counts_n_real is not None else None)
     quota_blocks, _exists = _launch(
-        fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen,
+        fc, widx, prod_mode, bal_idx, records, n_valid, flags, state, chosen,
         cluster_size, smem_budget_bytes, terms=rows)
     launches += 1
+    beside = None
+    if counts_n_real is not None:
+        beside = _counts_beside(fc, records, flags, state["aff_exists0"],
+                                counts_n_real, packed)
+    out = (chosen, state["requested"], quota_blocks[0])
     if terms:
         terms_launches += 1
-        return chosen, state["requested"], quota_blocks[0], rows
-    return chosen, state["requested"], quota_blocks[0]
+        out += (rows,)
+    if beside is None:
+        return out
+    counts, side = beside
+    torch.cuda.current_stream(counts.device).wait_stream(side)
+    return out + (counts,)
+
+
+def _counts_beside(fc, records, flags, aff_exists, n_real, packed):
+    """Launch the stage-count pass over ``fc`` on the card's side stream,
+    once the current stream has reached the event ``packed`` (the packing
+    done): (counts, side stream). Every tensor it reads was made on the
+    current stream, which waits for the side stream before any of them is
+    freed; the counts are allocated there too."""
+    from koordinator_tpu_torch.ops.explain_kernel import Pack, explain_counts
+
+    dev = launch_device(fc.base.allocatable)
+    side = torch.cuda.Stream(dev)  # one of the card's pooled streams
+    counts = torch.empty((fc.base.fit_requests.shape[0], NUM_EXPLAIN_STAGES),
+                         dtype=torch.uint32, device=dev)
+    state = (fc.base.requested, fc.numa_free, fc.bind_free, fc.quota_used,
+             fc.aff_count, fc.anti_cover, aff_exists, fc.port_used,
+             fc.vol_free)
+    side.wait_event(packed)
+    with torch.cuda.stream(side):
+        explain_counts(fc, state, n_real, pack=Pack(records, flags),
+                       out=counts)
+    return counts, side
 
 
 def _round_buffers(fc, widx, terms: bool):
-    """(records, n_valid, state, chosen, rows) of a round over ``fc``: the
-    packed records (valid pods first), the kernel's carried state (the
-    round's own copies, updated in place), the chosen vector (-1 preset)
-    and the terms rows (zeros, None without ``terms``)."""
+    """(records, n_valid, flags, state, chosen, rows) of a round over
+    ``fc``: the packed records (valid pods first) and node flags, the
+    kernel's carried state (the round's own copies, updated in place), the
+    chosen vector (-1 preset) and the terms rows (zeros, None without
+    ``terms``)."""
     inputs = fc.base
     P, N = inputs.fit_requests.shape[0], inputs.allocatable.shape[0]
     W = len(widx)
-    _rnp, _rpr, gang_ok = pod_independent_rows(fc)
-    records, n_valid = valid_first(pack_records(fc, gang_ok),
-                                   inputs.pod_valid)
+    records, n_valid, flags = round_pack(fc)
     f32, dev = torch.float32, inputs.allocatable.device
     # carried state: the round's own copies, updated in place by the kernel
     state = {
@@ -568,7 +623,7 @@ def _round_buffers(fc, widx, terms: bool):
     chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
     rows = (torch.zeros((P, NUM_TERMS), dtype=f32, device=dev) if terms
             else None)
-    return records, n_valid, state, chosen, rows
+    return records, n_valid, flags, state, chosen, rows
 
 
 # ---------------------------------------------------------------------------
@@ -882,10 +937,11 @@ def full_chain_round_cards(cards, weight_idx, prod_mode: bool, bal_idx,
     flag0 = box.begin(2 * P)
     per = cards[0][0].base.allocatable.shape[0] // len(cards[0][1])
     out = []
-    for fc, shards, dev, (records, n_valid, state, chosen, rows) in ready:
+    for fc, shards, dev, (records, n_valid, flags, state, chosen,
+                          rows) in ready:
         quota_blocks, _exists = _launch(
-            fc, widx, prod_mode, bal_idx, records, n_valid, state, chosen,
-            CLUSTER_SIZE, smem_budget_bytes, terms=rows,
+            fc, widx, prod_mode, bal_idx, records, n_valid, flags, state,
+            chosen, CLUSTER_SIZE, smem_budget_bytes, terms=rows,
             xchg=box.xchg(dev, shards, per, flag0))
         item = (chosen, state["requested"], quota_blocks[0])
         out.append(item + ((rows,) if terms else ()))
@@ -933,10 +989,10 @@ def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,
 
     ``explain`` ("counts" | "full"): the step takes the extra ``n_real``
     and returns ExplainOut as a 4th output — the stage counts at the
-    cycle-start state from the CUDA pass of ops/explain_kernel.py (its
-    ``explain`` lap), and at "full" the terms instance's rows."""
-    from koordinator_tpu_torch.ops.explain_kernel import explain_counts
-
+    cycle-start state from the CUDA pass of ops/explain_kernel.py, run on
+    the round's packed records beside the round (full_chain_round's
+    ``counts_n_real``, inside its ``round`` lap), and at "full" the terms
+    instance's rows."""
     weight_idx = resolve_weight_idx(args, active_axes)
     bal_idx = resolve_balance_idx(active_axes)
     prod_mode = args.score_according_prod_usage
@@ -946,7 +1002,8 @@ def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,
         clock = SyncClock(timings, fc.base.allocatable.device)
         out = full_chain_round(
             fc, weight_idx, prod_mode, bal_idx,
-            smem_budget_bytes=smem_budget_bytes, terms=full)
+            smem_budget_bytes=smem_budget_bytes, terms=full,
+            counts_n_real=n_real)
         chosen, requested, quota_used = out[:3]
         step.last_state = last_launch["state"]
         clock.lap("round")
@@ -954,10 +1011,8 @@ def build_cuda_full_chain_step(args: LoadAwareArgs, num_gangs: int,
         clock.lap("permit")
         if explain is None:
             return chosen, requested, quota_used
-        counts = explain_counts(fc, cycle_start_state(fc), n_real)
-        clock.lap("explain")
         return (chosen, requested, quota_used,
-                ExplainOut(counts, out[3] if full else None))
+                ExplainOut(out[-1], out[3] if full else None))
 
     if explain is None:
         def step(fc, timings=None):

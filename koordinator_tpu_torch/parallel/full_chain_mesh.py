@@ -547,6 +547,13 @@ class CardBackend:
         return explain_counts_shards(
             [(views[k], states[k], k * per) for k in sorted(views)], n_real)
 
+    def round_counts(self, fc, weight_idx, prod_mode, bal_idx, terms: bool,
+                     n_real):
+        """(the round's outputs, the stage counts at ``fc``'s own state):
+        the per-card counts, then the round over the mesh."""
+        counts = self.counts(fc, cycle_start_state(fc), n_real)
+        return self.round(fc, weight_idx, prod_mode, bal_idx, terms), counts
+
     def zeros(self, like: ShardedTensor) -> ShardedTensor:
         return ShardedTensor(
             [None if t is None else torch.zeros_like(t, dtype=torch.float32)

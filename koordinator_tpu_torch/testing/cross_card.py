@@ -13,6 +13,11 @@ then stays unverified). Each check prints one JSON line:
               instances, the per-card replay, the per-card stage counts and
               kernel 2's exchange instance against the single-device
               kernels on the first card, 0 mismatches, with times;
+  counts      testing/mesh_round.check_counts_cards on the mesh over
+              mixed_cluster(7, 500 nodes, 1000 pods) (affinity, spread,
+              ports, volumes): the per-card stage counts against the
+              one-card pass and the plain sharded counts, 0 mismatches,
+              with times;
   timeout     the first card's launch alone: ExchangeTimeout naming every
               other shard within the limit, and the card takes the next
               launch;
@@ -74,6 +79,7 @@ from koordinator_tpu_torch.scheduler.snapshot import (
 from koordinator_tpu_torch.testing import mesh_round
 from koordinator_tpu_torch.testing.synth import (
     loadaware_inputs,
+    mixed_cluster,
     synth_cluster,
     synth_full_cluster,
 )
@@ -310,6 +316,11 @@ def main(argv=None) -> int:
         if bad:
             raise AssertionError(f"exchange: {bad}")
     print(json.dumps({"check": "exchange", "rows": rows}), flush=True)
+    _c, mstate = mixed_cluster(7, 500, 1000)
+    counts = mesh_round.check_counts_cards(pack(mstate, args)[0], mesh)
+    if counts["mismatches"]:
+        raise AssertionError(f"counts: {counts}")
+    print(json.dumps({"check": "counts", **counts}), flush=True)
     timeout = mesh_round.check_timeout(fc, args, active, mesh=mesh)
     if timeout["next_launch_mismatches"]:
         raise AssertionError(f"timeout: {timeout}")

@@ -34,10 +34,15 @@ single-device kernels, then timed), and (2) the kept-pod replay at cycle 0's
 kept set (the config 4 round after Permit, from the cycle-start state):
 the wrapper's call and, apart, the kernel's launch alone (CUDA events
 around the library call), held bit for bit against the plain replay_kept
-the first time a tree runs. Every run's outputs must hash alike across the
-trees. Then each tree's testing/pod_trace.py runs once (its exchange
-instance's "merge" phase cycles). One JSON line per run, then the card's
-nvidia-smi name and power limit.
+the first time a tree runs, and (3) the stage-count pass called alone at
+P = 10240 and at the churn wave's 1280 (the call, the launch alone and the
+kernel's device time under torch.profiler; the counts held against the
+plain counts the first time a tree runs), the explain step at "counts"
+against the step with explain off, and the Scheduler's churn cycle at
+config 4 with explain "counts" (host clock). Every run's outputs must hash
+alike across the trees. Then each tree's testing/pod_trace.py runs once
+(its exchange instance's "merge" phase cycles). One JSON line per run,
+then the card's nvidia-smi name and power limit.
 """
 
 from __future__ import annotations
@@ -61,6 +66,8 @@ from koordinator_tpu_torch.models.convert import (
 )
 from koordinator_tpu_torch.models.full_chain import (
     build_full_chain_step,
+    cycle_start_state,
+    explain_stage_counts,
     permit,
     resolve_balance_idx,
     resolve_weight_idx,
@@ -212,6 +219,88 @@ def launch_alone_ms(module, getter: str, name: str, fn,
     return statistics.median(a.elapsed_time(b) for a, b in spans[1:])
 
 
+def kernel_device_ms(fn, kernel: str, reps: int = REPS):
+    """Device milliseconds a call of ``fn`` spends in the kernels whose
+    name holds ``kernel``, over ``reps`` calls after a warm-up
+    (torch.profiler's CUPTI trace); None where the trace holds no such
+    kernel (a profiler that sees no device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return sum(spans) / 1e3 / reps if spans else None
+
+
+def pod_rows(fc, n: int):
+    """The first ``n`` pods of a batch: every per-pod field cut to its
+    first n rows (the churn wave's P out of config 4's)."""
+    P = fc.base.fit_requests.shape[0]
+
+    def cut(t):
+        return t[:n].contiguous() if t.dim() and t.shape[0] == P else t
+
+    return type(fc)(type(fc.base)(*(cut(t) for t in fc.base)),
+                    *(cut(t) for t in fc[1:]))
+
+
+def counts_timings(ek, fc, n_real: int) -> dict:
+    """The stage-count pass called alone on ``fc`` at its own state: the
+    call packing its own records (CUDA events around the wrapper), the
+    launch alone (around the library call) and the kernel's device time
+    (torch.profiler); where the wrapper takes a pack (``ek.pack_for``),
+    also the call on a pack made beforehand, as the main path hands it
+    the round's."""
+    from koordinator_tpu_torch.models.full_chain import cycle_start_state
+
+    state = cycle_start_state(fc)
+
+    def call():
+        return ek.explain_counts(fc, state, n_real)
+
+    out = {"call_ms": time_ms(call),
+           "launch_ms": launch_alone_ms(ek, "_lib", "explain_launch", call),
+           "device_ms": kernel_device_ms(call, "explain_counts")}
+    if hasattr(ek, "pack_for"):
+        pack = ek.pack_for(fc)
+        out["call_on_pack_ms"] = time_ms(
+            lambda: ek.explain_counts(fc, state, n_real, pack=pack))
+    return out
+
+
+def scheduler_explain_cycle_ms(cycles: int = 3) -> list:
+    """The port's Scheduler at config 4 with explain "counts" (the default
+    path): cycle 0, one churn cycle of 1000 arrivals to warm up, then
+    ``cycles`` timed churn cycles (host clock, each ending in its
+    readback)."""
+    import time
+
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+    from koordinator_tpu_torch.testing.churn import (
+        add_arrivals,
+        arrival_specs,
+        churn_store,
+    )
+
+    store, state = churn_store(5000, 10000, seed=42)
+    sched = Scheduler(store, device="cuda", explain="counts")
+    walls = []
+    for c in range(2 + cycles):
+        if c:
+            add_arrivals(store, arrival_specs(c, 1000), state.now + c)
+        t0 = time.perf_counter()
+        sched.run_cycle(now=state.now + 2 * c)
+        if c > 1:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
 def _digest(tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -253,8 +342,23 @@ def worker(plain: bool) -> int:
         return fck.full_chain_replay(dev, chosen, kept, state0, False)
 
     out, zones = replay()
-    outputs = list(out) + [zones]
+    # the stage-count pass: called alone at P = 10240 and the churn
+    # wave's 1280, and inside the explain step at "counts" against the
+    # step with explain off
+    state = cycle_start_state(dev)
+    counts = ek.explain_counts(dev, state, 5000)
+    wave = pod_rows(dev, 1280)
+    counts_w = ek.explain_counts(wave, cycle_start_state(wave), 5000)
+    steps = {ex: fck.build_cuda_full_chain_step(args, ng, ngroups, active,
+                                                explain=ex)
+             for ex in (None, "counts")}
+    outputs = list(out) + [zones, counts, counts_w]
     res = {"exchange": row, "kept": int(kept.sum()),
+           "counts_P10240": counts_timings(ek, dev, 5000),
+           "counts_P1280": counts_timings(ek, wave, 5000),
+           "step_off_ms": time_ms(lambda: steps[None](dev)),
+           "step_counts_ms": time_ms(lambda: steps["counts"](dev, 5000)),
+           "scheduler_explain_cycle_ms": scheduler_explain_cycle_ms(),
            "most_kept_on_a_node": int(torch.bincount(
                chosen[kept].long()).max()),
            "replay_wrapper_ms": time_ms(replay),
@@ -273,6 +377,13 @@ def worker(plain: bool) -> int:
             for a, b in zip(outputs, list(want) + [want_zones]))
         if res["replay_plain_mismatches"]:
             raise AssertionError("the replay disagrees with replay_kept")
+        res["counts_plain_mismatches"] = sum(
+            int((a.to(torch.int64) != explain_stage_counts(
+                f, cycle_start_state(f), 5000).to(torch.int64)).sum())
+            for a, f in ((counts, dev), (counts_w, wave)))
+        if res["counts_plain_mismatches"]:
+            raise AssertionError("the stage counts disagree with the plain "
+                                 "counts")
     print(json.dumps(res), flush=True)
     return 0
 

@@ -357,6 +357,48 @@ def check_exchange(fc_host, args, ng: int, ngroups: int, active,
     return out
 
 
+def check_counts_cards(fc_host, mesh) -> dict:
+    """The per-card stage counts (ops/explain_kernel.explain_counts_shards:
+    each card's rows, the spread minima and the counts added into buffers
+    on the first card) on ``mesh`` against the one-card pass and the plain
+    sharded_stage_counts, both on the first card, over every row and a cut
+    below it; then the per-card pass timed (CUDA events, median of 10)."""
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        node_rows,
+        sharded_stage_counts,
+    )
+    from koordinator_tpu_torch.parallel.mesh import card_view
+
+    depth = mesh.size
+    dev0 = mesh.flat[0].device
+    fc = to_device(_padded_fc(fc_host, mesh), dev0)
+    N = fc.base.allocatable.shape[0]
+    per = N // depth
+    rows = {k: node_rows(fc, k * per, (k + 1) * per) for k in range(depth)}
+    views = {k: card_view(v, [k], mesh.flat[k].device)
+             for k, v in rows.items()}
+    shards = [(views[k], cycle_start_state(views[k]), k * per)
+              for k in range(depth)]
+    out = {"depth": depth, "cards": len(mesh.cards), "n_padded": N,
+           "T": int(fc.aff_dom.shape[1]),
+           "spread_pods": int((fc.pod_spread_skew > 0).any(1).sum()),
+           "mismatches": 0}
+    for n_real in (N, N - 7):
+        one = ek.explain_counts(fc, cycle_start_state(fc), n_real)
+        got = ek.explain_counts_shards(shards, n_real)
+        plain = sharded_stage_counts(
+            rows, {k: cycle_start_state(v) for k, v in rows.items()}, mesh,
+            per, n_real)
+        out["mismatches"] += _mismatches(got.cpu(), one.cpu()) + _mismatches(
+            got.cpu(), plain.cpu())
+    out["counts_shards_ms"] = time_ms(
+        lambda: ek.explain_counts_shards(shards, N))
+    out["counts_single_ms"] = time_ms(
+        lambda: ek.explain_counts(fc, cycle_start_state(fc), N))
+    return out
+
+
 def _state_rows(state, lo: int, hi: int):
     """A replay 11-tuple with its node-axis slots cut to rows [lo, hi)."""
     from koordinator_tpu_torch.parallel.full_chain_mesh import (
@@ -472,11 +514,11 @@ def check_deadline(fc_host, args, active, device="cuda", trials=48,
             torch.cuda._sleep(max(int(delay_s * hz), 1))
         for k, (view, s) in enumerate(zip(views, streams)):
             with torch.cuda.stream(s):
-                records, n_valid, state, chosen, _rows = bufs[k]
+                records, n_valid, flags, state, chosen, _rows = bufs[k]
                 x = box.xchg(dev, [k], per, flag0)
                 x.timeout_ns = int(timeout_s * 1e9)
-                fk._launch(view, widx, prod, bal, records, n_valid, state,
-                           chosen, fk.CLUSTER_SIZE, None, xchg=x)
+                fk._launch(view, widx, prod, bal, records, n_valid, flags,
+                           state, chosen, fk.CLUSTER_SIZE, None, xchg=x)
         for s in streams:
             main.wait_stream(s)
         try:
@@ -484,7 +526,7 @@ def check_deadline(fc_host, args, active, device="cuda", trials=48,
         except ExchangeTimeout:
             return True
         for k in range(2):
-            bad = _mismatches(before, bufs[k][3].cpu())
+            bad = _mismatches(before, bufs[k][4].cpu())
             if bad:
                 raise AssertionError(f"shard {k} of a late group that did "
                                      f"not time out: {bad} mismatches")

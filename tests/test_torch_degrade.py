@@ -271,11 +271,14 @@ def test_host_fallback_schedule_matches_reference(seed):
 # name -> (pods at cycle 0, Scheduler kwargs, faults, expected walk).
 # Cycle 0 then churn cycles of ARRIVALS pods on NODES nodes. The pinned
 # K=2 worlds stay small; "auto" needs 256 pending pods for K=2 at cycle 0
-# (the churn cycles after it resolve K=1 by depth).
+# (the churn cycles after it resolve K=1 by depth). Only a world that
+# plans a `latency` fault sets a dispatch deadline: elsewhere a slow CPU
+# cycle under parallel test workers would overrun it, in either package,
+# and add a retry that no fault planted.
 NODES, ARRIVALS, CYCLES = 12, 30, 9
 SERIAL, HOST, FULL = "serial-waves", "host-fallback", "full"
 CONFIGS = {
-    "chained": (60, dict(waves=2), (
+    "chained": (60, dict(waves=2, dispatch_deadline_ms=300), (
         ("dispatch", 0, dict(count=1)),
         ("oom_upload", 1, dict(count=1)),
         ("latency", 2, dict(count=1, delay_ms=1500.0)),
@@ -348,7 +351,7 @@ def _reference(name):
     store = store_from_state(state, RefObjectStore())
     sched = RefScheduler(store, **{
         "explain": "off", "mesh": "off", "warmup": "off",
-        "dispatch_deadline_ms": 300,
+        "dispatch_deadline_ms": 0,
         "ladder": ref_degrade.DegradationLadder(promote_after=2), **kwargs})
     return _drive(sched, store, state, _plan(ref_faults, faults),
                   ref_metrics, _ref_add)
@@ -364,9 +367,9 @@ def test_fault_sequence_matches_reference(name):
         from koordinator_tpu_torch.testing.mesh_round import virtual_mesh
 
         kwargs = dict(kwargs, mesh=virtual_mesh(kwargs["mesh"], "cpu"))
-    sched = Scheduler(store, device="cpu", dispatch_deadline_ms=300,
-                      ladder=degrade.DegradationLadder(promote_after=2),
-                      **kwargs)
+    sched = Scheduler(store, device="cpu", **{
+        "dispatch_deadline_ms": 0,
+        "ladder": degrade.DegradationLadder(promote_after=2), **kwargs})
     got = _drive(sched, store, state, _plan(port_faults, faults),
                  port_metrics, add_arrivals)
     want = _reference(name)

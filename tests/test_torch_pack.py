@@ -205,6 +205,7 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.testing.cross_card, "
             "koordinator_tpu_torch.testing.multihost_worker, "
             "koordinator_tpu_torch.testing.mailbox_rtt, "
+            "koordinator_tpu_torch.testing.explain_ab, "
             "koordinator_tpu_torch.models.replay_by_node, "
             "koordinator_tpu_torch.koordlet, "
             "koordinator_tpu_torch.koordlet.util, "
