@@ -438,6 +438,23 @@ Phases, one JSON line each:
           version on the card (the plain sharded round with its terms,
           the plain per-shard replay and counts, the plain sharded
           LoadAware round) on the first PLAIN_PODS valid pods.
+  mesh_procs  the mesh of cards across processes: 2 worker processes on
+          the one card (testing/xproc_cards.py), one shard each, whose
+          exchange maps each other's mailboxes through CUDA IPC; each
+          must hold this process's card (PCI bus id). They measure the
+          mailbox round trip between them, then run testing/mesh_round.
+          run_checks: kernel 1's exchange round and terms instance, the
+          per-card replay and stage counts and kernel 2's exchange
+          instance at `main`'s and `loadaware`'s node widths, the score
+          matrix over both mesh axes (each process's blocks against its
+          own whole matrix), the fused wave step at K = 2 with explain
+          "counts" and one chained wave (config 4's world), all on
+          P_XPROC pods, and a launch group that rank 1 skips (both
+          processes raise ExchangeTimeout naming shard 1 within 2 x the
+          limit + 1 s; the next group passes). Both processes print one
+          digest; every output equals the single-card kernels' in this
+          process (mesh_round.reference), bit for bit, and both digests
+          equal its digest.
 Every phase that injects no fault ends with each scheduler's ladder at
 full, no transition and no dispatch retry (ladder_full in its line).
 Each kernel's phase line names the launch: the state it kept (smem or
@@ -449,8 +466,8 @@ kernels line (kernel 1, kernel 2, the replay kernel, the stage-count
 pass and the terms instance, each with its launches on the scheduler
 paths; then their instances over a mesh of cards: kernel 1's exchange
 round and terms round, the per-card replay, the per-card stage counts and
-kernel 2's exchange instance, with their launches on scheduler_xchg and
-mesh_round's exchange path), the card line, and the result line. Any failure raises: the
+kernel 2's exchange instance, with their launches on scheduler_xchg,
+mesh_round's exchange path and mesh_procs' processes), the card line, and the result line. Any failure raises: the
 script exits non-zero and prints no result. It imports neither JAX nor the
 JAX package.
 """
@@ -505,6 +522,8 @@ from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops import schedule_kernel as sk
 from koordinator_tpu_torch.ops.kernel_common import (
     BUILD_LOG,
+    EXCHANGE_TIMEOUT_S,
+    IPC_SOURCE,
     SMEM_BUDGET_BYTES,
     build_libraries,
 )
@@ -530,7 +549,13 @@ from koordinator_tpu_torch.testing import (
     synth_cluster,
     synth_full_cluster,
 )
-from koordinator_tpu_torch.testing import churn, cross_card, mesh_round
+from koordinator_tpu_torch.testing import (
+    churn,
+    cross_card,
+    mailbox_rtt,
+    mesh_round,
+    xproc_cards,
+)
 from koordinator_tpu_torch.testing.kernel_ab import (
     counts_timings,
     launch_alone_ms,
@@ -4396,6 +4421,89 @@ def run_mesh_round(fc, args, ng, ngroups, active, n_real, la_inputs):
         "exchange": x_rows[0], "path": path}
 
 
+# the mesh_procs phase: two processes time-slice one card, so each
+# exchange waits for the other process's slice: the mailbox round trip
+# between two processes on the card took 4.475 ms (NVIDIA H100 80GB HBM3,
+# 700.00 W; testing/mailbox_rtt.ipc_round_trip), against 568.9 ns in one
+# launch: ~2.24 ms an exchange (one a valid pod at config 4). The phase
+# runs ~27 rounds of kernels 1 and 2 (timing included), so 256 of config
+# 4's 10,240 pods keep its exchanges near 15 s and the phase near 30 s.
+P_XPROC = 256
+XPROC_REPS = 3  # timed calls of each instance, after a warm-up
+XPROC_TIMEOUT_S = 300
+XPROC_CHECKS = ("rtt", "round", "replay", "counts", "loadaware", "matrix",
+                "waves", "timeout")
+
+
+def run_mesh_procs(state, args, n_real, la_inputs):
+    """The mesh of cards across processes on the one card (the
+    mesh_procs phase): the batch written once, two worker processes
+    (testing/xproc_cards.py) run the checks through the mesh's entry
+    points, and this process holds their outputs against the single-card
+    kernels on the same padded tensors. Raises on any mismatch, a
+    digest that differs, a child's failure or timeout, or a child on
+    another card. Returns the children's summed launches, their times and
+    the round trip."""
+    tmp = tempfile.mkdtemp(prefix="koord_xproc_")
+    try:
+        t0 = time.perf_counter()
+        data = xproc_cards.batch_data(state, args, n_real, P_XPROC,
+                                      la_inputs=la_inputs)
+        path = os.path.join(tmp, "data.pkl")
+        xproc_cards.write_data(path, data)
+        data_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = xproc_cards.launch(2, path, os.path.join(tmp, "out"),
+                                  XPROC_CHECKS, reps=XPROC_REPS,
+                                  timeout_s=XPROC_TIMEOUT_S)
+        procs_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = mesh_round.reference(data, XPROC_CHECKS, 2, "cuda")
+    res = mesh_round.compare(ref, outs, 2)
+    if res["total"]:
+        raise AssertionError(f"mesh_procs: mismatches "
+                             f"{ {k: v for k, v in res['mismatches'].items() if v} }")
+    if res["digests"] != [res["reference_digest"]]:
+        raise AssertionError(f"mesh_procs: digests {res['digests']}, the "
+                             f"single card's {res['reference_digest']}")
+    limit = 2 * EXCHANGE_TIMEOUT_S + 1.0
+    timeouts = [o["extra"]["timeout"] for o in outs]
+    for t in timeouts:
+        if t["failed_shards"] != [1] or t["seconds"] > limit:
+            raise AssertionError(f"mesh_procs: the timeout took {t}")
+    if timeouts[0]["message"] != timeouts[1]["message"]:
+        raise AssertionError(f"mesh_procs: the processes named the timeout "
+                             f"differently: {timeouts}")
+    launches = collections.Counter()
+    for o in outs:
+        launches.update(o["launches"])
+    for key in ("full_chain_kernel.xchg_launches",
+                "full_chain_kernel.xchg_terms_launches",
+                "full_chain_kernel.xchg_replay_launches",
+                "explain_kernel.shard_launches",
+                "schedule_kernel.xchg_launches"):
+        if launches[key] < 2:
+            raise AssertionError(f"mesh_procs: {key} {launches[key]}")
+    rtt = outs[0]["extra"]["rtt"]
+    row = {"phase": "mesh_procs", "processes": 2, "pods": P_XPROC,
+           "cards": outs[0]["extra"]["mesh"]["cards"],
+           "bus_ids": [o["extra"]["mesh"]["bus_ids"] for o in outs],
+           "digest": res["reference_digest"], "mismatches": 0,
+           "outputs": len(res["mismatches"]),
+           "bound": int((ref["rep"]["round.chosen"] >= 0).sum()),
+           "round_trip_ns": rtt["round_trip_ns"], "rtt": rtt,
+           "times": [o["times"] for o in outs],
+           "timeout": timeouts, "launches": dict(launches),
+           "children_seconds": [o["extra"]["seconds"] for o in outs],
+           "data_seconds": data_s, "processes_seconds": procs_s}
+    if row["bound"] < P_XPROC // 2:
+        raise AssertionError(f"mesh_procs: {row['bound']} pods bound")
+    emit(row)
+    return {"launches": dict(launches), "times": outs[0]["times"],
+            "round_trip_ns": rtt["round_trip_ns"]}
+
+
 def run_scheduler_xchg(device, waves_sha, n_nodes=5000, n_pods=10000):
     """Config 4's churn store through Scheduler(store, mesh=2 virtual cards
     of the card, exchanging) on the default path, through the cycles
@@ -4768,7 +4876,7 @@ def explain_entry(name, source, replaces, key, launches, res):
 
 
 def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
-                 replay_entry, count_res, more_launches):
+                 replay_entry, count_res, more_launches, procs):
     """The kernels-line entries of the instances over a mesh of cards.
     Their launches: the scheduler_xchg phase's (the default path on 2
     exchanging virtual cards: kernel 1's exchange round, the per-card
@@ -4780,7 +4888,9 @@ def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
     plain_ms and the errors: the plain versions on the card on the first
     PLAIN_PODS valid pods (check_sharded_exchange, ``plain_pods``; the
     stage counts on every pod). The work is the single-device kernels', so
-    are the bounds."""
+    are the bounds. ``procs``: mesh_procs' two processes' summed launches
+    (``launches_mesh_procs``) and their times (``ms_mesh_procs``, at
+    P_XPROC pods)."""
     x, path = sharded_ms["exchange"], sharded_ms["path"]
     la = path["launches"]
     common = {"plain_pods": path["plain_pods"], "shards": x["depth"]}
@@ -4800,51 +4910,68 @@ def xchg_entries(sharded_ms, sched_launches, bytes_ms, ops_ms, la_kernel,
 
     more_round, split_round = more("full_chain_xchg")
     more_replay, split_replay = more("full_chain_xchg_replay")
+    pl, pt = procs["launches"], procs["times"]
+    xp = {"pods_mesh_procs": P_XPROC,
+          "round_trip_ns_mesh_procs": procs["round_trip_ns"]}
     return [
         kernel_entry(
             "full_chain_round_xchg", "full_chain.cu",
             "koordinator_tpu/ops/pallas_full_chain.py:90 (over a mesh of "
             "cards: parallel/full_chain_mesh.py:82)",
             sched_launches["full_chain_xchg"] + la[
-                "full_chain_kernel.xchg_launches"] + more_round,
+                "full_chain_kernel.xchg_launches"] + more_round
+            + pl["full_chain_kernel.xchg_launches"],
             path["round_plain_mismatches"], path["round_err"],
             x["round_xchg_ms"], path["round_plain_ms"], *kbytes,
             launches_scheduler_xchg=sched_launches["full_chain_xchg"],
             launches_sharded_step=la["full_chain_kernel.xchg_launches"],
-            **split_round, ms_single=x["round_single_ms"], **common),
+            launches_mesh_procs=pl["full_chain_kernel.xchg_launches"],
+            ms_mesh_procs=pt["round_ms"], ms_mesh_procs_waves=pt["waves_ms"],
+            **xp, **split_round, ms_single=x["round_single_ms"], **common),
         kernel_entry(
             "full_chain_terms_xchg", "full_chain.cu",
             "koordinator_tpu/models/full_chain.py:549 (the explain=full body "
             "of the XLA serial step, no TPU kernel), over a mesh of cards",
-            la["full_chain_kernel.xchg_terms_launches"],
+            la["full_chain_kernel.xchg_terms_launches"]
+            + pl["full_chain_kernel.xchg_terms_launches"],
             path["terms_plain_mismatches"], path["round_err"],
             x["terms_xchg_ms"], path["round_plain_ms"], *kbytes,
+            launches_mesh_procs=pl["full_chain_kernel.xchg_terms_launches"],
+            ms_mesh_procs=pt["terms_ms"], **xp,
             ms_single=x["terms_single_ms"], **common),
         kernel_entry(
             "replay_by_node_cards", "replay_by_node.cu",
             "koordinator_tpu/models/fused_waves.py:559 (the kept-only "
             "replay, an XLA fori_loop, no TPU kernel), per card",
-            sched_launches["full_chain_xchg_replay"] + more_replay,
+            sched_launches["full_chain_xchg_replay"] + more_replay
+            + pl["full_chain_kernel.xchg_replay_launches"],
             path["replay_plain_mismatches"], path["replay_err"],
             x["replay_cards_ms"], path["replay_plain_ms"], *rbound,
             launches_scheduler_xchg=sched_launches["full_chain_xchg_replay"],
-            **split_replay, ms_single=x["replay_single_ms"],
+            launches_mesh_procs=pl["full_chain_kernel.xchg_replay_launches"],
+            ms_mesh_procs=pt["replay_ms"], **xp, **split_replay, ms_single=x["replay_single_ms"],
             replay_plain_pods=path["replay_pods"], **common),
         kernel_entry(
             "explain_counts_shards", "explain_counts.cu",
             "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"
             " a jax.vmap in XLA, no TPU kernel), per card",
-            la["explain_kernel.shard_launches"],
+            la["explain_kernel.shard_launches"]
+            + pl["explain_kernel.shard_launches"],
             path["counts_plain_mismatches"], 0.0, x["counts_shards_ms"],
             path["counts_plain_ms"], *cbound,
+            launches_mesh_procs=pl["explain_kernel.shard_launches"],
+            ms_mesh_procs=pt["counts_ms"], **xp,
             ms_single=x["counts_single_ms"], shards=x["depth"]),
         kernel_entry(
             "schedule_step_xchg", "schedule_step.cu",
             "koordinator_tpu/ops/pallas_step.py:46 (over a mesh of cards: "
             "koordinator_tpu/parallel/mesh.py build_sharded_schedule_step)",
-            la["schedule_kernel.xchg_launches"],
+            la["schedule_kernel.xchg_launches"]
+            + pl["schedule_kernel.xchg_launches"],
             path["loadaware_plain_mismatches"], path["loadaware_err"],
             x["loadaware_xchg_ms"], path["loadaware_plain_ms"], *lbound,
+            launches_mesh_procs=pl["schedule_kernel.xchg_launches"],
+            ms_mesh_procs=pt["loadaware_ms"], **xp,
             ms_single=x["loadaware_single_ms"], **common),
     ]
 
@@ -5063,7 +5190,8 @@ def main() -> int:
 
     # ---- device + build: one nvcc per kernel source, all at once
     t0 = time.perf_counter()
-    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE)
+    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE,
+                    IPC_SOURCE, mailbox_rtt.SOURCE)
     build_s = time.perf_counter() - t0
     ptxas = {stem: [ln.strip() for ln in str(log["ptxas"]).splitlines()
                     if "registers" in ln or "spill" in ln]
@@ -5295,6 +5423,8 @@ def main() -> int:
     sharded_ms = run_mesh_round(fc, args, ng, ngroups, active, n_nodes,
                                 la_inputs)
     la_kernel["ms_sharded_by_depth"] = sharded_ms["schedule_step"]
+    # ---- the mesh of cards across processes: 2 processes on the card
+    procs = run_mesh_procs(state, args, n_nodes, la_inputs)
 
     emit({"phase_seconds": PHASE_SECONDS,
           "total_seconds": time.perf_counter() - SCRIPT_START,
@@ -5344,7 +5474,7 @@ def main() -> int:
         *xchg_entries(sharded_ms, xchg_launches, bytes_ms, ops_ms,
                       la_kernel, replay_entry, count_res,
                       {"scheduler_xchg_transformer": tf_xchg_launches,
-                       "waves_carried": carried_xchg_launches}),
+                       "waves_carried": carried_xchg_launches}, procs),
         explain_entry(
             "explain_counts", "explain_counts.cu",
             "koordinator_tpu/models/full_chain.py:415 (explain_stage_counts,"

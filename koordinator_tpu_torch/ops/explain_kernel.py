@@ -289,7 +289,7 @@ def _streams_wait(waiting, on) -> None:
                     stream.wait_event(ev)
 
 
-def explain_counts_shards(shards, n_real) -> torch.Tensor:
+def explain_counts_shards(shards, n_real, mesh=None) -> torch.Tensor:
     """The stage counts over a mesh of cards: ``shards`` [(fc, filter_state,
     first)] per shard, each on its card (the shard's rows and the pod
     fields; ``first`` its first global row), ``n_real`` the mesh's real
@@ -300,8 +300,14 @@ def explain_counts_shards(shards, n_real) -> torch.Tensor:
     one batch on one card) share one pack of the records. Returns [P,
     NUM_EXPLAIN_STAGES] uint32 on the first shard's card. On the CPU the
     same steps run in their plain versions (counts_from_pack and
-    explain_spread_minima per shard)."""
+    explain_spread_minima per shard). Where ``mesh`` (parallel/mesh.Mesh)
+    spans processes, ``shards`` are this process's: the minima are
+    reduced over the processes (a min), only the process holding shard 0
+    writes the verdicts, and the counts are summed over the processes (an
+    int64 sum of integers: exact in any order)."""
     global shard_launches
+    spans = mesh is not None and mesh.spans_processes
+    first_here = not spans or mesh.local(0)
     fc0 = shards[0][0]
     cuda = fc0.base.allocatable.is_cuda
     dev0 = fc0.base.allocatable.device
@@ -337,22 +343,29 @@ def explain_counts_shards(shards, n_real) -> torch.Tensor:
                 torch.minimum(mins, explain_spread_minima(fc, state[4]),
                               out=mins)
         _streams_wait(devs, devs)
+        if spans:
+            with _on(dev0):
+                mesh.all_reduce(mins, "min")
     for k, ((fc, state, first), pack) in enumerate(zip(shards, packs)):
         per = fc.base.allocatable.shape[0]
         n_loc = max(0, min(per, int(n_real) - int(first)))
         if cuda:
             _launch(fc, state, n_loc, pack, counts=out.view(torch.uint32),
-                    spread_in=mins, accumulate=True, write_flags=k == 0)
+                    spread_in=mins, accumulate=True,
+                    write_flags=k == 0 and first_here)
             shard_launches += 1
             continue
         c = counts_from_pack(fc, state, n_loc, pack,
                              spread_min=mins).to(torch.int64)
         out[:, :EXPLAIN_STAGE_GANG] += c[:, :EXPLAIN_STAGE_GANG].to(
             torch.int32)
-        if k == 0:
+        if k == 0 and first_here:
             out[:, EXPLAIN_STAGE_GANG:] = c[:, EXPLAIN_STAGE_GANG:].to(
                 torch.int32)
     _streams_wait([dev0], devs)
+    if spans:
+        with _on(dev0):
+            out = mesh.all_reduce(out.to(torch.int64), "sum").to(torch.int32)
     return out.view(torch.uint32)
 
 

@@ -20,11 +20,12 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+IPC_SOURCE = "ipc.cu"  # the mailboxes' CUDA IPC calls (CudaIpc)
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 
 NVCC_FLAGS = (
@@ -374,27 +375,145 @@ class ExchangeTimeout(RuntimeError):
             "exchange's time limit")
 
 
+class CudaIpc:
+    """The CUDA calls of mailboxes that several processes share
+    (csrc/ipc.cu), each on the given card; each raises KernelContractError
+    on a nonzero cudaError. Mailboxes reach them through the module's
+    ``IPC``, which the CPU tests replace by a stand-in."""
+
+    def _lib(self) -> ctypes.CDLL:
+        lib = load_library(IPC_SOURCE)
+        if not getattr(lib, "_koord_bound", False):
+            P, PP = ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p)
+            for name, args in (
+                    ("koord_ipc_alloc", [ctypes.c_longlong, PP]),
+                    ("koord_ipc_free", [P]), ("koord_ipc_export", [P, P]),
+                    ("koord_ipc_open", [P, PP]), ("koord_ipc_close", [P]),
+                    ("koord_ipc_zero", [P, ctypes.c_longlong]),
+                    ("koord_pci_bus_id", [ctypes.c_int, ctypes.c_char_p,
+                                          ctypes.c_int])):
+                getattr(lib, name).restype = ctypes.c_int
+                getattr(lib, name).argtypes = args
+            lib.koord_ipc_handle_bytes.restype = ctypes.c_int
+            lib._koord_bound = True
+        return lib
+
+    def _call(self, what: str, device: torch.device, fn, *args) -> None:
+        with on_device(device):
+            err = fn(*args)
+        if err != 0:
+            raise KernelContractError(
+                f"{what} on {device} failed: cudaError {err}")
+
+    def alloc(self, device: torch.device, nbytes: int) -> int:
+        """``nbytes`` of device memory on ``device``, zeroed: its address."""
+        ptr = ctypes.c_void_p()
+        self._call("cudaMalloc of a mailbox", device,
+                   self._lib().koord_ipc_alloc, int(nbytes),
+                   ctypes.byref(ptr))
+        return int(ptr.value)
+
+    def free(self, device: torch.device, ptr: int) -> None:
+        self._call("cudaFree of a mailbox", device, self._lib().koord_ipc_free,
+                   ctypes.c_void_p(ptr))
+
+    def export(self, device: torch.device, ptr: int) -> bytes:
+        lib = self._lib()
+        out = ctypes.create_string_buffer(lib.koord_ipc_handle_bytes())
+        self._call("cudaIpcGetMemHandle", device, lib.koord_ipc_export,
+                   ctypes.c_void_p(ptr), out)
+        return out.raw
+
+    def open(self, device: torch.device, handle: bytes) -> int:
+        """Another process's allocation mapped for ``device``: its address
+        here (peer access turned on where it lies on another card)."""
+        ptr = ctypes.c_void_p()
+        buf = ctypes.create_string_buffer(bytes(handle), len(handle))
+        self._call("cudaIpcOpenMemHandle of another process's mailbox",
+                   device, self._lib().koord_ipc_open, buf,
+                   ctypes.byref(ptr))
+        return int(ptr.value)
+
+    def close(self, device: torch.device, ptr: int) -> None:
+        self._call("cudaIpcCloseMemHandle", device,
+                   self._lib().koord_ipc_close, ctypes.c_void_p(ptr))
+
+    def zero(self, device: torch.device, ptr: int, nbytes: int) -> None:
+        """``nbytes`` at ``ptr`` zeroed after the card's queued work, and
+        the zeroing finished."""
+        self._call("zeroing a mailbox", device, self._lib().koord_ipc_zero,
+                   ctypes.c_void_p(ptr), int(nbytes))
+
+    def bus_id(self, device: torch.device) -> str:
+        """The card's PCI bus id, as every process names it."""
+        out = ctypes.create_string_buffer(32)
+        self._call("cudaDeviceGetPCIBusId", device,
+                   self._lib().koord_pci_bus_id, int(device.index), out, 32)
+        return out.value.decode()
+
+
+IPC = CudaIpc()
+
+
+def _dist():
+    import torch.distributed as dist
+
+    return dist
+
+
+class _Box(NamedTuple):
+    """One shard's mailbox in the process that holds the shard: its card,
+    its address, and the tensor that holds it (a mesh of one process) or
+    None (cudaMalloc'd for CUDA IPC; IPC.free frees it)."""
+
+    device: torch.device
+    address: int
+    tensor: Optional[torch.Tensor]
+
+
 class Mailboxes:
     """The exchange's buffers for one mesh of cards: ``devices[k]`` the
-    card of shard k, ``device_ids[k]`` its mesh device id. Buffers are
-    made at first use and grown for a wider payload. The flags count up
-    from launch group to launch group (``next_seq``, the next group's first
-    flag) and are never 0; a group whose flags would pass MAX_FLAG first
-    zeroes every mailbox, waits for that on each card, and starts the count
-    again at 1, so no stale entry can hold a flag still to come. One launch
-    group runs at a time on a mesh's mailboxes (the Scheduler's cycle
-    thread; warm-up only builds mesh steps): two at once would overwrite
-    each other's entries and time out."""
+    card of shard k, ``device_ids[k]`` its mesh device id, ``processes[k]``
+    the process (torch.distributed rank) that holds it (default: all this
+    one). Buffers are made at first use and grown for a wider payload. The
+    flags count up from launch group to launch group (``next_seq``, the
+    next group's first flag) and are never 0; a group whose flags would
+    pass MAX_FLAG first zeroes every mailbox, waits for that on each card,
+    and starts the count again at 1, so no stale entry can hold a flag
+    still to come. One launch group runs at a time on a mesh's mailboxes
+    (the Scheduler's cycle thread; warm-up only builds mesh steps): two at
+    once would overwrite each other's entries and time out.
+
+    ``boxes`` holds this process's shards' mailboxes, one record a shard:
+    tensors in a mesh of one process. Across processes (``spans``) each
+    process allocates its own shards' mailboxes with cudaMalloc (``IPC``)
+    instead, exports their handles, gathers
+    every other process's over the default process group (gloo) and maps
+    them for each of its cards; its cards' tables list every shard's
+    mailbox at the addresses mapped here. Then ``ensure``, ``restart`` and
+    ``check`` are collective: every process calls them at the same point,
+    as every process runs the same launch groups. ``begin`` gives every
+    process the same first flag by construction (the same groups, the
+    same restarts). ``close`` (collective too) unmaps and frees them."""
 
     def __init__(self, devices: Sequence[torch.device],
-                 device_ids: Sequence[int]) -> None:
+                 device_ids: Sequence[int],
+                 processes: Optional[Sequence[int]] = None) -> None:
         if not 1 <= len(devices) <= MAX_SHARDS:
             raise ValueError(f"a mesh of cards holds 1..{MAX_SHARDS} "
                              f"shards, got {len(devices)}")
         self.devices = [torch.device(d) for d in devices]
         self.device_ids = [int(i) for i in device_ids]
+        self.processes = ([0] * len(self.devices) if processes is None
+                          else [int(p) for p in processes])
+        self.spans = len(set(self.processes)) > 1
+        self.rank = (_dist().get_rank() if self.spans
+                     else self.processes[0])
         self.entry_pairs = 0
-        self.boxes: List[torch.Tensor] = []
+        # this process's shards' mailboxes, and (card, address) of every
+        # mapping of another process's
+        self.boxes: Dict[int, _Box] = {}
+        self.opened: List[Tuple[torch.device, int]] = []
         self.tables: Dict[torch.device, torch.Tensor] = {}
         self.errs: Dict[torch.device, torch.Tensor] = {}
         self.next_seq = 1
@@ -404,25 +523,87 @@ class Mailboxes:
         return len(self.devices)
 
     def cards(self) -> Dict[torch.device, List[int]]:
-        """Each card's shards, in shard order."""
+        """Each card of this process, with its shards in shard order."""
         out: Dict[torch.device, List[int]] = {}
         for k, d in enumerate(self.devices):
-            out.setdefault(d, []).append(k)
+            if self.processes[k] == self.rank:
+                out.setdefault(d, []).append(k)
         return out
 
+    def _box_bytes(self) -> int:
+        return 2 * self.size * self.entry_pairs * 8
+
     def ensure(self, payload_words: int) -> None:
+        """Mailboxes wide enough for ``payload_words``: grown (and the
+        tables and error words made anew) where they are narrower.
+        Across processes each process makes its own shards' boxes,
+        gathers every process's handles (no launch of an earlier group
+        runs anywhere past this point), releases the old boxes and maps
+        the others' new ones for each of its cards."""
         pairs = exchange_pairs(payload_words)
         if pairs <= self.entry_pairs:
             return
-        shape = mailbox_shape(self.size, payload_words)
-        self.boxes = [torch.zeros(shape, dtype=torch.int64, device=d)
-                      for d in self.devices]
-        ptrs = [b.data_ptr() for b in self.boxes]
-        self.tables = {d: torch.tensor(ptrs, dtype=torch.int64, device=d)
-                       for d in self.cards()}
+        nbytes = 2 * self.size * pairs * 8
+        cards = self.cards()
+        if self.spans:
+            new = {k: _Box(d, IPC.alloc(d, nbytes), None)
+                   for d, ks in cards.items() for k in ks}
+            dist = _dist()
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, {
+                k: IPC.export(b.device, b.address) for k, b in new.items()})
+            self._release()
+            theirs = {k: h for part in every for k, h in part.items()
+                      if k not in new}
+        else:
+            shape = mailbox_shape(self.size, payload_words)
+            new = {}
+            for k, d in enumerate(self.devices):
+                t = torch.zeros(shape, dtype=torch.int64, device=d)
+                new[k] = _Box(d, t.data_ptr(), t)
+            theirs = {}
+        if sorted(list(theirs) + list(new)) != list(range(self.size)):
+            raise KernelContractError(
+                f"the processes' mailboxes cover shards "
+                f"{sorted(list(theirs) + list(new))}, not 0..{self.size - 1}")
+        self.boxes = new
+        for card in cards:
+            ptrs = []
+            for k in range(self.size):
+                if k in new:
+                    ptrs.append(new[k].address)
+                    continue
+                p = IPC.open(card, theirs[k])
+                self.opened.append((card, p))
+                ptrs.append(p)
+            self.tables[card] = torch.tensor(ptrs, dtype=torch.int64,
+                                             device=card)
         self.errs = {d: torch.zeros(1, dtype=torch.int32, device=d)
-                     for d in self.cards()}
+                     for d in cards}
         self.entry_pairs = pairs
+
+    def _release(self) -> None:
+        """Drop this process's mailboxes; across processes, close its
+        mappings of the others' first, wait until every process has
+        closed its own, then free its cudaMalloc'd boxes."""
+        for card, p in self.opened:
+            IPC.close(card, p)
+        self.opened = []
+        if self.spans:
+            _dist().barrier()
+        for b in self.boxes.values():
+            if b.tensor is None:
+                IPC.free(b.device, b.address)
+        self.boxes = {}
+
+    def close(self) -> None:
+        """Unmap and free the mailboxes (collective across processes); the
+        next exchange makes them again."""
+        if self.entry_pairs:
+            self._release()
+            self.tables, self.errs = {}, {}
+            self.entry_pairs = 0
+            self.next_seq = 1
 
     def begin(self, exchanges: int) -> int:
         """The first flag of a launch group that runs at most
@@ -445,12 +626,21 @@ class Mailboxes:
         is synchronised after its zeroing, so no launch of the next group
         (whose writes reach other cards' mailboxes) runs before every
         mailbox is clean; the last group's launches have all ended by
-        then, as each card's zeroing is queued after its own."""
-        for b in self.boxes:
-            b.zero_()
+        then, as each card's zeroing is queued after its own. Across
+        processes a barrier comes first (every process's last group has
+        ended) and one last (every mailbox is clean)."""
+        if self.spans:
+            _dist().barrier()
+        for b in self.boxes.values():
+            if b.tensor is None:
+                IPC.zero(b.device, b.address, self._box_bytes())
+            else:
+                b.tensor.zero_()
         for d in self.cards():
             if d.type == "cuda":
                 torch.cuda.synchronize(d)
+        if self.spans:
+            _dist().barrier()
         self.next_seq = 1
 
     def xchg(self, card: torch.device, shards: Sequence[int], per: int,
@@ -480,10 +670,18 @@ class Mailboxes:
 
     def check(self, what: str) -> None:
         """Read every card's error word (a sync on each card) and raise
-        ExchangeTimeout naming the shards that never arrived."""
+        ExchangeTimeout naming the shards that never arrived; across
+        processes the shards any process missed (a gloo MAX over a [D]
+        0/1 vector), so every process raises the same."""
         missing = 0
         for e in self.errs.values():
             missing |= int(e.item()) & 0xFFFFFFFF
+        if self.spans:
+            dist = _dist()
+            bits = torch.tensor([missing >> k & 1 for k in range(self.size)],
+                                dtype=torch.int32)
+            dist.all_reduce(bits, op=dist.ReduceOp.MAX)
+            missing = sum(int(b) << k for k, b in enumerate(bits.tolist()))
         if missing:
             shards = [k for k in range(self.size) if missing >> k & 1]
             raise ExchangeTimeout(what, shards,

@@ -11,8 +11,9 @@ KOORD_TORCH_VIRTUAL_DEVICES, parallel/mesh.py) or shards across OS
 processes over torch.distributed's gloo backend. On the card, where every
 shard shares the one card, the sharded steps gather the node axis and
 launch the single-device kernels (kernels 1 and 2 and the stage-count
-pass); a mesh whose shards sit on two or more different cards is refused
-(its cross-card winner exchange is not written).
+pass); a mesh whose shards sit on two or more cards, held by one process
+or by several, launches the kernels' exchange instances on each card
+instead (parallel/mesh.py, parallel/full_chain_mesh.py).
 """
 
 from koordinator_tpu_torch.parallel.mesh import (  # noqa: F401

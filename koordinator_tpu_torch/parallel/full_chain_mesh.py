@@ -40,7 +40,13 @@ card at once: kernel 1's exchange instance (ops/full_chain_kernel.py
 through the mesh's mailboxes), the per-card replay (each card replays the
 kept pods onto its own rows, the chosen nodes' aff_dom rows gathered once
 before it, ``gather_dom_rows``) and the per-card stage counts
-(ops/explain_kernel.py ``explain_counts_shards``). The pieces of the body
+(ops/explain_kernel.py ``explain_counts_shards``). Where the cards are
+held by several processes, each process runs every pass over its own
+cards; the pod-level outputs are alike in every process (the exchange
+gives every card the same winner), and the few cross-card pieces outside
+the kernels are gloo collectives: the owners' aff_dom rows (a min where
+the others give +inf), the replay's zones (a max) and the stage counts
+(a sum of integers). The pieces of the body
 that index node rows by a global node index run per card too: the
 reservation pre-passes commit onto the shard owning the node, the hot
 claims' [P, N] volume view is built as each card's [P, rows] columns (a
@@ -146,12 +152,15 @@ def shard_full_chain_inputs(fc: FullChainInputs, mesh: Mesh) -> FullChainInputs:
 # ---------------------------------------------------------------------------
 
 def _from_owner(mesh: Mesh, vals: Optional[torch.Tensor], size: int):
-    """The owning shard's f32 [size] values on every process: a min
-    all-reduce where the other processes give +inf."""
+    """The owning shard's f32 [size] values on every process, on its
+    first shard's device: a min all-reduce where the other processes give
+    +inf."""
     if not mesh.spans_processes:
         return vals
-    t = (vals.to(torch.float32).reshape(size).clone() if vals is not None
-         else torch.full((size,), _INF, dtype=torch.float32))
+    dev = next(d.device for d in mesh.flat if d.process == mesh.rank)
+    t = (vals.to(torch.float32).reshape(size).to(dev, copy=True)
+         if vals is not None
+         else torch.full((size,), _INF, dtype=torch.float32, device=dev))
     return mesh.all_reduce(t, "min")
 
 
@@ -368,15 +377,19 @@ def replay_state0(fc: FullChainInputs, prod: bool):
             fc.aff_exists.to(torch.bool), fc.port_used, fc.vol_free)
 
 
-def gather_dom_rows(cards, chosen, kept, per: int):
+def gather_dom_rows(cards, chosen, kept, per: int, mesh: Mesh = None):
     """The aff_dom row of each kept pod's chosen node, [P, T] f32 on each
-    card (zeros outside the kept pods): ``cards`` [(fc, shards)] per card,
-    each card reading the rows it holds, combined on the first card and
-    copied to every card, once before a replay. ``chosen`` and ``kept``
-    on the first card."""
+    card (zeros outside the kept pods): ``cards`` [(fc, shards)] per card
+    of this process, each card reading the rows it holds, combined on the
+    first card and copied to every card, once before a replay. ``chosen``
+    and ``kept`` on the first card. Across the processes of ``mesh`` each
+    row comes from the process that holds it: a min where the others give
+    +inf (``_from_owner``'s pattern)."""
     dev0 = chosen.device
     P, T = chosen.shape[0], cards[0][0].aff_dom.shape[1]
-    dom = torch.zeros((P, T), dtype=torch.float32, device=dev0)
+    spans = mesh is not None and mesh.spans_processes
+    dom = torch.full((P, T), _INF if spans else 0.0, dtype=torch.float32,
+                     device=dev0)
     g = torch.clamp_min(chosen.to(torch.int64), 0)
     shard = g // per
     for fc, shards in cards:
@@ -391,6 +404,8 @@ def gather_dom_rows(cards, chosen, kept, per: int):
         dev = fc.aff_dom.device
         part = fc.aff_dom.to(torch.float32)[local.to(dev)].to(dev0)
         dom = torch.where(mine[:, None], part, dom)
+    if spans:
+        dom = torch.where(kept[:, None], mesh.all_reduce(dom, "min"), 0.0)
     return [dom.to(fc.aff_dom.device) for fc, _shards in cards]
 
 
@@ -459,8 +474,9 @@ class CardBackend:
         return {k: _view(fc, [k], mesh.flat[k].device) for k in self._local()}
 
     def _cards(self, nt):
+        """[(device, shards, view)] of each card this process holds."""
         return [(dev, ks, _view(nt, ks, dev))
-                for dev, ks in self.mesh.card_shards()]
+                for dev, ks in self.mesh.local_card_shards()]
 
     def _node_out(self, per_card) -> ShardedTensor:
         shards = [None] * self.mesh.size
@@ -515,7 +531,7 @@ class CardBackend:
 
         cards = self._cards(fc_carry)
         doms = gather_dom_rows([(v, ks) for _d, ks, v in cards], chosen,
-                               kept, per)
+                               kept, per, mesh)
         jobs = [(v, ks, chosen.to(d), kept.to(d),
                  tuple(card_view(x, ks, d) for x in state0), dom)
                 for (d, ks, v), dom in zip(cards, doms)]
@@ -528,7 +544,7 @@ class CardBackend:
         zones = outs[0][1]
         for _st, z in outs[1:]:
             zones = torch.maximum(zones, z.to(zones.device))
-        return state, zones
+        return state, mesh.all_reduce(zones, "max")
 
     def counts(self, fc, state, n_real):
         """[P, 11] stage counts at ``state`` (cycle_start_state's
@@ -545,7 +561,8 @@ class CardBackend:
         )
 
         return explain_counts_shards(
-            [(views[k], states[k], k * per) for k in sorted(views)], n_real)
+            [(views[k], states[k], k * per) for k in sorted(views)], n_real,
+            mesh=mesh)
 
     def round_counts(self, fc, weight_idx, prod_mode, bal_idx, terms: bool,
                      n_real):
@@ -657,7 +674,7 @@ class CardBackend:
         out as the single device's same rows and the pod-level fields alike
         on every card; on the CPU that is checked."""
         cuda = self._cuda(fc_w)
-        groups = (self.mesh.card_shards() if cuda else
+        groups = (self.mesh.local_card_shards() if cuda else
                   [(self.mesh.flat[k].device, [k]) for k in self._local()])
         parts = []
         for dev, ks in groups:

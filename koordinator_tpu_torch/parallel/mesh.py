@@ -31,16 +31,35 @@ of a node-axis array holds global rows [s * per, (s + 1) * per). A
 replicated array keeps one copy per distinct device, shared by the shards
 on that device.
 
-A mesh whose shards sit on two or more cards of one process exchanges
-(``Mesh.exchange``): its scheduling steps launch the kernels' exchange
-instances on each card over that card's rows, and per pod the cards swap
-their bests through mailboxes in each other's memory (ops/kernel_common.py
-"The exchange"), with peer access on between every pair of cards; no node
-row is gathered onto another card. A mesh of shards on ONE card (or the
-CPU) does not exchange: there the steps gather, as above. Testing code may
-set ``exchange`` on a one-card mesh, whose shards then run the exchange
-instances as clusters of one launch. A mesh of cards held by several
-processes is refused (CROSS_PROCESS_CARDS).
+A mesh whose shards sit on two or more cards exchanges (``Mesh.exchange``):
+its scheduling steps launch the kernels' exchange instances on each card
+over that card's rows, and per pod the cards swap their bests through
+mailboxes in each other's memory (ops/kernel_common.py "The exchange"),
+with peer access on between every pair of cards; no node row is gathered
+onto another card. A card is a (process, device) pair: the cards may be
+held by one process or by several, one process per card or several cards
+each, and two processes on ONE card are two cards that exchange (through
+the card's own memory, each in its own CUDA context). Across processes
+each process maps the others' mailboxes through CUDA IPC
+(ops/kernel_common.Mailboxes). A mesh of shards of one process on ONE
+card (or the CPU) does not exchange: there the steps gather, as above.
+Testing code may set ``exchange`` on a one-card mesh, whose shards then
+run the exchange instances as clusters of one launch.
+
+A mesh of cards across processes is launched so: every process sees the
+same cards (the same CUDA_VISIBLE_DEVICES, or none: a process that cannot
+see a card cannot map its memory) and takes its own with
+``torch.cuda.set_device(local_rank * C % torch.cuda.device_count())``
+for C cards a process (the local rank from LOCAL_RANK, as torchrun sets
+it, else the rank), after ``torch.distributed.init_process_group("gloo",
+..., timeout=...)`` with a timeout, so that a dead peer makes the
+collectives raise rather than hang; then
+``make_mesh(visible_devices("cuda", cards_per_process=C))``.
+``visible_devices`` raises for a process on cards that are not its
+rank's, and ``Mesh.check_peer_access`` for two cards that cannot reach
+each other's memory. Only the sharded steps run on such a mesh: the
+Scheduler refuses it, and so does the ladder's partial-mesh rung
+(``refuse_scheduler_across_processes``).
 """
 
 from __future__ import annotations
@@ -64,10 +83,6 @@ logger = logging.getLogger(__name__)
 
 # shard devices each visible device appears as (unset: 1)
 VIRTUAL_DEVICES_ENV = "KOORD_TORCH_VIRTUAL_DEVICES"
-CROSS_PROCESS_CARDS = ("a mesh of cards held by several processes needs its "
-                       "per-pod exchange to cross processes, which the "
-                       "port does not have: its cards' mailboxes are in "
-                       "one process's reach only")
 
 
 class MeshDevice(NamedTuple):
@@ -101,19 +116,67 @@ def _process_group():
     return 0, 1
 
 
-def visible_devices(device="cuda") -> List[MeshDevice]:
+def local_rank() -> int:
+    """This process's rank among the processes of its machine: LOCAL_RANK
+    where torchrun set it, else the rank."""
+    raw = os.environ.get("LOCAL_RANK", "").strip()
+    return int(raw) if raw else _process_group()[0]
+
+
+def process_cards(per_process: int = 1) -> List[List[int]]:
+    """Each process's cards, by this process's numbering of the cards
+    (every process sees the same cards; matched by PCI bus id, which every
+    process gives a card alike): collective over the process group, the
+    only place the bus ids are gathered. A process holds ``per_process``
+    consecutive cards from ``local_rank() * per_process % device_count()``
+    (one card: its local rank's, several processes a card where there are
+    fewer cards). Raises where a process's current card is not the first
+    of its cards, where its cards run past the last card, or where another
+    process's card is not visible here."""
+    import torch.distributed as dist
+
+    from koordinator_tpu_torch.ops.kernel_common import IPC
+
+    count = torch.cuda.device_count()
+    first = local_rank() * per_process % count
+    mine = torch.cuda.current_device()
+    if mine != first or first + per_process > count:
+        raise ValueError(
+            f"process {dist.get_rank()} holds cuda:{mine}, not the first of "
+            f"its {per_process} card(s) from cuda:{first} of {count}: call "
+            f"torch.cuda.set_device(local rank * {per_process} % device "
+            "count), and let every process see the same cards")
+    ids = {IPC.bus_id(torch.device("cuda", c)): c for c in range(count)}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, [IPC.bus_id(torch.device("cuda", c))
+                                   for c in range(first,
+                                                  first + per_process)])
+    missing = [b for bus in every for b in bus if b not in ids]
+    if missing:
+        raise ValueError(f"the cards {missing} of other processes are not "
+                         "visible in this one: every process must see the "
+                         "same cards")
+    return [[ids[b] for b in bus] for bus in every]
+
+
+def visible_devices(device="cuda", cards_per_process: int = 1
+                    ) -> List[MeshDevice]:
     """Every shard device: each visible device of ``device``'s type (every
     card for "cuda", the host for "cpu") split into virtual_split() shard
     devices; with an initialised process group, every process's shards in
-    rank order (each process sees ``device`` only)."""
+    rank order, on its ``cards_per_process`` cards (``process_cards``, a
+    collective; each process then names every card by its own index of
+    it) or the host."""
     dev = check_device(device)
     n = virtual_split()
     rank, world = _process_group()
     if world > 1:
-        local = (torch.device("cuda", torch.cuda.current_device())
-                 if dev.type == "cuda" else torch.device("cpu"))
-        return [MeshDevice(r * n + k, local if r == rank else dev, r)
-                for r in range(world) for k in range(n)]
+        cards = (process_cards(cards_per_process) if dev.type == "cuda"
+                 else [[None]] * world)
+        devs = [(r, torch.device("cpu") if c is None
+                 else torch.device("cuda", c))
+                for r, cs in enumerate(cards) for c in cs for _k in range(n)]
+        return [MeshDevice(i, d, r) for i, (r, d) in enumerate(devs)]
     if dev.type == "cuda":
         cards = [torch.device("cuda", c)
                  for c in range(torch.cuda.device_count())]
@@ -132,42 +195,57 @@ class Mesh:
     def __init__(self, devices: np.ndarray) -> None:
         self.devices = devices
         flat = list(devices.flat)
-        cards = {d.device for d in flat if d.device.type == "cuda"}
-        procs = {d.process for d in flat}
-        if cards and len(procs) > 1:
-            raise NotImplementedError(CROSS_PROCESS_CARDS)
         self.rank, self.world = _process_group()
-        self.spans_processes = len(procs) > 1
-        # the exchange route: shards on two or more cards (testing code may
-        # set it on a one-card mesh); building the mesh touches no card
-        self.exchange = len(cards) > 1
+        self.spans_processes = len({d.process for d in flat}) > 1
+        # the exchange route: shards on two or more cards, a card being a
+        # (process, device) pair (testing code may set it on a one-card
+        # mesh); building the mesh touches no card
+        self.exchange = sum(1 for _p, dev in self.card_keys
+                            if dev.type == "cuda") > 1
         self._mailboxes = None
 
     @property
+    def card_keys(self) -> List[Tuple[int, torch.device]]:
+        """The distinct (process, device) pairs of the mesh's shards, in
+        shard order: two processes on one card are two cards."""
+        out: List[Tuple[int, torch.device]] = []
+        for d in self.devices.flat:
+            if (d.process, d.device) not in out:
+                out.append((d.process, d.device))
+        return out
+
+    @property
     def cards(self) -> List[torch.device]:
-        """The distinct devices of the mesh's shards, in shard order."""
+        """The distinct devices of this process's shards, in shard
+        order."""
         out: List[torch.device] = []
         for d in self.devices.flat:
-            if d.device not in out:
+            if d.process == self.rank and d.device not in out:
                 out.append(d.device)
         return out
 
     def check_peer_access(self) -> None:
-        """Raise, naming the pair, unless every card of the mesh can reach
-        every other card's memory (torch.cuda.can_device_access_peer): the
-        exchange's mailboxes need it, and no other route is taken."""
-        cards = [c for c in self.cards if c.type == "cuda"]
-        for a in cards:
-            for b in cards:
-                if a != b and not torch.cuda.can_device_access_peer(a, b):
+        """Raise, naming the pair, unless every card of this process can
+        reach every other card of the mesh (torch.cuda.
+        can_device_access_peer): the exchange's mailboxes need it, and no
+        other route is taken. Another process's card is named by this
+        process's index of it (visible_devices matched the cards by PCI bus
+        id); two processes on one card need no peer access."""
+        for a in (c for c in self.cards if c.type == "cuda"):
+            for p, b in self.card_keys:
+                if (b.type == "cuda" and a != b
+                        and not torch.cuda.can_device_access_peer(a, b)):
+                    whose = "" if p == self.rank else f" of process {p}"
                     raise RuntimeError(
                         f"a mesh of cards needs peer access between every "
-                        f"pair of its cards: {a} cannot reach {b}")
+                        f"pair of its cards: {a} cannot reach {b}{whose}")
 
     def mailboxes(self):
         """The exchange's mailboxes (ops/kernel_common.Mailboxes), made at
         first use: peer access checked and turned on for every pair of
-        cards, then one mailbox per shard on its card."""
+        this process's cards, then one mailbox per shard on its card
+        (across processes: in its process, mapped into the others through
+        CUDA IPC, which turns peer access on for their cards)."""
         if self._mailboxes is None:
             from koordinator_tpu_torch.ops.full_chain_kernel import (
                 enable_peer_access,
@@ -179,16 +257,29 @@ class Mesh:
                 enable_peer_access(self.cards)
             flat = self.flat
             self._mailboxes = Mailboxes([d.device for d in flat],
-                                        [d.id for d in flat])
+                                        [d.id for d in flat],
+                                        [d.process for d in flat])
         return self._mailboxes
 
+    def close(self) -> None:
+        """Unmap and free the mesh's mailboxes (across processes a
+        collective: every process calls it)."""
+        if self._mailboxes is not None:
+            self._mailboxes.close()
+
     def card_shards(self) -> List[Tuple[torch.device, List[int]]]:
-        """(device, its shards in shard order) of every device of the
-        mesh, in the order of their first shard."""
-        groups: Dict[torch.device, List[int]] = {}
+        """(device, its shards in shard order) of every card of the mesh,
+        a card being a (process, device) pair, in the order of their first
+        shard."""
+        groups: Dict[Tuple[int, torch.device], List[int]] = {}
         for k, d in enumerate(self.flat):
-            groups.setdefault(d.device, []).append(k)
-        return list(groups.items())
+            groups.setdefault((d.process, d.device), []).append(k)
+        return [(dev, ks) for (_p, dev), ks in groups.items()]
+
+    def local_card_shards(self) -> List[Tuple[torch.device, List[int]]]:
+        """card_shards of the cards this process holds."""
+        return [(dev, ks) for dev, ks in self.card_shards()
+                if self.local(ks[0])]
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -214,14 +305,18 @@ class Mesh:
         """``t`` reduced ("min" | "max" | "sum") over the processes of a
         mesh that spans them (gloo), in place; ``t`` itself otherwise.
         Min and max are exact under any split; "sum" is used only on
-        integers."""
+        integers. Gloo reduces host tensors: a card's tensor goes to the
+        host and back."""
         if not self.spans_processes:
             return t
         import torch.distributed as dist
 
         ops = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX,
                "sum": dist.ReduceOp.SUM}
-        dist.all_reduce(t, op=ops[op])
+        host = t.cpu() if t.is_cuda else t
+        dist.all_reduce(host, op=ops[op])
+        if host is not t:
+            t.copy_(host)
         return t
 
     def __repr__(self) -> str:
@@ -280,13 +375,29 @@ def mesh_from_env(env_value=None, device="cuda") -> Optional[Mesh]:
     return make_mesh(devices[:n])
 
 
+SCHEDULER_ACROSS_PROCESSES = (
+    "is not ported on a mesh of cards held by several processes: the "
+    "port runs only the sharded steps there (not the Scheduler's cycle, "
+    "the ladder's partial-mesh rung, whose submesh may leave a process no "
+    "shard, or the loss of a process)")
+
+
+def refuse_scheduler_across_processes(mesh, what: str) -> None:
+    """Raise NotImplementedError naming ``what`` where ``mesh`` is a mesh
+    of cards (``exchange``) that spans processes."""
+    if mesh is not None and mesh.exchange and mesh.spans_processes:
+        raise NotImplementedError(f"{what} {SCHEDULER_ACROSS_PROCESSES}")
+
+
 def surviving_submesh(mesh: Mesh, lost_device_ids) -> Optional[Mesh]:
     """The partial-mesh rung's submesh: the configured mesh minus the
     devices a dispatch fault was attributed to, re-factored 2-D by
     ``make_mesh``, on the configured mesh's route (``exchange``).
     Non-divisible node axes re-pad on upload, so any survivor count is a
     valid mesh. None when nothing survives (the scheduler records losses
-    only while survivors remain)."""
+    only while survivors remain). Refused on a mesh of cards across
+    processes."""
+    refuse_scheduler_across_processes(mesh, "the partial-mesh rung")
     lost = {int(i) for i in lost_device_ids}
     survivors = [d for d in mesh.devices.flat if d.id not in lost]
     if not survivors:
@@ -522,9 +633,11 @@ def cat_over_processes(mesh: Mesh, local: torch.Tensor) -> torch.Tensor:
         return local
     import torch.distributed as dist
 
-    parts = [torch.empty_like(local) for _ in range(mesh.world)]
-    dist.all_gather(parts, local.contiguous())
-    return torch.cat(parts)
+    # gloo gathers host tensors
+    host = local.cpu().contiguous()
+    parts = [torch.empty_like(host) for _ in range(mesh.world)]
+    dist.all_gather(parts, host)
+    return torch.cat(parts).to(local.device)
 
 
 def gather_tree(nt):
@@ -748,7 +861,7 @@ def _exchange_schedule(inputs: ScheduleInputs, mesh: Mesh, weight_idx,
         schedule_round_cards,
     )
 
-    groups = mesh.card_shards()
+    groups = mesh.local_card_shards()
     cards = [(card_view(inputs, ks, dev), ks) for dev, ks in groups]
     outs = schedule_round_cards(cards, weight_idx, prod_mode,
                                 mesh.mailboxes())
@@ -847,6 +960,7 @@ __all__ = [
     "build_sharded_schedule_step", "card_view",
     "build_sharded_score_matrix", "make_mesh", "merge_readback",
     "mesh_from_env", "mesh_row_layout", "pad_for_sharding", "put_on_mesh",
-    "shard_inputs_2d", "shard_inputs_nodewise", "surviving_submesh",
+    "refuse_scheduler_across_processes", "shard_inputs_2d",
+    "shard_inputs_nodewise", "surviving_submesh",
     "visible_devices",
 ]

@@ -574,7 +574,12 @@ class Scheduler:
         # sidecar RPC protocol is single-device, so a sidecar turns the
         # mesh off, as in the JAX package.
         if self._sidecar_client is None:
+            from koordinator_tpu_torch.parallel.mesh import (
+                refuse_scheduler_across_processes,
+            )
+
             self.mesh = resolve_mesh(mesh, self.device)
+            refuse_scheduler_across_processes(self.mesh, "the Scheduler")
         else:
             if (mesh if mesh is not None
                     else os.environ.get("KOORD_TPU_MESH", "")) not in (

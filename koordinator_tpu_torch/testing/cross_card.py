@@ -1,6 +1,7 @@
 """The mesh of cards on every card of this machine.
 
     python3 -m koordinator_tpu_torch.testing.cross_card [--skip-scale]
+    python3 -m koordinator_tpu_torch.testing.cross_card --processes N
 
 With two or more visible cards the mesh holds one shard per card
 (parallel/mesh.visible_devices), and its exchange crosses NVLink; with one
@@ -45,6 +46,19 @@ then stays unverified). Each check prints one JSON line:
 
 Then each card's name and power limit and, last, one JSON object with
 ``ok``, the card count and the scheduler's SHA-256. Any failure raises.
+
+With ``--processes N`` the mesh is held by N processes instead
+(testing/xproc_cards.py; cards / N cards each, one shard a card, N
+dividing the card count, or N processes on one card; each must hold the
+cards it was given, by PCI bus id): testing/mesh_round.run_checks at
+config 4 with every pod (``--pods`` cuts it): the mailbox round trip
+between ranks 0 and 1, kernel 1's exchange round and terms instance, the
+per-card replay and stage counts, kernel 2's, the score matrix, the fused
+K = 2 wave step with explain "counts" and a chained wave, the carried
+worlds (reservation rows, hot-claim columns) and the timeout, each
+against the single-card kernels on card 0 with 0 mismatches
+(``processes`` line); then the same checks but the round trip on the
+one-process mesh of the same cards, timed alike (``one_process`` line).
 """
 
 from __future__ import annotations
@@ -287,14 +301,102 @@ def check_mesh_scale(mesh, args) -> dict:
     return row
 
 
+XPROC_REPS = 10  # timed calls of each check in the --processes run
+
+
+def main_processes(n_procs: int, pods: int) -> int:
+    """The --processes run: testing/mesh_round.run_checks in ``n_procs``
+    processes (testing/xproc_cards.py) against the single-card kernels,
+    then on the one-process mesh of the same cards, both timed."""
+    import shutil
+    import tempfile
+
+    from koordinator_tpu_torch.ops.kernel_common import IPC_SOURCE
+    from koordinator_tpu_torch.testing import mailbox_rtt, xproc_cards
+
+    t_start = time.perf_counter()
+    build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE,
+                    IPC_SOURCE, mailbox_rtt.SOURCE)
+    cards = torch.cuda.device_count()
+    if cards % n_procs and n_procs % cards:
+        raise ValueError(f"{n_procs} processes do not share {cards} cards")
+    per_proc = max(1, cards // n_procs)
+    depth = n_procs * per_proc
+    args = LoadAwareArgs()
+    n_nodes, n_pods = CONFIG4
+    _c, state = synth_full_cluster(n_nodes, n_pods, seed=42,
+                                   num_quotas=max(n_pods // 100, 1),
+                                   num_gangs=n_pods // 50)
+    la = loadaware_inputs(synth_cluster(num_nodes=n_nodes, num_pods=n_pods,
+                                        seed=42), args)
+    data = xproc_cards.batch_data(state, args, n_nodes, pods, la_inputs=la,
+                                  worlds=("reservations", "claims"))
+    data["rtt_rounds"] = 20000
+    checks = mesh_round.CHECKS
+    tmp = tempfile.mkdtemp(prefix="koord_xproc_")
+    try:
+        path = f"{tmp}/data.pkl"
+        xproc_cards.write_data(path, data)
+        t0 = time.perf_counter()
+        outs = xproc_cards.launch(
+            n_procs, path, f"{tmp}/out", checks, reps=XPROC_REPS,
+            cards=per_proc, timeout_s=1800)
+        procs_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ref = mesh_round.reference(data, checks, depth, "cuda")
+    res = mesh_round.compare(ref, outs, depth)
+    row = {"check": "processes", "processes": n_procs,
+           "cards_per_process": per_proc, "shards": depth, "pods": pods,
+           "mismatches": res["total"], "outputs": len(res["mismatches"]),
+           "digests": res["digests"], "reference": res["reference_digest"],
+           "bound": int((ref["rep"]["round.chosen"] >= 0).sum()),
+           "bus_ids": [o["extra"]["mesh"]["bus_ids"] for o in outs],
+           "times": [o["times"] for o in outs],
+           "extra": [o["extra"] for o in outs],
+           "launches": [o["launches"] for o in outs], "seconds": procs_s}
+    print(json.dumps(row, default=str), flush=True)
+    if res["total"] or res["digests"] != [res["reference_digest"]]:
+        raise AssertionError(
+            f"processes: {({k: v for k, v in res['mismatches'].items() if v})}"
+            f" digests {res['digests']}")
+    # the same cards, one shard each, held by this one process: every
+    # check but the round trip between processes
+    mesh = pm.make_mesh([pm.MeshDevice(k, torch.device("cuda", k))
+                         for k in range(depth)]) if depth <= cards else None
+    if mesh is not None:
+        with torch.cuda.device(0):
+            one = mesh_round.run_checks(
+                mesh, data, [c for c in checks if c != "rtt"], XPROC_REPS)
+        ores = mesh_round.compare(ref, [one], depth)
+        print(json.dumps({"check": "one_process", "cards": len(mesh.cards),
+                          "shards": depth, "mismatches": ores["total"],
+                          "times": one["times"],
+                          "timeout": one["extra"]["timeout"],
+                          "launches": one["launches"]}), flush=True)
+        if ores["total"]:
+            raise AssertionError(f"one_process: {ores['mismatches']}")
+    for line in card_lines():
+        print(line, flush=True)
+    print(json.dumps({"ok": True, "processes": n_procs, "shards": depth,
+                      "seconds": time.perf_counter() - t_start}), flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-scale", action="store_true",
                     help="leave out the mesh-scale shape")
+    ap.add_argument("--processes", type=int, default=0,
+                    help="hold the mesh in this many processes")
+    ap.add_argument("--pods", type=int, default=CONFIG4[1],
+                    help="valid pods of the --processes batch")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("cross_card: CUDA is not available", file=sys.stderr)
         return 2
+    if opts.processes:
+        return main_processes(opts.processes, opts.pods)
     t_start = time.perf_counter()
     build_libraries(fck.SOURCE, sk.SOURCE, ek.SOURCE, fck.REPLAY_SOURCE)
     mesh = card_mesh()

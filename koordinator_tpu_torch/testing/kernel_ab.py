@@ -130,11 +130,11 @@ def use(tree: Path) -> None:
         }))
 
 
-def time_ms(fn) -> float:
+def time_ms(fn, reps: int = REPS) -> float:
     fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()

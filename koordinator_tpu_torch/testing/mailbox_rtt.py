@@ -12,6 +12,8 @@ trips (%globaltimer ns and clock64 cycles): both sides on one card at
 .gpu scope (the scope of an exchange whose shards all run in one launch)
 and at .sys scope, and, where two cards are visible, side 0 on card 0 and
 side 1 on card 1 at .sys scope (peer access on, over NVLink).
+``ipc_round_trip`` runs the two sides in two processes, the boxes mapped
+through CUDA IPC (testing/xproc_cards.py runs it).
 
 Then kernel 1's exchange round over 2 virtual cards of card 0 at BASELINE
 config 4 (10000 pods x 5000 nodes): the exchanges it made, read back from
@@ -105,6 +107,67 @@ def measure(dev0, dev1, gpu: bool, rounds: int, repeats: int) -> dict:
             "round_trip_ns_each": [r["ns"] for r in runs]}
 
 
+def ipc_round_trip(rounds: int, repeats: int, warm: int = 16,
+                   timeout_s: float = 30.0) -> dict:
+    """The round trip between the processes of ranks 0 and 1 of the
+    default process group (torch.distributed, initialised by the caller),
+    each on its current card (one card or two): each polls a box of its
+    own, allocated with cudaMalloc, and stores into the other's, mapped
+    through CUDA IPC (ops/kernel_common.IPC), at .sys scope, the scope of
+    an exchange across processes. Collective: every process of the group
+    calls it, and each gets the same row (the median over ``repeats``
+    runs of ``rounds`` timed round trips; a side gives up after
+    ``timeout_s``)."""
+    import torch.distributed as dist
+
+    from koordinator_tpu_torch.ops.kernel_common import IPC
+
+    lib = _lib()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    mine = IPC.alloc(dev, 16)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (IPC.export(dev, mine), IPC.bus_id(dev)))
+    theirs = IPC.open(dev, every[1 - rank][0]) if rank < 2 else None
+    out = torch.zeros(2, dtype=torch.int64, device=dev)
+    p = _RttParams()
+    if rank < 2:
+        p.box0, p.box1 = (mine, theirs) if rank == 0 else (theirs, mine)
+    p.out = out.data_ptr()
+    p.timeout_ns = int(timeout_s * 1e9)
+    p.rounds, p.warm, p.gpu, p.side0 = int(rounds), int(warm), 0, min(rank,
+                                                                       1)
+    runs = []
+    for _ in range(repeats):
+        IPC.zero(dev, mine, 16)  # no flag of the last run may remain
+        dist.barrier()
+        if rank < 2:
+            err = lib.rtt_launch(ctypes.byref(p), 1, ctypes.c_void_p(
+                torch.cuda.current_stream(dev).cuda_stream))
+            if err != 0:
+                raise launch_error("mailbox_rtt across processes", err,
+                                   f"rank {rank} on {dev}")
+        torch.cuda.synchronize(dev)
+        runs.append([int(v) for v in out.tolist()])
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, runs)
+    if theirs is not None:
+        IPC.close(dev, theirs)
+    dist.barrier()
+    IPC.free(dev, mine)
+    timed = got[0]
+    if any(ns < 0 for ns, _c in timed):
+        raise AssertionError(f"mailbox_rtt: no round trip between ranks 0 "
+                             f"and 1 within {timeout_s} s")
+    ns = [t / rounds for t, _c in timed]
+    return {"from": every[0][1], "to": every[1][1], "scope": "sys",
+            "across": "processes", "rounds": rounds, "repeats": repeats,
+            "round_trip_ns": statistics.median(ns),
+            "round_trip_cycles": statistics.median(c / rounds
+                                                   for _t, c in timed),
+            "round_trip_ns_each": ns}
+
+
 def count_exchanges(device="cuda") -> dict:
     """Kernel 1's exchange round over 2 virtual cards at config 4: the
     exchanges it made, from the mailboxes' flags."""
@@ -138,7 +201,8 @@ def count_exchanges(device="cuda") -> dict:
         jobs, resolve_weight_idx(args, active),
         args.score_according_prod_usage, resolve_balance_idx(active), box)
     flag0 = box.next_seq - (2 * P + 1)  # begin(2 * P) moved it past
-    top = max(int(((b >> 32) & 0xFFFFFFFF).max()) for b in box.boxes)
+    top = max(int(((b.tensor >> 32) & 0xFFFFFFFF).max())
+              for b in box.boxes.values())
     exchanges = top - flag0 + 1
     valid = int(fc.base.pod_valid.sum())
     return {"pods": P, "valid_pods": valid, "exchanges": exchanges,

@@ -12,28 +12,33 @@ single-device kernels' on the same padded tensors, mismatch by mismatch
 and split are what the times differ by. ``chip_smoke.py``'s ``mesh_round``
 phase runs it at config 4 and at the LoadAware headline.
 
-``check_exchange`` holds the instances over a mesh of cards (parallel/
-full_chain_mesh.py's exchange route) against the single-device kernels at
-D = 2, 4 and 8 virtual cards of this one card, all D shards as clusters of
-one launch, which exchange through the card's own memory by the protocol
-that crosses NVLink between cards: kernel 1's round and terms instances
-(chosen before Permit, requested, quota_used, the terms rows), the per-card
-replay against the single-card replay, the per-card stage counts against the
-stage-count pass and kernel 2's exchange instance against kernel 2, bit for
-bit. ``check_timeout`` launches shard 0 of a D = 2 exchange alone: it must
-end within the time limit with ExchangeTimeout naming shard 1, and the
-card must take the next launch. ``check_deadline`` launches shard 1 late,
-behind a spin near the (shortened) time limit, so that shard 0's blocks,
-each timing its own wait, may disagree about an entry that arrives at the
-deadline: every launch group must end with ExchangeTimeout or with the
-single-device bindings, never a trap. ``check_claim_view`` holds kernel 1's
-exchange round over a hot-claim world's per-card volume view (the wave
-body's, parallel/full_chain_mesh.CardBackend.claim_view) against the
-single-device round over the [P, N] view.
+The instances over a mesh of cards (parallel/full_chain_mesh.py's
+exchange route) have one harness, for a mesh held by one process or by
+several: ``run_checks`` runs them over this process's part of a mesh
+(kernel 1's round and terms instances, the per-card replay, the per-card
+stage counts, kernel 2's exchange instance, the score matrix, the wave
+steps over the card route, the timeout), ``reference`` runs the
+single-device kernels and steps on the same padded batch, and ``compare``
+holds every process's outputs against it, bit for bit
+(testing/xproc_cards.py starts the processes). ``check_exchange`` runs
+them at D = 2, 4 and 8 virtual cards of this one card, all D shards as
+clusters of one launch, which exchange through the card's own memory by
+the protocol that crosses NVLink between cards. ``check_timeout`` launches
+the first card (of one card: shard 0) of an exchange alone: it must end
+within the time limit with ExchangeTimeout naming every other shard, and
+every card must take the next launch. ``check_deadline`` launches shard 1
+late, behind a spin near the (shortened) time limit, so that shard 0's
+blocks, each timing its own wait, may disagree about an entry that
+arrives at the deadline: every launch group must end with ExchangeTimeout
+or with the single-device bindings, never a trap. ``check_claim_view``
+holds kernel 1's exchange round over a hot-claim world's per-card volume
+view (the wave body's, parallel/full_chain_mesh.CardBackend.claim_view)
+against the single-device round over the [P, N] view.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import List, Sequence
 
 import numpy as np
@@ -56,6 +61,7 @@ from koordinator_tpu_torch.parallel.full_chain_mesh import (
 from koordinator_tpu_torch.parallel.mesh import (
     MeshDevice,
     NamedSharding,
+    ShardedTensor,
     _node_axis_spec,
     build_sharded_schedule_step,
     make_mesh,
@@ -188,13 +194,13 @@ def check_schedule(inputs_host: ScheduleInputs, args,
 
 
 def _cards_of(nt, mesh, per: int, rows):
-    """[(device, shards, view)] of every card of ``mesh``: ``nt``'s rows
-    of the card's shards (``rows(nt, lo, hi)`` cuts them; a card's shards
-    are consecutive), on the card."""
+    """[(device, shards, view)] of every card of ``mesh`` that this
+    process holds: ``nt``'s rows of the card's shards (``rows(nt, lo,
+    hi)`` cuts them; a card's shards are consecutive), on the card."""
     from koordinator_tpu_torch.parallel.mesh import card_view
 
     out = []
-    for dev, ks in mesh.card_shards():
+    for dev, ks in mesh.local_card_shards():
         if ks != list(range(ks[0], ks[-1] + 1)):
             raise ValueError(f"the shards {ks} of {dev} are not consecutive")
         part = rows(nt, ks[0] * per, (ks[-1] + 1) * per)
@@ -215,146 +221,6 @@ def exchanging_mesh(depth: int, device="cuda"):
     mesh = virtual_mesh(depth, device)
     mesh.exchange = True
     return mesh
-
-
-def check_exchange(fc_host, args, ng: int, ngroups: int, active,
-                   n_real: int, inputs_host: ScheduleInputs,
-                   depths: Sequence[int] = EXCHANGE_DEPTHS,
-                   device="cuda", meshes=None) -> List[dict]:
-    """The instances over a mesh of cards against the single-device
-    kernels (on the first card) on the same padded tensors: kernel 1's
-    round and terms round, its per-card replay (the kept pods of the terms
-    round after Permit, from the cycle-start state), the per-card stage
-    counts and kernel 2's exchange instance. ``meshes``: the meshes to
-    check (default: ``depths`` virtual cards of this card). Every
-    mismatch count must be 0; on the first mesh each pair is timed (CUDA
-    events, median of 10)."""
-    from koordinator_tpu_torch.models.convert import (
-        schedule_inputs_from_numpy,
-    )
-    from koordinator_tpu_torch.ops import explain_kernel as ek
-    from koordinator_tpu_torch.ops import full_chain_kernel as fk
-    from koordinator_tpu_torch.ops import schedule_kernel as sk
-    from koordinator_tpu_torch.parallel.full_chain_mesh import (
-        _STATE_NODE_SLOTS,
-        gather_dom_rows,
-        node_rows,
-        replay_state0,
-    )
-    from koordinator_tpu_torch.parallel.mesh import (
-        _SCHEDULE_POD_FIELDS,
-        card_view,
-    )
-
-    widx = resolve_weight_idx(args, active)
-    bal = resolve_balance_idx(active)
-    prod = args.score_according_prod_usage
-    la_widx = resolve_weight_idx(args)
-    if meshes is None:
-        meshes = [exchanging_mesh(d, device) for d in depths]
-    out = []
-    for mesh in meshes:
-        depth = mesh.size
-        dev0 = mesh.flat[0].device
-        fc = to_device(_padded_fc(fc_host, mesh), dev0)
-        N = fc.base.allocatable.shape[0]
-        per = N // depth
-        box = mesh.mailboxes()
-        cards = _cards_of(fc, mesh, per, node_rows)
-        jobs = [(v, ks) for _d, ks, v in cards]
-        row = {"depth": depth, "cards": len(cards), "n_padded": N,
-               "per": per}
-
-        def merged(parts):
-            """A node-axis output's cards, in shard order, on card 0."""
-            return torch.cat([t.to(dev0) for t in parts])
-
-        c1, r1, q1, t1 = fk.full_chain_round(fc, widx, prod, bal, terms=True)
-        outs = fk.full_chain_round_cards(jobs, widx, prod, bal, box,
-                                         terms=True)
-        last = dict(fk.last_launch)
-        row["terms_mismatches"] = sum(
-            _mismatches(c1.cpu(), o[0].cpu()) + _mismatches(q1.cpu(),
-                                                             o[2].cpu())
-            + _mismatches(t1.cpu(), o[3].cpu()) for o in outs) + _mismatches(
-                r1.cpu(), merged([o[1] for o in outs]).cpu())
-        c0, r0, q0 = fk.full_chain_round(fc, widx, prod, bal)
-        outs = fk.full_chain_round_cards(jobs, widx, prod, bal, box)
-        row["round_mismatches"] = sum(
-            _mismatches(c0.cpu(), o[0].cpu()) + _mismatches(q0.cpu(),
-                                                             o[2].cpu())
-            for o in outs) + _mismatches(
-                r0.cpu(), merged([o[1] for o in outs]).cpu())
-        row["bound"] = int((c0 >= 0).sum())
-        row["launch"] = {k: last[k] for k in ("cluster_size", "block_threads",
-                                               "state", "shards")}
-
-        kept = permit(fc, c1, ng, ngroups) >= 0
-        state0 = replay_state0(fc, prod)
-        s1, z1 = fk.full_chain_replay(fc, c1, kept, state0, prod)
-        doms = gather_dom_rows([(v, ks) for _d, ks, v in cards], c1, kept,
-                               per)
-        rjobs = [(v, ks, c1.to(d), kept.to(d),
-                  tuple(card_view(t, ks, d) for t in _state_rows(
-                      state0, ks[0] * per, (ks[-1] + 1) * per)), dom)
-                 for (d, ks, v), dom in zip(cards, doms)]
-        routs = fk.full_chain_replay_cards(rjobs, prod, depth)
-        zones = routs[0][1]
-        for _st, z in routs[1:]:
-            zones = torch.maximum(zones, z.to(zones.device))
-        bad = _mismatches(z1.cpu(), zones.cpu())
-        for i, a in enumerate(s1):
-            parts = [o[0][i] for o in routs]
-            b = merged(parts) if i in _STATE_NODE_SLOTS else parts[0]
-            bad += _mismatches(a.cpu(), b.cpu())
-        row["replay_mismatches"] = bad
-
-        e1 = ek.explain_counts(fc, cycle_start_state(fc), n_real)
-        views = [card_view(node_rows(fc, k * per, (k + 1) * per), [k],
-                           mesh.flat[k].device) for k in range(depth)]
-        shards = [(v, cycle_start_state(v), k * per)
-                  for k, v in enumerate(views)]
-        e2 = ek.explain_counts_shards(shards, n_real)
-        row["counts_mismatches"] = _mismatches(e1.cpu(), e2.cpu())
-
-        node = NamedSharding(mesh, _node_axis_spec(mesh, flat=True))
-        padded = {k: (v if k in _SCHEDULE_POD_FIELDS
-                      else pad_for_sharding(v, node))
-                  for k, v in inputs_host._asdict().items()}
-        inputs = schedule_inputs_from_numpy(padded, dev0)
-        la_jobs = [(v, ks) for _d, ks, v in _cards_of(inputs, mesh, per,
-                                                       _schedule_rows)]
-        lc, lr = sk.schedule_round(inputs, la_widx, prod)
-        louts = sk.schedule_round_cards(la_jobs, la_widx, prod, box)
-        row["loadaware_mismatches"] = sum(
-            _mismatches(lc.cpu(), o[0].cpu()) for o in louts) + _mismatches(
-                lr.cpu(), merged([o[1] for o in louts]).cpu())
-
-        if mesh is not meshes[0]:
-            out.append(row)
-            continue
-        row["terms_single_ms"] = time_ms(
-            lambda: fk.full_chain_round(fc, widx, prod, bal, terms=True))
-        row["terms_xchg_ms"] = time_ms(lambda: fk.full_chain_round_cards(
-            jobs, widx, prod, bal, box, terms=True))
-        row["round_single_ms"] = time_ms(
-            lambda: fk.full_chain_round(fc, widx, prod, bal))
-        row["round_xchg_ms"] = time_ms(
-            lambda: fk.full_chain_round_cards(jobs, widx, prod, bal, box))
-        row["replay_single_ms"] = time_ms(
-            lambda: fk.full_chain_replay(fc, c1, kept, state0, prod))
-        row["replay_cards_ms"] = time_ms(
-            lambda: fk.full_chain_replay_cards(rjobs, prod, depth))
-        row["counts_single_ms"] = time_ms(
-            lambda: ek.explain_counts(fc, cycle_start_state(fc), n_real))
-        row["counts_shards_ms"] = time_ms(
-            lambda: ek.explain_counts_shards(shards, n_real))
-        row["loadaware_single_ms"] = time_ms(
-            lambda: sk.schedule_round(inputs, la_widx, prod))
-        row["loadaware_xchg_ms"] = time_ms(
-            lambda: sk.schedule_round_cards(la_jobs, la_widx, prod, box))
-        out.append(row)
-    return out
 
 
 def check_counts_cards(fc_host, mesh) -> dict:
@@ -407,57 +273,6 @@ def _state_rows(state, lo: int, hi: int):
 
     return tuple(t[lo:hi] if i in _STATE_NODE_SLOTS and t is not None
                  else t for i, t in enumerate(state))
-
-
-def check_timeout(fc_host, args, active, device="cuda", mesh=None) -> dict:
-    """The first card's launch of an exchange alone (default: shard 0 of
-    2 virtual cards of this card): the round must end (no trap) with
-    ExchangeTimeout naming every other shard once the exchange's time
-    limit (ops/kernel_common.EXCHANGE_TIMEOUT_S) has passed, and the card
-    must run the next launch (the single-device round) to the same
-    bindings as before."""
-    import time
-
-    from koordinator_tpu_torch.ops import full_chain_kernel as fk
-    from koordinator_tpu_torch.ops.kernel_common import (
-        EXCHANGE_TIMEOUT_S,
-        ExchangeTimeout,
-    )
-    from koordinator_tpu_torch.parallel.full_chain_mesh import node_rows
-    from koordinator_tpu_torch.parallel.mesh import card_view
-
-    widx = resolve_weight_idx(args, active)
-    bal = resolve_balance_idx(active)
-    prod = args.score_according_prod_usage
-    if mesh is None:
-        mesh = exchanging_mesh(2, device)
-    dev0 = mesh.flat[0].device
-    fc = to_device(_padded_fc(fc_host, mesh), dev0)
-    per = fc.base.allocatable.shape[0] // mesh.size
-    before = fk.full_chain_round(fc, widx, prod, bal)[0].cpu()
-    _dev, ks = mesh.card_shards()[0]
-    if len(mesh.card_shards()) == 1:
-        ks = [0]
-    alone = card_view(node_rows(fc, ks[0] * per, (ks[-1] + 1) * per), ks,
-                      dev0)
-    t0 = time.perf_counter()
-    try:
-        fk.full_chain_round_cards([(alone, ks)], widx, prod, bal,
-                                  mesh.mailboxes())
-    except ExchangeTimeout as exc:
-        err = exc
-    else:
-        raise AssertionError("a lone card's round did not time out")
-    seconds = time.perf_counter() - t0
-    missing = [k for k in range(mesh.size) if k not in ks]
-    if list(err.failed_shards) != missing:
-        raise AssertionError(f"the timeout named {err.failed_shards}, not "
-                             f"{missing}")
-    after = fk.full_chain_round(fc, widx, prod, bal)[0].cpu()
-    return {"timeout_s": EXCHANGE_TIMEOUT_S, "seconds": seconds,
-            "failed_shards": list(err.failed_shards),
-            "failed_device_ids": list(err.failed_device_ids),
-            "next_launch_mismatches": _mismatches(before, after)}
 
 
 def check_deadline(fc_host, args, active, device="cuda", trials=48,
@@ -819,3 +634,699 @@ def check_sharded_exchange(fc_host, args, ng: int, ngroups: int, active,
     row["plain_pods"] = plain_pods
     return row
 
+
+# ---------------------------------------------------------------------------
+# the exchange instances over a mesh of cards, held by one process or
+# several: run_checks (each process's part), reference (one device),
+# compare
+# ---------------------------------------------------------------------------
+
+# run_checks' checks, in the order they run
+CHECKS = ("rtt", "round", "replay", "counts", "loadaware", "matrix",
+          "waves", "worlds", "timeout")
+WAVES = 2              # the fused step's waves in ``waves``
+WORLD_WAVES = 4        # and in ``worlds``
+CHAIN_WAVES = 3        # chained waves over each world
+# two processes on one card time-slice it: a round trip there took 4.475
+# ms (NVIDIA H100 80GB HBM3, 700.00 W), so 50 trips a run
+RTT_ROUNDS, RTT_REPEATS = 50, 5
+FIELDS = ("bind_pods", "bind_nodes", "bind_zones", "bind_res",
+          "wave_counts")
+CHAIN_FIELDS = ("bind_pods", "bind_nodes", "bind_zones", "bind_res",
+                "count")
+
+
+def exchange_batch(fc_host, args, ng: int, ngroups: int, active,
+                   n_real: int, la_host: ScheduleInputs = None, sides=None,
+                   worlds=None) -> dict:
+    """The checks' batch, all numpy (it is pickled for other processes):
+    the packed FullChainInputs ``fc_host`` with its ``active`` axes, gangs
+    and groups, the LoadAware ScheduleInputs ``la_host``, the wave sides
+    ``sides`` (models/fused_waves.WaveSideInputs) and the carried
+    ``worlds`` ({name: (fc, sides, build kwargs)})."""
+    return {"fc": fc_host, "args": args, "ng": ng, "ngroups": ngroups,
+            "active": None if active is None else tuple(active),
+            "n_real": int(n_real), "la": la_host, "sides": sides,
+            "worlds": dict(worlds or {})}
+
+
+def _host(t) -> np.ndarray:
+    if isinstance(t, ShardedTensor):  # this process's replica
+        t = t.local()
+    return t.detach().cpu().numpy()
+
+
+def _by_shard(cards, outs, i: int) -> dict:
+    """{shard: its rows} of output ``i`` of each card's ``outs``, from
+    ``cards`` [(device, shards, view)]."""
+    from koordinator_tpu_torch.parallel.mesh import split_card_rows
+
+    got = {}
+    for (_d, ks, _v), o in zip(cards, outs):
+        for k, part in zip(ks, split_card_rows(o[i], len(ks))):
+            got[k] = part.cpu().numpy()
+    return got
+
+
+def _pod_outputs(prefix: str, outs, which: Sequence[int], names, rep):
+    """The first card's pod-level outputs ``which`` of ``outs`` into
+    ``rep``, and how many elements every other card's differ by."""
+    for i, name in zip(which, names):
+        rep[f"{prefix}.{name}"] = _host(outs[0][i])
+    rep[f"{prefix}.cards_differ"] = np.array([sum(
+        _mismatches(_host(outs[0][i]), _host(o[i]))
+        for o in outs[1:] for i in which)], dtype=np.int64)
+
+
+def _counters():
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.ops import schedule_kernel as sk
+
+    return ((fk, "xchg_launches"), (fk, "xchg_terms_launches"),
+            (fk, "xchg_replay_launches"), (ek, "shard_launches"),
+            (sk, "xchg_launches"), (fk, "launches"), (fk, "terms_launches"),
+            (fk, "replay_launches"), (ek, "launches"), (sk, "launches"))
+
+
+def launches() -> dict:
+    """The kernels' launch counts, by ``module.counter``."""
+    return {f"{mod.__name__.rsplit('.', 1)[1]}.{name}": getattr(mod, name)
+            for mod, name in _counters()}
+
+
+def zero_launches() -> None:
+    for mod, name in _counters():
+        setattr(mod, name, 0)
+
+
+def _la_padded(la_host, mesh, device):
+    from koordinator_tpu_torch.models.convert import (
+        schedule_inputs_from_numpy,
+    )
+    from koordinator_tpu_torch.parallel.mesh import _SCHEDULE_POD_FIELDS
+
+    node = NamedSharding(mesh, _node_axis_spec(mesh, flat=True))
+    padded = {k: (v if k in _SCHEDULE_POD_FIELDS
+                  else pad_for_sharding(v, node))
+              for k, v in la_host._asdict().items()}
+    return schedule_inputs_from_numpy(padded, device)
+
+
+def shard_sides(sides, mesh, place=None):
+    """numpy WaveSideInputs on ``mesh`` (wave_side_shardings' layout):
+    each array through ``place(array, sharding)`` (default put_on_mesh)."""
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        wave_side_shardings,
+    )
+    from koordinator_tpu_torch.parallel.mesh import put_on_mesh
+
+    place = place or put_on_mesh
+    sh = wave_side_shardings(mesh, prod=sides.prod is not None,
+                             claims=sides.claims is not None,
+                             res=sides.res is not None)
+
+    def put(x, s):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return type(x)(*(put(a, b) for a, b in zip(x, s)))
+        return place(x, s)
+
+    return put(sides, sh)
+
+
+def _sides_on(sides, mesh, device):
+    """numpy WaveSideInputs padded as ``shard_sides`` pads them, on
+    ``device``."""
+    from koordinator_tpu_torch.models.fused_waves import WaveSideInputs
+
+    padded = shard_sides(sides, mesh, lambda x, s: pad_for_sharding(
+        np.asarray(x), s))
+
+    def t(x):
+        return None if x is None else torch.from_numpy(
+            np.ascontiguousarray(x)).to(device)
+
+    def conv(group):
+        return None if group is None else type(group)(*(t(v) for v in group))
+
+    return WaveSideInputs(t(padded.la_est), t(padded.la_adj),
+                          conv(padded.prod), conv(padded.claims),
+                          conv(padded.res))
+
+
+def run_checks(mesh, data: dict, checks: Sequence[str],
+               reps: int = 0) -> dict:
+    """The checks over ``mesh`` (this process's part of it; every process
+    of the mesh runs the same checks) on ``data`` (``exchange_batch``'s),
+    through the instances over a mesh of cards and the mesh's entry
+    points:
+
+      rtt        the mailbox round trip between ranks 0 and 1, each box
+                 mapped into the other process through CUDA IPC
+                 (testing/mailbox_rtt.ipc_round_trip; across processes);
+      round      kernel 1's exchange round, then its terms instance
+                 (ops/full_chain_kernel.full_chain_round_cards);
+      replay     the per-card replay of the terms round's kept pods (after
+                 Permit) from the cycle-start state (full_chain_replay_cards;
+                 after ``round``);
+      counts     the per-card stage counts (ops/explain_kernel.
+                 explain_counts_shards);
+      loadaware  kernel 2's exchange instance (ops/schedule_kernel.
+                 schedule_round_cards);
+      matrix     the one-shot [P, N] score matrix over both mesh axes
+                 (parallel/mesh.build_sharded_score_matrix: each process's
+                 blocks against its own whole matrix, the mismatches summed
+                 over the processes);
+      waves      the fused wave step at K = WAVES with explain "counts"
+                 (parallel/full_chain_mesh.build_sharded_fused_wave_step:
+                 the exchange round, Permit, the per-card replay and stage
+                 counts), then one chained wave, whose carry is the replay
+                 state;
+      worlds     the fused K = WORLD_WAVES step with explain "full", then
+                 CHAIN_WAVES chained waves with explain "counts", over each
+                 carried world of the batch;
+      timeout    the mesh's first card (of one card: shard 0) launches a
+                 group of kernel 1 alone, every other card skips it (begins
+                 the group and reads the error words, launching nothing):
+                 every process must raise ExchangeTimeout naming every
+                 other shard; then every card takes the next group.
+
+    Returns {"rep": the outputs alike in every process, "node": this
+    process's node rows by shard, "times", "launches", "extra"}; ``reps``
+    > 0 times each instance (CUDA events, median of ``reps`` after a
+    warm-up; across processes each call ends with every process's
+    error-word check, a gloo collective, so the processes stay in step).
+    The launch counts are zeroed first and read last."""
+    import time
+
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.ops import schedule_kernel as sk
+    from koordinator_tpu_torch.parallel import full_chain_mesh as fcm
+    from koordinator_tpu_torch.parallel.mesh import card_view
+
+    args = data["args"]
+    prod = args.score_according_prod_usage
+    active = data["active"]
+    widx = resolve_weight_idx(args, active)
+    bal = resolve_balance_idx(active)
+    rep, node, times, extra = {}, {}, {}, {}
+    dev = mesh.cards[0]
+    timed = reps > 0 and dev.type == "cuda"
+    zero_launches()
+
+    if {"round", "replay", "counts", "timeout"} & set(checks):
+        fc = to_device(_padded_fc(data["fc"], mesh), dev)
+        per = fc.base.allocatable.shape[0] // mesh.size
+        cards = _cards_of(fc, mesh, per, fcm.node_rows)
+        jobs = [(v, ks) for _d, ks, v in cards]
+
+    if "rtt" in checks:
+        from koordinator_tpu_torch.testing.mailbox_rtt import ipc_round_trip
+
+        extra["rtt"] = ipc_round_trip(data.get("rtt_rounds", RTT_ROUNDS),
+                                      RTT_REPEATS)
+
+    if "round" in checks:
+        box = mesh.mailboxes()
+
+        def round_(terms=False):
+            return fk.full_chain_round_cards(jobs, widx, prod, bal, box,
+                                             terms=terms)
+
+        t0 = time.perf_counter()
+        outs = round_()
+        extra["round_first_s"] = time.perf_counter() - t0
+        extra["launch"] = {k: fk.last_launch[k] for k in (
+            "cluster_size", "block_threads", "state", "shards")}
+        _pod_outputs("round", outs, (0, 2), ("chosen", "quota_used"), rep)
+        node["round.requested"] = _by_shard(cards, outs, 1)
+        outs = round_(terms=True)
+        _pod_outputs("terms", outs, (0, 2, 3),
+                     ("chosen", "quota_used", "terms"), rep)
+        node["terms.requested"] = _by_shard(cards, outs, 1)
+        chosen = outs[0][0]
+        if timed:
+            times["round_ms"] = time_ms(round_, reps)
+            times["terms_ms"] = time_ms(lambda: round_(terms=True), reps)
+
+    if "replay" in checks:
+        kept = permit(fc, chosen.to(dev), data["ng"], data["ngroups"]) >= 0
+        state0 = fcm.replay_state0(fc, prod)
+        doms = fcm.gather_dom_rows(jobs, chosen, kept, per, mesh)
+        rjobs = [(v, ks, chosen.to(d), kept.to(d),
+                  tuple(card_view(t, ks, d) for t in _state_rows(
+                      state0, ks[0] * per, (ks[-1] + 1) * per)), dom)
+                 for (d, ks, v), dom in zip(cards, doms)]
+
+        def replay():
+            routs = fk.full_chain_replay_cards(rjobs, prod, mesh.size)
+            zones = routs[0][1]
+            for _st, z in routs[1:]:
+                zones = torch.maximum(zones, z.to(zones.device))
+            return routs, mesh.all_reduce(zones, "max")
+
+        routs, zones = replay()
+        rep["replay.zones"] = _host(zones)
+        states = [o[0] for o in routs]
+        slots = [i for i, t in enumerate(states[0]) if t is not None]
+        for i in slots:
+            if i in fcm._STATE_NODE_SLOTS:
+                node[f"replay.state{i}"] = _by_shard(cards, states, i)
+        pod = [i for i in slots if i not in fcm._STATE_NODE_SLOTS]
+        _pod_outputs("replay", states, pod, [f"state{i}" for i in pod], rep)
+        if timed:
+            times["replay_ms"] = time_ms(replay, reps)
+
+    if "counts" in checks:
+        views = {k: card_view(fcm.node_rows(fc, k * per, (k + 1) * per), [k],
+                              mesh.flat[k].device)
+                 for k in range(mesh.size) if mesh.local(k)}
+        shards = [(v, cycle_start_state(v), k * per)
+                  for k, v in sorted(views.items())]
+
+        def counts():
+            return ek.explain_counts_shards(shards, data["n_real"],
+                                            mesh=mesh)
+
+        rep["counts.stage_counts"] = _host(counts())
+        if timed:
+            times["counts_ms"] = time_ms(counts, reps)
+
+    if "loadaware" in checks:
+        la = _la_padded(data["la"], mesh, dev)
+        per_la = la.allocatable.shape[0] // mesh.size
+        la_cards = _cards_of(la, mesh, per_la, _schedule_rows)
+        la_jobs = [(v, ks) for _d, ks, v in la_cards]
+        la_widx = resolve_weight_idx(args)
+        box = mesh.mailboxes()
+
+        def la_round():
+            return sk.schedule_round_cards(la_jobs, la_widx, prod, box)
+
+        outs = la_round()
+        _pod_outputs("loadaware", outs, (0,), ("chosen",), rep)
+        node["loadaware.requested"] = _by_shard(la_cards, outs, 1)
+        if timed:
+            times["loadaware_ms"] = time_ms(la_round, reps)
+
+    if "matrix" in checks:
+        rep["matrix.mismatches"], rep["matrix.blocks"] = _matrix_mismatches(
+            mesh, data["la"], args, dev)
+
+    if "waves" in checks:
+        sfc = fcm.shard_full_chain_inputs(data["fc"], mesh)
+        ssides = shard_sides(data["sides"], mesh)
+        n_real = data["n_real"]
+        step = fcm.build_sharded_fused_wave_step(
+            args, data["ng"], data["ngroups"], WAVES, mesh,
+            active_axes=active, explain="counts")
+        out, ex = step(sfc, ssides, n_real)
+        for k in FIELDS:
+            rep[f"waves.{k}"] = _host(getattr(out, k))
+        rep["waves.stage_counts"] = _host(ex.stage_counts)
+        cstep = fcm.build_sharded_chained_wave_step(
+            args, data["ng"], data["ngroups"], mesh, active_axes=active,
+            explain="counts")
+        _chain(cstep, fcm.initial_sharded_wave_carry(
+            sfc, ssides, mesh, explain="counts"), sfc, ssides, n_real, 1,
+            "chain", rep, node)
+        if timed:
+            times["waves_ms"] = time_ms(
+                lambda: step(sfc, ssides, n_real), reps)
+
+    if "worlds" in checks:
+        for name, (wfc, wsides, b) in sorted(data["worlds"].items()):
+            n_real = int(np.asarray(wfc.base.node_ok).sum())
+            kw = dict(active_axes=b["active_axes"], prod=b["prod"],
+                      claims=b["claims"], res=b["res"])
+            sfc = fcm.shard_full_chain_inputs(wfc, mesh)
+            ssides = shard_sides(wsides, mesh)
+            out, ex = fcm.build_sharded_fused_wave_step(
+                args, b["num_gangs"], b["num_groups"], WORLD_WAVES, mesh,
+                explain="full", **kw)(sfc, ssides, n_real)
+            for k in FIELDS:
+                rep[f"world.{name}.{k}"] = _host(getattr(out, k))
+            rep[f"world.{name}.stage_counts"] = _host(ex.stage_counts)
+            rep[f"world.{name}.terms"] = _host(ex.terms)
+            cstep = fcm.build_sharded_chained_wave_step(
+                args, b["num_gangs"], b["num_groups"], mesh,
+                explain="counts", **kw)
+            sfc = fcm.shard_full_chain_inputs(wfc, mesh)
+            ssides = shard_sides(wsides, mesh)
+            _chain(cstep, fcm.initial_sharded_wave_carry(sfc, ssides, mesh),
+                   sfc, ssides, n_real, CHAIN_WAVES, f"world.{name}.chain",
+                   rep, node)
+
+    if "timeout" in checks:
+        extra["timeout"] = _timeout(mesh, fc, cards, widx, prod, bal)
+        outs = fk.full_chain_round_cards(jobs, widx, prod, bal,
+                                         mesh.mailboxes())
+        _pod_outputs("timeout", outs, (0,), ("next_chosen",), rep)
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return {"rep": rep, "node": node, "times": times,
+            "launches": launches(), "extra": extra}
+
+
+def _matrix_mismatches(mesh, la_host, args, dev):
+    """The score matrix's blocks of this process's shards (both mesh axes)
+    against the whole matrix on its own device, element by element:
+    (mismatches, blocks compared), each summed over the processes (the
+    same in each)."""
+    from koordinator_tpu_torch.models.convert import (
+        schedule_inputs_from_numpy,
+    )
+    from koordinator_tpu_torch.models.scheduler_model import (
+        build_score_matrix,
+    )
+    from koordinator_tpu_torch.parallel.mesh import (
+        build_sharded_score_matrix,
+        shard_inputs_2d,
+    )
+
+    feas, score = build_sharded_score_matrix(args, mesh)(
+        shard_inputs_2d(la_host, mesh))
+    whole = build_score_matrix(args)(schedule_inputs_from_numpy(
+        {k: np.asarray(v) for k, v in la_host._asdict().items()}, dev))
+    bad, blocks = 0, 0
+    for got, want in zip((feas, score), whole):
+        padded = torch.zeros(tuple(got.shape), dtype=want.dtype,
+                             device=dev)
+        padded[:want.shape[0], :want.shape[1]] = want
+        for _d, block, idx in got.addressable_shards:
+            rows, cols = idx
+            lo_r = min(rows.stop, want.shape[0])
+            lo_c = min(cols.stop, want.shape[1])
+            part = block.to(dev)[:lo_r - rows.start, :lo_c - cols.start]
+            bad += int((part != padded[rows.start:lo_r,
+                                       cols.start:lo_c]).sum())
+            blocks += 1
+    total = mesh.all_reduce(torch.tensor([bad, blocks], dtype=torch.int64),
+                            "sum").numpy()
+    return total[:1], total[1:]
+
+
+def _chain(step, carry, fc, sides, n_real: int, waves: int, prefix: str,
+           rep, node) -> None:
+    """``waves`` chained waves from ``carry``: each wave's rows and counts
+    into ``rep``, the last carry's slots into ``rep`` (pod-level) and
+    ``node`` (node-axis; by shard where sharded)."""
+    from koordinator_tpu_torch.models.fused_waves import WAVE_STATE_FIELDS
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        WAVE_STATE_NODE_SLOTS,
+    )
+
+    for w in range(waves):
+        carry, rows, counts = step(fc, carry, sides, n_real)
+        for k, t in zip(CHAIN_FIELDS, rows):
+            rep[f"{prefix}.{w}.{k}"] = _host(t)
+        rep[f"{prefix}.{w}.stage_counts"] = _host(counts)
+    for i, t in enumerate(carry):
+        if t is None:
+            continue
+        name = f"{prefix}.carry.{WAVE_STATE_FIELDS[i]}"
+        if i not in WAVE_STATE_NODE_SLOTS:
+            rep[name] = _host(t)
+        elif isinstance(t, ShardedTensor):
+            node[name] = {k: s.cpu().numpy() for k, s in enumerate(t.shards)
+                          if s is not None}
+        else:
+            node[name] = _host(t)
+
+
+def _timeout(mesh, fc, cards, widx, prod: bool, bal) -> dict:
+    """The mesh's first card (of a one-card mesh: shard 0 alone, a cluster
+    of one launch) launches a group of kernel 1 alone; every other card of
+    this process skips it, and every other process begins the group and
+    reads the error words, launching nothing. Every process must raise
+    ExchangeTimeout naming every other shard; returns what it named and
+    when."""
+    import time
+
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.ops.kernel_common import (
+        EXCHANGE_TIMEOUT_S,
+        ExchangeTimeout,
+    )
+    from koordinator_tpu_torch.parallel.full_chain_mesh import node_rows
+    from koordinator_tpu_torch.parallel.mesh import card_view
+
+    box = mesh.mailboxes()
+    groups = mesh.card_shards()
+    first = groups[0][1] if len(groups) > 1 else [0]
+    missing = [k for k in range(mesh.size) if k not in first]
+    per = fc.base.allocatable.shape[0] // mesh.size
+    t0 = time.perf_counter()
+    try:
+        if mesh.local(first[0]):
+            alone = card_view(node_rows(fc, first[0] * per,
+                                        (first[-1] + 1) * per), first,
+                              groups[0][0])
+            fk.full_chain_round_cards([(alone, first)], widx, prod, bal,
+                                      box)
+        else:
+            box.ensure(fk.payload_words(fc.aff_dom.shape[1]))
+            box.begin(2 * fc.base.fit_requests.shape[0])
+            # full_chain_round_cards' own words: every process names the
+            # timeout alike
+            box.check("full_chain round over a mesh of cards")
+    except ExchangeTimeout as exc:
+        err = exc
+    else:
+        raise AssertionError("a launch group with only the first card "
+                             "did not time out")
+    seconds = time.perf_counter() - t0
+    if list(err.failed_shards) != missing:
+        raise AssertionError(f"the timeout named {err.failed_shards}, not "
+                             f"{missing}")
+    return {"timeout_s": EXCHANGE_TIMEOUT_S, "seconds": seconds,
+            "failed_shards": list(err.failed_shards),
+            "failed_device_ids": list(err.failed_device_ids),
+            "message": str(err)}
+
+
+def reference(data: dict, checks: Sequence[str], depth: int,
+              device="cuda", reps: int = 0) -> dict:
+    """run_checks' outputs on one device with the single-device kernels
+    and steps (kernel 1, its terms instance, the replay, the stage-count
+    pass, kernel 2, the wave steps) on the batch padded for a mesh of
+    ``depth`` shards: {"rep", "node" (whole), "times" (``reps`` > 0: CUDA
+    events, median of ``reps``)}. ``rtt`` has no reference."""
+    from koordinator_tpu_torch.models import fused_waves as fw
+    from koordinator_tpu_torch.ops import explain_kernel as ek
+    from koordinator_tpu_torch.ops import full_chain_kernel as fk
+    from koordinator_tpu_torch.ops import schedule_kernel as sk
+    from koordinator_tpu_torch.parallel.full_chain_mesh import (
+        _STATE_NODE_SLOTS,
+        replay_state0,
+    )
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = virtual_mesh(depth, dev)
+    args = data["args"]
+    prod, active = args.score_according_prod_usage, data["active"]
+    widx = resolve_weight_idx(args, active)
+    bal = resolve_balance_idx(active)
+    timed = reps > 0 and dev.type == "cuda"
+    rep, node, times = {}, {}, {}
+    none = np.zeros(1, dtype=np.int64)  # no card differs from the first
+    checks = set(checks)
+    if {"round", "replay", "counts", "timeout"} & checks:
+        fc = to_device(_padded_fc(data["fc"], mesh), dev)
+    if {"round", "timeout"} & checks:
+        c, r, q = fk.full_chain_round(fc, widx, prod, bal)
+    if {"round", "replay"} & checks:
+        c1, r1, q1, t1 = fk.full_chain_round(fc, widx, prod, bal, terms=True)
+    if "round" in checks:
+        rep["round.chosen"], rep["round.quota_used"] = _host(c), _host(q)
+        rep["round.cards_differ"] = none
+        node["round.requested"] = _host(r)
+        rep["terms.chosen"], rep["terms.quota_used"] = _host(c1), _host(q1)
+        rep["terms.terms"], rep["terms.cards_differ"] = _host(t1), none
+        node["terms.requested"] = _host(r1)
+        if timed:
+            times["round_ms"] = time_ms(
+                lambda: fk.full_chain_round(fc, widx, prod, bal), reps)
+            times["terms_ms"] = time_ms(lambda: fk.full_chain_round(
+                fc, widx, prod, bal, terms=True), reps)
+    if "replay" in checks:
+        kept = permit(fc, c1, data["ng"], data["ngroups"]) >= 0
+        state0 = replay_state0(fc, prod)
+        s1, z1 = fk.full_chain_replay(fc, c1, kept, state0, prod)
+        rep["replay.zones"] = _host(z1)
+        for i, t in enumerate(s1):
+            if t is not None:
+                (node if i in _STATE_NODE_SLOTS else rep)[
+                    f"replay.state{i}"] = _host(t)
+        rep["replay.cards_differ"] = none
+        if timed:
+            times["replay_ms"] = time_ms(lambda: fk.full_chain_replay(
+                fc, c1, kept, state0, prod), reps)
+    if "counts" in checks:
+        rep["counts.stage_counts"] = _host(ek.explain_counts(
+            fc, cycle_start_state(fc), data["n_real"]))
+        if timed:
+            times["counts_ms"] = time_ms(lambda: ek.explain_counts(
+                fc, cycle_start_state(fc), data["n_real"]), reps)
+    if "loadaware" in checks:
+        la = _la_padded(data["la"], mesh, dev)
+        la_widx = resolve_weight_idx(args)
+        lc, lr = sk.schedule_round(la, la_widx, prod)
+        rep["loadaware.chosen"], rep["loadaware.cards_differ"] = (_host(lc),
+                                                                  none)
+        node["loadaware.requested"] = _host(lr)
+        if timed:
+            times["loadaware_ms"] = time_ms(
+                lambda: sk.schedule_round(la, la_widx, prod), reps)
+    if "matrix" in checks:
+        rep["matrix.mismatches"] = np.zeros(1, dtype=np.int64)
+        # the feasibility and the score blocks of every shard
+        rep["matrix.blocks"] = np.array([2 * depth], dtype=np.int64)
+    if "waves" in checks:
+        pfc = to_device(_padded_fc(data["fc"], mesh), dev)
+        sides = _sides_on(data["sides"], mesh, dev)
+        n_real = data["n_real"]
+        out, ex = fw.build_fused_wave_step(
+            args, data["ng"], data["ngroups"], WAVES, active_axes=active,
+            explain="counts")(pfc, sides, n_real)
+        for k in FIELDS:
+            rep[f"waves.{k}"] = _host(getattr(out, k))
+        rep["waves.stage_counts"] = _host(ex.stage_counts)
+        _chain(fw.build_chained_wave_step(
+            args, data["ng"], data["ngroups"], active_axes=active,
+            explain="counts"), fw.initial_wave_carry(pfc, sides,
+                                                     explain="counts"),
+            pfc, sides, n_real, 1, "chain", rep, node)
+    if "worlds" in checks:
+        for name, (wfc, wsides, b) in sorted(data["worlds"].items()):
+            n_real = int(np.asarray(wfc.base.node_ok).sum())
+            kw = dict(active_axes=b["active_axes"], prod=b["prod"],
+                      claims=b["claims"], res=b["res"])
+            pfc = to_device(_padded_fc(wfc, mesh), dev)
+            psides = _sides_on(wsides, mesh, dev)
+            out, ex = fw.build_fused_wave_step(
+                args, b["num_gangs"], b["num_groups"], WORLD_WAVES,
+                explain="full", **kw)(pfc, psides, n_real)
+            for k in FIELDS:
+                rep[f"world.{name}.{k}"] = _host(getattr(out, k))
+            rep[f"world.{name}.stage_counts"] = _host(ex.stage_counts)
+            rep[f"world.{name}.terms"] = _host(ex.terms)
+            _chain(fw.build_chained_wave_step(
+                args, b["num_gangs"], b["num_groups"], explain="counts",
+                **kw), fw.initial_wave_carry(pfc, psides), pfc, psides,
+                n_real, CHAIN_WAVES, f"world.{name}.chain", rep, node)
+    if "timeout" in checks:
+        rep["timeout.next_chosen"] = _host(c)
+        rep["timeout.cards_differ"] = none
+    return {"rep": rep, "node": node, "times": times}
+
+
+def digest(rep: dict) -> str:
+    """SHA-256 of the outputs alike in every process, by name."""
+    h = hashlib.sha256()
+    for name in sorted(rep):
+        a = np.ascontiguousarray(rep[name])
+        h.update(name.encode())
+        h.update(str(a.dtype).encode() + str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def compare(ref: dict, outs: List[dict], depth: int) -> dict:
+    """Every process's outputs against ``ref``, bit for bit: each output
+    alike in every process, and each node output's rows of every shard
+    (every shard held by exactly one process). Returns {"mismatches":
+    {name: count} (all must be 0), "total", "digests" (each process's),
+    "reference_digest"}; raises on an output without a reference."""
+    bad = {}
+    for name, want in ref["rep"].items():
+        bad[name] = sum(_mismatches(want, o["rep"].get(name, np.empty(0)))
+                        for o in outs)
+    for name, want in ref["node"].items():
+        per = want.shape[0] // depth
+        seen = {}
+        for o in outs:
+            for k, rows in o["node"].get(name, {}).items():
+                seen[k] = seen.get(k, 0) + 1
+                bad[name] = bad.get(name, 0) + _mismatches(
+                    want[k * per:(k + 1) * per], rows)
+        if sorted(seen) != list(range(depth)) or set(seen.values()) != {1}:
+            bad[name] = bad.get(name, 0) + want.size
+    extra = (set().union(*(o["rep"] for o in outs))
+             | set().union(*(o["node"] for o in outs))) - (
+                 set(ref["rep"]) | set(ref["node"]))
+    if extra:
+        raise AssertionError(f"outputs without a reference: {sorted(extra)}")
+    return {"mismatches": bad, "total": sum(bad.values()),
+            "digests": sorted({digest(o["rep"]) for o in outs}),
+            "reference_digest": digest(ref["rep"])}
+
+
+def _mismatches_of(res: dict, prefix: str) -> int:
+    return sum(v for k, v in res["mismatches"].items()
+               if k.startswith(prefix + "."))
+
+
+def check_exchange(fc_host, args, ng: int, ngroups: int, active,
+                   n_real: int, inputs_host: ScheduleInputs,
+                   depths: Sequence[int] = EXCHANGE_DEPTHS,
+                   device="cuda", meshes=None) -> List[dict]:
+    """The instances over a mesh of cards against the single-device
+    kernels (on the first card) on the same padded tensors, through
+    run_checks, reference and compare: kernel 1's round and terms round,
+    its per-card replay (the kept pods of the terms round after Permit,
+    from the cycle-start state), the per-card stage counts and kernel 2's
+    exchange instance. ``meshes``: the meshes to check (default:
+    ``depths`` virtual cards of this card). Every mismatch count must be 0
+    (``cards_differ``: every card's pod-level outputs are the first's); on
+    the first mesh each pair is timed (CUDA events, median of 10)."""
+    from koordinator_tpu_torch.testing.kernel_ab import REPS
+
+    if meshes is None:
+        meshes = [exchanging_mesh(d, device) for d in depths]
+    data = exchange_batch(fc_host, args, ng, ngroups, active, n_real,
+                          inputs_host)
+    checks = ("round", "replay", "counts", "loadaware")
+    out = []
+    for i, mesh in enumerate(meshes):
+        reps = REPS if i == 0 else 0
+        got = run_checks(mesh, data, checks, reps)
+        ref = reference(data, checks, mesh.size, mesh.flat[0].device, reps)
+        res = compare(ref, [got], mesh.size)
+        N = ref["node"]["round.requested"].shape[0]
+        row = {"depth": mesh.size, "cards": len(mesh.card_shards()),
+               "n_padded": N, "per": N // mesh.size,
+               "bound": int((ref["rep"]["round.chosen"] >= 0).sum()),
+               "launch": got["extra"]["launch"]}
+        for name in ("round", "terms", "replay", "counts", "loadaware"):
+            row[f"{name}_mismatches"] = _mismatches_of(res, name)
+        for name, xchg in (("round", "xchg"), ("terms", "xchg"),
+                           ("replay", "cards"), ("counts", "shards"),
+                           ("loadaware", "xchg")):
+            if reps:
+                row[f"{name}_single_ms"] = ref["times"][f"{name}_ms"]
+                row[f"{name}_{xchg}_ms"] = got["times"][f"{name}_ms"]
+        out.append(row)
+    return out
+
+
+def check_timeout(fc_host, args, active, device="cuda", mesh=None) -> dict:
+    """run_checks' ``timeout`` on ``mesh`` (default: 2 virtual cards of
+    this card, shard 0 launching alone): the first card's group must end
+    (no trap) with ExchangeTimeout naming every other shard once the
+    exchange's time limit (ops/kernel_common.EXCHANGE_TIMEOUT_S) has
+    passed, and the next group, over every card, must give the
+    single-device round's bindings (``next_launch_mismatches``)."""
+    if mesh is None:
+        mesh = exchanging_mesh(2, device)
+    data = exchange_batch(fc_host, args, 0, 0, active, 0)
+    got = run_checks(mesh, data, ["timeout"])
+    res = compare(reference(data, ["timeout"], mesh.size,
+                            mesh.flat[0].device), [got], mesh.size)
+    return {**got["extra"]["timeout"], "next_launch_mismatches": res["total"]}

@@ -72,17 +72,99 @@ def test_mesh_of_two_cards_builds_without_touching_a_card(monkeypatch):
     assert sub.exchange and sub.cards == [torch.device("cuda", 0)]
 
 
-def test_card_mesh_across_processes_raises_the_narrowed_message():
-    with pytest.raises(NotImplementedError) as err:
-        make_mesh([MeshDevice(0, torch.device("cuda", 0), 0),
-                   MeshDevice(1, torch.device("cuda", 1), 1)])
-    assert str(err.value) == pm.CROSS_PROCESS_CARDS
-    # a CPU mesh across processes (gloo) is still a mesh
+def test_card_mesh_across_processes_builds_without_touching_a_card(
+        monkeypatch):
+    """A mesh of cards held by two processes, one card each, builds with
+    no CUDA call and exchanges; each process's view names its own card.
+    A CPU mesh across processes (gloo) is still a mesh that gathers."""
+    def no_card(*_a, **_k):
+        raise AssertionError("building a mesh touched CUDA")
+
+    for name in ("can_device_access_peer", "device_count",
+                 "current_device", "set_device"):
+        monkeypatch.setattr(torch.cuda, name, no_card)
+    mesh = make_mesh([MeshDevice(0, torch.device("cuda", 0), 0),
+                      MeshDevice(1, torch.device("cuda", 1), 1)])
+    assert mesh.exchange and mesh.spans_processes and mesh._mailboxes is None
+    assert mesh.card_keys == [(0, torch.device("cuda", 0)),
+                              (1, torch.device("cuda", 1))]
+    assert mesh.cards == [torch.device("cuda", 0)]
+    assert [mesh.local(k) for k in range(2)] == [True, False]
+    # the partial-mesh rung is not ported across processes
+    with pytest.raises(NotImplementedError, match="partial-mesh rung"):
+        pm.surviving_submesh(mesh, {0})
     arr = np.empty(2, dtype=object)  # element-wise: a device is a tuple
     arr[0] = MeshDevice(0, torch.device("cpu"), 0)
     arr[1] = MeshDevice(1, torch.device("cpu"), 1)
     cpu = pm.Mesh(arr.reshape(1, 2))
     assert cpu.spans_processes and not cpu.exchange
+
+
+def test_scheduler_refuses_a_card_mesh_across_processes():
+    """The Scheduler on a mesh of cards held by two processes raises
+    NotImplementedError naming what the port leaves out, before it
+    touches a card; a CPU mesh across processes and a mesh of cards of
+    one process are not refused."""
+    from koordinator_tpu_torch.client.store import ObjectStore
+    from koordinator_tpu_torch.scheduler.cycle import Scheduler
+
+    mesh = make_mesh([MeshDevice(0, torch.device("cuda", 0), 0),
+                      MeshDevice(1, torch.device("cuda", 1), 1)])
+    with pytest.raises(NotImplementedError) as err:
+        Scheduler(ObjectStore(), mesh=mesh, device="cpu")
+    assert str(err.value) == ("the Scheduler "
+                              + pm.SCHEDULER_ACROSS_PROCESSES)
+    pm.refuse_scheduler_across_processes(
+        make_mesh([MeshDevice(0, torch.device("cuda", 0)),
+                   MeshDevice(1, torch.device("cuda", 1))]), "x")
+    arr = np.empty(2, dtype=object)
+    arr[0] = MeshDevice(0, torch.device("cpu"), 0)
+    arr[1] = MeshDevice(1, torch.device("cpu"), 1)
+    pm.refuse_scheduler_across_processes(pm.Mesh(arr.reshape(1, 2)), "x")
+
+
+def test_launch_keeps_the_callers_cards_and_checks_each_process_holds_its(
+        monkeypatch, tmp_path):
+    """xproc_cards.launch hands its processes this process's
+    CUDA_VISIBLE_DEVICES unchanged (each takes its card by its rank, so
+    LOCAL_RANK is dropped), and check_cards refuses a process that held
+    other cards than the ones this process numbers from rank * cards %
+    count on, by PCI bus id."""
+    from koordinator_tpu_torch.testing import xproc_cards as xc
+
+    seen = {}
+
+    class Started(Exception):
+        pass
+
+    def popen(cmd, **kw):
+        seen.update(kw["env"])
+        raise Started
+
+    monkeypatch.setenv("CUDA_VISIBLE_DEVICES", "5")
+    monkeypatch.setenv("LOCAL_RANK", "3")
+    monkeypatch.setattr(xc.subprocess, "Popen", popen)
+    with pytest.raises(Started):
+        xc.launch(2, tmp_path / "data.pkl", tmp_path / "out", ["waves"],
+                  device="cpu")
+    assert seen["CUDA_VISIBLE_DEVICES"] == "5" and "LOCAL_RANK" not in seen
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(xc, "bus_ids", lambda devs: [
+        f"bus{torch.device(d).index}" for d in devs])
+
+    def held(*buses):
+        return [{"extra": {"mesh": {"bus_ids": list(b)}}} for b in buses]
+
+    xc.check_cards(held(["bus0"], ["bus1"]))
+    xc.check_cards(held(["bus0", "bus1"]), cards=2)
+    with pytest.raises(AssertionError, match="rank 1 held the cards"):
+        xc.check_cards(held(["bus0"], ["bus5"]))
+    with pytest.raises(AssertionError, match="rank 0 held the cards"):
+        xc.check_cards(held(["bus1"], ["bus0"]))
+    # one card seen, two processes: both on it
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    xc.check_cards(held(["bus0"], ["bus0"]))
 
 
 def test_peer_access_refusal_names_the_pair_and_builds_nothing(monkeypatch):
@@ -179,14 +261,15 @@ def test_mailboxes_never_issue_flag_zero_and_restart_before_the_wrap():
     assert box.entry_pairs == kc.exchange_pairs(fck.payload_words(3))
     # a flag near the top, left in the mailboxes by earlier launch groups
     pair = ((kc.MAX_FLAG - 1) << 32 | 7) - (1 << 64)  # as an int64
-    for b in box.boxes:
-        b.fill_(pair)
+    for b in box.boxes.values():
+        b.tensor.fill_(pair)
     box.next_seq = kc.MAX_FLAG - 20
     flag0 = box.begin(20)  # its flags reach MAX_FLAG - 1: no restart
     assert list(_flags(flag0, 20))[-1] == kc.MAX_FLAG - 1
-    assert all(int(b.abs().sum()) > 0 for b in box.boxes)
+    assert all(int(b.tensor.abs().sum()) > 0 for b in box.boxes.values())
     assert box.begin(1) == 1  # MAX_FLAG + 1 would come next: restart first
-    assert all(int(b.abs().sum()) == 0 for b in box.boxes)
+    assert all(int(b.tensor.abs().sum()) == 0
+               for b in box.boxes.values())
     # every group's flags are 32-bit, nonzero and new since the restart
     rng = np.random.default_rng(3)
     box.next_seq = kc.MAX_FLAG - 5000

@@ -83,7 +83,6 @@ from koordinator_tpu_torch.parallel import (
     wave_side_shardings,
 )
 from koordinator_tpu_torch.parallel.mesh import (
-    CROSS_PROCESS_CARDS,
     MeshDevice,
     surviving_submesh,
 )
@@ -473,16 +472,25 @@ def test_surviving_submesh_refactors_the_survivors():
     assert surviving_submesh(mesh, range(8)) is None
 
 
-def test_card_mesh_across_processes_raises():
-    """A mesh of cards held by several processes is refused, naming what
-    it lacks; shards of one card, or of the CPU, make a mesh."""
-    with pytest.raises(NotImplementedError, match="several processes"):
-        make_mesh([MeshDevice(0, torch.device("cuda", 0), 0),
-                   MeshDevice(1, torch.device("cuda", 0), 1)])
-    assert "processes" in CROSS_PROCESS_CARDS
+def test_two_processes_on_one_card_are_two_cards():
+    """A card is a (process, device) pair: two processes on one card hold
+    two cards, whose mesh exchanges (the card's own memory, two CUDA
+    contexts), and card_shards groups by the pair; shards of ONE process
+    on one card, or of the CPU, make a mesh that gathers."""
+    two = make_mesh([MeshDevice(k, torch.device("cuda", 0), k // 2)
+                     for k in range(4)])
+    assert two.exchange and two.spans_processes
+    assert two.card_keys == [(0, torch.device("cuda", 0)),
+                             (1, torch.device("cuda", 0))]
+    assert two.card_shards() == [(torch.device("cuda", 0), [0, 1]),
+                                 (torch.device("cuda", 0), [2, 3])]
+    # this process (rank 0) holds the first card only
+    assert two.local_card_shards() == [(torch.device("cuda", 0), [0, 1])]
+    assert two.cards == [torch.device("cuda", 0)]
     one = make_mesh([MeshDevice(k, torch.device("cuda", 0))
                      for k in range(3)])
     assert one.size == 3 and not one.exchange
+    assert one.card_shards() == one.local_card_shards()
     assert not virtual_mesh(4, "cpu").exchange
 
 
