@@ -164,6 +164,15 @@ Phases, one JSON line each:
           and the replay kernel launched inside the phase. Prints each
           seed's bindings, SHA, touches, preemptions, scrapes, unchecked
           touches and warm-up stats, the launches and the seconds.
+  pack_overlap  scheduler/pipeline_parity.run_pack_overlap_parity on the
+          card at its own world (24 nodes, 70 pods, 4 rounds of churn), at
+          waves 1 and 4: the cycle that pre-packs the next cycle's pod
+          rows inside the device window against its gap-pack twin. Every
+          uploaded FullChainInputs array byte-identical encode for encode,
+          bindings, failure lists, PodScheduled conditions and final
+          assignments equal, kernel 1 launched, within 20 s. Prints each
+          run's pods, conditions and encodes compared, the launches and
+          the seconds.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
           running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
           cut) through Descheduler(store, device="cuda"): a warm-up pass,
@@ -4769,6 +4778,49 @@ def run_racecheck(device):
     return launches
 
 
+# the pack_overlap phase's time limit (its share of the run's 1200 s)
+PACK_OVERLAP_LIMIT_S = 20.0
+
+
+def run_pack_overlap(device):
+    """The pack-overlap gate on the card: scheduler/pipeline_parity's
+    run_pack_overlap_parity at its own world (24 nodes, 70 pods, 4
+    rounds of churn) at waves 1 and 4 — the cycle that pre-packs the next
+    cycle's pod rows inside the device window against its gap-pack twin,
+    every uploaded FullChainInputs array byte for byte. Fails on any
+    mismatch, on a run that compared no encode, pre-packed no row or
+    logged a failed pre-pack (either leaves the overlap world packing
+    cold in the gap, the twin's path), on no round kernel launched, and
+    past PACK_OVERLAP_LIMIT_S."""
+    zero_mesh_launches()
+    t0 = time.perf_counter()
+    reports = [pipeline_parity.run_pack_overlap_parity(waves=w,
+                                                       device=device)
+               for w in (1, 4)]
+    phase_s = time.perf_counter() - t0
+    launches = mesh_launches_now()
+    for rep in reports:
+        if (not rep["ok"] or rep["encodes_compared"] < 1
+                or rep["prepacked_rows"] < 1 or rep["prepack_failures"]):
+            raise AssertionError(
+                f"pack_overlap: waves={rep['waves']}: "
+                f"{rep['mismatches'][:4]} ({rep['encodes_compared']} "
+                f"encodes, {rep['prepacked_rows']} rows pre-packed, "
+                f"{rep['prepack_failures']} pre-packs failed)")
+    if launches["full_chain"] < 1:
+        raise AssertionError(f"pack_overlap: no launch: {launches}")
+    if phase_s > PACK_OVERLAP_LIMIT_S:
+        raise AssertionError(f"pack_overlap: {phase_s:.1f} s, over "
+                             f"{PACK_OVERLAP_LIMIT_S} s")
+    emit({"phase": "pack_overlap",
+          "runs": [{k: rep[k] for k in ("waves", "rounds", "pods",
+                                        "conditions_checked",
+                                        "encodes_compared",
+                                        "prepacked_rows")}
+                   for rep in reports],
+          "mismatches": 0, "launches": launches, "seconds": phase_s})
+
+
 def run_rebalance_mesh(device, n_pods=50_000, n_nodes=5_000):
     """BASELINE config 5 through a standalone Descheduler whose pass runs
     on KOORD_TPU_MESH=2 virtual shards of the card, beside a single-device
@@ -5226,6 +5278,8 @@ def main() -> int:
     ladder_mesh_launches = run_fault_ladder(device)
     # ---- koordrace: the race gate over the smoke scenario on the card
     race_launches = run_racecheck(device)
+    # ---- the in-window pre-pack against its gap-pack twin, byte for byte
+    run_pack_overlap(device)
     # ---- the descheduler: config 5 standalone (and on a mesh), then
     # co-located at config 4
     run_rebalance(device)

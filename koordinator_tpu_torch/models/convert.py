@@ -32,7 +32,8 @@ def as_tensor(value, device) -> torch.Tensor:
             arr = arr.astype(np.int32, copy=False)
         else:
             raise TypeError(f"unsupported dtype {arr.dtype}")
-        arr = torch.from_numpy(np.ascontiguousarray(arr))
+        # ascontiguousarray gives a 0-d array one dimension: keep the shape
+        arr = torch.from_numpy(np.ascontiguousarray(arr).reshape(arr.shape))
     if arr.dtype == torch.float64:
         arr = arr.to(torch.float32)
     elif arr.dtype == torch.int64:

@@ -241,7 +241,7 @@ def pack_overlap_from_env() -> bool:
     prepack_pending_rows) while the device runs — rows dirtied later in
     the window reconcile through the (key, resourceVersion) memo keys,
     so the produced ScheduleInputs are byte-identical either way
-    (the JAX package's run_pack_overlap_parity gates it)."""
+    (scheduler/pipeline_parity.run_pack_overlap_parity gates it)."""
     return os.environ.get("KOORD_TPU_PACK_OVERLAP", "1") != "0"
 
 
@@ -2129,8 +2129,12 @@ class Scheduler:
         (bind patches from the in-flight replay, watch events) simply
         miss the (key, resourceVersion) memo keys at the real pack and
         re-pack there, so the produced ScheduleInputs are byte-identical
-        to the non-overlapped pack by construction (and gated by
-        run_pack_overlap_parity + the mid-window-mutation test).
+        to the non-overlapped pack by construction (gated by
+        scheduler/pipeline_parity.run_pack_overlap_parity, run by
+        tests/test_torch_cycle_waves.py and chip_smoke.py's pack_overlap
+        phase, and by the JAX package's tests/test_pack_overlap.py cases
+        on the port, tests/test_torch_ref_pack_overlap.py, the
+        mid-window-mutation case among them).
 
         Purely a memo warm: a failure here costs nothing but the
         overlap — the next cycle packs in the gap exactly as before —

@@ -15,6 +15,9 @@ final assignments.
   * ``run_explain_parity``: explain "counts" (PodScheduled messages
     formatted from the dispatch's stage counts) against explain off (the
     host recompute), string for string;
+  * ``run_pack_overlap_parity``: the cycle that pre-packs the next
+    cycle's pod rows inside the device window (pack overlap) against its
+    gap-pack twin, every uploaded FullChainInputs array byte for byte;
   * ``run_fused_wave_parity``: fused-K against K serial cycles;
   * ``run_replay_overlap_parity``: the chained dispatch against the
     single-call twin (replay overlap off);
@@ -39,6 +42,7 @@ on the card:
 
 from __future__ import annotations
 
+import logging
 import sys
 from collections import Counter
 from typing import Dict, List, Optional
@@ -410,10 +414,147 @@ def run_fused_wave_parity(k_waves: int, num_nodes: int = 24,
     }
 
 
+def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
+                            num_nodes: int = 24, num_pods: int = 70,
+                            rounds: int = 3, seed: int = 11,
+                            arrivals: int = 9, device="cuda") -> dict:
+    """Pack/device overlap vs the gap-pack twin: byte-identical
+    ScheduleInputs, decisions and conditions.
+
+    The overlap world pre-packs the next cycle's candidate pod rows
+    INSIDE the device window (cycle.py _prepack_in_window); the twin pins
+    pack_overlap off, so its pack runs strictly in the gap between
+    windows. Both drive identical churn through the pipeline and both
+    register the encode observer: every FullChainInputs array the cycle
+    uploads is byte-compared encode for encode — the overlap may move
+    WHEN rows pack, never a bit they hold. ``waves`` selects the serial
+    (1) or fused-chain path; ``ndev`` shards both worlds over a mesh of
+    that many virtual shards of ``device``.
+
+    A pre-pack that fails, or never stages a row, leaves the overlap
+    world packing cold in the gap, identical to the twin by
+    construction: the report counts the rows the overlap world
+    pre-packed (``prepacked_rows``) and the pre-packs that failed
+    (``prepack_failures``, from the cycle's log), and either a failure
+    or no row at all is a mismatch."""
+    import numpy as np
+
+    from koordinator_tpu_torch.client.store import KIND_POD
+    from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
+
+    def snap_fc(fc):
+        out = {}
+        for name in fc._fields:
+            value = getattr(fc, name)
+            if name == "base":
+                for f2 in value._fields:
+                    out["base." + f2] = np.array(
+                        np.asarray(getattr(value, f2)), copy=True)
+            else:
+                out[name] = np.array(np.asarray(value), copy=True)
+        return out
+
+    state_on, store_on = _synth_world(num_nodes, num_pods, seed)
+    _state_off, store_off = _synth_world(num_nodes, num_pods, seed)
+    sched_on = Scheduler(store_on, waves=waves, explain="off",
+                         mesh=_mesh_arg(ndev, device), pack_overlap=True,
+                         device=device)
+    sched_off = Scheduler(store_off, waves=waves, explain="off",
+                          mesh=_mesh_arg(ndev, device), pack_overlap=False,
+                          device=device)
+    encodes = {True: [], False: []}
+    sched_on.encode_observer = lambda fc: encodes[True].append(snap_fc(fc))
+    sched_off.encode_observer = lambda fc: encodes[False].append(
+        snap_fc(fc))
+    pipe_on = CyclePipeline(sched_on, enabled=True)
+    pipe_off = CyclePipeline(sched_off, enabled=True)
+    failures = _PrepackFailures()
+    cycle_log = logging.getLogger("koordinator_tpu_torch.scheduler.cycle")
+    cycle_log.addHandler(failures)
+
+    now = state_on.now
+    mismatches: List[str] = []
+    try:
+        for r in range(rounds + 1):
+            if r > 0:
+                apply_round_delta(store_on, r, now, arrivals)
+                apply_round_delta(store_off, r, now, arrivals)
+            t = now + 2 * r
+            res_on = pipe_on.run_cycle(now=t)
+            res_off = pipe_off.run_cycle(now=t)
+            if ([(b.pod_key, b.node_name, b.annotations)
+                 for b in res_on.bound]
+                    != [(b.pod_key, b.node_name, b.annotations)
+                        for b in res_off.bound]):
+                mismatches.append(f"round {r}: bound sequence differs")
+            for f in ("failed", "rejected", "preempted_victims"):
+                if sorted(getattr(res_on, f)) != sorted(getattr(res_off, f)):
+                    mismatches.append(f"round {r}: {f} differs")
+        pipe_on.flush()
+        pipe_off.flush()
+    finally:
+        cycle_log.removeHandler(failures)
+    cache = sched_on.snapshot_cache
+    prepacked = 0 if cache is None else cache.stats.get(
+        "pod_rows_prepacked", 0)
+    if failures.n:
+        mismatches.append(f"{failures.n} in-window pre-packs failed")
+    if not prepacked:
+        mismatches.append("the overlap world pre-packed no row")
+
+    if len(encodes[True]) != len(encodes[False]):
+        mismatches.append(
+            f"encode counts differ ({len(encodes[True])} vs "
+            f"{len(encodes[False])})")
+    else:
+        for i, (a, b) in enumerate(zip(encodes[True], encodes[False])):
+            bad = [k for k in a
+                   if a[k].shape != b[k].shape
+                   or not np.array_equal(a[k], b[k])]
+            if bad:
+                mismatches.append(
+                    f"encode {i}: ScheduleInputs fields differ {bad[:4]}")
+    cond_on, cond_off = _conditions(store_on), _conditions(store_off)
+    if cond_on != cond_off:
+        mismatches.append("PodScheduled conditions differ")
+    assign_on = {p.meta.key: p.spec.node_name
+                 for p in store_on.list(KIND_POD)}
+    assign_off = {p.meta.key: p.spec.node_name
+                  for p in store_off.list(KIND_POD)}
+    if assign_on != assign_off:
+        mismatches.append("final pod->node assignments differ")
+    _dump_on_mismatch(mismatches, sched_on, sched_off)
+
+    return {
+        "ok": not mismatches,
+        "mismatches": mismatches,
+        "waves": waves,
+        "rounds": rounds + 1,
+        "pods": len(assign_on),
+        "conditions_checked": len(cond_on),
+        "encodes_compared": len(encodes[True]),
+        "prepacked_rows": int(prepacked),
+        "prepack_failures": failures.n,
+        "device": str(device),
+    }
+
+
+class _PrepackFailures(logging.Handler):
+    """Counts the cycle's "in-window pre-pack failed" log records."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.ERROR)
+        self.n = 0
+
+    def emit(self, record) -> None:
+        if record.getMessage().startswith("in-window pre-pack failed"):
+            self.n += 1
+
+
 def run_replay_overlap_parity(k_waves: int, num_nodes: int = 24,
                               num_pods: int = 70, rounds: int = 2,
                               seed: int = 11, arrivals: int = 9,
-                              device="cuda") -> dict:
+                              device="cuda", explain: str = "off") -> dict:
     """Overlapped wave replay vs the serial-replay fused dispatch:
     byte-identical state.
 
@@ -426,25 +567,20 @@ def run_replay_overlap_parity(k_waves: int, num_nodes: int = 24,
     same wave depth through the pipeline. Diffed per round: bound
     (pod, node, annotations) sequences, the failure/victim/resize lists;
     at end of stream: every PodScheduled condition tuple, gang/quota
-    plugin counters, and final assignments."""
+    plugin counters, and final assignments; at ``explain`` "full" also
+    every pod's /explain record (the terms rows ride the chain's carried
+    state)."""
     import numpy as np
 
     from koordinator_tpu_torch.client.store import KIND_POD
     from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
-    from koordinator_tpu_torch.testing import synth_full_cluster
 
-    def make_world():
-        _cluster, state = synth_full_cluster(
-            num_nodes, num_pods, seed=seed, num_quotas=3, num_gangs=4,
-            topology_fraction=0.5, lsr_fraction=0.2)
-        return state, build_store_from_state(state)
-
-    state_s, store_serial = make_world()
-    _state_o, store_overlap = make_world()
+    state_s, store_serial = _synth_world(num_nodes, num_pods, seed)
+    _state_o, store_overlap = _synth_world(num_nodes, num_pods, seed)
     sched_serial = Scheduler(store_serial, waves=k_waves, device=device,
-                             replay_overlap=False)
+                             explain=explain, replay_overlap=False)
     sched_overlap = Scheduler(store_overlap, waves=k_waves, device=device,
-                              replay_overlap=True)
+                              explain=explain, replay_overlap=True)
     pipe_serial = CyclePipeline(sched_serial, enabled=True)
     pipe_overlap = CyclePipeline(sched_overlap, enabled=True)
 
@@ -507,6 +643,15 @@ def run_replay_overlap_parity(k_waves: int, num_nodes: int = 24,
         mismatches.append(
             f"final pod->node assignments differ for {len(diff)} pods "
             f"(e.g. {diff[:3]})")
+    if explain == "full":
+        rec_s = {k: sched_serial.explain_record(k) for k in assign_s}
+        rec_o = {k: sched_overlap.explain_record(k) for k in assign_o}
+        if rec_s != rec_o:
+            keys = sorted(k for k in set(rec_s) | set(rec_o)
+                          if rec_s.get(k) != rec_o.get(k))
+            mismatches.append(
+                f"explain=full records differ for {len(keys)} pods "
+                f"(e.g. {keys[:3]})")
     _dump_on_mismatch(mismatches, sched_serial, sched_overlap)
 
     return {
@@ -516,6 +661,7 @@ def run_replay_overlap_parity(k_waves: int, num_nodes: int = 24,
         "rounds": rounds + 1,
         "pods": len(assign_s),
         "conditions_checked": len(cond_s),
+        "explain": explain,
         "device": str(device),
     }
 
@@ -1510,11 +1656,18 @@ def main(device="cuda") -> int:
 
     reports = [run_pipeline_parity(device=device),
                run_pipeline_parity(explain="counts", device=device)]
+    # pack overlap is on by default: the in-window pre-pack must be a
+    # pure latency lever, serial, fused-chain and mesh-sharded
+    reports += [run_pack_overlap_parity(waves=w, device=device)
+                for w in (1, 4)]
+    reports.append(run_pack_overlap_parity(waves=4, ndev=2, device=device))
     reports += [run_explain_parity(waves=w, device=device)
                 for w in (1, 4)]
     reports += [run_fused_wave_parity(k, device=device) for k in (2, 4, 8)]
     reports.append(run_fused_wave_parity(4, device=device, explain="full"))
     reports += [run_replay_overlap_parity(k, device=device) for k in (2, 4)]
+    reports += [run_replay_overlap_parity(4, device=device, explain=e)
+                for e in ("counts", "full")]
     reports += [run_carried_state_parity(f, device=device)
                 for f in ("reservations", "claims", "prod", "transformer")]
     reports.append(run_rebalance_parity(device=device))

@@ -15,8 +15,10 @@ PodGroup's status, every ElasticQuota's used vector) must be equal.
 
 Then the port's scheduler/pipeline_parity.py harnesses, on the CPU:
 fused-K against K serial cycles (``run_fused_wave_parity``), the chained
-dispatch against the single-call twin (``run_replay_overlap_parity``) and
-the four carried-state worlds (``run_carried_state_parity``).
+dispatch against the single-call twin (``run_replay_overlap_parity``), the
+four carried-state worlds (``run_carried_state_parity``) and the in-window
+pre-pack against its gap-pack twin (``run_pack_overlap_parity``, whose
+report must count what the JAX package's counts on the same world).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import pytest
 from koordinator_tpu.api import objects as ref_objects
 from koordinator_tpu.api.resources import ResourceList as RefResourceList
 from koordinator_tpu.client.store import ObjectStore as RefObjectStore
+from koordinator_tpu.scheduler import pipeline_parity as ref_parity
 from koordinator_tpu.scheduler.cycle import Scheduler as RefScheduler
 from koordinator_tpu.testing import synth_full_cluster as ref_synth
 
@@ -121,3 +124,46 @@ def test_carried_state_parity(feature):
     report = pipeline_parity.run_carried_state_parity(feature, device="cpu")
     assert report["ok"], report["mismatches"]
     assert report["fused_engaged"] > 0
+
+
+@pytest.mark.parametrize("waves,ndev", [(1, None), (4, None), (4, 2)],
+                         ids=["serial", "fused4", "fused4-mesh2"])
+def test_pack_overlap_parity(waves, ndev):
+    """The in-window pre-pack is byte-identical to the gap pack, encode
+    for encode, serial, fused and sharded over a 2-shard mesh; the worlds
+    are the JAX package's: its gate counts the same pods, conditions and
+    encodes."""
+    report = pipeline_parity.run_pack_overlap_parity(waves=waves, ndev=ndev,
+                                                     device="cpu")
+    assert report["ok"], report["mismatches"]
+    assert report["prepacked_rows"] > 0 and report["prepack_failures"] == 0
+    ref = _ref_pack_overlap_report(waves)
+    assert ref["ok"]
+    for key in ("rounds", "pods", "conditions_checked", "encodes_compared"):
+        assert report[key] == ref[key], key
+
+
+@pytest.mark.parametrize("waves", [1, 4])
+def test_pack_overlap_parity_fails_when_the_prepack_never_runs(
+        waves, monkeypatch):
+    """A pre-pack that fails leaves the overlap world packing cold in the
+    gap, byte-identical to the twin: the gate counts the failures from
+    the cycle's log and fails on them, and on no row pre-packed."""
+    from koordinator_tpu_torch.scheduler import snapshot
+
+    def boom(cache, pods, args):
+        raise RuntimeError("prepack wrecked")
+
+    monkeypatch.setattr(snapshot, "prepack_pending_rows", boom)
+    report = pipeline_parity.run_pack_overlap_parity(waves=waves,
+                                                     device="cpu")
+    assert not report["ok"]
+    assert report["prepacked_rows"] == 0 and report["prepack_failures"] > 0
+    assert report["mismatches"] == [
+        f"{report['prepack_failures']} in-window pre-packs failed",
+        "the overlap world pre-packed no row"]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_pack_overlap_report(waves):
+    return ref_parity.run_pack_overlap_parity(waves=waves)

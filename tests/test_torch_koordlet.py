@@ -30,7 +30,6 @@ _STATESINFORMER_PROBE = [
     ("jax_devices", "cuda_devices"),
     ("collect_tpu_devices", "collect_gpu_devices"),
 ]
-_SCHEDULER_ON_CPU = [("Scheduler(store)", 'Scheduler(store, device="cpu")')]
 
 
 # ---------------------------------------------------------------------------
@@ -223,18 +222,19 @@ if __name__ == "__main__":
     else:
         print(json.dumps(_restore_state(sys.argv[2])))
 else:
-    for _name, _edits, _leave_out in (
-            ("test_koordlet", (), ()),
-            ("test_koordlet_server", (), ()),
-            ("test_statesinformer_registry", _STATESINFORMER_PROBE, ()),
-            ("test_services_qos", _SCHEDULER_ON_CPU, ()),
-            ("test_runtimehooks_hooks", (), ()),
+    for _name, _edits, _on_cpu, _leave_out in (
+            ("test_koordlet", (), (), ()),
+            ("test_koordlet_server", (), (), ()),
+            ("test_statesinformer_registry", _STATESINFORMER_PROBE, (), ()),
+            ("test_services_qos", (), ("Scheduler",), ()),
+            ("test_runtimehooks_hooks", (), (), ()),
             ("test_collectors", [("sample_tpu_devices", "sample_gpu_devices")],
-             ()),
-            ("test_concurrency_stress", (),
+             (), ()),
+            ("test_concurrency_stress", (), (),
              ("test_cri_proxy_under_parallel_kubelet_calls",))):
-        torch_cases.export(torch_cases.port_module(_name, _edits), globals(),
-                           leave_out=_leave_out)
+        torch_cases.export(
+            torch_cases.port_module(_name, _edits, on_cpu=_on_cpu),
+            globals(), leave_out=_leave_out)
 
 
 def _child(*args) -> dict:

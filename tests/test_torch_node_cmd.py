@@ -14,22 +14,21 @@ from __future__ import annotations
 
 import test_torch_cases as torch_cases
 
-_ON_CPU = [
-    ('"--leader-elect"])', '"--leader-elect", "--device", "cpu"])'),
-    ('main(["--be-pods", "2"])',
-     'main(["--be-pods", "2", "--device", "cpu"])'),
+# the koordlet binary's tick interval at 0
+_KOORDLET_INTERVAL = [
     ('"--interval", "0.01"]) == 0\n\n\ndef test_demo',
      '"--interval", "0"]) == 0\n\n\ndef test_demo'),
 ]
 
 torch_cases.export(
-    torch_cases.port_module("test_cmd_binaries", _ON_CPU), globals(),
+    torch_cases.port_module(
+        "test_cmd_binaries", _KOORDLET_INTERVAL,
+        on_cpu=("test_scheduler_main_binds_pods:main",
+                "test_demo_runs_colocation_loop:main")), globals(),
     leave_out=("test_descheduler_and_manager_mains",))
 torch_cases.export(
-    torch_cases.port_module("test_colocation_e2e", [
-        ('Manager(store, identity="mgr-0")',
-         'Manager(store, identity="mgr-0", device="cpu")'),
-        ("Scheduler(store)", 'Scheduler(store, device="cpu")')]),
+    torch_cases.port_module("test_colocation_e2e",
+                            on_cpu=("Manager", "Scheduler")),
     globals())
 
 

@@ -27,11 +27,6 @@ import test_torch_cases as torch_cases
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 torch_cases.export(torch_cases.port_module("test_racecheck", [
-    ("snap = DeviceSnapshot()", 'snap = DeviceSnapshot(device="cpu")'),
-    ('Scheduler(store1, waves=2, warmup="off")',
-     'Scheduler(store1, waves=2, warmup="off", device="cpu")'),
-    ('Scheduler(store2, waves=2, warmup="background")',
-     'Scheduler(store2, waves=2, warmup="background", device="cpu")'),
     ("        import jax.numpy as jnp\n", "        import torch\n"),
     ("dev = jnp.zeros((8, 4), jnp.float32)",
      "dev = torch.zeros((8, 4), dtype=torch.float32)"),
@@ -47,7 +42,7 @@ torch_cases.export(torch_cases.port_module("test_racecheck", [
      '''        from koordinator_tpu.sim.racecheck import static_race_findings
 
         assert static_race_findings() == []'''),
-]), globals())
+], on_cpu=("DeviceSnapshot", "Scheduler")), globals())
 
 
 @pytest.fixture(autouse=True)

@@ -1,0 +1,17 @@
+"""test_balanced_allocation.py's cases on the port.
+
+Each round takes the batch as the port's tensors (models/convert.py
+to_device, on the CPU); the oracle and the native floor keep the numpy
+batch. build_pallas_full_chain_step maps to the port's device-aware
+selector (test_torch_cases.PALLAS_FULL_CHAIN).
+"""
+
+from __future__ import annotations
+
+import test_torch_cases as torch_cases
+
+torch_cases.export(torch_cases.port_module("test_balanced_allocation", [
+    *torch_cases.PALLAS_FULL_CHAIN, *torch_cases.NATIVE_FLOOR,
+    (")(fc)[0]", ")(to_device(fc, 'cpu'))[0]"),
+    torch_cases.after_import("numpy as np", torch_cases.TO_DEVICE),
+]), globals())

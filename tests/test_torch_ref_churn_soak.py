@@ -1,0 +1,10 @@
+"""test_churn_soak.py's cases on the port, with device="cpu" at each call of
+Scheduler."""
+
+from __future__ import annotations
+
+import test_torch_cases as torch_cases
+
+torch_cases.export(torch_cases.port_module(
+    "test_churn_soak",
+    on_cpu=("Scheduler",)), globals())

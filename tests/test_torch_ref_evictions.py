@@ -1,0 +1,7 @@
+"""test_evictions.py's cases on the port."""
+
+from __future__ import annotations
+
+import test_torch_cases as torch_cases
+
+torch_cases.export(torch_cases.port_module("test_evictions"), globals())

@@ -1,0 +1,12 @@
+"""test_numa.py's cases on the port.
+
+The arrays the cases build with jax.numpy reach the port's ops as the
+port's tensors on the CPU (test_torch_cases.PortNumpy).
+"""
+
+from __future__ import annotations
+
+import test_torch_cases as torch_cases
+
+torch_cases.export(torch_cases.port_module(
+    "test_numa", [torch_cases.JNP]), globals())

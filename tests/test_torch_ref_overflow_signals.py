@@ -1,0 +1,10 @@
+"""test_overflow_signals.py's cases on the port, with device="cpu" at each
+call of Scheduler."""
+
+from __future__ import annotations
+
+import test_torch_cases as torch_cases
+
+torch_cases.export(torch_cases.port_module(
+    "test_overflow_signals",
+    on_cpu=("Scheduler",)), globals())

@@ -15,28 +15,26 @@ import pytest
 
 import test_torch_cases as torch_cases
 
-# the sidecar case's local round: the port's step takes tensors, and its
-# server runs on the CPU only when asked
-_SIDECAR_ON_CPU = [
+# the sidecar case's local round: the port's step takes tensors
+_SIDECAR_LOCAL_ROUND = [
     ("local = np.asarray(build_full_chain_step(args, ng, ngroups)(fc)[0])",
      "from koordinator_tpu.models.convert import to_device\n"
      "        local = build_full_chain_step(args, ng, ngroups)("
      "to_device(fc, 'cpu'))[0].numpy()"),
-    ('serve_sidecar(f"unix://{sock}")',
-     'serve_sidecar(f"unix://{sock}", device="cpu")'),
 ]
 
-for _name, _edits, _leave_out in (
-        ("test_runtimeproxy", _SIDECAR_ON_CPU, ()),
-        ("test_criserver", (), ()),
-        ("test_dockerproxy", (), ()),
-        ("test_nri", (), ()),
-        ("test_concurrency_stress", (),
+for _name, _edits, _on_cpu, _leave_out in (
+        ("test_runtimeproxy", _SIDECAR_LOCAL_ROUND, ("serve_sidecar",), ()),
+        ("test_criserver", (), (), ()),
+        ("test_dockerproxy", (), (), ()),
+        ("test_nri", (), (), ()),
+        ("test_concurrency_stress", (), (),
          ("test_metriccache_concurrent_add_flush_restore",
           "test_koordlet_server_under_parallel_queries",
           "test_resource_executor_concurrent_batches", "fakefs"))):
-    torch_cases.export(torch_cases.port_module(_name, _edits), globals(),
-                       leave_out=_leave_out)
+    torch_cases.export(
+        torch_cases.port_module(_name, _edits, on_cpu=_on_cpu), globals(),
+        leave_out=_leave_out)
 
 
 @pytest.mark.parametrize("module", ["runtimeproxy.api", "runtimeproxy.cri",

@@ -48,6 +48,7 @@ from koordinator_tpu.testing import synth_full_cluster as ref_synth_full
 
 from koordinator_tpu_torch.api.resources import ResourceName
 from koordinator_tpu_torch.models.convert import (
+    as_tensor,
     check_device,
     schedule_inputs_from_numpy,
 )
@@ -298,3 +299,16 @@ def test_entry_point_forms():
         return
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_best_schedule_step(LoadAwareArgs())
+
+
+@pytest.mark.parametrize("value", [np.int32(3), np.float64(2.5), True,
+                                   np.zeros((0, 3)), np.ones((2, 1, 4))])
+def test_as_tensor_keeps_the_shape(value):
+    """The converter keeps every shape, 0-d included (jnp.asarray does),
+    with the round's dtypes."""
+    arr = np.asarray(value)
+    out = as_tensor(value, "cpu")
+    assert tuple(out.shape) == arr.shape
+    assert out.dtype == {"b": torch.bool, "i": torch.int32,
+                         "f": torch.float32}[arr.dtype.kind]
+    np.testing.assert_array_equal(out.numpy(), arr.astype(out.numpy().dtype))
