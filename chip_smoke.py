@@ -173,6 +173,21 @@ Phases, one JSON line each:
           assignments equal, kernel 1 launched, within 20 s. Prints each
           run's pods, conditions and encodes compared, the launches and
           the seconds.
+  scrape_convoy  the JAX package's concurrent-scrape case (tests/
+          test_koordwatch.py test_concurrent_scrapes_during_churn) on the
+          card, its body verbatim (testing/scrape_convoy.reference_case):
+          14 churn cycles of the sim's smoke scenario beside five threads
+          scraping /metrics, /debug/timeline, /debug/slo, /healthz and
+          /traces in a loop that never waits, every scrape checked
+          (status 200, the cycle-seconds TYPE line, the timeline and SLO
+          bundles load, /healthz parses), then scrapes > 0, no error, no
+          invariant breach. Before it the same 14 cycles with no scraper
+          on the card, its torch calls counted by route, and on the CPU:
+          the three binding logs' SHA-256 equal. Fails past 150 s with
+          the scrapers, on any failed check, or with no kernel 1 launch.
+          Prints both card runs' wall seconds, the torch calls a cycle by
+          route (round, pack, upload, diagnose, rest), the scrapes served
+          and kernel 1's launches.
   rebalance  BASELINE config 5 (koord-descheduler LowNodeLoad, 50,000
           running pods x 5,000 nodes, testing/rebalance_fixture.py, nothing
           cut) through Descheduler(store, device="cuda"): a warm-up pass,
@@ -5221,6 +5236,66 @@ def run_pair(tag, state, args, device):
     return dims
 
 
+# the scrape_convoy phase's bound on the case's cycles beside the
+# scrapers: about 2.2x the JAX package's 68.66 s for the same case on the
+# CPU (PERF.md section 7)
+SCRAPE_CONVOY_LIMIT_S = 150.0
+
+
+def run_scrape_convoy(device) -> int:
+    """The concurrent-scrape case verbatim on the card (testing/
+    scrape_convoy.reference_case), after the same cycles alone on the card
+    (torch calls counted by route) and on the CPU. Fails past
+    SCRAPE_CONVOY_LIMIT_S, on any of the case's checks, on binding logs
+    that differ and on no kernel 1 launch. Returns the case's kernel 1
+    launches."""
+    from koordinator_tpu_torch.testing import scrape_convoy
+
+    cycles = scrape_convoy.CYCLES
+    zero_mesh_launches()
+    alone = scrape_convoy.run(cycles, scrapers=0, limit=600.0, device=device,
+                              count=True)
+    alone_launches = mesh_launches_now()
+    zero_mesh_launches()
+    case = scrape_convoy.reference_case(device, cycles)
+    launches = mesh_launches_now()
+    cpu = scrape_convoy.run(cycles, scrapers=0, limit=600.0, device="cpu")
+    shas = {"alone": alone["binding_log_sha256"],
+            "scrapers": case["binding_log_sha256"],
+            "cpu": cpu["binding_log_sha256"]}
+    bad = []
+    if alone["cycles"] != cycles or cpu["cycles"] != cycles:
+        bad.append(f"cycles run: card {alone['cycles']}, cpu {cpu['cycles']}")
+    if case["errors"] or case["scrapes"] <= 0 or case["threads_alive"]:
+        bad.append(f"{case['scrapes']} scrapes, errors {case['errors'][:4]}, "
+                   f"{case['threads_alive']} scrapers left running")
+    if case["invariant_breaches"]:
+        bad.append(f"invariant breaches {case['invariant_breaches'][:4]}")
+    if len(set(shas.values())) != 1:
+        bad.append(f"binding logs differ: {shas}")
+    if launches["full_chain"] < 1 or alone_launches["full_chain"] < 1:
+        bad.append(f"kernel 1 launches: case {launches}, alone "
+                   f"{alone_launches}")
+    if case["seconds"] > SCRAPE_CONVOY_LIMIT_S:
+        bad.append(f"{case['seconds']:.1f} s beside the scrapers, over "
+                   f"{SCRAPE_CONVOY_LIMIT_S} s")
+    if bad:
+        raise AssertionError("scrape_convoy: " + "; ".join(bad))
+    routes = alone["torch_calls_by_route"]
+    emit({"phase": "scrape_convoy", "cycles": cycles,
+          "seconds_alone": alone["seconds"],
+          "seconds_scrapers": case["seconds"],
+          "seconds_cpu_alone": cpu["seconds"],
+          "scrapers": case["scrapers"], "scrapes": case["scrapes"],
+          "torch_calls": alone["torch_calls"],
+          "torch_calls_per_cycle": {k: v / cycles for k, v in routes.items()},
+          "torch_calls_by_cycle": alone["torch_calls_per_cycle"],
+          "binding_log_sha256": shas["scrapers"],
+          "launches": launches, "launches_alone": alone_launches,
+          "limit_seconds": SCRAPE_CONVOY_LIMIT_S})
+    return launches["full_chain"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -5280,6 +5355,8 @@ def main() -> int:
     race_launches = run_racecheck(device)
     # ---- the in-window pre-pack against its gap-pack twin, byte for byte
     run_pack_overlap(device)
+    # ---- the JAX package's concurrent-scrape case, verbatim on the card
+    scrape_launches = run_scrape_convoy(device)
     # ---- the descheduler: config 5 standalone (and on a mesh), then
     # co-located at config 4
     run_rebalance(device)
@@ -5494,7 +5571,8 @@ def main() -> int:
                      + storage_launches["full_chain"]
                      + cold_launches["full_chain"]
                      + sim_launches["full_chain"]
-                     + race_launches["full_chain"] + colocated_launches
+                     + race_launches["full_chain"] + scrape_launches
+                     + colocated_launches
                      + colo_launches + grpc_launches
                      + sidecar_sched_launches + soak_launches["full_chain"]
                      + node_launches["full_chain"] + demo_launches
@@ -5511,6 +5589,7 @@ def main() -> int:
                      launches_cold_start=cold_launches["full_chain"],
                      launches_sim=sim_launches["full_chain"],
                      launches_racecheck=race_launches["full_chain"],
+                     launches_scrape_convoy=scrape_launches,
                      launches_rebalance_colocated=colocated_launches,
                      launches_colo_colocated=colo_launches,
                      launches_sidecar_grpc=grpc_launches,

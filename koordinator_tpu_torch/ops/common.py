@@ -36,6 +36,16 @@ def least_requested_score(requested: torch.Tensor,
     return torch.where((capacity > 0) & (requested <= capacity), raw, 0.0)
 
 
+def most_requested_score(requested: torch.Tensor,
+                         capacity: torch.Tensor) -> torch.Tensor:
+    """mostAllocated scorer (nodenumaresource/most_allocated.go): 0 when
+    capacity is 0 or requested > capacity, else
+    floor(requested * 100 / capacity)."""
+    safe_cap = torch.where(capacity > 0, capacity, 1.0)
+    raw = torch.floor(requested * MAX_NODE_SCORE / safe_cap)
+    return torch.where((capacity > 0) & (requested <= capacity), raw, 0.0)
+
+
 def weighted_mean_floor(scores: torch.Tensor, weights: torch.Tensor,
                         dim: int = -1) -> torch.Tensor:
     """floor(sum(score * w) / sum(w)) — Go integer division of int64 sums."""

@@ -97,6 +97,7 @@ from koordinator_tpu_torch.ops.kernel_common import (
     launch_device,
     launch_error,
     load_library,
+    metadata_only,
     on_device,
     pack_bits,
     smem_take,
@@ -400,124 +401,128 @@ def _launch(fc, widx, prod_mode: bool, bal_idx, records, n_valid, flags,
     largest cluster size up to ``cluster_size`` at which the card holds
     all of them at once. Returns (quota_blocks, aff_exists_out)."""
     global last_launch
-    inputs = fc.base
-    if len(widx) > MAX_WEIGHTS:
-        raise ValueError(f"at most {MAX_WEIGHTS} weighted axes")
-    d = _dims(fc)
-    P, N, R, K, G, D, T = (d[k] for k in "PNRKGDT")
-    S, PT, SI, VG = d["S"], d["PT"], d["SI"], d["VG"]
-    W = len(widx)
-    shards = xchg.L if xchg is not None else 1
-    if N % shards:
-        raise ValueError(f"{N} rows do not split into {shards} shards")
-    exchange = xchg is not None
-    lay = record_layout(R, T, PT, VG)
-    u8, f32, i32 = torch.uint8, torch.float32, torch.int32
-    dev = launch_device(inputs.allocatable)
+    # metadata only, but for the two allocations: the launch's shapes,
+    # checks and pointers dispatch no op
+    with metadata_only():
+        inputs = fc.base
+        if len(widx) > MAX_WEIGHTS:
+            raise ValueError(f"at most {MAX_WEIGHTS} weighted axes")
+        d = _dims(fc)
+        P, N, R, K, G, D, T = (d[k] for k in "PNRKGDT")
+        S, PT, SI, VG = d["S"], d["PT"], d["SI"], d["VG"]
+        W = len(widx)
+        shards = xchg.L if xchg is not None else 1
+        if N % shards:
+            raise ValueError(f"{N} rows do not split into {shards} shards")
+        exchange = xchg is not None
+        lay = record_layout(R, T, PT, VG)
+        u8, f32, i32 = torch.uint8, torch.float32, torch.int32
+        dev = launch_device(inputs.allocatable)
     quota_blocks = torch.empty((shards * cluster_size, G, R), dtype=f32,
                                device=dev)
     aff_exists_out = torch.zeros(T, dtype=u8, device=dev)
-    args = {
-        "records": (records, i32, (P, lay["rec_stride"])),
-        "n_valid": (n_valid, i32, (1,)),
-        "alloc": (inputs.allocatable, f32, (N, R)),
-        "term_np": (state["term_np"], f32, (N, W)),
-        "term_pr": (state["term_pr"], f32, (N, W)),
-        "node_flags": (flags, u8, (N,)),
-        "cpc": (fc.cpus_per_core, f32, (N,)),
-        "policy": (fc.numa_policy, i32, (N,)),
-        "taint_group": (fc.node_taint_group, i32, (N,)),
-        "vol_group": (fc.node_vol_group, i32, (N,)),
-        "aff_dom": (fc.aff_dom, f32, (N, T)),
-        "pref_scores": (fc.pref_scores, f32, (N, S)),
-        "img_scores": (fc.img_scores, f32, (N, SI)),
-        "ppref_w": (fc.ppref_w, f32, tuple(fc.ppref_w.shape)),
-        "weights": (inputs.weights, f32, (R,)),
-        "anc": (fc.quota_ancestors, i32, (G, D)),
-        "runtime": (fc.quota_runtime, f32, (G, R)),
-        "quota_init": (state["quota_init"], f32, (G, R)),
-        "aff_exists0": (state["aff_exists0"], u8, (T,)),
-        "requested": (state["requested"], f32, (N, R)),
-        "delta_np": (state["delta_np"], f32, (N, W)),
-        "delta_pr": (state["delta_pr"], f32, (N, W)),
-        "numa": (state["numa"], f32, (N, K, R)),
-        "bind_free": (state["bind_free"], f32, (N,)),
-        "vol_free": (state["vol_free"], f32, (N,)),
-        "port_used": (state["port_used"], f32, (N, PT)),
-        "aff_count": (state["aff_count"], f32, (N, T)),
-        "anti_cover": (state["anti_cover"], f32, (N, T)),
-        "quota_blocks": (quota_blocks, f32, (shards * cluster_size, G, R)),
-        "chosen": (chosen, i32, (P,)),
-        "aff_exists_out": (aff_exists_out, u8, (T,)),
-        "terms": (terms, f32, (P, NUM_TERMS)),
-    }
-    params = _Params()
-    for name in _PTR_FIELDS:
-        t, dtype, shape = args[name]
-        # a field the launch's mode does not use stays a null pointer
-        setattr(params, name,
-                None if t is None else check_tensor(name, t, dtype, shape))
-    if xchg is not None:
-        params.x = xchg
-    what = "terms round" if terms is not None else "round"
-    if xchg is not None:
-        what += f" over {shards} shard(s) of a mesh of cards"
-    lib = _lib()
-    # one device: the given cluster size; a mesh of cards: the largest
-    # whose clusters the card holds together
-    sizes_tried = ([cluster_size] if xchg is None else
-                   [c for c in (16, 8, 4, 2, 1) if c <= cluster_size])
-    with on_device(dev):
-        for c_size in sizes_tried:
-            kind, plan, smem_bytes = state_for(
-                fc, widx, smem_budget_bytes, c_size, shards, exchange)
-            sizes = dict(d, ppref_stride=fc.ppref_w.shape[1],
-                         prod_mode=int(bool(prod_mode)),
-                         bal_c=int(bal_idx[0]), bal_m=int(bal_idx[1]),
-                         n_widx=W, **lay, cluster_size=c_size,
-                         nodes_per_block=plan.nodes_per_block,
-                         node_threads=plan.node_threads,
-                         state_in_smem=int(kind == "smem"))
-            for name in _INT_FIELDS:
-                setattr(params, name, sizes[name])
-            for j, r in enumerate(widx):
-                params.widx[j] = int(r)
-            if xchg is None:
-                break
-            held = lib.full_chain_max_clusters(ctypes.byref(params))
-            if held < 0:
-                raise launch_error(f"full_chain {what}", -held,
-                                   "the occupancy query")
-            if held >= shards:
-                break
-        else:
-            raise KernelContractError(
-                f"full_chain {what}: the card holds fewer than {shards} "
-                f"clusters at every cluster size up to {cluster_size}")
-        c_bytes = lib.full_chain_smem_bytes(ctypes.byref(params))
-        if c_bytes != smem_bytes:
-            raise KernelContractError(
-                f"estimate_smem_bytes says {smem_bytes} bytes, "
-                f"the kernel's layout {c_bytes}")
-        # The temporaries above may be freed before the kernel ends: the
-        # caching allocator hands their memory only to later work on this
-        # same stream.
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.full_chain_launch(ctypes.byref(params),
-                                    ctypes.c_void_p(stream))
-    if err != 0:
-        raise launch_error(f"full_chain {what}", err,
-                           f"{shards} cluster(s) of {c_size} x "
-                           f"{plan.block_threads} threads, {smem_bytes} B "
-                           "of shared memory per block")
-    instance = ("common" if lib.full_chain_instance(ctypes.byref(params))
-                else "generic")
-    last_launch = {"state": kind, "instance": instance,
-                   "cluster_size": c_size,
-                   "block_threads": plan.block_threads,
-                   "nodes_per_block": plan.nodes_per_block,
-                   "smem_bytes_per_block": smem_bytes, "mode": what,
-                   "shards": shards}
+    with metadata_only():
+        args = {
+            "records": (records, i32, (P, lay["rec_stride"])),
+            "n_valid": (n_valid, i32, (1,)),
+            "alloc": (inputs.allocatable, f32, (N, R)),
+            "term_np": (state["term_np"], f32, (N, W)),
+            "term_pr": (state["term_pr"], f32, (N, W)),
+            "node_flags": (flags, u8, (N,)),
+            "cpc": (fc.cpus_per_core, f32, (N,)),
+            "policy": (fc.numa_policy, i32, (N,)),
+            "taint_group": (fc.node_taint_group, i32, (N,)),
+            "vol_group": (fc.node_vol_group, i32, (N,)),
+            "aff_dom": (fc.aff_dom, f32, (N, T)),
+            "pref_scores": (fc.pref_scores, f32, (N, S)),
+            "img_scores": (fc.img_scores, f32, (N, SI)),
+            "ppref_w": (fc.ppref_w, f32, tuple(fc.ppref_w.shape)),
+            "weights": (inputs.weights, f32, (R,)),
+            "anc": (fc.quota_ancestors, i32, (G, D)),
+            "runtime": (fc.quota_runtime, f32, (G, R)),
+            "quota_init": (state["quota_init"], f32, (G, R)),
+            "aff_exists0": (state["aff_exists0"], u8, (T,)),
+            "requested": (state["requested"], f32, (N, R)),
+            "delta_np": (state["delta_np"], f32, (N, W)),
+            "delta_pr": (state["delta_pr"], f32, (N, W)),
+            "numa": (state["numa"], f32, (N, K, R)),
+            "bind_free": (state["bind_free"], f32, (N,)),
+            "vol_free": (state["vol_free"], f32, (N,)),
+            "port_used": (state["port_used"], f32, (N, PT)),
+            "aff_count": (state["aff_count"], f32, (N, T)),
+            "anti_cover": (state["anti_cover"], f32, (N, T)),
+            "quota_blocks": (quota_blocks, f32, (shards * cluster_size, G, R)),
+            "chosen": (chosen, i32, (P,)),
+            "aff_exists_out": (aff_exists_out, u8, (T,)),
+            "terms": (terms, f32, (P, NUM_TERMS)),
+        }
+        params = _Params()
+        for name in _PTR_FIELDS:
+            t, dtype, shape = args[name]
+            # a field the launch's mode does not use stays a null pointer
+            setattr(params, name,
+                    None if t is None else check_tensor(name, t, dtype, shape))
+        if xchg is not None:
+            params.x = xchg
+        what = "terms round" if terms is not None else "round"
+        if xchg is not None:
+            what += f" over {shards} shard(s) of a mesh of cards"
+        lib = _lib()
+        # one device: the given cluster size; a mesh of cards: the largest
+        # whose clusters the card holds together
+        sizes_tried = ([cluster_size] if xchg is None else
+                       [c for c in (16, 8, 4, 2, 1) if c <= cluster_size])
+        with on_device(dev):
+            for c_size in sizes_tried:
+                kind, plan, smem_bytes = state_for(
+                    fc, widx, smem_budget_bytes, c_size, shards, exchange)
+                sizes = dict(d, ppref_stride=fc.ppref_w.shape[1],
+                             prod_mode=int(bool(prod_mode)),
+                             bal_c=int(bal_idx[0]), bal_m=int(bal_idx[1]),
+                             n_widx=W, **lay, cluster_size=c_size,
+                             nodes_per_block=plan.nodes_per_block,
+                             node_threads=plan.node_threads,
+                             state_in_smem=int(kind == "smem"))
+                for name in _INT_FIELDS:
+                    setattr(params, name, sizes[name])
+                for j, r in enumerate(widx):
+                    params.widx[j] = int(r)
+                if xchg is None:
+                    break
+                held = lib.full_chain_max_clusters(ctypes.byref(params))
+                if held < 0:
+                    raise launch_error(f"full_chain {what}", -held,
+                                       "the occupancy query")
+                if held >= shards:
+                    break
+            else:
+                raise KernelContractError(
+                    f"full_chain {what}: the card holds fewer than {shards} "
+                    f"clusters at every cluster size up to {cluster_size}")
+            c_bytes = lib.full_chain_smem_bytes(ctypes.byref(params))
+            if c_bytes != smem_bytes:
+                raise KernelContractError(
+                    f"estimate_smem_bytes says {smem_bytes} bytes, "
+                    f"the kernel's layout {c_bytes}")
+            # The temporaries above may be freed before the kernel ends: the
+            # caching allocator hands their memory only to later work on this
+            # same stream.
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.full_chain_launch(ctypes.byref(params),
+                                        ctypes.c_void_p(stream))
+        if err != 0:
+            raise launch_error(f"full_chain {what}", err,
+                               f"{shards} cluster(s) of {c_size} x "
+                               f"{plan.block_threads} threads, {smem_bytes} B "
+                               "of shared memory per block")
+        instance = ("common" if lib.full_chain_instance(ctypes.byref(params))
+                    else "generic")
+        last_launch = {"state": kind, "instance": instance,
+                       "cluster_size": c_size,
+                       "block_threads": plan.block_threads,
+                       "nodes_per_block": plan.nodes_per_block,
+                       "smem_bytes_per_block": smem_bytes, "mode": what,
+                       "shards": shards}
     return quota_blocks, aff_exists_out
 
 
@@ -602,8 +607,11 @@ def _round_buffers(fc, widx, terms: bool):
     inputs = fc.base
     P, N = inputs.fit_requests.shape[0], inputs.allocatable.shape[0]
     W = len(widx)
-    records, n_valid, flags = round_pack(fc)
     f32, dev = torch.float32, inputs.allocatable.device
+    pack = getattr(fc, "pack", None)
+    if pack is not None:
+        return _packed_buffers(fc, pack, widx, terms)
+    records, n_valid, flags = round_pack(fc)
     # carried state: the round's own copies, updated in place by the kernel
     state = {
         "term_np": inputs.la_term_nonprod[:, widx].contiguous(),
@@ -624,6 +632,43 @@ def _round_buffers(fc, widx, terms: bool):
     rows = (torch.zeros((P, NUM_TERMS), dtype=f32, device=dev) if terms
             else None)
     return records, n_valid, flags, state, chosen, rows
+
+
+def _packed_buffers(fc, pack, widx, terms: bool):
+    """_round_buffers from an uploaded round's host pack (models/
+    round_pack): the records, their count, the node flags and aff_exists
+    as the upload moved them, and the carried state as views of one clone
+    of the pack's flat base, the two LoadAware deltas from its zeros."""
+    inputs = fc.base
+    with metadata_only():
+        P, R = inputs.fit_requests.shape
+        N, K = fc.numa_free.shape[:2]
+        T, PT = fc.aff_dom.shape[1], fc.port_used.shape[1]
+        dev = inputs.allocatable.device
+    W = len(widx)
+    sizes = list(pack.carry_sizes)
+    zeros = sizes.pop()
+    carry = torch.split(pack.carry0.clone(),
+                        sizes + [N * W, N * W, zeros - 2 * N * W])
+    state = {
+        "term_np": inputs.la_term_nonprod[:, widx],
+        "term_pr": inputs.la_term_prod[:, widx],
+        "quota_init": fc.quota_used,
+        "aff_exists0": pack.aff_exists,
+        "requested": carry[0].view(N, R),
+        "numa": carry[1].view(N, K, R),
+        "bind_free": carry[2],
+        "vol_free": carry[3],
+        "port_used": carry[4].view(N, PT),
+        "aff_count": carry[5].view(N, T),
+        "anti_cover": carry[6].view(N, T),
+        "delta_np": carry[7].view(N, W),
+        "delta_pr": carry[8].view(N, W),
+    }
+    chosen = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    rows = (torch.zeros((P, NUM_TERMS), dtype=torch.float32, device=dev)
+            if terms else None)
+    return pack.records, pack.n_valid, pack.node_flags, state, chosen, rows
 
 
 # ---------------------------------------------------------------------------

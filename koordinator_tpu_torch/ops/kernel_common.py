@@ -688,12 +688,27 @@ class Mailboxes:
                                   [self.device_ids[k] for k in shards])
 
 
+def metadata_only():
+    """A block that reads tensors' own metadata (shape, dtype, strides,
+    device, data pointer) with __torch_function__ off: a launch reads raw
+    storage, so no tensor subclass or function mode may stand between it
+    and what the tensor is, and none of these reads dispatches an op."""
+    return torch._C.DisableTorchFunction()
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                  shape: Tuple[int, ...]) -> int:
     """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
-    ``shape``; returns its data pointer for a kernel launch."""
+    ``shape``; returns its data pointer for a kernel launch. Reads
+    metadata only (metadata_only)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a torch.Tensor, got {type(t)}")
+    with metadata_only():
+        return _check_meta(name, t, dtype, shape)
+
+
+def _check_meta(name: str, t: torch.Tensor, dtype: torch.dtype,
+                shape: Tuple[int, ...]) -> int:
     if not t.is_cuda:
         raise ValueError(f"{name}: the kernel takes CUDA tensors, got one on "
                          f"{t.device}")

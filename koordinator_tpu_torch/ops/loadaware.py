@@ -364,6 +364,33 @@ def loadaware_node_reject(
     return reject_np, reject_prod
 
 
+def loadaware_node_reject_np(allocatable, filter_usage, has_filter_usage,
+                             filter_thresholds, prod_thresholds,
+                             prod_pod_usage, filter_skip):
+    """Host-numpy twin of loadaware_node_reject, op for op in f32 (each
+    an IEEE-rounded elementwise op, as the torch one's): (reject_nonprod[N],
+    reject_prod[N]) bool."""
+    f32 = np.float32
+    alloc = np.asarray(allocatable, f32)
+    thr = np.asarray(filter_thresholds, f32)
+    prod_thr = np.asarray(prod_thresholds, f32)
+    skip = np.asarray(filter_skip, bool)
+    floor_cap = np.maximum(alloc, f32(1e-9))
+    checkable = ((thr > 0) & (alloc > 0)
+                 & np.asarray(has_filter_usage, bool)[:, None])
+    ratio = np.floor(np.asarray(filter_usage, f32) * f32(100.0) / floor_cap
+                     + f32(0.5))
+    reject_np = (checkable & (ratio >= thr)).any(axis=-1) & ~skip
+    prod_checkable = (prod_thr > 0) & (alloc > 0)
+    prod_ratio = np.floor(np.asarray(prod_pod_usage, f32) * f32(100.0)
+                          / floor_cap + f32(0.5))
+    reject_prod_only = (prod_checkable & (prod_ratio >= prod_thr)).any(
+        axis=-1)
+    has_prod_thr = (prod_thr > 0).any(axis=-1)
+    reject_prod = np.where(has_prod_thr, reject_prod_only, reject_np) & ~skip
+    return reject_np, reject_prod
+
+
 def loadaware_filter(
     is_prod: torch.Tensor,         # [P] bool
     is_daemonset: torch.Tensor,    # [P] bool

@@ -126,7 +126,8 @@ def numa_spread_fill(
     for k in range(K):
         take = torch.minimum(numa_free_n[k], remaining)
         rows.append(numa_free_n[k] - take)
-        remaining = remaining - take
+        if k + 1 < K:  # the last zone's remainder is never read
+            remaining = remaining - take
     spread = torch.stack(rows)
     return torch.where(zone >= 0, single, spread)
 
@@ -137,15 +138,21 @@ def numa_score_row(
     allocatable: torch.Tensor,     # [N, R]
     weights: torch.Tensor,         # [R]
     weight_idx: Tuple[int, ...],
+    most_allocated: bool = False,
 ) -> torch.Tensor:
-    """[N] NodeNUMAResource least-allocated score over requested + request
-    vs allocatable (scoring.go, v1beta2 default strategy cpu=1, memory=1)."""
-    from koordinator_tpu_torch.ops.common import least_requested_score
+    """[N] NodeNUMAResource score: least-allocated (default) or
+    most-allocated over requested + request vs allocatable (scoring.go,
+    v1beta2 default strategy cpu=1, memory=1)."""
+    from koordinator_tpu_torch.ops.common import (
+        least_requested_score,
+        most_requested_score,
+    )
 
+    scorer = most_requested_score if most_allocated else least_requested_score
     acc = torch.zeros(allocatable.shape[0], dtype=torch.float32,
                       device=allocatable.device)
     wsum = weights.sum()
     for r in weight_idx:
         used = node_requested[:, r] + request[r]
-        acc = acc + weights[r] * least_requested_score(used, allocatable[:, r])
+        acc = acc + weights[r] * scorer(used, allocatable[:, r])
     return torch.floor(acc / torch.clamp_min(wsum, 1.0))

@@ -338,16 +338,14 @@ def quota_admit_row(
     used: torch.Tensor,        # [G, R]
     runtime: torch.Tensor,     # [G, R]
 ) -> torch.Tensor:
-    """0-d bool: checkQuotaRecursive along the ancestor chain."""
-    D = ancestors.shape[1]
+    """0-d bool: checkQuotaRecursive along the ancestor chain, the [D]
+    chain gathered as one [D, R] block. The verdict is an AND over the
+    chain and its axes, exact in any order; each cell's used + request is
+    the same f32 add the level-by-level walk makes."""
     chain = ancestors[torch.clamp_min(quota_id, 0).long()]  # [D]
-    ok = torch.ones((), dtype=torch.bool, device=request.device)
-    for d in range(D):
-        g = chain[d]
-        gg = torch.clamp_min(g, 0).long()
-        fit = ((request <= 0) | (used[gg] + request <= runtime[gg])).all()
-        ok = ok & ((g < 0) | fit)
-    return ok | (quota_id < 0)
+    gg = torch.clamp_min(chain, 0).long()
+    fit = ((request <= 0) | (used[gg] + request <= runtime[gg])).all(dim=-1)
+    return ((chain < 0) | fit).all() | (quota_id < 0)
 
 
 def quota_used_add_row(
@@ -357,14 +355,14 @@ def quota_used_add_row(
     ancestors: torch.Tensor,   # [G, D] int32
     apply: torch.Tensor,       # 0-d bool
 ) -> torch.Tensor:
-    """Add the request along the ancestor chain when apply is set."""
-    G, D = ancestors.shape
+    """Add the request along the ancestor chain when apply is set. The
+    [G] multiplicity row sums the chain's [D, G] one-hot rows at once:
+    sums of 0s and 1s, exact in any order."""
+    G = ancestors.shape[0]
     chain = ancestors[torch.clamp_min(quota_id, 0).long()]
     groups = torch.arange(G, dtype=torch.int32, device=used.device)
-    onehot = torch.zeros(G, dtype=torch.float32, device=used.device)
-    for d in range(D):
-        g = chain[d]
-        hit = (g >= 0) & (quota_id >= 0) & apply
-        onehot = onehot + torch.where(
-            hit, (groups == torch.clamp_min(g, 0)).to(torch.float32), 0.0)
+    hit = (chain >= 0) & (quota_id >= 0) & apply                  # [D]
+    onehot = torch.where(
+        hit[:, None], (groups[None, :] == torch.clamp_min(chain, 0)[:, None])
+        .to(torch.float32), 0.0).sum(dim=0)
     return used + onehot[:, None] * request[None, :]

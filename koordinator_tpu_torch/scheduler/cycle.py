@@ -2591,8 +2591,9 @@ class Scheduler:
                             # device-resident steady state: unchanged
                             # fields reuse the previous cycle's tensors,
                             # small row deltas go up as row scatters
-                            # (snapshot_cache.DeviceSnapshot)
-                            fc = snap.upload(fc_host)
+                            # (snapshot_cache.DeviceSnapshot); the
+                            # round's host pack rides the same transfer
+                            fc = snap.upload(fc_host, pack=snap.mesh is None)
                             self._record_upload_deltas()
                         else:
                             fc = to_device(fc_host, self.device)

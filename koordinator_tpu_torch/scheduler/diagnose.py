@@ -81,21 +81,19 @@ def format_stage_counts(counts, num_nodes: int) -> str:
 
 def shared_state(fc, num_nodes: int) -> dict:
     """Node-level inputs every diagnosis of this batch shares, computed
-    ONCE: the LoadAware reject rows are the round's own torch op, run
-    here on CPU tensors of the host batch (paying it per unbound pod made
-    a many-unbound cycle quadratically expensive)."""
-    import torch
-
-    from koordinator_tpu_torch.ops import loadaware as la_ops
+    ONCE: the LoadAware reject rows, by the host twin of the round's own
+    rows (ops/loadaware.loadaware_node_reject_np, op for op in f32; paying
+    it per unbound pod made a many-unbound cycle quadratically
+    expensive)."""
+    from koordinator_tpu_torch.ops.loadaware import loadaware_node_reject_np
 
     inputs = fc.base
     n = num_nodes
-    rej_np, rej_pr = (r.cpu().numpy() for r in la_ops.loadaware_node_reject(
-        *(torch.as_tensor(np.asarray(a)) for a in (
-            inputs.allocatable, inputs.la_filter_usage,
-            inputs.la_has_filter_usage, inputs.la_filter_thresholds,
-            inputs.la_prod_thresholds, inputs.la_prod_pod_usage,
-            inputs.la_filter_skip))))
+    rej_np, rej_pr = loadaware_node_reject_np(*(np.asarray(a) for a in (
+        inputs.allocatable, inputs.la_filter_usage,
+        inputs.la_has_filter_usage, inputs.la_filter_thresholds,
+        inputs.la_prod_thresholds, inputs.la_prod_pod_usage,
+        inputs.la_filter_skip)))
     return {
         "alloc": np.asarray(inputs.allocatable, np.float32)[:n],
         "requested": np.asarray(inputs.requested, np.float32)[:n],

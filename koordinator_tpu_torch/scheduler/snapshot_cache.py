@@ -677,6 +677,9 @@ class SnapshotCache:
 
 # fraction of node rows above which a scatter update loses to a full put
 _SCATTER_FRACTION = 0.125
+# bytes each array of a staged transfer starts on, as an allocation's do
+# (a kernel's bulk copies want 16-byte rows)
+_STAGE_ALIGN = 256
 
 
 class DeviceAllocationError(RuntimeError):
@@ -736,6 +739,15 @@ class DeviceSnapshot:
     and the old tensor stays whole for the round; otherwise it writes in
     place. Every copy runs on the current stream.
 
+    One device: an upload decides every field on the host first, then
+    moves everything it puts and every scatter's rows and indices in one
+    transfer a dtype (``_transfer``): each put field is a view of its
+    dtype's buffer, each scatter an ``index_copy_`` from views of it.
+    ``upload(fc, pack=True)`` also makes the round's host pack (models/
+    round_pack.host_pack) from the final host arrays and moves it in the
+    same transfers, in a mirror of its own (``pack_stats``), and returns
+    a PackedInputs whose ``pack`` the round reads.
+
     With ``mesh`` (KOORD_TPU_MESH, parallel/mesh.py) every field is a
     parallel/mesh.ShardedTensor: node-axis fields (_mesh_node_fields)
     sharded over all mesh devices, zero-padded to the mesh factor by
@@ -765,6 +777,9 @@ class DeviceSnapshot:
         self.fault_injector = None
         self.stats = {"reused": 0, "scattered": 0, "scattered_safe": 0,
                       "put": 0, "bytes_put": 0, "bytes_scattered": 0}
+        # the round packs' own mirror (upload(..., pack=True))
+        self._pack_fields: Dict[str, Tuple[np.ndarray, object]] = {}
+        self.pack_stats = {"reused": 0, "put": 0, "bytes_put": 0}
 
     def begin_dispatch(self) -> None:
         """A round reading this snapshot's tensors was launched and not
@@ -924,17 +939,194 @@ class DeviceSnapshot:
         self.stats["bytes_put"] += int(new.nbytes)
         return dev
 
-    def upload(self, fc):
+    def _rolled_back(self, names, exc: BaseException):
+        """Drop ``names``' mirror entries after a failed transfer (a
+        retry puts them whole); returns the DeviceAllocationError to
+        raise for an allocation-shaped failure, else None (re-raise)."""
+        for name in names:
+            self._fields.pop(name, None)
+            self._pack_fields.pop(name, None)
+        if isinstance(exc, DeviceAllocationError):
+            return None
+        if _is_resource_exhausted(exc):
+            return DeviceAllocationError(
+                f"device allocation failed uploading {', '.join(names)} "
+                f"({type(exc).__name__}: {exc})")
+        return None
+
+    def _transfer(self, arrays: List[np.ndarray]) -> List[object]:
+        """The host ``arrays`` on the device, one transfer a dtype: each
+        array a view of its dtype's buffer, starting on a _STAGE_ALIGN
+        boundary, with its own shape."""
+        import torch
+
+        groups: Dict[np.dtype, List[int]] = {}
+        for k, a in enumerate(arrays):
+            groups.setdefault(a.dtype, []).append(k)
+        out: List[object] = [None] * len(arrays)
+        for dt, ks in groups.items():
+            align = max(1, _STAGE_ALIGN // dt.itemsize)
+            sizes: List[int] = []
+            for k in ks:
+                sizes += [arrays[k].size, -arrays[k].size % align]
+            buf = np.empty(sum(sizes), dt)
+            at = 0
+            for j, k in enumerate(ks):
+                buf[at:at + sizes[2 * j]] = arrays[k].reshape(-1)
+                at += sizes[2 * j] + sizes[2 * j + 1]
+            pieces = torch.split(torch.from_numpy(buf).to(self.device), sizes)
+            for j, k in enumerate(ks):
+                shape = arrays[k].shape
+                out[k] = (pieces[2 * j] if len(shape) == 1
+                          else pieces[2 * j].view(shape))
+        return out
+
+    def _scatter_staged(self, dev, idx, rows):
+        """The row scatter from staged device views (idx int64, rows):
+        into ``dev`` in place, or into a clone while a round may read
+        it."""
+        with self._lock:
+            in_place = self._in_flight == 0
+        if not in_place:
+            dev = dev.clone()
+            self.stats["scattered_safe"] += 1
+        dev.index_copy_(0, idx, rows)
+        return dev
+
+    def _upload_many(self, items, extra=()) -> Dict[str, object]:
+        """``items`` ([(name, host array)]) through the mirror, each
+        reused, row-scattered or put as _one_transfer decides, and
+        ``extra`` (a round pack's arrays) reused or put in the pack
+        mirror; everything moved in one transfer a dtype. A failure rolls
+        back the failed fields' mirror entries (all of a failed
+        transfer's) and raises as _one does; the fault injector sees each
+        item before its transfer."""
+        from koordinator_tpu_torch.models.round_pack import round_array
+
+        out: Dict[str, object] = {}
+        staged: List[np.ndarray] = []
+        puts, scatters, pack_puts = [], [], []
+        for name, new in items:
+            try:
+                if self.fault_injector is not None:
+                    self.fault_injector(name)
+                new = np.asarray(new)
+                hit = self._fields.get(name)
+                if (hit is not None and hit[0].shape == new.shape
+                        and hit[0].dtype == new.dtype):
+                    prev_np, dev = hit
+                    # the host compare is the source of truth on purpose
+                    # (see _one_transfer)
+                    if np.array_equal(prev_np, new):
+                        self.stats["reused"] += 1
+                        out[name] = dev
+                        continue
+                    if new.ndim >= 1 and new.shape[0] == prev_np.shape[0] > 8:
+                        axes = tuple(range(1, new.ndim))
+                        rows = np.nonzero(
+                            (prev_np != new).any(axis=axes) if axes
+                            else prev_np != new)[0]
+                        if 0 < rows.size <= new.shape[0] * _SCATTER_FRACTION:
+                            scatters.append((name, dev, new, rows,
+                                             len(staged)))
+                            staged += [rows.astype(np.int64),
+                                       round_array(new[rows])]
+                            continue
+                # the mirror owns its arrays (see _one_transfer)
+                host = new.copy()
+                puts.append((name, host, len(staged)))
+                staged.append(round_array(host))
+            except Exception as exc:
+                err = self._rolled_back([name], exc)
+                if err is None:
+                    raise
+                raise err from exc
+        for name, new in extra:
+            hit = self._pack_fields.get(name)
+            if (hit is not None and hit[0].shape == new.shape
+                    and hit[0].dtype == new.dtype
+                    and np.array_equal(hit[0], new)):
+                self.pack_stats["reused"] += 1
+                out[name] = hit[1]
+                continue
+            pack_puts.append((name, new, len(staged)))
+            staged.append(new)
+        try:
+            tensors = self._transfer(staged)
+        except Exception as exc:
+            err = self._rolled_back(
+                [p[0] for p in puts + scatters + pack_puts], exc)
+            if err is None:
+                raise
+            raise err from exc
+        for name, host, k in puts:
+            self._fields[name] = (host, tensors[k])
+            self.stats["put"] += 1
+            self.stats["bytes_put"] += int(host.nbytes)
+            out[name] = tensors[k]
+        for name, new, k in pack_puts:
+            self._pack_fields[name] = (new, tensors[k])
+            self.pack_stats["put"] += 1
+            self.pack_stats["bytes_put"] += int(new.nbytes)
+            out[name] = tensors[k]
+        for name, dev, new, rows, k in scatters:
+            try:
+                dev2 = self._scatter_staged(dev, tensors[k], tensors[k + 1])
+            except Exception as exc:
+                err = self._rolled_back([name], exc)
+                if err is None:
+                    raise
+                raise err from exc
+            self._fields[name] = (new.copy(), dev2)
+            self.stats["scattered"] += 1
+            self.stats["bytes_scattered"] += int(new[rows].nbytes)
+            out[name] = dev2
+        return out
+
+    def upload(self, fc, pack: bool = False):
+        """``fc`` (host arrays) as tensors through the mirror. With
+        ``pack`` (one device only) the result is a PackedInputs carrying
+        the round's RoundPack."""
         base = fc.base
-        new_base = type(base)(**{
-            k: self._one(k, v) for k, v in base._asdict().items()})
-        rest = {k: self._one(k, v)
-                for k, v in fc._asdict().items() if k != "base"}
-        return type(fc)(base=new_base, **rest)
+        if self.mesh is not None:
+            # the mesh uploads field by field (put_on_mesh and the
+            # sharded scatter), with no round pack
+            new_base = type(base)(**{
+                k: self._one(k, v) for k, v in base._asdict().items()})
+            rest = {k: self._one(k, v)
+                    for k, v in fc._asdict().items() if k != "base"}
+            return type(fc)(base=new_base, **rest)
+        items = list(base._asdict().items()) + [
+            (k, v) for k, v in fc._asdict().items() if k != "base"]
+        extra, host = (), None
+        if pack:
+            from koordinator_tpu_torch.models.round_pack import (
+                PACK_FIELDS,
+                host_pack,
+            )
+
+            arrays, host = host_pack(fc)
+            extra = [(f"pack.{k}", arrays[k]) for k in PACK_FIELDS]
+        got = self._upload_many(items, extra)
+        new_base = type(base)(**{k: got[k] for k in base._fields})
+        rest = {k: got[k] for k in fc._fields if k != "base"}
+        if host is None:
+            return type(fc)(base=new_base, **rest)
+        from koordinator_tpu_torch.models.round_pack import (
+            PackedInputs,
+            RoundPack,
+        )
+
+        out = PackedInputs(base=new_base, **rest)
+        out.pack = RoundPack(
+            {k: got[f"pack.{k}"] for k in PACK_FIELDS}, host)
+        return out
 
     def upload_fields(self, fields: Dict[str, np.ndarray]) -> Dict[str, object]:
         """Upload side arrays outside FullChainInputs (the fused wave
         step's LoadAware term splits, hot-claim columns and reservation
         rows) through the same reuse/scatter/put machinery, keyed by the
         given names."""
-        return {k: self._one(k, v) for k, v in fields.items()}
+        if self.mesh is not None:
+            return {k: self._one(k, v) for k, v in fields.items()}
+        return self._upload_many(list(fields.items()))

@@ -201,7 +201,10 @@ def aval_spec(obj):
         return {"t": "np", "v": obj.item(), "d": str(obj.dtype)}
     fields = getattr(obj, "_fields", None)
     if fields is not None:
-        name = type(obj).__name__
+        # a subclass (the uploaded round's PackedInputs) replays as the
+        # registered namedtuple it extends: its extras are per-cycle data
+        name = next((c.__name__ for c in type(obj).__mro__
+                     if c.__name__ in _NT_REGISTRY), type(obj).__name__)
         if name not in _NT_REGISTRY:
             raise TypeError(f"unregistered namedtuple {name!r} in aval spec")
         return {"t": "nt", "c": name,

@@ -208,7 +208,9 @@ def test_import_leaves_jax_out():
             "koordinator_tpu_torch.testing.xproc_cards, "
             "koordinator_tpu_torch.testing.explain_ab, "
             "koordinator_tpu_torch.testing.scrape_convoy, "
+            "koordinator_tpu_torch.testing.round_pack_probe, "
             "koordinator_tpu_torch.models.replay_by_node, "
+            "koordinator_tpu_torch.models.round_pack, "
             "koordinator_tpu_torch.koordlet, "
             "koordinator_tpu_torch.koordlet.util, "
             "koordinator_tpu_torch.koordlet.util.system, "

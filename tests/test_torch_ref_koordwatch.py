@@ -5,15 +5,21 @@ Mesh cases run on the host split into 8 virtual shard devices
 reach the ladder as InjectedFault (test_torch_cases.injected).
 
 Left out:
-  * TestObsSurfaces.test_concurrent_scrapes_during_churn; its property is
-    held by TestObsSurfacesOnPort (below), with two scraper threads that
-    yield the GIL between scrapes. The reference's five scrapers spin:
-    each of the port's eager torch ops releases the GIL and waits up to
-    the interpreter's switch interval (5 ms) to take it back from a
-    spinning scraper, so 14 churn cycles that take a fraction of a second
-    alone take minutes under them. No lock of the port is involved: one
-    scraper of /healthz, which takes none, slows them as much as one of
-    /metrics. PERF.md section 7 has the times.
+  * TestObsSurfaces.test_concurrent_scrapes_during_churn on the CPU; its
+    property is held by TestObsSurfacesOnPort (below), with two scraper
+    threads that yield the GIL between scrapes. The reference's five
+    scrapers spin: each of the port's eager torch ops releases the GIL
+    and waits about the interpreter's switch interval to take it back
+    from them (~40 ms a call with five). On the CPU the round is the
+    plain twin of kernel 1, a loop of torch ops per pod: ~511 calls a
+    pod before its per-pod flags and hoisted rows, ~119 after
+    (tests/test_torch_call_budget.py holds it under 150), so the 14
+    cycles still make ~9,600 calls and take minutes beside the scrapers.
+    No lock of the port is involved: one scraper of /healthz, which takes
+    none, slows them as much as one of /metrics. On the card, where the
+    round is one launch, chip_smoke.py's scrape_convoy phase runs the
+    case verbatim (testing/scrape_convoy.reference_case) within 150 s.
+    PERF.md section 7 has the times.
 """
 
 from __future__ import annotations
