@@ -26,7 +26,11 @@ Phases, one JSON line each:
           twin's DeviceSnapshot must hand the round exactly what to_device
           gives (dtype and value, field by field), and a fresh one must
           scatter rows on the card into a clone while a round is in
-          flight and in place after it.
+          flight and in place after it. The incremental world's outcome
+          SHA-256 (testing/churn.outcome_sha: every cycle's bindings in
+          order, failed and rejected lists, every PodScheduled condition)
+          must be CONFIG4_SERIAL_JAX_SHA256, the JAX package's
+          Scheduler(waves=1) over the same cycles.
   scheduler_waves  config 4 through the Scheduler's default path: waves
           "auto" (K = 8 at cycle 0's 10000 pending pods, 4 at the churn
           cycles' ~1126) with replay overlap on, the chained dispatch (each
@@ -52,9 +56,10 @@ Phases, one JSON line each:
           instance) and on all 14 (the generic one), each against
           replay_kept bit for bit, the kernel's one-by-one adds reported
           by its error bit.
-          Prints the default path's outcome
-          SHA-256 (bindings, failed/rejected lists, PodScheduled
-          conditions).
+          The default path's outcome SHA-256 (testing/churn.outcome_sha)
+          must be CONFIG4_WAVES_JAX_SHA256 and each cycle's
+          CycleResult.waves CONFIG4_WAVES_JAX_WAVES: the JAX package's
+          default path over the same cycles.
   scheduler_mesh  the same default path on a mesh of 2 virtual shards of
           the card (parallel/mesh.py): churn_store(5000, 10000, seed=42)
           through Scheduler(store, mesh=2 shards, device="cuda"), the
@@ -166,13 +171,16 @@ Phases, one JSON line each:
           touches and warm-up stats, the launches and the seconds.
   pack_overlap  scheduler/pipeline_parity.run_pack_overlap_parity on the
           card at its own world (24 nodes, 70 pods, 4 rounds of churn), at
-          waves 1 and 4: the cycle that pre-packs the next cycle's pod
-          rows inside the device window against its gap-pack twin. Every
-          uploaded FullChainInputs array byte-identical encode for encode,
-          bindings, failure lists, PodScheduled conditions and final
-          assignments equal, kernel 1 launched, within 20 s. Prints each
-          run's pods, conditions and encodes compared, the launches and
-          the seconds.
+          waves 1 and 4, then on config 4's churn store with its 1000
+          arrivals a round (cycle 0 and 2 churn rounds) at the default
+          waves: the cycle that pre-packs the next cycle's pod rows inside
+          the device window against its gap-pack twin. Every uploaded
+          FullChainInputs array byte-identical encode for encode (by its
+          SHA-256), bindings, failure lists, PodScheduled conditions and
+          final assignments equal, rows pre-packed, kernel 1 launched,
+          within 20 s at the small world and 120 s at config 4. Prints
+          each run's pods, conditions and encodes compared, the launches
+          and the seconds.
   scrape_convoy  the JAX package's concurrent-scrape case (tests/
           test_koordwatch.py test_concurrent_scrapes_during_churn) on the
           card, its body verbatim (testing/scrape_convoy.reference_case):
@@ -376,7 +384,11 @@ Phases, one JSON line each:
           between them); then the full-chain kernel's time (CUDA events,
           median of repeated rounds after a warm-up) and the plain torch
           round on the card over the same inputs, as its explain "full"
-          variant, which must give the same bindings.
+          variant, which must give the same bindings. Both rounds' chosen
+          must have the digest CONFIG4_ROUND_JAX_CHOSEN_SHA256, and their
+          requested and quota_used must be within ROUND_ATOL of the
+          arrays in tests/fixtures/config4_round_jax.npz: the JAX
+          package's XLA step on its own pack of the same cluster.
   sidecar_grpc  the same batch over gRPC: serve_sidecar around main's
           SidecarServer on an abstract unix socket, a SidecarClient sending
           it (1 cold call, 3 warm): chosen, requested and quota_used equal
@@ -428,8 +440,11 @@ Phases, one JSON line each:
           on CUDA, with the launch counts read around that call; then the
           LoadAware kernel's time, the plain torch round on the card (same
           bindings, requested within 1e-4) and the numpy oracle
-          serial_schedule on the first 25 pods (same bindings).
-  loadaware_prod  the same with score_according_prod_usage.
+          serial_schedule on the first 25 pods (same bindings). Both
+          rounds' chosen must have the digest LOADAWARE_JAX_CHOSEN_SHA256,
+          the JAX package's XLA step on its own pack of the same
+          cluster.
+  loadaware_prod  the same with score_according_prod_usage (no JAX pin).
   loadaware_global  the LoadAware kernel with its carried state in device
           memory (smem_budget_bytes=0), against the plain round of
           `loadaware`.
@@ -588,7 +603,12 @@ from koordinator_tpu_torch.testing.kernel_ab import (
 from koordinator_tpu_torch.testing.churn import (
     add_arrivals,
     arrival_specs,
+    conditions,
     cycle_dump,
+    outcome_sha,
+    result_key,
+    churn_schedule,
+    round_sha,
     store_from_state,
 )
 from koordinator_tpu_torch.utils.features import SCHEDULER_GATES
@@ -755,6 +775,42 @@ NODE_RUN_ONCE_TIMED = 16
 # run on the card: 55 of the 128 GPU pods bound, filling 31 cards
 NODE_AGENT_OUTCOME = (
     "4ee342900c9a575bf165c59581bd13b33c6211278810c86e634f3329717e7336")
+# BASELINE config 4 ("Full plugin chain"): the nodes and pods of every
+# phase held to a JAX pin below
+CONFIG4_NODES, CONFIG4_PODS = 5000, 10000
+# config 4 held to the JAX package's own decisions, each regenerated on
+# the CPU by a tier-1 test (tests/test_torch_full_width_*.py), digests by
+# testing/churn.outcome_sha and round_sha:
+# - the default path: koordinator_tpu.scheduler.cycle.Scheduler(store,
+#   explain="off", mesh="off", warmup="off") on the JAX twin of
+#   churn_store(5000, 10000, seed=42), cycle 0 and WAVE_CHURN_WARMUP +
+#   WAVE_CHURN_MEASURED churn cycles of arrival_specs(c, 1000) (created at
+#   now + c, run at now + 2c); its outcome digest and each cycle's
+#   CycleResult.waves (testing/churn.churn_schedule's cycles)
+CONFIG4_WAVES_JAX_SHA256 = (
+    "c7253e03f18776a33d56e453f216808e07a67c93526d537a4de0a25303fd8d09")
+CONFIG4_WAVES_JAX_WAVES = (8, 4)
+# - serial dispatch: the same Scheduler with waves=1 over the scheduler
+#   phase's cycle 0 and CHURN_WARMUP + CHURN_MEASURED churn cycles
+CONFIG4_SERIAL_JAX_SHA256 = (
+    "b10610f8ee277ca9f6b7d88edbb552e65ae4e07e388b319486c9b5ae41c62e4c")
+# - main's round: koordinator_tpu.models.full_chain.build_full_chain_step
+#   (XLA) on the JAX package's build_full_chain_inputs of
+#   synth_full_cluster(5000, 10000, seed=42, num_quotas=100,
+#   num_gangs=200), reduced by its reduce_to_active_axes; the digest of
+#   chosen, and requested and quota_used kept in tests/fixtures/ (held at
+#   ROUND_ATOL, tests/test_torch_full_chain.py's tolerance against the JAX
+#   package)
+CONFIG4_ROUND_JAX_CHOSEN_SHA256 = (
+    "1985af7402cfcc6c965bc3baf75a7bdadafd625d3e941d439dc7006cc41cad24")
+CONFIG4_ROUND_JAX_FIXTURE = "config4_round_jax.npz"
+ROUND_ATOL = 1e-3
+# - the LoadAware headline: koordinator_tpu.models.scheduler_model.
+#   build_schedule_step (XLA) on synth_cluster(5000, 10000, seed=42) packed
+#   as bench.py's default chain packs it (10240 x 5120 x 14); the digest of
+#   chosen
+LOADAWARE_JAX_CHOSEN_SHA256 = (
+    "b5e3aa264b6152da64edfcb9a711c99ed4b1a1b4d8722e0448596dcc0fea336d")
 
 
 def round_ops(fc, W: int, balanced: bool) -> int:
@@ -795,11 +851,13 @@ def launch_fields(module):
         "smem_bytes_per_block")}
 
 
-def run_loadaware(tag, args, n_nodes, n_pods, device):
+def run_loadaware(tag, args, n_nodes, n_pods, device, jax_sha=None):
     """The LoadAware-only round through its entry point on the card, then
     the kernel's time, the plain round on the card and the oracle on the
-    first ORACLE_PODS pods. Returns the kernels-line entry and the inputs
-    and plain outputs, for the device-memory phase."""
+    first ORACLE_PODS pods; with ``jax_sha``, both rounds' chosen must
+    have that digest (the JAX package's round on the same cluster).
+    Returns the kernels-line entry and the inputs and plain outputs, for
+    the device-memory phase."""
     t0 = time.perf_counter()
     inputs = loadaware_inputs(
         synth_cluster(num_nodes=n_nodes, num_pods=n_pods, seed=42), args)
@@ -853,6 +911,13 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
         raise AssertionError(
             f"{tag}: kernel disagrees with plain round: {mism} bindings "
             f"differ, max |err| {err}")
+    pin = {}
+    if jax_sha is not None:
+        shas = {round_sha(chosen_k), round_sha(chosen_p)}
+        if shas != {jax_sha}:
+            raise AssertionError(f"{tag}: chosen digests {shas}, not the "
+                                 f"JAX package's {jax_sha}")
+        pin = {"chosen_sha256": jax_sha, "jax_sha256_equal": True}
 
     # the oracle on the queue's first pods: the round is serial, so their
     # picks do not depend on the pods after them
@@ -886,6 +951,7 @@ def run_loadaware(tag, args, n_nodes, n_pods, device):
           "max_abs_err": err, "oracle_pods": k,
           "oracle_seconds": round(oracle_s, 3),
           "oracle_mismatches": oracle_mism, "non_integer": non_integer,
+          **pin,
           "input_bytes": int(in_bytes), "ops": ops,
           "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms})
     return (kernel_entry("schedule_step_round", "schedule_step.cu",
@@ -984,11 +1050,6 @@ def median_split(splits) -> dict:
     return {k: statistics.median(s[k] for s in splits) for k in splits[0]}
 
 
-def result_key(res):
-    return ([(b.pod_key, b.node_name) for b in res.bound], list(res.failed),
-            list(res.rejected))
-
-
 def checked_cycle(tag, sched, run, now):
     """One cycle of ``sched`` (``run`` is its run_cycle or its pipeline's)
     with the launch counts set to 0 just before it and read just after:
@@ -1059,16 +1120,16 @@ def check_mirror(fc, device) -> dict:
     return dict(snap.stats)
 
 
-def run_scheduler(device, n_nodes=5000, n_pods=10000):
+def run_scheduler(device):
     """BASELINE config 4 through Scheduler.run_cycle (bench.py run_churn's
     shape), three twins that must agree every cycle, then the kernel alone
     at the churn cycles' padded P. Returns the phase's full-chain
     launches."""
-    arrivals = n_pods // 10
+    arrivals = CONFIG4_PODS // 10
     retries0 = retries_now()
     t0 = time.perf_counter()
     (store_inc, state), (store_pipe, _s2), (store_cold, _s3) = (
-        churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
+        churn_store(CONFIG4_NODES, CONFIG4_PODS, seed=42) for _ in range(3))
     inc = Scheduler(store_inc, waves=1, device=device)
     pipe_sched = Scheduler(store_pipe, waves=1, device=device)
     pipe = CyclePipeline(pipe_sched, enabled=True)
@@ -1089,17 +1150,17 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
     walls = {name: [] for name, _s, _r in twins}
     kernel_s, splits, padded_p = [], [], []
     cycle0 = {}
-    for c in range(1 + CHURN_WARMUP + CHURN_MEASURED):
-        if c:
-            specs = arrival_specs(c, arrivals)
-            for store in (store_inc, store_pipe, store_cold):
-                add_arrivals(store, specs, now + c)
+    outcome = []  # the incremental world's result keys, for the JAX pin
+    for c, specs, created, t in churn_schedule(
+            now, CHURN_WARMUP + CHURN_MEASURED, arrivals):
+        for store in (store_inc, store_pipe, store_cold):
+            add_arrivals(store, specs, created)
         inc.encode_observer = lambda fc: observed.append(
             (fc.base.fit_requests.shape[0], fc))
         keys = {}
         for name, sched, run in twins:
             res, wall, launches, gc_full = checked_cycle(
-                f"scheduler cycle {c} {name}", sched, run, now + 2 * c)
+                f"scheduler cycle {c} {name}", sched, run, t)
             total_launches += launches
             keys[name] = result_key(res)
             if name == "incremental":
@@ -1122,7 +1183,13 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
             raise AssertionError(f"scheduler cycle {c}: twins disagree")
         if c and not keys["incremental"][0]:
             raise AssertionError(f"scheduler cycle {c}: nothing bound")
+        outcome.append(keys["incremental"])
     pipe.flush()
+    inc.flush_deferred()
+    serial_sha = outcome_sha(outcome, store_inc)
+    if serial_sha != CONFIG4_SERIAL_JAX_SHA256:
+        raise AssertionError(f"scheduler: the outcome {serial_sha} is not "
+                             f"the JAX package's {CONFIG4_SERIAL_JAX_SHA256}")
 
     # the kernel alone at the churn cycles' padded P: the last measured
     # cycle's inputs, with the step arguments its cached step was keyed on
@@ -1150,7 +1217,8 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
 
     t_inc = statistics.median(walls["incremental"])
     t_kernel = statistics.median(kernel_s)
-    emit({"phase": "scheduler", "nodes": n_nodes, "pods": n_pods,
+    emit({"phase": "scheduler", "nodes": CONFIG4_NODES,
+          "pods": CONFIG4_PODS,
           "arrivals_per_cycle": arrivals, "warmup_cycles": CHURN_WARMUP,
           "measured_cycles": CHURN_MEASURED,
           "fixture_seconds": round(fixture_s, 3),
@@ -1172,7 +1240,8 @@ def run_scheduler(device, n_nodes=5000, n_pods=10000):
           "mirror_check": mirror_check,
           "churn_padded_P": padded_p,
           "churn_kernel_ms": churn_kernel_ms,
-          "churn_kernel_state": fck.last_launch["state"]})
+          "churn_kernel_state": fck.last_launch["state"],
+          "outcome_sha256": serial_sha, "jax_sha256_equal": True})
     return total_launches
 
 
@@ -1368,18 +1437,18 @@ def check_replay_bound(device, seed=7, n_nodes=200, n_pods=400):
     return out
 
 
-def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
+def run_scheduler_waves(device):
     """Config 4 through Scheduler(store) with its defaults (auto waves,
     chained dispatch), against the single-call twin and the serial twin;
     then the replay kernel alone at cycle 0's kept set against the plain
     replay on the card. Returns (the default twin's launches, the replay
     instance's kernels-line entry, cycle 0's first-wave inputs with their
     active axes)."""
-    arrivals = n_pods // 10
+    arrivals = CONFIG4_PODS // 10
     retries0 = retries_now()
     t0 = time.perf_counter()
     (store_a, state), (store_b, _s2), (store_c, _s3) = (
-        churn_store(n_nodes, n_pods, seed=42) for _ in range(3))
+        churn_store(CONFIG4_NODES, CONFIG4_PODS, seed=42) for _ in range(3))
     chained = Scheduler(store_a, device=device)
     fused = Scheduler(store_b, device=device, replay_overlap=False)
     serial = Scheduler(store_c, waves=1, device=device)
@@ -1413,12 +1482,10 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     cycle0 = {}
     outcome = []  # the default path's result keys, for scheduler_mesh
     fused_waves.build_chained_wave_step = spy_build
-    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
-        if c:
-            specs = arrival_specs(c, arrivals)
-            for store in (store_a, store_b, store_c):
-                add_arrivals(store, specs, now + c)
-        t = now + 2 * c
+    for c, specs, created, t in churn_schedule(
+            now, WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED, arrivals):
+        for store in (store_a, store_b, store_c):
+            add_arrivals(store, specs, created)
         fck.full_chain_replay = spy if c == 0 else real_replay
         try:
             res_a, wall_a, la, k_a = wave_cycle(
@@ -1478,9 +1545,15 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     if not (dumps[0] == dumps[1] == dumps[2]):
         raise AssertionError("scheduler_waves: the final dumps differ")
     waves_sha = outcome_sha(outcome, store_a)
+    waves_each = tuple(r["logical_cycles"] for r in rows)
+    if (waves_sha, waves_each) != (CONFIG4_WAVES_JAX_SHA256,
+                                   CONFIG4_WAVES_JAX_WAVES):
+        raise AssertionError(
+            f"scheduler_waves: the outcome {waves_sha} with waves "
+            f"{waves_each} is not the JAX package's "
+            f"{CONFIG4_WAVES_JAX_SHA256} with {CONFIG4_WAVES_JAX_WAVES}")
     assert_ladder_full("scheduler_waves", retries0, chained, fused, serial)
-    if n_pods == 10000 and (rows[0]["K"] != 8
-                            or any(r["K"] != 4 for r in rows[1:])):
+    if rows[0]["K"] != 8 or any(r["K"] != 4 for r in rows[1:]):
         raise AssertionError(f"scheduler_waves: K per cycle "
                              f"{[r['K'] for r in rows]}, expected 8 then 4")
 
@@ -1515,7 +1588,8 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
     planted = check_replay_bound(device)
     bytes_ms, ops_ms = replay_bound(fc_c, n_kept, n_numa)
     t_chained = statistics.median(walls["chained"])
-    emit({"phase": "scheduler_waves", "nodes": n_nodes, "pods": n_pods,
+    emit({"phase": "scheduler_waves", "nodes": CONFIG4_NODES,
+          "pods": CONFIG4_PODS,
           "arrivals_per_cycle": arrivals,
           "warmup_cycles": WAVE_CHURN_WARMUP,
           "measured_cycles": WAVE_CHURN_MEASURED,
@@ -1537,7 +1611,8 @@ def run_scheduler_waves(device, n_nodes=5000, n_pods=10000):
                      "mismatches": mism, "max_abs_err": err,
                      "errors": errors, "count_bound": planted,
                      "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms},
-          "outcome_sha256": waves_sha})
+          "outcome_sha256": waves_sha, "waves_each_cycle": waves_each,
+          "jax_sha256_equal": True})
     entry = kernel_entry(
         "replay_by_node", "replay_by_node.cu",
         "koordinator_tpu/models/fused_waves.py:559 (the rbody fori_loop, no "
@@ -2897,16 +2972,6 @@ def run_explain_round(dev_fc, args, ng, ngroups, active, n_real, out_full,
 def explain_launches_now() -> dict:
     return {"explain_counts": ek.launches,
             "full_chain_terms": fck.terms_launches}
-
-
-def conditions(store) -> dict:
-    """Every pod's PodScheduled condition (status, reason, message)."""
-    out = {}
-    for pod in store.list(KIND_POD):
-        cond = pod.get_condition("PodScheduled")
-        if cond is not None:
-            out[pod.meta.key] = (cond.status, cond.reason, cond.message)
-    return out
 
 
 def explain_cycle(tag, sched, now):
@@ -4376,14 +4441,6 @@ FAULT_LADDER_WALK = [
     ("serial-waves", "no-mesh"), ("no-mesh", "full")]
 
 
-def outcome_sha(keys, store) -> str:
-    """SHA-256 of a run's per-cycle result keys (bindings in order, failed
-    and rejected lists) and every pod's PodScheduled condition."""
-    blob = json.dumps({"cycles": keys,
-                       "conditions": sorted(conditions(store).items())})
-    return hashlib.sha256(blob.encode()).hexdigest()
-
-
 class mesh_env:
     """KOORD_TORCH_VIRTUAL_DEVICES and KOORD_TPU_MESH set for the block
     (the knobs a standalone descheduler or manager reads), then
@@ -4595,14 +4652,14 @@ def xchg_churn(tag, device, mesh, n_nodes, n_pods, transformer=False):
     now = state.now
     keys, rows = [], []
     total = collections.Counter()
-    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
-        if c:
-            add_arrivals(store, arrival_specs(c, arrivals), now + c)
+    for c, specs, created, t in churn_schedule(
+            now, WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED, arrivals):
+        add_arrivals(store, specs, created)
         zero_mesh_launches()
         cross_card.zero_xchg_launches()
         t0 = time.perf_counter()
         with cross_card.no_gather():
-            res = sched.run_cycle(now=now + 2 * c)
+            res = sched.run_cycle(now=t)
         wall = time.perf_counter() - t0
         la = {**mesh_launches_now(), "schedule_step": sk.launches,
               **cross_card.xchg_launches()}
@@ -4665,11 +4722,10 @@ def run_scheduler_mesh(device, waves_sha, n_nodes=5000, n_pods=10000):
     now = state.now
     keys, rows, walls = [], [], []
     total = {"full_chain": 0, "full_chain_replay": 0}
-    for c in range(1 + WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED):
-        if c:
-            add_arrivals(store, arrival_specs(c, arrivals), now + c)
-        res, wall, la, k = wave_cycle(f"scheduler_mesh cycle {c}", sched,
-                                      now + 2 * c)
+    for c, specs, created, t in churn_schedule(
+            now, WAVE_CHURN_WARMUP + WAVE_CHURN_MEASURED, arrivals):
+        add_arrivals(store, specs, created)
+        res, wall, la, k = wave_cycle(f"scheduler_mesh cycle {c}", sched, t)
         if not any(sched.mesh.tag in key for key in sched._step_cache):
             raise AssertionError(f"scheduler_mesh cycle {c}: no step built "
                                  "for the mesh")
@@ -4793,20 +4849,29 @@ def run_racecheck(device):
     return launches
 
 
-# the pack_overlap phase's time limit (its share of the run's 1200 s)
+# the pack_overlap phase's time limits (their share of the run's 1200 s):
+# the harness's own world, and config 4's churn world with its churn
+# rounds after cycle 0 (14.1 s on an H100 80GB HBM3 at 700 W: about three
+# times that, for a host 1.3x slower and the spread of its cycle-0 packs)
 PACK_OVERLAP_LIMIT_S = 20.0
+PACK_OVERLAP_CONFIG4_LIMIT_S = 45.0
+PACK_OVERLAP_CONFIG4_ROUNDS = 2
 
 
 def run_pack_overlap(device):
     """The pack-overlap gate on the card: scheduler/pipeline_parity's
     run_pack_overlap_parity at its own world (24 nodes, 70 pods, 4
-    rounds of churn) at waves 1 and 4 — the cycle that pre-packs the next
-    cycle's pod rows inside the device window against its gap-pack twin,
-    every uploaded FullChainInputs array byte for byte. Fails on any
+    rounds of churn) at waves 1 and 4, then on config 4's churn store
+    (churn_store(5000, 10000, seed=42)) with its arrivals (1000 a round,
+    PACK_OVERLAP_CONFIG4_ROUNDS rounds after cycle 0) at the Scheduler's
+    default waves — the cycle that pre-packs the next cycle's pod rows
+    inside the device window against its gap-pack twin, every uploaded
+    FullChainInputs array byte for byte (by its SHA-256). Fails on any
     mismatch, on a run that compared no encode, pre-packed no row or
     logged a failed pre-pack (either leaves the overlap world packing
-    cold in the gap, the twin's path), on no round kernel launched, and
-    past PACK_OVERLAP_LIMIT_S."""
+    cold in the gap, the twin's path), on no round kernel launched, past
+    PACK_OVERLAP_LIMIT_S for the small world and past
+    PACK_OVERLAP_CONFIG4_LIMIT_S for config 4."""
     zero_mesh_launches()
     t0 = time.perf_counter()
     reports = [pipeline_parity.run_pack_overlap_parity(waves=w,
@@ -4814,6 +4879,18 @@ def run_pack_overlap(device):
                for w in (1, 4)]
     phase_s = time.perf_counter() - t0
     launches = mesh_launches_now()
+
+    def world():
+        store, state = churn_store(CONFIG4_NODES, CONFIG4_PODS, seed=42)
+        return state, store
+
+    zero_mesh_launches()
+    t0 = time.perf_counter()
+    reports.append(pipeline_parity.run_pack_overlap_parity(
+        waves=None, rounds=PACK_OVERLAP_CONFIG4_ROUNDS, device=device,
+        world=world, churn_arrivals=CONFIG4_PODS // 10))
+    config4_s = time.perf_counter() - t0
+    config4_launches = mesh_launches_now()
     for rep in reports:
         if (not rep["ok"] or rep["encodes_compared"] < 1
                 or rep["prepacked_rows"] < 1 or rep["prepack_failures"]):
@@ -4822,18 +4899,24 @@ def run_pack_overlap(device):
                 f"{rep['mismatches'][:4]} ({rep['encodes_compared']} "
                 f"encodes, {rep['prepacked_rows']} rows pre-packed, "
                 f"{rep['prepack_failures']} pre-packs failed)")
-    if launches["full_chain"] < 1:
-        raise AssertionError(f"pack_overlap: no launch: {launches}")
+    if launches["full_chain"] < 1 or config4_launches["full_chain"] < 1:
+        raise AssertionError(f"pack_overlap: no launch: {launches}, "
+                             f"config 4 {config4_launches}")
     if phase_s > PACK_OVERLAP_LIMIT_S:
         raise AssertionError(f"pack_overlap: {phase_s:.1f} s, over "
                              f"{PACK_OVERLAP_LIMIT_S} s")
+    if config4_s > PACK_OVERLAP_CONFIG4_LIMIT_S:
+        raise AssertionError(f"pack_overlap: config 4 took {config4_s:.1f} "
+                             f"s, over {PACK_OVERLAP_CONFIG4_LIMIT_S} s")
     emit({"phase": "pack_overlap",
           "runs": [{k: rep[k] for k in ("waves", "rounds", "pods",
                                         "conditions_checked",
                                         "encodes_compared",
                                         "prepacked_rows")}
                    for rep in reports],
-          "mismatches": 0, "launches": launches, "seconds": phase_s})
+          "mismatches": 0, "launches": launches, "seconds": phase_s,
+          "config4_launches": config4_launches,
+          "config4_seconds": config4_s})
 
 
 def run_rebalance_mesh(device, n_pods=50_000, n_nodes=5_000):
@@ -5092,6 +5175,37 @@ def card_line() -> str:
 def tensor_bytes(fc) -> int:
     n = sum(t.numel() * t.element_size() for t in fc.base)
     return n + sum(t.numel() * t.element_size() for t in fc[1:])
+
+
+def check_round_pin(kernel_out, plain_out) -> dict:
+    """main's round against the JAX package's on the same cluster: both
+    chosen vectors' digest CONFIG4_ROUND_JAX_CHOSEN_SHA256, and requested
+    and quota_used within ROUND_ATOL of the JAX arrays kept in
+    tests/fixtures/ (tests/test_torch_full_width_round.py writes and holds
+    them)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures", CONFIG4_ROUND_JAX_FIXTURE)
+    with np.load(path) as kept:
+        want = {k: kept[k] for k in ("requested", "quota_used")}
+    shas, errs = {}, {}
+    for name, out in (("kernel", kernel_out), ("plain", plain_out)):
+        chosen, requested, quota_used = (t.cpu().numpy() for t in out)
+        shas[name] = round_sha(chosen)
+        for key, got in (("requested", requested),
+                         ("quota_used", quota_used)):
+            if got.shape != want[key].shape:
+                raise AssertionError(
+                    f"main: {name} {key} has shape {got.shape}, the JAX "
+                    f"package's {want[key].shape}")
+            errs[f"{name}_{key}"] = float(np.abs(got - want[key]).max())
+    if set(shas.values()) != {CONFIG4_ROUND_JAX_CHOSEN_SHA256}:
+        raise AssertionError(f"main: chosen digests {shas}, not the JAX "
+                             f"package's {CONFIG4_ROUND_JAX_CHOSEN_SHA256}")
+    if max(errs.values()) > ROUND_ATOL:
+        raise AssertionError(f"main: max |err| against the JAX package "
+                             f"{errs}, over {ROUND_ATOL}")
+    return {"chosen_sha256": shas["kernel"], "jax_sha256_equal": True,
+            "jax_max_abs_err": errs, "jax_atol": ROUND_ATOL}
 
 
 def compare(tag, kernel_out, plain_out, n_nodes):
@@ -5420,7 +5534,7 @@ def main() -> int:
                                        for v in explain_launches.values()))
 
     # ---- main path: BASELINE config 4 through the sidecar entry point
-    n_nodes, n_pods = 5000, 10000
+    n_nodes, n_pods = CONFIG4_NODES, CONFIG4_PODS
     args = LoadAwareArgs()
     t0 = time.perf_counter()
     _cluster, state = synth_full_cluster(
@@ -5478,6 +5592,7 @@ def main() -> int:
     out_k = tuple(torch.from_numpy(x) for x in (chosen, requested,
                                                  quota_used))
     mism, err = compare("main", out_k, out_p, N)
+    jax_pin = check_round_pin(out_k, out_p)
     K = fc.numa_free.shape[1]
     G = fc.quota_used.shape[0]
     nbytes = tensor_bytes(dev_fc) + P * 4 + N * R * 4 + G * R * 4
@@ -5496,8 +5611,8 @@ def main() -> int:
           "kernel_ms": kernel_ms,
           "plain_ms": plain_ms,
           "plain_compared_pods": int(P), "mismatches": mism,
-          "max_abs_err": err, "ops": ops, "bound_bytes_ms": bytes_ms,
-          "bound_ops_ms": ops_ms})
+          "max_abs_err": err, **jax_pin, "ops": ops,
+          "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms})
     # ---- the same batch over gRPC, then the compiled serial floor on it
     grpc_launches = run_sidecar_grpc(
         server, fc, args, ng, ngroups, active,
@@ -5544,7 +5659,8 @@ def main() -> int:
 
     # ---- the LoadAware-only round, default args and prod mode
     la_kernel, (la_inputs, la_plain) = run_loadaware(
-        "loadaware", LoadAwareArgs(), n_nodes, n_pods, device)
+        "loadaware", LoadAwareArgs(), n_nodes, n_pods, device,
+        jax_sha=LOADAWARE_JAX_CHOSEN_SHA256)
     run_loadaware("loadaware_prod",
                   LoadAwareArgs(score_according_prod_usage=True), n_nodes,
                   n_pods, device)

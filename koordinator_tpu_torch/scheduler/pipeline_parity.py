@@ -42,10 +42,11 @@ on the card:
 
 from __future__ import annotations
 
+import hashlib
 import logging
 import sys
 from collections import Counter
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 GIB = 1024 ** 3
 
@@ -414,10 +415,13 @@ def run_fused_wave_parity(k_waves: int, num_nodes: int = 24,
     }
 
 
-def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
+def run_pack_overlap_parity(waves: Optional[int] = 1,
+                            ndev: Optional[int] = None,
                             num_nodes: int = 24, num_pods: int = 70,
                             rounds: int = 3, seed: int = 11,
-                            arrivals: int = 9, device="cuda") -> dict:
+                            arrivals: int = 9, device="cuda",
+                            world: Optional[Callable] = None,
+                            churn_arrivals: Optional[int] = None) -> dict:
     """Pack/device overlap vs the gap-pack twin: byte-identical
     ScheduleInputs, decisions and conditions.
 
@@ -426,10 +430,17 @@ def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
     pack_overlap off, so its pack runs strictly in the gap between
     windows. Both drive identical churn through the pipeline and both
     register the encode observer: every FullChainInputs array the cycle
-    uploads is byte-compared encode for encode — the overlap may move
-    WHEN rows pack, never a bit they hold. ``waves`` selects the serial
-    (1) or fused-chain path; ``ndev`` shards both worlds over a mesh of
-    that many virtual shards of ``device``.
+    uploads is byte-compared encode for encode, by its shape, dtype and
+    the SHA-256 of its bytes (no copy kept) — the overlap may move WHEN
+    rows pack, never a bit they hold. ``waves`` selects the serial (1) or
+    fused-chain path (None: the Scheduler's default); ``ndev`` shards both
+    worlds over a mesh of that many virtual shards of ``device``.
+    ``world`` builds one world as ``(state, store)`` (default: the parity
+    fixture at ``num_nodes`` x ``num_pods``, ``seed``). Round ``r``'s churn
+    is ``apply_round_delta`` with ``arrivals`` pods, or with
+    ``churn_arrivals`` the config 4 churn run's own (``testing/churn.
+    churn_schedule``'s arrivals of that many pods); either way round ``r``
+    runs at ``now + 2r``.
 
     A pre-pack that fails, or never stages a row, leaves the overlap
     world packing cold in the gap, identical to the twin by
@@ -441,6 +452,15 @@ def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
 
     from koordinator_tpu_torch.client.store import KIND_POD
     from koordinator_tpu_torch.scheduler.cycle import CyclePipeline, Scheduler
+    from koordinator_tpu_torch.testing.churn import (
+        add_arrivals,
+        churn_schedule,
+    )
+
+    def digest(value):
+        arr = np.ascontiguousarray(np.asarray(value))
+        return (arr.shape, arr.dtype.str,
+                hashlib.sha256(arr.view(np.uint8).reshape(-1)).hexdigest())
 
     def snap_fc(fc):
         out = {}
@@ -448,14 +468,16 @@ def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
             value = getattr(fc, name)
             if name == "base":
                 for f2 in value._fields:
-                    out["base." + f2] = np.array(
-                        np.asarray(getattr(value, f2)), copy=True)
+                    out["base." + f2] = digest(getattr(value, f2))
             else:
-                out[name] = np.array(np.asarray(value), copy=True)
+                out[name] = digest(value)
         return out
 
-    state_on, store_on = _synth_world(num_nodes, num_pods, seed)
-    _state_off, store_off = _synth_world(num_nodes, num_pods, seed)
+    if world is None:
+        def world():
+            return _synth_world(num_nodes, num_pods, seed)
+    state_on, store_on = world()
+    _state_off, store_off = world()
     sched_on = Scheduler(store_on, waves=waves, explain="off",
                          mesh=_mesh_arg(ndev, device), pack_overlap=True,
                          device=device)
@@ -475,11 +497,13 @@ def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
     now = state_on.now
     mismatches: List[str] = []
     try:
-        for r in range(rounds + 1):
-            if r > 0:
-                apply_round_delta(store_on, r, now, arrivals)
-                apply_round_delta(store_off, r, now, arrivals)
-            t = now + 2 * r
+        for r, specs, created, t in churn_schedule(now, rounds,
+                                                   churn_arrivals or 0):
+            for store in (store_on, store_off) if r else ():
+                if churn_arrivals:
+                    add_arrivals(store, specs, created)
+                else:
+                    apply_round_delta(store, r, now, arrivals)
             res_on = pipe_on.run_cycle(now=t)
             res_off = pipe_off.run_cycle(now=t)
             if ([(b.pod_key, b.node_name, b.annotations)
@@ -508,9 +532,7 @@ def run_pack_overlap_parity(waves: int = 1, ndev: Optional[int] = None,
             f"{len(encodes[False])})")
     else:
         for i, (a, b) in enumerate(zip(encodes[True], encodes[False])):
-            bad = [k for k in a
-                   if a[k].shape != b[k].shape
-                   or not np.array_equal(a[k], b[k])]
+            bad = [k for k in a if a[k] != b[k]]
             if bad:
                 mismatches.append(
                     f"encode {i}: ScheduleInputs fields differ {bad[:4]}")

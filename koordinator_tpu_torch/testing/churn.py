@@ -6,11 +6,22 @@ the real cycle): ``synth_full_cluster`` loaded into an ObjectStore, with
 arrivals as plain dicts, so that one list can be applied to several stores
 (``add_arrivals``), of either package. ``cycle_dump`` is the canonical dump
 two schedulers' worlds are compared by.
+
+``result_key``, ``conditions``, ``outcome_sha`` and ``round_sha`` are the
+package-neutral digests a run is pinned by: they read only the store and
+``CycleResult`` interface both packages share (``store.list``,
+``pod.get_condition``, ``pod.meta.key``, ``res.bound`` / ``failed`` /
+``rejected``) and a round's ``chosen`` as numbers, so one digest taken of a
+JAX run's store or arrays and of the port's must agree.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from typing import Dict, List
+
+import numpy as np
 
 from koordinator_tpu_torch.api.objects import ObjectMeta, Pod, PodSpec
 from koordinator_tpu_torch.api.resources import ResourceList
@@ -121,3 +132,66 @@ def cycle_dump(sched) -> Dict:
         vec = quota.used.get(q.meta.name) if quota is not None else None
         used[q.meta.name] = None if vec is None else [float(x) for x in vec]
     return {"pods": pods, "pod_groups": groups, "quota_used": used}
+
+
+def result_key(res):
+    """A cycle's result: its bindings in order, its failed and rejected
+    lists."""
+    return ([(b.pod_key, b.node_name) for b in res.bound], list(res.failed),
+            list(res.rejected))
+
+
+def conditions(store) -> Dict:
+    """Every pod's PodScheduled condition (status, reason, message)."""
+    out = {}
+    for pod in store.list(KIND_POD):
+        cond = pod.get_condition("PodScheduled")
+        if cond is not None:
+            out[pod.meta.key] = (cond.status, cond.reason, cond.message)
+    return out
+
+
+def outcome_sha(keys, store) -> str:
+    """SHA-256 of a run's per-cycle result keys (``result_key``: bindings
+    in order, failed and rejected lists) and every pod's PodScheduled
+    condition in ``store``."""
+    blob = json.dumps({"cycles": keys,
+                       "conditions": sorted(conditions(store).items())})
+    return hashlib.sha256(blob.encode()).hexdigest()
+
+
+def round_sha(chosen) -> str:
+    """SHA-256 of a round's ``chosen`` as little-endian int32: a numpy or
+    JAX array, or a torch tensor on any device."""
+    if hasattr(chosen, "cpu"):
+        chosen = chosen.cpu()
+    return hashlib.sha256(
+        np.ascontiguousarray(np.asarray(chosen), dtype="<i4").tobytes()
+    ).hexdigest()
+
+
+def churn_schedule(now: float, churn_cycles: int, arrivals: int):
+    """The schedule every config 4 churn run and its JAX pins keep: cycle
+    0 at ``now`` with no arrivals, then ``churn_cycles`` churn cycles, cycle
+    c adding ``arrival_specs(c, arrivals)`` created at ``now + c`` and
+    running at ``now + 2c``. Yields (c, specs, created, run_at)."""
+    for c in range(1 + churn_cycles):
+        yield (c, arrival_specs(c, arrivals) if c else [], now + c,
+               now + 2 * c)
+
+
+def drive_churn(sched, store, now: float, churn_cycles: int, arrivals: int,
+                add=add_arrivals):
+    """``sched`` over ``churn_schedule``'s cycles, the arrivals added through
+    ``add`` (the JAX package's twin for its store). Deferred condition
+    writes are flushed at the end. Returns (per-cycle result keys, per-cycle
+    ``CycleResult.waves``)."""
+    keys, waves = [], []
+    for _c, specs, created, run_at in churn_schedule(now, churn_cycles,
+                                                     arrivals):
+        add(store, specs, created)
+        res = sched.run_cycle(now=run_at)
+        keys.append(result_key(res))
+        waves.append(res.waves)
+    sched.flush_deferred()
+    return keys, waves

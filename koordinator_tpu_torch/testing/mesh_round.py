@@ -27,9 +27,11 @@ the protocol that crosses NVLink between cards. ``check_timeout`` launches
 the first card (of one card: shard 0) of an exchange alone: it must end
 within the time limit with ExchangeTimeout naming every other shard, and
 every card must take the next launch. ``check_deadline`` launches shard 1
-late, behind a spin near the (shortened) time limit, so that shard 0's
-blocks, each timing its own wait, may disagree about an entry that
-arrives at the deadline: every launch group must end with ExchangeTimeout
+late, behind a spin near the (shortened) time limit (both shards behind
+one spin on the main stream, so that the host's time between the two
+launches does not move one against the other), so that shard 0's blocks,
+each timing its own wait, may disagree about an entry that arrives at the
+deadline: every launch group must end with ExchangeTimeout
 or with the single-device bindings, never a trap. ``check_claim_view``
 holds kernel 1's exchange round over a hot-claim world's per-card volume
 view (the wave body's, parallel/full_chain_mesh.CardBackend.claim_view)
@@ -275,14 +277,25 @@ def _state_rows(state, lo: int, hi: int):
                  else t for i, t in enumerate(state))
 
 
+# check_deadline's gate: a spin on the main stream that both shards'
+# streams wait on, over 3x the longest host stall seen between queuing the
+# two launches (>15 ms)
+DEADLINE_GATE_S = 50e-3
+
+
 def check_deadline(fc_host, args, active, device="cuda", trials=48,
                    timeout_s=20e-3, band_s=20e-6) -> dict:
     """Kernel 1's round over D = 2 virtual cards of this card, each shard
     a launch of its own on a stream of its own, shard 1's behind a spin
-    (torch.cuda._sleep, queued before either launch) of about the
-    exchange's time limit, shortened to ``timeout_s`` (which still covers
-    the host's time to queue both launches). A coarse pass and a bisection find the spin at which
-    shard 0's first wait starts to time out; then ``trials`` spins spread
+    (torch.cuda._sleep) of about the exchange's time limit, shortened to
+    ``timeout_s``. Both streams first wait on one spin of
+    ``DEADLINE_GATE_S`` on the main stream, queued before either launch
+    and long enough to cover the host's time to queue both, so both shards
+    start from its end and a host stall between the two launches moves
+    both alike; a group whose gate ended before the host had queued both
+    launches is run again (at most 3 times, counted in ``host_late``). A
+    coarse pass and a bisection find the spin at which shard 0's first
+    wait starts to time out; then ``trials`` spins spread
     over +-``band_s`` around it plant shard 1's first entries at the
     deadline, where the blocks of shard 0's cluster, each timing its own
     wait, may disagree. Every launch group must end with ExchangeTimeout
@@ -318,34 +331,48 @@ def check_deadline(fc_host, args, active, device="cuda", trials=48,
         stop.synchronize()
     hz = 10**7 / (start.elapsed_time(stop) * 1e-3)
 
+    host_late = [0]
+
     def launch(delay_s) -> bool:
         """One group; True when it timed out."""
-        bufs = [fk._round_buffers(v, widx, False) for v in views]
-        flag0 = box.begin(2 * P)
-        main = torch.cuda.current_stream(dev)
-        for s in streams:
-            s.wait_stream(main)
-        with torch.cuda.stream(streams[1]):
-            torch.cuda._sleep(max(int(delay_s * hz), 1))
-        for k, (view, s) in enumerate(zip(views, streams)):
-            with torch.cuda.stream(s):
-                records, n_valid, flags, state, chosen, _rows = bufs[k]
-                x = box.xchg(dev, [k], per, flag0)
-                x.timeout_ns = int(timeout_s * 1e9)
-                fk._launch(view, widx, prod, bal, records, n_valid, flags,
-                           state, chosen, fk.CLUSTER_SIZE, None, xchg=x)
-        for s in streams:
-            main.wait_stream(s)
-        try:
-            box.check("full_chain round, shard 1 late")
-        except ExchangeTimeout:
-            return True
-        for k in range(2):
-            bad = _mismatches(before, bufs[k][4].cpu())
-            if bad:
-                raise AssertionError(f"shard {k} of a late group that did "
-                                     f"not time out: {bad} mismatches")
-        return False
+        for _try in range(3):
+            bufs = [fk._round_buffers(v, widx, False) for v in views]
+            flag0 = box.begin(2 * P)
+            main = torch.cuda.current_stream(dev)
+            with torch.cuda.stream(main):
+                torch.cuda._sleep(max(int(DEADLINE_GATE_S * hz), 1))
+                gate = torch.cuda.Event()
+                gate.record()
+            for s in streams:
+                s.wait_stream(main)
+            with torch.cuda.stream(streams[1]):
+                torch.cuda._sleep(max(int(delay_s * hz), 1))
+            for k, (view, s) in enumerate(zip(views, streams)):
+                with torch.cuda.stream(s):
+                    records, n_valid, flags, state, chosen, _rows = bufs[k]
+                    x = box.xchg(dev, [k], per, flag0)
+                    x.timeout_ns = int(timeout_s * 1e9)
+                    fk._launch(view, widx, prod, bal, records, n_valid,
+                               flags, state, chosen, fk.CLUSTER_SIZE, None,
+                               xchg=x)
+            late = gate.query()
+            for s in streams:
+                main.wait_stream(s)
+            try:
+                box.check("full_chain round, shard 1 late")
+                timed_out = False
+            except ExchangeTimeout:
+                timed_out = True
+            for k in range(0 if timed_out else 2):
+                bad = _mismatches(before, bufs[k][4].cpu())
+                if bad:
+                    raise AssertionError(f"shard {k} of a late group that "
+                                         f"did not time out: {bad} "
+                                         "mismatches")
+            if not late:
+                break
+            host_late[0] += 1
+        return timed_out
 
     coarse = [timeout_s * f for f in np.linspace(0.25, 2.0, 8)]
     outcomes = [launch(d) for d in coarse]
@@ -363,7 +390,8 @@ def check_deadline(fc_host, args, active, device="cuda", trials=48,
     band = [launch(edge + d)
             for d in np.linspace(-band_s, band_s, trials)]
     after = fk.full_chain_round(fc, widx, prod, bal)[0].cpu()
-    return {"timeout_s": timeout_s, "edge_spin_s": edge,
+    return {"timeout_s": timeout_s, "gate_s": DEADLINE_GATE_S,
+            "host_late": host_late[0], "edge_spin_s": edge,
             "band_s": band_s, "trials": trials,
             "timed_out": int(sum(band)),
             "bound": int(len(band) - sum(band)),

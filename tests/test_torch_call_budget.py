@@ -34,6 +34,7 @@ from koordinator_tpu_torch.models.full_chain import (
 )
 from koordinator_tpu_torch.ops import full_chain_kernel as fck
 from koordinator_tpu_torch.ops.kernel_common import valid_first
+from koordinator_tpu_torch.scheduler import warmup
 from koordinator_tpu_torch.testing import scrape_convoy
 
 CYCLES = scrape_convoy.CYCLES
@@ -83,6 +84,15 @@ def _check_pack(fc) -> dict:
 
 @pytest.fixture(scope="module")
 def smoke_counts():
+    # the rung index's directory is process-global: armed by an earlier
+    # test in this process, it would have cycle 0 record its new step's
+    # input specs (~120 metadata calls); the smoke scenario runs without it
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(warmup, "_configured_dir", None)
+        return _smoke_counts()
+
+
+def _smoke_counts():
     sim = scrape_convoy._simulator(CYCLES, "cpu")
     snap = sim.sched.device_snapshot
     upload = snap.upload
